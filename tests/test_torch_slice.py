@@ -1,0 +1,68 @@
+"""The port's -noml pipeline against the JAX package's, both on the CPU.
+
+Same FASTA, same options (top-hits, ME NNI rounds, two SPR rounds, ME
+branch lengths, split test): the join order must be identical and the
+Newick byte-identical.  Tolerance: none; the port keeps the reference's
+float64 accumulation and float32 store rounding, so no decision differs.
+"""
+import io
+
+import pytest
+import torch
+
+from util import simulate_alignment, write_fasta
+
+from veryfasttree_tpu import pipeline as jax_pipeline
+from veryfasttree_tpu.options import Options
+from veryfasttree_tpu_torch import pipeline as torch_pipeline
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """The host loops issue tiny ops, on which intra-op threads only
+    contend (the N=500 run takes 1.5x longer with 8 threads)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _run(run_pipeline, fasta, two_tier_min, **kw):
+    opts = Options(show_progress=False, n_codes=4, ml_nni=0, n_bootstrap=0,
+                   two_tier_min=two_tier_min)
+    opts.derive_settings()
+    out = io.StringIO()
+    with open(fasta) as f:
+        nj, sc = run_pipeline(opts, f, out, **kw)
+    return out.getvalue(), list(nj.join_log), sc
+
+
+@pytest.mark.parametrize("n,p,seed,two_tier_min", [
+    (100, 300, 77, 20000),     # dense store, with SPR (as tests/test_epoch.py)
+    (40, 250, 57, 0),          # two-tier store forced on
+])
+def test_noml_pipeline_identical_to_jax(tmp_path, n, p, seed, two_tier_min):
+    fasta = str(tmp_path / "t.fasta")
+    write_fasta(fasta, simulate_alignment(n, p, seed=seed))
+    nw_j, joins_j, sc_j = _run(jax_pipeline.run_pipeline, fasta, two_tier_min)
+    nw_t, joins_t, sc_t = _run(torch_pipeline.run_pipeline, fasta,
+                               two_tier_min, device=torch.device("cpu"))
+    assert len(joins_t) == n - 3
+    assert joins_t == joins_j
+    assert nw_t == nw_j
+    assert (sc_t.n_splits, sc_t.n_bad_splits) == (sc_j.n_splits,
+                                                  sc_j.n_bad_splits)
+    assert sc_t.d_worst_delta_unconstrained == pytest.approx(
+        sc_j.d_worst_delta_unconstrained, rel=1e-12)
+
+
+@pytest.mark.parametrize("flags", [dict(ml_nni=-1), dict(n_bootstrap=100),
+                                   dict(threads=2), dict(make_matrix=True),
+                                   dict(constraints_file="c.fasta")])
+def test_unported_options_raise(flags):
+    opts = Options(n_codes=4, show_progress=False, **{
+        "ml_nni": 0, "n_bootstrap": 0, **flags})
+    opts.derive_settings()
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        torch_pipeline.run_pipeline(opts, io.StringIO(">a\nA\n"),
+                                    io.StringIO(), device=torch.device("cpu"))

@@ -1,0 +1,210 @@
+"""Small profile-store kernels for the host-driven loops: the CUDA kernels of
+``csrc/me_store.cu`` and their plain PyTorch twins.
+
+The join loop, the NNI and SPR walks and the up-profiles ask the store for a
+handful of row-pair distances, or one profile average, at a time, some
+hundred thousand times in a run.  The JAX package compiles each such store
+call into one XLA computation (``veryfasttree_tpu/engine/profiles.py``:
+``_dist_rows``, ``_dist_gather``, ``_refresh_and_pairs``, ``_join_update``,
+``_avg_sweep_impl``); here each is one kernel launch whose row indices
+travel in the launch's parameters, so a call costs no host-to-device copy
+and, for an average, no synchronisation.
+
+Store layout: codes int8 [n_rows, P] for every row, W [n_float, P] and U
+[n_float, P, C] for the float rows; rows below ``leaf_rows`` (the leaves of
+a two-tier store, 0 for a dense one) are expanded from their codes, and a
+float row's physical index is ``row - leaf_rows``.
+
+As for the scan kernels, a wrapper runs the twin for tensors on the CPU and
+launches its kernel for tensors on a CUDA device, and ``launches`` counts
+its kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from ..utils.device import ACCUM_DTYPE
+from . import _build, kernels
+
+_C_CODES = (4, 20)
+
+
+def rows_cwu(codes, W, U, rows, code_freq, leaf_rows: int):
+    """(codes, W, U) of arbitrary rows (an int64 index tensor); rows below
+    leaf_rows are expanded from their codes."""
+    c = codes[rows]
+    if not leaf_rows:
+        return c, W[rows], U[rows]
+    is_leaf = rows < leaf_rows
+    phys = torch.clamp_min(rows - leaf_rows, 0)
+    u_l, w_l = kernels.leaf_u(c, code_freq, U.dtype)
+    return (c, torch.where(is_leaf[:, None], w_l, W[phys]),
+            torch.where(is_leaf[:, None, None], u_l, U[phys]))
+
+
+def _index(rows, device):
+    return torch.as_tensor(np.asarray(rows, dtype=np.int64), device=device)
+
+
+def me_dists_ref(codes, W, U, code_freq, eigenval, leaf_rows, q_rows, qU, qW,
+                 iis, jjs):
+    """Plain twin of me_dists."""
+    dev = codes.device
+    ev = eigenval.to(ACCUM_DTYPE) if eigenval is not None else None
+    parts = []
+    if len(q_rows):
+        _, Wr, Ur = rows_cwu(codes, W, U, _index(q_rows, dev), code_freq,
+                             leaf_rows)
+        parts.append(kernels.me_dist_many(
+            Ur.to(ACCUM_DTYPE), Wr.to(ACCUM_DTYPE), qU.to(ACCUM_DTYPE),
+            qW.to(ACCUM_DTYPE), ev))
+    if len(iis):
+        _, W1, U1 = rows_cwu(codes, W, U, _index(iis, dev), code_freq,
+                             leaf_rows)
+        _, W2, U2 = rows_cwu(codes, W, U, _index(jjs, dev), code_freq,
+                             leaf_rows)
+        parts.append(kernels.me_dist_rows(
+            U1.to(ACCUM_DTYPE), W1.to(ACCUM_DTYPE), U2.to(ACCUM_DTYPE),
+            W2.to(ACCUM_DTYPE), ev))
+    return torch.stack([torch.cat([p[0] for p in parts]),
+                        torch.cat([p[1] for p in parts])])
+
+
+def _check_store(codes, W, U, code_freq, leaf_rows):
+    dev = codes.device
+    if dev.type != "cuda":
+        raise ValueError(f"store kernels run on CPU or CUDA tensors, not {dev}")
+    n_rows, P = codes.shape
+    n_float, C = U.shape[0], U.shape[-1]
+    if C not in _C_CODES:
+        raise ValueError(f"store kernels take {_C_CODES} codes, got {C}")
+    if codes.dtype != torch.int8 or W.dtype != torch.float32 \
+            or U.dtype != torch.float32 or code_freq.dtype != torch.float32:
+        raise ValueError("store kernels need an int8 code array and a float32 "
+                         "store (no -double-precision on CUDA)")
+    if tuple(W.shape) != (n_float, P) or tuple(U.shape) != (n_float, P, C) \
+            or tuple(code_freq.shape) != (C, C):
+        raise ValueError("store arrays do not share one layout")
+    for t in (codes, W, U, code_freq):
+        if not t.is_contiguous() or t.device != dev:
+            raise ValueError("store arrays must be contiguous on one device")
+    if leaf_rows + n_float < n_rows:
+        raise ValueError("float rows do not cover the rows above leaf_rows")
+    return n_rows, P, C
+
+
+def _raise_on(rc, name):
+    """The C entries return 0, a cudaError of the launch, or -1 for a row
+    index outside the store or an average's target below leaf_rows (checked
+    before anything is launched)."""
+    if rc == -1:
+        raise IndexError(f"{name}: a row index lies outside the store, or a "
+                         "target among the code-only leaves")
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA kernel launch failed (cudaError {rc})")
+
+
+def me_dists(codes, W, U, code_freq, eigenval, leaf_rows, q_rows, qU, qW, iis,
+             jjs):
+    """Row distances in one call: the query (qU [P, C], qW [P]) against each
+    of q_rows, then the pairs (iis[k], jjs[k]).  Row indices are host
+    integer arrays; eigenval is [C] in matrix mode, None in %different mode.
+    Returns [2, len(q_rows) + len(iis)] float64: dist, then denom.  An
+    index outside the store raises IndexError."""
+    if codes.device.type == "cpu":
+        return me_dists_ref(codes, W, U, code_freq, eigenval, leaf_rows,
+                            q_rows, qU, qW, iis, jjs)
+    n_rows, P, C = _check_store(codes, W, U, code_freq, leaf_rows)
+    R, K = len(q_rows), len(iis)
+    if len(jjs) != K:
+        raise ValueError("iis and jjs differ in length")
+    dev = codes.device
+    qu = qw = None
+    if R:
+        if qU.dtype != torch.float32 or tuple(qU.shape) != (P, C) \
+                or tuple(qW.shape) != (P,) or qW.dtype != torch.float32 \
+                or qU.device != dev or qW.device != dev:
+            raise ValueError("the query must be float32 [P, C] and [P] on "
+                             "the store's device")
+        qu, qw = qU.contiguous(), qW.contiguous()
+    ev = None
+    if eigenval is not None:
+        ev = eigenval.to(device=dev, dtype=ACCUM_DTYPE).contiguous()
+    # pair k is (rows[k], rows[R + K + k]); -1 is the query
+    rows = np.concatenate([np.full(R, -1), iis, q_rows, jjs]).astype(np.int32)
+    out = torch.empty((2, R + K), dtype=ACCUM_DTYPE, device=dev)
+    if R + K == 0:
+        return out
+    lib = _build.library()
+    _raise_on(lib.vft_me_pair_dists_f32(
+        codes.data_ptr(), W.data_ptr(), U.data_ptr(), code_freq.data_ptr(),
+        n_rows, int(leaf_rows), P, C, qu.data_ptr() if R else None,
+        qw.data_ptr() if R else None, ev.data_ptr() if ev is not None else None,
+        rows.ctypes.data, R + K, out[0].data_ptr(), out[1].data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream), "me_dists")
+    me_dists.launches += 1
+    return out
+
+
+me_dists.launches = 0
+
+
+def me_average_ref(codes, W, U, code_freq, eigentot, leaf_rows, targets, iis,
+                   jjs, bw, tol):
+    """Plain twin of me_average."""
+    dev = codes.device
+    k = len(targets)
+    c, w, u = rows_cwu(codes, W, U, _index(np.concatenate([iis, jjs]), dev),
+                       code_freq, leaf_rows)
+    c, w, u, _ = kernels.average_profile(c[:k], w[:k], u[:k], c[k:], w[k:],
+                                         u[k:], bw, code_freq, eigentot, tol)
+    if k == 1:
+        t = int(targets[0])
+        codes[t], W[t - leaf_rows], U[t - leaf_rows] = c[0], w[0], u[0]
+    else:
+        t = _index(targets, dev)
+        codes[t], W[t - leaf_rows], U[t - leaf_rows] = c, w, u
+
+
+def me_average(codes, W, U, code_freq, eigentot, leaf_rows, targets, iis, jjs,
+               bw, tol):
+    """averageProfile (weight bw on the first row) of rows (iis[k], jjs[k])
+    into row targets[k], in place, for every k at once: every row is read
+    before any is written, so no target may be a source, and targets are
+    distinct and at or above leaf_rows.  Row indices are host integer arrays;
+    eigentot is [C] in matrix mode, None in %different mode.  An index
+    outside the store, or a target below leaf_rows, raises IndexError."""
+    targets = np.asarray(targets, dtype=np.int64)
+    iis = np.asarray(iis, dtype=np.int64)
+    jjs = np.asarray(jjs, dtype=np.int64)
+    if len(targets) > 1 and (len(np.unique(targets)) != len(targets)
+                             or np.isin(targets, [iis, jjs]).any()):
+        raise ValueError("me_average: targets must be distinct and not "
+                         "sources")
+    if codes.device.type == "cpu":
+        return me_average_ref(codes, W, U, code_freq, eigentot, leaf_rows,
+                              targets, iis, jjs, bw, tol)
+    n_rows, P, C = _check_store(codes, W, U, code_freq, leaf_rows)
+    n = len(targets)
+    if len(iis) != n or len(jjs) != n:
+        raise ValueError("targets, iis and jjs differ in length")
+    if n == 0:
+        return
+    et = None
+    if eigentot is not None:
+        et = eigentot.to(device=codes.device, dtype=torch.float32).contiguous()
+    rows = np.concatenate([targets, iis, jjs]).astype(np.int32)
+    lib = _build.library()
+    _raise_on(lib.vft_me_average_f32(
+        codes.data_ptr(), W.data_ptr(), U.data_ptr(), code_freq.data_ptr(),
+        n_rows, int(leaf_rows), P, C, et.data_ptr() if et is not None else None,
+        rows.ctypes.data, n, ctypes.c_float(bw), int(bw == 0.5),
+        ctypes.c_float(tol), torch.cuda.current_stream(codes.device).cuda_stream),
+        "me_average")
+    me_average.launches += 1
+
+
+me_average.launches = 0
