@@ -12,25 +12,44 @@ passed):
    path's shapes, with the median time of 50 runs of each (CUDA events):
    the scans and the pair distances in double (rtol 1e-12, atol 1e-12; best
    index equal), the profile average bit-identical (rtol 1e-6 in BLOSUM45
-   matrix mode);
+   matrix mode).
+   The ML store's kernels (ml_pair_loglk, ml_posterior, ml_opt_branch)
+   against theirs on a store of the N=2000 layout (12008 rows of 512
+   positions), Jukes-Cantor and GTR with 4 codes and JTT with 20: ll and
+   per-site lk rtol 1e-6, posterior W and V atol 1e-6, line search x rtol
+   1e-4 and -loglk at x atol 1e-3;
 3. the -noml pipeline at N=500, P=500 against the JAX package's tree
    (tests/data/torch_port_golden_n500_p500.nwk), dense and two-tier: RF 0
    to the golden, and the two layouts give the same Newick; then the same
    input through the command line (python -m veryfasttree_tpu_torch -nt
    -noml -nosupport), RF 0 to the golden;
-4. the main path: full -nt -noml -nosupport at N=2000, P=500 (the bench.py
-   input) through run_pipeline, cold, then warm, then once more with the
-   two-tier store forced on (-two-tier-min 0), which must give the same
-   tree.  The kernel launch counts are reset just before the warm run and
-   read just after it: these are the main path's launches, and each kernel
-   of the dense path must have launched.  The codes scan runs only in the
-   two-tier store (N >= 20000, or -two-tier-min 0), so its launches are
-   counted apart, in the two-tier run, and must be nonzero there.
+4. the -noml main path: full -nt -noml -nosupport at N=2000, P=500 (the
+   bench.py input) through run_pipeline, cold, then warm, then once more
+   with the two-tier store forced on (-two-tier-min 0), which must give the
+   same tree.  The kernel launch counts are reset just before the warm run
+   and read just after it: each kernel of the dense path must have
+   launched.  The codes scan runs only in the two-tier store (N >= 20000,
+   or -two-tier-min 0), so its launches are counted apart, in the two-tier
+   run, and must be nonzero there;
+5. the ML phase against the JAX package's trees at N=200, P=500
+   (tests/data/torch_port_ml_golden_n200_p500*): the default -nt run (ML
+   NNIs, CAT 20, SH-like supports from 1000 resamples) and -nt -gtr
+   -gamma, each RF 0 to its golden and final LogLk within 1e-4 relative,
+   with the per-round LogLk differences printed; the default run is traced
+   with torch.profiler for the device's busy share; then the default run
+   through the command line (python -m veryfasttree_tpu_torch -nt), RF 0
+   to its golden;
+6. the ML main path: the full default -nt run at N=2000, P=500 through
+   run_pipeline (warm: phase 5 ran the same code), with its phase split and
+   final LogLk.  The launch counts are reset just before it and read just
+   after it: every kernel of the dense path, the ML kernels included, must
+   have launched.
 
 The last lines are the card's name and power limit, one JSON line with each
-kernel's route, source, main-path launches (two-tier launches apart),
-error and times, and the result line.  Without a CUDA device, or outside
-the repository, it exits non-zero and prints no result.
+kernel's route, source, main-path launches (the ML main path's for the ML
+kernels, the -noml one's for the others, with their ML-path and two-tier
+launches apart), error and times, and the result line.  Without a CUDA
+device, or outside the repository, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -39,9 +58,11 @@ import os
 # cuBLAS is deterministic only with a fixed workspace; set before CUDA starts
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
+import collections  # noqa: E402
 import io  # noqa: E402
 import json  # noqa: E402
 import math  # noqa: E402
+import re  # noqa: E402
 import statistics  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
@@ -51,7 +72,10 @@ import traceback  # noqa: E402
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(REPO, "tests", "data", "torch_port_golden_n500_p500")
+ML_GOLDEN = os.path.join(REPO, "tests", "data",
+                         "torch_port_ml_golden_n200_p500")
 MAIN_N, MAIN_P = 2000, 500          # bench.py's input
+ML_GOLDEN_N = 200
 
 # name -> (source, what it replaces in the JAX package on the TPU: the two
 # Pallas kernels, and the XLA-compiled store functions behind the host loops)
@@ -64,7 +88,14 @@ KERNELS = {
                  "veryfasttree_tpu/engine/profiles.py:244"),
     "me_average": ("veryfasttree_tpu_torch/csrc/me_store.cu",
                    "veryfasttree_tpu/engine/profiles.py:310"),
+    "ml_pair_loglk": ("veryfasttree_tpu_torch/csrc/ml_lk.cu",
+                      "veryfasttree_tpu/engine/ml_profiles.py:52"),
+    "ml_posterior": ("veryfasttree_tpu_torch/csrc/ml_lk.cu",
+                     "veryfasttree_tpu/engine/ml_profiles.py:77"),
+    "ml_opt_branch": ("veryfasttree_tpu_torch/csrc/ml_lk.cu",
+                      "veryfasttree_tpu/engine/ml_profiles.py:743"),
 }
+ML_KERNELS = ("ml_pair_loglk", "ml_posterior", "ml_opt_branch")
 TOL = dict(rtol=1e-12, atol=1e-12)
 BEST = 100                      # the row the scan inputs make the best
 
@@ -76,12 +107,16 @@ def TWINS(n):
 
 def wrappers():
     """The kernel wrappers by name; each counts its launches."""
-    from veryfasttree_tpu_torch.ops import scan_kernels, store_kernels
+    from veryfasttree_tpu_torch.ops import ml_kernels, scan_kernels, \
+        store_kernels
 
     return {"nj_scan_dense": scan_kernels.nj_scan_dense,
             "nj_scan_codes": scan_kernels.nj_scan_codes,
             "me_dists": store_kernels.me_dists,
-            "me_average": store_kernels.me_average}
+            "me_average": store_kernels.me_average,
+            "ml_pair_loglk": ml_kernels.ml_pair_loglk,
+            "ml_posterior": ml_kernels.ml_posterior,
+            "ml_opt_branch": ml_kernels.ml_opt_branch}
 
 
 def reset_launches():
@@ -280,6 +315,120 @@ def check_kernel(name, kernel, twin, args):
         median_ms(lambda: twin(*args))
 
 
+def ml_store_case(C, model, gen, dev, n_rows=3 * 2 * MAIN_N + 8, P=512,
+                  n_pos=MAIN_P, n_leaf=MAIN_N):
+    """A random ML store in the N=2000 layout: leaf rows (codes with gaps)
+    below n_leaf, posterior rows (NOCODE; weights 0, 1 and a few fractions)
+    above, 20 CAT rates.  Returns (codes, W, V, MLModel)."""
+    import torch
+
+    from veryfasttree_tpu_torch.models import TransitionMatrix
+    from veryfasttree_tpu_torch.ops.ml_kernels import MLModel
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    if model == "jc":
+        cf = torch.zeros((128, C), **f32)
+        cf[:C] = torch.eye(C, **f32)
+        cf[127] = 0.25
+        ev, ei, si = (torch.zeros(C, **f32), torch.eye(C, **f32),
+                      torch.ones(C, **f32))
+    else:
+        tm = TransitionMatrix.jtt92() if model == "jtt" else \
+            TransitionMatrix.gtr([1.2, 3.1, 0.8, 1.1, 2.9, 1.0],
+                                 [0.3, 0.2, 0.24, 0.26])
+        cf, ev, ei, si = (torch.tensor(a, **f32).contiguous() for a in (
+            tm.code_freq, tm.eigenval, tm.eigeninv, tm.statinv))
+    codes = torch.randint(0, C, (n_rows, P), generator=gen, device=dev,
+                          dtype=torch.int8)
+    codes[torch.rand((n_rows, P), generator=gen, **f32) < 0.05] = 127
+    codes[n_leaf:] = 127
+    codes[:, n_pos:] = 127
+    W = (codes != 127).float()
+    u = torch.rand((n_rows - n_leaf, P), generator=gen, **f32)
+    W[n_leaf:] = torch.where(u < 0.05, 0.0, torch.where(u < 0.1, u * 10, 1.0))
+    W[:, n_pos:] = 0.0
+    f = torch.rand((n_rows, P, C), generator=gen, **f32) ** 4
+    V = torch.where(W[..., None] > 0, (f / f.sum(-1, keepdim=True)) @ cf[:C],
+                    cf[127])
+    V[:n_leaf] = cf[codes[:n_leaf].long()]
+    rates = torch.exp(torch.linspace(-math.log(20), math.log(20), 20, **f32))
+    ratecat = torch.randint(0, 20, (P,), generator=gen, device=dev,
+                            dtype=torch.int32)
+    return codes, W, V, MLModel(model == "jc", cf, ev, ei, si, rates, ratecat,
+                                n_pos, 2.5e-4, 1e-10)
+
+
+def check_ml(label, C, model, gen, dev):
+    """The three ML kernels against their twins on one store: a tree level
+    of 200 pairs (ll and per-site lk), a level of 200 posteriors (on copies
+    of the store) and 16 line searches.  Times are of one call each, the
+    shape of the serial quartet loop.  Returns {name: (err, ms, plain_ms)}."""
+    import numpy as np
+
+    from veryfasttree_tpu_torch.ops import ml_kernels as mk
+
+    codes, W, V, m = ml_store_case(C, model, gen, dev)
+    store = (codes, W, V, m)
+    n_rows = codes.shape[0]
+    rng = np.random.default_rng(C + len(model))
+    r1, r2 = rng.integers(0, n_rows, 200), rng.integers(0, n_rows, 200)
+    lens = rng.uniform(0.0, 0.5, 200)
+    lens[:3] = (0.0, 5e-4, 6.0)
+    out = {}
+
+    ll, lk = mk.ml_pair_loglk(*store, r1, r2, lens, want_lk=True)
+    ll_t, lk_t = mk.ml_pair_loglk_ref(*store, r1, r2, lens, want_lk=True)
+    ll, ll_t, lk, lk_t = (t.cpu().numpy() for t in (ll, ll_t, lk, lk_t))
+    np.testing.assert_allclose(ll, ll_t, rtol=1e-6,
+                               err_msg=f"ml_pair_loglk {label} ll")
+    np.testing.assert_allclose(lk, lk_t, rtol=1e-6, atol=1e-30,
+                               err_msg=f"ml_pair_loglk {label} lk")
+    one = (*store, r1[:1], r2[:1], lens[3:4])
+    out["ml_pair_loglk"] = (float(np.max(np.abs(ll - ll_t))),
+                            median_ms(lambda: mk.ml_pair_loglk(*one)),
+                            median_ms(lambda: mk.ml_pair_loglk_ref(*one)))
+
+    targets = np.arange(n_rows - 200, n_rows)
+    post = (targets, r1 % MAIN_N + MAIN_N, r2 % MAIN_N, lens + 5e-4,
+            lens[::-1] + 5e-4)
+    copies = []
+    for fn in (mk.ml_posterior, mk.ml_posterior_ref):
+        c, w, v = codes.clone(), W.clone(), V.clone()
+        fn(c, w, v, m, *post)
+        copies.append([t.cpu().numpy() for t in (c, w, v)])
+    (c1, w1, v1), (c2, w2, v2) = copies
+    np.testing.assert_array_equal(c1, c2, err_msg=f"ml_posterior {label}")
+    np.testing.assert_allclose(w1, w2, rtol=0, atol=1e-6,
+                               err_msg=f"ml_posterior {label} W")
+    np.testing.assert_allclose(v1, v2, rtol=0, atol=1e-6,
+                               err_msg=f"ml_posterior {label} V")
+    one = (codes.clone(), W.clone(), V.clone(), m, targets[:1],
+           post[1][:1], post[2][:1], post[3][:1], post[4][:1])
+    out["ml_posterior"] = (
+        max(float(np.max(np.abs(w1 - w2))), float(np.max(np.abs(v1 - v2)))),
+        median_ms(lambda: mk.ml_posterior(*one)),
+        median_ms(lambda: mk.ml_posterior_ref(*one)))
+
+    guesses = np.concatenate([[5e-4, 9e-4, 0.1, 5.0],
+                              rng.uniform(0.01, 1.0, 12)])
+    opt = (r1[:16], r2[:16], guesses, 5e-4, 6.0, 1e-3, 1e-4)
+    x, fx, n_eval = (t.cpu().numpy() for t in mk.ml_opt_branch(*store, *opt))
+    x_t, fx_t, _ = (t.cpu().numpy() for t in mk.ml_opt_branch_ref(*store,
+                                                                    *opt))
+    np.testing.assert_allclose(x, x_t, rtol=1e-4,
+                               err_msg=f"ml_opt_branch {label} x")
+    np.testing.assert_allclose(fx, fx_t, rtol=0, atol=1e-3,
+                               err_msg=f"ml_opt_branch {label} f(x)")
+    one = (*store, r1[:1], r2[:1], guesses[2:3], 5e-4, 6.0, 1e-3, 1e-4)
+    out["ml_opt_branch"] = (
+        max(float(np.max(np.abs(x - x_t))), float(np.max(np.abs(fx - fx_t)))),
+        median_ms(lambda: mk.ml_opt_branch(*one)),
+        median_ms(lambda: mk.ml_opt_branch_ref(*one)))
+    print(f"  line searches [{label}]: {int(n_eval.min())}..{int(n_eval.max())}"
+          " evaluations")
+    return out
+
+
 def phase_kernels(report):
     import torch
 
@@ -317,6 +466,14 @@ def phase_kernels(report):
                 (20, True, 0, "dense 8192x512 C=20 BLOSUM45")):
             err, ms, plain_ms = check(label, C, use_matrix, leaf_rows, gen,
                                       dev)
+            print(f"  {name} [{label}]: max abs err {err:.3e}, kernel "
+                  f"{ms:.4f} ms, twin {plain_ms:.4f} ms")
+            record(name, err, ms, plain_ms)
+    for C, model, label in ((4, "jc", "12008x512 C=4 JC"),
+                            (4, "gtr", "12008x512 C=4 GTR"),
+                            (20, "jtt", "12008x512 C=20 JTT")):
+        for name, (err, ms, plain_ms) in check_ml(label, C, model, gen,
+                                                  dev).items():
             print(f"  {name} [{label}]: max abs err {err:.3e}, kernel "
                   f"{ms:.4f} ms, twin {plain_ms:.4f} ms")
             record(name, err, ms, plain_ms)
@@ -375,7 +532,7 @@ def phase_golden(dev):
     trees = {}
     for label, overrides, needed in (("dense", {}, DENSE_PATH),
                                      ("two-tier", {"two_tier_min": 0},
-                                      tuple(KERNELS))):
+                                      DENSE_PATH + ("nj_scan_codes",))):
         nw, nj, wall, counts = counted_run(fasta, dev, **overrides)
         rf, n_splits = rf_distance(nw, golden)
         print(f"  N=500 {label}: {wall:.2f} s, RF {rf}/{n_splits} to the JAX "
@@ -433,16 +590,148 @@ def phase_main(report, dev):
             raise AssertionError(f"{label}: {len(leaves)} leaves, length "
                                  f"{length}")
         runs[label] = nw
-        if label == "warm":                  # the main path's run
+        if label == "warm":                  # the -noml main path's run
             require_launched(label, counts, DENSE_PATH)
             for name, count in counts.items():
-                report.setdefault(name, {})["launches"] = count
+                if name not in ML_KERNELS:
+                    report.setdefault(name, {})["launches"] = count
         elif label == "two-tier":
             require_launched(label, counts, ("nj_scan_codes",))
             report["nj_scan_codes"]["two_tier_launches"] = \
                 counts["nj_scan_codes"]
     if runs["two-tier"] != runs["cold"] or runs["warm"] != runs["cold"]:
         raise AssertionError("the three runs gave different trees")
+
+
+# ------------------------------------------------------------- phases 5, 6
+ROUND = re.compile(r"ML-NNI round (\d+): LogLk = (-?[\d.]+) NNIs (\d+)")
+FINAL = re.compile(r"Optimize all lengths: LogLk = (-?[\d.]+)")
+
+
+def run_ml(fasta, dev, **overrides):
+    """One ML run through run_pipeline with every launch count set to 0
+    just before it.  Returns (newick, nj, wall, counts, per-round
+    (LogLk, NNIs), final LogLk); the LogLk values are the run's log
+    lines."""
+    import torch
+
+    from veryfasttree_tpu_torch.options import ml_options
+    from veryfasttree_tpu_torch.pipeline import run_pipeline
+
+    out, log = io.StringIO(), io.StringIO()
+    reset_launches()
+    t0 = time.perf_counter()
+    nj, _ = run_pipeline(ml_options(**overrides), io.StringIO(fasta), out,
+                         log_fp=log, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {name: fn.launches for name, fn in wrappers().items()}
+    text = log.getvalue()
+    rounds = [(float(ll), int(n)) for _, ll, n in ROUND.findall(text)]
+    return out.getvalue(), nj, wall, counts, rounds, \
+        float(FINAL.findall(text)[-1])
+
+
+def busy_share(trace, wall):
+    """(device-busy seconds, share of wall, event count, top kernels) of a
+    CUDA-activity trace."""
+    import torch
+
+    count, total = collections.Counter(), collections.Counter()
+    for evt in trace.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            count[evt.name] += 1
+            total[evt.name] += evt.time_range.elapsed_us()
+    busy = sum(total.values()) / 1e6
+    return busy, busy / wall, sum(count.values()), \
+        [(name[:60], count[name], us / 1e3) for name, us
+         in total.most_common(6)]
+
+
+def phase_ml_golden(dev):
+    """The default -nt run and -nt -gtr -gamma at N=200 against the JAX
+    package's; the default run is traced for the device's busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from bench_e2e import synth_codes
+    from util import rf_distance
+
+    fasta = fasta_text(synth_codes(ML_GOLDEN_N, MAIN_P, seed=0))
+    for suffix, overrides in (("", {}), ("_gtr_gamma", {
+            "use_gtr": True, "gamma_loglk": True})):
+        with open(ML_GOLDEN + suffix + ".nwk") as f:
+            golden = f.read()
+        with open(ML_GOLDEN + suffix + ".json") as f:
+            meta = json.load(f)
+        label = f"N={ML_GOLDEN_N} {'-gtr -gamma' if suffix else 'default -nt'}"
+        if suffix:
+            nw, nj, wall, counts, rounds, final = run_ml(fasta, dev,
+                                                         **overrides)
+        else:
+            with profile(activities=[ProfilerActivity.CUDA]) as trace:
+                nw, nj, wall, counts, rounds, final = run_ml(fasta, dev)
+            busy, share, n_events, top = busy_share(trace, wall)
+            print(f"  {label} under torch.profiler: device busy {busy:.3f} s "
+                  f"of {wall:.2f} s wall ({100 * share:.2f}%), {n_events} "
+                  f"device events; top {top}")
+        rf, n_splits = rf_distance(nw, golden)
+        rel = abs(final - meta["final_loglk"]) / abs(meta["final_loglk"])
+        diffs = [round(a[0] - b, 3) for a, b in zip(rounds,
+                                                    meta["round_loglk"])]
+        print(f"  {label}: {wall:.2f} s, RF {rf}/{n_splits} to the JAX golden, "
+              f"final LogLk {final:.3f} (golden {meta['final_loglk']:.3f}, "
+              f"rel diff {rel:.2e}); ML-NNIs per round {[r[1] for r in rounds]}"
+              f" (golden {meta['round_nnis']}); per-round LogLk - golden "
+              f"{diffs}; launches {counts}")
+        if rf != 0 or not rel <= 1e-4:
+            raise AssertionError(f"{label}: RF {rf}, final LogLk rel diff "
+                                 f"{rel:.2e}")
+
+    # the default run through the command line, in a process of its own
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "n200.fasta")
+        with open(path, "w") as f:
+            f.write(fasta)
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "veryfasttree_tpu_torch", "-nt", "-quiet",
+             path], cwd=REPO, capture_output=True, text=True, timeout=600,
+            check=False)
+    with open(ML_GOLDEN + ".nwk") as f:
+        golden = f.read()
+    rf = rf_distance(res.stdout, golden)[0] if res.returncode == 0 else None
+    print(f"  N={ML_GOLDEN_N} command line -nt: exit {res.returncode} in "
+          f"{time.perf_counter() - t0:.2f} s, RF {rf} to the JAX golden")
+    if res.returncode != 0 or rf != 0:
+        raise AssertionError(f"command line: exit {res.returncode}, RF {rf}"
+                             f"\n{res.stderr[-2000:]}")
+
+
+def phase_ml_main(report, dev):
+    """The default -nt run at N=2000: the ML main path."""
+    from bench_e2e import synth_codes
+    from util import newick_splits
+
+    n = MAIN_N
+    nw, nj, wall, counts, rounds, final = run_ml(
+        fasta_text(synth_codes(n, MAIN_P)), dev)
+    t = nj.timings
+    nj_s = t["store_s"] + t["tophits_s"] + t["joins_s"]
+    print(f"  N={n} P={MAIN_P} default -nt: wall {wall:.2f} s; NJ {nj_s:.3f} "
+          f"s, ME NNI+SPR {t['nni_spr_s']:.3f} s, ME lengths "
+          f"{t['lengths_s']:.3f} s, ML lengths {t['ml_lengths_s']:.3f} s, ML "
+          f"NNI {t['ml_nni_s']:.3f} s ({len(rounds)} rounds), CAT "
+          f"{t['cat_s']:.3f} s, SH {t['sh_s']:.3f} s; final LogLk "
+          f"{final:.3f}; ML-NNIs per round {[r[1] for r in rounds]}; "
+          f"launches {counts}")
+    _, leaves = newick_splits(nw)
+    if len(leaves) != n or not math.isfinite(final):
+        raise AssertionError(f"{len(leaves)} leaves, final LogLk {final}")
+    require_launched("ML main path", counts, DENSE_PATH + ML_KERNELS)
+    for name, count in counts.items():
+        key = "launches" if name in ML_KERNELS else "ml_path_launches"
+        report.setdefault(name, {})[key] = count
 
 
 def main() -> int:
@@ -497,6 +786,8 @@ def main() -> int:
         cuda = torch.device("cuda")
         phase("3 N=500 vs JAX golden", phase_golden, cuda)
         phase(f"4 main path N={MAIN_N}", phase_main, report, cuda)
+        phase(f"5 ML N={ML_GOLDEN_N} vs JAX golden", phase_ml_golden, cuda)
+        phase(f"6 ML main path N={MAIN_N}", phase_ml_main, report, cuda)
     if failed:
         print(f"chip_smoke: failed phases {failed}", file=sys.stderr)
         return 1

@@ -124,6 +124,83 @@ def test_store_kernels_match_twins(cuda, leaf_rows):
                           1e-10)
 
 
+def _ml_store(gen, C, jc, dev):
+    """chip_smoke.py's random ML store (leaf rows with gaps, posterior rows
+    with weights 0, 1 and a few fractions, 20 CAT rates), at a small
+    layout."""
+    from chip_smoke import ml_store_case
+
+    return ml_store_case(C, "jc" if jc else ("jtt" if C == 20 else "gtr"),
+                         gen, dev, n_rows=1024, P=256, n_pos=250, n_leaf=400)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,jc", [(4, True), (4, False), (20, False)])
+def test_ml_kernels_match_twins(cuda, C, jc):
+    """ml_pair_loglk: ll and lk rtol 1e-6; ml_posterior: W, V atol 1e-6,
+    codes equal; ml_opt_branch: x rtol 1e-4, -loglk at x atol 1e-3.  The
+    twins run on the same CUDA tensors (the kernel and its twin round every
+    float32 operation alike; sums differ in order only)."""
+    from veryfasttree_tpu_torch.ops import ml_kernels as mk
+
+    gen = torch.Generator(device=cuda).manual_seed(2 + C)
+    store = _ml_store(gen, C, jc, cuda)
+    rng = np.random.default_rng(C)
+    r1, r2 = rng.integers(0, 1024, 40), rng.integers(0, 1024, 40)
+    lens = rng.uniform(0.0, 0.5, 40)
+    lens[:3] = (0.0, 5e-4, 6.0)
+    ll, lk = mk.ml_pair_loglk(*store, r1, r2, lens, want_lk=True)
+    ll_t, lk_t = mk.ml_pair_loglk_ref(*store, r1, r2, lens, want_lk=True)
+    np.testing.assert_allclose(ll.cpu().numpy(), ll_t.cpu().numpy(),
+                               rtol=1e-6)
+    np.testing.assert_allclose(lk.cpu().numpy(), lk_t.cpu().numpy(),
+                               rtol=1e-6, atol=1e-30)
+
+    targets = np.arange(900, 940)
+    args = (targets, r1 % 800, r2 % 800, lens + 5e-4, lens[::-1] + 5e-4)
+    ours = [t.clone() for t in store[:3]]
+    mk.ml_posterior(*ours, store[3], *args)
+    mk.ml_posterior_ref(*store, *args)
+    np.testing.assert_array_equal(ours[0].cpu().numpy(),
+                                  store[0].cpu().numpy())
+    for a, b in zip(ours[1:], store[1:3]):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=0,
+                                   atol=1e-6)
+
+    guesses = np.concatenate([[5e-4, 9e-4, 0.1, 5.0], rng.uniform(0.01, 1, 8)])
+    b1, b2 = r1[:12], r2[:12]
+    opt = (b1, b2, guesses, 5e-4, 6.0, 1e-3, 1e-4)
+    x, fx, n_eval = mk.ml_opt_branch(*store, *opt)
+    x_t, fx_t, n_eval_t = mk.ml_opt_branch_ref(*store, *opt)
+    np.testing.assert_allclose(x.cpu().numpy(), x_t.cpu().numpy(), rtol=1e-4)
+    np.testing.assert_allclose(fx.cpu().numpy(), fx_t.cpu().numpy(), rtol=0,
+                               atol=1e-3)
+    assert (n_eval.cpu().numpy() > 3).all()
+
+    with pytest.raises(IndexError):
+        mk.ml_pair_loglk(*store, [3], [1024], [0.1])
+
+
+@pytest.mark.cuda
+def test_ml_pipeline_on_cuda_matches_cpu(cuda):
+    """The default -nt run (ML NNIs, CAT, SH supports with 100 resamples):
+    the card's tree has the CPU run's topology."""
+    from veryfasttree_tpu_torch.options import ml_options
+    from veryfasttree_tpu_torch.pipeline import run_pipeline
+
+    fasta = "".join(f">seq{i:05d}\n{s}\n"
+                    for i, s in enumerate(simulate_alignment(30, 200, seed=8)))
+
+    def run(device):
+        out = io.StringIO()
+        run_pipeline(ml_options(n_bootstrap=100), io.StringIO(fasta), out,
+                     device=device)
+        return out.getvalue()
+
+    rf, _ = rf_distance(run(cuda), run(torch.device("cpu")))
+    assert rf == 0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("two_tier_min", [20000, 0])
 def test_pipeline_on_cuda_matches_cpu(cuda, two_tier_min):

@@ -56,12 +56,16 @@ def test_noml_pipeline_identical_to_jax(tmp_path, n, p, seed, two_tier_min):
         sc_j.d_worst_delta_unconstrained, rel=1e-12)
 
 
-@pytest.mark.parametrize("flags", [dict(ml_nni=-1), dict(n_bootstrap=100),
+@pytest.mark.parametrize("flags", [dict(n_codes=20, ml_nni=-1),
+                                   dict(n_bootstrap=100),
                                    dict(threads=2), dict(make_matrix=True),
-                                   dict(constraints_file="c.fasta")])
+                                   dict(constraints_file="c.fasta"),
+                                   dict(checkpoint_file="ckpt.npz")])
 def test_unported_options_raise(flags):
-    opts = Options(n_codes=4, show_progress=False, **{
-        "ml_nni": 0, "n_bootstrap": 0, **flags})
+    """Protein ML, the -noml local bootstrap (n_bootstrap with ml_nni 0),
+    -threads > 1, -makematrix, -constraints and -checkpoint."""
+    opts = Options(**{"n_codes": 4, "show_progress": False, "ml_nni": 0,
+                      "n_bootstrap": 0, **flags})
     opts.derive_settings()
     with pytest.raises(NotImplementedError, match="not ported yet"):
         torch_pipeline.run_pipeline(opts, io.StringIO(">a\nA\n"),

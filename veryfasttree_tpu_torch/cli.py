@@ -1,6 +1,7 @@
 """Command line of the PyTorch port: the reference's flag surface
 (veryfasttree_tpu.cli) on a CUDA device.
 
+    python -m veryfasttree_tpu_torch -nt alignment.fasta
     python -m veryfasttree_tpu_torch -nt -noml -nosupport alignment.fasta
 
 A missing GPU raises; the flags of parts not ported yet raise

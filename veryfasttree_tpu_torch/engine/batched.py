@@ -14,13 +14,19 @@ import numpy as np
 from . import rearrange
 
 
+def _me_only(use_ml: bool) -> None:
+    if use_ml:
+        raise NotImplementedError("the batched ML passes (-threads > 1) are "
+                                  "not ported yet")
+
+
 def compute_up_profiles_levelwise(nj, use_ml: bool) -> None:
     """Compute ALL up-profiles top-down, one batched call per level.
 
     up[node] = combine(C, D), where C is node's sibling and D is up[parent]
     (or the other root sibling); rows are maxnodes + node.
     """
-    rearrange._me_only(use_ml)
+    _me_only(use_ml)
     tree = nj.tree
     levels = []
     for level in reversed(tree.level_lists()):  # top-down
@@ -46,7 +52,7 @@ def compute_up_profiles_levelwise(nj, use_ml: bool) -> None:
 
 def _gather_quartets(nj, nodes, use_ml: bool):
     """rows4 + nodes4 for a batch of internal nodes (up-profiles precomputed)."""
-    rearrange._me_only(use_ml)
+    _me_only(use_ml)
     tree = nj.tree
     rows = np.zeros((len(nodes), 4), dtype=np.int64)
     nodes4 = np.zeros((len(nodes), 4), dtype=np.int64)

@@ -20,6 +20,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from veryfasttree_tpu.constants import NOCODE
 from veryfasttree_tpu.utils.debug import Debug
 
 from .profiles import MEProfiles
@@ -48,7 +49,10 @@ class NeighbourJoining:
         self.n_pos = n_pos
         self.maxnodes = 2 * n_seqs
         self.dmat = dmat
+        # the ML model (None: Jukes-Cantor); set_ml_gtr replaces it, and the
+        # ML phase builds its store in self.ml (engine/ml_profiles.py)
         self.transmat = transmat
+        self.ml = None
         self.debug = options.debug if hasattr(options, "debug") else Debug()
 
         self.tree = TreeState(n_seqs, self.maxnodes)
@@ -98,6 +102,11 @@ class NeighbourJoining:
             device=self.prof.device)
 
     # ------------------------------------------------------------------ utils
+    def gaps_per_pos(self) -> np.ndarray:
+        """Gap characters per alignment position across the unique leaves."""
+        leaf_codes = self.prof.codes[: self.n_seqs, : self.n_pos].cpu().numpy()
+        return (leaf_codes == NOCODE).sum(axis=0).astype(np.float64)
+
     def _leaf_mask(self):
         m = np.zeros(self.maxnodes, dtype=bool)
         m[: self.n_seqs] = True

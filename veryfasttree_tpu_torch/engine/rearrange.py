@@ -1,6 +1,6 @@
-"""Tree rearrangements: up-profiles, corrected distances, ME NNIs, ME branch
-lengths (counterpart of the minimum-evolution parts of
-``veryfasttree_tpu/engine/rearrange.py``; the ML variants are not ported).
+"""Tree rearrangements: up-profiles, corrected distances, ME and ML NNIs, ME
+branch lengths (counterpart of the serial path of
+``veryfasttree_tpu/engine/rearrange.py``).
 
 Mirrors the reference semantics exactly:
 * setupABCD / getUpProfile (ref tcc:1942-1974, 3382-3434) -- lazily computed
@@ -8,8 +8,9 @@ Mirrors the reference semantics exactly:
   array (row maxnodes+node).
 * correctedPairDistances (ref tcc:1460-1488): raw profile distances +
   pseudocounts + log correction -- all 6 pairs in one batched device call.
-* chooseNNI / DoNNI minimum-evolution round (ref tcc:4836-4882, 5797-6183)
-  with the NNIStats aging/skip heuristics.
+* chooseNNI / DoNNI round (ref tcc:4836-4882, 5797-6183) with the NNIStats
+  aging/skip heuristics; with use_ml the ML store keeps posterior profiles
+  and each quartet is decided by ML quartet optimization (engine/ml.py).
 * updateBranchLengths (ref tcc:6502-6598): leaf 3-point and internal 4-point
   formulas.
 * SPR (ref tcc:1805-1879, 6185-6404): chains of NNIs with best-prefix keep.
@@ -19,6 +20,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+
+from veryfasttree_tpu import constants
 
 # quartet pair order, as in ref enum QuartetPair
 QAB, QAC, QAD, QBC, QBD, QCD = range(6)
@@ -46,11 +49,6 @@ class NNIStats:
         return cls(age, sub, np.zeros(n), np.zeros(n))
 
 
-def _me_only(use_ml: bool) -> None:
-    if use_ml:
-        raise NotImplementedError("the ML phase is not ported yet")
-
-
 class UpProfiles:
     """Per-traversal cache of up-profile validity; data lives on device."""
 
@@ -70,7 +68,6 @@ class UpProfiles:
     def get(self, node: int, use_ml: bool) -> int:
         """Compute (if needed) and return the row of node's up-profile
         (ref getUpProfile tcc:3382-3434)."""
-        _me_only(use_ml)
         nj = self.nj
         tree = nj.tree
         assert node != tree.root and node >= nj.n_seqs
@@ -81,10 +78,17 @@ class UpProfiles:
             if n in self.valid:
                 continue
             rows4, nodes4 = setup_abcd(nj, self, n, use_ml)
-            # upProfile = weighted avg of (C, D); BIONJ weight from the
-            # CDAB-ordered quartet (ref tcc:3421-3428)
-            weight = quartet_weight(nj, [rows4[2], rows4[3], rows4[0], rows4[1]])
-            nj.prof.set_from_average(self.row(n), rows4[2], rows4[3], weight)
+            if use_ml:
+                bl = tree.branchlength
+                nj.ml.posterior_into(self.row(n), rows4[2], rows4[3],
+                                     bl[nodes4[2]], bl[nodes4[3]])
+            else:
+                # upProfile = weighted avg of (C, D); BIONJ weight from the
+                # CDAB-ordered quartet (ref tcc:3421-3428)
+                weight = quartet_weight(nj, [rows4[2], rows4[3], rows4[0],
+                                             rows4[1]])
+                nj.prof.set_from_average(self.row(n), rows4[2], rows4[3],
+                                         weight)
             self.valid.add(n)
         return self.row(node)
 
@@ -155,7 +159,10 @@ def recompute_profile(nj, ups, node: int, use_ml: bool) -> None:
         return
     assert tree.n_child[node] == 2
     c0, c1 = int(tree.children[node, 0]), int(tree.children[node, 1])
-    _me_only(use_ml)
+    if use_ml:
+        nj.ml.posterior_into(node, c0, c1, tree.branchlength[c0],
+                             tree.branchlength[c1])
+        return
     if nj.options.bionj:
         rows4, _ = setup_abcd(nj, ups, node, use_ml=False)
         weight = quartet_weight(nj, rows4)
@@ -167,7 +174,6 @@ def recompute_profile(nj, ups, node: int, use_ml: bool) -> None:
 
 def update_for_nni(nj, ups, node: int, use_ml: bool) -> None:
     """ref updateForNNI tcc:1882-1927."""
-    _me_only(use_ml)
     tree = nj.tree
     if nj.options.slow:
         ups.reset_all()
@@ -197,12 +203,13 @@ def update_for_nni(nj, ups, node: int, use_ml: bool) -> None:
 def do_nni(nj, i_round: int, n_rounds: int, use_ml: bool, stats: NNIStats):
     """One round of NNIs (ref DoNNI tcc:5997-6183 + traverseNNI :5797-5995).
 
-    Returns (n_changes, max_delta).  Minimum-evolution only (use_ml False).
+    Returns (n_changes, max_delta).  With use_ml, the quartets are decided
+    and their branch lengths set by ML quartet optimization (engine/ml.py).
     """
-    _me_only(use_ml)
     opts = nj.options
     tree = nj.tree
-    support_threshold = opts.me_min_delta
+    support_threshold = constants.TREE_LOGLK_DELTA if use_ml \
+        else opts.me_min_delta
     n_nni = 0
     d_max_delta = 0.0
     if nj.n_seqs <= 3:
@@ -239,8 +246,15 @@ def do_nni(nj, i_round: int, n_rounds: int, use_ml: bool, stats: NNIStats):
         rows4, nodes4 = setup_abcd(nj, ups, node, use_ml)
         node_a, node_b, node_c, node_d = nodes4
 
-        choice, criteria = choose_nni(nj, rows4)
-        criteria = -criteria  # invert so higher is better, as in ML
+        if use_ml:
+            from . import ml
+            bl = tree.branchlength
+            choice, criteria, new_len = ml.ml_quartet_nni(
+                nj, rows4, np.array([bl[node_a], bl[node_b], bl[node_c],
+                                     bl[node_d], bl[node]]))
+        else:
+            choice, criteria = choose_nni(nj, rows4)
+            criteria = -criteria  # invert so higher is better, as in ML
 
         if choice == ACvsBD:
             tree.replace_child(node, node_b, node_c)
@@ -249,11 +263,27 @@ def do_nni(nj, i_round: int, n_rounds: int, use_ml: bool, stats: NNIStats):
             tree.replace_child(node, node_a, node_c)
             tree.replace_child(int(tree.parent[node]), node_c, node_a)
 
+        if use_ml:
+            # the optimized lengths onto the post-swap topology (ref
+            # :5887-5917); new_len is (A, B, C, D, I) of the chosen quartet
+            la, lb, lc, ld, li = new_len
+            if choice == ADvsBC:
+                la, lb, lc, ld = lc, ld, la, lb
+                la, lc = lc, la
+            elif choice == ACvsBD:
+                lb, lc = lc, lb
+            for nd, ln in ((node, li), (node_a, la), (node_b, lb),
+                           (node_c, lc), (node_d, ld)):
+                tree.branchlength[nd] = ln
+
         # stats updates (ref :5931-5971)
         if choice == ABvsCD:
             stats.age[node] += 1
         else:
-            nj.debug.n_nni += 1
+            if use_ml:
+                nj.debug.n_ml_nni += 1
+            else:
+                nj.debug.n_nni += 1
             n_nni += 1
             for nd in [node, node_a, node_b, node_c, node_d]:
                 stats.age[nd] = 0
@@ -275,6 +305,8 @@ def do_nni(nj, i_round: int, n_rounds: int, use_ml: bool, stats: NNIStats):
             for nd in [node_a, node_b, node_c]:
                 ups.reset(nd)
             recompute_profile(nj, ups, node, use_ml)
+            if opts.slow and use_ml:
+                update_for_nni(nj, ups, node, use_ml)
         else:
             update_for_nni(nj, ups, node, use_ml)
     return n_nni, d_max_delta

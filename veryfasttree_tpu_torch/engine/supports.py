@@ -1,12 +1,21 @@
-"""Split tests (counterpart of the minimum-evolution split test of
-``veryfasttree_tpu/engine/supports.py``; bootstrap supports are not ported).
+"""Split tests and bootstrap resampling (counterpart of
+``veryfasttree_tpu/engine/supports.py``; the minimum-evolution local
+bootstrap, reliabilityNJ, is not ported yet).
 
-testSplitsMinEvo (ref tcc:6639-6797): count splits where an NNI would
-shorten the tree, using corrected quartet distances.
+* testSplitsMinEvo (ref tcc:6639-6797): count splits where an NNI would
+  shorten the tree, using corrected quartet distances.
+* resampleColumns (ref tcc:705-727): the Knuth-stream column picks of the
+  SH-like supports, bit-identical to the reference (which never seeds the
+  generator, so the default 314159 stream is used).
+* The SH-like supports themselves live in engine/ml.py.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+
+import numpy as np
+
+from veryfasttree_tpu.utils.knuth import KnuthRandom
 
 from . import rearrange
 from .rearrange import QAB, QAC, QAD, QBC, QBD, QCD, UpProfiles
@@ -19,6 +28,27 @@ class SplitCount:
     n_bad_splits: int = 0
     n_splits: int = 0
     d_worst_delta_unconstrained: float = 0.0
+
+
+def resample_columns(nj) -> np.ndarray:
+    """col[iBoot, j] resampled position indices (ref resampleColumns
+    tcc:705-727)."""
+    rng = KnuthRandom()
+    n_pos = nj.n_pos
+    col = np.empty((nj.options.n_bootstrap, n_pos), dtype=np.int64)
+    for b in range(col.shape[0]):
+        for j in range(n_pos):
+            col[b, j] = min(max(int(rng.next_double() * n_pos), 0), n_pos - 1)
+    return col
+
+
+def resample_count_matrix(col: np.ndarray, n_pos: int) -> np.ndarray:
+    """[P, B] multiplicities: counts[p, b] = times position p is drawn in
+    resample b."""
+    counts = np.zeros((n_pos, col.shape[0]), dtype=np.float64)
+    for b in range(col.shape[0]):
+        np.add.at(counts[:, b], col[b], 1.0)
+    return counts
 
 
 def test_splits_min_evo(nj) -> SplitCount:

@@ -1,5 +1,5 @@
-"""Minimum-evolution profile math on tensors (counterpart of the ME subset of
-``veryfasttree_tpu/ops/kernels.py``).
+"""Profile math on tensors (counterpart of ``veryfasttree_tpu/ops/kernels.py``:
+the minimum-evolution functions and the exact ML ones).
 
 Profiles are weighted rotated frequency tensors U[node, P, C] = W[node, P] *
 f, so every profile distance is a dot product over the flattened P*C axis
@@ -197,6 +197,118 @@ def out_distance_from_hit(dist, weight, selfdist, selfweight, diameter,
     pdist = top / torch.where(ok, bottom, 1.0)
     return torch.where(ok, pdist - diameter * (n_active - 1)
                        - (totdiam - diameter), 3.0)
+
+
+# ---------------------------------------------------------------------------
+# ML space: effective vectors, pair log-likelihood, posterior profiles.  The
+# plain twins of the kernels in ops/ml_kernels.py are built from these.
+# ---------------------------------------------------------------------------
+
+
+# Sums over the code axis run left to right (_code_total), as in the CUDA
+# kernels, so that a kernel and its twin round alike.
+
+
+def ml_effective(codes, w, v, code_freq, for_posterior, jukes_cantor):
+    """Effective per-position frequency vector under the reference's mixing
+    rules.  v holds raw vectors; 0 < w < 1 positions are mixed with the gap
+    distribution: matrix pairLogLk mixes every such position (ref
+    tcc:1288-1301), matrix posteriorProfile only code-derived ones (ref
+    tcc:2281-2299), and Jukes-Cantor only code-derived ones in both uses
+    (ref tcc:1235-1251, 2231-2247)."""
+    if jukes_cantor:
+        gap = torch.full((v.shape[-1],), 0.25, dtype=v.dtype, device=v.device)
+    else:
+        gap = code_freq[NOCODE]
+    stored = (codes == NOCODE) & (w > 0)
+    mix = (w > 0) & (w < 1)
+    if jukes_cantor or for_posterior:
+        mix = mix & ~stored
+    wm = torch.where(mix, w, 1.0)[..., None]
+    return wm * v + (1.0 - wm) * gap
+
+
+def pair_loglk_matrix(f1, f2, w1, w2, expeigen, ratecat, pos_mask):
+    """Matrix-model pair log-likelihood (ref pairLogLk tcc:1267-1439).
+
+    f1, f2: [..., P, C] effective rotated vectors; expeigen: [..., nRate,
+    C]; ratecat: [P] int; pos_mask: [P] bool (leading dimensions batch).
+    Both-gap and padding positions contribute lk 1.  Returns (sum of log
+    max(lk, 1e-37) in float64, lk [..., P])."""
+    lk = _code_total(f1 * f2 * expeigen[..., ratecat, :])
+    both_gap = (w1 == 0) & (w2 == 0)
+    lk = torch.where(both_gap | ~pos_mask, 1.0, lk)
+    return _log_sum(lk), lk
+
+
+def pair_loglk_jc(f1, f2, psame, pdiff, ratecat, pos_mask):
+    """Jukes-Cantor pair log-likelihood (ref pairLogLk tcc:1202-1266):
+    lk = pDiff * sum(f2) + (pSame - pDiff) * f1.f2."""
+    ps = psame[..., ratecat]
+    pd = pdiff[..., ratecat]
+    lk = pd * _code_total(f2) + (ps - pd) * _code_total(f1 * f2)
+    lk = torch.where(pos_mask, lk, 1.0)
+    return _log_sum(lk), lk
+
+
+def _log_sum(lk):
+    """Sum over positions of log max(lk, 1e-37): the logs in lk's dtype, the
+    sum in float64 (the CUDA kernels sum in double, in a fixed order)."""
+    return torch.log(torch.clamp_min(lk, 1e-37)).double().sum(-1)
+
+
+def posterior_matrix(f1, f2, w1, w2, expeigen1, expeigen2, ratecat,
+                     code_freq_n, eigeninv, statinv, tol, approx=None):
+    """Posterior profile of a parent from two children, matrix model (ref
+    posteriorProfile tcc:2262-2429), exact path only.  Returns (w_out [P],
+    v_out [P, C]) in rotated space; gap-gap positions get weight 0 (the
+    caller puts the gap row there)."""
+    if approx is not None:
+        raise NotImplementedError(
+            "-approxml rough posteriors are not ported yet")
+    x1 = _rotate(f1 * expeigen1[..., ratecat, :], code_freq_n)
+    x2 = _rotate(f2 * expeigen2[..., ratecat, :], code_freq_n)
+    fpost = torch.clamp_min(x1 * x2 * statinv, 0.0)
+    tot = _code_total(fpost)
+    fpost = fpost / torch.where(tot > tol, tot, 1.0)[..., None]
+    both_gap = (w1 == 0) & (w2 == 0)
+    w_out = torch.where(both_gap, 0.0, 1.0).to(f1.dtype)
+    return w_out, _rotate(fpost, eigeninv)
+
+
+def _rotate(vec, mat):
+    """out[..., j] = sum_k vec[..., k] * mat[j, k] in float64, rounded to
+    vec's dtype once.  Character-space probabilities near 0 are sums of
+    large signed terms, so a float32 sum depends on its order; the double
+    sum does not (the CUDA kernel sums the same way)."""
+    return (vec.double() @ mat.double().T).to(vec.dtype)
+
+
+def posterior_jc(f1, f2, w1, w2, psame1, pdiff1, psame2, pdiff2, ratecat):
+    """Posterior profile, Jukes-Cantor (ref posteriorProfile tcc:2164-2261):
+    f[j] = (f1[j] pS1 + (1-f1[j]) pD1) (f2[j] pS2 + (1-f2[j]) pD2),
+    normalized; gap-gap positions get weight 0 and the uniform vector."""
+    ps1, pd1 = psame1[..., ratecat, None], pdiff1[..., ratecat, None]
+    ps2, pd2 = psame2[..., ratecat, None], pdiff2[..., ratecat, None]
+    f = (f1 * ps1 + (1.0 - f1) * pd1) * (f2 * ps2 + (1.0 - f2) * pd2)
+    f = f / torch.clamp_min(_code_total(f), 1e-37)[..., None]
+    both_gap = (w1 == 0) & (w2 == 0)
+    w_out = torch.where(both_gap, 0.0, 1.0).to(f1.dtype)
+    return w_out, torch.where(both_gap[..., None], 0.25, f)
+
+
+def exp_eigen_rates(length, rates, eigenval, min_rel_len):
+    """expeigen[iRate, j] = exp(max(length * rate, minRel) * eigenval[j])
+    (ref expEigenRates tcc:2020-2038)."""
+    rel = torch.clamp_min(length * rates, min_rel_len)
+    return torch.exp(rel[..., None] * eigenval)
+
+
+def p_same_diff(length, rates):
+    """JC probability of no change per rate category (ref pSameVector
+    tcc:2005-2018)."""
+    psame = 0.25 + 0.75 * torch.exp((-4.0 / 3.0) * torch.abs(length * rates))
+    return psame, (1.0 - psame) / 3.0
 
 
 # ---------------------------------------------------------------------------

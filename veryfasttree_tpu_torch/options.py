@@ -4,13 +4,18 @@ from __future__ import annotations
 
 from veryfasttree_tpu.options import Options
 
-__all__ = ["Options", "noml_options"]
+__all__ = ["Options", "ml_options", "noml_options"]
 
 
 def noml_options(**overrides) -> Options:
-    """Derived options of ``-nt -noml -nosupport`` (the main path), with no
-    progress output; keyword arguments set further fields before the
-    derivation."""
-    opts = Options(n_codes=4, show_progress=False, ml_nni=0, n_bootstrap=0,
-                   **overrides)
+    """Derived options of ``-nt -noml -nosupport``, with no progress output;
+    keyword arguments set further fields before the derivation."""
+    return ml_options(**{"ml_nni": 0, "n_bootstrap": 0, **overrides})
+
+
+def ml_options(**overrides) -> Options:
+    """Derived options of the default ``-nt`` run (ML NNIs, CAT 20 rates,
+    1000-resample SH-like supports), with no progress output; keyword
+    arguments set further fields before the derivation."""
+    opts = Options(n_codes=4, show_progress=False, **overrides)
     return opts.derive_settings()

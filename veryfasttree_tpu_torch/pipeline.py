@@ -1,11 +1,12 @@
-"""End-to-end minimum-evolution pipeline on one torch device (counterpart of
-the ``-noml`` path of ``veryfasttree_tpu/pipeline.py``).
+"""End-to-end pipeline on one torch device (counterpart of the serial path
+of ``veryfasttree_tpu/pipeline.py``).
 
 read + uniquify -> ME profile store -> top-hits seeding -> NJ join loop ->
-ME NNI rounds interleaved with SPR -> ME branch lengths -> split test ->
-Newick (ref VeryFastTreeImpl.tcc:46-472).
+ME NNI rounds interleaved with SPR -> ME branch lengths -> [ML phase: ML
+lengths, ML NNIs, CAT rates, GTR, SH-like supports, Gamma20] or the ME
+split test -> Newick (ref VeryFastTreeImpl.tcc:46-472).
 
-The ML phase, bootstrap supports, -threads > 1, -makematrix, -intree,
+Protein ML, the -noml local bootstrap, -threads > 1, -makematrix, -intree,
 -checkpoint and -constraints are not ported yet and raise.
 """
 from __future__ import annotations
@@ -21,7 +22,7 @@ from veryfasttree_tpu.io.newick import print_newick
 from veryfasttree_tpu.utils.debug import Debug
 from veryfasttree_tpu.utils.progress import ProgressReport
 
-from .engine import batched, rearrange, spr, supports
+from .engine import batched, ml, rearrange, spr, supports
 from .engine.nj import NeighbourJoining
 from .models import DistanceMatrix, TransitionMatrix
 from .utils.device import configure_precision, resolve_device
@@ -93,10 +94,15 @@ def _try_native_read(options):
     return names, codes[np.array(uniq_rows)], unique
 
 
+def _ml_on(options) -> bool:
+    return options.ml_nni != 0 or options.ml_len
+
+
 def _check_ported(options) -> None:
     missing = [
-        ("the ML phase (use -noml)", options.ml_nni != 0 or options.ml_len),
-        ("support values (use -nosupport)", options.n_bootstrap > 0),
+        ("protein ML (use -noml)", _ml_on(options) and options.n_codes == 20),
+        ("-noml local-bootstrap supports (use -nosupport)",
+         not _ml_on(options) and options.n_bootstrap > 0),
         ("-threads > 1", options.threads > 1),
         ("-makematrix", options.make_matrix),
         ("-intree", bool(options.intree_file)),
@@ -174,6 +180,8 @@ def _run_single(options, input_fp, output_fp, log_fp, device):
     nni_to_do = options.nni if options.nni != -1 else \
         int(0.5 + 4.0 * math.log2(max(n_uniq, 2)))
     spr_remaining = options.spr
+    ml_nni_to_do = options.ml_nni if options.ml_nni != -1 else \
+        int(0.5 + 2.0 * math.log2(max(n_uniq, 2)))
 
     # ME NNI rounds interleaved with SPR (ref VeryFastTreeImpl.tcc:161-204)
     if nni_to_do > 0 and n_uniq > 3:
@@ -213,20 +221,26 @@ def _run_single(options, input_fp, output_fp, log_fp, device):
               f"{progress.clock_diff():.2f} sec", file=log)
 
     t2 = time.perf_counter()
-    split_count = supports.test_splits_min_evo(nj)
     # host-clock seconds; each phase ends in a fetch of distances
-    nj.timings.update(nni_spr_s=t1 - t0, lengths_s=t2 - t1,
-                      splits_s=time.perf_counter() - t2)
+    nj.timings.update(nni_spr_s=t1 - t0, lengths_s=t2 - t1)
+    if ml_nni_to_do > 0 or options.ml_len:
+        split_count = ml.run_ml_phase(nj, ml_nni_to_do, n_uniq, progress,
+                                      log, log_tree)
+    else:
+        split_count = supports.test_splits_min_evo(nj)
+        nj.timings["splits_s"] = time.perf_counter() - t2
 
-    newick = print_newick(nj.tree, names, unique, False,
+    newick = print_newick(nj.tree, names, unique, options.n_bootstrap > 0,
                           options.double_precision, options.quote)
     output_fp.write(newick + "\n")
     progress.done()
-    _report_stats(options, nj, split_count, len(names), n_uniq, progress, log)
+    _report_stats(options, nj, split_count, len(names), n_uniq, ml_nni_to_do,
+                  progress, log)
     return nj, split_count
 
 
-def _report_stats(options, nj, sc, n_seq, n_uniq, progress, log):
+def _report_stats(options, nj, sc, n_seq, n_uniq, ml_nni_to_do, progress,
+                  log):
     """Final stats block (ref VeryFastTreeImpl.tcc:403-465)."""
     if log is None:
         return
@@ -235,7 +249,8 @@ def _report_stats(options, nj, sc, n_seq, n_uniq, progress, log):
             f"Unique: {n_uniq}/{n_seq} "
             f"Bad splits: {sc.n_bad_splits}/{sc.n_splits}")
     if sc.d_worst_delta_unconstrained > 0:
-        line += f" Worst delta-Len {sc.d_worst_delta_unconstrained:.3f}"
+        kind = "LogLk" if _ml_on(options) else "Len"
+        line += f" Worst delta-{kind} {sc.d_worst_delta_unconstrained:.3f}"
     print(line, file=log)
     if options.verbose > 1 or options.log_file_name:
         dn2 = max(n_uniq * float(n_uniq), 1.0)
@@ -250,3 +265,8 @@ def _report_stats(options, nj, sc, n_seq, n_uniq, progress, log):
             print(f" Hill-climb: {d.n_hill_better} Update-best: {d.n_visible_update}",
                   file=log)
         print(f"NNI: {d.n_nni} SPR: {d.n_spr} ML-NNI: {d.n_ml_nni}", file=log)
+        if ml_nni_to_do > 0:
+            extra = f" star-only {d.n_star_tests}" \
+                if options.ml_accuracy < 2 else ""
+            print(f"Max-lk operations: lk {d.n_lk_compute} posterior "
+                  f"{d.n_posterior_compute}{extra}", file=log)
