@@ -17,7 +17,20 @@ passed):
    against theirs on a store of the N=2000 layout (12008 rows of 512
    positions), Jukes-Cantor and GTR with 4 codes and JTT with 20: ll and
    per-site lk rtol 1e-6, posterior W and V atol 1e-6, line search x rtol
-   1e-4 and -loglk at x atol 1e-3;
+   1e-4 and -loglk at x atol 1e-3.  The quartet kernel (ml_quartet_opt) on
+   200 quartets of that layout, Jukes-Cantor and GTR, with the star test
+   and with per-site likelihoods: bit for bit the chain of the three
+   single-call kernels it fuses (ml_kernels.quartet_chain), and against
+   its twin on 24 of them the star decisions equal, lengths within 2e-3 +
+   2e-2 x length and the quartet LogLk within 1e-4 relative, as the
+   final LogLk of phase 5 (the float32 objective of a search, a sum near
+   -2000, has an ulp of 1.2e-4, and its flat bottom spans about 1e-3 in
+   x: the last-bit differences of the Jukes-Cantor per-site logs move
+   where Brent stops within it, and the posteriors and searches after it
+   carry that on).  Each
+   kernel's device time per launch comes from torch.profiler (CUDA
+   activity) over 50 launches, apart from the launch-to-launch time, and
+   its bound from the bytes and operations of the timed call;
 3. the -noml pipeline at N=500, P=500 against the JAX package's tree
    (tests/data/torch_port_golden_n500_p500.nwk), dense and two-tier: RF 0
    to the golden, and the two layouts give the same Newick; then the same
@@ -43,12 +56,13 @@ passed):
    run_pipeline (warm: phase 5 ran the same code), with its phase split and
    final LogLk.  The launch counts are reset just before it and read just
    after it: every kernel of the dense path, the ML kernels included, must
-   have launched.
+   have launched, and the final LogLk must be the one recorded in PERF.md
+   for this input (the kernels' arithmetic does not change the tree).
 
 The last lines are the card's name and power limit, one JSON line with each
 kernel's route, source, main-path launches (the ML main path's for the ML
 kernels, the -noml one's for the others, with their ML-path and two-tier
-launches apart), error and times, and the result line.  Without a CUDA
+launches apart), error, times and bound, and the result line.  Without a CUDA
 device, or outside the repository, it exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -94,8 +108,30 @@ KERNELS = {
                      "veryfasttree_tpu/engine/ml_profiles.py:77"),
     "ml_opt_branch": ("veryfasttree_tpu_torch/csrc/ml_lk.cu",
                       "veryfasttree_tpu/engine/ml_profiles.py:743"),
+    "ml_quartet_opt": ("veryfasttree_tpu_torch/csrc/ml_lk.cu",
+                       "veryfasttree_tpu/engine/ml.py:146"),
 }
-ML_KERNELS = ("ml_pair_loglk", "ml_posterior", "ml_opt_branch")
+ML_KERNELS = ("ml_pair_loglk", "ml_posterior", "ml_opt_branch",
+              "ml_quartet_opt")
+# the CUDA kernels each wrapper launches (names as torch.profiler shows them)
+DEVICE_NAMES = {
+    "nj_scan_dense": ("nj_scan_dense_kernel", "argmin_partials_kernel"),
+    "nj_scan_codes": ("nj_scan_codes_kernel", "argmin_partials_kernel"),
+    "me_dists": ("me_pair_dist_kernel",),
+    "me_average": ("me_average_kernel",),
+    "ml_pair_loglk": ("ml_pair_loglk_kernel",),
+    "ml_posterior": ("ml_posterior_kernel",),
+    "ml_opt_branch": ("ml_opt_branch_kernel",),
+    "ml_quartet_opt": ("ml_quartet_opt_kernel",),
+}
+# final LogLk of the default -nt run at N=2000 (PERF.md, section 6)
+ML_MAIN_LOGLK = "-427535.845"
+# the least time of a call (NVIDIA's H100 SXM data sheet, at 700 W): bytes
+# over the memory rate, operations over the float32 rate outside the
+# tensor cores (double operations are counted at that rate too, which can
+# only lower the bound)
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
 TOL = dict(rtol=1e-12, atol=1e-12)
 BEST = 100                      # the row the scan inputs make the best
 
@@ -116,7 +152,8 @@ def wrappers():
             "me_average": store_kernels.me_average,
             "ml_pair_loglk": ml_kernels.ml_pair_loglk,
             "ml_posterior": ml_kernels.ml_posterior,
-            "ml_opt_branch": ml_kernels.ml_opt_branch}
+            "ml_opt_branch": ml_kernels.ml_opt_branch,
+            "ml_quartet_opt": ml_kernels.ml_quartet_opt}
 
 
 def reset_launches():
@@ -147,6 +184,83 @@ def median_ms(fn, runs=50):
         stop.synchronize()
         times.append(start.elapsed_time(stop))
     return statistics.median(times)
+
+
+def device_us(fn, names, runs=50, attempts=3):
+    """Device time per call of fn, in us: the durations of the CUDA kernels
+    named in `names` (substrings) that torch.profiler (CUDA activity)
+    traces over `runs` calls, summed and divided by `runs`.  Every call
+    launches the same kernels, so a trace that holds a launch count of a
+    name that is not a multiple of `runs` has lost events and is taken
+    again; after `attempts` such traces the time is that of a burst of
+    `runs` calls between two CUDA events, which bounds the device time from
+    above, and the script says so."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as trace:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        durations = collections.defaultdict(list)
+        for evt in trace.events():
+            if evt.device_type == torch.autograd.DeviceType.CUDA:
+                for n in names:
+                    if n in evt.name:
+                        durations[n].append(evt.time_range.elapsed_us())
+        if all(durations[n] and len(durations[n]) % runs == 0
+               for n in names):
+            return sum(sum(durations[n]) for n in names) / runs
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(runs):
+        fn()
+    stop.record()
+    stop.synchronize()
+    print(f"  (torch.profiler lost launches of {names} in {attempts} "
+          "traces: the device time is a burst's, between CUDA events)")
+    return 1e3 * start.elapsed_time(stop) / runs
+
+
+def bound(n_bytes, n_ops):
+    """(bound_ms, bound_by): the larger of n_bytes over the memory rate and
+    n_ops over the float32 rate."""
+    ms_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
+    ms_ops = 1e3 * n_ops / F32_OPS_PER_S
+    return (ms_bytes, "bytes") if ms_bytes >= ms_ops else \
+        (ms_ops, "operations")
+
+
+def timing(name, fn, twin, n_bytes, n_ops, twin_runs=50):
+    """The measured fields of one kernel's entry at one call's inputs: the
+    call's launch-to-launch time (host wrapper included) and its device
+    time, the twin's time, and the bound of the call's bytes and
+    operations.  No single PyTorch call computes any of these functions, so
+    library_ms is None."""
+    bound_ms, bound_by = bound(n_bytes, n_ops)
+    return {"ms": median_ms(fn), "plain_ms": median_ms(twin, twin_runs),
+            "device_us": device_us(fn, DEVICE_NAMES[name]),
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def ml_row_bytes(P, C):
+    """Bytes of one ML store row: codes int8, W float32, V float32 [P, C]."""
+    return P * (5 + 4 * C)
+
+
+# operations per position, counted as the kernels write them (csrc/ml_lk.cu):
+# the effective vectors of two rows (three per element each), one site
+# likelihood (three per element) with its log and sum, a posterior (JC:
+# ten per element and a division; matrix: the products, two C x C rotations
+# and the normalisation)
+def ml_ops(C, jc):
+    eff, site = 6 * C, 3 * C + 2
+    post = eff + (11 * C if jc else 6 * C * C + 6 * C)
+    return eff, site, post
 
 
 # --------------------------------------------------------------- phase 2
@@ -254,8 +368,12 @@ def check_dists(label, C, use_matrix, leaf_rows, gen, dev):
     np.testing.assert_allclose(got, exp, err_msg=f"me_dists {label}", **TOL)
     err = float(np.max(np.abs(got - exp)))
     nni = (*store, (), None, None, ii, jj)
-    return err, median_ms(lambda: st.me_dists(*nni)), \
-        median_ms(lambda: st.me_dists_ref(*nni))
+    P, C = W.shape[1], cf.shape[1]
+    # the quartet's four rows (float rows: U, W and codes) and 2 x 6 doubles
+    n_bytes = 4 * P * (4 * C + 5) + 2 * 6 * 8
+    return err, timing("me_dists", lambda: st.me_dists(*nni),
+                       lambda: st.me_dists_ref(*nni), n_bytes,
+                       6 * P * (2 * C + 2))
 
 
 def check_average(label, C, use_matrix, leaf_rows, gen, dev):
@@ -291,8 +409,11 @@ def check_average(label, C, use_matrix, leaf_rows, gen, dev):
     err = max(float(np.max(np.abs(w1 - w2))), float(np.max(np.abs(u1 - u2))))
     one = (codes, W, U, cf, et, leaf_rows, [rows[500]], [3], [rows[600]], 0.5,
            1e-10)
-    return err, median_ms(lambda: st.me_average(*one)), \
-        median_ms(lambda: st.me_average_ref(*one))
+    P, C = W.shape[1], cf.shape[1]
+    # two rows read, one written (U, W and codes)
+    return err, timing("me_average", lambda: st.me_average(*one),
+                       lambda: st.me_average_ref(*one), 3 * P * (4 * C + 5),
+                       P * (4 * C + 6))
 
 
 def check_kernel(name, kernel, twin, args):
@@ -311,8 +432,21 @@ def check_kernel(name, kernel, twin, args):
         g, e = g.cpu().numpy(), e.cpu().numpy()
         np.testing.assert_allclose(g, e, err_msg=f"{name} {label}", **TOL)
         err = max(err, float(np.max(np.abs(g - e))))
-    return int(got[0]), err, median_ms(lambda: kernel(*args)), \
-        median_ms(lambda: twin(*args))
+    # dense: (U2, W, a, wq, outd, ...); codes: (codes, G, wq, outd, ...)
+    dense = name == "nj_scan_dense"
+    rows, q, wq, outd = (args[0], args[2], args[3], args[4]) if dense else \
+        (args[0], args[1], args[2], args[3])
+    # the rows (and W in the dense scan), the query, the out-distances in;
+    # distance, denominator and criterion out (doubles); two operations for
+    # each element of a row, a few for each row's criterion
+    n_bytes = rows.numel() * rows.element_size() \
+        + 8 * (q.numel() + wq.numel()) + 8 * 4 * outd.numel()
+    n_ops = 2 * rows.numel() + 10 * outd.numel()
+    if dense:
+        n_bytes += args[1].numel() * 4
+        n_ops += 2 * args[1].numel()
+    return int(got[0]), err, timing(name, lambda: kernel(*args),
+                                    lambda: twin(*args), n_bytes, n_ops)
 
 
 def ml_store_case(C, model, gen, dev, n_rows=3 * 2 * MAIN_N + 8, P=512,
@@ -362,14 +496,16 @@ def check_ml(label, C, model, gen, dev):
     """The three ML kernels against their twins on one store: a tree level
     of 200 pairs (ll and per-site lk), a level of 200 posteriors (on copies
     of the store) and 16 line searches.  Times are of one call each, the
-    shape of the serial quartet loop.  Returns {name: (err, ms, plain_ms)}."""
+    shape of the serial quartet loop.  Returns {name: (err, timing)}."""
     import numpy as np
 
     from veryfasttree_tpu_torch.ops import ml_kernels as mk
 
     codes, W, V, m = ml_store_case(C, model, gen, dev)
     store = (codes, W, V, m)
-    n_rows = codes.shape[0]
+    n_rows, P = codes.shape
+    row = ml_row_bytes(P, C)
+    eff, site, post_ops = ml_ops(C, model == "jc")
     rng = np.random.default_rng(C + len(model))
     r1, r2 = rng.integers(0, n_rows, 200), rng.integers(0, n_rows, 200)
     lens = rng.uniform(0.0, 0.5, 200)
@@ -384,9 +520,11 @@ def check_ml(label, C, model, gen, dev):
     np.testing.assert_allclose(lk, lk_t, rtol=1e-6, atol=1e-30,
                                err_msg=f"ml_pair_loglk {label} lk")
     one = (*store, r1[:1], r2[:1], lens[3:4])
-    out["ml_pair_loglk"] = (float(np.max(np.abs(ll - ll_t))),
-                            median_ms(lambda: mk.ml_pair_loglk(*one)),
-                            median_ms(lambda: mk.ml_pair_loglk_ref(*one)))
+    # two rows and the rate categories in, one double out
+    out["ml_pair_loglk"] = (float(np.max(np.abs(ll - ll_t))), timing(
+        "ml_pair_loglk", lambda: mk.ml_pair_loglk(*one),
+        lambda: mk.ml_pair_loglk_ref(*one), 2 * row + 4 * P + 8,
+        P * (eff + site)))
 
     targets = np.arange(n_rows - 200, n_rows)
     post = (targets, r1 % MAIN_N + MAIN_N, r2 % MAIN_N, lens + 5e-4,
@@ -404,10 +542,12 @@ def check_ml(label, C, model, gen, dev):
                                err_msg=f"ml_posterior {label} V")
     one = (codes.clone(), W.clone(), V.clone(), m, targets[:1],
            post[1][:1], post[2][:1], post[3][:1], post[4][:1])
+    # two rows and the rate categories in, one row out
     out["ml_posterior"] = (
         max(float(np.max(np.abs(w1 - w2))), float(np.max(np.abs(v1 - v2)))),
-        median_ms(lambda: mk.ml_posterior(*one)),
-        median_ms(lambda: mk.ml_posterior_ref(*one)))
+        timing("ml_posterior", lambda: mk.ml_posterior(*one),
+               lambda: mk.ml_posterior_ref(*one), 3 * row + 4 * P,
+               P * post_ops))
 
     guesses = np.concatenate([[5e-4, 9e-4, 0.1, 5.0],
                               rng.uniform(0.01, 1.0, 12)])
@@ -420,13 +560,152 @@ def check_ml(label, C, model, gen, dev):
     np.testing.assert_allclose(fx, fx_t, rtol=0, atol=1e-3,
                                err_msg=f"ml_opt_branch {label} f(x)")
     one = (*store, r1[:1], r2[:1], guesses[2:3], 5e-4, 6.0, 1e-3, 1e-4)
+    n = int(mk.ml_opt_branch(*one)[2][0])      # this search's evaluations
+    # two rows and the rate categories in, x, f(x) and the count out; the
+    # vectors mixed once, then n evaluations
     out["ml_opt_branch"] = (
         max(float(np.max(np.abs(x - x_t))), float(np.max(np.abs(fx - fx_t)))),
-        median_ms(lambda: mk.ml_opt_branch(*one)),
-        median_ms(lambda: mk.ml_opt_branch_ref(*one)))
+        timing("ml_opt_branch", lambda: mk.ml_opt_branch(*one),
+               lambda: mk.ml_opt_branch_ref(*one), 2 * row + 4 * P + 12,
+               P * (eff + n * site)))
     print(f"  line searches [{label}]: {int(n_eval.min())}..{int(n_eval.max())}"
           " evaluations")
     return out
+
+
+N_FAMILIES = 160
+# the store rows a twin or the chain of single calls uses for the quartet's
+# temporaries: scratch rows 0-5 of the N=2000 layout (2 * maxnodes + k)
+SCRATCH_ROWS = [4 * MAIN_N + k for k in range(6)]
+# xmin, xmax, ftol, atol of the float32 line searches (options.py)
+QUARTET_LIMS = (5.0e-4, 6.0, 1.0e-3, 1.0e-4)
+
+
+def quartet_store(model, gen, dev):
+    """ml_store_case's store (4 codes) whose leaf rows 4q .. 4q + 3, for q
+    below N_FAMILIES, are copies of random rows X_q, X_q, Y_q, Y_q with 3%
+    of their positions mutated and 5% gaps: (4q, 4q+1 | 4q+2, 4q+3) is a
+    clear split, and (4q, 4q+2 | 4q+1, 4q+3) a wrong one."""
+    import torch
+
+    codes, W, V, m = ml_store_case(4, model, gen, dev)
+    P = codes.shape[1]
+    base = torch.randint(0, 4, (N_FAMILIES, 2, P), generator=gen, device=dev,
+                         dtype=torch.int8)
+    fam = base[:, [0, 0, 1, 1]].reshape(4 * N_FAMILIES, P).clone()
+    mut = torch.rand(fam.shape, generator=gen, device=dev) < 0.03
+    fam[mut] = torch.randint(0, 4, (int(mut.sum()),), generator=gen,
+                             device=dev, dtype=torch.int8)
+    fam[torch.rand(fam.shape, generator=gen, device=dev) < 0.05] = 127
+    fam[:, m.n_pos:] = 127
+    k = 4 * N_FAMILIES
+    codes[:k] = fam
+    W[:k] = (fam != 127).float()
+    V[:k] = m.code_freq[fam.long()]
+    return codes, W, V, m
+
+
+def check_quartets(model, gen, dev):
+    """ml_quartet_opt on 200 quartets of one store (100 clear splits, 60
+    wrong ones, 40 of random rows), with the star test and with per-site
+    likelihoods: bit for bit the chain of single-call kernels, K=1
+    launches equal to the K=200 launch, the twin on 24 of them (8 of each
+    kind) within the tolerances of the module's docstring.  The time is
+    that of one quartet with the star test that does not end at it, as an
+    ML NNI's first call; the chain's times are given beside it.  Returns
+    (err, timing)."""
+    import numpy as np
+
+    from veryfasttree_tpu_torch.ops import ml_kernels as mk
+
+    codes, W, V, m = quartet_store(model, gen, dev)
+    store = (codes, W, V, m)
+    P = codes.shape[1]
+    rng = np.random.default_rng(11 + len(model))
+    fam = 4 * np.arange(N_FAMILIES)[:, None]
+    rows4 = np.concatenate([
+        fam[:100] + [0, 1, 2, 3], fam[100:] + [0, 2, 1, 3],
+        rng.integers(4 * N_FAMILIES, 4 * MAIN_N, (40, 4))]).astype(np.int32)
+    lens = np.maximum(rng.uniform(0.0, 0.3, (len(rows4), 5)),
+                      QUARTET_LIMS[0])
+    lims = (SCRATCH_ROWS, *QUARTET_LIMS)
+    chain_fns = (mk.ml_posterior, mk.ml_opt_branch, mk.ml_pair_loglk)
+    pick = np.r_[0:8, 100:108, 160:168]         # the twin's quartets
+    err = 0.0
+    for star_test, site in ((True, False), (False, True)):
+        tag = f"{model} {'star test' if star_test else 'per-site'}"
+        args = (*store, rows4, lens, *lims, star_test, site)
+        rec, lk = mk.ml_quartet_opt(*args)
+        rec_c, lk_c = mk.quartet_chain(*chain_fns, *args)
+        if rec.tobytes() != rec_c.tobytes() \
+                or (site and lk.tobytes() != lk_c.tobytes()):
+            raise AssertionError(f"ml_quartet_opt {tag}: differs from the "
+                                 "chain of single-call kernels")
+        for k in range(3):
+            one = mk.ml_quartet_opt(*store, rows4[k:k + 1], lens[k:k + 1],
+                                    *lims, star_test, site)
+            if one[0].tobytes() != rec[k:k + 1].tobytes():
+                raise AssertionError(f"ml_quartet_opt {tag}: quartet {k} "
+                                     "alone differs from the K=200 launch")
+        rec_t, lk_t = mk.ml_quartet_opt_ref(*store, rows4[pick], lens[pick],
+                                            *lims, star_test, site)
+        got = rec[pick]
+        ll = lambda r: r["parts"][:, 0] + r["parts"][:, 1] + r["parts"][:, 2]  # noqa: E731
+        len_err = np.abs(got["len"] - rec_t["len"])
+        ll_err = float(np.max(np.abs(ll(got) - ll(rec_t))))
+        ll_rel = float(np.max(np.abs(ll(got) - ll(rec_t)) / np.abs(ll(rec_t))))
+        print(f"  ml_quartet_opt [{tag}] against the twin on {len(pick)}: "
+              f"stars {int(got['star'].sum())} / {int(rec_t['star'].sum())}, "
+              f"lengths max abs err {float(len_err.max()):.3e} (max rel "
+              f"{float(np.max(len_err / rec_t['len'])):.3e}), quartet "
+              f"LogLk max abs err {ll_err:.3e} (max rel {ll_rel:.3e})")
+        np.testing.assert_array_equal(got["star"], rec_t["star"],
+                                      err_msg=f"ml_quartet_opt {tag} star")
+        np.testing.assert_allclose(got["len"], rec_t["len"], rtol=2e-2,
+                                   atol=2e-3,
+                                   err_msg=f"ml_quartet_opt {tag} lengths")
+        if ll_rel > 1e-4:
+            raise AssertionError(f"ml_quartet_opt {tag}: quartet LogLk "
+                                 f"{ll_rel:.3e} relative from the twin's")
+        if site:
+            np.testing.assert_allclose(lk[pick], lk_t, rtol=5e-2,
+                                       atol=1e-30,
+                                       err_msg=f"ml_quartet_opt {tag} lk")
+        err = max(err, ll_err, float(len_err.max()))
+        stars = int(rec["star"].sum())
+        print(f"  ml_quartet_opt [{tag}]: {len(rows4)} quartets bit for bit "
+              f"the chain's, {stars} star tests fired, "
+              f"{int(rec['n_eval'].sum())} line-search evaluations")
+        if star_test and not 0 < stars < len(rows4):
+            raise AssertionError(f"ml_quartet_opt {tag}: the star test fired "
+                                 f"{stars} times of {len(rows4)}")
+        if star_test:
+            first = int(np.flatnonzero(rec["star"] == 0)[0])
+            n_eval = int(rec["n_eval"][first])
+
+    one = (*store, rows4[first:first + 1], lens[first:first + 1], *lims,
+           True, False)
+    row = ml_row_bytes(P, 4)
+    eff, site_ops, post_ops = ml_ops(4, model == "jc")
+    # four rows and the rate categories in, one record out; seven
+    # posteriors, five line searches (their vectors mixed once each, then
+    # this quartet's evaluations), three pair likelihoods (star and two
+    # closing ones)
+    times = timing("ml_quartet_opt", lambda: mk.ml_quartet_opt(*one),
+                   lambda: mk.ml_quartet_opt_ref(*one), 4 * row + 4 * P + 64,
+                   P * (7 * post_ops + 5 * eff + n_eval * site_ops
+                        + 3 * (eff + site_ops)), twin_runs=10)
+    times["chain_ms"] = median_ms(lambda: mk.quartet_chain(*chain_fns, *one))
+    times["chain_device_us"] = device_us(
+        lambda: mk.quartet_chain(*chain_fns, *one),
+        [n for k in ("ml_posterior", "ml_opt_branch", "ml_pair_loglk")
+         for n in DEVICE_NAMES[k]])
+    print(f"  ml_quartet_opt [{model}]: one quartet ({n_eval} evaluations) "
+          f"{times['ms']:.4f} ms launch to launch, {times['device_us']:.3f} "
+          f"us on the device; the chain of single calls "
+          f"{times['chain_ms']:.4f} ms, {times['chain_device_us']:.3f} us "
+          "on the device")
+    return err, times
 
 
 def phase_kernels(report):
@@ -447,43 +726,65 @@ def phase_kernels(report):
         ("nj_scan_codes", "L=20000 P=512 C=20 BLOSUM45", sk.nj_scan_codes,
          sk.nj_scan_codes_ref, codes_case(20, True, gen, dev)),
     ]
-    def record(name, err, ms, plain_ms):
+    def record(name, label, err, times):
+        print(f"  {name} [{label}]: max abs err {err:.3e}, kernel "
+              f"{times['ms']:.4f} ms launch to launch, "
+              f"{times['device_us']:.3f} us on the device, twin "
+              f"{times['plain_ms']:.4f} ms, bound {times['bound_ms']:.3e} ms "
+              f"({times['bound_by']})")
         entry = report.setdefault(name, {"max_abs_err": 0.0})
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
         if "ms" not in entry:         # the first case is the main path's shape
-            entry["ms"], entry["plain_ms"] = ms, plain_ms
+            entry.update(times)
 
     for name, shape, kernel, twin, args in cases:
-        best, err, ms, plain_ms = check_kernel(name, kernel, twin, args)
-        print(f"  {name} [{shape}]: best {best} (tie, lowest index), max abs "
-              f"err {err:.3e}, kernel {ms:.4f} ms, twin {plain_ms:.4f} ms")
-        record(name, err, ms, plain_ms)
+        best, err, times = check_kernel(name, kernel, twin, args)
+        record(name, f"{shape}, best {best}: the tie's lowest index", err,
+               times)
     for name, check in (("me_dists", check_dists),
                         ("me_average", check_average)):
         for C, use_matrix, leaf_rows, label in (
                 (4, False, 0, "dense 8192x512 C=4"),
                 (4, False, 2000, "two-tier 2000 leaves C=4"),
                 (20, True, 0, "dense 8192x512 C=20 BLOSUM45")):
-            err, ms, plain_ms = check(label, C, use_matrix, leaf_rows, gen,
-                                      dev)
-            print(f"  {name} [{label}]: max abs err {err:.3e}, kernel "
-                  f"{ms:.4f} ms, twin {plain_ms:.4f} ms")
-            record(name, err, ms, plain_ms)
+            record(name, label, *check(label, C, use_matrix, leaf_rows, gen,
+                                       dev))
     for C, model, label in ((4, "jc", "12008x512 C=4 JC"),
                             (4, "gtr", "12008x512 C=4 GTR"),
                             (20, "jtt", "12008x512 C=20 JTT")):
-        for name, (err, ms, plain_ms) in check_ml(label, C, model, gen,
-                                                  dev).items():
-            print(f"  {name} [{label}]: max abs err {err:.3e}, kernel "
-                  f"{ms:.4f} ms, twin {plain_ms:.4f} ms")
-            record(name, err, ms, plain_ms)
+        for name, (err, times) in check_ml(label, C, model, gen, dev).items():
+            record(name, label, err, times)
+    for model in ("jc", "gtr"):
+        err, times = check_quartets(model, gen, dev)
+        record("ml_quartet_opt", f"12008x512 C=4 {model.upper()}", err, times)
 
 
 # ------------------------------------------------------------- phases 3, 4
+ALPHA = "ACGT"
+
+
+def synth_codes(n, p, seed=0, n_codes=4):
+    """The founder-mutation alignment of bench.py and bench_e2e.py (a copy
+    of bench_e2e.synth_codes, so that this script imports nothing of the
+    JAX side; tests/test_torch_nojax.py holds the two equal): n unique rows
+    of p codes."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n_founders = max(4, n // 20)
+    founders = rng.integers(0, n_codes, size=(n_founders, p))
+    rows = founders[rng.integers(0, n_founders, size=n)]
+    mut = rng.random((n, p)) < 0.1
+    rows = np.where(mut, rng.integers(0, n_codes, size=(n, p)), rows)
+    # a unique 16-position suffix per row, so that no row is a duplicate
+    tag = ((np.arange(n)[:, None] >> np.arange(16)[None, :]) & 1) \
+        .astype(rows.dtype)
+    rows[:, -16:] = tag
+    return rows.astype(np.int8)
+
+
 def fasta_text(codes) -> str:
     """The alignment as FASTA text, names s0 .. s{N-1} (as bench.py)."""
-    from bench_e2e import ALPHA
-
     return "".join(f">s{i}\n{''.join(ALPHA[c] for c in row)}\n"
                    for i, row in enumerate(codes))
 
@@ -521,7 +822,6 @@ DENSE_PATH = ("nj_scan_dense", "me_dists", "me_average")
 
 
 def phase_golden(dev):
-    from bench_e2e import synth_codes
     from util import rf_distance
 
     with open(GOLDEN + ".nwk") as f:
@@ -568,7 +868,6 @@ def phase_golden(dev):
 def phase_main(report, dev):
     """The N=2000 cell: a cold run, the warm run whose launches are the main
     path's, and a two-tier run for the codes scan's launches."""
-    from bench_e2e import synth_codes
     from util import newick_splits
 
     n = MAIN_N
@@ -654,7 +953,6 @@ def phase_ml_golden(dev):
     package's; the default run is traced for the device's busy share."""
     from torch.profiler import ProfilerActivity, profile
 
-    from bench_e2e import synth_codes
     from util import rf_distance
 
     fasta = fasta_text(synth_codes(ML_GOLDEN_N, MAIN_P, seed=0))
@@ -710,7 +1008,6 @@ def phase_ml_golden(dev):
 
 def phase_ml_main(report, dev):
     """The default -nt run at N=2000: the ML main path."""
-    from bench_e2e import synth_codes
     from util import newick_splits
 
     n = MAIN_N
@@ -728,6 +1025,9 @@ def phase_ml_main(report, dev):
     _, leaves = newick_splits(nw)
     if len(leaves) != n or not math.isfinite(final):
         raise AssertionError(f"{len(leaves)} leaves, final LogLk {final}")
+    if f"{final:.3f}" != ML_MAIN_LOGLK:
+        raise AssertionError(f"final LogLk {final:.3f}, recorded "
+                             f"{ML_MAIN_LOGLK}")
     require_launched("ML main path", counts, DENSE_PATH + ML_KERNELS)
     for name, count in counts.items():
         key = "launches" if name in ML_KERNELS else "ml_path_launches"

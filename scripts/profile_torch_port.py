@@ -4,7 +4,7 @@
     python scripts/profile_torch_port.py          # -nt -noml -nosupport
     python scripts/profile_torch_port.py --ml     # the default -nt run
 
-On the cells of chip_smoke.py (bench_e2e.synth_codes, N=2000, P=500,
+On the cells of chip_smoke.py (chip_smoke.synth_codes, N=2000, P=500,
 seed 0) it prints:
 
 1. a cold and a warm run's wall and phase split (``nj.timings``);
@@ -45,8 +45,7 @@ def main() -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from bench_e2e import synth_codes
-    from chip_smoke import MAIN_N, MAIN_P, fasta_text, run_port
+    from chip_smoke import MAIN_N, MAIN_P, fasta_text, run_port, synth_codes
 
     dev = torch.device("cuda")
     torch.use_deterministic_algorithms(True)

@@ -182,6 +182,37 @@ def test_ml_kernels_match_twins(cuda, C, jc):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("jc", [True, False])
+@pytest.mark.parametrize("star_test,want_site_lk", [(True, False),
+                                                    (False, True)])
+def test_quartet_kernel_is_the_chain(cuda, jc, star_test, want_site_lk):
+    """ml_quartet_opt equals, bit for bit, the chain of single-call kernels
+    it fuses (quartet_chain on the store's rows 1000-1005), a K=1 launch
+    equals its quartet's block of a K=40 launch, and the kernel leaves
+    the store as it was."""
+    from veryfasttree_tpu_torch.ops import ml_kernels as mk
+
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    store = _ml_store(gen, 4, jc, cuda)
+    rng = np.random.default_rng(3)
+    rows4 = rng.integers(0, 900, (40, 4))
+    lens = np.maximum(rng.uniform(0.0, 0.4, (40, 5)), 5e-4)
+    args = (rows4, lens, range(1000, 1006), 5e-4, 6.0, 1e-3, 1e-4,
+            star_test, want_site_lk)
+    before = [t.clone() for t in store[:3]]
+    rec, lk = mk.ml_quartet_opt(*store, *args)
+    for a, b in zip(store[:3], before):
+        assert torch.equal(a, b)
+    rec_c, lk_c = mk.quartet_chain(mk.ml_posterior, mk.ml_opt_branch,
+                                   mk.ml_pair_loglk, *store, *args)
+    assert rec.tobytes() == rec_c.tobytes()
+    if want_site_lk:
+        np.testing.assert_array_equal(lk, lk_c)
+    one = mk.ml_quartet_opt(*store, rows4[5:6], lens[5:6], *args[2:])
+    assert one[0].tobytes() == rec[5:6].tobytes()
+
+
+@pytest.mark.cuda
 def test_ml_pipeline_on_cuda_matches_cpu(cuda):
     """The default -nt run (ML NNIs, CAT, SH supports with 100 resamples):
     the card's tree has the CPU run's topology."""
@@ -204,18 +235,16 @@ def test_ml_pipeline_on_cuda_matches_cpu(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("two_tier_min", [20000, 0])
 def test_pipeline_on_cuda_matches_cpu(cuda, two_tier_min):
-    from veryfasttree_tpu.options import Options
+    from veryfasttree_tpu_torch.options import noml_options
     from veryfasttree_tpu_torch.pipeline import run_pipeline
 
     fasta = "".join(f">seq{i:05d}\n{s}\n"
                     for i, s in enumerate(simulate_alignment(60, 250, seed=5)))
 
     def run(device):
-        opts = Options(n_codes=4, ml_nni=0, n_bootstrap=0, show_progress=False,
-                       two_tier_min=two_tier_min)
-        opts.derive_settings()
         out = io.StringIO()
-        run_pipeline(opts, io.StringIO(fasta), out, device=device)
+        run_pipeline(noml_options(two_tier_min=two_tier_min),
+                     io.StringIO(fasta), out, device=device)
         return out.getvalue()
 
     rf, _ = rf_distance(run(cuda), run(torch.device("cpu")))

@@ -2,6 +2,7 @@
 P=500 (tests/data/torch_port_golden_n500_p500.nwk, written by
 scripts/make_torch_port_golden.py): the Newick byte-identical, the total
 tree length within rtol 1e-12 (float64 sums in different orders)."""
+import dataclasses
 import io
 import json
 import os
@@ -17,6 +18,7 @@ from bench_e2e import synth_codes  # noqa: E402
 from make_torch_port_golden import (N, P, SEED, STEM, fasta_text,  # noqa: E402
                                     noml_options)
 
+from veryfasttree_tpu_torch.options import Options  # noqa: E402
 from veryfasttree_tpu_torch.pipeline import run_pipeline  # noqa: E402
 
 
@@ -36,7 +38,9 @@ def test_port_reproduces_jax_golden():
     with open(STEM + ".json") as f:
         meta = json.load(f)
     out = io.StringIO()
-    nj, _ = run_pipeline(noml_options(),
+    # the port's own Options, with the golden run's field values
+    opts = Options(**dataclasses.asdict(noml_options()))
+    nj, _ = run_pipeline(opts,
                          io.StringIO(fasta_text(synth_codes(N, P, seed=SEED))),
                          out, device=torch.device("cpu"))
     assert out.getvalue() == golden
@@ -47,5 +51,6 @@ def test_port_reproduces_jax_golden():
 def test_port_options_are_the_goldens():
     from veryfasttree_tpu_torch.options import noml_options as port_options
 
-    assert port_options() == noml_options()
+    assert dataclasses.asdict(port_options()) == \
+        dataclasses.asdict(noml_options())
     assert port_options(two_tier_min=0).two_tier_min == 0

@@ -22,6 +22,7 @@ Requirements (docs/PARITY.md, tier 1 for ML):
   deltas are float32 noise of either package (0.054 apart measured), so
   there within 0.1.
 """
+import dataclasses
 import io
 import re
 
@@ -33,6 +34,7 @@ from util import simulate_alignment, write_fasta
 from veryfasttree_tpu import pipeline as jax_pipeline
 from veryfasttree_tpu.options import Options
 from veryfasttree_tpu_torch import pipeline as torch_pipeline
+from veryfasttree_tpu_torch.options import Options as TOptions
 
 ROUND = re.compile(r"ML-NNI round (\d+): LogLk = (-?[\d.]+) NNIs (\d+)")
 FINAL = re.compile(r"Optimize all lengths: LogLk = (-?[\d.]+)")
@@ -54,6 +56,9 @@ def one_torch_thread():
 def _run(run_pipeline, fasta, flags, **kw):
     opts = Options(show_progress=False, n_codes=4, **flags)
     opts.derive_settings()
+    if run_pipeline is torch_pipeline.run_pipeline:
+        # the port's own Options, with the same field values
+        opts = TOptions(**dataclasses.asdict(opts))
     out, log = io.StringIO(), io.StringIO()
     with open(fasta) as f:
         run_pipeline(opts, f, out, log_fp=log, **kw)

@@ -22,6 +22,8 @@ checkpoint carries the tree and the ME store to the port's engine
   own float32 objective; the line search's tolerance is 1e-3 relative);
   per-site log-likelihoods, each package's at its own lengths, atol 5e-3.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -40,9 +42,13 @@ from veryfasttree_tpu_torch.engine import ml as tml
 from veryfasttree_tpu_torch.engine import rearrange as trearrange
 from veryfasttree_tpu_torch.engine.ml_profiles import MLProfiles as TMLStore
 from veryfasttree_tpu_torch.engine.nj import NeighbourJoining as TNJ
+from veryfasttree_tpu_torch.models import TransitionMatrix as TTransitionMatrix
+from veryfasttree_tpu_torch.options import Options as TOptions
+
+GTR = ([1.2, 3.1, 0.8, 1.1, 2.9, 1.0], [0.3, 0.2, 0.24, 0.26])
 
 
-def _engines(tmp_path, tm):
+def _engines(tmp_path, tm, ttm):
     opts = Options(n_codes=4, show_progress=False, n_bootstrap=0)
     opts.derive_settings()
     codes = seqs_to_codes(simulate_alignment(20, 180, seed=13,
@@ -52,7 +58,7 @@ def _engines(tmp_path, tm):
     jrearrange.update_branch_lengths(jnj)
     path = str(tmp_path / "nj.npz")
     save_checkpoint(jnj, path, {"phase": "nj"})
-    tnj = TNJ(opts, codes, None, tm)
+    tnj = TNJ(TOptions(**dataclasses.asdict(opts)), codes, None, ttm)
     with np.load(path) as z:
         tnj.load_state({k: z[k] for k in z.files})
     return jnj, tnj
@@ -67,11 +73,11 @@ def _same(t, j, rtol, atol):
 
 @pytest.mark.parametrize("model", ["jc", "gtr"])
 def test_ml_store_matches_jax(tmp_path, model):
-    tm = None if model == "jc" else TransitionMatrix.gtr(
-        [1.2, 3.1, 0.8, 1.1, 2.9, 1.0], [0.3, 0.2, 0.24, 0.26])
-    jnj, tnj = _engines(tmp_path, tm)
+    tm = None if model == "jc" else TransitionMatrix.gtr(*GTR)
+    ttm = None if model == "jc" else TTransitionMatrix.gtr(*GTR)
+    jnj, tnj = _engines(tmp_path, tm, ttm)
     jnj.ml = JMLStore(jnj, tm)
-    tnj.ml = TMLStore(tnj, tm)
+    tnj.ml = TMLStore(tnj, ttm)
     _same(tnj.ml, jnj.ml, 1e-6, 1e-7)
 
     j_arrays = [np.asarray(a) for a in (jnj.ml.codes, jnj.ml.W, jnj.ml.V)]

@@ -5,6 +5,7 @@ branch lengths, split test): the join order must be identical and the
 Newick byte-identical.  Tolerance: none; the port keeps the reference's
 float64 accumulation and float32 store rounding, so no decision differs.
 """
+import dataclasses
 import io
 
 import pytest
@@ -15,6 +16,7 @@ from util import simulate_alignment, write_fasta
 from veryfasttree_tpu import pipeline as jax_pipeline
 from veryfasttree_tpu.options import Options
 from veryfasttree_tpu_torch import pipeline as torch_pipeline
+from veryfasttree_tpu_torch.options import Options as TOptions
 
 
 @pytest.fixture(autouse=True)
@@ -31,6 +33,9 @@ def _run(run_pipeline, fasta, two_tier_min, **kw):
     opts = Options(show_progress=False, n_codes=4, ml_nni=0, n_bootstrap=0,
                    two_tier_min=two_tier_min)
     opts.derive_settings()
+    if run_pipeline is torch_pipeline.run_pipeline:
+        # the port's own Options, with the same field values
+        opts = TOptions(**dataclasses.asdict(opts))
     out = io.StringIO()
     with open(fasta) as f:
         nj, sc = run_pipeline(opts, f, out, **kw)
@@ -64,8 +69,8 @@ def test_noml_pipeline_identical_to_jax(tmp_path, n, p, seed, two_tier_min):
 def test_unported_options_raise(flags):
     """Protein ML, the -noml local bootstrap (n_bootstrap with ml_nni 0),
     -threads > 1, -makematrix, -constraints and -checkpoint."""
-    opts = Options(**{"n_codes": 4, "show_progress": False, "ml_nni": 0,
-                      "n_bootstrap": 0, **flags})
+    opts = TOptions(**{"n_codes": 4, "show_progress": False, "ml_nni": 0,
+                       "n_bootstrap": 0, **flags})
     opts.derive_settings()
     with pytest.raises(NotImplementedError, match="not ported yet"):
         torch_pipeline.run_pipeline(opts, io.StringIO(">a\nA\n"),

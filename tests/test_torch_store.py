@@ -10,6 +10,8 @@ reference's compiler fuses an expression differently (rtol 1e-6; 1e-5 in
 BLOSUM45 matrix mode, whose totals are float32 dot products summed in
 another order), and distances from written rows are held to the same.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -28,6 +30,8 @@ from veryfasttree_tpu_torch.engine import batched as tbatched
 from veryfasttree_tpu_torch.engine import rearrange as trearrange
 from veryfasttree_tpu_torch.engine.nj import NeighbourJoining as TNJ
 from veryfasttree_tpu_torch.engine.profiles import MEProfiles as TStore
+from veryfasttree_tpu_torch.models import DistanceMatrix as TDistanceMatrix
+from veryfasttree_tpu_torch.options import Options as TOptions
 
 F64 = dict(rtol=1e-12, atol=1e-12)
 
@@ -39,6 +43,11 @@ def _codes(n_codes, n=30, p=150, seed=5):
     alpha = "ACGT" if n_codes == 4 else "ARNDCQEGHILKMFPSTWYV"
     seqs = simulate_alignment(n, p, alphabet=alpha, seed=seed, gap_frac=0.05)
     return opts, seqs_to_codes(seqs, opts)
+
+
+def _port(opts):
+    """The port's own Options, with the same field values."""
+    return TOptions(**dataclasses.asdict(opts))
 
 
 def _close(ours, ref, **tol):
@@ -59,8 +68,9 @@ def test_store_methods_match_jax(n_codes, two_tier):
     opts, codes = _codes(n_codes)
     dmat = DistanceMatrix.blosum45() if n_codes == 20 else None
     n = len(codes)
+    tdmat = TDistanceMatrix.blosum45() if n_codes == 20 else None
     js = JStore(codes, opts, dmat, 2 * n, two_tier=two_tier)
-    ts = TStore(codes, opts, dmat, 2 * n, two_tier=two_tier)
+    ts = TStore(codes, _port(opts), tdmat, 2 * n, two_tier=two_tier)
     assert (ts.n_rows, ts.p_pad, tuple(ts.U.shape)) == \
         (js.n_rows, js.p_pad, tuple(js.U.shape))
     tol = dict(rtol=1e-6 if n_codes == 4 else 1e-5, atol=1e-7)
@@ -134,7 +144,7 @@ def test_carry_across_from_jax_checkpoint(tmp_path):
     jnj.fast_nj()
     path = str(tmp_path / "nj.npz")
     save_checkpoint(jnj, path, {"phase": "nj"})
-    tnj = TNJ(opts, codes, None, None)
+    tnj = TNJ(_port(opts), codes, None, None)
     with np.load(path) as z:
         tnj.load_state({k: z[k] for k in z.files})
     _same_store(tnj.prof, jnj.prof, dict(rtol=0, atol=0))

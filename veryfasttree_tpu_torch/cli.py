@@ -1,5 +1,7 @@
-"""Command line of the PyTorch port: the reference's flag surface
-(veryfasttree_tpu.cli) on a CUDA device.
+# build_parser, basic_help and args_to_options copy veryfasttree_tpu/cli.py (the port imports none of it).
+"""Command line of the PyTorch port: the reference's flag surface on a CUDA
+device.  The TPU-only flags (-mesh-*, -coordinator, -n-hosts, -host-id) are
+accepted and unused.
 
     python -m veryfasttree_tpu_torch -nt alignment.fasta
     python -m veryfasttree_tpu_torch -nt -noml -nosupport alignment.fasta
@@ -9,14 +11,291 @@ NotImplementedError (see pipeline.py).
 """
 from __future__ import annotations
 
+import argparse
+import os
 import sys
 
-from veryfasttree_tpu.cli import args_to_options, basic_help, build_parser
-from veryfasttree_tpu.io.alignment import open_maybe_compressed
-from veryfasttree_tpu.utils.progress import TeeStream
-
+from . import constants
+from .io.alignment import open_maybe_compressed
+from .options import Options
 from .pipeline import run_pipeline
 from .utils.device import resolve_device
+from .utils.progress import TeeStream
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="python -m veryfasttree_tpu_torch", allow_abbrev=False, add_help=False,
+        description=f"{constants.NAME} {constants.VERSION} on PyTorch/CUDA -- "
+                    "approximately-maximum-likelihood phylogenetic trees "
+                    f"(FastTree-2 / VeryFastTree {constants.COMPAT_VERSION} "
+                    "compatible)")
+    a = p.add_argument
+    a("alignment_file", nargs="?", default="", help="alignment (FASTA/FASTQ/"
+      "PHYLIP/NEXUS; - or absent = stdin; .gz/.bz2/.xz ok)")
+    a("-h", "--help", action="store_true", dest="help_")
+    a("-expert", action="store_true")
+    # io
+    a("-out", default="", metavar="file")
+    a("-n", type=int, default=1, metavar="n", help="number of alignments")
+    a("-verbose", type=int, default=1, metavar="lvl")
+    a("-quiet", action="store_true")
+    a("-nopr", action="store_true")
+    a("-log", default="", metavar="logfile")
+    a("-quote", action="store_true")
+    a("-intree", default="", metavar="newick_file")
+    a("-intree1", default="", metavar="newick_file")
+    # distances
+    a("-nt", action="store_true", help="nucleotide alignment")
+    a("-makematrix", action="store_true")
+    a("-rawdist", action="store_true")
+    a("-logdist", action="store_true", help="(obsolete; on by default)")
+    a("-pseudo", nargs="?", const=1.0, type=float, default=None, metavar="weight")
+    a("-matrix", default="", metavar="prefix")
+    a("-nomatrix", action="store_true")
+    # topology refinement
+    a("-nni", type=int, default=-1, metavar="n")
+    a("-spr", type=int, default=2, metavar="n")
+    a("-noml", action="store_true")
+    a("-nome", action="store_true")
+    a("-sprlength", type=int, default=10, metavar="n")
+    a("-mlnni", type=int, default=-1, metavar="n")
+    a("-mlacc", type=int, default=1, metavar="n")
+    a("-mllen", action="store_true")
+    a("-slownni", action="store_true")
+    a("-approxml", "-mlapprox", action="store_true", dest="approxml",
+      help="approximate posterior distributions for amino acids")
+    a("-mlexact", action="store_true", help="(obsolete; on by default)")
+    a("-exactml", action="store_true", help="(obsolete; on by default)")
+    # models
+    a("-gtr", action="store_true")
+    a("-gtrrates", nargs=6, type=float, default=None,
+      metavar=("ac", "ag", "at", "cg", "ct", "gt"))
+    a("-gtrfreq", nargs=4, type=float, default=None, metavar=("A", "C", "G", "T"))
+    a("-wag", action="store_true")
+    a("-lg", action="store_true")
+    a("-trans", default="", metavar="file")
+    a("-cat", type=int, default=constants.N_DEFAULT_RATE_CATS, metavar="n")
+    a("-nocat", action="store_true")
+    a("-gamma", action="store_true")
+    # support
+    a("-nosupport", action="store_true")
+    a("-boot", type=int, default=1000, metavar="n")
+    a("-noboot", action="store_true")
+    a("-seed", type=int, default=None, metavar="n")
+    # search
+    a("-slow", action="store_true")
+    a("-fastest", action="store_true")
+    a("-2nd", action="store_true", dest="second")
+    a("-no2nd", action="store_true")
+    a("-top", action="store_true")
+    a("-notop", action="store_true")
+    a("-topm", type=float, default=1.0, metavar="m")
+    a("-close", type=float, default=-1.0, metavar="close")
+    a("-refresh", type=float, default=0.8, metavar="refresh")
+    a("-nj", action="store_true", dest="plain_nj")
+    a("-bionj", action="store_true")
+    # constraints
+    a("-constraints", default="", metavar="file")
+    a("-constraintWeight", type=float, default=100.0, metavar="w")
+    # optimization / compatibility knobs
+    a("-threads", type=int, default=None, metavar="n")
+    a("-threads-verbose", action="store_true")
+    a("-threads-mode", type=int, default=1, metavar="mode")
+    a("-threads-level", type=int, default=3, metavar="lvl")
+    a("-threads-ptw", type=int, default=50, metavar="n")
+    a("-double-precision", action="store_true")
+    a("-ext", default="AUTO", metavar="name",
+      help="(compat; TPU build always uses the XLA path)")
+    a("-fastexp", type=int, default=0, metavar="lvl")
+    a("-disk-computing", action="store_true")
+    a("-disk-computing-path", default="", metavar="path")
+    a("-disk-dynamic-computing", action="store_true")
+    a("-disk-dynamic-limit", type=int, default=-1, metavar="n")
+    a("-relative-progress", action="store_true")
+    # TPU-native knobs
+    a("-mesh-sp", type=int, default=None, metavar="n",
+      help="devices along the alignment-position axis (default: all)")
+    a("-mesh-dp", type=int, default=1, metavar="n",
+      help="devices along the candidate/data axis")
+    a("-coordinator", default="", metavar="host:port",
+      help="multi-host: jax.distributed coordinator address (run the same "
+           "command on every host with matching -n-hosts and its -host-id)")
+    a("-n-hosts", type=int, default=0, metavar="k",
+      help="multi-host: number of participating processes")
+    a("-host-id", type=int, default=None, metavar="i",
+      help="multi-host: this process's id (0..k-1; 0 writes the output)")
+    a("-two-tier-min", type=int, default=20000, metavar="n",
+      help="store leaves as int8 codes only (16x HBM cut) at >= n unique "
+           "sequences; 0 forces two-tier, -1 disables it")
+    a("-checkpoint", default="", metavar="file", dest="checkpoint",
+      help="array-state checkpoint file: saved after every ML-NNI round; "
+           "if present at startup the run resumes from it")
+    return p
+
+
+def basic_help() -> str:
+    """Curated common-options help (ref main.cpp:538-599 basicCli): usage
+    examples plus the ~20 flags most users need; the full surface is behind
+    -expert (ref main.cpp:623-627)."""
+    name = "python -m veryfasttree_tpu_torch"
+    lines = [
+        f"{constants.NAME} {constants.VERSION} (PyTorch/CUDA)",
+        f"  {name} protein_alignment > tree",
+        f"  {name} < protein_alignment > tree",
+        f"  {name} -out tree protein_alignment",
+        f"  {name} -nt nucleotide_alignment > tree",
+        f"  {name} -nt -gtr < nucleotide_alignment > tree",
+        f"  {name} accepts alignments in NEXUS, Fasta, Fastq or Phylip "
+        "interleaved formats, optionally compressed with gzip, bzip2 or xz.",
+        "",
+        "Common options:",
+    ]
+    common = [
+        ("-n <number>", "to analyze multiple alignments (phylip format only) "
+         "(use for global bootstrap, with seqboot and CompareToBootstrap.pl)"),
+        ("-intree newick_file", "to set the starting tree(s)"),
+        ("-intree1 newick_file", "to use this starting tree for all the "
+         "alignments (for faster global bootstrap on huge alignments)"),
+        ("-quiet", "to suppress reporting information"),
+        ("-nopr", "to suppress progress indicator"),
+        ("-log logfile", "save intermediate trees, settings, and model details"),
+        ("-quote", "allow spaces and other restricted characters (but not ') "
+         "in sequence names and quote names in the output tree"),
+        ("-pseudo", "to use pseudocounts (recommended for highly gapped "
+         "sequences)"),
+        ("-fastest", "speed up the neighbor joining phase & reduce memory "
+         "usage (recommended for >50,000 sequences)"),
+        ("-nosupport", "to not compute support values"),
+        ("-gtr", "generalized time-reversible model (nucleotide alignments "
+         "only)"),
+        ("-lg", "Le-Gascuel 2008 model (amino acid alignments only)"),
+        ("-wag", "Whelan-And-Goldman 2001 model (amino acid alignments only)"),
+        ("-noml", "to turn off maximum-likelihood"),
+        ("-nome", "to turn off minimum-evolution NNIs and SPRs (recommended "
+         "if running additional ML NNIs with -intree); -nome -mllen with "
+         "-intree to optimize branch lengths for a fixed topology"),
+        ("-cat n", "to specify the number of rate categories of sites "
+         "(default 20) or -nocat to use constant rates"),
+        ("-gamma", "after optimizing the tree under the CAT approximation, "
+         "rescale the lengths to optimize the Gamma20 likelihood"),
+        ("-constraints constraintAlignment", "to constrain the topology "
+         "search; constraintAlignment should have 1s or 0s to indicate "
+         "splits"),
+        ("-double-precision", "use double precision arithmetic"),
+        ("-expert", "see more options"),
+    ]
+    import textwrap
+    for flag, desc in common:
+        lines.append(f"  {flag}")
+        lines.extend(textwrap.wrap(desc, width=74, initial_indent="      ",
+                                   subsequent_indent="      "))
+    lines.append("")
+    lines.append("For more information, see "
+                 "https://github.com/citiususc/veryfasttree or docs/.")
+    return "\n".join(lines)
+
+
+def args_to_options(ns) -> Options:
+    opts = Options()
+    opts.n_codes = 4 if ns.nt else 20
+    opts.n_align = ns.n
+    opts.verbose = 0 if ns.quiet else ns.verbose
+    opts.show_progress = not (ns.quiet or ns.nopr)
+    opts.log_file_name = ns.log
+    opts.quote = ns.quote
+    opts.out_file_name = ns.out
+    opts.in_file_name = "" if ns.alignment_file in ("", "-") else ns.alignment_file
+    if ns.intree:
+        opts.intree_file = ns.intree
+    if ns.intree1:
+        opts.intree_file = ns.intree1
+        opts.intree1 = True
+    opts.make_matrix = ns.makematrix
+    if ns.rawdist:
+        opts.logdist = False
+    if ns.pseudo is not None:
+        opts.pseudo_weight = ns.pseudo
+    opts.matrix_prefix = ns.matrix
+    if ns.nomatrix:
+        opts.use_matrix = False
+    opts.nni = ns.nni
+    opts.spr = ns.spr
+    if ns.noml:
+        opts.ml_nni = 0
+    if ns.nome:
+        opts.nni = 0
+        opts.spr = 0
+    opts.max_spr_length = ns.sprlength
+    if ns.mlnni != -1:
+        opts.ml_nni = ns.mlnni
+    opts.ml_accuracy = ns.mlacc
+    opts.ml_len = ns.mllen
+    if ns.slownni:
+        opts.fast_nni = False
+    if ns.approxml:
+        opts.exact_ml = False
+    opts.use_gtr = ns.gtr
+    if ns.gtrrates is not None:
+        opts.use_gtr = True
+        opts.use_gtr_rates = True
+        opts.gtr_rates = tuple(ns.gtrrates)
+    if ns.gtrfreq is not None:
+        opts.use_gtr = True
+        opts.use_gtr_freq = True
+        tot = sum(ns.gtrfreq)
+        if abs(tot - 1.0) > 0.01:
+            raise ValueError("-gtrfreq values do not sum to 1")
+        opts.gtr_freq = tuple(f / tot for f in ns.gtrfreq)
+    opts.use_wag = ns.wag
+    opts.use_lg = ns.lg
+    opts.transition_file = ns.trans
+    opts.n_rate_cats = 1 if ns.nocat else ns.cat
+    opts.gamma_loglk = ns.gamma
+    opts.n_bootstrap = 0 if (ns.nosupport or ns.noboot) else ns.boot
+    if ns.seed is not None:
+        opts.seed = ns.seed
+    opts.slow = ns.slow
+    opts.fastest = ns.fastest
+    if ns.fastest:
+        opts.tophits_refresh = 0.5
+        opts.use_tophits_2nd = True
+    if ns.second:
+        opts.use_tophits_2nd = True
+    if ns.no2nd:
+        opts.use_tophits_2nd = False
+    if ns.notop:
+        opts.tophits_mult = 0.0
+    if ns.topm != 1.0:
+        opts.tophits_mult = ns.topm
+    opts.tophits_close = ns.close
+    opts.tophits_refresh = ns.refresh if ns.refresh != 0.8 else opts.tophits_refresh
+    if ns.bionj:
+        opts.bionj = True
+    if ns.plain_nj:
+        opts.bionj = False
+    opts.constraints_file = ns.constraints
+    opts.constraint_weight = ns.constraintWeight
+    _threads = getattr(ns, "threads")
+    opts.threads_explicit = _threads is not None
+    opts.threads = _threads if _threads is not None else \
+        int(os.environ.get("OMP_NUM_THREADS", "1") or 1)
+    opts.threads_verbose = getattr(ns, "threads_verbose")
+    opts.deterministic = getattr(ns, "threads_mode") == 1
+    opts.threads_level = getattr(ns, "threads_level")
+    opts.partitioning_tendency_window = getattr(ns, "threads_ptw")
+    opts.double_precision = getattr(ns, "double_precision")
+    opts.extension = ns.ext
+    opts.fastexp = ns.fastexp
+    opts.relative_progress = getattr(ns, "relative_progress")
+    opts.mesh_sp = getattr(ns, "mesh_sp")
+    opts.mesh_dp = getattr(ns, "mesh_dp")
+    opts.coordinator = getattr(ns, "coordinator")
+    opts.n_hosts = getattr(ns, "n_hosts")
+    opts.host_id = getattr(ns, "host_id")
+    opts.two_tier_min = getattr(ns, "two_tier_min")
+    opts.checkpoint_file = ns.checkpoint
+    return opts
 
 
 def main(argv=None) -> int:

@@ -20,16 +20,13 @@ import time
 import numpy as np
 import torch
 
-from veryfasttree_tpu import constants
+from .. import constants
 
 from . import rearrange
-from .ml_profiles import (S_AB, S_ABC, S_ABD, S_ACD, S_BCD, S_CD, S_TMP1,
-                          MLProfiles)
+from .ml_profiles import (LEN_A, LEN_B, LEN_C, LEN_D, LEN_I, S_AB, S_CD,
+                          S_TMP1, MLProfiles, site_log)
 from .rearrange import ABvsCD, ACvsBD, ADvsBC, UpProfiles
 from .supports import SplitCount, resample_columns, resample_count_matrix
-
-LEN_A, LEN_B, LEN_C, LEN_D, LEN_I = range(5)
-
 
 # ---------------------------------------------------------------------------
 # 1-D minimization on the host (ref onedimenmin tcc:7024-7081, brent
@@ -145,68 +142,16 @@ def ml_pair_optimize(nj, r1, r2, length):
     return -fx, x
 
 
-def _site_log(lk):
-    return np.log(np.maximum(lk, 1e-300))
-
-
 def ml_quartet_optimize(nj, rA, rB, rC, rD, lengths, star_test=False,
                         want_site_lk=False):
-    """ref MLQuartetOptimize tcc:1650-1788.
+    """ref MLQuartetOptimize tcc:1650-1788, in one kernel launch
+    (MLProfiles.quartet_optimize).
 
     lengths: array[5], modified in place.  Returns (quartetloglk,
     star_triggered, site_loglk or None).
     """
-    opts = nj.options
-    ml = nj.ml
-    for k in range(5):
-        if lengths[k] < opts.ml_min_branch_length:
-            lengths[k] = opts.ml_min_branch_length
-
-    s_ab = ml.scratch_row(S_AB)
-    s_cd = ml.scratch_row(S_CD)
-    ml.posterior_into(s_ab, rA, rB, lengths[LEN_A], lengths[LEN_B])
-    ml.posterior_into(s_cd, rC, rD, lengths[LEN_C], lengths[LEN_D])
-    opt = ml.opt_branch_length
-
-    lengths[LEN_I], negloglk = opt(s_ab, s_cd, lengths[LEN_I])
-
-    if star_test:
-        loglk_star = ml.pair_loglk(s_ab, s_cd, opts.ml_min_branch_length)
-        if loglk_star < -negloglk - constants.CLOSE_LOGLK_LIMIT:
-            off = ml.pair_loglk(rA, rB, lengths[LEN_A] + lengths[LEN_B]) \
-                + ml.pair_loglk(rC, rD, lengths[LEN_C] + lengths[LEN_D])
-            return -negloglk + off, True, None
-
-    s_bcd = ml.scratch_row(S_BCD)
-    ml.posterior_into(s_bcd, rB, s_cd, lengths[LEN_B], lengths[LEN_I])
-    lengths[LEN_A], negloglk = opt(rA, s_bcd, lengths[LEN_A])
-
-    s_acd = ml.scratch_row(S_ACD)
-    ml.posterior_into(s_acd, rA, s_cd, lengths[LEN_A], lengths[LEN_I])
-    lengths[LEN_B], negloglk = opt(rB, s_acd, lengths[LEN_B])
-
-    ml.posterior_into(s_ab, rA, rB, lengths[LEN_A], lengths[LEN_B])
-    s_abd = ml.scratch_row(S_ABD)
-    ml.posterior_into(s_abd, s_ab, rD, lengths[LEN_I], lengths[LEN_D])
-    lengths[LEN_C], negloglk = opt(rC, s_abd, lengths[LEN_C])
-
-    s_abc = ml.scratch_row(S_ABC)
-    ml.posterior_into(s_abc, s_ab, rC, lengths[LEN_I], lengths[LEN_C])
-    lengths[LEN_D], negloglk = opt(rD, s_abc, lengths[LEN_D])
-
-    loglk_abc_vs_d = -negloglk
-    if want_site_lk:
-        _, lk1 = ml.pair_loglk(s_abc, rD, lengths[LEN_D], want_site_lk=True)
-        ll2, lk2 = ml.pair_loglk(s_ab, rC, lengths[LEN_I] + lengths[LEN_C],
-                                 want_site_lk=True)
-        ll3, lk3 = ml.pair_loglk(rA, rB, lengths[LEN_A] + lengths[LEN_B],
-                                 want_site_lk=True)
-        site = _site_log(lk1) + _site_log(lk2) + _site_log(lk3)
-        return loglk_abc_vs_d + ll2 + ll3, False, site
-    quartetloglk = loglk_abc_vs_d \
-        + ml.pair_loglk(s_ab, rC, lengths[LEN_I] + lengths[LEN_C]) \
-        + ml.pair_loglk(rA, rB, lengths[LEN_A] + lengths[LEN_B])
-    return quartetloglk, False, None
+    return nj.ml.quartet_optimize([(rA, rB, rC, rD)], [lengths], star_test,
+                                  want_site_lk)[0]
 
 
 def ml_quartet_loglk(nj, rA, rB, rC, rD, lengths, want_site_lk=False):
@@ -222,8 +167,8 @@ def ml_quartet_loglk(nj, rA, rB, rC, rD, lengths, want_site_lk=False):
         ll2, lk2 = ml.pair_loglk(rC, rD, lengths[2] + lengths[3],
                                  want_site_lk=True)
         ll3, lk3 = ml.pair_loglk(s_ab, s_cd, lengths[4], want_site_lk=True)
-        return ll1 + ll2 + ll3, _site_log(lk1) + _site_log(lk2) \
-            + _site_log(lk3)
+        return ll1 + ll2 + ll3, site_log(lk1) + site_log(lk2) \
+            + site_log(lk3)
     return ml.pair_loglk(rA, rB, lengths[0] + lengths[1]) \
         + ml.pair_loglk(rC, rD, lengths[2] + lengths[3]) \
         + ml.pair_loglk(s_ab, s_cd, lengths[4]), None
@@ -257,12 +202,15 @@ def ml_quartet_nni(nj, rows4, lengths):
             out = lengths.copy()
             out[LEN_I] = len_ab[LEN_I]
             return ABvsCD, criteria, out
-        if consider_ac:
-            criteria[ACvsBD], _, _ = ml_quartet_optimize(nj, rA, rC, rB, rD,
-                                                         len_ac)
-        if consider_ad:
-            criteria[ADvsBC], _, _ = ml_quartet_optimize(nj, rA, rD, rC, rB,
-                                                         len_ad)
+        # AC and AD are independent: one launch for both
+        todo = [(k, rows, lens) for k, rows, lens, due in (
+            (ACvsBD, (rA, rC, rB, rD), len_ac, consider_ac),
+            (ADvsBC, (rA, rD, rC, rB), len_ad, consider_ad)) if due]
+        if todo:
+            found = nj.ml.quartet_optimize([t[1] for t in todo],
+                                           [t[2] for t in todo])
+            for (k, _, _), (ll, _, _) in zip(todo, found):
+                criteria[k] = ll
         if opts.ml_accuracy < 2:
             close = constants.CLOSE_LOGLK_LIMIT
             if (criteria[ACvsBD] < criteria[ABvsCD] - close
@@ -658,10 +606,9 @@ def test_splits_ml(nj, progress=None) -> SplitCount:
         site = np.zeros((3, nj.n_pos))
         loglk[ABvsCD], site[ABvsCD] = ml_quartet_loglk(
             nj, rA, rB, rC, rD, len_ab, want_site_lk=True)
-        loglk[ACvsBD], _, site[ACvsBD] = ml_quartet_optimize(
-            nj, rA, rC, rB, rD, len_ac, want_site_lk=True)
-        loglk[ADvsBC], _, site[ADvsBC] = ml_quartet_optimize(
-            nj, rA, rD, rC, rB, len_ad, want_site_lk=True)
+        (loglk[ACvsBD], _, site[ACvsBD]), (loglk[ADvsBC], _, site[ADvsBC]) = \
+            nj.ml.quartet_optimize([(rA, rC, rB, rD), (rA, rD, rC, rB)],
+                                   [len_ac, len_ad], want_site_lk=True)
         # second pass on the closer alternative (ref :6932-6945)
         if loglk[ACvsBD] > loglk[ADvsBC]:
             if opts.ml_accuracy > 1 or loglk[ACvsBD] > loglk[ABvsCD] - close:

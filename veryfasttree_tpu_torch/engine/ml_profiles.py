@@ -23,7 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from veryfasttree_tpu.constants import NOCODE
+from ..constants import NOCODE
 
 from ..ops import kernels, ml_kernels
 from ..ops.ml_kernels import MLModel
@@ -31,6 +31,9 @@ from ..ops.ml_kernels import MLModel
 N_SCRATCH = 8
 # scratch row names used by the quartet optimizer
 S_AB, S_CD, S_BCD, S_ACD, S_ABD, S_ABC, S_TMP1, S_TMP2 = range(N_SCRATCH)
+# the quartet optimization's temporaries, in ml_kernels.ml_quartet_opt's order
+QUARTET_TEMPS = (S_AB, S_CD, S_BCD, S_ACD, S_ABD, S_ABC)
+LEN_A, LEN_B, LEN_C, LEN_D, LEN_I = range(5)
 
 
 class MLProfiles:
@@ -209,6 +212,51 @@ class MLProfiles:
         for level in levels:
             self.posterior_rows(*level)
 
+    def quartet_optimize(self, rows4s, lengths_list, star_test=False,
+                         want_site_lk=False):
+        """K ML quartet optimizations (ref MLQuartetOptimize
+        tcc:1650-1788) in one kernel launch with one fetch.  rows4s: K store
+        rows (A, B, C, D); lengths_list: K float64 arrays [5] (A, B, C, D,
+        I), raised to the minimum length, then set to the optimized lengths
+        in place.  Returns K (quartet loglk, star_triggered, per-site
+        log-likelihoods [n_pos] or None); the loglk is summed from the
+        kernel's parts in the order the reference sums them.  The quartet
+        temporaries are scratch rows, which nothing reads after the call
+        without writing them first."""
+        opts = self.options
+        lo = opts.ml_min_branch_length
+        for lengths in lengths_list:
+            lengths[lengths < lo] = lo
+        rec, site = ml_kernels.ml_quartet_opt(
+            *self._store(), rows4s, np.stack(lengths_list),
+            [self.scratch_row(s) for s in QUARTET_TEMPS], lo, 6.0,
+            opts.ml_ftol_branch_length, opts.ml_min_branch_length_tolerance,
+            star_test, want_site_lk)
+        debug = self.nj.debug
+        out = []
+        for k, lengths in enumerate(lengths_list):
+            parts = [float(v) for v in rec["parts"][k]]
+            found = [float(v) for v in rec["len"][k]]
+            lengths[LEN_I] = found[LEN_I]
+            # the counts of the single calls the kernel fuses: 8 per line
+            # search (as opt_branch_length counts), 1 per pair likelihood
+            debug.n_posterior_compute += 2
+            debug.n_lk_compute += 8 + int(star_test)
+            if rec["star"][k]:
+                debug.n_lk_compute += 2
+                out.append((parts[0] + (parts[1] + parts[2]), True, None))
+                continue
+            lengths[:LEN_I] = found[:LEN_I]
+            debug.n_posterior_compute += 5
+            debug.n_lk_compute += 32 + (3 if want_site_lk else 2)
+            site_loglk = None
+            if want_site_lk:
+                lk = site[k][:, : self.n_pos].astype(np.float64)
+                site_loglk = site_log(lk[0]) + site_log(lk[1]) \
+                    + site_log(lk[2])
+            out.append((parts[0] + parts[1] + parts[2], False, site_loglk))
+        return out
+
     def recompute_average_profiles(self) -> None:
         """Balanced averaging of the internal nodes in ML space, bottom-up,
         one batch of tensor operations per level (ref
@@ -247,3 +295,7 @@ class MLProfiles:
             jjs = tree.children[nodes, 1]
             levels.append((nodes, iis, jjs, bl[iis], bl[jjs]))
         self.posterior_sweep(levels)
+
+
+def site_log(lk):
+    return np.log(np.maximum(lk, 1e-300))

@@ -20,8 +20,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from veryfasttree_tpu.constants import NOCODE
-from veryfasttree_tpu.utils.debug import Debug
+from ..constants import NOCODE
+from ..utils.debug import Debug
 
 from .profiles import MEProfiles
 from .state import TreeState

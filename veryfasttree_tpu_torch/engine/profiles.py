@@ -22,7 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from veryfasttree_tpu.constants import NOCODE
+from ..constants import NOCODE
 
 from ..ops import kernels, scan_kernels, store_kernels
 from ..utils.device import ACCUM_DTYPE

@@ -21,7 +21,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from veryfasttree_tpu import constants
+from .. import constants
 
 # quartet pair order, as in ref enum QuartetPair
 QAB, QAC, QAD, QBC, QBD, QCD = range(6)

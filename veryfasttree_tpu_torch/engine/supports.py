@@ -15,7 +15,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from veryfasttree_tpu.utils.knuth import KnuthRandom
+from ..utils.knuth import KnuthRandom
 
 from . import rearrange
 from .rearrange import QAB, QAC, QAD, QBC, QBD, QCD, UpProfiles

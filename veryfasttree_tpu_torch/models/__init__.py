@@ -1,6 +1,6 @@
-"""Distance and transition models: the JAX package's ``models`` (plain
-numpy, no jax), re-exported so that callers of the port import only this
-package."""
-from veryfasttree_tpu.models import DistanceMatrix, TransitionMatrix
+"""Distance and transition models: copies of the JAX package's
+``veryfasttree_tpu/models`` (plain numpy; the port imports none of it)."""
+from .distance_matrix import DistanceMatrix
+from .transition_matrix import TransitionMatrix
 
 __all__ = ["DistanceMatrix", "TransitionMatrix"]

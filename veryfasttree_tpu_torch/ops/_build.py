@@ -117,10 +117,15 @@ def _declare(lib) -> None:
     lib.vft_ml_opt_branch_f32.argtypes = ml_store + [
         ptr, ptr, i32, f32, f32, f32, f32, ptr, ptr, ptr, ptr, ptr]
     lib.vft_ml_opt_branch_fits_smem.argtypes = [i32, i32]
+    lib.vft_ml_quartet_opt_f32.argtypes = ml_store + [
+        f32, ptr, ptr, i32, f32, f32, f32, f32, i32, ptr, ptr, ptr, ptr]
+    lib.vft_ml_quartet_scratch_floats.argtypes = [i32, i32]
+    lib.vft_ml_quartet_scratch_floats.restype = i64
     for name in ("vft_nj_scan_dense_f64", "vft_nj_scan_codes_f64",
                  "vft_me_pair_dists_f32", "vft_me_average_f32",
                  "vft_ml_pair_loglk_f32", "vft_ml_posterior_f32",
-                 "vft_ml_opt_branch_f32", "vft_ml_opt_branch_fits_smem"):
+                 "vft_ml_opt_branch_f32", "vft_ml_opt_branch_fits_smem",
+                 "vft_ml_quartet_opt_f32"):
         getattr(lib, name).restype = i32
 
 

@@ -19,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from veryfasttree_tpu.constants import NOCODE
+from ..constants import NOCODE
 
 # ---------------------------------------------------------------------------
 # ME-space distance scans

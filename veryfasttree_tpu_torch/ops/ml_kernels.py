@@ -17,7 +17,12 @@ whose row indices and lengths travel in the launch's parameters:
   profile of rows r1 and r2, written into row target in place;
 * ``ml_opt_branch``: K row pairs -> the whole bracketing + Brent line search
   over the branch length (``_onedimenmin_device``), one block per branch,
-  in float32 with the JAX package's constants and update rules.
+  in float32 with the JAX package's constants and update rules;
+* ``ml_quartet_opt``: K quartets -> a whole quartet optimization
+  (``ml_quartet_optimize``: seven posteriors, five line searches, the star
+  test, the closing pair log-likelihoods) per block, its temporaries in
+  shared memory, bit for bit the chain of the three calls above
+  (``quartet_chain``), with one fetch of its results.
 
 Store layout (``engine/ml_profiles.py``): codes int8 [n_rows, P], W float32
 [n_rows, P], V float32 [n_rows, P, C] raw (unmixed) rotated vectors.  The
@@ -25,17 +30,21 @@ model constants travel in an ``MLModel``.
 
 As for the other kernels, a wrapper runs the twin for tensors on the CPU
 and launches its kernel for tensors on a CUDA device; anything else raises
-(no fallback), and ``launches`` counts its kernel launches.
+(no fallback), and ``launches`` counts its kernel launches.  A store and its
+model are checked once (``_bind``), and the wrappers reuse that binding's
+arguments, stream and buffers: a call allocates nothing.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
+import weakref
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from veryfasttree_tpu.constants import NOCODE
+from ..constants import CLOSE_LOGLK_LIMIT, NOCODE
 
 from . import _build, kernels
 
@@ -238,6 +247,94 @@ def ml_opt_branch_ref(codes, W, V, m, r1s, r2s, guesses, xmin, xmax, ftol,
             torch.as_tensor(np.asarray(evals, dtype=np.int32), device=dev))
 
 
+QUARTET_RECORD = np.dtype([("parts", "<f8", (3,)), ("len", "<f4", (5,)),
+                           ("star", "<i4"), ("n_eval", "<i4"),
+                           ("pad", "<i4", (3,))])
+"""One quartet optimization's result (csrc/ml_lk.cu QuartetOut): parts, the
+-log-likelihood of the last line search negated and two pair
+log-likelihoods (after a star: those of pairs AB and CD); len, the searched
+lengths A, B, C, D, I (only I after a star); star; n_eval, the evaluations
+of its line searches."""
+
+
+def quartet_chain(post, opt, pair, codes, W, V, m, rows4, lengths,
+                  scratch_rows, xmin, xmax, ftol, atol, star_test=False,
+                  want_site_lk=False):
+    """ml_quartet_opt as the chain of single calls it fuses (ref
+    MLQuartetOptimize tcc:1650-1788): post, opt and pair are ml_posterior,
+    ml_opt_branch and ml_pair_loglk, or their twins; the six temporaries are
+    the store rows scratch_rows (S_AB, S_CD, S_BCD, S_ACD, S_ABD, S_ABC),
+    which the chain overwrites.  Lengths are float64 and round to float32
+    where each call takes them, as in the host loop.  Returns what
+    ml_quartet_opt returns."""
+    store = (codes, W, V, m)
+    s_ab, s_cd, s_bcd, s_acd, s_abd, s_abc = (int(r) for r in scratch_rows)
+    lo = F32(xmin)
+    K, P = len(rows4), codes.shape[1]
+    rec = np.zeros(K, QUARTET_RECORD)
+    site = np.zeros((K, 3, P), dtype=np.float32) if want_site_lk else None
+
+    def posterior(t, r1, r2, len1, len2):
+        post(*store, [t], [r1], [r2], np.maximum(np.float32([len1]), lo),
+             np.maximum(np.float32([len2]), lo))
+
+    def search(r1, r2, guess):
+        x, fx, n_eval = opt(*store, [r1], [r2], [guess], xmin, xmax, ftol,
+                            atol)
+        x, fx, n_eval = torch.stack((x, fx, n_eval.float()))[:, 0].tolist()
+        return x, fx, int(n_eval)
+
+    def loglk(r1, r2, length, lk_out=None):
+        ll, lk = pair(*store, [r1], [r2], [length], lk_out is not None)
+        if lk_out is not None:
+            lk_out[:] = lk[0].cpu().numpy()
+        return float(ll[0])
+
+    for k in range(K):
+        a, b, c, d = (int(r) for r in rows4[k])
+        ln = [float(v) for v in lengths[k]]        # A, B, C, D, I
+        posterior(s_ab, a, b, ln[0], ln[1])
+        posterior(s_cd, c, d, ln[2], ln[3])
+        ln[4], fx, n_eval = search(s_ab, s_cd, ln[4])
+        star = star_test and loglk(s_ab, s_cd, xmin) < -fx - CLOSE_LOGLK_LIMIT
+        if star:
+            parts = (-fx, loglk(a, b, ln[0] + ln[1]),
+                     loglk(c, d, ln[2] + ln[3]))
+        else:
+            evals = [n_eval]
+            posterior(s_bcd, b, s_cd, ln[1], ln[4])
+            ln[0], _, n = search(a, s_bcd, ln[0])
+            evals.append(n)
+            posterior(s_acd, a, s_cd, ln[0], ln[4])
+            ln[1], _, n = search(b, s_acd, ln[1])
+            evals.append(n)
+            posterior(s_ab, a, b, ln[0], ln[1])
+            posterior(s_abd, s_ab, d, ln[4], ln[3])
+            ln[2], _, n = search(c, s_abd, ln[2])
+            evals.append(n)
+            posterior(s_abc, s_ab, c, ln[4], ln[2])
+            ln[3], fx, n = search(d, s_abc, ln[3])
+            evals.append(n)
+            n_eval = sum(evals)
+            lk = site[k] if want_site_lk else (None, None, None)
+            if want_site_lk:
+                loglk(s_abc, d, ln[3], lk[0])
+            parts = (-fx, loglk(s_ab, c, ln[4] + ln[2], lk[1]),
+                     loglk(a, b, ln[0] + ln[1], lk[2]))
+        rec[k] = (parts, ln, int(star), n_eval, (0, 0, 0))
+    return rec, site
+
+
+def ml_quartet_opt_ref(codes, W, V, m, rows4, lengths, scratch_rows, xmin,
+                       xmax, ftol, atol, star_test=False, want_site_lk=False):
+    """Plain twin of ml_quartet_opt: the chain of the three twins, on the
+    store's scratch rows."""
+    return quartet_chain(ml_posterior_ref, ml_opt_branch_ref,
+                         ml_pair_loglk_ref, codes, W, V, m, rows4, lengths,
+                         scratch_rows, xmin, xmax, ftol, atol, star_test,
+                         want_site_lk)
+
+
 # ---------------------------------------------------------------- kernels
 def _check_store(codes, W, V, m):
     dev = codes.device
@@ -274,13 +371,76 @@ def _check_store(codes, W, V, m):
     return n_rows, P, C, n_rates
 
 
-def _store_args(codes, W, V, m):
-    n_rows, P, C, n_rates = _check_store(codes, W, V, m)
-    return [codes.data_ptr(), W.data_ptr(), V.data_ptr(),
-            m.code_freq.data_ptr(), m.eigenval.data_ptr(),
-            m.eigeninv.data_ptr(), m.statinv.data_ptr(), m.rates.data_ptr(),
-            m.ratecat.data_ptr(), n_rows, P, C, int(m.n_pos), n_rates,
-            int(bool(m.jc)), ctypes.c_float(m.min_rel_len)]
+class _Bound:
+    """One store (codes, W, V) with its MLModel, checked once: the C
+    arguments of the kernels, the stream they launch on (the current stream
+    when the store was first seen), and device and pinned host buffers that
+    the wrappers reuse from call to call.  The store changes its arrays and
+    its model by replacing them (MLProfiles._put, _push_model), never by
+    resizing one in place, so a new object is a new binding.  The binding
+    holds weak references: it keeps no store alive."""
+
+    def __init__(self, codes, W, V, m):
+        n_rows, P, C, n_rates = _check_store(codes, W, V, m)
+        self.refs = tuple(weakref.ref(o) for o in (codes, W, V, m))
+        self.P, self.C = P, C
+        self.args = [codes.data_ptr(), W.data_ptr(), V.data_ptr(),
+                     m.code_freq.data_ptr(), m.eigenval.data_ptr(),
+                     m.eigeninv.data_ptr(), m.statinv.data_ptr(),
+                     m.rates.data_ptr(), m.ratecat.data_ptr(), n_rows, P, C,
+                     int(m.n_pos), n_rates, int(bool(m.jc)),
+                     ctypes.c_float(m.min_rel_len)]
+        self.device = codes.device
+        self.stream = torch.cuda.current_stream(self.device).cuda_stream
+        lib = _build.library()
+        # floats of device scratch a line search and a quartet need (0:
+        # everything fits in shared memory)
+        self.opt_scratch = 0 if lib.vft_ml_opt_branch_fits_smem(P, C) \
+            else 2 * P * C
+        self.quartet_scratch = int(lib.vft_ml_quartet_scratch_floats(P, C))
+        self._bufs = {}
+
+    def buffer(self, name, nbytes, pinned=False):
+        """The first nbytes of the uint8 buffer `name` (device, or pinned
+        host memory), grown by doubling when it is too small."""
+        buf = self._bufs.get(name)
+        if buf is None or buf.numel() < nbytes:
+            size = max(nbytes, 2 * (0 if buf is None else buf.numel()), 256)
+            buf = torch.empty(size, dtype=torch.uint8, pin_memory=True) \
+                if pinned else torch.empty(size, dtype=torch.uint8,
+                                           device=self.device)
+            self._bufs[name] = buf
+        return buf[:nbytes]
+
+
+_BOUND = collections.OrderedDict()
+_N_BOUND = 4                        # stores bound at once (LRU)
+
+
+def _bind(codes, W, V, m) -> _Bound:
+    objects = (codes, W, V, m)
+    key = tuple(map(id, objects))
+    bound = _BOUND.get(key)
+    # an id is reused only after its object died, which its weak reference
+    # shows
+    if bound is None or any(r() is not o for r, o in zip(bound.refs,
+                                                           objects)):
+        bound = _BOUND[key] = _Bound(codes, W, V, m)
+    _BOUND.move_to_end(key)
+    if len(_BOUND) > _N_BOUND:
+        _BOUND.popitem(last=False)
+    return bound
+
+
+def _typed(buf, offset, shape, dtype):
+    """A view of bytes [offset, ...) of a uint8 buffer as `dtype`; offset is
+    a multiple of 16."""
+    n = int(np.prod(shape)) * dtype.itemsize
+    return buf[offset:offset + n].view(dtype).view(shape)
+
+
+def _align16(n: int) -> int:
+    return (n + 15) // 16 * 16
 
 
 def _raise_on(rc, name):
@@ -292,31 +452,28 @@ def _raise_on(rc, name):
         raise RuntimeError(f"{name}: CUDA kernel launch failed (cudaError {rc})")
 
 
-def _stream(dev):
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
 def ml_pair_loglk(codes, W, V, m, r1s, r2s, lengths, want_lk=False):
     """Pair log-likelihoods of rows (r1s[k], r2s[k]) at lengths[k] (ref
     pairLogLk tcc:1192-1447; host arrays).  Returns (ll [K] float64, lk
     [K, P] float32 per-site likelihoods, or None without want_lk), on the
-    store's device."""
+    store's device; on CUDA they are views of the store's buffers, which the
+    next call on the same store overwrites (in stream order)."""
     if codes.device.type == "cpu":
         return ml_pair_loglk_ref(codes, W, V, m, r1s, r2s, lengths, want_lk)
-    args = _store_args(codes, W, V, m)
-    dev = codes.device
+    bound = _bind(codes, W, V, m)
     K = len(r1s)
     if len(r2s) != K or len(lengths) != K:
         raise ValueError("r1s, r2s and lengths differ in length")
     rows = np.concatenate([r1s, r2s]).astype(np.int32)
     lens = np.asarray(lengths, dtype=np.float32)
-    ll = torch.empty(K, dtype=torch.float64, device=dev)
-    lk = torch.empty((K, codes.shape[1]), dtype=torch.float32, device=dev) \
-        if want_lk else None
+    lk_at = _align16(8 * K)
+    buf = bound.buffer("pair", lk_at + (4 * K * bound.P if want_lk else 0))
+    ll = _typed(buf, 0, (K,), torch.float64)
+    lk = _typed(buf, lk_at, (K, bound.P), torch.float32) if want_lk else None
     if K:
         _raise_on(_build.library().vft_ml_pair_loglk_f32(
-            *args, rows.ctypes.data, lens.ctypes.data, K, ll.data_ptr(),
-            lk.data_ptr() if want_lk else None, _stream(dev)),
+            *bound.args, rows.ctypes.data, lens.ctypes.data, K, ll.data_ptr(),
+            lk.data_ptr() if want_lk else None, bound.stream),
             "ml_pair_loglk")
         ml_pair_loglk.launches += 1
     return ll, lk
@@ -340,7 +497,7 @@ def ml_posterior(codes, W, V, m, targets, r1s, r2s, len1s, len2s):
     if codes.device.type == "cpu":
         return ml_posterior_ref(codes, W, V, m, targets, r1s, r2s, len1s,
                                 len2s)
-    args = _store_args(codes, W, V, m)
+    bound = _bind(codes, W, V, m)
     K = len(targets)
     if not len(r1s) == len(r2s) == len(len1s) == len(len2s) == K:
         raise ValueError("targets, rows and lengths differ in length")
@@ -349,8 +506,8 @@ def ml_posterior(codes, W, V, m, targets, r1s, r2s, len1s, len2s):
     rows = np.concatenate([targets, r1s, r2s]).astype(np.int32)
     lens = np.concatenate([len1s, len2s]).astype(np.float32)
     _raise_on(_build.library().vft_ml_posterior_f32(
-        *args, ctypes.c_float(m.tol), rows.ctypes.data, lens.ctypes.data, K,
-        _stream(codes.device)), "ml_posterior")
+        *bound.args, ctypes.c_float(m.tol), rows.ctypes.data,
+        lens.ctypes.data, K, bound.stream), "ml_posterior")
     ml_posterior.launches += 1
 
 
@@ -362,37 +519,87 @@ def ml_opt_branch(codes, W, V, m, r1s, r2s, guesses, xmin, xmax, ftol, atol):
     r2s[k], from guesses[k]: bracketing + Brent in float32 (ref
     onedimenmin/brent tcc:7024-7178, the JAX package's
     _onedimenmin_device).  Returns (x [K] float32, -loglk at x [K] float32,
-    evaluations [K] int32) on the store's device."""
+    evaluations [K] int32) on the store's device; on CUDA they are views of
+    the store's buffers, which the next call on the same store overwrites
+    (in stream order)."""
     if codes.device.type == "cpu":
         return ml_opt_branch_ref(codes, W, V, m, r1s, r2s, guesses, xmin,
                                  xmax, ftol, atol)
-    args = _store_args(codes, W, V, m)
-    dev = codes.device
+    bound = _bind(codes, W, V, m)
     K = len(r1s)
     if len(r2s) != K or len(guesses) != K:
         raise ValueError("r1s, r2s and guesses differ in length")
     rows = np.concatenate([r1s, r2s]).astype(np.int32)
     guess = np.asarray(guesses, dtype=np.float32)
-    x = torch.empty(K, dtype=torch.float32, device=dev)
-    fx = torch.empty(K, dtype=torch.float32, device=dev)
-    n_eval = torch.empty(K, dtype=torch.int32, device=dev)
+    step = _align16(4 * K)
+    buf = bound.buffer("opt", 3 * step)
+    x = _typed(buf, 0, (K,), torch.float32)
+    fx = _typed(buf, step, (K,), torch.float32)
+    n_eval = _typed(buf, 2 * step, (K,), torch.int32)
     if K:
-        lib = _build.library()
-        P, C = codes.shape[1], V.shape[-1]
-        scratch = None
-        if not lib.vft_ml_opt_branch_fits_smem(P, C):
-            # effective vectors in device memory where they exceed shared
-            scratch = torch.empty((K, 2, P, C), dtype=torch.float32,
-                                  device=dev)
-        _raise_on(lib.vft_ml_opt_branch_f32(
-            *args, rows.ctypes.data, guess.ctypes.data, K,
+        # effective vectors in device memory where they exceed shared
+        scratch = bound.buffer("opt_scratch", 4 * K * bound.opt_scratch) \
+            if bound.opt_scratch else None
+        _raise_on(_build.library().vft_ml_opt_branch_f32(
+            *bound.args, rows.ctypes.data, guess.ctypes.data, K,
             ctypes.c_float(xmin), ctypes.c_float(xmax), ctypes.c_float(ftol),
             ctypes.c_float(atol), x.data_ptr(), fx.data_ptr(),
             n_eval.data_ptr(),
             scratch.data_ptr() if scratch is not None else None,
-            _stream(dev)), "ml_opt_branch")
+            bound.stream), "ml_opt_branch")
         ml_opt_branch.launches += 1
     return x, fx, n_eval
 
 
 ml_opt_branch.launches = 0
+
+
+def ml_quartet_opt(codes, W, V, m, rows4, lengths, scratch_rows, xmin, xmax,
+                   ftol, atol, star_test=False, want_site_lk=False):
+    """K quartet optimizations (ref MLQuartetOptimize tcc:1650-1788) in one
+    launch, one block each: rows4 [K, 4] store rows (A, B, C, D), lengths
+    [K, 5] float64 (A, B, C, D, I), each at least xmin.  In order: the
+    posteriors AB and CD, the line search over I, with star_test the star
+    test (which ends the optimization when the star topology is worse by
+    more than CLOSE_LOGLK_LIMIT), then the posteriors and line searches of
+    A, B, C and D, and the closing pair log-likelihoods; with want_site_lk
+    also their per-site likelihoods.  The kernel keeps the six temporaries
+    in shared memory and leaves the store as it was; the twin computes them
+    in the store rows scratch_rows.  Returns (records [K] of
+    QUARTET_RECORD, per-site likelihoods [K, 3, P] float32 or None), both
+    on the host, after one fetch."""
+    rows4 = np.ascontiguousarray(rows4, dtype=np.int32).reshape(-1, 4)
+    lengths = np.ascontiguousarray(lengths, dtype=np.float64).reshape(-1, 5)
+    if len(lengths) != len(rows4):
+        raise ValueError("rows4 and lengths differ in length")
+    if codes.device.type == "cpu":
+        return ml_quartet_opt_ref(codes, W, V, m, rows4, lengths,
+                                  scratch_rows, xmin, xmax, ftol, atol,
+                                  star_test, want_site_lk)
+    bound = _bind(codes, W, V, m)
+    K, P = len(rows4), bound.P
+    rec_bytes = K * QUARTET_RECORD.itemsize
+    n_bytes = rec_bytes + (4 * K * 3 * P if want_site_lk else 0)
+    buf = bound.buffer("quartet", n_bytes)
+    scratch = bound.buffer("quartet_scratch", 4 * K * bound.quartet_scratch) \
+        if bound.quartet_scratch else None
+    if K:
+        _raise_on(_build.library().vft_ml_quartet_opt_f32(
+            *bound.args, ctypes.c_float(m.tol), rows4.ctypes.data,
+            lengths.ctypes.data, K, ctypes.c_float(xmin),
+            ctypes.c_float(xmax), ctypes.c_float(ftol), ctypes.c_float(atol),
+            int(bool(star_test)), buf.data_ptr(),
+            buf.data_ptr() + rec_bytes if want_site_lk else None,
+            scratch.data_ptr() if scratch is not None else None,
+            bound.stream), "ml_quartet_opt")
+        ml_quartet_opt.launches += 1
+    host = bound.buffer("quartet_host", n_bytes, pinned=True)
+    host.copy_(buf)                             # the one blocking fetch
+    raw = host.numpy()
+    rec = raw[:rec_bytes].view(QUARTET_RECORD).copy()
+    site = raw[rec_bytes:].view(np.float32).reshape(K, 3, P).copy() \
+        if want_site_lk else None
+    return rec, site
+
+
+ml_quartet_opt.launches = 0

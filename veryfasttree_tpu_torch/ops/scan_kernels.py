@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from veryfasttree_tpu.constants import NOCODE
+from ..constants import NOCODE
 
 from ..utils.device import ACCUM_DTYPE
 from . import _build

@@ -16,16 +16,14 @@ import time
 
 import numpy as np
 
-from veryfasttree_tpu.io.alignment import (Alignment, Uniquify,
-                                           read_alignment, seqs_to_codes)
-from veryfasttree_tpu.io.newick import print_newick
-from veryfasttree_tpu.utils.debug import Debug
-from veryfasttree_tpu.utils.progress import ProgressReport
-
 from .engine import batched, ml, rearrange, spr, supports
 from .engine.nj import NeighbourJoining
+from .io.alignment import Alignment, Uniquify, read_alignment, seqs_to_codes
+from .io.newick import print_newick
 from .models import DistanceMatrix, TransitionMatrix
+from .utils.debug import Debug
 from .utils.device import configure_precision, resolve_device
+from .utils.progress import ProgressReport
 
 
 def build_models(options):
@@ -55,7 +53,7 @@ def _try_native_read(options):
     """Fast path: native FASTA parse + dedup straight to the unique code
     matrix (native/vft_native.cpp).  Returns (names, unique_codes,
     Uniquify) or None to use the Python reader."""
-    from veryfasttree_tpu.io import native
+    from .io import native
 
     path = options.in_file_name
     if not path or not native.available():
