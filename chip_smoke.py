@@ -31,6 +31,15 @@ passed):
    kernel's device time per launch comes from torch.profiler (CUDA
    activity) over 50 launches, apart from the launch-to-launch time, and
    its bound from the bytes and operations of the timed call;
+2b. one SPR round at N=500 from one NJ start, dense, two-tier and protein
+   (20 codes, BLOSUM45 matrix mode): the round kernel (me_spr_round)
+   against the host loop through the per-call kernels, tree, counters and
+   node rows bit for bit, and dense once more with the kernel's tree in
+   device memory (its layout above about 4,000 nodes); dense, also against
+   the plain twin (the host loop on the per-call twins, on the CPU): the
+   same tree and counters, rows within 1e-6; both walls, the launches, the
+   kernel's device time per node (torch.profiler), and its bound from the
+   distinct rows the round reads and writes and its operations;
 3. the -noml pipeline at N=500, P=500 against the JAX package's tree
    (tests/data/torch_port_golden_n500_p500.nwk), dense and two-tier: RF 0
    to the golden, and the two layouts give the same Newick; then the same
@@ -110,6 +119,8 @@ KERNELS = {
                       "veryfasttree_tpu/engine/ml_profiles.py:743"),
     "ml_quartet_opt": ("veryfasttree_tpu_torch/csrc/ml_lk.cu",
                        "veryfasttree_tpu/engine/ml.py:146"),
+    "me_spr_round": ("veryfasttree_tpu_torch/csrc/me_spr.cu",
+                     "veryfasttree_tpu/engine/spr_epoch.py:97"),
 }
 ML_KERNELS = ("ml_pair_loglk", "ml_posterior", "ml_opt_branch",
               "ml_quartet_opt")
@@ -123,6 +134,7 @@ DEVICE_NAMES = {
     "ml_posterior": ("ml_posterior_kernel",),
     "ml_opt_branch": ("ml_opt_branch_kernel",),
     "ml_quartet_opt": ("ml_quartet_opt_kernel",),
+    "me_spr_round": ("me_spr_round_kernel",),
 }
 # final LogLk of the default -nt run at N=2000 (PERF.md, section 6)
 ML_MAIN_LOGLK = "-427535.845"
@@ -144,7 +156,7 @@ def TWINS(n):
 def wrappers():
     """The kernel wrappers by name; each counts its launches."""
     from veryfasttree_tpu_torch.ops import ml_kernels, scan_kernels, \
-        store_kernels
+        spr_kernels, store_kernels
 
     return {"nj_scan_dense": scan_kernels.nj_scan_dense,
             "nj_scan_codes": scan_kernels.nj_scan_codes,
@@ -153,12 +165,15 @@ def wrappers():
             "ml_pair_loglk": ml_kernels.ml_pair_loglk,
             "ml_posterior": ml_kernels.ml_posterior,
             "ml_opt_branch": ml_kernels.ml_opt_branch,
-            "ml_quartet_opt": ml_kernels.ml_quartet_opt}
+            "ml_quartet_opt": ml_kernels.ml_quartet_opt,
+            "me_spr_round": spr_kernels.spr_round}
 
 
 def reset_launches():
     for fn in wrappers().values():
         fn.launches = 0
+        if hasattr(fn, "totals"):                 # the SPR round's counters
+            fn.totals = dict.fromkeys(fn.totals, 0)
 
 
 def card_line() -> str:
@@ -759,6 +774,212 @@ def phase_kernels(report):
         record("ml_quartet_opt", f"12008x512 C=4 {model.upper()}", err, times)
 
 
+# ------------------------------------------------------------- phase 2b
+SPR_N = 500
+SPR_COUNTERS = ("n_spr", "profile_ops", "profile_avg_ops")
+
+
+def spr_start(n, dev, two_tier=False, protein=False):
+    """The port's NJ tree and ME store of synth_codes(n, MAIN_P) on dev: the
+    start of an SPR round.  protein: 20 codes under BLOSUM45 (matrix mode),
+    as a protein -noml run."""
+    from veryfasttree_tpu_torch.engine.nj import NeighbourJoining
+    from veryfasttree_tpu_torch.models import DistanceMatrix
+    from veryfasttree_tpu_torch.options import Options
+
+    opts = Options(n_codes=20 if protein else 4, ml_nni=0, n_bootstrap=0,
+                   show_progress=False,
+                   **({"two_tier_min": 0} if two_tier else {}))
+    opts.derive_settings()
+    nj = NeighbourJoining(opts, synth_codes(n, MAIN_P, n_codes=opts.n_codes),
+                          DistanceMatrix.blosum45() if protein else None,
+                          None, device=dev)
+    nj.fast_nj()
+    return nj
+
+
+def engine_copy(nj, dev):
+    """nj with a tree, counters and ME store of its own, on dev: another
+    run of a round from the same start."""
+    import copy
+
+    import torch
+
+    c = copy.copy(nj)
+    c.tree, c.debug = copy.deepcopy(nj.tree), copy.deepcopy(nj.debug)
+    c.prof = copy.copy(nj.prof)
+    c.prof.device = torch.device(dev)
+    for name in ("codes", "W", "U", "code_freq", "eigenval", "eigentot",
+                 "w_out", "f_out"):
+        t = getattr(nj.prof, name)
+        setattr(c.prof, name, None if t is None else t.to(dev, copy=True))
+    return c
+
+
+def spr_state(nj):
+    """What a round leaves behind: the tree arrays, the counters, and the
+    node rows (codes, and W, U of the float rows among them)."""
+    m, lo = nj.tree.maxnode, nj.prof._leaf_rows
+    return ({k: getattr(nj.tree, k).copy()
+             for k in ("parent", "children", "n_child")},
+            {k: getattr(nj.debug, k) for k in SPR_COUNTERS},
+            {"codes": nj.prof.codes[:m].cpu().numpy(),
+             "W": nj.prof.W[: m - lo].cpu().numpy(),
+             "U": nj.prof.U[: m - lo].cpu().numpy()})
+
+
+def spr_diff(a, b):
+    """(what differs between two rounds' states, or None; the rows' max
+    abs difference, or None where the trees or counters differ)."""
+    import numpy as np
+
+    (tree_a, ctr_a, rows_a), (tree_b, ctr_b, rows_b) = a, b
+    for k in tree_a:
+        if not np.array_equal(tree_a[k], tree_b[k]):
+            return f"tree {k}", None
+    if ctr_a != ctr_b:
+        return f"counters {ctr_a} and {ctr_b}", None
+    if not np.array_equal(rows_a["codes"], rows_b["codes"]):
+        return "codes", None
+    err = max(float(np.max(np.abs(rows_a[k] - rows_b[k]))) for k in "WU")
+    return (None if err == 0 else "rows"), err
+
+
+def spr_ops(totals, P, C):
+    """Operations of the SPR rounds that made `totals` (the kernel's
+    counters), as me_dists and me_average count theirs: six pair distances
+    per corrected quartet, one average per averaged row."""
+    return (6 * P * (2 * C + 2) * totals["quartets"]
+            + P * (4 * C + 6) * totals["rows_averaged"])
+
+
+def record_rows(prof):
+    """Have the store's calls note the rows a round reads before it writes
+    them and the rows it writes: returns those two sets, filled as the
+    round runs."""
+    inputs, outputs = set(), set()
+    dists, average = prof._dists, prof._average_into
+
+    def read(*row_lists):
+        for rows in row_lists:
+            inputs.update(int(r) for r in rows if int(r) not in outputs)
+
+    def _dists(q_rows=(), query=None, iis=(), jjs=()):
+        read(q_rows, iis, jjs)
+        return dists(q_rows, query, iis, jjs)
+
+    def _average_into(targets, iis, jjs, bw):
+        read(iis, jjs)
+        outputs.update(int(t) for t in targets)
+        return average(targets, iis, jjs, bw)
+
+    prof._dists, prof._average_into = _dists, _average_into
+    return inputs, outputs
+
+
+def phase_spr(report, dev):
+    """One SPR round at N=SPR_N from one NJ start, dense, two-tier and
+    protein, through one launch of the kernel (ops/spr_kernels.spr_round)
+    and through the host loop with the per-call kernels (engine/spr.run_spr):
+    tree, counters and node rows bit for bit.  Dense, also through the
+    kernel with its tree in device memory, and through the plain twin (the
+    host loop on the per-call twins, on a CPU copy of the start): the same
+    tree and counters, rows within 1e-6 (its pair distances are summed in
+    another order, 1e-12 apart; its averages round as the kernel's).  The
+    kernel's device time comes from torch.profiler over one more round; ms
+    and plain_ms are the kernel's and the twin's round walls (a round is one
+    launch).  The bound counts each row the round reads before writing it
+    read once and each row it writes written once (the host loop's store
+    calls, recorded), and the operations of the kernel's counted work."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from veryfasttree_tpu_torch.engine import spr
+    from veryfasttree_tpu_torch.ops import spr_kernels
+
+    cpu = torch.device("cpu")
+    kern = spr_kernels.spr_round
+    entry = report.setdefault("me_spr_round", {"max_abs_err": 0.0})
+    for label, kw in (("dense", {}), ("two-tier", {"two_tier": True}),
+                      ("protein", {"protein": True})):
+        label = f"N={SPR_N} {label}"
+        start = spr_start(SPR_N, dev, **kw)
+        dense = not kw
+        runs = {}
+        for name, fn, where in (
+                ("kernel", kern, dev), ("host loop", spr.run_spr, dev),
+                ("tree in device memory",
+                 lambda nj, i, n: kern(nj, i, n, tree_in_smem=False), dev),
+                ("twin", kern, cpu)):
+            if name in ("tree in device memory", "twin") and not dense:
+                continue
+            nj = engine_copy(start, where)
+            if name == "host loop":
+                rows_in, rows_out = record_rows(nj.prof)
+            reset_launches()
+            threads = torch.get_num_threads()
+            torch.set_num_threads(1)     # the twin's tiny ops only contend
+            t0 = time.perf_counter()
+            fn(nj, 0, 2)
+            torch.cuda.synchronize()
+            runs[name] = (spr_state(nj), time.perf_counter() - t0)
+            torch.set_num_threads(threads)
+            if name == "kernel":
+                stats = dict(kern.totals, launches=kern.launches)
+        (state, wall) = runs["kernel"]
+        for name in ("host loop", "tree in device memory"):
+            if name in runs and spr_diff(runs[name][0], state)[0] is not None:
+                raise AssertionError(f"me_spr_round {label}: "
+                                     f"{spr_diff(runs[name][0], state)[0]} "
+                                     f"differ between the kernel and the "
+                                     f"{name}")
+        n_launch, n_nodes = stats["launches"], stats["nodes"]
+        if n_launch != 1:
+            raise AssertionError(f"me_spr_round {label}: {n_launch} launches "
+                                 "for one round")
+        print(f"  me_spr_round [{label}]: bit for bit the host loop's"
+              f"{' and the device-memory tree' * dense}; {n_nodes} nodes in "
+              f"one launch, {wall:.3f} s (the host loop with the per-call "
+              f"kernels {runs['host loop'][1]:.3f} s); counters {state[1]}, "
+              f"{stats['quartets']} quartets, {stats['rows_averaged']} rows "
+              "averaged")
+        if not dense:
+            continue
+        what, err = spr_diff(state, runs["twin"][0])
+        if what not in (None, "rows") or err > 1e-6:
+            raise AssertionError(f"me_spr_round {label}: {what} differ from "
+                                 f"the twin's (rows {err})")
+        nj = engine_copy(start, dev)
+        with profile(activities=[ProfilerActivity.CUDA]) as trace:
+            kern(nj, 0, 2)
+            torch.cuda.synchronize()
+        dev_us = sum(evt.time_range.elapsed_us() for evt in trace.events()
+                     if evt.device_type == torch.autograd.DeviceType.CUDA
+                     and "me_spr_round_kernel" in evt.name)
+        P, C = start.prof.W.shape[1], start.prof.U.shape[2]
+        # a dense store's rows are float rows: U, W and codes
+        n_bytes = (len(rows_in) + len(rows_out)) * P * (4 * C + 5)
+        n_ops = spr_ops(stats, P, C)
+        bound_ms, bound_by = bound(n_bytes, n_ops)
+        entry.update({
+            "max_abs_err": err, "ms": 1e3 * wall,
+            "plain_ms": 1e3 * runs["twin"][1],
+            "host_loop_ms": 1e3 * runs["host loop"][1],
+            "tree_in_device_memory_ms":
+                1e3 * runs["tree in device memory"][1],
+            "device_us": dev_us, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None})
+        print(f"  me_spr_round [{label}]: the twin on the CPU "
+              f"{runs['twin'][1]:.3f} s, rows max abs err {err:.3e}; the "
+              "tree in device memory "
+              f"{runs['tree in device memory'][1]:.3f} s; device "
+              f"{dev_us / 1e3:.3f} ms for the round ({dev_us / n_nodes:.3f} "
+              f"us per node); {len(rows_in)} rows read, {len(rows_out)} "
+              f"written, {n_ops:.4e} operations: bound {bound_ms:.4e} ms "
+              f"({bound_by}; bytes {1e3 * n_bytes / HBM_BYTES_PER_S:.4e} ms, "
+              f"operations {1e3 * n_ops / F32_OPS_PER_S:.4e} ms)")
+
+
 # ------------------------------------------------------------- phases 3, 4
 ALPHA = "ACGT"
 
@@ -818,7 +1039,7 @@ def require_launched(label, counts, names):
             raise AssertionError(f"{label}: {name} never launched")
 
 
-DENSE_PATH = ("nj_scan_dense", "me_dists", "me_average")
+DENSE_PATH = ("nj_scan_dense", "me_dists", "me_average", "me_spr_round")
 
 
 def phase_golden(dev):
@@ -881,8 +1102,9 @@ def phase_main(report, dev):
         print(f"  N={n} P={MAIN_P} {label}: wall {wall:.2f} s; NJ store "
               f"{t['store_s']:.3f} s, top-hits {t['tophits_s']:.3f} s, joins "
               f"{t['joins_s']:.3f} s ({(n - 3) / t['joins_s']:.1f} joins/s); "
-              f"NNI+SPR {t['nni_spr_s']:.3f} s, lengths {t['lengths_s']:.3f} "
-              f"s, split test {t['splits_s']:.3f} s; tree length "
+              f"ME NNI {t['nni_s']:.3f} s, SPR {t['spr_s']:.3f} s, lengths "
+              f"{t['lengths_s']:.3f} s, split test {t['splits_s']:.3f} s; "
+              "tree length "
               f"{length:.6f}; launches {counts}")
         _, leaves = newick_splits(nw)
         if len(leaves) != n or not math.isfinite(length):
@@ -891,6 +1113,19 @@ def phase_main(report, dev):
         runs[label] = nw
         if label == "warm":                  # the -noml main path's run
             require_launched(label, counts, DENSE_PATH)
+            spr = wrappers()["me_spr_round"].totals
+            P, C = nj.prof.W.shape[1], nj.prof.U.shape[2]
+            rounds = counts["me_spr_round"]
+            # at most every node row and its up-profile read once and
+            # written once per round
+            n_bytes = 4 * nj.tree.maxnode * P * (4 * C + 5)
+            ms_ops = 1e3 * spr_ops(spr, P, C) / rounds / F32_OPS_PER_S
+            print(f"  me_spr_round in the warm run: {spr['nodes']} nodes, "
+                  f"{spr['quartets']} chain steps and BIONJ weights "
+                  f"(quartets), {spr['rows_averaged']} rows averaged, "
+                  f"{spr['n_spr']} SPR moves; per round, operations "
+                  f"{ms_ops:.4e} ms, bytes at most "
+                  f"{1e3 * n_bytes / HBM_BYTES_PER_S:.4e} ms")
             for name, count in counts.items():
                 if name not in ML_KERNELS:
                     report.setdefault(name, {})["launches"] = count
@@ -1016,7 +1251,7 @@ def phase_ml_main(report, dev):
     t = nj.timings
     nj_s = t["store_s"] + t["tophits_s"] + t["joins_s"]
     print(f"  N={n} P={MAIN_P} default -nt: wall {wall:.2f} s; NJ {nj_s:.3f} "
-          f"s, ME NNI+SPR {t['nni_spr_s']:.3f} s, ME lengths "
+          f"s, ME NNI {t['nni_s']:.3f} s, SPR {t['spr_s']:.3f} s, ME lengths "
           f"{t['lengths_s']:.3f} s, ML lengths {t['ml_lengths_s']:.3f} s, ML "
           f"NNI {t['ml_nni_s']:.3f} s ({len(rounds)} rounds), CAT "
           f"{t['cat_s']:.3f} s, SH {t['sh_s']:.3f} s; final LogLk "
@@ -1084,6 +1319,7 @@ def main() -> int:
     if "1 build" not in failed:
         phase("2 kernels vs twins", phase_kernels, report)
         cuda = torch.device("cuda")
+        phase("2b SPR round vs host loop", phase_spr, report, cuda)
         phase("3 N=500 vs JAX golden", phase_golden, cuda)
         phase(f"4 main path N={MAIN_N}", phase_main, report, cuda)
         phase(f"5 ML N={ML_GOLDEN_N} vs JAX golden", phase_ml_golden, cuda)

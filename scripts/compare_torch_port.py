@@ -1,18 +1,21 @@
 #!/usr/bin/env python3
 """The PyTorch port's default -nt run at N=2000, P=500 (chip_smoke.py's ML
-main path, bench.py's input) in two or more checkouts, in turns, each run
-in a process of its own.
+main path, bench.py's input), or its -nt -noml -nosupport run (--noml,
+chip_smoke.py's -noml main path), in two or more checkouts, in turns, each
+run in a process of its own.
 
     python scripts/compare_torch_port.py OLD NEW [--rounds 2] [--trace]
+                                         [--noml]
 
 OLD and NEW are roots of checkouts (this one is "."); with two rounds the
 runs go OLD, NEW, NEW, OLD.  Each run builds its checkout's kernels first
 (outside the timed wall), then runs once as a user's run does (no
 deterministic mode) and prints one line "RESULT {json}": the wall, the
 phase split (nj.timings), the ML-NNI rounds (LogLk, NNIs), the final
-LogLk and every kernel wrapper's launches.  With --trace the second
-round's runs are traced with torch.profiler (CUDA activity): the device's
-busy seconds and share of that run's wall, and the kernels by device time.
+LogLk (none with --noml) and every kernel wrapper's launches.  With
+--trace the second round's runs are traced with torch.profiler (CUDA
+activity): the device's busy seconds and share of that run's wall, and the
+kernels by device time.
 At the end, one line per checkout: the walls and phases of its runs, and
 whether the trees, LogLk values and ML-NNI counts of all runs agree.
 
@@ -30,20 +33,24 @@ import tempfile
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 CHILD = r"""
-import collections, hashlib, io, json, re, sys, time
+import collections, hashlib, importlib, io, json, os, re, sys, time
 root, fasta, trace = sys.argv[1], sys.argv[2], sys.argv[3] == "1"
+noml = sys.argv[4] == "1"
 sys.path.insert(0, root)
 import torch
-from veryfasttree_tpu_torch.ops import _build, ml_kernels, scan_kernels, \
-    store_kernels
-from veryfasttree_tpu_torch.options import ml_options
+from veryfasttree_tpu_torch.ops import _build
+from veryfasttree_tpu_torch.options import ml_options, noml_options
 from veryfasttree_tpu_torch.pipeline import run_pipeline
+mods = [importlib.import_module("." + name, "veryfasttree_tpu_torch.ops")
+        for name in ("scan_kernels", "store_kernels", "ml_kernels",
+                     "spr_kernels")       # an older checkout may lack one
+        if os.path.exists(os.path.join(root, "veryfasttree_tpu_torch", "ops",
+                                       name + ".py"))]
 
 _build.library()
 torch.zeros(1, device="cuda")
 torch.cuda.synchronize()
-wrappers = {name: fn for mod in (scan_kernels, store_kernels, ml_kernels)
-            for name, fn in vars(mod).items()
+wrappers = {name: fn for mod in mods for name, fn in vars(mod).items()
             if callable(fn) and hasattr(fn, "launches")}
 for fn in wrappers.values():
     fn.launches = 0
@@ -56,7 +63,8 @@ if trace:
     prof = profile(activities=[ProfilerActivity.CUDA])
     prof.__enter__()
 t0 = time.perf_counter()
-nj, _ = run_pipeline(ml_options(), io.StringIO(text), out, log_fp=log,
+nj, _ = run_pipeline(noml_options() if noml else ml_options(),
+                     io.StringIO(text), out, log_fp=log,
                      device=torch.device("cuda"))
 torch.cuda.synchronize()
 wall = time.perf_counter() - t0
@@ -65,8 +73,8 @@ res = {"root": root, "wall": wall, "timings": nj.timings,
        "rounds": [(float(a), int(b)) for _, a, b in re.findall(
            r"ML-NNI round (\d+): LogLk = (-?[\d.]+) NNIs (\d+)",
            log.getvalue())],
-       "final": re.findall(r"Optimize all lengths: LogLk = (-?[\d.]+)",
-                           log.getvalue())[-1],
+       "final": (re.findall(r"Optimize all lengths: LogLk = (-?[\d.]+)",
+                            log.getvalue()) or [None])[-1],
        "newick_sha256": hashlib.sha256(out.getvalue().encode()).hexdigest(),
        "card": torch.cuda.get_device_name(0)}
 if prof is not None:
@@ -91,6 +99,8 @@ def main() -> int:
     parser.add_argument("--rounds", type=int, default=2)
     parser.add_argument("--trace", action="store_true",
                         help="trace the second round's runs")
+    parser.add_argument("--noml", action="store_true",
+                        help="the -nt -noml -nosupport run")
     args = parser.parse_args()
     sys.path.insert(0, REPO)
     from chip_smoke import MAIN_N, MAIN_P, card_line, fasta_text, synth_codes
@@ -107,7 +117,8 @@ def main() -> int:
                 trace = args.trace and r == 1
                 res = subprocess.run(
                     [sys.executable, "-c", CHILD, os.path.abspath(root), fasta,
-                     "1" if trace else "0"], cwd=os.path.abspath(root),
+                     "1" if trace else "0", "1" if args.noml else "0"],
+                    cwd=os.path.abspath(root),
                     capture_output=True, text=True, check=False)
                 lines = [ln for ln in res.stdout.splitlines()
                          if ln.startswith("RESULT ")]

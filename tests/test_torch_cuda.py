@@ -213,6 +213,66 @@ def test_quartet_kernel_is_the_chain(cuda, jc, star_test, want_site_lk):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("start_kw,tree_in_smem", [
+    ({}, True), ({"two_tier": True}, True), ({}, False),
+    ({"protein": True}, True), ({"protein": True}, False)],
+    ids=["dense", "two-tier", "dense-tree-in-device-memory", "protein",
+         "protein-tree-in-device-memory"])
+def test_spr_round_kernel_is_the_host_loop(cuda, start_kw, tree_in_smem):
+    """One SPR round at N=150 from one NJ start (chip_smoke.py's): through
+    the host loop with the per-call kernels, and through one launch of the
+    round kernel: the same tree, counters and node rows, bit for bit.  The
+    cases cover the kernel's variants: a dense and a two-tier store, 4 codes
+    and 20 under BLOSUM45 (matrix mode, the protein -noml run), the tree in
+    shared memory and in device memory (its layout above about 4,000
+    nodes)."""
+    from chip_smoke import engine_copy, spr_diff, spr_start, spr_state
+    from veryfasttree_tpu_torch.engine import spr
+    from veryfasttree_tpu_torch.ops import spr_kernels
+
+    start = spr_start(150, cuda, **start_kw)
+    states = []
+    for run in (spr.run_spr, spr_kernels.spr_round):
+        nj = engine_copy(start, cuda)
+        before = spr_kernels.spr_round.launches
+        if run is spr.run_spr:
+            run(nj, 0, 2)
+        else:
+            run(nj, 0, 2, tree_in_smem=tree_in_smem)
+            assert spr_kernels.spr_round.launches == before + 1
+        torch.cuda.synchronize()
+        states.append(spr_state(nj))
+    assert states[0][1]["n_spr"] > 0
+    assert spr_diff(*states) == (None, 0.0)
+
+
+@pytest.mark.cuda
+def test_spr_round_kernel_bionj(cuda):
+    """-bionj: the BIONJ weights of the profile averages pass through
+    log1p, which the card and numpy may round differently in the last bit,
+    so the kernel's round gives the host loop's tree and counters and its
+    node rows within 1e-6 (the JAX package's tier for its device round)."""
+    from chip_smoke import engine_copy, spr_diff, spr_state, synth_codes
+    from veryfasttree_tpu_torch.engine import spr
+    from veryfasttree_tpu_torch.engine.nj import NeighbourJoining
+    from veryfasttree_tpu_torch.ops import spr_kernels
+    from veryfasttree_tpu_torch.options import noml_options
+
+    start = NeighbourJoining(noml_options(bionj=True), synth_codes(150, 500),
+                             None, None, device=cuda)
+    start.fast_nj()
+    states = []
+    for run in (spr.run_spr, spr_kernels.spr_round):
+        nj = engine_copy(start, cuda)
+        run(nj, 0, 2)
+        torch.cuda.synchronize()
+        states.append(spr_state(nj))
+    assert states[0][1]["n_spr"] > 0
+    what, err = spr_diff(*states)
+    assert what in (None, "rows") and err <= 1e-6, (what, err)
+
+
+@pytest.mark.cuda
 def test_ml_pipeline_on_cuda_matches_cpu(cuda):
     """The default -nt run (ML NNIs, CAT, SH supports with 100 resamples):
     the card's tree has the CPU run's topology."""

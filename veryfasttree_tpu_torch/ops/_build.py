@@ -24,9 +24,10 @@ BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 LIB_PATH = BUILD_DIR / "libvft_scan.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# per-source flags: the likelihood kernels round every float expression as
-# written, as their plain twins do (no fused multiply-adds)
-SOURCE_FLAGS = {"ml_lk.cu": ["-fmad=false"]}
+# per-source flags: the likelihood kernels and the SPR round's decisions
+# round every float and double expression as written, as their plain twins
+# and numpy do (no fused multiply-adds)
+SOURCE_FLAGS = {"ml_lk.cu": ["-fmad=false"], "me_spr.cu": ["-fmad=false"]}
 
 _lib = None
 
@@ -91,8 +92,8 @@ def build() -> tuple[Path, str]:
 
 
 def _declare(lib) -> None:
-    ptr, i64, i32, f32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
-                          ctypes.c_float)
+    ptr, i64, i32, f32, f64 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                               ctypes.c_float, ctypes.c_double)
     for name in ("vft_scan_dense_blocks", "vft_scan_codes_blocks"):
         fn = getattr(lib, name)
         fn.argtypes = [i64]
@@ -109,6 +110,9 @@ def _declare(lib) -> None:
     lib.vft_me_average_f32.argtypes = [
         ptr, ptr, ptr, ptr, i64, i64, i32, i32, ptr, ptr, i32,
         f32, i32, f32, ptr]
+    lib.vft_me_spr_round_f32.argtypes = [
+        ptr, ptr, ptr, ptr, i64, i64, i32, i32, ptr, ptr, f32, i32, i32, i32,
+        i32, i32, i32, i32, f64, ptr, i32, ptr, ptr, ptr, ptr, i32, ptr]
     # the ML store's arguments, first in each ML entry (csrc/ml_lk.cu)
     ml_store = [ptr] * 9 + [i64, i32, i32, i32, i32, i32, f32]
     lib.vft_ml_pair_loglk_f32.argtypes = ml_store + [ptr, ptr, i32, ptr, ptr,
@@ -123,6 +127,7 @@ def _declare(lib) -> None:
     lib.vft_ml_quartet_scratch_floats.restype = i64
     for name in ("vft_nj_scan_dense_f64", "vft_nj_scan_codes_f64",
                  "vft_me_pair_dists_f32", "vft_me_average_f32",
+                 "vft_me_spr_round_f32",
                  "vft_ml_pair_loglk_f32", "vft_ml_posterior_f32",
                  "vft_ml_opt_branch_f32", "vft_ml_opt_branch_fits_smem",
                  "vft_ml_quartet_opt_f32"):

@@ -21,6 +21,7 @@ from .engine.nj import NeighbourJoining
 from .io.alignment import Alignment, Uniquify, read_alignment, seqs_to_codes
 from .io.newick import print_newick
 from .models import DistanceMatrix, TransitionMatrix
+from .ops import spr_kernels
 from .utils.debug import Debug
 from .utils.device import configure_precision, resolve_device
 from .utils.progress import ProgressReport
@@ -174,12 +175,23 @@ def _run_single(options, input_fp, output_fp, log_fp, device):
 
     log_tree("NJ", 0)
 
-    t0 = time.perf_counter()
     nni_to_do = options.nni if options.nni != -1 else \
         int(0.5 + 4.0 * math.log2(max(n_uniq, 2)))
     spr_remaining = options.spr
     ml_nni_to_do = options.ml_nni if options.ml_nni != -1 else \
         int(0.5 + 2.0 * math.log2(max(n_uniq, 2)))
+    # host-clock seconds of the ME NNI and the SPR rounds, summed over rounds
+    nj.timings.update(nni_s=0.0, spr_s=0.0)
+    # -slow keeps the host loop: its length checks need the whole tree
+    spr_round = spr.run_spr if options.slow else spr_kernels.spr_round
+
+    def run_spr_round():
+        nonlocal spr_remaining
+        t = time.perf_counter()
+        spr_round(nj, options.spr - spr_remaining, options.spr)
+        nj.timings["spr_s"] += time.perf_counter() - t
+        log_tree("ME_SPR%d", options.spr - spr_remaining + 1)
+        spr_remaining -= 1
 
     # ME NNI rounds interleaved with SPR (ref VeryFastTreeImpl.tcc:161-204)
     if nni_to_do > 0 and n_uniq > 3:
@@ -187,7 +199,9 @@ def _run_single(options, input_fp, output_fp, log_fp, device):
         converged = False
         for i in range(nni_to_do):
             if not converged:
+                t = time.perf_counter()
                 n_change, _ = rearrange.do_nni(nj, i, nni_to_do, False, stats)
+                nj.timings["nni_s"] += time.perf_counter() - t
                 progress.print("ME NNI round %d of %d, %d changes", i + 1,
                                nni_to_do, n_change)
                 log_tree("ME_NNI%d", i + 1)
@@ -195,15 +209,11 @@ def _run_single(options, input_fp, output_fp, log_fp, device):
                     converged = True
             if (spr_remaining > 0 and nni_to_do // (options.spr + 1) > 0
                     and (i + 1) % (nni_to_do // (options.spr + 1)) == 0):
-                spr.run_spr(nj, options.spr - spr_remaining, options.spr)
-                log_tree("ME_SPR%d", options.spr - spr_remaining + 1)
-                spr_remaining -= 1
+                run_spr_round()
                 converged = False
                 stats = rearrange.NNIStats.init(nj)
     while spr_remaining > 0 and n_uniq > 3:
-        spr.run_spr(nj, options.spr - spr_remaining, options.spr)
-        log_tree("ME_SPR%d", options.spr - spr_remaining + 1)
-        spr_remaining -= 1
+        run_spr_round()
 
     t1 = time.perf_counter()
     if not options.bionj:
@@ -220,7 +230,7 @@ def _run_single(options, input_fp, output_fp, log_fp, device):
 
     t2 = time.perf_counter()
     # host-clock seconds; each phase ends in a fetch of distances
-    nj.timings.update(nni_spr_s=t1 - t0, lengths_s=t2 - t1)
+    nj.timings["lengths_s"] = t2 - t1
     if ml_nni_to_do > 0 or options.ml_len:
         split_count = ml.run_ml_phase(nj, ml_nni_to_do, n_uniq, progress,
                                       log, log_tree)
