@@ -40,6 +40,14 @@ passed):
    same tree and counters, rows within 1e-6; both walls, the launches, the
    kernel's device time per node (torch.profiler), and its bound from the
    distinct rows the round reads and writes and its operations;
+2c. one ME NNI round at N=500 from the same NJ starts, in the same cases:
+   the round kernel (me_nni_round) against the host loop
+   engine/rearrange.do_nni through the per-call kernels, tree, NNIStats
+   ages, counters and node rows bit for bit, deltas and supports within
+   1e-13 (log1p's last bit), one launch per round; dense, also
+   against the plain twin on the CPU (rows within 1e-6, deltas and supports
+   within 1e-9); the walls, the device time per quartet, the rows averaged
+   per quartet and the bound;
 3. the -noml pipeline at N=500, P=500 against the JAX package's tree
    (tests/data/torch_port_golden_n500_p500.nwk), dense and two-tier: RF 0
    to the golden, and the two layouts give the same Newick; then the same
@@ -121,6 +129,8 @@ KERNELS = {
                        "veryfasttree_tpu/engine/ml.py:146"),
     "me_spr_round": ("veryfasttree_tpu_torch/csrc/me_spr.cu",
                      "veryfasttree_tpu/engine/spr_epoch.py:97"),
+    "me_nni_round": ("veryfasttree_tpu_torch/csrc/me_nni.cu",
+                     "veryfasttree_tpu/engine/rearrange.py:246"),
 }
 ML_KERNELS = ("ml_pair_loglk", "ml_posterior", "ml_opt_branch",
               "ml_quartet_opt")
@@ -135,6 +145,7 @@ DEVICE_NAMES = {
     "ml_opt_branch": ("ml_opt_branch_kernel",),
     "ml_quartet_opt": ("ml_quartet_opt_kernel",),
     "me_spr_round": ("me_spr_round_kernel",),
+    "me_nni_round": ("me_nni_round_kernel",),
 }
 # final LogLk of the default -nt run at N=2000 (PERF.md, section 6)
 ML_MAIN_LOGLK = "-427535.845"
@@ -155,8 +166,8 @@ def TWINS(n):
 
 def wrappers():
     """The kernel wrappers by name; each counts its launches."""
-    from veryfasttree_tpu_torch.ops import ml_kernels, scan_kernels, \
-        spr_kernels, store_kernels
+    from veryfasttree_tpu_torch.ops import ml_kernels, nni_kernels, \
+        scan_kernels, spr_kernels, store_kernels
 
     return {"nj_scan_dense": scan_kernels.nj_scan_dense,
             "nj_scan_codes": scan_kernels.nj_scan_codes,
@@ -166,13 +177,14 @@ def wrappers():
             "ml_posterior": ml_kernels.ml_posterior,
             "ml_opt_branch": ml_kernels.ml_opt_branch,
             "ml_quartet_opt": ml_kernels.ml_quartet_opt,
-            "me_spr_round": spr_kernels.spr_round}
+            "me_spr_round": spr_kernels.spr_round,
+            "me_nni_round": nni_kernels.nni_round}
 
 
 def reset_launches():
     for fn in wrappers().values():
         fn.launches = 0
-        if hasattr(fn, "totals"):                 # the SPR round's counters
+        if hasattr(fn, "totals"):                 # the rounds' counters
             fn.totals = dict.fromkeys(fn.totals, 0)
 
 
@@ -816,13 +828,13 @@ def engine_copy(nj, dev):
     return c
 
 
-def spr_state(nj):
+def spr_state(nj, counters=SPR_COUNTERS):
     """What a round leaves behind: the tree arrays, the counters, and the
     node rows (codes, and W, U of the float rows among them)."""
     m, lo = nj.tree.maxnode, nj.prof._leaf_rows
     return ({k: getattr(nj.tree, k).copy()
              for k in ("parent", "children", "n_child")},
-            {k: getattr(nj.debug, k) for k in SPR_COUNTERS},
+            {k: getattr(nj.debug, k) for k in counters},
             {"codes": nj.prof.codes[:m].cpu().numpy(),
              "W": nj.prof.W[: m - lo].cpu().numpy(),
              "U": nj.prof.U[: m - lo].cpu().numpy()})
@@ -846,7 +858,7 @@ def spr_diff(a, b):
 
 
 def spr_ops(totals, P, C):
-    """Operations of the SPR rounds that made `totals` (the kernel's
+    """Operations of the SPR or NNI rounds that made `totals` (the kernel's
     counters), as me_dists and me_average count theirs: six pair distances
     per corrected quartet, one average per averaged row."""
     return (6 * P * (2 * C + 2) * totals["quartets"]
@@ -886,13 +898,13 @@ def phase_spr(report, dev):
     host loop on the per-call twins, on a CPU copy of the start): the same
     tree and counters, rows within 1e-6 (its pair distances are summed in
     another order, 1e-12 apart; its averages round as the kernel's).  The
-    kernel's device time comes from torch.profiler over one more round; ms
-    and plain_ms are the kernel's and the twin's round walls (a round is one
+    kernel's device time comes from torch.profiler over three more rounds,
+    each from a copy of the start (a trace of one round can lose its
+    event); ms and plain_ms are the kernel's and the twin's round walls (a round is one
     launch).  The bound counts each row the round reads before writing it
     read once and each row it writes written once (the host loop's store
     calls, recorded), and the operations of the kernel's counted work."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from veryfasttree_tpu_torch.engine import spr
     from veryfasttree_tpu_torch.ops import spr_kernels
@@ -949,13 +961,8 @@ def phase_spr(report, dev):
         if what not in (None, "rows") or err > 1e-6:
             raise AssertionError(f"me_spr_round {label}: {what} differ from "
                                  f"the twin's (rows {err})")
-        nj = engine_copy(start, dev)
-        with profile(activities=[ProfilerActivity.CUDA]) as trace:
-            kern(nj, 0, 2)
-            torch.cuda.synchronize()
-        dev_us = sum(evt.time_range.elapsed_us() for evt in trace.events()
-                     if evt.device_type == torch.autograd.DeviceType.CUDA
-                     and "me_spr_round_kernel" in evt.name)
+        dev_us = device_us(lambda: kern(engine_copy(start, dev), 0, 2),
+                           DEVICE_NAMES["me_spr_round"], runs=3)
         P, C = start.prof.W.shape[1], start.prof.U.shape[2]
         # a dense store's rows are float rows: U, W and codes
         n_bytes = (len(rows_in) + len(rows_out)) * P * (4 * C + 5)
@@ -978,6 +985,160 @@ def phase_spr(report, dev):
               f"written, {n_ops:.4e} operations: bound {bound_ms:.4e} ms "
               f"({bound_by}; bytes {1e3 * n_bytes / HBM_BYTES_PER_S:.4e} ms, "
               f"operations {1e3 * n_ops / F32_OPS_PER_S:.4e} ms)")
+
+
+# ------------------------------------------------------------- phase 2c
+NNI_COUNTERS = ("n_nni", "profile_ops", "profile_avg_ops")
+NNI_STATS = ("age", "subtree_age", "delta", "support")
+# the NNI round kernel's deltas and supports (and max_delta) against the
+# host loop's: differences of sums of log-corrected distances, whose log1p
+# the card and numpy may round differently in the last bit (a criterion is
+# at most 6, an ulp of it 8.9e-16); everything else is bit for bit
+NNI_DELTA_ATOL = 1e-13
+
+
+def nni_state(nj, stats, result):
+    """What an NNI round leaves behind: spr_state's, the NNIStats beside
+    the tree arrays, and the round's (n_nni, max_delta) beside the
+    counters."""
+    tree, ctr, rows = spr_state(nj, NNI_COUNTERS)
+    tree.update({k: getattr(stats, k).copy() for k in NNI_STATS})
+    ctr["n_nni_round"], ctr["max_delta"] = int(result[0]), float(result[1])
+    return tree, ctr, rows
+
+
+def nni_diff(a, b):
+    """(what differs between two NNI rounds' states apart from the deltas,
+    supports and max_delta, or None; the rows' max abs difference; the
+    deltas', supports' and max_delta's max abs difference)."""
+    import numpy as np
+
+    def split(state):
+        tree, ctr, rows = state
+        return ({k: v for k, v in tree.items() if k not in ("delta", "support")},
+                {k: v for k, v in ctr.items() if k != "max_delta"}, rows)
+
+    (ta, ca, _), (tb, cb, _) = a, b
+    gap = max([float(np.max(np.abs(ta[k] - tb[k])))
+               for k in ("delta", "support")]
+              + [abs(ca["max_delta"] - cb["max_delta"])])
+    return (*spr_diff(split(a), split(b)), gap)
+
+
+def phase_nni(report, dev):
+    """One ME NNI round at N=SPR_N from one NJ start, dense, two-tier and
+    protein, through one launch of the kernel (ops/nni_kernels.nni_round)
+    and through the host loop with the per-call kernels
+    (engine/rearrange.do_nni): tree, NNIStats ages, counters and node rows
+    bit for bit, the deltas and supports within NNI_DELTA_ATOL.  Dense, also through the kernel with its tree in device memory,
+    and through the plain twin (the host loop on the per-call twins, on a
+    CPU copy of the start): the same tree, ages and counters, rows within
+    1e-6 and deltas and supports within 1e-9 (its pair distances are summed
+    in another order, 1e-12 apart).  The kernel's device time comes from
+    torch.profiler over ten more rounds, each from a copy of the start (a
+    trace of one short round lost its event); ms and plain_ms are the
+    kernel's and the twin's round walls (a round is one launch),
+    host_loop_ms the host loop's.  The bound counts each row the round reads before writing it
+    read once and each row it writes written once (the host loop's store
+    calls, recorded), and the operations of the kernel's counted work; per
+    quartet it is the round's divided by its quartets."""
+    import torch
+
+    from veryfasttree_tpu_torch.engine import rearrange
+    from veryfasttree_tpu_torch.ops import nni_kernels
+
+    cpu = torch.device("cpu")
+    kern = nni_kernels.nni_round
+    entry = report.setdefault("me_nni_round", {"max_abs_err": 0.0})
+    for label, kw in (("dense", {}), ("two-tier", {"two_tier": True}),
+                      ("protein", {"protein": True})):
+        label = f"N={SPR_N} {label}"
+        start = spr_start(SPR_N, dev, **kw)
+        dense = not kw
+        runs = {}
+        for name, fn, where in (
+                ("kernel", kern, dev),
+                ("host loop", lambda nj, i, n, st:
+                 rearrange.do_nni(nj, i, n, False, st), dev),
+                ("tree in device memory", lambda nj, i, n, st:
+                 kern(nj, i, n, st, tree_in_smem=False), dev),
+                ("twin", kern, cpu)):
+            if name in ("tree in device memory", "twin") and not dense:
+                continue
+            nj = engine_copy(start, where)
+            stats = rearrange.NNIStats.init(nj)
+            if name == "host loop":
+                rows_in, rows_out = record_rows(nj.prof)
+            reset_launches()
+            threads = torch.get_num_threads()
+            torch.set_num_threads(1)     # the twin's tiny ops only contend
+            t0 = time.perf_counter()
+            result = fn(nj, 0, 2, stats)
+            torch.cuda.synchronize()
+            runs[name] = (nni_state(nj, stats, result),
+                          time.perf_counter() - t0)
+            torch.set_num_threads(threads)
+            if name == "kernel":
+                totals = dict(kern.totals, launches=kern.launches)
+        state, wall = runs["kernel"]
+        for name in ("host loop", "tree in device memory"):
+            if name not in runs:
+                continue
+            what, err, gap = nni_diff(runs[name][0], state)
+            if what is not None or gap > NNI_DELTA_ATOL:
+                raise AssertionError(
+                    f"me_nni_round {label}: {what or 'deltas or supports'} "
+                    f"differ between the kernel and the {name} (rows "
+                    f"{err}, deltas and supports {gap})")
+        if totals["launches"] != 1:
+            raise AssertionError(f"me_nni_round {label}: "
+                                 f"{totals['launches']} launches for one round")
+        n_q = totals["quartets"]
+        gap = nni_diff(runs["host loop"][0], state)[2]
+        print(f"  me_nni_round [{label}]: bit for bit the host loop's"
+              f"{' and the device-memory tree' * dense} (deltas and supports "
+              f"within {gap:.3e}); one launch, "
+              f"{wall:.3f} s (the host loop with the per-call kernels "
+              f"{runs['host loop'][1]:.3f} s); counters {state[1]}, {n_q} "
+              f"quartets, {totals['rows_averaged']} rows averaged")
+        if not dense:
+            continue
+        what, err, gap = nni_diff(state, runs["twin"][0])
+        if what not in (None, "rows") or err > 1e-6 or gap > 1e-9:
+            raise AssertionError(f"me_nni_round {label}: {what} differ from "
+                                 f"the twin's (rows {err}, deltas and "
+                                 f"supports {gap})")
+
+        def one_round():
+            nj = engine_copy(start, dev)
+            kern(nj, 0, 2, rearrange.NNIStats.init(nj))
+
+        dev_us = device_us(one_round, DEVICE_NAMES["me_nni_round"], runs=10)
+        P, C = start.prof.W.shape[1], start.prof.U.shape[2]
+        # a dense store's rows are float rows: U, W and codes
+        n_bytes = (len(rows_in) + len(rows_out)) * P * (4 * C + 5)
+        n_ops = spr_ops(totals, P, C)
+        bound_ms, bound_by = bound(n_bytes, n_ops)
+        entry.update({
+            "max_abs_err": err, "ms": 1e3 * wall,
+            "plain_ms": 1e3 * runs["twin"][1],
+            "host_loop_ms": 1e3 * runs["host loop"][1],
+            "tree_in_device_memory_ms":
+                1e3 * runs["tree in device memory"][1],
+            "device_us": dev_us, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None})
+        print(f"  me_nni_round [{label}]: the twin on the CPU "
+              f"{runs['twin'][1]:.3f} s, rows max abs err {err:.3e}, deltas "
+              f"and supports {gap:.3e}; the tree in device memory "
+              f"{runs['tree in device memory'][1]:.3f} s; device "
+              f"{dev_us / 1e3:.3f} ms for the round; per quartet "
+              f"{dev_us / n_q:.3f} us on the device, "
+              f"{totals['rows_averaged'] / n_q:.3f} rows averaged, bound "
+              f"{1e3 * bound_ms / n_q:.4e} us; {len(rows_in)} rows read, "
+              f"{len(rows_out)} written, {n_ops:.4e} operations: bound "
+              f"{bound_ms:.4e} ms ({bound_by}; bytes "
+              f"{1e3 * n_bytes / HBM_BYTES_PER_S:.4e} ms, operations "
+              f"{1e3 * n_ops / F32_OPS_PER_S:.4e} ms)")
 
 
 # ------------------------------------------------------------- phases 3, 4
@@ -1039,7 +1200,8 @@ def require_launched(label, counts, names):
             raise AssertionError(f"{label}: {name} never launched")
 
 
-DENSE_PATH = ("nj_scan_dense", "me_dists", "me_average", "me_spr_round")
+DENSE_PATH = ("nj_scan_dense", "me_dists", "me_average", "me_spr_round",
+              "me_nni_round")
 
 
 def phase_golden(dev):
@@ -1126,6 +1288,14 @@ def phase_main(report, dev):
                   f"{spr['n_spr']} SPR moves; per round, operations "
                   f"{ms_ops:.4e} ms, bytes at most "
                   f"{1e3 * n_bytes / HBM_BYTES_PER_S:.4e} ms")
+            nni = wrappers()["me_nni_round"].totals
+            rounds = counts["me_nni_round"]
+            print(f"  me_nni_round in the warm run: {rounds} rounds, "
+                  f"{nni['quartets']} quartets, {nni['rows_averaged']} rows "
+                  f"averaged, {nni['n_nni']} NNIs; per round, operations "
+                  f"{1e3 * spr_ops(nni, P, C) / rounds / F32_OPS_PER_S:.4e}"
+                  f" ms; launches beside it: me_average "
+                  f"{counts['me_average']}, me_dists {counts['me_dists']}")
             for name, count in counts.items():
                 if name not in ML_KERNELS:
                     report.setdefault(name, {})["launches"] = count
@@ -1320,6 +1490,7 @@ def main() -> int:
         phase("2 kernels vs twins", phase_kernels, report)
         cuda = torch.device("cuda")
         phase("2b SPR round vs host loop", phase_spr, report, cuda)
+        phase("2c NNI round vs host loop", phase_nni, report, cuda)
         phase("3 N=500 vs JAX golden", phase_golden, cuda)
         phase(f"4 main path N={MAIN_N}", phase_main, report, cuda)
         phase(f"5 ML N={ML_GOLDEN_N} vs JAX golden", phase_ml_golden, cuda)

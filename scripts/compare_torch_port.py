@@ -41,9 +41,10 @@ import torch
 from veryfasttree_tpu_torch.ops import _build
 from veryfasttree_tpu_torch.options import ml_options, noml_options
 from veryfasttree_tpu_torch.pipeline import run_pipeline
+# the kernel wrappers' modules (an older checkout may lack one)
 mods = [importlib.import_module("." + name, "veryfasttree_tpu_torch.ops")
         for name in ("scan_kernels", "store_kernels", "ml_kernels",
-                     "spr_kernels")       # an older checkout may lack one
+                     "spr_kernels", "nni_kernels")
         if os.path.exists(os.path.join(root, "veryfasttree_tpu_torch", "ops",
                                        name + ".py"))]
 

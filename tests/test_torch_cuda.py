@@ -272,6 +272,78 @@ def test_spr_round_kernel_bionj(cuda):
     assert what in (None, "rows") and err <= 1e-6, (what, err)
 
 
+def _nni_rounds(start, dev, rounds, kernel, **kw):
+    """`rounds` ME NNI rounds from a copy of `start`, the NNIStats carried
+    over: through the round kernel (one launch each) or the host loop with
+    the per-call kernels.  Returns chip_smoke.nni_state of the last."""
+    from chip_smoke import engine_copy, nni_state
+    from veryfasttree_tpu_torch.engine import rearrange
+    from veryfasttree_tpu_torch.ops import nni_kernels
+
+    nj = engine_copy(start, dev)
+    stats = rearrange.NNIStats.init(nj)
+    for i in range(rounds):
+        before = nni_kernels.nni_round.launches
+        if kernel:
+            result = nni_kernels.nni_round(nj, i, rounds, stats, **kw)
+            assert nni_kernels.nni_round.launches == before + 1
+        else:
+            result = rearrange.do_nni(nj, i, rounds, False, stats)
+    torch.cuda.synchronize()
+    return nni_state(nj, stats, result)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("start_kw,tree_in_smem,rounds", [
+    ({}, True, 1), ({"two_tier": True}, True, 1), ({}, False, 1),
+    ({"protein": True}, True, 1), ({}, True, 3)],
+    ids=["dense", "two-tier", "dense-tree-in-device-memory", "protein",
+         "three-rounds"])
+def test_nni_round_kernel_is_the_host_loop(cuda, start_kw, tree_in_smem,
+                                           rounds):
+    """ME NNI rounds at N=150 from one NJ start (chip_smoke.py's): through
+    the host loop with the per-call kernels, and through one launch of the
+    round kernel per round: the same tree, NNIStats ages, counters, n_nni
+    and node rows, bit for bit, and the deltas, supports and max_delta
+    within chip_smoke.NNI_DELTA_ATOL (log1p's last bit: 2.2e-16 measured
+    on an H100).  The cases cover the kernel's
+    variants: a dense and a two-tier store, 4 codes and 20 under BLOSUM45
+    (matrix mode), the tree in shared memory and in device memory, and
+    three rounds with the NNIStats carried over, whose third round takes
+    the fast-NNI skip set (ages reach 2 after two rounds)."""
+    from chip_smoke import NNI_DELTA_ATOL, nni_diff, spr_start
+
+    start = spr_start(150, cuda, **start_kw)
+    host = _nni_rounds(start, cuda, rounds, False)
+    kern = _nni_rounds(start, cuda, rounds, True, tree_in_smem=tree_in_smem)
+    assert host[1]["n_nni"] > 0
+    what, err, gap = nni_diff(host, kern)
+    assert what is None and err == 0.0 and gap <= NNI_DELTA_ATOL, \
+        (what, err, gap)
+
+
+@pytest.mark.cuda
+def test_nni_round_kernel_bionj(cuda):
+    """-bionj: the BIONJ weights of the profile averages pass through
+    log1p, which the card and numpy may round differently in the last bit,
+    so the kernel's round gives the host loop's tree, ages and counters, and
+    its node rows, deltas and supports within 1e-6 (the tier of the CPU
+    tests against the JAX package)."""
+    from chip_smoke import nni_diff, synth_codes
+    from veryfasttree_tpu_torch.engine.nj import NeighbourJoining
+    from veryfasttree_tpu_torch.options import noml_options
+
+    start = NeighbourJoining(noml_options(bionj=True), synth_codes(150, 500),
+                             None, None, device=cuda)
+    start.fast_nj()
+    host = _nni_rounds(start, cuda, 1, False)
+    kern = _nni_rounds(start, cuda, 1, True)
+    assert host[1]["n_nni"] > 0
+    what, err, gap = nni_diff(host, kern)
+    assert what in (None, "rows") and err <= 1e-6 and gap <= 1e-6, \
+        (what, err, gap)
+
+
 @pytest.mark.cuda
 def test_ml_pipeline_on_cuda_matches_cpu(cuda):
     """The default -nt run (ML NNIs, CAT, SH supports with 100 resamples):

@@ -24,10 +24,11 @@ BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 LIB_PATH = BUILD_DIR / "libvft_scan.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# per-source flags: the likelihood kernels and the SPR round's decisions
-# round every float and double expression as written, as their plain twins
-# and numpy do (no fused multiply-adds)
-SOURCE_FLAGS = {"ml_lk.cu": ["-fmad=false"], "me_spr.cu": ["-fmad=false"]}
+# per-source flags: the likelihood kernels and the SPR and NNI rounds'
+# decisions round every float and double expression as written, as their
+# plain twins and numpy do (no fused multiply-adds)
+SOURCE_FLAGS = {"ml_lk.cu": ["-fmad=false"], "me_spr.cu": ["-fmad=false"],
+                "me_nni.cu": ["-fmad=false"]}
 
 _lib = None
 
@@ -110,9 +111,14 @@ def _declare(lib) -> None:
     lib.vft_me_average_f32.argtypes = [
         ptr, ptr, ptr, ptr, i64, i64, i32, i32, ptr, ptr, i32,
         f32, i32, f32, ptr]
-    lib.vft_me_spr_round_f32.argtypes = [
-        ptr, ptr, ptr, ptr, i64, i64, i32, i32, ptr, ptr, f32, i32, i32, i32,
-        i32, i32, i32, i32, f64, ptr, i32, ptr, ptr, ptr, ptr, i32, ptr]
+    # the store, model, tree and options, first in each round entry
+    # (ops/me_round.entry_args)
+    me_round = [ptr, ptr, ptr, ptr, i64, i64, i32, i32, ptr, ptr, f32, i32,
+                i32, i32, i32, i32, i32, f64]
+    lib.vft_me_spr_round_f32.argtypes = me_round + [
+        i32, ptr, i32, ptr, ptr, ptr, ptr, i32, ptr]
+    lib.vft_me_nni_round_f32.argtypes = me_round + [
+        i32, f64, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, ptr]
     # the ML store's arguments, first in each ML entry (csrc/ml_lk.cu)
     ml_store = [ptr] * 9 + [i64, i32, i32, i32, i32, i32, f32]
     lib.vft_ml_pair_loglk_f32.argtypes = ml_store + [ptr, ptr, i32, ptr, ptr,
@@ -127,7 +133,7 @@ def _declare(lib) -> None:
     lib.vft_ml_quartet_scratch_floats.restype = i64
     for name in ("vft_nj_scan_dense_f64", "vft_nj_scan_codes_f64",
                  "vft_me_pair_dists_f32", "vft_me_average_f32",
-                 "vft_me_spr_round_f32",
+                 "vft_me_spr_round_f32", "vft_me_nni_round_f32",
                  "vft_ml_pair_loglk_f32", "vft_ml_posterior_f32",
                  "vft_ml_opt_branch_f32", "vft_ml_opt_branch_fits_smem",
                  "vft_ml_quartet_opt_f32"):

@@ -20,23 +20,12 @@ import numpy as np
 import torch
 
 from ..engine import spr
-from . import _build
-from .store_kernels import _check_store
+from . import _build, me_round
 
 MAX_CHAIN = 64      # the longest max_spr_length the kernel takes
-# the kernel's int64 counters, in its order (csrc/me_spr.cu)
+# the kernel's int64 counters, in its order (csrc/me_round.cuh)
 COUNTERS = ("profile_ops", "profile_avg_ops", "n_spr", "rows_averaged",
             "quartets", "fault")
-
-
-def _check_tree(tree, nodes):
-    M = tree.maxnodes
-    ok = lambda a: bool(((a >= -1) & (a < M)).all())  # noqa: E731
-    if not (ok(tree.parent) and ok(tree.children)) or \
-            not (0 <= tree.root < M) or (nodes < 0).any() \
-            or (nodes >= tree.maxnode).any():
-        raise IndexError("me_spr_round: a tree index lies outside the "
-                         f"{M} nodes")
 
 
 def spr_round(nj, i_round: int, n_rounds: int, *,
@@ -61,62 +50,24 @@ def spr_round(nj, i_round: int, n_rounds: int, *,
     if opts.max_spr_length > MAX_CHAIN:
         raise ValueError(f"me_spr_round: chains of at most {MAX_CHAIN} "
                          f"steps, not {opts.max_spr_length}")
-    leaf_rows = prof._leaf_rows
-    n_rows, P, C = _check_store(prof.codes, prof.W, prof.U, prof.code_freq,
-                                leaf_rows)
-    dev = prof.codes.device
     tree = nj.tree
-    M = tree.maxnodes
+    args, _alive = me_round.entry_args(nj)
     node_list = list(tree.postorder_nodes())
     nodes = np.array([n for n in node_list if n != tree.root], dtype=np.int32)
-    _check_tree(tree, nodes)
-
-    # one int32 buffer: counters (int64), parent [M], children [M, 3],
-    # child counts [M], path scratch [M], the node list
-    base = 2 * len(COUNTERS)
-    host = np.zeros(base + 6 * M + len(nodes), dtype=np.int32)
-    host[base: base + M] = tree.parent
-    host[base + M: base + 4 * M] = tree.children.reshape(-1)
-    host[base + 4 * M: base + 5 * M] = tree.n_child
-    host[base + 6 * M:] = nodes
-    buf = torch.from_numpy(host).to(dev)
-    uvalid = torch.zeros(M, dtype=torch.uint8, device=dev)
-    ptr = buf.data_ptr()
-    tree_ptr = ptr + 4 * base
-    ev = et = None
-    if prof.use_matrix:
-        ev = prof.eigenval.to(dtype=torch.float64).contiguous()
-        et = prof.eigentot.to(dtype=torch.float32).contiguous()
-    jc = opts.n_codes == 4 and not opts.use_matrix
+    me_round.check_tree("me_spr_round", tree, nodes)
+    state = me_round.RoundBuffer(tree, len(COUNTERS), nodes)
+    ptr = state.upload(prof.codes.device)
     if nj.progress is not None:
         nj.progress.print("SPR round %3d of %3d, %d nodes", i_round + 1,
                           n_rounds, len(node_list))
     rc = _build.library().vft_me_spr_round_f32(
-        prof.codes.data_ptr(), prof.W.data_ptr(), prof.U.data_ptr(),
-        prof.code_freq.data_ptr(), n_rows, int(leaf_rows), P, C,
-        ev.data_ptr() if ev is not None else None,
-        et.data_ptr() if et is not None else None, prof.tol, nj.n_seqs, M,
-        tree.root, opts.max_spr_length, int(opts.bionj), int(opts.logdist),
-        int(jc), float(opts.pseudo_weight), tree_ptr + 4 * 6 * M, len(nodes),
-        tree_ptr, uvalid.data_ptr(), tree_ptr + 4 * 5 * M, ptr,
-        int(tree_in_smem), torch.cuda.current_stream(dev).cuda_stream)
-    if rc == -2:
-        raise ValueError("me_spr_round: the kernel does not take this store "
-                         "or tree")
-    if rc != 0:
-        raise RuntimeError(f"me_spr_round: CUDA kernel launch failed "
-                           f"(cudaError {rc})")
+        *args, opts.max_spr_length, ptr["ints"], len(nodes), ptr["tree"],
+        ptr["flags"], ptr["path"], ptr["words"], int(tree_in_smem),
+        torch.cuda.current_stream(prof.codes.device).cuda_stream)
+    me_round.raise_on(rc, "me_spr_round")
     spr_round.launches += 1
 
-    # the round's one fetch: the counters and the tree
-    out = buf[: base + 4 * M].cpu().numpy()
-    ctr = dict(zip(COUNTERS, out[:base].view(np.int64).tolist()))
-    if ctr["fault"]:
-        raise RuntimeError("me_spr_round: the kernel found the tree broken "
-                           "(a child missing from its parent, or no path "
-                           "to the root)")
-    tree.parent[:] = out[base: base + M]
-    tree.children[:] = out[base + M: base + 4 * M].reshape(M, 3)
+    ctr, _ = state.fetch("me_spr_round", tree, COUNTERS)
     nj.debug.profile_ops += ctr["profile_ops"]
     nj.debug.profile_avg_ops += ctr["profile_avg_ops"]
     nj.debug.n_spr += ctr["n_spr"]

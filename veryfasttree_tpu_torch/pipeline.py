@@ -21,7 +21,7 @@ from .engine.nj import NeighbourJoining
 from .io.alignment import Alignment, Uniquify, read_alignment, seqs_to_codes
 from .io.newick import print_newick
 from .models import DistanceMatrix, TransitionMatrix
-from .ops import spr_kernels
+from .ops import nni_kernels, spr_kernels
 from .utils.debug import Debug
 from .utils.device import configure_precision, resolve_device
 from .utils.progress import ProgressReport
@@ -182,8 +182,14 @@ def _run_single(options, input_fp, output_fp, log_fp, device):
         int(0.5 + 2.0 * math.log2(max(n_uniq, 2)))
     # host-clock seconds of the ME NNI and the SPR rounds, summed over rounds
     nj.timings.update(nni_s=0.0, spr_s=0.0)
-    # -slow keeps the host loop: its length checks need the whole tree
+    # -slow keeps the host loops: its length checks and its repairs of
+    # every ancestor need the whole tree
     spr_round = spr.run_spr if options.slow else spr_kernels.spr_round
+
+    def nni_round(i, stats):
+        if options.slow:
+            return rearrange.do_nni(nj, i, nni_to_do, False, stats)
+        return nni_kernels.nni_round(nj, i, nni_to_do, stats)
 
     def run_spr_round():
         nonlocal spr_remaining
@@ -200,7 +206,7 @@ def _run_single(options, input_fp, output_fp, log_fp, device):
         for i in range(nni_to_do):
             if not converged:
                 t = time.perf_counter()
-                n_change, _ = rearrange.do_nni(nj, i, nni_to_do, False, stats)
+                n_change, _ = nni_round(i, stats)
                 nj.timings["nni_s"] += time.perf_counter() - t
                 progress.print("ME NNI round %d of %d, %d changes", i + 1,
                                nni_to_do, n_change)
