@@ -48,6 +48,15 @@ passed):
    against the plain twin on the CPU (rows within 1e-6, deltas and supports
    within 1e-9); the walls, the device time per quartet, the rows averaged
    per quartet and the bound;
+2d. the NJ phase at N=500 (dense, two-tier, protein) and N=2000 (dense):
+   its joins through the join epoch kernel (nj_join_epoch, one launch per
+   out-profile reset) against the host loop through the per-call kernels,
+   every array bit for bit (join log, tree, branch lengths, diameters,
+   self- and out-distances, store rows, out-profile, top-hits lists,
+   visible and top-visible sets, ages, debug counters); N=500 dense also
+   against the plain twin (the host loop on the CPU): the same join log,
+   values within 1e-4 (its out-profile weights round otherwise); both
+   walls, the launches, the device time per join and the bound;
 3. the -noml pipeline at N=500, P=500 against the JAX package's tree
    (tests/data/torch_port_golden_n500_p500.nwk), dense and two-tier: RF 0
    to the golden, and the two layouts give the same Newick; then the same
@@ -58,9 +67,9 @@ passed):
    with the two-tier store forced on (-two-tier-min 0), which must give the
    same tree.  The kernel launch counts are reset just before the warm run
    and read just after it: each kernel of the dense path must have
-   launched.  The codes scan runs only in the two-tier store (N >= 20000,
-   or -two-tier-min 0), so its launches are counted apart, in the two-tier
-   run, and must be nonzero there;
+   launched.  The scans run inside the join epoch's refreshes, so its
+   refresh scans must be nonzero there (and in the two-tier run, where the
+   leaf rows take the codes scan's body);
 5. the ML phase against the JAX package's trees at N=200, P=500
    (tests/data/torch_port_ml_golden_n200_p500*): the default -nt run (ML
    NNIs, CAT 20, SH-like supports from 1000 resamples) and -nt -gtr
@@ -131,6 +140,8 @@ KERNELS = {
                      "veryfasttree_tpu/engine/spr_epoch.py:97"),
     "me_nni_round": ("veryfasttree_tpu_torch/csrc/me_nni.cu",
                      "veryfasttree_tpu/engine/rearrange.py:246"),
+    "nj_join_epoch": ("veryfasttree_tpu_torch/csrc/nj_epoch.cu",
+                      "veryfasttree_tpu/engine/epoch.py:131"),
 }
 ML_KERNELS = ("ml_pair_loglk", "ml_posterior", "ml_opt_branch",
               "ml_quartet_opt")
@@ -146,6 +157,7 @@ DEVICE_NAMES = {
     "ml_quartet_opt": ("ml_quartet_opt_kernel",),
     "me_spr_round": ("me_spr_round_kernel",),
     "me_nni_round": ("me_nni_round_kernel",),
+    "nj_join_epoch": ("nj_epoch_kernel",),
 }
 # final LogLk of the default -nt run at N=2000 (PERF.md, section 6)
 ML_MAIN_LOGLK = "-427535.845"
@@ -166,8 +178,8 @@ def TWINS(n):
 
 def wrappers():
     """The kernel wrappers by name; each counts its launches."""
-    from veryfasttree_tpu_torch.ops import ml_kernels, nni_kernels, \
-        scan_kernels, spr_kernels, store_kernels
+    from veryfasttree_tpu_torch.ops import epoch_kernels, ml_kernels, \
+        nni_kernels, scan_kernels, spr_kernels, store_kernels
 
     return {"nj_scan_dense": scan_kernels.nj_scan_dense,
             "nj_scan_codes": scan_kernels.nj_scan_codes,
@@ -178,7 +190,8 @@ def wrappers():
             "ml_opt_branch": ml_kernels.ml_opt_branch,
             "ml_quartet_opt": ml_kernels.ml_quartet_opt,
             "me_spr_round": spr_kernels.spr_round,
-            "me_nni_round": nni_kernels.nni_round}
+            "me_nni_round": nni_kernels.nni_round,
+            "nj_join_epoch": epoch_kernels.join_epoch}
 
 
 def reset_launches():
@@ -1141,6 +1154,189 @@ def phase_nni(report, dev):
               f"{1e3 * n_ops / F32_OPS_PER_S:.4e} ms)")
 
 
+# ------------------------------------------------------------- phase 2d
+# the plain twin's values against the kernel's: the twin sums its distances
+# in other orders, and divides the out-profile weights by n_active - 1 where
+# PyTorch's CUDA kernel (which the kernel repeats) multiplies by the
+# reciprocal, a float32 ulp apart that the out-distances sum over every
+# active row (6.2e-6 measured at N=500)
+EPOCH_TWIN_ATOL = 1e-4
+EPOCH_DEBUG = ("outprofile_ops", "profile_ops", "seq_ops", "profile_avg_ops",
+               "n_hill_better", "n_visible_update", "n_refresh_tophits")
+
+
+def epoch_run(n, dev, kernel=True, max_joins=None, two_tier=False,
+              protein=False, bionj=False, **launch):
+    """The port's NJ phase (fast_nj) on synth_codes(n, MAIN_P) on dev, its
+    joins through the epoch kernel (launch: grid and state_in_smem of
+    ops/epoch_kernels.join_epoch) or, kernel=False, through the host loop
+    with the per-call kernels.  protein: 20 codes under BLOSUM45 (matrix
+    mode)."""
+    import torch
+
+    from veryfasttree_tpu_torch.engine import epoch
+    from veryfasttree_tpu_torch.engine.nj import NeighbourJoining
+    from veryfasttree_tpu_torch.models import DistanceMatrix
+    from veryfasttree_tpu_torch.options import Options
+
+    opts = Options(n_codes=20 if protein else 4, ml_nni=0, n_bootstrap=0,
+                   show_progress=False, bionj=bionj,
+                   **({"two_tier_min": 0} if two_tier else {}))
+    opts.derive_settings()
+    nj = NeighbourJoining(opts, synth_codes(n, MAIN_P, n_codes=opts.n_codes),
+                          DistanceMatrix.blosum45() if protein else None,
+                          None, device=dev)
+    supported, run = epoch.epoch_supported, epoch.run_epoch
+    if not kernel:
+        epoch.epoch_supported = lambda nj_, tophits: False
+    elif launch:
+        epoch.run_epoch = lambda nj_, tophits, mj=None: run(
+            nj_, tophits, mj, **launch)
+    try:
+        nj.fast_nj(max_joins)
+        torch.cuda.synchronize()
+    finally:
+        epoch.epoch_supported, epoch.run_epoch = supported, run
+    return nj
+
+
+def epoch_state(nj):
+    """What the NJ phase leaves behind: the join log and tree, the per-node
+    arrays, the store rows and out-profile, the top-hits lists, visible and
+    top-visible sets and ages, and the debug counters."""
+    import numpy as np
+
+    tree, prof, th = nj.tree, nj.prof, nj._tophits
+    hits_j, hits_d = th.pack_state()
+    m, lo = tree.maxnode, prof._leaf_rows
+    return {
+        "join_log": np.array(nj.join_log), "parent": tree.parent.copy(),
+        "children": tree.children.copy(),
+        "branchlength": tree.branchlength.copy(),
+        "diameter": nj.diameter.copy(), "var_diameter": nj.var_diameter.copy(),
+        "selfdist": nj.selfdist.copy(), "selfweight": nj.selfweight.copy(),
+        "out_distances": nj.out_distances.copy(),
+        "n_out_dist_active": nj.n_out_dist_active.copy(),
+        "totdiam": np.array([nj.totdiam]),
+        "codes": prof.codes[:m].cpu().numpy(),
+        "W": prof.W[: m - lo].cpu().numpy(),
+        "U": prof.U[: m - lo].cpu().numpy(),
+        "w_out": prof.w_out.cpu().numpy(), "f_out": prof.f_out.cpu().numpy(),
+        "hits_j": hits_j, "hits_dist": hits_d,
+        "visible_j": th.visible_j.copy(),
+        "visible_dist": th.visible_dist.copy(),
+        "topvisible": th.topvisible.copy(),
+        "topvisible_age": np.array([th.topvisible_age]), "age": th.age.copy(),
+        "debug": np.array([getattr(nj.debug, k) for k in EPOCH_DEBUG])}
+
+
+def epoch_diff(a, b):
+    """The names of the arrays that differ between two NJ phases' states."""
+    import numpy as np
+
+    return [k for k in a if a[k].shape != b[k].shape
+            or not np.array_equal(a[k], b[k])]
+
+
+def epoch_bound(nj, totals):
+    """(bytes, operations) of the epoch launches that made `totals` (the
+    kernel's counts): each join's two rows read and new row written once,
+    every row a refresh scan reads, and the operations of the distances
+    (2(C+1) per position of each pair, out-profile distance and scanned
+    row) and averages (4C+6 per position)."""
+    P, C = nj.prof.W.shape[1], nj.prof.U.shape[2]
+    joins = totals["joins"]
+    n_dists = (totals["profile_ops"] + totals["seq_ops"]
+               + totals["outprofile_ops"])
+    n_bytes = (3 * joins + totals["scan_rows"]) * P * (4 * C + 5)
+    return n_bytes, P * (2 * (C + 1) * n_dists + (4 * C + 6) * joins)
+
+
+def phase_epoch(report, dev):
+    """The NJ phase at N=SPR_N, dense, two-tier and protein, and at N=MAIN_N
+    dense: its joins through the epoch kernel (ops/epoch_kernels.join_epoch,
+    one launch per out-profile reset) and through the host loop with the
+    per-call kernels, every array of epoch_state bit for bit.  Dense at
+    N=SPR_N also through the plain twin (the host loop on the per-call
+    twins, on the CPU): the same join log, the values within
+    EPOCH_TWIN_ATOL (its counters, which a last-bit difference can move,
+    are printed beside the kernel's).  Walls are the join
+    phase's (nj.timings joins_s, _root_three included); the kernel's device
+    time comes from torch.profiler over one more join phase; the bound from
+    epoch_bound."""
+    import numpy as np
+    import torch
+
+    from veryfasttree_tpu_torch.ops import epoch_kernels
+
+    kern = epoch_kernels.join_epoch
+    entry = report.setdefault("nj_join_epoch", {"max_abs_err": 0.0})
+    cases = ((f"N={SPR_N} dense", SPR_N, {}),
+             (f"N={SPR_N} two-tier", SPR_N, {"two_tier": True}),
+             (f"N={SPR_N} protein", SPR_N, {"protein": True}),
+             (f"N={MAIN_N} dense", MAIN_N, {}))
+    for label, n, kw in cases:
+        host = epoch_run(n, dev, kernel=False, **kw)
+        reset_launches()
+        nj = epoch_run(n, dev, **kw)
+        stats = dict(kern.totals, launches=kern.launches)
+        diff = epoch_diff(epoch_state(host), epoch_state(nj))
+        if diff:
+            raise AssertionError(f"nj_join_epoch {label}: {diff} differ "
+                                 "between the kernel and the host loop")
+        wall, host_wall = nj.timings["joins_s"], host.timings["joins_s"]
+        joins = stats["joins"]
+        print(f"  nj_join_epoch [{label}]: bit for bit the host loop's; "
+              f"{joins} joins in {stats['launches']} launches "
+              f"({stats['resets']} out-profile resets), {wall:.3f} s (the "
+              f"host loop with the per-call kernels {host_wall:.3f} s); "
+              f"{stats['phases']} phases ({stats['phases'] / joins:.2f} per "
+              f"join), {stats['scans']} refresh scans of {stats['scan_rows']} "
+              f"rows, grid {stats['grid']} blocks")
+        if kw:
+            continue
+        dev_us = device_us(lambda: epoch_run(n, dev, **kw),
+                           DEVICE_NAMES["nj_join_epoch"], runs=1)
+        n_bytes, n_ops = epoch_bound(nj, stats)
+        bound_ms, bound_by = bound(n_bytes, n_ops)
+        print(f"  nj_join_epoch [{label}]: device {dev_us / 1e3:.3f} ms "
+              f"({dev_us / joins:.3f} us per join, "
+              f"{dev_us / stats['launches'] / 1e3:.3f} ms per launch); "
+              f"{n_bytes / 1e6:.2f} MB, {n_ops:.4e} operations: bound "
+              f"{bound_ms:.4e} ms ({bound_by})")
+        if n == MAIN_N:
+            entry.update({"main_ms": 1e3 * wall,
+                          "main_host_loop_ms": 1e3 * host_wall,
+                          "main_device_us": dev_us,
+                          "main_device_us_per_join": dev_us / joins})
+            continue
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)         # the twin's tiny ops only contend
+        cpu = epoch_run(n, torch.device("cpu"), **kw)
+        torch.set_num_threads(threads)
+        a, b = epoch_state(cpu), epoch_state(nj)
+        if not np.array_equal(a["join_log"], b["join_log"]):
+            raise AssertionError(f"nj_join_epoch {label}: the join log "
+                                 "differs from the twin's")
+        err = max(float(np.max(np.abs(a[k] - b[k])))
+                  for k in ("branchlength", "diameter", "out_distances"))
+        if err > EPOCH_TWIN_ATOL:
+            raise AssertionError(f"nj_join_epoch {label}: values {err} from "
+                                 "the twin's")
+        entry.update({
+            "max_abs_err": err, "ms": 1e3 * wall,
+            "plain_ms": 1e3 * cpu.timings["joins_s"],
+            "host_loop_ms": 1e3 * host_wall, "device_us": dev_us,
+            "device_us_per_join": dev_us / joins, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None})
+        counters = dict(zip(EPOCH_DEBUG, a["debug"].tolist()))
+        print(f"  nj_join_epoch [{label}]: the twin on the CPU "
+              f"{cpu.timings['joins_s']:.3f} s, the same join log, values "
+              f"max abs err {err:.3e}; counters {counters} (the kernel's "
+              f"{b['debug'].tolist()}); {' '.join(epoch_diff(a, b))} "
+              "differ")
+
+
 # ------------------------------------------------------------- phases 3, 4
 ALPHA = "ACGT"
 
@@ -1200,8 +1396,19 @@ def require_launched(label, counts, names):
             raise AssertionError(f"{label}: {name} never launched")
 
 
-DENSE_PATH = ("nj_scan_dense", "me_dists", "me_average", "me_spr_round",
-              "me_nni_round")
+# the -noml path's kernels; the scans' bodies run inside nj_join_epoch's
+# refreshes (require_scans), no longer as launches of their own
+DENSE_PATH = ("me_dists", "me_average", "me_spr_round", "me_nni_round",
+              "nj_join_epoch")
+
+
+def require_scans(label):
+    """The refresh scans of the run's join epoch (the bodies of nj_scan_dense
+    and, in a two-tier store, of nj_scan_codes) ran: returns their count."""
+    scans = wrappers()["nj_join_epoch"].totals["scans"]
+    if scans == 0:
+        raise AssertionError(f"{label}: the join epoch ran no refresh scan")
+    return scans
 
 
 def phase_golden(dev):
@@ -1213,9 +1420,7 @@ def phase_golden(dev):
         golden_len = json.load(f)["total_len"]
     fasta = fasta_text(synth_codes(500, 500, seed=0))
     trees = {}
-    for label, overrides, needed in (("dense", {}, DENSE_PATH),
-                                     ("two-tier", {"two_tier_min": 0},
-                                      DENSE_PATH + ("nj_scan_codes",))):
+    for label, overrides in (("dense", {}), ("two-tier", {"two_tier_min": 0})):
         nw, nj, wall, counts = counted_run(fasta, dev, **overrides)
         rf, n_splits = rf_distance(nw, golden)
         print(f"  N=500 {label}: {wall:.2f} s, RF {rf}/{n_splits} to the JAX "
@@ -1224,7 +1429,8 @@ def phase_golden(dev):
               f"{counts}")
         if rf != 0:
             raise AssertionError(f"{label}: RF {rf} to the golden tree")
-        require_launched(label, counts, needed)
+        require_launched(label, counts, DENSE_PATH)
+        require_scans(label)
         trees[label] = nw
     if trees["dense"] != trees["two-tier"]:
         raise AssertionError("two-tier and dense Newick differ")
@@ -1275,6 +1481,14 @@ def phase_main(report, dev):
         runs[label] = nw
         if label == "warm":                  # the -noml main path's run
             require_launched(label, counts, DENSE_PATH)
+            scans = require_scans(label)
+            epoch = wrappers()["nj_join_epoch"].totals
+            print(f"  nj_join_epoch in the warm run: "
+                  f"{counts['nj_join_epoch']} launches, {epoch['joins']} "
+                  f"joins, {epoch['phases']} phases, {scans} refresh scans "
+                  f"of {epoch['scan_rows']} rows (the scan kernels' bodies)")
+            for name in ("nj_scan_dense", "nj_scan_codes"):
+                report.setdefault(name, {})["epoch_scans"] = scans
             spr = wrappers()["me_spr_round"].totals
             P, C = nj.prof.W.shape[1], nj.prof.U.shape[2]
             rounds = counts["me_spr_round"]
@@ -1300,9 +1514,8 @@ def phase_main(report, dev):
                 if name not in ML_KERNELS:
                     report.setdefault(name, {})["launches"] = count
         elif label == "two-tier":
-            require_launched(label, counts, ("nj_scan_codes",))
-            report["nj_scan_codes"]["two_tier_launches"] = \
-                counts["nj_scan_codes"]
+            report["nj_scan_codes"]["two_tier_epoch_scans"] = \
+                require_scans(label)
     if runs["two-tier"] != runs["cold"] or runs["warm"] != runs["cold"]:
         raise AssertionError("the three runs gave different trees")
 
@@ -1491,6 +1704,7 @@ def main() -> int:
         cuda = torch.device("cuda")
         phase("2b SPR round vs host loop", phase_spr, report, cuda)
         phase("2c NNI round vs host loop", phase_nni, report, cuda)
+        phase("2d join epoch vs host loop", phase_epoch, report, cuda)
         phase("3 N=500 vs JAX golden", phase_golden, cuda)
         phase(f"4 main path N={MAIN_N}", phase_main, report, cuda)
         phase(f"5 ML N={ML_GOLDEN_N} vs JAX golden", phase_ml_golden, cuda)

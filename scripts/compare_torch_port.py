@@ -12,7 +12,8 @@ runs go OLD, NEW, NEW, OLD.  Each run builds its checkout's kernels first
 (outside the timed wall), then runs once as a user's run does (no
 deterministic mode) and prints one line "RESULT {json}": the wall, the
 phase split (nj.timings), the ML-NNI rounds (LogLk, NNIs), the final
-LogLk (none with --noml) and every kernel wrapper's launches.  With
+LogLk (none with --noml), every kernel wrapper's launches and the round
+and epoch wrappers' totals (the join epoch's joins, phases and scans).  With
 --trace the second round's runs are traced with torch.profiler (CUDA
 activity): the device's busy seconds and share of that run's wall, and the
 kernels by device time.
@@ -44,7 +45,7 @@ from veryfasttree_tpu_torch.pipeline import run_pipeline
 # the kernel wrappers' modules (an older checkout may lack one)
 mods = [importlib.import_module("." + name, "veryfasttree_tpu_torch.ops")
         for name in ("scan_kernels", "store_kernels", "ml_kernels",
-                     "spr_kernels", "nni_kernels")
+                     "spr_kernels", "nni_kernels", "epoch_kernels")
         if os.path.exists(os.path.join(root, "veryfasttree_tpu_torch", "ops",
                                        name + ".py"))]
 
@@ -71,6 +72,8 @@ torch.cuda.synchronize()
 wall = time.perf_counter() - t0
 res = {"root": root, "wall": wall, "timings": nj.timings,
        "launches": {k: fn.launches for k, fn in wrappers.items()},
+       "totals": {k: fn.totals for k, fn in wrappers.items()
+                  if hasattr(fn, "totals")},
        "rounds": [(float(a), int(b)) for _, a, b in re.findall(
            r"ML-NNI round (\d+): LogLk = (-?[\d.]+) NNIs (\d+)",
            log.getvalue())],

@@ -381,3 +381,72 @@ def test_pipeline_on_cuda_matches_cpu(cuda, two_tier_min):
 
     rf, _ = rf_distance(run(cuda), run(torch.device("cpu")))
     assert rf == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [
+    {}, {"two_tier": True}, {"protein": True}, {"bionj": True},
+    {"max_joins": 10}, {"grid": 1}, {"state_in_smem": False}],
+    ids=["dense", "two-tier", "protein", "bionj", "max-joins", "one-block",
+         "state-in-device-memory"])
+def test_join_epoch_kernel_is_the_host_loop(cuda, kw):
+    """The NJ phase at N=150 (chip_smoke.py's phase 2d): its joins through
+    the epoch kernel and through the host loop with the per-call kernels
+    leave every array bit for bit alike: the join log and tree, branch
+    lengths, diameters, self-distances, out-distances and their n_active,
+    the store rows and out-profile, the top-hits lists, visible and
+    top-visible sets and ages, and the debug counters.  The cases cover a
+    dense and a two-tier store, 4 codes and 20 under BLOSUM45, -bionj, the
+    max_joins stop, one block against the full grid (the default), and the
+    decisions' per-node arrays in device memory (their layout past N of
+    about 2,300) against shared memory (the default)."""
+    from chip_smoke import epoch_diff, epoch_run, epoch_state
+    from veryfasttree_tpu_torch.ops import epoch_kernels
+
+    host_kw = {k: v for k, v in kw.items()
+               if k not in ("grid", "state_in_smem")}
+    host = epoch_state(epoch_run(150, cuda, kernel=False, **host_kw))
+    before = epoch_kernels.join_epoch.launches
+    kern = epoch_state(epoch_run(150, cuda, **kw))
+    assert epoch_kernels.join_epoch.launches > before
+    assert len(host["join_log"]) == kw.get("max_joins", 147)
+    assert epoch_diff(host, kern) == []
+
+
+@pytest.mark.cuda
+def test_bionj_rows_on_cuda_match_cpu(cuda):
+    """-nt -noml -nosupport -bionj at N=60 (tests/test_torch_slice.py's
+    case, which holds the CPU run to the JAX package's): on the card the
+    same Newick and joins, and after four joins the profile rows of the
+    store bit for bit the CPU run's (the averages round alike in both)."""
+    from veryfasttree_tpu_torch.engine.nj import NeighbourJoining
+    from veryfasttree_tpu_torch.io.alignment import seqs_to_codes
+    from veryfasttree_tpu_torch.options import noml_options
+    from veryfasttree_tpu_torch.pipeline import run_pipeline
+
+    seqs = simulate_alignment(60, 240, seed=11)
+    fasta = "".join(f">seq{i:05d}\n{s}\n" for i, s in enumerate(seqs))
+
+    def run(device):
+        out = io.StringIO()
+        nj, _ = run_pipeline(noml_options(bionj=True), io.StringIO(fasta),
+                             out, device=device)
+        return out.getvalue(), list(nj.join_log)
+
+    (nw_card, joins_card), (nw_cpu, joins_cpu) = run(cuda), run(
+        torch.device("cpu"))
+    assert nw_card == nw_cpu
+    # the same joins; an exact tie of a join's two orientations may break
+    # the other way, as the two sum their distances in other orders
+    assert [tuple(sorted(j)) for j in joins_card] == \
+        [tuple(sorted(j)) for j in joins_cpu]
+    opts = noml_options(bionj=True)
+    rows = []
+    for device in (cuda, torch.device("cpu")):
+        nj = NeighbourJoining(opts, seqs_to_codes(seqs, opts), None, None,
+                              device=device)
+        nj.fast_nj(max_joins=4)
+        rows.append([getattr(nj.prof, k)[60:64].cpu().numpy()
+                     for k in ("W", "U")])
+    for a, b in zip(*rows):
+        np.testing.assert_array_equal(a, b)

@@ -7,10 +7,12 @@ alignments, numpy seeds).  The JAX engine builds the NJ tree; its
 checkpoint carries tree and store to the port's engine, so both rounds start
 from the same arrays.  After one round the tree arrays, n_spr and the ME
 profile counters must be equal, and the node rows [:maxnode] (codes, W, U)
-bit for bit; under -bionj the rows within atol 1e-6 with the same topology,
-because the BIONJ weights pass through log1p, which numpy and XLA round
-differently in the last bit (tests/test_spr_epoch.py holds the JAX round to
-its host loop to the same tier).  About 70 s in one process.
+bit for bit; under -bionj W too, and U within atol 2e-7 (measured 1.8e-7,
+three float32 ulps) with the same topology: the JAX round averages inside
+another XLA program than the JAX package's NJ joins, whose CPU build rounds
+the weight that scales U and the position totals otherwise (the port
+follows the joins' rounding, ops/kernels.py average_profile).  About 70 s
+in one process.
 """
 import dataclasses
 
@@ -73,8 +75,8 @@ def _same_round(jnj, tnj, bionj):
     for name in ("W", "U"):
         t = getattr(tnj.prof, name).numpy()[: mh - lo]
         j = fetch_np(getattr(jnj.prof, name))[: mh - lo]
-        if bionj:
-            np.testing.assert_allclose(t, j, rtol=0, atol=1e-6, err_msg=name)
+        if bionj and name == "U":
+            np.testing.assert_allclose(t, j, rtol=0, atol=2e-7, err_msg=name)
         else:
             np.testing.assert_array_equal(t, j, err_msg=name)
 

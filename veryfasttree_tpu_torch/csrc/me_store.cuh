@@ -104,19 +104,30 @@ __device__ __forceinline__ void pair_finish(const double* warp_den, const double
   denom = d;
 }
 
-// bw*x1 + (1-bw)*x2 rounded as the reference rounds it (ops/kernels.py _mix):
-// at bw = 0.5 two exact halvings and one rounded sum; otherwise one rounding
-// of the double x1*bw + round(x2*(1-bw)).
-__device__ __forceinline__ float mix(float x1, float x2, float bw, float omb, bool half) {
+// a*b + c rounded once to float (up to a rare double-rounding tie), as the
+// plain twins' _fma rounds it: the float product is exact in double.
+__device__ __forceinline__ float fma_via_double(float a, float b, float c) {
+  return __double2float_rn(__dadd_rn(__dmul_rn((double)a, (double)b), (double)c));
+}
+
+// bw*x1 + (1-bw)*x2 rounded as the reference's CPU build rounds it
+// (ops/kernels.py _mix): at bw = 0.5 two exact halvings and one rounded sum;
+// otherwise one fused multiply-add of the second product onto the rounded
+// first, or, fuse_first, of the first onto the rounded second.
+__device__ __forceinline__ float mix(float x1, float x2, float bw, float omb, bool half,
+                                     bool fuse_first = false) {
   if (half) return __fadd_rn(__fmul_rn(0.5f, x1), __fmul_rn(0.5f, x2));
-  const float t = __fmul_rn(x2, omb);
-  return __double2float_rn(__dadd_rn(__dmul_rn((double)x1, (double)bw), (double)t));
+  if (fuse_first) return fma_via_double(x1, bw, __fmul_rn(x2, omb));
+  return fma_via_double(x2, omb, __fmul_rn(x1, bw));
 }
 
 // averageProfile of rows (ri, rj) into row rt at position p (ref
 // averageProfile tcc:2063-2135): every float operation is the reference's,
 // in its order.  Matrix mode's position total is a float dot product over
-// the C codes, summed left to right.  rt lies at or above leaf_rows.
+// the C codes, summed left to right; %different mode's with a weight other
+// than 0.5 is one chain of fused multiply-adds over both children's vectors,
+// and the weight that scales U fuses the other product than w_out does
+// (ops/kernels.py average_profile).  rt lies at or above leaf_rows.
 template <int C>
 __device__ __forceinline__ void average_pos(const StoreView& s, int8_t* codes_out, float* W_out,
                                             float* U_out, const float* eigentot, int64_t rt,
@@ -142,6 +153,13 @@ __device__ __forceinline__ void average_pos(const StoreView& s, int8_t* codes_ou
     total = 0.0f;
 #pragma unroll
     for (int c = 0; c < C; ++c) total = __fadd_rn(total, __fmul_rn(f[c], eigentot[c]));
+  } else if (!half) {
+    total = 0.0f;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      total = fma_via_double(u1[c], bw, total);
+      total = fma_via_double(u2[c], omb, total);
+    }
   } else {
     total = f[0];
 #pragma unroll
@@ -156,12 +174,13 @@ __device__ __forceinline__ void average_pos(const StoreView& s, int8_t* codes_ou
     for (int c = 0; c < C; ++c) f[c] = s.code_freq[c_out * C + c];
   }
 
+  const float w_u = mix(w1, w2, bw, omb, half, true);
   codes_out[rt * s.P + p] = (int8_t)c_out;
   const int64_t phys = rt - s.leaf_rows;
   W_out[phys * s.P + p] = w_out;
   float* uo = U_out + (phys * s.P + p) * C;
 #pragma unroll
-  for (int c = 0; c < C; ++c) uo[c] = w_out > 0.0f ? __fmul_rn(w_out, f[c]) : 0.0f;
+  for (int c = 0; c < C; ++c) uo[c] = w_u > 0.0f ? __fmul_rn(w_u, f[c]) : 0.0f;
 }
 
 }  // namespace

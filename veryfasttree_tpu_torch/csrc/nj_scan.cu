@@ -15,10 +15,14 @@
 // Acc before its product, as the reference's CPU path upcasts the store
 // before the contraction (veryfasttree_tpu/engine/profiles.py _dist_all).
 // Acc is a template parameter so that a float variant can be tried later.
+// The per-row bodies are in nj_scan.cuh, which the join epoch (nj_epoch.cu)
+// runs for its refresh scans.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "nj_scan.cuh"
 
 namespace {
 
@@ -26,14 +30,6 @@ constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kCodesRowsPerWarp = 4;
 constexpr int kCodesRowsPerBlock = kWarps * kCodesRowsPerWarp;
-
-template <typename Acc>
-__device__ __forceinline__ Acc warp_sum(Acc v) {
-  // xor butterfly: every lane ends with the same bits (a + b == b + a)
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
 
 template <typename Acc>
 __device__ __forceinline__ bool better(Acc c, int64_t i, Acc bc, int64_t bi) {
@@ -46,8 +42,7 @@ template <typename Acc>
 __device__ __forceinline__ void row_epilogue(
     int64_t m, Acc dots, Acc den, Acc outd_m, bool use_matrix, Acc n_active_m2,
     int64_t m_real, Acc* dist, Acc* denom, Acc* crit, Acc& best_c, int64_t& best_i) {
-  const Acc top = use_matrix ? dots : den - dots;
-  const Acc d = den > Acc(0) ? top / den : Acc(1);
+  const Acc d = row_dist(dots, den, use_matrix);
   const Acc c = m < m_real ? d - outd_m / n_active_m2 : Acc(1e30);
   dist[m] = d;
   denom[m] = den;
@@ -104,23 +99,8 @@ __global__ void __launch_bounds__(kThreads) nj_scan_dense_kernel(
   Acc best_c = Acc(INFINITY);
   int64_t best_i = INT64_MAX;
   if (m < M) {
-    const float4* u4 = reinterpret_cast<const float4*>(U2 + m * K);
-    const float4* w4 = reinterpret_cast<const float4*>(W + m * P);
-    Acc dots = 0, den = 0;
-    for (int k = lane; k < K / 4; k += 32) {
-      const float4 u = __ldg(u4 + k);
-      const Acc* ak = a + 4 * k;
-      dots += Acc(u.x) * __ldg(ak) + Acc(u.y) * __ldg(ak + 1) + Acc(u.z) * __ldg(ak + 2) +
-              Acc(u.w) * __ldg(ak + 3);
-    }
-    for (int p = lane; p < P / 4; p += 32) {
-      const float4 w = __ldg(w4 + p);
-      const Acc* qp = wq + 4 * p;
-      den += Acc(w.x) * __ldg(qp) + Acc(w.y) * __ldg(qp + 1) + Acc(w.z) * __ldg(qp + 2) +
-             Acc(w.w) * __ldg(qp + 3);
-    }
-    dots = warp_sum(dots);
-    den = warp_sum(den);
+    Acc dots, den;
+    dense_row(U2 + m * K, W + m * P, a, wq, K, P, lane, dots, den);
     if (lane == 0)
       row_epilogue(m, dots, den, outd[m], use_matrix != 0, n_active_m2, m_real, dist, denom,
                    crit, best_c, best_i);
@@ -165,21 +145,7 @@ __global__ void __launch_bounds__(kThreads) nj_scan_codes_kernel(
     for (int r = 0; r < kCodesRowsPerWarp; ++r) {
       const int64_t l = row0 + r;
       if (l >= L) break;
-      const int4* row = reinterpret_cast<const int4*>(codes + l * P + p0);
-      for (int v = lane; v < pt / 16; v += 32) {
-        const int4 raw = __ldg(row + v);
-        const int words[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-        for (int j = 0; j < 16; ++j) {
-          // byte j of the 16 (little-endian), the code of position 16v + j
-          const int code = (signed char)((words[j >> 2] >> (8 * (j & 3))) & 0xff);
-          const int p = 16 * v + j;
-          if (code != 127) {
-            den[r] += sW[p];
-            if (code >= 0 && code < C) pick[r] += sG[code * p_tile + p];
-          }
-        }
-      }
+      codes_row_tile(codes + l * P + p0, pt, C, sG, p_tile, sW, lane, den[r], pick[r]);
     }
   }
 
@@ -189,8 +155,8 @@ __global__ void __launch_bounds__(kThreads) nj_scan_codes_kernel(
   for (int r = 0; r < kCodesRowsPerWarp; ++r) {
     const int64_t l = row0 + r;
     if (l >= L) break;
-    const Acc d = warp_sum(den[r]);
-    const Acc s = warp_sum(pick[r]);
+    const Acc d = scan_warp_sum(den[r]);
+    const Acc s = scan_warp_sum(pick[r]);
     if (lane == 0)
       row_epilogue(l, s, d, outd[l], use_matrix != 0, n_active_m2, l_real, dist, denom, crit,
                    best_c, best_i);
@@ -227,14 +193,6 @@ __global__ void __launch_bounds__(kThreads) argmin_partials_kernel(
     *best_idx = s_idx[0];
     *best_crit = s_crit[0];
   }
-}
-
-constexpr int kMaxCodesSmem = 200 * 1024;
-
-int codes_p_tile(int P, int C) {
-  const int per_pos = (C + 1) * (int)sizeof(double);
-  if (P * per_pos <= kMaxCodesSmem) return P;
-  return (kMaxCodesSmem / per_pos) / 16 * 16;
 }
 
 }  // namespace

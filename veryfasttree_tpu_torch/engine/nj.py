@@ -345,6 +345,26 @@ class NeighbourJoining:
         t1 = time.perf_counter()
         self.timings["tophits_s"] = t1 - t0
 
+        from . import epoch
+        if tophits is not None and epoch.epoch_supported(self, tophits):
+            epoch.run_epoch(self, tophits, max_joins)
+        else:
+            self._join_loop_host(tophits, visible, max_joins)
+        if len(self.join_log) < n_seqs - 3:
+            return  # max_joins stop: the tree is unfinished
+        self._root_three(tree)
+        self.timings["joins_s"] = time.perf_counter() - t1
+
+    def _join_loop_host(self, tophits, visible, max_joins=None) -> None:
+        """The join loop on the host (ref fastNJ tcc:2857-3105), from the
+        leaf top-hits (or visible set) to three active nodes: every mode's
+        loop, and the plain twin of the join epoch (engine/epoch.py), which
+        a CPU store runs and the card tests hold the epoch to.  Returns
+        early after max_joins joins."""
+        opts = self.options
+        tree = self.tree
+        n_seqs = self.n_seqs
+        m = tophits.m if tophits is not None else 0
         n_active_out_profile_reset = n_seqs
         for n_active in range(n_seqs, 3, -1):
             if max_joins is not None and n_seqs - n_active >= max_joins:
@@ -457,8 +477,6 @@ class NeighbourJoining:
                         visible[i] = Besthit(i, newnode, float(weight[i]),
                                              float(dist[i]), float(crit[i]))
 
-        self._root_three(tree)
-        self.timings["joins_s"] = time.perf_counter() - t1
 
     def _root_three(self, tree) -> None:
         """Root the 3 remaining nodes (ref tcc:3107-3135)."""

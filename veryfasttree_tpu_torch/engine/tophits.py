@@ -44,6 +44,34 @@ class TopHits:
         self.topvisible = np.full(n_top_visible, -1, dtype=np.int64)
         self.topvisible_age = 0
 
+    # ------------------------------------------------------------ [M, m] form
+    def pack_state(self):
+        """The hit lists as [maxnodes, m] arrays, the join epoch's layout
+        (veryfasttree_tpu/engine/epoch.py EpochState): (hits_j int32, -1
+        past a list's end and for a node without a list; hits_dist float64,
+        0 there)."""
+        hj = np.full((self.maxnodes, self.m), -1, dtype=np.int32)
+        hd = np.zeros((self.maxnodes, self.m))
+        for i, js in enumerate(self.hits_j):
+            if js is None:
+                continue
+            if len(js) > self.m:
+                raise ValueError(f"node {i} has {len(js)} top hits, more "
+                                 f"than m={self.m}")
+            hj[i, : len(js)] = js
+            hd[i, : len(js)] = self.hits_dist[i]
+        return hj, hd
+
+    def unpack_state(self, hits_j, hits_dist) -> None:
+        """Set the hit lists from pack_state's arrays."""
+        counts = (np.asarray(hits_j) >= 0).sum(axis=1)
+        for i, k in enumerate(counts.tolist()):
+            if k:
+                self.hits_j[i] = hits_j[i, :k].astype(np.int64)
+                self.hits_dist[i] = np.array(hits_dist[i, :k], dtype=np.float64)
+            else:
+                self.hits_j[i] = self.hits_dist[i] = None
+
     # ---------------------------------------------------------------- helpers
     def _sort_save(self, nj, i_node: int, jjs, dists, crits, n_out: int,
                    presorted: bool = False) -> None:

@@ -24,11 +24,11 @@ BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 LIB_PATH = BUILD_DIR / "libvft_scan.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# per-source flags: the likelihood kernels and the SPR and NNI rounds'
-# decisions round every float and double expression as written, as their
-# plain twins and numpy do (no fused multiply-adds)
+# per-source flags: the likelihood kernels and the decisions of the SPR and
+# NNI rounds and of the join epoch round every float and double expression
+# as written, as their plain twins and numpy do (no fused multiply-adds)
 SOURCE_FLAGS = {"ml_lk.cu": ["-fmad=false"], "me_spr.cu": ["-fmad=false"],
-                "me_nni.cu": ["-fmad=false"]}
+                "me_nni.cu": ["-fmad=false"], "nj_epoch.cu": ["-fmad=false"]}
 
 _lib = None
 
@@ -119,6 +119,11 @@ def _declare(lib) -> None:
         i32, ptr, i32, ptr, ptr, ptr, ptr, i32, ptr]
     lib.vft_me_nni_round_f32.argtypes = me_round + [
         i32, f64, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, ptr]
+    # the join epoch takes its parameters as one struct
+    # (ops/epoch_kernels.EpochParams)
+    lib.vft_nj_epoch_f32.argtypes = [ptr, i32, ptr, ptr]
+    lib.vft_nj_epoch_scratch.argtypes = [i64, i64, i64, ptr]
+    lib.vft_nj_epoch_scratch.restype = None
     # the ML store's arguments, first in each ML entry (csrc/ml_lk.cu)
     ml_store = [ptr] * 9 + [i64, i32, i32, i32, i32, i32, f32]
     lib.vft_ml_pair_loglk_f32.argtypes = ml_store + [ptr, ptr, i32, ptr, ptr,
@@ -136,7 +141,7 @@ def _declare(lib) -> None:
                  "vft_me_spr_round_f32", "vft_me_nni_round_f32",
                  "vft_ml_pair_loglk_f32", "vft_ml_posterior_f32",
                  "vft_ml_opt_branch_f32", "vft_ml_opt_branch_fits_smem",
-                 "vft_ml_quartet_opt_f32"):
+                 "vft_ml_quartet_opt_f32", "vft_nj_epoch_f32"):
         getattr(lib, name).restype = i32
 
 

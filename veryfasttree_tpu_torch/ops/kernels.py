@@ -98,15 +98,38 @@ def _fma(a, b, c):
     return (a.double() * bd + c.double()).float()
 
 
-def _mix(bw: float, x1, x2):
-    """bw*x1 + (1-bw)*x2 in x1's dtype, rounded as the reference rounds it:
-    one fused multiply-add, whose products are exact when bw is 0.5."""
+def _mix(bw: float, x1, x2, fuse_first: bool = False):
+    """bw*x1 + (1-bw)*x2 in x1's dtype, rounded as the reference rounds it
+    on the CPU: the products are exact when bw is 0.5; otherwise one fused
+    multiply-add of one product onto the other, rounded (the second product
+    fused, or the first when fuse_first)."""
     if bw == 0.5:
         return 0.5 * x1 + 0.5 * x2
     if x1.dtype != torch.float32:
         return bw * x1 + (1.0 - bw) * x2
-    bw32 = np.float32(bw)
-    return _fma(x1, float(bw32), x2 * float(np.float32(1.0) - bw32))
+    b, omb = _bw32(bw)
+    if fuse_first:
+        return _fma(x1, b, x2 * omb)
+    return _fma(x2, omb, x1 * b)
+
+
+def _bw32(bw: float):
+    """(bw, 1 - bw) as the float32 values the reference multiplies by."""
+    b = np.float32(bw)
+    return float(b), float(np.float32(1.0) - b)
+
+
+def _mix_total(bw: float, u1, u2):
+    """The position totals of _mix(bw, u1, u2) over the code axis as the
+    reference's CPU build sums them (%different mode, bw not 0.5): one
+    chain of fused multiply-adds, bw*u1[c] then (1-bw)*u2[c] for each code
+    in turn, from 0."""
+    b, omb = _bw32(bw)
+    total = torch.zeros_like(u1[..., 0])
+    for c in range(u1.shape[-1]):
+        total = _fma(u1[..., c], b, total)
+        total = _fma(u2[..., c], omb, total)
+    return total
 
 
 def _code_total(vec):
@@ -125,11 +148,14 @@ def _fallback(code_freq, eigentot, dtype):
                       device=code_freq.device)
 
 
-def normalize_freq(vec, eigentot, fallback, tol):
+def normalize_freq(vec, eigentot, fallback, tol, total=None):
     """Normalize per-position vectors [..., C] to total (unrotated) frequency
     1; positions with total <= tol get `fallback` (ref normalizeFreq
-    tcc:839-871)."""
-    total = vec @ eigentot if eigentot is not None else _code_total(vec)
+    tcc:839-871).  The total is summed left to right (in matrix mode of the
+    products with eigentot), so the CUDA kernels can repeat it; `total`
+    gives it instead."""
+    if total is None:
+        total = _code_total(vec * eigentot if eigentot is not None else vec)
     ok = total > tol
     scaled = vec / torch.where(ok, total, 1.0)[..., None]
     return torch.where(ok[..., None], scaled, fallback.expand_as(vec))
@@ -139,7 +165,12 @@ def average_profile(c1, w1, u1, c2, w2, u2, bionj_weight, code_freq,
                     eigentot, tol):
     """Weighted merge of two profiles for a join (ref averageProfile
     tcc:2063-2135).  Works on any leading batch shape; bionj_weight is a
-    float.  Returns (codes, w, U, f)."""
+    float.  Returns (codes, w, U, f).
+
+    With a weight other than 0.5 the reference's CPU build rounds three
+    parts apart (one fused multiply-add each): w_out and the accumulator
+    fuse the second product, the weight that scales U the first, and the
+    %different mode totals chain every product (_mix_total)."""
     w_out = _mix(bionj_weight, w1, w2)
 
     # keep a child's code where the children agree or the other is absent
@@ -151,13 +182,18 @@ def average_profile(c1, w1, u1, c2, w2, u2, bionj_weight, code_freq,
     c_out = torch.where(w_out > 0, c_out, nocode)
 
     accum = _mix(bionj_weight, u1, u2)
+    chained = (bionj_weight != 0.5 and eigentot is None
+               and u1.dtype == torch.float32)
     f_out = normalize_freq(accum, eigentot,
-                           _fallback(code_freq, eigentot, u1.dtype), tol)
+                           _fallback(code_freq, eigentot, u1.dtype), tol,
+                           _mix_total(bionj_weight, u1, u2) if chained
+                           else None)
     # coded positions are exactly the rotated one-hot of their code
     coded = (c_out != NOCODE) & (w_out > 0)
     safe_c = torch.where(c_out == NOCODE, 0, c_out.long())
     f_out = torch.where(coded[..., None], code_freq[safe_c], f_out)
-    u_out = torch.where(w_out[..., None] > 0, w_out[..., None] * f_out, 0.0)
+    w_u = _mix(bionj_weight, w1, w2, fuse_first=True)[..., None]
+    u_out = torch.where(w_u > 0, w_u * f_out, 0.0)
     return c_out, w_out, u_out, f_out
 
 

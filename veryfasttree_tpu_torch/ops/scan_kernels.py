@@ -176,6 +176,17 @@ def nj_scan(U, W, uq, wq, outd, n_active, eigenval=None):
                          M, eigenval is not None)
 
 
+def project_query(a, code_freq):
+    """G[c, p] = sum_k a[p, k] * code_freq[c, k] in the accumulation dtype,
+    summed left to right (as the join epoch's refresh scans do, so that the
+    two give the same table)."""
+    cf = code_freq.to(ACCUM_DTYPE)
+    G = a[None, :, 0] * cf[:, None, 0]
+    for k in range(1, a.shape[1]):
+        G = G + a[None, :, k] * cf[:, None, k]
+    return G
+
+
 def nj_scan_two_tier(codes, W_int, U_int, uq, wq, outd, n_active, n_seqs,
                      eigenval, code_freq):
     """Fused one-vs-all scan of a two-tier store: leaves stream as int8 codes
@@ -195,7 +206,7 @@ def nj_scan_two_tier(codes, W_int, U_int, uq, wq, outd, n_active, n_seqs,
     outd = outd.to(ACCUM_DTYPE)
     if use_matrix:
         a = a * eigenval.to(ACCUM_DTYPE)[None, :]
-        G = (a @ code_freq.to(ACCUM_DTYPE).T).T
+        G = project_query(a, code_freq)
     else:
         G = a.T
     bl, cl, dist_l, den_l, crit_l = nj_scan_codes(
