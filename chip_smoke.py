@@ -57,6 +57,18 @@ passed):
    against the plain twin (the host loop on the CPU): the same join log,
    values within 1e-4 (its out-profile weights round otherwise); both
    walls, the launches, the device time per join and the bound;
+2e. one ML lengths pass, then one ML NNI round, at N=500 from one NJ start
+   with an ML store (Jukes-Cantor with one rate, Jukes-Cantor and GTR with
+   fitted CAT 20 rates): the round kernels (ml_lengths_pass, ml_nni_round,
+   one launch each) against the host loops
+   engine/ml.optimize_all_branch_lengths and engine/rearrange.do_nni
+   through the per-call kernels, tree, branch lengths, NNIStats, counters
+   and the ML store's node and up-profile rows bit for bit; the first case
+   also with the kernels' tree in device memory, and against the plain
+   twins on the CPU (the tree LogLk after the pass and the round within
+   1e-4 relative, quartet decisions equal up to a flip on a near tie); the
+   walls, the device time per quartet optimization, line search and node
+   beside the host loop's kernels', and the bound;
 3. the -noml pipeline at N=500, P=500 against the JAX package's tree
    (tests/data/torch_port_golden_n500_p500.nwk), dense and two-tier: RF 0
    to the golden, and the two layouts give the same Newick; then the same
@@ -82,8 +94,11 @@ passed):
    run_pipeline (warm: phase 5 ran the same code), with its phase split and
    final LogLk.  The launch counts are reset just before it and read just
    after it: every kernel of the dense path, the ML kernels included, must
-   have launched, and the final LogLk must be the one recorded in PERF.md
-   for this input (the kernels' arithmetic does not change the tree).
+   have launched (but ml_opt_branch, whose body runs inside the round
+   kernels: its count, 0, is printed), the ML NNI rounds must have kept the
+   tree in shared memory, and the final LogLk must be the one recorded in
+   PERF.md for this input (the kernels' arithmetic does not change the
+   tree).
 
 The last lines are the card's name and power limit, one JSON line with each
 kernel's route, source, main-path launches (the ML main path's for the ML
@@ -142,9 +157,17 @@ KERNELS = {
                      "veryfasttree_tpu/engine/rearrange.py:246"),
     "nj_join_epoch": ("veryfasttree_tpu_torch/csrc/nj_epoch.cu",
                       "veryfasttree_tpu/engine/epoch.py:131"),
+    "ml_nni_round": ("veryfasttree_tpu_torch/csrc/ml_round.cu",
+                     "veryfasttree_tpu/engine/rearrange.py:246"),
+    "ml_lengths_pass": ("veryfasttree_tpu_torch/csrc/ml_round.cu",
+                        "veryfasttree_tpu/engine/ml.py:380"),
 }
 ML_KERNELS = ("ml_pair_loglk", "ml_posterior", "ml_opt_branch",
-              "ml_quartet_opt")
+              "ml_quartet_opt", "ml_nni_round", "ml_lengths_pass")
+# the ML kernels the default run launches: ml_opt_branch's one search per
+# launch came only from the lengths passes, whose kernel runs its body
+# (line_search) instead; its count (0) is printed and reported all the same
+ML_PATH = tuple(k for k in ML_KERNELS if k != "ml_opt_branch")
 # the CUDA kernels each wrapper launches (names as torch.profiler shows them)
 DEVICE_NAMES = {
     "nj_scan_dense": ("nj_scan_dense_kernel", "argmin_partials_kernel"),
@@ -158,6 +181,8 @@ DEVICE_NAMES = {
     "me_spr_round": ("me_spr_round_kernel",),
     "me_nni_round": ("me_nni_round_kernel",),
     "nj_join_epoch": ("nj_epoch_kernel",),
+    "ml_nni_round": ("ml_nni_round_kernel",),
+    "ml_lengths_pass": ("ml_lengths_pass_kernel",),
 }
 # final LogLk of the default -nt run at N=2000 (PERF.md, section 6)
 ML_MAIN_LOGLK = "-427535.845"
@@ -179,7 +204,7 @@ def TWINS(n):
 def wrappers():
     """The kernel wrappers by name; each counts its launches."""
     from veryfasttree_tpu_torch.ops import epoch_kernels, ml_kernels, \
-        nni_kernels, scan_kernels, spr_kernels, store_kernels
+        ml_round, nni_kernels, scan_kernels, spr_kernels, store_kernels
 
     return {"nj_scan_dense": scan_kernels.nj_scan_dense,
             "nj_scan_codes": scan_kernels.nj_scan_codes,
@@ -191,7 +216,9 @@ def wrappers():
             "ml_quartet_opt": ml_kernels.ml_quartet_opt,
             "me_spr_round": spr_kernels.spr_round,
             "me_nni_round": nni_kernels.nni_round,
-            "nj_join_epoch": epoch_kernels.join_epoch}
+            "nj_join_epoch": epoch_kernels.join_epoch,
+            "ml_nni_round": ml_round.ml_nni_round,
+            "ml_lengths_pass": ml_round.ml_lengths_pass}
 
 
 def reset_launches():
@@ -1337,6 +1364,414 @@ def phase_epoch(report, dev):
               "differ")
 
 
+# ------------------------------------------------------------- phase 2e
+ML_DEBUG = ("n_ml_nni", "n_star_tests", "n_lk_compute", "n_posterior_compute")
+# the plain twins against the kernels (the host loops' bits): the tree
+# LogLk after a pass or a round within 1e-5 relative, where the twins read
+# 2.3e-7 (pass) and 1.25e-6 (round) at N=500 and a pass that leaves out each
+# node's second sweep (second_sweep_left_out, a planted fault) reads 8.3e-5;
+# the round's NNI count equal and its max_delta within ML_TWIN_NEAR_TIE; a
+# quartet decision may flip only on a near tie, its two criteria within
+# the quartet LogLk tolerance of tests/test_torch_ml_round.py.  Each
+# package's float32 line searches stop at other points of their flat
+# bottoms and a pass carries each length into the next search, so single
+# lengths differ by up to about 1e-2 at N=500.
+ML_TWIN_RTOL = 1e-5
+ML_TWIN_NEAR_TIE = 5e-3
+GTR = ([1.2, 3.1, 0.8, 1.1, 2.9, 1.0], [0.3, 0.2, 0.24, 0.26])
+
+
+def ml_start(n, dev, model="jc", cat=False):
+    """The port's NJ tree of synth_codes(n, MAIN_P) on dev with its ME
+    branch lengths and an ML store (Jukes-Cantor or GTR) with recomputed
+    posteriors: the start of the default run's first ML lengths pass and
+    NNI round (one rate), or with cat, of its later ones (the CAT 20 rates
+    fitted to the tree, engine/ml.set_ml_rates)."""
+    from veryfasttree_tpu_torch.engine import ml, rearrange
+    from veryfasttree_tpu_torch.engine.ml_profiles import MLProfiles
+    from veryfasttree_tpu_torch.models import TransitionMatrix
+
+    nj = spr_start(n, dev)
+    rearrange.update_branch_lengths(nj)
+    nj.ml = MLProfiles(nj, None if model == "jc"
+                       else TransitionMatrix.gtr(*GTR))
+    if cat:
+        ml.set_ml_rates(nj)
+    else:
+        nj.ml.recompute_ml_profiles()
+    return nj
+
+
+def ml_copy(nj, dev):
+    """engine_copy of nj with an ML store of its own on dev."""
+    import copy
+
+    import torch
+
+    c = engine_copy(nj, dev)
+    c.ml = copy.copy(nj.ml)
+    c.ml.nj, c.ml.device = c, torch.device(dev)
+    for name in ("codes", "W", "V", "code_freq", "eigenval", "statinv",
+                 "eigeninv", "eigentot"):
+        setattr(c.ml, name, getattr(nj.ml, name).to(dev, copy=True))
+    c.ml.gap_vec = c.ml.code_freq[127]
+    c.ml._push_model()
+    return c
+
+
+def ml_state(nj, stats=None, result=None):
+    """What an ML lengths pass or NNI round leaves behind: the tree arrays
+    and branch lengths (and the NNIStats), the debug counters (and the
+    round's n_changes and max_delta), and the node and up-profile rows of
+    the ML store (every row but the scratch rows)."""
+    tree = {k: getattr(nj.tree, k).copy()
+            for k in ("parent", "children", "n_child", "branchlength")}
+    if stats is not None:
+        tree.update({k: getattr(stats, k).copy() for k in NNI_STATS})
+    ctr = {k: getattr(nj.debug, k) for k in ML_DEBUG}
+    if result is not None:
+        ctr["round"] = (int(result[0]), float(result[1]))
+    m = 2 * nj.tree.maxnodes
+    return tree, ctr, {k: getattr(nj.ml, k)[:m].cpu().numpy()
+                       for k in ("codes", "W", "V")}
+
+
+def ml_diff(a, b):
+    """The names of what differs, bit for bit, between two states."""
+    (ta, ca, ra), (tb, cb, rb) = a, b
+    out = [k for k in ta if ta[k].tobytes() != tb[k].tobytes()]
+    out += [k for k in ca if ca[k] != cb[k]]
+    return out + [k for k in ra if ra[k].tobytes() != rb[k].tobytes()]
+
+
+def record_ml_rows(nj):
+    """Have the ML store's calls note the node and up-profile rows a host
+    loop reads before it writes them and the rows it writes (the scratch
+    rows are the kernels' shared memory): returns those two sets, filled
+    as the loop runs, and a function that stops the recording."""
+    ml = nj.ml
+    inputs, outputs = set(), set()
+    lim = ml.scratch_row(0)
+    names = ("posterior_rows", "quartet_optimize", "opt_branch_length")
+    orig = {k: getattr(ml, k) for k in names}
+
+    def read(*rows):
+        inputs.update(int(r) for r in rows if int(r) < lim
+                      and int(r) not in outputs)
+
+    def posterior_rows(targets, r1s, r2s, *a):
+        read(*r1s, *r2s)
+        outputs.update(int(t) for t in targets if int(t) < lim)
+        return orig["posterior_rows"](targets, r1s, r2s, *a)
+
+    def quartet_optimize(rows4s, *a, **k):
+        read(*(r for rows in rows4s for r in rows))
+        return orig["quartet_optimize"](rows4s, *a, **k)
+
+    def opt_branch_length(r1, r2, guess):
+        read(r1, r2)
+        return orig["opt_branch_length"](r1, r2, guess)
+
+    for k, fn in zip(names, (posterior_rows, quartet_optimize,
+                             opt_branch_length)):
+        setattr(ml, k, fn)
+    return inputs, outputs, lambda: [delattr(ml, k) for k in names]
+
+
+def ml_round_bound(totals, n_rows, P, C, jc):
+    """(bound_ms, bound_by, bytes, operations) of the work in `totals` (a
+    round kernel's counters): n_rows distinct rows read or written once,
+    and each posterior's, line search's (its vectors mixed once, then its
+    evaluations) and pair likelihood's operations per position."""
+    eff, site, post = ml_ops(C, jc)
+    n_ops = P * (totals["posteriors"] * post + totals["searches"] * eff
+                 + totals["evals"] * site + totals["pairs"] * (eff + site))
+    n_bytes = n_rows * ml_row_bytes(P, C)
+    return (*bound(n_bytes, n_ops), n_bytes, n_ops)
+
+
+def ml_decisions(fn):
+    """Run fn() with engine/ml.ml_quartet_nni logging its quartets:
+    returns [(rows, choice, criteria)]."""
+    import numpy as np
+
+    from veryfasttree_tpu_torch.engine import ml
+
+    log, orig = [], ml.ml_quartet_nni
+
+    def rec(nj_, rows4, lengths):
+        out = orig(nj_, rows4, lengths)
+        log.append((tuple(int(r) for r in rows4), int(out[0]),
+                    np.array(out[1], dtype=np.float64)))
+        return out
+
+    ml.ml_quartet_nni = rec
+    try:
+        fn()
+    finally:
+        ml.ml_quartet_nni = orig
+    return log
+
+
+def second_sweep_left_out(fn):
+    """Run fn() with engine/ml.optimize_all_branch_lengths leaving out each
+    node's second sweep (its three line searches return their start): a
+    planted fault, which the twin check must see."""
+    from veryfasttree_tpu_torch.engine import ml
+
+    orig, calls = ml.ml_pair_optimize, [0]
+
+    def searched(nj_, r1, r2, length):
+        calls[0] += 1
+        if (calls[0] - 1) % 6 >= 3:
+            return None, length
+        return orig(nj_, r1, r2, length)
+
+    ml.ml_pair_optimize = searched
+    try:
+        fn()
+    finally:
+        ml.ml_pair_optimize = orig
+
+
+def first_flip(label, a, b):
+    """The index of the first quartet two logs of the same round decide
+    otherwise, or None; raises unless it is a near tie in both, or if the
+    logs part before it.  Returns (index, the criteria's max abs difference
+    up to it)."""
+    import numpy as np
+
+    err = 0.0
+    for k, (x, y) in enumerate(zip(a, b)):
+        if x[0] != y[0]:
+            raise AssertionError(f"{label}: quartet {k} differs ({x[0]}, "
+                                 f"{y[0]})")
+        err = max(err, float(np.max(np.abs(x[2] - y[2]))))
+        if x[1] != y[1]:
+            if any(abs(c[x[1]] - c[y[1]]) > ML_TWIN_NEAR_TIE
+                   for c in (x[2], y[2])):
+                raise AssertionError(f"{label}: quartet {k} flips, not on a "
+                                     f"near tie: {x} {y}")
+            return k, err
+    if len(a) != len(b):
+        raise AssertionError(f"{label}: {len(a)} and {len(b)} quartets")
+    return None, err
+
+
+def phase_ml_round(report, dev):
+    """One ML lengths pass, then one ML NNI round, from one NJ start with
+    an ML store (ml_start): at N=SPR_N under Jukes-Cantor with one rate, as
+    the default run's first pass and round, and under Jukes-Cantor and GTR
+    with fitted CAT 20 rates, as its later ones; and at the main path's
+    N=MAIN_N under Jukes-Cantor with one rate, where the tree fills shared
+    memory and group 1's quartet temporaries go to device scratch (the
+    layout every AC/AD pair of the default run takes; asserted).  Each
+    through one launch of each kernel (ops/ml_round.ml_lengths_pass,
+    ml_nni_round) and through the host loops with the per-call kernels
+    (engine/ml.optimize_all_branch_lengths, engine/rearrange.do_nni): tree,
+    branch lengths, NNIStats, counters and the ML store's node and
+    up-profile rows bit for bit.  The first case also with the kernels'
+    tree in device memory, and through the plain twins (the host loops on
+    the per-call twins, on a CPU copy of the start): the tree LogLk after
+    the pass and after the round within ML_TWIN_RTOL, the round's NNI count
+    equal and max_delta within ML_TWIN_NEAR_TIE, its quartet decisions equal
+    up to a flip on a near tie (ML_TWIN_NEAR_TIE); and the planted fault
+    second_sweep_left_out (the host loop on the card) must read more than
+    ML_TWIN_RTOL from the kernel's pass.  Timed on the first case:
+    the kernels' device time from torch.profiler over three more launches,
+    and the host loop's (its ml_quartet_opt, ml_opt_branch and ml_posterior
+    launches) over one more run; ms and plain_ms are the kernel's and the
+    twin's walls (one launch each), host_loop_ms the host loop's; the bound
+    counts each node or up-profile row the host loop reads before writing
+    it and each row it writes once (record_ml_rows) and the operations of
+    the kernel's counted work (ml_round_bound)."""
+    import torch
+
+    from veryfasttree_tpu_torch.engine import ml, rearrange
+    from veryfasttree_tpu_torch.ops import ml_round
+
+    cpu = torch.device("cpu")
+    lengths, nni = ml_round.ml_lengths_pass, ml_round.ml_nni_round
+    for i_case, (label, n, model, cat) in enumerate((
+            ("JC", SPR_N, "jc", False), ("JC CAT 20", SPR_N, "jc", True),
+            ("GTR CAT 20", SPR_N, "gtr", True), ("JC", MAIN_N, "jc", False))):
+        label = f"N={n} {label}"
+        start = ml_start(n, dev, model, cat)
+        first = i_case == 0
+        runs = {}
+        for name, where, kw in (("kernel", dev, {}),
+                                ("host loop", dev, None),
+                                ("tree in device memory", dev,
+                                 {"tree_in_smem": False}),
+                                ("twin", cpu, {})):
+            if name in ("tree in device memory", "twin") and not first:
+                continue
+            nj = ml_copy(start, where)
+            stats = rearrange.NNIStats.init(nj)
+            if kw is None:
+                steps = (("pass", lambda: ml.optimize_all_branch_lengths(nj)),
+                         ("round",
+                          lambda: rearrange.do_nni(nj, 0, 2, True, stats)))
+            else:
+                steps = (("pass", lambda: lengths(nj, **kw)),
+                         ("round", lambda: nni(nj, 0, 2, stats, **kw)))
+            run = {}
+            reset_launches()
+            threads = torch.get_num_threads()
+            torch.set_num_threads(1)     # the twin's tiny ops only contend
+            for what, fn in steps:
+                if name == "host loop":
+                    rows = record_ml_rows(nj)
+                out = []
+                t0 = time.perf_counter()
+                if name in ("host loop", "twin") and what == "round":
+                    run["log"] = ml_decisions(lambda: out.append(fn()))
+                else:
+                    out.append(fn())
+                torch.cuda.synchronize()
+                run[f"{what}_s"] = time.perf_counter() - t0
+                run[what] = ml_state(nj, stats if what == "round" else None,
+                                     out[0] if what == "round" else None)
+                run[f"{what}_loglk"] = ml.tree_loglk(nj)
+                if name == "host loop":
+                    run[f"{what}_rows"] = len(rows[0]) + len(rows[1])
+                    rows[2]()
+            torch.set_num_threads(threads)
+            run.update(layout=nni.tree_layout, scratch=nni.scratch_floats,
+                       pass_totals=dict(lengths.totals),
+                       round_totals=dict(nni.totals),
+                       launches=(lengths.launches, nni.launches))
+            runs[name] = run
+        k, h = runs["kernel"], runs["host loop"]
+        if k["launches"] != (1, 1):
+            raise AssertionError(f"ml round kernels {label}: launches "
+                                 f"{k['launches']}, not one each")
+        P, C = start.ml.W.shape[1], start.ml.V.shape[2]
+        # at N=MAIN_N the tree and group 0's pieces leave group 1 the room
+        # of its line-search vectors only: its six temporaries (W and V, P
+        # x (C + 1) floats each) go to device scratch; at N=SPR_N all fits
+        layout = ("shared memory", 6 * P * (C + 1) if n == MAIN_N else 0)
+        for name in ("kernel", "tree in device memory"):
+            if name in runs and (runs[name]["layout"], runs[name]["scratch"]) \
+                    != (layout if name == "kernel" else ("device memory", 0)):
+                raise AssertionError(
+                    f"ml round kernels {label} ({name}): tree in "
+                    f"{runs[name]['layout']}, {runs[name]['scratch']} floats "
+                    "of device scratch")
+        for name in ("host loop", "tree in device memory"):
+            for what in ("pass", "round") if name in runs else ():
+                diff = ml_diff(runs[name][what], k[what])
+                if diff:
+                    raise AssertionError(
+                        f"ml round kernels {label}: after the {what}, {diff} "
+                        f"differ between the kernel and the {name}")
+        print(f"  ml_lengths_pass [{label}]: bit for bit the host loop's"
+              f"{' and the device-memory tree' * first}; one launch, "
+              f"{k['pass_s']:.3f} s (the host loop with the per-call "
+              f"kernels {h['pass_s']:.3f} s), LogLk {k['pass_loglk']:.3f}; "
+              f"{k['pass_totals']}")
+        print(f"  ml_nni_round [{label}]: bit for bit the host loop's"
+              f"{' and the device-memory tree' * first}; one launch, "
+              f"{k['round_s']:.3f} s (the host loop {h['round_s']:.3f} s), "
+              f"{k['round'][1]['round']} (NNIs, max delta), LogLk "
+              f"{k['round_loglk']:.3f}, tree in {k['layout']}, "
+              f"{k['scratch']} floats of device scratch; "
+              f"{k['round_totals']}")
+        if not first:
+            continue
+        t = runs["twin"]
+        rel = {what: abs(t[f"{what}_loglk"] - k[f"{what}_loglk"])
+               / abs(k[f"{what}_loglk"]) for what in ("pass", "round")}
+        flip, crit_err = first_flip(f"ml_nni_round {label} twin", h["log"],
+                                    t["log"])
+        bl_err = float(abs(t["pass"][0]["branchlength"]
+                           - k["pass"][0]["branchlength"]).max())
+        print(f"  twins on the CPU [{label}]: lengths pass {t['pass_s']:.3f}"
+              f" s, LogLk {t['pass_loglk']:.3f} ({rel['pass']:.2e} "
+              f"relative), lengths max abs err {bl_err:.3e}; NNI round "
+              f"{t['round_s']:.3f} s, {t['round'][1]['round']}, LogLk "
+              f"{t['round_loglk']:.3f} ({rel['round']:.2e} relative), "
+              f"{len(t['log'])} quartets, "
+              + (f"the same decisions, criteria within {crit_err:.3e}"
+                 if flip is None else
+                 f"a near tie flips at quartet {flip} (criteria within "
+                 f"{crit_err:.3e} before it)"))
+        if max(rel.values()) > ML_TWIN_RTOL:
+            raise AssertionError(f"ml round kernels {label}: tree LogLk "
+                                 f"{rel} relative from the twins'")
+        (k_nni, k_max), (t_nni, t_max) = (r["round"][1]["round"]
+                                          for r in (k, t))
+        if flip is None and (k_nni != t_nni
+                             or abs(k_max - t_max) > ML_TWIN_NEAR_TIE):
+            raise AssertionError(f"ml round kernels {label}: (NNIs, max "
+                                 f"delta) {(k_nni, k_max)}, the twins' "
+                                 f"{(t_nni, t_max)}")
+        faulty = ml_copy(start, dev)
+        second_sweep_left_out(lambda: ml.optimize_all_branch_lengths(faulty))
+        fault = abs(ml.tree_loglk(faulty) - k["pass_loglk"]) \
+            / abs(k["pass_loglk"])
+        print(f"  planted fault [{label}]: the host loop leaving out each "
+              f"node's second sweep reads {fault:.2e} relative from the "
+              f"kernel's pass, the twins {max(rel.values()):.2e}; the "
+              f"limit {ML_TWIN_RTOL:.0e}; max delta {k_max!r} (the twins' "
+              f"{t_max!r})")
+        if fault <= ML_TWIN_RTOL:
+            raise AssertionError(f"ml round kernels {label}: the planted "
+                                 f"fault reads {fault:.2e}, within the twin "
+                                 f"limit {ML_TWIN_RTOL:.0e}")
+
+        # the host loops' kernels (device_us needs each name launched)
+        for wrapper, what, host_kernels in (
+                (lengths, "pass", ("ml_opt_branch", "ml_posterior")),
+                (nni, "round", ("ml_quartet_opt", "ml_posterior"))):
+            def one(wrapper=wrapper, kernel=True):
+                nj = ml_copy(start, dev)
+                stats = rearrange.NNIStats.init(nj)
+                if wrapper is nni:
+                    if kernel:
+                        wrapper(nj, 0, 2, stats)
+                    else:
+                        rearrange.do_nni(nj, 0, 2, True, stats)
+                elif kernel:
+                    wrapper(nj)
+                else:
+                    ml.optimize_all_branch_lengths(nj)
+
+            name = wrapper.__name__
+            dev_us = device_us(one, DEVICE_NAMES[name], runs=3)
+            host_us = device_us(lambda: one(kernel=False),
+                                [n for k in host_kernels
+                                 for n in DEVICE_NAMES[k]], runs=1)
+            totals = k[f"{what}_totals"]
+            bound_ms, bound_by, n_bytes, n_ops = ml_round_bound(
+                totals, h[f"{what}_rows"], P, C, True)
+            per, unit, key = (
+                (totals["quartets"], "quartet optimization", "quartet")
+                if wrapper is nni else
+                (totals["searches"], "line search", "search"))
+            n_nodes = SPR_N - 2
+            report.setdefault(name, {}).update({
+                "max_abs_err": abs(t[f"{what}_loglk"] - k[f"{what}_loglk"]),
+                "ms": 1e3 * k[f"{what}_s"], "plain_ms": 1e3 * t[f"{what}_s"],
+                "host_loop_ms": 1e3 * h[f"{what}_s"],
+                "tree_in_device_memory_ms":
+                    1e3 * runs["tree in device memory"][f"{what}_s"],
+                "device_us": dev_us, f"device_us_per_{key}": dev_us / per,
+                "device_us_per_node": dev_us / n_nodes,
+                "host_loop_device_us": host_us,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": None})
+            print(f"  {name} [{label}]: device {dev_us / 1e3:.3f} ms for "
+                  f"the {what} ({dev_us / per:.3f} us per {unit}, "
+                  f"{dev_us / n_nodes:.3f} us per node; the host loop's "
+                  f"kernels {host_us / 1e3:.3f} ms); the tree in device "
+                  f"memory {runs['tree in device memory'][f'{what}_s']:.3f} "
+                  f"s; {h[f'{what}_rows']} rows read or written, {n_ops:.4e} "
+                  f"operations: bound {bound_ms:.4e} ms ({bound_by}; bytes "
+                  f"{1e3 * n_bytes / HBM_BYTES_PER_S:.4e} ms, operations "
+                  f"{1e3 * n_ops / F32_OPS_PER_S:.4e} ms)")
+
+
 # ------------------------------------------------------------- phases 3, 4
 ALPHA = "ACGT"
 
@@ -1646,7 +2081,26 @@ def phase_ml_main(report, dev):
     if f"{final:.3f}" != ML_MAIN_LOGLK:
         raise AssertionError(f"final LogLk {final:.3f}, recorded "
                              f"{ML_MAIN_LOGLK}")
-    require_launched("ML main path", counts, DENSE_PATH + ML_KERNELS)
+    require_launched("ML main path", counts, DENSE_PATH + ML_PATH)
+    from veryfasttree_tpu_torch.ops import ml_round
+
+    rounds_t, pass_t = (wrappers()[k].totals
+                        for k in ("ml_nni_round", "ml_lengths_pass"))
+    print(f"  ML round kernels in the run: ml_nni_round "
+          f"{counts['ml_nni_round']} launches ({rounds_t['quartets']} quartet "
+          f"optimizations, {rounds_t['n_ml_nni']} NNIs), ml_lengths_pass "
+          f"{counts['ml_lengths_pass']} launches ({pass_t['searches']} line "
+          f"searches), the tree in {ml_round.ml_nni_round.tree_layout}, "
+          f"{ml_round.ml_nni_round.scratch_floats} floats of device scratch "
+          "(group 1's quartet temporaries); "
+          f"launches beside them: ml_quartet_opt {counts['ml_quartet_opt']}, "
+          f"ml_opt_branch {counts['ml_opt_branch']} (its body ran "
+          f"{rounds_t['searches'] + pass_t['searches']} line searches inside "
+          f"the round kernels), ml_posterior {counts['ml_posterior']}, "
+          f"ml_pair_loglk {counts['ml_pair_loglk']}")
+    if ml_round.ml_nni_round.tree_layout != "shared memory":
+        raise AssertionError("the ML NNI rounds kept the tree in device "
+                             "memory at the main path's shape")
     for name, count in counts.items():
         key = "launches" if name in ML_KERNELS else "ml_path_launches"
         report.setdefault(name, {})[key] = count
@@ -1705,6 +2159,8 @@ def main() -> int:
         phase("2b SPR round vs host loop", phase_spr, report, cuda)
         phase("2c NNI round vs host loop", phase_nni, report, cuda)
         phase("2d join epoch vs host loop", phase_epoch, report, cuda)
+        phase("2e ML round and lengths pass vs host loop", phase_ml_round,
+              report, cuda)
         phase("3 N=500 vs JAX golden", phase_golden, cuda)
         phase(f"4 main path N={MAIN_N}", phase_main, report, cuda)
         phase(f"5 ML N={ML_GOLDEN_N} vs JAX golden", phase_ml_golden, cuda)

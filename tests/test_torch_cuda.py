@@ -450,3 +450,96 @@ def test_bionj_rows_on_cuda_match_cpu(cuda):
                      for k in ("W", "U")])
     for a, b in zip(*rows):
         np.testing.assert_array_equal(a, b)
+
+
+def _ml_runs(start, dev, rounds, kernel, **kw):
+    """An ML lengths pass, then `rounds` ML NNI rounds with the NNIStats
+    carried over, from a copy of `start`: through the round kernels (one
+    launch each) or the host loops with the per-call kernels.  Returns
+    chip_smoke.ml_state after the pass and after the last round."""
+    from chip_smoke import ml_copy, ml_state
+    from veryfasttree_tpu_torch.engine import ml, rearrange
+    from veryfasttree_tpu_torch.ops import ml_round
+
+    nj = ml_copy(start, dev)
+    stats = rearrange.NNIStats.init(nj)
+    launches = (ml_round.ml_lengths_pass.launches,
+                ml_round.ml_nni_round.launches)
+    if kernel:
+        ml_round.ml_lengths_pass(nj, **kw)
+    else:
+        ml.optimize_all_branch_lengths(nj)
+    passed = ml_state(nj)
+    for i in range(rounds):
+        if kernel:
+            result = ml_round.ml_nni_round(nj, i, rounds, stats, **kw)
+        else:
+            result = rearrange.do_nni(nj, i, rounds, True, stats)
+    torch.cuda.synchronize()
+    assert (ml_round.ml_lengths_pass.launches - launches[0],
+            ml_round.ml_nni_round.launches - launches[1]) == \
+        ((1, rounds) if kernel else (0, 0))
+    return passed, ml_state(nj, stats, result)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,model,cat,tree_in_smem,rounds", [
+    (150, "jc", False, True, 1), (150, "jc", True, True, 1),
+    (150, "gtr", True, True, 1), (150, "jc", True, True, 3),
+    (150, "jc", True, False, 1), (2000, "jc", False, True, 1)],
+    ids=["jc-one-rate", "jc-cat20", "gtr-cat20", "three-rounds",
+         "tree-in-device-memory", "main-path-n2000"])
+def test_ml_round_kernels_are_the_host_loops(cuda, n, model, cat,
+                                             tree_in_smem, rounds):
+    """An ML lengths pass and ML NNI rounds from one NJ start with an ML
+    store (chip_smoke.ml_start): through the round kernels
+    (ml_lengths_pass, ml_nni_round, one launch each) and through the host
+    loops with the per-call kernels: the same tree, branch lengths,
+    NNIStats (deltas and supports included), debug counters, n_changes and
+    max_delta, and every node and up-profile row of the ML store (codes,
+    W, V), bit for bit.  The cases at N=150 cover one rate and 20 fitted
+    CAT rates, Jukes-Cantor and GTR (matrix mode), three rounds with the
+    NNIStats carried over (the third takes the fast-NNI skip set) and the
+    tree in device memory; the case at the main path's N=2000 (P=512) the
+    layout of the default run, asserted: the tree in shared memory, group
+    1's six quartet temporaries in device scratch."""
+    from chip_smoke import ml_diff, ml_start
+    from veryfasttree_tpu_torch.ops import ml_round
+
+    start = ml_start(n, cuda, model, cat)
+    host = _ml_runs(start, cuda, rounds, False)
+    kern = _ml_runs(start, cuda, rounds, True, tree_in_smem=tree_in_smem)
+    P, C = start.ml.W.shape[1], start.ml.V.shape[2]
+    for fn in (ml_round.ml_lengths_pass, ml_round.ml_nni_round):
+        assert (fn.tree_layout, fn.scratch_floats) == (
+            ("shared memory", 6 * P * (C + 1) if n == 2000 else 0)
+            if tree_in_smem else ("device memory", 0))
+    assert host[1][1]["n_ml_nni"] > 0
+    for h, k in zip(host, kern):
+        assert ml_diff(h, k) == []
+
+
+@pytest.mark.cuda
+def test_ml_nni_round_slow_keeps_the_host_loop(cuda):
+    """-slow keeps the ML NNI host loop on a CUDA store: ml_nni_round
+    launches no kernel, and leaves the tree, NNIStats, counters and ML
+    store rows that rearrange.do_nni with the per-call kernels leaves."""
+    import dataclasses
+
+    from chip_smoke import ml_copy, ml_diff, ml_start, ml_state
+    from veryfasttree_tpu_torch.engine import rearrange
+    from veryfasttree_tpu_torch.ops import ml_round
+
+    start = ml_start(150, cuda)
+    states = []
+    for wrapped in (False, True):
+        nj = ml_copy(start, cuda)
+        nj.options = dataclasses.replace(nj.options, slow=True)
+        stats = rearrange.NNIStats.init(nj)
+        before = ml_round.ml_nni_round.launches
+        result = (ml_round.ml_nni_round(nj, 0, 1, stats) if wrapped else
+                  rearrange.do_nni(nj, 0, 1, True, stats))
+        assert ml_round.ml_nni_round.launches == before
+        states.append(ml_state(nj, stats, result))
+    assert states[0][1]["n_ml_nni"] > 0
+    assert ml_diff(*states) == []

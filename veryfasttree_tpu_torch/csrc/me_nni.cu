@@ -30,8 +30,9 @@
 // shared memory while they fit (26 bytes per node; past that in device
 // memory, the same code on other pointers), the NNIStats arrays in device
 // memory (thread 0 alone reads and writes them after the skip set), and
-// store rows are written in place.  The tree walks, row work and profile
-// repairs are those of me_round.cuh, shared with the SPR round (me_spr.cu),
+// store rows are written in place.  The tree walks and the skip set are
+// round_tree.cuh's, the row work and profile repairs me_round.cuh's, shared
+// with the SPR round (me_spr.cu),
 // so the distances and rows equal the single-call kernels' bit for bit; the
 // criteria, deltas and supports are double, in the host loop's order (this
 // file is compiled with -fmad=false).
@@ -41,17 +42,6 @@
 namespace {
 
 constexpr int kABvsCD = 0, kACvsBD = 1, kADvsBC = 2;
-
-// the round's NNIStats (rearrange.NNIStats), [n] each, in device memory
-struct NniStats {
-  long long* age;
-  long long* subtree_age;
-  double* delta;
-  double* support;
-  int n;             // tree.maxnode: every node of the tree lies below it
-  int fast_nni;
-  double min_delta;  // me_min_delta: the support threshold of the ME rounds
-};
 
 template <int C>
 struct NniBlock : MeRound<C> {
@@ -71,102 +61,6 @@ struct NniBlock : MeRound<C> {
   NniStats st;
   double max_delta;   // thread 0's
 
-  __device__ bool stat_ok(int n) const { return n >= 0 && n < st.n; }
-
-  // the fast-NNI skip set (ref tcc:6049-6075): an old, well-supported node
-  // whose quartet holds no newly swapped, well-supported node is marked
-  // traversed, which skips it and its subtree.  One thread per node; a fault
-  // goes through shared memory to every thread.
-  __device__ void skip_set() {
-    if (tid == 0) sh->any_bad = 0;
-    __syncthreads();
-    if (st.fast_nni) {
-      for (int node = tid; node < st.n; node += kRoundThreads) {
-        if (node == a.root || node < a.n_seqs || st.age[node] < 2 ||
-            st.subtree_age[node] < 2 || !(st.support[node] > st.min_delta))
-          continue;
-        const int par = parent[node];
-        bool fault = par < 0 || nch[node] != 2;
-        int n4[4] = {-1, -1, -1, -1};
-        if (!fault) {
-          n4[0] = child[3 * node];
-          n4[1] = child[3 * node + 1];
-          if (par == a.root) {  // root_siblings
-            int k = 2;
-            for (int s = 0; s < 3; ++s) {
-              const int c = child[3 * a.root + s];
-              if (c != node && k < 4) n4[k++] = c;
-            }
-            fault = k != 4 || nch[a.root] != 3;
-          } else {              // sibling, then the parent
-            for (int s = 0; s < nch[par] && s < 3; ++s)
-              if (child[3 * par + s] != node) {
-                n4[2] = child[3 * par + s];
-                break;
-              }
-            n4[3] = par;
-          }
-        }
-        bool skip = !fault;
-        for (int k = 0; k < 4 && !fault; ++k) {
-          if (!stat_ok(n4[k])) {
-            fault = true;
-          } else if (st.age[n4[k]] == 0 && st.support[n4[k]] > st.min_delta) {
-            skip = false;
-          }
-        }
-        if (fault) sh->any_bad = 1;
-        else if (skip) trav[node] = 1;
-      }
-    }
-    __syncthreads();
-    bad = bad || sh->any_bad != 0;
-  }
-
-  // TreeState.traverse_postorder with want_up, one step: returns the next
-  // node (up: a revisit of a traversed node) or -1 at the walk's end.  One
-  // call goes up, then down, at most M steps each; `climbs` counts the
-  // revisits since the last newly traversed node, at most the depth.
-  __device__ int next_postorder(int node, bool& up, int& climbs) {
-    for (int steps = 0; steps <= 2 * a.maxnodes + 2; ++steps) {
-      int next = -1;
-      for (int k = 0; k < nch[node] && k < 3; ++k) {
-        const int c = child[3 * node + k];
-        if (!node_ok(c)) {
-          bad = true;
-          return -1;
-        }
-        if (!trav[c]) {
-          next = c;
-          break;
-        }
-      }
-      if (next >= 0) {
-        node = next;
-        continue;
-      }
-      if (!trav[node]) {
-        commit([&] { trav[node] = 1; });
-        up = false;
-        climbs = 0;
-        return node;
-      }
-      if (node == a.root) return -1;
-      node = parent[node];
-      if (!node_ok(node)) {
-        bad = true;
-        return -1;
-      }
-      if (trav[node]) {
-        up = true;
-        if (++climbs > a.maxnodes) break;
-        return node;
-      }
-    }
-    bad = true;
-    return -1;
-  }
-
   // one quartet of the walk (rearrange.do_nni's body with use_ml off)
   __device__ void nni_node(int node) {
     int n4[4], r4[4];
@@ -182,71 +76,26 @@ struct NniBlock : MeRound<C> {
     else if (crit[kADvsBC] < crit[kABvsCD] && crit[kADvsBC] <= crit[kACvsBD])
       choice = kADvsBC;
     for (int k = 0; k < 3; ++k) crit[k] = -crit[k];
-    const int na = n4[0], nb = n4[1], nc = n4[2], nd = n4[3];
+    const int na = n4[0], nb = n4[1], nc = n4[2];
     if (choice != kABvsCD) {
       const int moved = choice == kACvsBD ? nb : na;
       this->replace_child(node, moved, nc);
       this->replace_child(parent[node], nc, moved);
       if (bad) return;
     }
-    // the stats update reads and writes these nodes' entries
-    const int ch0 = child[3 * node], ch1 = child[3 * node + 1];
-    if (!stat_ok(node) || !stat_ok(na) || !stat_ok(nb) || !stat_ok(nc) || !stat_ok(nd) ||
-        !stat_ok(ch0) || !stat_ok(ch1)) {
-      bad = true;
-      return;
-    }
-    commit([&] {  // ref tcc:5931-5971
-      if (choice == kABvsCD) {
-        st.age[node] += 1;
-      } else {
-        sh->ctr[kMoves] += 1;
-        st.age[node] = st.age[na] = st.age[nb] = st.age[nc] = st.age[nd] = 0;
-      }
-      const double dl = crit[choice] - crit[kABvsCD];
-      st.delta[node] = dl;
-      if (dl > max_delta) max_delta = dl;
-      // Python's min over the other two, in index order
-      const int k1 = choice == kABvsCD ? 1 : 0, k2 = choice == kADvsBC ? 1 : 2;
-      const double s1 = crit[choice] - crit[k1], s2 = crit[choice] - crit[k2];
-      st.support[node] = s2 < s1 ? s2 : s1;
-      if (dl > st.min_delta) {
-        st.subtree_age[node] = 0;
-      } else {
-        st.subtree_age[node] += 1;
-        if (st.subtree_age[node] > st.subtree_age[ch0]) st.subtree_age[node] = st.subtree_age[ch0];
-        if (st.subtree_age[node] > st.subtree_age[ch1]) st.subtree_age[node] = st.subtree_age[ch1];
-      }
-    });
-    if (choice == kABvsCD) {
-      commit([&] { uvalid[na] = uvalid[nb] = uvalid[nc] = 0; });
-      this->recompute_profile(node);
-    } else {
-      this->update_for_nni(node);
-    }
+    this->nni_finish(
+        node, n4, choice, crit, st, max_delta,
+        [&] {
+          if (choice != kABvsCD) sh->ctr[kMoves] += 1;
+        },
+        [this](int n) { this->recompute_profile(n); });
   }
 
   // the round (rearrange.do_nni with use_ml off, not -slow)
   __device__ void round() {
-    skip_set();
-    int node = a.root, climbs = 0;
-    while (!bad) {
-      bool up = false;
-      node = next_postorder(node, up, climbs);
-      if (node < 0 || bad) break;
-      if (node < a.n_seqs || node == a.root) continue;
-      if (up) {
-        // back up through a swapped node: repair its profile (ref :5809-5819)
-        commit([&] {
-          for (int k = 0; k < nch[node] && k < 3; ++k)
-            if (node_ok(child[3 * node + k])) uvalid[child[3 * node + k]] = 0;
-          uvalid[node] = 0;
-        });
-        this->recompute_profile(node);
-      } else {
-        nni_node(node);
-      }
-    }
+    this->nni_walk(
+        trav, st, &sh->any_bad, [this](int n) { nni_node(n); },
+        [this](int n) { this->recompute_profile(n); });
   }
 };
 
@@ -262,12 +111,13 @@ __global__ void __launch_bounds__(kRoundThreads) me_nni_round_kernel(
   if (tid < kNumCounters) sh.ctr[tid] = 0;
   __syncthreads();
 
-  NniBlock<C> b{{s, codes, W, U, ev, et, args, t.tree, t.tree + M, t.tree + 4 * M, t.flags,
-                 t.path, &sh, tid, false},
+  NniBlock<C> b{{{t.tree, t.tree + M, t.tree + 4 * M, t.flags, t.path, args.n_seqs, args.root, M,
+                  tid, false},
+                 s, codes, W, U, ev, et, args, &sh},
                 t.flags + M, st, 0.0};
   if (args.n_seqs > 3) b.round();
   if (tid == 0) *g_max_delta = b.max_delta;
-  unstage_tree(t, g_tree, M, tree_in_smem, sh, b.bad, g_ctr);
+  unstage_tree(t, g_tree, M, tree_in_smem, sh.ctr, kNumCounters, kFault, b.bad, g_ctr);
 }
 
 template <int C>

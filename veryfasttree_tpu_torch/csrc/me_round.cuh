@@ -1,9 +1,10 @@
 // The machinery of a whole minimum-evolution round in one block, shared by
 // the SPR round (me_spr.cu) and the NNI round (me_nni.cu): the round's
-// arguments and shared scratch, its counters, the tree walks, the row work
-// (profile averages and quartet distances with the single-call kernels'
-// bodies of me_store.cuh), the corrected distances, the up-profile memo and
-// the profile repairs after a swap.
+// arguments and shared scratch, its counters, the row work (profile averages
+// and quartet distances with the single-call kernels' bodies of
+// me_store.cuh), the corrected distances, the up-profiles and the profile
+// repairs after a swap.  The tree, its walks and the up-profile memo are
+// round_tree.cuh's, shared with the maximum-likelihood rounds.
 //
 // Every thread of the block runs the same decisions on the same data (the
 // tree walks read shared memory, the distances are reduced into shared
@@ -24,13 +25,13 @@
 #include <stdint.h>
 
 #include "me_store.cuh"
+#include "round_tree.cuh"
 
 namespace {
 
 constexpr int kRoundThreads = 512;
 constexpr int kRoundGroups = kRoundThreads / kDistThreads;
 constexpr int kRoundSmemCap = 200 * 1024;    // dynamic shared memory a block may take
-constexpr int kBadArgs = -2;
 
 // int64 counters of a round, in the wrappers' order (ops/me_round.py)
 enum : int {
@@ -64,47 +65,8 @@ struct RoundShared {
   int any_bad;       // set by whichever thread finds a fault in a parallel pass
 };
 
-// the round's tree (parent [M] | children [M, 3] | child counts [M]), the
-// up-profile path scratch [M] and n_flags byte arrays [M] (zeroed), in
-// shared memory where they fit (copied from the device arrays) or in place
-size_t tree_smem_bytes(int M, int n_flags) {
-  return ((size_t)6 * M * sizeof(int) + (size_t)n_flags * M + 15) / 16 * 16;
-}
-
-struct TreeArrays {
-  int* tree;
-  int* path;
-  uint8_t* flags;
-};
-
-__device__ TreeArrays stage_tree(unsigned char* smem, int32_t* g_tree, int32_t* g_path,
-                                 uint8_t* g_flags, int M, int n_flags, bool in_smem) {
-  TreeArrays t{g_tree, g_path, g_flags};
-  if (in_smem) {
-    t.tree = reinterpret_cast<int*>(smem);
-    t.path = t.tree + 5 * M;
-    t.flags = reinterpret_cast<uint8_t*>(t.path + M);
-    for (int i = threadIdx.x; i < 5 * M; i += blockDim.x) t.tree[i] = g_tree[i];
-  }
-  for (int i = threadIdx.x; i < n_flags * M; i += blockDim.x) t.flags[i] = 0;
-  return t;
-}
-
-// the round's end: the tree (parent and children) back to the device
-// arrays, the counters added to the device's
-__device__ void unstage_tree(const TreeArrays& t, int32_t* g_tree, int M, bool in_smem,
-                             RoundShared& sh, bool bad, long long* g_ctr) {
-  __syncthreads();
-  if (in_smem)
-    for (int i = threadIdx.x; i < 4 * M; i += blockDim.x) g_tree[i] = t.tree[i];
-  if (threadIdx.x == 0) {
-    if (bad) sh.ctr[kFault] += 1;
-    for (int k = 0; k < kNumCounters; ++k) g_ctr[k] += sh.ctr[k];
-  }
-}
-
 template <int C>
-struct MeRound {
+struct MeRound : RoundTree {
   StoreView s;
   int8_t* codes;
   float* W;
@@ -112,70 +74,10 @@ struct MeRound {
   const double* ev;   // [C] in matrix mode, else null
   const float* et;    // [C] in matrix mode, else null
   RoundArgs a;
-  int* parent;        // [M]
-  int* child;         // [M, 3]
-  const int* nch;     // [M]
-  uint8_t* uvalid;    // [M] up-profile memo validity
-  int* path;          // [M] up-profile path to the root
   RoundShared* sh;
-  int tid;
-  bool bad;           // the same in every thread
-
-  // one thread writes, after every thread has read what it needs
-  template <class F>
-  __device__ __forceinline__ void commit(F write) {
-    __syncthreads();
-    if (tid == 0) write();
-    __syncthreads();
-  }
 
   __device__ __forceinline__ void count(int k, long long n) {
     if (tid == 0) sh->ctr[k] += n;
-  }
-
-  __device__ __forceinline__ bool node_ok(int n) const { return n >= 0 && n < a.maxnodes; }
-
-  // ------------------------------------------------------------ the tree
-  __device__ int sibling(int node) {
-    const int par = parent[node];
-    if (par < 0 || par == a.root) return -1;
-    for (int k = 0; k < nch[par]; ++k) {
-      const int c = child[3 * par + k];
-      if (c != node) return c;
-    }
-    bad = true;
-    return -1;
-  }
-
-  // the other two children of the (3-child) root, in slot order
-  __device__ void root_siblings(int node, int& s0, int& s1) {
-    int out[3] = {-1, -1, -1}, n = 0;
-    for (int k = 0; k < 3; ++k) {
-      const int c = child[3 * a.root + k];
-      if (c != node) out[n++] = c;
-    }
-    if (n != 2 || nch[a.root] != 3 || parent[node] != a.root) bad = true;
-    s0 = out[0];
-    s1 = out[1];
-  }
-
-  // ref replaceChild tcc:1930-1940
-  __device__ void replace_child(int par, int old, int nw) {
-    if (!node_ok(par) || !node_ok(nw)) {
-      bad = true;
-      return;
-    }
-    int k = -1;
-    for (int kk = 0; kk < nch[par]; ++kk)
-      if (child[3 * par + kk] == old) {
-        k = kk;
-        break;
-      }
-    if (k < 0) bad = true;
-    commit([&] {
-      parent[nw] = par;
-      if (k >= 0) child[3 * par + k] = nw;
-    });
   }
 
   // --------------------------------------------------------- row work
@@ -261,71 +163,18 @@ struct MeRound {
   }
 
   // --------------------------------------------------------- up-profiles
-  // UpProfiles.get (ref getUpProfile tcc:3382-3434): fill every invalid
-  // memo entry on node's path to the root, top-down; returns its row
-  __device__ int up_get(int node) {
-    if (!node_ok(node) || node == a.root || node < a.n_seqs) {
-      bad = true;
-      return a.maxnodes;
-    }
-    if (uvalid[node]) return a.maxnodes + node;
-    __syncthreads();  // earlier readers of path are done
-    int len = 0;
-    for (int n = node; n >= 0; n = parent[n]) {
-      if (len == a.maxnodes) {  // a cycle
-        bad = true;
-        return a.maxnodes;
-      }
-      if (tid == 0) path[len] = n;
-      ++len;
-    }
-    __syncthreads();
-    for (int k = len - 2; k >= 0 && !bad; --k) {
-      const int n = path[k];
-      if (uvalid[n]) continue;
-      // setupABCD(n): its parent's up-profile is valid by now
-      const int par = parent[n];
-      const int na = child[3 * n], nb = child[3 * n + 1];
-      int nc, d_row;
-      if (par == a.root) {
-        root_siblings(n, nc, d_row);
-      } else {
-        nc = sibling(n);
-        d_row = a.maxnodes + par;
-        if (!uvalid[par]) bad = true;
-      }
-      if (nch[n] != 2 || bad) {
-        bad = true;
-        break;
-      }
-      // BIONJ weight from the CDAB-ordered quartet (ref tcc:3421-3428)
-      const int r4[4] = {nc, d_row, na, nb};
-      const double w = quartet_weight(r4);
-      average(a.maxnodes + n, nc, d_row, w);
-      commit([&] { uvalid[n] = 1; });
-    }
-    return a.maxnodes + node;
+  // the up-profile of n (row M + n): the average of its quartet's C and D,
+  // with the BIONJ weight of the CDAB-ordered quartet (ref tcc:3421-3428)
+  __device__ void fill_up(int n, int nc, int d_row) {
+    const int r4[4] = {nc, d_row, child[3 * n], child[3 * n + 1]};
+    const double w = quartet_weight(r4);
+    average(a.maxnodes + n, nc, d_row, w);
   }
 
-  // ref setupABCD tcc:1942-1974: the quartet's nodes and rows (D's row is
-  // the parent's up-profile unless the parent is the root)
+  // ref setupABCD tcc:1942-1974, with the memoised up-profiles
   __device__ void setup_abcd(int node, int nodes4[4], int rows4[4]) {
-    const int par = parent[node];
-    if (par < 0 || nch[node] != 2) {
-      bad = true;
-      return;
-    }
-    nodes4[0] = rows4[0] = child[3 * node];
-    nodes4[1] = rows4[1] = child[3 * node + 1];
-    if (par == a.root) {
-      root_siblings(node, nodes4[2], nodes4[3]);
-      rows4[2] = nodes4[2];
-      rows4[3] = nodes4[3];
-    } else {
-      nodes4[2] = rows4[2] = sibling(node);
-      nodes4[3] = par;
-      rows4[3] = up_get(par);
-    }
+    RoundTree::setup_abcd(node, nodes4, rows4,
+                          [this](int n, int nc, int d_row, int) { fill_up(n, nc, d_row); });
   }
 
   // ------------------------------------------------------ profile repairs
@@ -350,34 +199,7 @@ struct MeRound {
 
   // ref updateForNNI tcc:1882-1927 (not -slow)
   __device__ void update_for_nni(int node) {
-    if (!node_ok(node) || node == a.root) {
-      bad = true;
-      return;
-    }
-    int ids[8], n = 0;
-    ids[n++] = node;
-    for (int k = 0; k < nch[node] && k < 3; ++k) ids[n++] = child[3 * node + k];
-    const int par = parent[node];
-    if (!node_ok(par)) {
-      bad = true;
-      return;
-    }
-    if (par == a.root) {
-      root_siblings(node, ids[n], ids[n + 1]);
-    } else {
-      ids[n] = par;
-      ids[n + 1] = sibling(node);
-    }
-    n += 2;
-    const int uncle = sibling(par);
-    if (uncle >= 0) ids[n++] = uncle;
-    if (bad) return;
-    commit([&] {
-      for (int k = 0; k < n; ++k)
-        if (node_ok(ids[k])) uvalid[ids[k]] = 0;
-    });
-    recompute_profile(node);
-    recompute_profile(par);
+    RoundTree::update_for_nni(node, [this](int n) { recompute_profile(n); });
   }
 };
 

@@ -26,9 +26,9 @@
 // (parent, children, child counts), the up-profile memo's validity and the
 // up-profile path live in shared memory while they fit (25 bytes per node;
 // past that in device memory, the same code on other pointers), the store's
-// rows stay in L2, and store rows are written in place.  The tree walks, row
-// work and profile repairs are those of me_round.cuh, shared with the NNI
-// round (me_nni.cu).
+// rows stay in L2, and store rows are written in place.  The tree walks are
+// round_tree.cuh's, the row work and profile repairs me_round.cuh's, shared
+// with the NNI round (me_nni.cu).
 
 #include "me_round.cuh"
 
@@ -170,11 +170,12 @@ __global__ void __launch_bounds__(kRoundThreads) me_spr_round_kernel(
   if (tid < kNumCounters) sh.ctr[tid] = 0;
   __syncthreads();
 
-  SprBlock<C> b{{s, codes, W, U, ev, et, args, t.tree, t.tree + M, t.tree + 4 * M, t.flags,
-                 t.path, &sh, tid, false},
+  SprBlock<C> b{{{t.tree, t.tree + M, t.tree + 4 * M, t.flags, t.path, args.n_seqs, args.root, M,
+                  tid, false},
+                 s, codes, W, U, ev, et, args, &sh},
                 max_spr_len, n0, n1};
   for (int k = 0; k < n_nodes && !b.bad; ++k) b.spr_node(nodes[k]);
-  unstage_tree(t, g_tree, M, tree_in_smem, sh, b.bad, g_ctr);
+  unstage_tree(t, g_tree, M, tree_in_smem, sh.ctr, kNumCounters, kFault, b.bad, g_ctr);
 }
 
 template <int C>

@@ -21,68 +21,27 @@
 // more line searches, the closing pair log-likelihoods) runs inside one
 // block, its six temporary profiles in shared memory.
 //
-// Each piece is one __device__ function (pair_loglk_block, posterior_site,
-// line_search) that both the single-call kernels and the quartet kernel
-// call, so the quartet kernel gives the chain of single calls bit for bit.
-//
-// Arithmetic: float32 per position with IEEE expf/logf and divisions; this
-// file is compiled with -fmad=false, so every float expression rounds as it
-// is written (as the plain PyTorch twins and the JAX package's float32 code
-// do).  Sums over positions are taken in double in a fixed order: each
-// thread strides the positions, then a warp-shuffle tree, then the warps in
-// order; no atomics, the same order on every run.
+// Each piece is one __device__ function of ml_lk.cuh (pair_loglk_block,
+// posterior_site, line_search, quartet_optimize) that the single-call
+// kernels, the quartet kernel and the round kernels (ml_round.cu) call, so
+// the quartet kernel gives the chain of single calls bit for bit.  This
+// file is compiled with -fmad=false (ml_lk.cuh's arithmetic).
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 #include <string.h>
 
+#include "ml_lk.cuh"
+
 namespace {
 
-constexpr int kNoCode = 127;
 constexpr int kBadRow = -1;
-constexpr int kMaxRates = 32;
-constexpr int kLkThreads = 128;
 constexpr int kLkCap = 256;
 constexpr int kPostThreads = 128;
 constexpr int kPostCap = 128;
-constexpr int kOptThreads = 256;
 constexpr int kOptCap = 64;
 constexpr int kQuartetCap = 32;
-constexpr int kOptSmemCap = 200 * 1024;  // dynamic shared memory a block may take
-constexpr float kCGold = 0.3819660f;
-constexpr float kZeps = 1.0e-10f;
-constexpr int kBrentItmax = 100;
-constexpr double kCloseLogLkLimit = 5.0;  // constants.CLOSE_LOGLK_LIMIT
-
-struct MLView {
-  const int8_t* codes;      // [n_rows, P]
-  const float* W;           // [n_rows, P]
-  const float* V;           // [n_rows, P, C]
-  const float* code_freq;   // [128, C]
-  const float* eigenval;    // [C]
-  const float* eigeninv;    // [C, C]
-  const float* statinv;     // [C]
-  const float* rates;       // [n_rates]
-  const int32_t* ratecat;   // [P]
-  int P;
-  int n_pos;
-  int n_rates;
-  int jc;
-  float min_rel_len;
-};
-
-// One profile row: a row of the store, or a quartet temporary (codes null:
-// every position NOCODE, as a posterior writes it).
-struct RowRef {
-  const int8_t* codes;  // [P] or nullptr
-  const float* W;       // [P]
-  const float* V;       // [P, C]
-};
-
-struct SearchLimits {
-  float xmin, xmax, ftol, atol;
-};
 
 struct LkBatch {
   int32_t r1[kLkCap];
@@ -122,339 +81,10 @@ struct QuartetOut {
 };
 static_assert(sizeof(QuartetOut) == 64, "QuartetOut is a 64-byte record");
 
-enum { kLenA, kLenB, kLenC, kLenD, kLenI };
-enum { kAB, kCD, kBCD, kACD, kABD, kABC, kTemps };
-
 bool rows_in(const int32_t* rows, int n, int64_t hi) {
   for (int k = 0; k < n; ++k)
     if (rows[k] < 0 || rows[k] >= hi) return false;
   return true;
-}
-
-__host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~(size_t)15; }
-
-template <int C>
-__device__ __forceinline__ RowRef store_row(const MLView& m, int64_t row) {
-  return RowRef{m.codes + row * m.P, m.W + row * m.P, m.V + row * m.P * C};
-}
-
-// Effective vector of one row at position p under the reference's mixing
-// rules (ops/kernels.py ml_effective): 0 < w < 1 positions are mixed with the
-// gap vector; the pair log-likelihood in matrix mode mixes every such
-// position, the posterior and Jukes-Cantor only code-derived ones.
-template <int C>
-__device__ __forceinline__ void effective(const MLView& m, const RowRef& r, int p, bool for_post,
-                                          float& w, float (&f)[C]) {
-  const int code = r.codes != nullptr ? r.codes[p] : kNoCode;
-  w = r.W[p];
-  const float* v = r.V + (int64_t)p * C;
-  const bool stored = code == kNoCode && w > 0.0f;
-  bool mix = w > 0.0f && w < 1.0f;
-  if (m.jc || for_post) mix = mix && !stored;
-  const float wm = mix ? w : 1.0f;
-  const float om = 1.0f - wm;
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    const float gap = m.jc ? 0.25f : m.code_freq[kNoCode * C + c];
-    f[c] = wm * v[c] + om * gap;
-  }
-}
-
-// Per-rate tables for a branch length (ops/kernels.py p_same_diff,
-// exp_eigen_rates): Jukes-Cantor tab[r] = pSame, tab[kMaxRates + r] = pDiff;
-// matrix tab[r * C + c] = exp(max(len * rate, minRel) * eigenval[c]).
-// Filled by the block's threads; the caller synchronises.
-template <int C>
-__device__ __forceinline__ void fill_table(const MLView& m, float len, float* tab) {
-  if (m.jc) {
-    for (int r = threadIdx.x; r < m.n_rates; r += blockDim.x) {
-      const float ps = 0.25f + 0.75f * expf((-4.0f / 3.0f) * fabsf(len * m.rates[r]));
-      tab[r] = ps;
-      tab[kMaxRates + r] = (1.0f - ps) / 3.0f;
-    }
-  } else {
-    for (int i = threadIdx.x; i < m.n_rates * C; i += blockDim.x) {
-      const int r = i / C, c = i % C;
-      const float rel = fmaxf(len * m.rates[r], m.min_rel_len);
-      tab[i] = expf(rel * m.eigenval[c]);
-    }
-  }
-}
-
-// Per-site likelihood of two effective vectors (ops/kernels.py
-// pair_loglk_jc, pair_loglk_matrix); the caller masks padding and, in
-// matrix mode, both-gap positions to 1.
-template <int C>
-__device__ __forceinline__ float site_lk(const MLView& m, const float* tab, int rate,
-                                         const float (&f1)[C], const float (&f2)[C]) {
-  if (m.jc) {
-    float dot = f1[0] * f2[0], sum2 = f2[0];
-#pragma unroll
-    for (int c = 1; c < C; ++c) {
-      dot = dot + f1[c] * f2[c];
-      sum2 = sum2 + f2[c];
-    }
-    const float ps = tab[rate], pd = tab[kMaxRates + rate];
-    return pd * sum2 + (ps - pd) * dot;
-  }
-  const float* ee = tab + rate * C;
-  float lk = f1[0] * f2[0] * ee[0];
-#pragma unroll
-  for (int c = 1; c < C; ++c) lk = lk + f1[c] * f2[c] * ee[c];
-  return lk;
-}
-
-__device__ __forceinline__ double warp_sum(double v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// Block sum in a fixed order; every thread gets the total.  `red` holds one
-// double per warp plus the total.
-__device__ __forceinline__ double block_sum(double v, double* red) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, n_warps = blockDim.x >> 5;
-  v = warp_sum(v);
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    double t = red[0];
-    for (int w = 1; w < n_warps; ++w) t += red[w];
-    red[n_warps] = t;
-  }
-  __syncthreads();
-  const double total = red[n_warps];
-  __syncthreads();  // red may be reused right after
-  return total;
-}
-
-// Pair log-likelihood of rows r1, r2 at len (ref pairLogLk tcc:1192-1447):
-// the float64 sum of the float32 per-site logs, returned to every thread;
-// lk_out [P], when not null, gets the per-site likelihoods.  Threads below
-// NT stride the positions and the rest add nothing, so in a block of more
-// than NT threads the sum keeps the order of an NT-thread block (warps past
-// NT / 32 add exact zeros at the end).
-template <int C, int NT>
-__device__ double pair_loglk_block(const MLView& m, const RowRef& r1, const RowRef& r2, float len,
-                                   float* tab, double* red, float* lk_out) {
-  __syncthreads();  // earlier readers of tab are done
-  fill_table<C>(m, len, tab);
-  __syncthreads();
-  double acc = 0.0;
-  if (threadIdx.x < NT) {
-    for (int p = threadIdx.x; p < m.P; p += NT) {
-      float w1, w2, f1[C], f2[C];
-      effective<C>(m, r1, p, false, w1, f1);
-      effective<C>(m, r2, p, false, w2, f2);
-      float lk = site_lk<C>(m, tab, m.ratecat[p], f1, f2);
-      if (p >= m.n_pos || (!m.jc && w1 == 0.0f && w2 == 0.0f)) lk = 1.0f;
-      if (lk_out != nullptr) lk_out[p] = lk;
-      acc += (double)logf(fmaxf(lk, 1e-37f));
-    }
-  }
-  return block_sum(acc, red);
-}
-
-// Posterior parent profile of rows r1 and r2 at position p (ops/kernels.py
-// posterior_jc, posterior_matrix, exact path) from their two rate tables:
-// the weight (0 where both are gaps, else 1) and the vector.
-template <int C>
-__device__ __forceinline__ void posterior_site(const MLView& m, const RowRef& r1, const RowRef& r2,
-                                               const float* tab1, const float* tab2, float tol,
-                                               int p, float& w_out, float (&out)[C]) {
-  float w1, w2, f1[C], f2[C];
-  effective<C>(m, r1, p, true, w1, f1);
-  effective<C>(m, r2, p, true, w2, f2);
-  const int rate = m.ratecat[p];
-  const bool both_gap = w1 == 0.0f && w2 == 0.0f;
-  if (m.jc) {
-    const float ps1 = tab1[rate], pd1 = tab1[kMaxRates + rate];
-    const float ps2 = tab2[rate], pd2 = tab2[kMaxRates + rate];
-    float tot = 0.0f;
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const float t1 = f1[c] * ps1 + (1.0f - f1[c]) * pd1;
-      const float t2 = f2[c] * ps2 + (1.0f - f2[c]) * pd2;
-      out[c] = t1 * t2;
-      tot = c == 0 ? out[c] : tot + out[c];
-    }
-    const float den = fmaxf(tot, 1e-37f);
-#pragma unroll
-    for (int c = 0; c < C; ++c) out[c] = both_gap ? 0.25f : out[c] / den;
-  } else {
-    const float* e1 = tab1 + rate * C;
-    const float* e2 = tab2 + rate * C;
-    float m1[C], m2[C], fpost[C];
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      m1[c] = f1[c] * e1[c];
-      m2[c] = f2[c] * e2[c];
-    }
-    // rotate to character space, x[j] = code_freq[j] . m, and back,
-    // out[c] = sum_j fpost[j] * eigeninv[c][j]: each a double sum rounded
-    // once (probabilities near 0 are sums of large signed terms, which a
-    // float sum would round by its order; ops/kernels.py _rotate)
-    float tot = 0.0f;
-#pragma unroll
-    for (int j = 0; j < C; ++j) {
-      const float* cf = m.code_freq + j * C;
-      double x1 = 0.0, x2 = 0.0;
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        x1 += (double)m1[c] * (double)cf[c];
-        x2 += (double)m2[c] * (double)cf[c];
-      }
-      fpost[j] = fmaxf((float)x1 * (float)x2 * m.statinv[j], 0.0f);
-      tot = j == 0 ? fpost[j] : tot + fpost[j];
-    }
-    if (tot > tol) {
-#pragma unroll
-      for (int j = 0; j < C; ++j) fpost[j] = fpost[j] / tot;
-    }
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const float* ei = m.eigeninv + c * C;
-      double v = 0.0;
-#pragma unroll
-      for (int j = 0; j < C; ++j) v += (double)fpost[j] * (double)ei[j];
-      out[c] = both_gap ? m.code_freq[kNoCode * C + c] : (float)v;
-    }
-  }
-  w_out = both_gap ? 0.0f : 1.0f;
-}
-
-// -log-likelihood of the block's branch at length x; called by every thread
-// of the block with the same x, returns the same value to every thread.
-template <int C>
-__device__ float neg_loglk(const MLView& m, const float* eff1, const float* eff2,
-                           const int8_t* rate, float* tab, double* red, float x) {
-  __syncthreads();  // the previous evaluation is done with tab
-  fill_table<C>(m, x, tab);
-  __syncthreads();
-  double acc = 0.0;
-  for (int p = threadIdx.x; p < m.P; p += kOptThreads) {
-    const int r = rate[p];
-    if (r < 0) continue;  // lk 1: log 0
-    float f1[C], f2[C];
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      f1[c] = eff1[p * C + c];
-      f2[c] = eff2[p * C + c];
-    }
-    acc += (double)logf(fmaxf(site_lk<C>(m, tab, r, f1, f2), 1e-37f));
-  }
-  return -(float)block_sum(acc, red);
-}
-
-// The whole bracketing + Brent line search over the length of the branch
-// between rows r1 and r2 from guess (ref onedimenmin/brent tcc:7024-7178,
-// the JAX package's _onedimenmin_device), run by a block of kOptThreads
-// threads.  The effective vectors are mixed once into eff1/eff2 [P, C];
-// each evaluation is a rate table and a block reduction.  Every thread runs
-// the (scalar) control flow on the same values, step for step the JAX
-// package's, in float32.  Returns x; fx_out = -loglk at x.
-template <int C>
-__device__ float line_search(const MLView& m, const RowRef& r1, const RowRef& r2, float guess,
-                             const SearchLimits& lim, float* eff1, float* eff2, int8_t* rate,
-                             float* tab, double* red, float& fx_out, int& n_eval_out) {
-  __syncthreads();  // earlier readers of eff1, eff2, rate are done
-  for (int p = threadIdx.x; p < m.P; p += kOptThreads) {
-    float w1, w2, f1[C], f2[C];
-    effective<C>(m, r1, p, false, w1, f1);
-    effective<C>(m, r2, p, false, w2, f2);
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      eff1[p * C + c] = f1[c];
-      eff2[p * C + c] = f2[c];
-    }
-    const bool skip = p >= m.n_pos || (!m.jc && w1 == 0.0f && w2 == 0.0f);
-    rate[p] = skip ? (int8_t)-1 : (int8_t)m.ratecat[p];
-  }
-  // (neg_loglk synchronises before it reads)
-  int n_eval = 0;
-  auto f = [&](float x) {
-    ++n_eval;
-    return neg_loglk<C>(m, eff1, eff2, rate, tab, red, x);
-  };
-  const float xmin = lim.xmin, xmax = lim.xmax;
-
-  // bracketing (ref onedimenmin tcc:7027-7074)
-  float ax, bx, cx;
-  if (guess == xmin) {
-    ax = xmin; bx = 2.0f * guess; cx = 10.0f * guess;
-  } else if (guess <= 2.0f * xmin) {
-    ax = xmin; bx = guess; cx = 5.0f * guess;
-  } else {
-    ax = 0.5f * guess; bx = guess; cx = 2.0f * guess;
-  }
-  cx = fminf(cx, xmax);
-  if (bx >= cx) bx = 0.5f * (ax + cx);
-  float fa = f(ax), fb = f(bx), fc = f(cx);
-  while (fa < fb && ax > xmin) {
-    ax = (ax + xmin) / 2.0f;
-    if (ax < 2.0f * xmin) ax = xmin;
-    fa = f(ax);
-  }
-  while (fc < fb && cx < xmax) {
-    cx = (cx + xmax) / 2.0f;
-    if (cx > xmax * 0.95f) cx = xmax;
-    fc = f(cx);
-  }
-
-  // Brent (ref tcc:7098-7178)
-  float a = fminf(ax, cx), bb = fmaxf(ax, cx);
-  float x = bx, fx = fb;
-  float w, fw, v, fv;
-  if (fa < fc) {
-    w = ax; fw = fa; v = cx; fv = fc;
-  } else {
-    w = cx; fw = fc; v = ax; fv = fa;
-  }
-  float d = 0.0f, e = 0.0f;
-  for (int it = 0; it < kBrentItmax; ++it) {
-    const float xm = 0.5f * (a + bb);
-    const float tol1 = lim.ftol * fabsf(x);
-    const float tol2 = 2.0f * (tol1 + kZeps);
-    if (fabsf(x - xm) <= (tol2 - 0.5f * (bb - a)) || fabsf(a - bb) < lim.atol) break;
-    const float r = (x - w) * (fx - fv);
-    const float q = (x - v) * (fx - fw);
-    float p = fmaf(x - v, q, -((x - w) * r));  // fused, as the JAX package's compiled search
-    float q2 = 2.0f * (q - r);
-    if (q2 > 0.0f) p = -p;
-    q2 = fabsf(q2);
-    const bool golden = fabsf(p) >= fabsf(0.5f * q2 * e) || p <= q2 * (a - x) ||
-                        p >= q2 * (bb - x) || fabsf(e) <= tol1;
-    const float e_gold = x >= xm ? a - x : bb - x;
-    if (golden) {
-      d = kCGold * e_gold;
-      e = e_gold;
-    } else {
-      float d_par = p / (q2 != 0.0f ? q2 : 1.0f);
-      const float u_par = x + d_par;
-      if (u_par - a < tol2 || bb - u_par < tol2) d_par = xm - x >= 0.0f ? tol1 : -tol1;
-      e = d;
-      d = d_par;
-    }
-    const float u = fabsf(d) >= tol1 ? x + d : x + (d >= 0.0f ? tol1 : -tol1);
-    const float fu = f(u);
-    if (fu <= fx) {
-      if (u >= x) a = x; else bb = x;
-      v = w; fv = fw;
-      w = x; fw = fx;
-      x = u; fx = fu;
-    } else {
-      if (u < x) a = u; else bb = u;
-      if (fu <= fw || w == x) {
-        v = w; fv = fw;
-        w = u; fw = fu;
-      } else if (fu <= fv || v == x || v == w) {
-        v = u; fv = fu;
-      }
-    }
-  }
-  fx_out = fx;
-  n_eval_out = n_eval;
-  return x;
 }
 
 // Replaces _pair_loglk_impl / _pair_loglk_rows (veryfasttree_tpu/engine/
@@ -467,7 +97,7 @@ __global__ void __launch_bounds__(kLkThreads) ml_pair_loglk_kernel(MLView m, LkB
   __shared__ double red[kLkThreads / 32 + 1];
   const int k = blockIdx.x;
   const double total = pair_loglk_block<C, kLkThreads>(
-      m, store_row<C>(m, b.r1[k]), store_row<C>(m, b.r2[k]), b.len[k], tab, red,
+      WholeBlock{}, m, store_row<C>(m, b.r1[k]), store_row<C>(m, b.r2[k]), b.len[k], tab, red,
       lk_out != nullptr ? lk_out + (int64_t)k * m.P : nullptr);
   if (threadIdx.x == 0) ll[k] = total;
 }
@@ -484,8 +114,8 @@ __global__ void __launch_bounds__(kPostThreads) ml_posterior_kernel(MLView m, in
   __shared__ float tab1[kMaxRates * (C > 2 ? C : 2)];
   __shared__ float tab2[kMaxRates * (C > 2 ? C : 2)];
   const int k = blockIdx.y;
-  fill_table<C>(m, b.len1[k], tab1);
-  fill_table<C>(m, b.len2[k], tab2);
+  fill_table<C>(WholeBlock{}, m, b.len1[k], tab1);
+  fill_table<C>(WholeBlock{}, m, b.len2[k], tab2);
   __syncthreads();
   const int p = blockIdx.x * kPostThreads + threadIdx.x;
   if (p >= m.P) return;
@@ -539,7 +169,8 @@ __global__ void __launch_bounds__(kOptThreads) ml_opt_branch_kernel(
 
   float fx;
   int n_eval;
-  const float x = line_search<C>(m, store_row<C>(m, b.r1[k]), store_row<C>(m, b.r2[k]),
+  const float x = line_search<C>(WholeBlock{}, m, store_row<C>(m, b.r1[k]),
+                                 store_row<C>(m, b.r2[k]),
                                  b.guess[k], lim, eff1, eff2, rate, tab, red, fx, n_eval);
   if (threadIdx.x == 0) {
     x_out[k] = x;
@@ -548,35 +179,10 @@ __global__ void __launch_bounds__(kOptThreads) ml_opt_branch_kernel(
   }
 }
 
-// Where a quartet block keeps its pieces: the six temporaries (W then V of
-// each, P * (C + 1) floats) and the line search's two effective vectors in
-// shared memory where they fit under kOptSmemCap, else in device scratch of
-// scratch_floats per quartet; the rate bytes, two rate tables and the
-// reduction scratch always in shared memory.
-struct QuartetLayout {
-  bool temps_smem, eff_smem;
-  size_t smem, scratch_floats;
-};
-
-QuartetLayout quartet_layout(int P, int C) {
-  const size_t temps = align16((size_t)kTemps * P * (C + 1) * sizeof(float));
-  const size_t eff = align16(2 * (size_t)P * C * sizeof(float));
-  const size_t rest = align16((size_t)P) + 2 * kMaxRates * (C > 2 ? C : 2) * sizeof(float) +
-                      (kOptThreads / 32 + 1) * sizeof(double);
-  if (temps + eff + rest <= (size_t)kOptSmemCap) return {true, true, temps + eff + rest, 0};
-  if (eff + rest <= (size_t)kOptSmemCap) return {false, true, eff + rest, temps / sizeof(float)};
-  return {false, false, rest, (temps + eff) / sizeof(float)};
-}
-
 // Replaces the chain of XLA calls that the JAX package's ml_quartet_optimize
 // makes (veryfasttree_tpu/engine/ml.py:146-209; ref MLQuartetOptimize
-// tcc:1650-1788): one block per quartet.  Lengths are float64 as the host
-// loop holds them; each is rounded to float32 where the host's call would
-// round it, sums of two lengths in float64 first, and the star test
-// compares in float64 as Python does.  The pieces run in the chain's order
-// with the same __device__ functions, so the results equal the chain's bit
-// for bit; the temporaries (S_AB ... S_ABC of the host loop) never leave
-// the block.
+// tcc:1650-1788): one block per quartet (quartet_optimize); the
+// temporaries (S_AB ... S_ABC of the host loop) never leave the block.
 template <int C>
 __global__ void __launch_bounds__(kOptThreads) ml_quartet_opt_kernel(
     MLView m, QuartetBatch b, SearchLimits lim, float tol, int star_test, int temps_smem,
@@ -584,104 +190,17 @@ __global__ void __launch_bounds__(kOptThreads) ml_quartet_opt_kernel(
     int64_t scratch_floats) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int k = blockIdx.x;
-  const int P = m.P;
-  const size_t row_floats = (size_t)P * (C + 1);
-  unsigned char* cur = smem;
-  float* glob = scratch != nullptr ? scratch + (int64_t)k * scratch_floats : nullptr;
-  float* temps;
-  if (temps_smem) {
-    temps = reinterpret_cast<float*>(cur);
-    cur += align16(kTemps * row_floats * sizeof(float));
-  } else {
-    temps = glob;
-    glob += align16(kTemps * row_floats * sizeof(float)) / sizeof(float);
-  }
-  float* eff1;
-  if (eff_smem) {
-    eff1 = reinterpret_cast<float*>(cur);
-    cur += align16(2 * (size_t)P * C * sizeof(float));
-  } else {
-    eff1 = glob;
-  }
-  float* eff2 = eff1 + (size_t)P * C;
-  int8_t* rate = reinterpret_cast<int8_t*>(cur);
-  cur += align16((size_t)P);
-  float* tab1 = reinterpret_cast<float*>(cur);
-  cur += kMaxRates * (C > 2 ? C : 2) * sizeof(float);
-  float* tab2 = reinterpret_cast<float*>(cur);
-  cur += kMaxRates * (C > 2 ? C : 2) * sizeof(float);
-  double* red = reinterpret_cast<double*>(cur);
-
-  RowRef T[kTemps];
-  for (int i = 0; i < kTemps; ++i) {
-    float* row = temps + i * row_floats;
-    T[i] = RowRef{nullptr, row, row + P};
-  }
-  const RowRef A = store_row<C>(m, b.rows[k][0]), B = store_row<C>(m, b.rows[k][1]),
-               Cr = store_row<C>(m, b.rows[k][2]), D = store_row<C>(m, b.rows[k][3]);
-  double len[5];
+  const QuartetScratch q = quartet_scratch<C>(
+      smem, scratch != nullptr ? scratch + (int64_t)k * scratch_floats : nullptr, temps_smem,
+      eff_smem, m.P);
+  double len[5], parts[3];
   for (int i = 0; i < 5; ++i) len[i] = b.len[k][i];
-
-  // posterior into temporary t, lengths clamped as the store clamps them
-  auto post = [&](int t, const RowRef& r1, const RowRef& r2, double l1, double l2) {
-    __syncthreads();  // earlier readers of the tables and of row t are done
-    fill_table<C>(m, fmaxf((float)l1, lim.xmin), tab1);
-    fill_table<C>(m, fmaxf((float)l2, lim.xmin), tab2);
-    __syncthreads();
-    float* w_row = const_cast<float*>(T[t].W);
-    float* v_row = const_cast<float*>(T[t].V);
-    for (int p = threadIdx.x; p < P; p += kOptThreads) {
-      float w, o[C];
-      posterior_site<C>(m, r1, r2, tab1, tab2, tol, p, w, o);
-      w_row[p] = w;
-#pragma unroll
-      for (int c = 0; c < C; ++c) v_row[p * C + c] = o[c];
-    }
-    __syncthreads();  // row t is whole before anyone reads it
-  };
-  int n_eval = 0;
-  float fx = 0.0f;
-  auto search = [&](const RowRef& r1, const RowRef& r2, double guess) {
-    int n;
-    const float x = line_search<C>(m, r1, r2, (float)guess, lim, eff1, eff2, rate, tab1, red,
-                                   fx, n);
-    n_eval += n;
-    return (double)x;
-  };
-  auto pair = [&](const RowRef& r1, const RowRef& r2, double length, float* lk) {
-    return pair_loglk_block<C, kLkThreads>(m, r1, r2, (float)length, tab1, red, lk);
-  };
-
-  post(kAB, A, B, len[kLenA], len[kLenB]);
-  post(kCD, Cr, D, len[kLenC], len[kLenD]);
-  len[kLenI] = search(T[kAB], T[kCD], len[kLenI]);
-  double parts[3];
-  bool star = false;
-  if (star_test) {
-    const double ll_star = pair(T[kAB], T[kCD], (double)lim.xmin, nullptr);
-    if (ll_star < -(double)fx - kCloseLogLkLimit) {
-      star = true;
-      parts[0] = -(double)fx;
-      parts[1] = pair(A, B, len[kLenA] + len[kLenB], nullptr);
-      parts[2] = pair(Cr, D, len[kLenC] + len[kLenD], nullptr);
-    }
-  }
-  if (!star) {
-    post(kBCD, B, T[kCD], len[kLenB], len[kLenI]);
-    len[kLenA] = search(A, T[kBCD], len[kLenA]);
-    post(kACD, A, T[kCD], len[kLenA], len[kLenI]);
-    len[kLenB] = search(B, T[kACD], len[kLenB]);
-    post(kAB, A, B, len[kLenA], len[kLenB]);
-    post(kABD, T[kAB], D, len[kLenI], len[kLenD]);
-    len[kLenC] = search(Cr, T[kABD], len[kLenC]);
-    post(kABC, T[kAB], Cr, len[kLenI], len[kLenC]);
-    len[kLenD] = search(D, T[kABC], len[kLenD]);
-    parts[0] = -(double)fx;
-    float* site = site_lk != nullptr ? site_lk + (int64_t)k * 3 * P : nullptr;
-    if (site != nullptr) pair(T[kABC], D, len[kLenD], site);
-    parts[1] = pair(T[kAB], Cr, len[kLenI] + len[kLenC], site != nullptr ? site + P : nullptr);
-    parts[2] = pair(A, B, len[kLenA] + len[kLenB], site != nullptr ? site + 2 * P : nullptr);
-  }
+  int n_eval;
+  const bool star = quartet_optimize<C>(
+      WholeBlock{}, m, q, lim, tol, star_test != 0, store_row<C>(m, b.rows[k][0]),
+      store_row<C>(m, b.rows[k][1]), store_row<C>(m, b.rows[k][2]),
+      store_row<C>(m, b.rows[k][3]), len, parts, n_eval,
+      site_lk != nullptr ? site_lk + (int64_t)k * 3 * m.P : nullptr);
   if (threadIdx.x == 0) {
     QuartetOut& o = out[k];
     for (int i = 0; i < 3; ++i) o.parts[i] = parts[i];

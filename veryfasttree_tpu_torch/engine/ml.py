@@ -10,7 +10,10 @@ likelihood, posterior and branch-length line search is one call of the ML
 store (engine/ml_profiles.py), whose kernels take their row indices in the
 launch parameters.  treeLogLk and recomputeMLProfiles go level by level,
 one store call per tree level, and sum on the device with one fetch at the
-end.
+end.  On the card, a whole ML NNI round and a whole branch-length pass are
+one kernel launch each (ops/ml_round.py); their host loops here
+(rearrange.do_nni with use_ml, optimize_all_branch_lengths) are the twins
+that run for a store on the CPU.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import numpy as np
 import torch
 
 from .. import constants
+from ..ops import ml_round
 
 from . import rearrange
 from .ml_profiles import (LEN_A, LEN_B, LEN_C, LEN_D, LEN_I, S_AB, S_CD,
@@ -292,7 +296,10 @@ def tree_loglk(nj, want_site_loglk=False):
 
 
 def optimize_all_branch_lengths(nj) -> None:
-    """ref optimizeAllBranchLengths tcc:5006-5111."""
+    """ref optimizeAllBranchLengths tcc:5006-5111: the host loop, one store
+    call per posterior and line search.  The ML phase goes through
+    ops/ml_round.ml_lengths_pass, which runs this loop for a store on the
+    CPU and one kernel launch per pass on the card."""
     tree = nj.tree
     ml = nj.ml
     opts = nj.options
@@ -429,7 +436,7 @@ def set_ml_gtr(nj, freq_in=None, progress=None) -> None:
     nj.transmat = tm
     ml.set_transmat(tm)
     ml.recompute_ml_profiles()
-    optimize_all_branch_lengths(nj)
+    ml_round.ml_lengths_pass(nj)
 
 
 # --- Gamma(20) rescaling (ref tcc:5261-5359, 7192-7278) ---------------------
@@ -681,7 +688,7 @@ def run_ml_phase(nj, ml_nni_to_do: int, n_uniq: int, progress, log,
         last_loglk = -1e20
         for i_round in range(1, max_round + 1):
             old = nj.tree.branchlength.copy()
-            timed("ml_lengths_s", optimize_all_branch_lengths, nj)
+            timed("ml_lengths_s", ml_round.ml_lengths_pass, nj)
             if log_tree:
                 log_tree("ML_Lengths%d", i_round)
             d_max_change = float(np.abs(
@@ -702,13 +709,14 @@ def run_ml_phase(nj, ml_nni_to_do: int, n_uniq: int, progress, log,
             last_loglk = loglk
 
     if ml_nni_to_do > 0:
-        timed("ml_lengths_s", optimize_all_branch_lengths, nj)
+        timed("ml_lengths_s", ml_round.ml_lengths_pass, nj)
 
     last_loglk = -1e20
     converged = False
     for i in range(ml_nni_to_do):
         t0 = _clock(nj)
-        changes, max_delta = rearrange.do_nni(nj, i, ml_nni_to_do, True, stats)
+        changes, max_delta = ml_round.ml_nni_round(nj, i, ml_nni_to_do,
+                                                     stats)
         if log_tree:
             log_tree("ML_NNI%d", i + 1)
         loglk = tree_loglk(nj)
@@ -735,7 +743,7 @@ def run_ml_phase(nj, ml_nni_to_do: int, n_uniq: int, progress, log,
             rates_and_gtr()
 
     if ml_nni_to_do > 0:
-        timed("ml_lengths_s", optimize_all_branch_lengths, nj)
+        timed("ml_lengths_s", ml_round.ml_lengths_pass, nj)
         if log is not None:
             loglk = tree_loglk(nj)
             print(f"Optimize all lengths: LogLk = {loglk:.3f}", file=log)

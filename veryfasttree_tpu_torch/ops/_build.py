@@ -24,11 +24,13 @@ BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 LIB_PATH = BUILD_DIR / "libvft_scan.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# per-source flags: the likelihood kernels and the decisions of the SPR and
-# NNI rounds and of the join epoch round every float and double expression
-# as written, as their plain twins and numpy do (no fused multiply-adds)
-SOURCE_FLAGS = {"ml_lk.cu": ["-fmad=false"], "me_spr.cu": ["-fmad=false"],
-                "me_nni.cu": ["-fmad=false"], "nj_epoch.cu": ["-fmad=false"]}
+# per-source flags: the likelihood kernels, the ML rounds and the decisions
+# of the SPR and NNI rounds and of the join epoch round every float and
+# double expression as written, as their plain twins and numpy do (no fused
+# multiply-adds)
+SOURCE_FLAGS = {"ml_lk.cu": ["-fmad=false"], "ml_round.cu": ["-fmad=false"],
+                "me_spr.cu": ["-fmad=false"], "me_nni.cu": ["-fmad=false"],
+                "nj_epoch.cu": ["-fmad=false"]}
 
 _lib = None
 
@@ -136,12 +138,25 @@ def _declare(lib) -> None:
         f32, ptr, ptr, i32, f32, f32, f32, f32, i32, ptr, ptr, ptr, ptr]
     lib.vft_ml_quartet_scratch_floats.argtypes = [i32, i32]
     lib.vft_ml_quartet_scratch_floats.restype = i64
+    # the ML store, the model's tolerance and the line searches' limits,
+    # first in each ML round entry (ops/ml_round.py)
+    ml_round = ml_store + [f32, f32, f32, f32, f32, f64]
+    lib.vft_ml_nni_round_f32.argtypes = ml_round + [
+        i32, i32, i32, i32, i32, f64, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+        ptr, ptr, ptr, ptr, i32, ptr]
+    lib.vft_ml_lengths_pass_f32.argtypes = ml_round + [
+        i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, ptr]
+    lib.vft_ml_round_tree_fits_smem.argtypes = [i32, i32, i32]
+    lib.vft_ml_round_scratch_floats.argtypes = [i32, i32, i32, i32]
+    lib.vft_ml_round_scratch_floats.restype = i64
     for name in ("vft_nj_scan_dense_f64", "vft_nj_scan_codes_f64",
                  "vft_me_pair_dists_f32", "vft_me_average_f32",
                  "vft_me_spr_round_f32", "vft_me_nni_round_f32",
                  "vft_ml_pair_loglk_f32", "vft_ml_posterior_f32",
                  "vft_ml_opt_branch_f32", "vft_ml_opt_branch_fits_smem",
-                 "vft_ml_quartet_opt_f32", "vft_nj_epoch_f32"):
+                 "vft_ml_quartet_opt_f32", "vft_ml_nni_round_f32",
+                 "vft_ml_lengths_pass_f32", "vft_ml_round_tree_fits_smem",
+                 "vft_nj_epoch_f32"):
         getattr(lib, name).restype = i32
 
 
