@@ -7,7 +7,9 @@ Phases, each of which passes or raises (the script exits 0 only when all
 passed):
 
 0. the card (nvidia-smi name and power limit), torch's CUDA version;
-1. build the CUDA kernels from veryfasttree_tpu_torch/csrc;
+1. build the CUDA kernels from veryfasttree_tpu_torch/csrc; ptxas must
+   report no stack frame and no spill store for the ML round kernels and
+   at most 32 bytes of stack for ml_quartet_opt (_build.resource_faults);
 2. each kernel against its plain PyTorch twin on the card, at the main
    path's shapes, with the median time of 50 runs of each (CUDA events):
    the scans and the pair distances in double (rtol 1e-12, atol 1e-12; best
@@ -66,9 +68,11 @@ passed):
    and the ML store's node and up-profile rows bit for bit; the first case
    also with the kernels' tree in device memory, and against the plain
    twins on the CPU (the tree LogLk after the pass and the round within
-   1e-4 relative, quartet decisions equal up to a flip on a near tie); the
+   1e-5 relative, quartet decisions equal up to a flip on a near tie); the
    walls, the device time per quartet optimization, line search and node
-   beside the host loop's kernels', and the bound;
+   beside the host loop's kernels', the round's speculative AC and AD
+   optimizations (started beside AB on the cluster's other blocks, then
+   discarded), and the bound;
 3. the -noml pipeline at N=500, P=500 against the JAX package's tree
    (tests/data/torch_port_golden_n500_p500.nwk), dense and two-tier: RF 0
    to the golden, and the two layouts give the same Newick; then the same
@@ -96,9 +100,9 @@ passed):
    after it: every kernel of the dense path, the ML kernels included, must
    have launched (but ml_opt_branch, whose body runs inside the round
    kernels: its count, 0, is printed), the ML NNI rounds must have kept the
-   tree in shared memory, and the final LogLk must be the one recorded in
-   PERF.md for this input (the kernels' arithmetic does not change the
-   tree).
+   tree in shared memory with no device scratch, and the final LogLk and
+   the ML-NNIs per round must be the ones recorded in PERF.md for this
+   input (the kernels' arithmetic does not change the tree).
 
 The last lines are the card's name and power limit, one JSON line with each
 kernel's route, source, main-path launches (the ML main path's for the ML
@@ -184,8 +188,10 @@ DEVICE_NAMES = {
     "ml_nni_round": ("ml_nni_round_kernel",),
     "ml_lengths_pass": ("ml_lengths_pass_kernel",),
 }
-# final LogLk of the default -nt run at N=2000 (PERF.md, section 6)
+# final LogLk and ML-NNIs per round of the default -nt run at N=2000
+# (PERF.md, section 5)
 ML_MAIN_LOGLK = "-427535.845"
+ML_MAIN_NNIS = [706, 447, 198, 113, 53, 32, 13, 4, 0, 7]
 # the least time of a call (NVIDIA's H100 SXM data sheet, at 700 W): bytes
 # over the memory rate, operations over the float32 rate outside the
 # tensor cores (double operations are counted at that rate too, which can
@@ -1563,9 +1569,10 @@ def phase_ml_round(report, dev):
     an ML store (ml_start): at N=SPR_N under Jukes-Cantor with one rate, as
     the default run's first pass and round, and under Jukes-Cantor and GTR
     with fitted CAT 20 rates, as its later ones; and at the main path's
-    N=MAIN_N under Jukes-Cantor with one rate, where the tree fills shared
-    memory and group 1's quartet temporaries go to device scratch (the
-    layout every AC/AD pair of the default run takes; asserted).  Each
+    N=MAIN_N under Jukes-Cantor with one rate, where the tree fills most of
+    block 0's shared memory (the layout of the default run's rounds); in
+    every case no quartet piece of the round's three blocks goes to device
+    scratch (asserted).  Each
     through one launch of each kernel (ops/ml_round.ml_lengths_pass,
     ml_nni_round) and through the host loops with the per-call kernels
     (engine/ml.optimize_all_branch_lengths, engine/rearrange.do_nni): tree,
@@ -1647,13 +1654,13 @@ def phase_ml_round(report, dev):
             raise AssertionError(f"ml round kernels {label}: launches "
                                  f"{k['launches']}, not one each")
         P, C = start.ml.W.shape[1], start.ml.V.shape[2]
-        # at N=MAIN_N the tree and group 0's pieces leave group 1 the room
-        # of its line-search vectors only: its six temporaries (W and V, P
-        # x (C + 1) floats each) go to device scratch; at N=SPR_N all fits
-        layout = ("shared memory", 6 * P * (C + 1) if n == MAIN_N else 0)
+        # each block of the round's cluster keeps its quartet pieces in its
+        # own shared memory, block 0 the tree before them (104 KB at
+        # N=MAIN_N): no device scratch
         for name in ("kernel", "tree in device memory"):
             if name in runs and (runs[name]["layout"], runs[name]["scratch"]) \
-                    != (layout if name == "kernel" else ("device memory", 0)):
+                    != ("shared memory" if name == "kernel" else
+                        "device memory", 0):
                 raise AssertionError(
                     f"ml round kernels {label} ({name}): tree in "
                     f"{runs[name]['layout']}, {runs[name]['scratch']} floats "
@@ -1676,7 +1683,8 @@ def phase_ml_round(report, dev):
               f"{k['round'][1]['round']} (NNIs, max delta), LogLk "
               f"{k['round_loglk']:.3f}, tree in {k['layout']}, "
               f"{k['scratch']} floats of device scratch; "
-              f"{k['round_totals']}")
+              f"{k['round_totals']['speculative']} AC/AD optimizations "
+              f"started beside AB and discarded; {k['round_totals']}")
         if not first:
             continue
         t = runs["twin"]
@@ -2091,16 +2099,25 @@ def phase_ml_main(report, dev):
           f"optimizations, {rounds_t['n_ml_nni']} NNIs), ml_lengths_pass "
           f"{counts['ml_lengths_pass']} launches ({pass_t['searches']} line "
           f"searches), the tree in {ml_round.ml_nni_round.tree_layout}, "
-          f"{ml_round.ml_nni_round.scratch_floats} floats of device scratch "
-          "(group 1's quartet temporaries); "
+          f"{ml_round.ml_nni_round.scratch_floats} floats of device scratch, "
+          f"{rounds_t['speculative']} speculative AC/AD optimizations "
+          "discarded; "
           f"launches beside them: ml_quartet_opt {counts['ml_quartet_opt']}, "
           f"ml_opt_branch {counts['ml_opt_branch']} (its body ran "
           f"{rounds_t['searches'] + pass_t['searches']} line searches inside "
           f"the round kernels), ml_posterior {counts['ml_posterior']}, "
           f"ml_pair_loglk {counts['ml_pair_loglk']}")
-    if ml_round.ml_nni_round.tree_layout != "shared memory":
-        raise AssertionError("the ML NNI rounds kept the tree in device "
-                             "memory at the main path's shape")
+    if (ml_round.ml_nni_round.tree_layout,
+            ml_round.ml_nni_round.scratch_floats) != ("shared memory", 0):
+        raise AssertionError(
+            "the ML NNI rounds kept the tree in "
+            f"{ml_round.ml_nni_round.tree_layout} with "
+            f"{ml_round.ml_nni_round.scratch_floats} floats of device "
+            "scratch at the main path's shape")
+    nnis = [r[1] for r in rounds]
+    if nnis != ML_MAIN_NNIS:
+        raise AssertionError(f"ML-NNIs per round {nnis}, recorded "
+                             f"{ML_MAIN_NNIS}")
     for name, count in counts.items():
         key = "launches" if name in ML_KERNELS else "ml_path_launches"
         report.setdefault(name, {})[key] = count
@@ -2143,13 +2160,20 @@ def main() -> int:
 
     def build():
         t0 = time.perf_counter()
-        path, log = _build.build()
+        path, log = _build.build(force=True)
         print(f"  built {os.path.relpath(path, REPO)} in "
               f"{time.perf_counter() - t0:.1f} s")
         print("\n".join("  " + line for line in log.splitlines()
                         if "registers" in line or "Function properties" in line
-                        or "Compiling entry" in line))
+                        or "Compiling entry" in line or "stack frame" in line))
         _build.library()
+        report = _build.ptxas_report(log)
+        for kernel in _build.STACK_LIMITS:
+            print(f"  {kernel}<4>: "
+                  f"{_build.kernel_resources(report, kernel)}")
+        faults = _build.resource_faults(report)
+        if faults:
+            raise AssertionError("; ".join(faults))
 
     phase("0 card", card)
     phase("1 build", build)

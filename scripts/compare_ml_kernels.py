@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The single-call ML kernels (ml_pair_loglk, ml_posterior, ml_quartet_opt)
-of two checkouts on the same inputs, in turns, each run in a process of its
-own.
+and the ML round kernels (ml_lengths_pass, ml_nni_round) of two checkouts
+on the same inputs, in turns, each run in a process of its own.
 
     python scripts/compare_ml_kernels.py OLD NEW [--rounds 2]
 
@@ -15,8 +15,17 @@ quartet_store's Jukes-Cantor stores (P=512, C=4).  For each it prints the
 device time per call from torch.profiler (chip_smoke.device_us, 50 calls;
 a burst's time between CUDA events when the trace lost launches), the
 median launch-to-launch time of 50 calls between CUDA events
-(chip_smoke.median_ms), and the time per call of a burst of 200 calls;
-then one line per checkout with the mean of its runs.  Before the runs it
+(chip_smoke.median_ms), and the time per call of a burst of 200 calls.
+Then one ML lengths pass and one ML NNI round at N=2000 from chip_smoke.py
+phase 2e's N=MAIN_N start (ml_start: the main path's layout), through the
+checkout's wrappers: the device time of each (torch.profiler over three
+pass-then-round runs) and the wall of one launch.  Each run also hashes
+what each call leaves behind (the single calls' outputs; the pass's and
+round's tree, branch lengths, NNIStats, debug counters, work counters and
+store rows, chip_smoke.ml_state) and the tree LogLk after the round; the
+script fails unless every run of both checkouts gives the same hashes and
+LogLk.  At the end, one line per checkout with the mean of its runs.
+Before the runs it
 prints each kernel's (C=4) registers and stack in each checkout's library
 (`cuobjdump -res-usage`), its SASS instruction count, and whether the two
 checkouts' instruction streams are the same (addresses and constants
@@ -37,6 +46,7 @@ import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KERNELS = ("ml_pair_loglk", "ml_posterior", "ml_quartet_opt")
+ROUNDS = ("ml_lengths_pass", "ml_nni_round")
 
 BUILD = r"""
 import sys
@@ -46,7 +56,8 @@ _build.build()
 """
 
 CHILD = r"""
-import importlib.util, json, sys
+ROUND_NAMES = ("ml_lengths_pass", "ml_nni_round")
+import hashlib, importlib.util, json, sys, time
 root, smoke_path = sys.argv[1], sys.argv[2]
 sys.path.insert(0, root)
 spec = importlib.util.spec_from_file_location("smoke_inputs", smoke_path)
@@ -98,11 +109,67 @@ rec, _ = mk.ml_quartet_opt(*store, rows4, qlens, *lims, True, False)
 k = int(np.flatnonzero(rec["star"] == 0)[0])
 calls["ml_quartet_opt"] = lambda: mk.ml_quartet_opt(
     *store, rows4[k:k + 1], qlens[k:k + 1], *lims, True, False)
+
+
+def digest(*arrays):
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(np.ascontiguousarray(
+            a.cpu().numpy() if torch.is_tensor(a) else a).tobytes())
+    return h.hexdigest()
+
+
 out = {}
 for name, fn in calls.items():
     out[name] = {"device_us": s.device_us(fn, s.DEVICE_NAMES[name]),
                  "l_to_l_us": 1e3 * s.median_ms(fn),
                  "burst_us": burst_us(fn)}
+ll, _ = calls["ml_pair_loglk"]()
+calls["ml_posterior"]()
+rec, _ = calls["ml_quartet_opt"]()
+out["ml_pair_loglk"]["digest"] = digest(ll)
+out["ml_posterior"]["digest"] = digest(post[1][-1], post[2][-1])
+out["ml_quartet_opt"]["digest"] = digest(rec)
+
+# the round kernels at N=MAIN_N: a pass, then a round, from one start
+from veryfasttree_tpu_torch.engine import ml, rearrange
+from veryfasttree_tpu_torch.ops import ml_round
+
+start = s.ml_start(s.MAIN_N, dev)
+walls = {k: [] for k in ("ml_lengths_pass", "ml_nni_round")}
+states = {}
+
+
+def both():
+    nj = s.ml_copy(start, dev)
+    stats = rearrange.NNIStats.init(nj)
+    for name, fn in (("ml_lengths_pass", lambda: ml_round.ml_lengths_pass(nj)),
+                     ("ml_nni_round",
+                      lambda: ml_round.ml_nni_round(nj, 0, 2, stats))):
+        wrapper = getattr(ml_round, name)
+        wrapper.totals = dict.fromkeys(wrapper.totals, 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        walls[name].append(time.perf_counter() - t0)
+        tree, ctr, rows = s.ml_state(nj, stats if name == "ml_nni_round"
+                                     else None, result)
+        work = {k: v for k, v in wrapper.totals.items()
+                if k != "speculative"}
+        states[name] = (digest(*tree.values(), *rows.values(),
+                               json.dumps([ctr, work]).encode()),
+                        wrapper.totals.get("speculative"))
+    return nj
+
+
+for name in ROUND_NAMES:
+    out[name] = {"device_us": s.device_us(both, s.DEVICE_NAMES[name],
+                                          runs=3)}
+for name in ROUND_NAMES:
+    out[name].update(wall_ms=1e3 * sorted(walls[name])[len(walls[name]) // 2],
+                     digest=states[name][0], speculative=states[name][1])
+out["ml_nni_round"]["tree_loglk"] = ml.tree_loglk(both())
 print("RESULT " + json.dumps(out), flush=True)
 """
 
@@ -175,14 +242,29 @@ def main() -> int:
         print(f"{root}: " + "; ".join(
             f"{name} device {r['device_us']:.3f} us, l-to-l "
             f"{r['l_to_l_us']:.3f} us, burst {r['burst_us']:.3f} us"
-            for name, r in res.items()), flush=True)
+            for name, r in res.items() if name in KERNELS) + "; " + "; ".join(
+            f"{name} device {r['device_us'] / 1e3:.3f} ms, wall "
+            f"{r['wall_ms']:.3f} ms" + (f", speculative {r['speculative']}"
+                                        if r.get("speculative") is not None
+                                        else "")
+            for name, r in res.items() if name in ROUNDS)
+            + f"; tree LogLk {res['ml_nni_round']['tree_loglk']!r}",
+            flush=True)
     for root, runs in results.items():
+        mean = {name: {k: sum(r[name][k] for r in runs) / len(runs)
+                       for k in ("device_us", "l_to_l_us", "burst_us",
+                                 "wall_ms") if k in runs[0][name]}
+                for name in runs[0]}
         print(f"mean of {len(runs)} runs, {root}: " + "; ".join(
-            f"{name} device {sum(r[name]['device_us'] for r in runs) / len(runs):.3f}"
-            f" us, l-to-l {sum(r[name]['l_to_l_us'] for r in runs) / len(runs):.3f}"
-            f" us, burst {sum(r[name]['burst_us'] for r in runs) / len(runs):.3f} us"
-            for name in runs[0]))
-    return 0
+            f"{name} " + ", ".join(f"{k} {v:.3f}" for k, v in m.items())
+            for name, m in mean.items()))
+    seen = {name: {(r[name]["digest"], r[name].get("tree_loglk"))
+                   for runs in results.values() for r in runs}
+            for name in KERNELS + ROUNDS}
+    differ = [name for name, vals in seen.items() if len(vals) != 1]
+    print("outputs: " + ("the same in every run of both checkouts"
+                         if not differ else f"{differ} differ"))
+    return 1 if differ else 0
 
 
 if __name__ == "__main__":

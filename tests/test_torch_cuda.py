@@ -501,20 +501,43 @@ def test_ml_round_kernels_are_the_host_loops(cuda, n, model, cat,
     CAT rates, Jukes-Cantor and GTR (matrix mode), three rounds with the
     NNIStats carried over (the third takes the fast-NNI skip set) and the
     tree in device memory; the case at the main path's N=2000 (P=512) the
-    layout of the default run, asserted: the tree in shared memory, group
-    1's six quartet temporaries in device scratch."""
+    layout of the default run, asserted: the tree in block 0's shared
+    memory, and no quartet piece of any of the cluster's three blocks in
+    device scratch."""
     from chip_smoke import ml_diff, ml_start
     from veryfasttree_tpu_torch.ops import ml_round
 
     start = ml_start(n, cuda, model, cat)
     host = _ml_runs(start, cuda, rounds, False)
     kern = _ml_runs(start, cuda, rounds, True, tree_in_smem=tree_in_smem)
-    P, C = start.ml.W.shape[1], start.ml.V.shape[2]
     for fn in (ml_round.ml_lengths_pass, ml_round.ml_nni_round):
         assert (fn.tree_layout, fn.scratch_floats) == (
-            ("shared memory", 6 * P * (C + 1) if n == 2000 else 0)
-            if tree_in_smem else ("device memory", 0))
+            ("shared memory" if tree_in_smem else "device memory", 0))
     assert host[1][1]["n_ml_nni"] > 0
+    for h, k in zip(host, kern):
+        assert ml_diff(h, k) == []
+
+
+@pytest.mark.cuda
+def test_ml_round_speculation_is_discarded(cuda):
+    """At N=500 the round's AC and AD optimizations start beside AB and are
+    discarded where AB's star test fires: some are (the round's
+    `speculative` total, one or two for each star test that fired), and
+    the round still leaves the host loop's tree, lengths, NNIStats, debug
+    counters (the star tests among them) and store rows, bit for bit."""
+    from chip_smoke import ml_diff, ml_start
+    from veryfasttree_tpu_torch.ops import ml_round
+
+    start = ml_start(500, cuda)
+    host = _ml_runs(start, cuda, 1, False)
+    before = dict(ml_round.ml_nni_round.totals)
+    kern = _ml_runs(start, cuda, 1, True)
+    totals = {k: v - before[k]
+              for k, v in ml_round.ml_nni_round.totals.items()}
+    n_star = host[1][1]["n_star_tests"]
+    assert n_star > 0
+    assert totals["n_star_tests"] == n_star
+    assert n_star <= totals["speculative"] <= 2 * n_star
     for h, k in zip(host, kern):
         assert ml_diff(h, k) == []
 

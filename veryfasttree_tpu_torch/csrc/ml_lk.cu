@@ -93,11 +93,11 @@ template <int C>
 __global__ void __launch_bounds__(kLkThreads) ml_pair_loglk_kernel(MLView m, LkBatch b,
                                                                    double* __restrict__ ll,
                                                                    float* __restrict__ lk_out) {
-  __shared__ float tab[kMaxRates * (C > 2 ? C : 2)];
-  __shared__ double red[kLkThreads / 32 + 1];
+  __shared__ double red_slot[2 * kRedSlots];
   const int k = blockIdx.x;
+  Red red{red_slot, 0};
   const double total = pair_loglk_block<C, kLkThreads>(
-      WholeBlock{}, m, store_row<C>(m, b.r1[k]), store_row<C>(m, b.r2[k]), b.len[k], tab, red,
+      m, store_row<C>(m, b.r1[k]), store_row<C>(m, b.r2[k]), b.len[k], red,
       lk_out != nullptr ? lk_out + (int64_t)k * m.P : nullptr);
   if (threadIdx.x == 0) ll[k] = total;
 }
@@ -106,22 +106,23 @@ __global__ void __launch_bounds__(kLkThreads) ml_pair_loglk_kernel(MLView m, LkB
 // _posterior_sweep_impl (veryfasttree_tpu/engine/ml_profiles.py:77-218): the
 // posterior parent profile written into the target row.  One thread per
 // position, blockIdx.y the item; each block builds its item's two rate
-// tables.
+// tables (the rate entries of every category).
 template <int C>
 __global__ void __launch_bounds__(kPostThreads) ml_posterior_kernel(MLView m, int8_t* codes_out,
                                                                     float* W_out, float* V_out,
                                                                     PostBatch b, float tol) {
-  __shared__ float tab1[kMaxRates * (C > 2 ? C : 2)];
-  __shared__ float tab2[kMaxRates * (C > 2 ? C : 2)];
+  __shared__ float tab1[kMaxRates * C];
+  __shared__ float tab2[kMaxRates * C];
   const int k = blockIdx.y;
-  fill_table<C>(WholeBlock{}, m, b.len1[k], tab1);
-  fill_table<C>(WholeBlock{}, m, b.len2[k], tab2);
+  fill_table<C>(m, b.len1[k], tab1);
+  fill_table<C>(m, b.len2[k], tab2);
   __syncthreads();
   const int p = blockIdx.x * kPostThreads + threadIdx.x;
   if (p >= m.P) return;
   float w, out[C];
-  posterior_site<C>(m, store_row<C>(m, b.r1[k]), store_row<C>(m, b.r2[k]), tab1, tab2, tol, p,
-                    w, out);
+  const int rate = m.ratecat[p];
+  posterior_site<C>(m, store_row<C>(m, b.r1[k]), store_row<C>(m, b.r2[k]), tab1 + rate * C,
+                    tab2 + rate * C, tol, p, w, out);
   const int64_t t = b.t[k];
   codes_out[t * m.P + p] = (int8_t)kNoCode;
   W_out[t * m.P + p] = w;
@@ -131,14 +132,11 @@ __global__ void __launch_bounds__(kPostThreads) ml_posterior_kernel(MLView m, in
 }
 
 // Shared memory of one line search: both effective vectors (unless they
-// live in device memory), per-position rate (-1: contributes lk 1), the
-// rate table and the reduction scratch.
+// live in device memory), per-position rate (-1: contributes lk 1) and the
+// reduction partials.
 size_t opt_smem_bytes(int P, int C, bool vectors_in_smem) {
   size_t bytes = (vectors_in_smem ? 2 * (size_t)P * C * sizeof(float) : 0) + P;
-  bytes = align16(bytes);
-  bytes += kMaxRates * (C > 2 ? C : 2) * sizeof(float);
-  bytes += (kOptThreads / 32 + 1) * sizeof(double);
-  return bytes;
+  return align16(bytes) + 2 * kRedSlots * sizeof(double);
 }
 
 // Replaces _opt_branch_len_core with _onedimenmin_device (veryfasttree_tpu/
@@ -162,16 +160,15 @@ __global__ void __launch_bounds__(kOptThreads) ml_opt_branch_kernel(
     cur += 2 * (size_t)P * C * sizeof(float);
   }
   int8_t* rate = reinterpret_cast<int8_t*>(cur);
-  cur += ((size_t)P + 15) & ~(size_t)15;
-  float* tab = reinterpret_cast<float*>(cur);
-  cur += kMaxRates * (C > 2 ? C : 2) * sizeof(float);
-  double* red = reinterpret_cast<double*>(cur);
+  cur += align16((size_t)P);
+  Red red{reinterpret_cast<double*>(cur), 0};
 
   float fx;
   int n_eval;
-  const float x = line_search<C>(WholeBlock{}, m, store_row<C>(m, b.r1[k]),
-                                 store_row<C>(m, b.r2[k]),
-                                 b.guess[k], lim, eff1, eff2, rate, tab, red, fx, n_eval);
+  bool stopped;
+  const float x = line_search<C>(m, store_row<C>(m, b.r1[k]), store_row<C>(m, b.r2[k]),
+                                 b.guess[k], lim, eff1, eff2, rate, red, fx, n_eval, NoStop{},
+                                 stopped);
   if (threadIdx.x == 0) {
     x_out[k] = x;
     fx_out[k] = fx;
@@ -194,16 +191,21 @@ __global__ void __launch_bounds__(kOptThreads) ml_quartet_opt_kernel(
       smem, scratch != nullptr ? scratch + (int64_t)k * scratch_floats : nullptr, temps_smem,
       eff_smem, m.P);
   double len[5], parts[3];
+#pragma unroll
   for (int i = 0; i < 5; ++i) len[i] = b.len[k][i];
   int n_eval;
+  bool stopped;
+  Red red{q.red, 0};
   const bool star = quartet_optimize<C>(
-      WholeBlock{}, m, q, lim, tol, star_test != 0, store_row<C>(m, b.rows[k][0]),
+      m, q, red, lim, tol, star_test != 0, store_row<C>(m, b.rows[k][0]),
       store_row<C>(m, b.rows[k][1]), store_row<C>(m, b.rows[k][2]),
       store_row<C>(m, b.rows[k][3]), len, parts, n_eval,
-      site_lk != nullptr ? site_lk + (int64_t)k * 3 * m.P : nullptr);
+      site_lk != nullptr ? site_lk + (int64_t)k * 3 * m.P : nullptr, NoStop{}, stopped);
   if (threadIdx.x == 0) {
     QuartetOut& o = out[k];
+#pragma unroll
     for (int i = 0; i < 3; ++i) o.parts[i] = parts[i];
+#pragma unroll
     for (int i = 0; i < 5; ++i) o.len[i] = (float)len[i];
     o.star = star ? 1 : 0;
     o.n_eval = n_eval;

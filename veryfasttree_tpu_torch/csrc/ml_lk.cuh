@@ -2,7 +2,7 @@
 // single-call and quartet kernels (ml_lk.cu) and the ML round kernels
 // (ml_round.cu), so that a whole round gives the chain of single calls bit
 // for bit: the effective vectors under the reference's gap-mixing rules, the
-// rate tables, the pair log-likelihood of a block (pair_loglk_block), the
+// rate entries, the pair log-likelihood of a block (pair_loglk_block), the
 // posterior of one position (posterior_site), the bracketing + Brent line
 // search of a block (line_search) and a whole quartet optimization
 // (quartet_optimize).
@@ -20,6 +20,18 @@
 // package's float32 code do).  Sums over positions are taken in double in a
 // fixed order: each thread strides the positions, then a warp-shuffle tree,
 // then the warps in order; no atomics, the same order on every run.
+//
+// Barriers.  Every body runs on a whole block of at most kOptThreads
+// threads.  Position p belongs to thread p % kOptThreads in a posterior and
+// a line search, so a posterior's row and a search's effective vectors and
+// rate bytes are written and read by one thread and need no barrier; each
+// thread computes the rate entries of its own positions (rate_entries, the
+// expressions of the single-call kernels' tables: the same bits); and a
+// reduction is one barrier (block_sum, its partials double-buffered).  So a
+// line-search evaluation is one barrier, and the bracket's first three
+// evaluations share one.  The pair log-likelihood strides by kLkThreads (the
+// single-call kernel's map, which fixes its sum's order), so it reads
+// positions another thread wrote and synchronises first.
 
 #pragma once
 
@@ -68,30 +80,60 @@ struct SearchLimits {
   float xmin, xmax, ftol, atol;
 };
 
-// The threads that run one body, and their barrier: the whole block, or
-// one of its groups of kOptThreads threads with a named barrier of its own
-// (HalfBlock<1>: threads [0, 256), HalfBlock<2>: [256, 512)), as the round
-// kernels run two quartet optimizations side by side.  A body computes the
-// same values on any group of its thread count.  tid() and size() are
-// unsigned, as threadIdx.x and blockDim.x are: with a signed stride nvcc
-// unrolls the rate-table loops behind a computed trip count, which made the
-// single-call kernels' code 1.7 times as long and ml_posterior 11% slower.
-struct WholeBlock {
-  __device__ __forceinline__ unsigned tid() const { return threadIdx.x; }
-  __device__ __forceinline__ unsigned size() const { return blockDim.x; }
-  __device__ __forceinline__ void sync() const { __syncthreads(); }
+// Probes of scripts/profile_ml_round.py.  Built with VFT_ML_ROUND_PROFILE
+// (a second copy of ml_round.cu; never the library the port loads), the
+// first thread of each group of kOptThreads adds the clock64() cycles
+// between two of its marks to the phase it was in; without it a mark is
+// nothing.
+enum ProfPhase {
+  kPhTable,    // rate tables (a block's, before each thread made its own)
+  kPhSites,    // site sums
+  kPhReduce,   // reductions
+  kPhControl,  // the scalar Brent and bracket control
+  kPhStage,    // effective-vector staging
+  kPhQPost,    // quartet posteriors
+  kPhWalk,     // the walk, setup_abcd and node posteriors
+  kPhWait,     // waiting for the other group or blocks
+  kProfPhases
 };
+constexpr int kProfSlots = 8;  // groups of kOptThreads: block * 2 + group
 
-template <int kBar>
-struct HalfBlock {
-  __device__ __forceinline__ unsigned tid() const {
-    return threadIdx.x - (kBar - 1) * kOptThreads;
-  }
-  __device__ __forceinline__ unsigned size() const { return kOptThreads; }
-  __device__ __forceinline__ void sync() const {
-    asm volatile("bar.sync %0, %1;" ::"n"(kBar), "n"(kOptThreads) : "memory");
-  }
-};
+#ifdef VFT_ML_ROUND_PROFILE
+__device__ unsigned long long prof_total[kProfSlots][kProfPhases];
+__shared__ unsigned long long prof_acc[2][kProfPhases];
+__shared__ long long prof_last[2];
+__shared__ int prof_cur[2];
+
+__device__ __forceinline__ void prof_mark(int phase) {
+  if (threadIdx.x % kOptThreads != 0) return;
+  const int s = threadIdx.x / kOptThreads;
+  const long long now = clock64();
+  prof_acc[s][prof_cur[s]] += (unsigned long long)(now - prof_last[s]);
+  prof_last[s] = now;
+  prof_cur[s] = phase;
+}
+
+__device__ __forceinline__ void prof_begin() {
+  if (threadIdx.x % kOptThreads != 0) return;
+  const int s = threadIdx.x / kOptThreads;
+  for (int k = 0; k < kProfPhases; ++k) prof_acc[s][k] = 0;
+  prof_cur[s] = kPhWalk;
+  prof_last[s] = clock64();
+}
+
+__device__ __forceinline__ void prof_end() {
+  prof_mark(kPhWalk);
+  if (threadIdx.x % kOptThreads != 0) return;
+  const int s = threadIdx.x / kOptThreads;
+  const int slot = (int)blockIdx.x * 2 + s;
+  if (slot < kProfSlots)
+    for (int k = 0; k < kProfPhases; ++k) atomicAdd(&prof_total[slot][k], prof_acc[s][k]);
+}
+#else
+__device__ __forceinline__ void prof_mark(int) {}
+__device__ __forceinline__ void prof_begin() {}
+__device__ __forceinline__ void prof_end() {}
+#endif
 
 enum { kLenA, kLenB, kLenC, kLenD, kLenI };
 enum { kAB, kCD, kBCD, kACD, kABD, kABC, kTemps };
@@ -125,20 +167,36 @@ __device__ __forceinline__ void effective(const MLView& m, const RowRef& r, int 
   }
 }
 
-// Per-rate tables for a branch length (ops/kernels.py p_same_diff,
-// exp_eigen_rates): Jukes-Cantor tab[r] = pSame, tab[kMaxRates + r] = pDiff;
-// matrix tab[r * C + c] = exp(max(len * rate, minRel) * eigenval[c]).
-// Filled by the group's threads; the caller synchronises.
-template <int C, class G>
-__device__ __forceinline__ void fill_table(const G& g, const MLView& m, float len, float* tab) {
+// The rate entries of rate category r at branch length len (ops/kernels.py
+// p_same_diff, exp_eigen_rates): Jukes-Cantor e[0] = pSame, e[1] = pDiff;
+// matrix e[c] = exp(max(len * rate, minRel) * eigenval[c]).
+template <int C>
+__device__ __forceinline__ void rate_entries(const MLView& m, float len, int r, float (&e)[C]) {
   if (m.jc) {
-    for (int r = g.tid(); r < m.n_rates; r += g.size()) {
-      const float ps = 0.25f + 0.75f * expf((-4.0f / 3.0f) * fabsf(len * m.rates[r]));
-      tab[r] = ps;
-      tab[kMaxRates + r] = (1.0f - ps) / 3.0f;
+    const float ps = 0.25f + 0.75f * expf((-4.0f / 3.0f) * fabsf(len * m.rates[r]));
+    e[0] = ps;
+    e[1] = (1.0f - ps) / 3.0f;
+  } else {
+    const float rel = fmaxf(len * m.rates[r], m.min_rel_len);
+#pragma unroll
+    for (int c = 0; c < C; ++c) e[c] = expf(rel * m.eigenval[c]);
+  }
+}
+
+// The rate entries of every category into tab [kMaxRates * C] (category r
+// at tab + r * C, rate_entries' values) by the block's threads, for the
+// single-call posterior; the caller synchronises.
+template <int C>
+__device__ __forceinline__ void fill_table(const MLView& m, float len, float* tab) {
+  if (m.jc) {
+    for (int r = threadIdx.x; r < m.n_rates; r += blockDim.x) {
+      float e[C];
+      rate_entries<C>(m, len, r, e);
+      tab[r * C] = e[0];
+      tab[r * C + 1] = e[1];
     }
   } else {
-    for (int i = g.tid(); i < m.n_rates * C; i += g.size()) {
+    for (int i = threadIdx.x; i < m.n_rates * C; i += blockDim.x) {
       const int r = i / C, c = i % C;
       const float rel = fmaxf(len * m.rates[r], m.min_rel_len);
       tab[i] = expf(rel * m.eigenval[c]);
@@ -146,11 +204,11 @@ __device__ __forceinline__ void fill_table(const G& g, const MLView& m, float le
   }
 }
 
-// Per-site likelihood of two effective vectors (ops/kernels.py
-// pair_loglk_jc, pair_loglk_matrix); the caller masks padding and, in
-// matrix mode, both-gap positions to 1.
+// Per-site likelihood of two effective vectors under the rate entries e of
+// their category (ops/kernels.py pair_loglk_jc, pair_loglk_matrix); the
+// caller masks padding and, in matrix mode, both-gap positions to 1.
 template <int C>
-__device__ __forceinline__ float site_lk(const MLView& m, const float* tab, int rate,
+__device__ __forceinline__ float site_lk(const MLView& m, const float (&e)[C],
                                          const float (&f1)[C], const float (&f2)[C]) {
   if (m.jc) {
     float dot = f1[0] * f2[0], sum2 = f2[0];
@@ -159,13 +217,12 @@ __device__ __forceinline__ float site_lk(const MLView& m, const float* tab, int 
       dot = dot + f1[c] * f2[c];
       sum2 = sum2 + f2[c];
     }
-    const float ps = tab[rate], pd = tab[kMaxRates + rate];
+    const float ps = e[0], pd = e[1];
     return pd * sum2 + (ps - pd) * dot;
   }
-  const float* ee = tab + rate * C;
-  float lk = f1[0] * f2[0] * ee[0];
+  float lk = f1[0] * f2[0] * e[0];
 #pragma unroll
-  for (int c = 1; c < C; ++c) lk = lk + f1[c] * f2[c] * ee[c];
+  for (int c = 1; c < C; ++c) lk = lk + f1[c] * f2[c] * e[c];
   return lk;
 }
 
@@ -175,68 +232,100 @@ __device__ __forceinline__ double warp_sum(double v) {
   return v;
 }
 
-// Sum over the group in a fixed order; every thread gets the total.  `red`
-// holds one double per warp plus the total.
-template <class G>
-__device__ __forceinline__ double block_sum(const G& g, double v, double* red) {
-  const int warp = g.tid() >> 5, lane = g.tid() & 31, n_warps = g.size() >> 5;
-  v = warp_sum(v);
-  if (lane == 0) red[warp] = v;
-  g.sync();
-  if (g.tid() == 0) {
-    double t = red[0];
-    for (int w = 1; w < n_warps; ++w) t += red[w];
-    red[n_warps] = t;
+// The partials of the block's reductions in shared memory: two buffers of
+// kRedSlots doubles (up to three sums of eight warps, then a stop flag),
+// and the buffer the next reduction takes.  Consecutive reductions of a
+// block alternate buffers, so one barrier each is enough: a thread writes
+// a buffer again only after the next reduction's barrier, which every
+// thread reaches after it has read this one.  Every thread makes the same
+// reductions in the same order, each on its own copy of `buf`.
+constexpr int kRedSlots = 32;
+struct Red {
+  double* slot;  // [2 * kRedSlots]
+  int buf;
+};
+
+// A body that runs to its end: every caller but a round's speculative
+// optimizations (ml_round.cu AbandonFlag).
+struct NoStop {
+  static constexpr bool kPolls = false;
+  __device__ bool operator()() const { return false; }
+};
+
+// K sums over the block, each in a fixed order (the warp's shuffle tree,
+// then warps 0, 1, ... added in turn by every thread, as one thread used to
+// add them), returned to every thread in v.  With a polling Stop, thread 0
+// asks it before the barrier and every thread gets the same answer in
+// `stopped`.  At most eight warps.
+template <int K, class Stop>
+__device__ __forceinline__ void block_sum(double (&v)[K], Red& red, const Stop& stop,
+                                          bool& stopped) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, n_warps = blockDim.x >> 5;
+  double* s = red.slot + red.buf * kRedSlots;
+  red.buf ^= 1;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const double w = warp_sum(v[k]);
+    if (lane == 0) s[8 * k + warp] = w;
   }
-  g.sync();
-  const double total = red[n_warps];
-  g.sync();  // red may be reused right after
-  return total;
+  if (Stop::kPolls && threadIdx.x == 0) s[kRedSlots - 1] = stop() ? 1.0 : 0.0;
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    double t = s[8 * k];
+    for (int w = 1; w < n_warps; ++w) t += s[8 * k + w];
+    v[k] = t;
+  }
+  if (Stop::kPolls) stopped = s[kRedSlots - 1] != 0.0;
 }
 
 // Pair log-likelihood of rows r1, r2 at len (ref pairLogLk tcc:1192-1447):
 // the float64 sum of the float32 per-site logs, returned to every thread;
 // lk_out [P], when not null, gets the per-site likelihoods.  Threads below
-// NT stride the positions and the rest add nothing, so in a group of more
-// than NT threads the sum keeps the order of an NT-thread group (warps past
+// NT stride the positions and the rest add nothing, so in a block of more
+// than NT threads the sum keeps the order of an NT-thread block (warps past
 // NT / 32 add exact zeros at the end).
-template <int C, int NT, class G>
-__device__ double pair_loglk_block(const G& g, const MLView& m, const RowRef& r1,
-                                   const RowRef& r2, float len, float* tab, double* red,
-                                   float* lk_out) {
-  g.sync();  // earlier readers of tab are done
-  fill_table<C>(g, m, len, tab);
-  g.sync();
-  double acc = 0.0;
-  if (g.tid() < NT) {
-    for (int p = g.tid(); p < m.P; p += NT) {
-      float w1, w2, f1[C], f2[C];
+template <int C, int NT>
+__device__ __forceinline__ double pair_loglk_block(const MLView& m, const RowRef& r1,
+                                                   const RowRef& r2, float len, Red& red,
+                                                   float* lk_out) {
+  prof_mark(kPhSites);
+  __syncthreads();  // the rows' positions are other threads' in the other bodies
+  double acc[1] = {0.0};
+  if (threadIdx.x < NT) {
+    for (int p = threadIdx.x; p < m.P; p += NT) {
+      float w1, w2, f1[C], f2[C], e[C];
       effective<C>(m, r1, p, false, w1, f1);
       effective<C>(m, r2, p, false, w2, f2);
-      float lk = site_lk<C>(m, tab, m.ratecat[p], f1, f2);
+      rate_entries<C>(m, len, m.ratecat[p], e);
+      float lk = site_lk<C>(m, e, f1, f2);
       if (p >= m.n_pos || (!m.jc && w1 == 0.0f && w2 == 0.0f)) lk = 1.0f;
       if (lk_out != nullptr) lk_out[p] = lk;
-      acc += (double)logf(fmaxf(lk, 1e-37f));
+      acc[0] += (double)logf(fmaxf(lk, 1e-37f));
     }
   }
-  return block_sum(g, acc, red);
+  prof_mark(kPhReduce);
+  bool stopped = false;
+  block_sum<1>(acc, red, NoStop{}, stopped);
+  prof_mark(kPhControl);
+  return acc[0];
 }
 
 // Posterior parent profile of rows r1 and r2 at position p (ops/kernels.py
-// posterior_jc, posterior_matrix, exact path) from their two rate tables:
-// the weight (0 where both are gaps, else 1) and the vector.
+// posterior_jc, posterior_matrix, exact path) from the rate entries e1, e2
+// of p's category at their two lengths: the weight (0 where both are gaps,
+// else 1) and the vector.
 template <int C>
 __device__ __forceinline__ void posterior_site(const MLView& m, const RowRef& r1, const RowRef& r2,
-                                               const float* tab1, const float* tab2, float tol,
-                                               int p, float& w_out, float (&out)[C]) {
+                                               const float* e1, const float* e2, float tol, int p,
+                                               float& w_out, float (&out)[C]) {
   float w1, w2, f1[C], f2[C];
   effective<C>(m, r1, p, true, w1, f1);
   effective<C>(m, r2, p, true, w2, f2);
-  const int rate = m.ratecat[p];
   const bool both_gap = w1 == 0.0f && w2 == 0.0f;
   if (m.jc) {
-    const float ps1 = tab1[rate], pd1 = tab1[kMaxRates + rate];
-    const float ps2 = tab2[rate], pd2 = tab2[kMaxRates + rate];
+    const float ps1 = e1[0], pd1 = e1[1];
+    const float ps2 = e2[0], pd2 = e2[1];
     float tot = 0.0f;
 #pragma unroll
     for (int c = 0; c < C; ++c) {
@@ -249,8 +338,6 @@ __device__ __forceinline__ void posterior_site(const MLView& m, const RowRef& r1
 #pragma unroll
     for (int c = 0; c < C; ++c) out[c] = both_gap ? 0.25f : out[c] / den;
   } else {
-    const float* e1 = tab1 + rate * C;
-    const float* e2 = tab2 + rate * C;
     float m1[C], m2[C], fpost[C];
 #pragma unroll
     for (int c = 0; c < C; ++c) {
@@ -290,17 +377,39 @@ __device__ __forceinline__ void posterior_site(const MLView& m, const RowRef& r1
   w_out = both_gap ? 0.0f : 1.0f;
 }
 
-// -log-likelihood of the group's branch at length x; called by every
-// thread of a kOptThreads group with the same x, returns the same value to
-// every thread.
-template <int C, class G>
-__device__ float neg_loglk(const G& g, const MLView& m, const float* eff1, const float* eff2,
-                           const int8_t* rate, float* tab, double* red, float x) {
-  g.sync();  // the previous evaluation is done with tab
-  fill_table<C>(g, m, x, tab);
-  g.sync();
-  double acc = 0.0;
-  for (int p = g.tid(); p < m.P; p += kOptThreads) {
+// The posterior profile of rows r1 and r2 at lengths len1, len2 into a row
+// (codes_out NOCODE where not null, w_out [P], v_out [P, C]), each position
+// by the thread that owns it, from that thread's own rate entries: no
+// barrier.
+template <int C>
+__device__ __forceinline__ void posterior_row(const MLView& m, const RowRef& r1, const RowRef& r2,
+                                              float len1, float len2, float tol,
+                                              int8_t* codes_out, float* w_out, float* v_out) {
+  for (int p = threadIdx.x; p < m.P; p += kOptThreads) {
+    const int rate = m.ratecat[p];
+    float e1[C], e2[C], w, o[C];
+    rate_entries<C>(m, len1, rate, e1);
+    rate_entries<C>(m, len2, rate, e2);
+    posterior_site<C>(m, r1, r2, e1, e2, tol, p, w, o);
+    if (codes_out != nullptr) codes_out[p] = (int8_t)kNoCode;
+    w_out[p] = w;
+#pragma unroll
+    for (int c = 0; c < C; ++c) v_out[(int64_t)p * C + c] = o[c];
+  }
+}
+
+// -log-likelihood of the searched branch at K lengths x, in one sweep over
+// the thread's positions and one reduction (each sum in its own order, the
+// order of one evaluation alone); every thread of the block gets fx.
+template <int C, int K, class Stop>
+__device__ __forceinline__ void neg_loglk(const MLView& m, const float* eff1, const float* eff2,
+                                          const int8_t* rate, Red& red, const float (&x)[K],
+                                          float (&fx)[K], const Stop& stop, bool& stopped) {
+  prof_mark(kPhSites);
+  double acc[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) acc[k] = 0.0;
+  for (int p = threadIdx.x; p < m.P; p += kOptThreads) {
     const int r = rate[p];
     if (r < 0) continue;  // lk 1: log 0
     float f1[C], f2[C];
@@ -309,25 +418,47 @@ __device__ float neg_loglk(const G& g, const MLView& m, const float* eff1, const
       f1[c] = eff1[p * C + c];
       f2[c] = eff2[p * C + c];
     }
-    acc += (double)logf(fmaxf(site_lk<C>(m, tab, r, f1, f2), 1e-37f));
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      float e[C];
+      rate_entries<C>(m, x[k], r, e);
+      acc[k] += (double)logf(fmaxf(site_lk<C>(m, e, f1, f2), 1e-37f));
+    }
   }
-  return -(float)block_sum(g, acc, red);
+  prof_mark(kPhReduce);
+  block_sum<K>(acc, red, stop, stopped);
+  prof_mark(kPhControl);
+#pragma unroll
+  for (int k = 0; k < K; ++k) fx[k] = -(float)acc[k];
+}
+
+template <int C, class Stop>
+__device__ __forceinline__ float neg_loglk1(const MLView& m, const float* eff1, const float* eff2,
+                                            const int8_t* rate, Red& red, float x,
+                                            const Stop& stop, bool& stopped) {
+  const float xs[1] = {x};
+  float fs[1];
+  neg_loglk<C, 1>(m, eff1, eff2, rate, red, xs, fs, stop, stopped);
+  return fs[0];
 }
 
 // The whole bracketing + Brent line search over the length of the branch
 // between rows r1 and r2 from guess (ref onedimenmin/brent tcc:7024-7178,
-// the JAX package's _onedimenmin_device), run by a group of kOptThreads
-// threads.  The effective vectors are mixed once into eff1/eff2 [P, C];
-// each evaluation is a rate table and a group reduction.  Every thread runs
-// the (scalar) control flow on the same values, step for step the JAX
-// package's, in float32.  Returns x; fx_out = -loglk at x.
-template <int C, class G>
-__device__ float line_search(const G& g, const MLView& m, const RowRef& r1, const RowRef& r2,
-                             float guess, const SearchLimits& lim, float* eff1, float* eff2,
-                             int8_t* rate, float* tab, double* red, float& fx_out,
-                             int& n_eval_out) {
-  g.sync();  // earlier readers of eff1, eff2, rate are done
-  for (int p = g.tid(); p < m.P; p += kOptThreads) {
+// the JAX package's _onedimenmin_device), run by a block of kOptThreads
+// threads.  The effective vectors are mixed once into eff1/eff2 [P, C],
+// each position by its own thread; each evaluation is that thread's
+// positions and one reduction.  Every thread runs the (scalar) control flow
+// on the same values, step for step the JAX package's, in float32.
+// Returns x; fx_out = -loglk at x.  With a polling Stop the search ends at
+// the first evaluation after stop() answers true, with `stopped` set and
+// its results void.
+template <int C, class Stop>
+__device__ __forceinline__ float line_search(const MLView& m, const RowRef& r1, const RowRef& r2,
+                                             float guess, const SearchLimits& lim, float* eff1,
+                                             float* eff2, int8_t* rate, Red& red, float& fx_out,
+                                             int& n_eval_out, const Stop& stop, bool& stopped) {
+  prof_mark(kPhStage);
+  for (int p = threadIdx.x; p < m.P; p += kOptThreads) {
     float w1, w2, f1[C], f2[C];
     effective<C>(m, r1, p, false, w1, f1);
     effective<C>(m, r2, p, false, w2, f2);
@@ -339,11 +470,12 @@ __device__ float line_search(const G& g, const MLView& m, const RowRef& r1, cons
     const bool skip = p >= m.n_pos || (!m.jc && w1 == 0.0f && w2 == 0.0f);
     rate[p] = skip ? (int8_t)-1 : (int8_t)m.ratecat[p];
   }
-  // (neg_loglk synchronises before it reads)
+  prof_mark(kPhControl);
+  stopped = false;
   int n_eval = 0;
   auto f = [&](float x) {
     ++n_eval;
-    return neg_loglk<C>(g, m, eff1, eff2, rate, tab, red, x);
+    return neg_loglk1<C>(m, eff1, eff2, rate, red, x, stop, stopped);
   };
   const float xmin = lim.xmin, xmax = lim.xmax;
 
@@ -358,13 +490,22 @@ __device__ float line_search(const G& g, const MLView& m, const RowRef& r1, cons
   }
   cx = fminf(cx, xmax);
   if (bx >= cx) bx = 0.5f * (ax + cx);
-  float fa = f(ax), fb = f(bx), fc = f(cx);
-  while (fa < fb && ax > xmin) {
+  float fa, fb, fc;
+  {
+    const float xs[3] = {ax, bx, cx};
+    float fs[3];
+    n_eval += 3;
+    neg_loglk<C, 3>(m, eff1, eff2, rate, red, xs, fs, stop, stopped);
+    fa = fs[0];
+    fb = fs[1];
+    fc = fs[2];
+  }
+  while (!stopped && fa < fb && ax > xmin) {
     ax = (ax + xmin) / 2.0f;
     if (ax < 2.0f * xmin) ax = xmin;
     fa = f(ax);
   }
-  while (fc < fb && cx < xmax) {
+  while (!stopped && fc < fb && cx < xmax) {
     cx = (cx + xmax) / 2.0f;
     if (cx > xmax * 0.95f) cx = xmax;
     fc = f(cx);
@@ -380,7 +521,7 @@ __device__ float line_search(const G& g, const MLView& m, const RowRef& r1, cons
     w = cx; fw = fc; v = ax; fv = fa;
   }
   float d = 0.0f, e = 0.0f;
-  for (int it = 0; it < kBrentItmax; ++it) {
+  for (int it = 0; it < kBrentItmax && !stopped; ++it) {
     const float xm = 0.5f * (a + bb);
     const float tol1 = lim.ftol * fabsf(x);
     const float tol2 = 2.0f * (tol1 + kZeps);
@@ -429,9 +570,8 @@ __device__ float line_search(const G& g, const MLView& m, const RowRef& r1, cons
 // Where a quartet optimization keeps its pieces: the six temporaries (W
 // then V of each, P * (C + 1) floats) and the line search's two effective
 // vectors in shared memory where they fit in `room` bytes, else in device
-// scratch of scratch_floats per quartet; the rate bytes, two rate tables
-// and the reduction scratch always in shared memory (smem bytes, a
-// multiple of 16).
+// scratch of scratch_floats per quartet; the rate bytes and the reduction
+// partials always in shared memory (smem bytes, a multiple of 16).
 struct QuartetLayout {
   bool temps_smem, eff_smem;
   size_t smem, scratch_floats;
@@ -440,8 +580,7 @@ struct QuartetLayout {
 QuartetLayout quartet_layout(int P, int C, size_t room = kOptSmemCap) {
   const size_t temps = align16((size_t)kTemps * P * (C + 1) * sizeof(float));
   const size_t eff = align16(2 * (size_t)P * C * sizeof(float));
-  const size_t rest = align16(align16((size_t)P) + 2 * kMaxRates * (C > 2 ? C : 2) * sizeof(float) +
-                              (kOptThreads / 32 + 1) * sizeof(double));
+  const size_t rest = align16((size_t)P) + 2 * kRedSlots * sizeof(double);
   if (temps + eff + rest <= room) return {true, true, temps + eff + rest, 0};
   if (eff + rest <= room) return {false, true, eff + rest, temps / sizeof(float)};
   return {false, false, rest, (temps + eff) / sizeof(float)};
@@ -449,15 +588,13 @@ QuartetLayout quartet_layout(int P, int C, size_t room = kOptSmemCap) {
 
 // The pieces of one quartet optimization: the six temporaries (W then V of
 // each, P * (C + 1) floats; codes NOCODE, as a posterior writes them), the
-// line search's two effective vectors and rate bytes, two rate tables and
-// the reduction scratch.
+// line search's two effective vectors and rate bytes, and the reduction
+// partials.
 struct QuartetScratch {
   float* temps;
   float* eff1;
   float* eff2;
   int8_t* rate;
-  float* tab1;
-  float* tab2;
   double* red;
 };
 
@@ -485,17 +622,13 @@ __device__ QuartetScratch quartet_scratch(unsigned char* smem, float* glob, bool
   q.eff2 = q.eff1 + (size_t)P * C;
   q.rate = reinterpret_cast<int8_t*>(cur);
   cur += align16((size_t)P);
-  q.tab1 = reinterpret_cast<float*>(cur);
-  cur += kMaxRates * (C > 2 ? C : 2) * sizeof(float);
-  q.tab2 = reinterpret_cast<float*>(cur);
-  cur += kMaxRates * (C > 2 ? C : 2) * sizeof(float);
   q.red = reinterpret_cast<double*>(cur);
   return q;
 }
 
 // One whole quartet optimization (ref MLQuartetOptimize tcc:1650-1788;
 // the JAX package's ml_quartet_optimize, veryfasttree_tpu/engine/ml.py:
-// 146-209) of store rows A, B, C, D, by a group of kOptThreads threads.
+// 146-209) of store rows A, B, C, D, by a block of kOptThreads threads.
 // len (A, B, C, D, I) is float64 as the host loop holds it, each at least
 // the minimum length; each is rounded to float32 where the host's call
 // would round it, sums of two lengths in float64 first, and the star test
@@ -506,56 +639,52 @@ __device__ QuartetScratch quartet_scratch(unsigned char* smem, float* glob, bool
 // search and two pair log-likelihoods (after a star, those of pairs AB and
 // CD), n_eval the line searches' evaluations; site [3, P], when not null,
 // the closing pairs' per-site likelihoods.  Returns whether the star test
-// ended the optimization; every thread gets the same values.
-template <int C, class G>
-__device__ bool quartet_optimize(const G& g, const MLView& m, const QuartetScratch& q,
-                                 const SearchLimits& lim, float tol, bool star_test,
-                                 const RowRef& A, const RowRef& B, const RowRef& Cr,
-                                 const RowRef& D, double len[5], double parts[3], int& n_eval,
-                                 float* site) {
+// ended the optimization; every thread gets the same values.  With a
+// polling Stop it ends after the search in which stop() answered true,
+// with `stopped` set and its results void.
+template <int C, class Stop>
+__device__ __forceinline__ bool quartet_optimize(const MLView& m, const QuartetScratch& q,
+                                                 Red& red, const SearchLimits& lim, float tol,
+                                                 bool star_test, const RowRef& A,
+                                                 const RowRef& B, const RowRef& Cr,
+                                                 const RowRef& D, double len[5], double parts[3],
+                                                 int& n_eval, float* site, const Stop& stop,
+                                                 bool& stopped) {
   const int P = m.P;
   const size_t row_floats = (size_t)P * (C + 1);
-  RowRef T[kTemps];
-  for (int i = 0; i < kTemps; ++i) {
-    float* row = q.temps + i * row_floats;
-    T[i] = RowRef{nullptr, row, row + P};
-  }
+  auto T = [&](int t) {
+    float* row = q.temps + t * row_floats;
+    return RowRef{nullptr, row, row + P};
+  };
 
   // posterior into temporary t, lengths clamped as the store clamps them
   auto post = [&](int t, const RowRef& r1, const RowRef& r2, double l1, double l2) {
-    g.sync();  // earlier readers of the tables and of row t are done
-    fill_table<C>(g, m, fmaxf((float)l1, lim.xmin), q.tab1);
-    fill_table<C>(g, m, fmaxf((float)l2, lim.xmin), q.tab2);
-    g.sync();
-    float* w_row = const_cast<float*>(T[t].W);
-    float* v_row = const_cast<float*>(T[t].V);
-    for (int p = g.tid(); p < P; p += kOptThreads) {
-      float w, o[C];
-      posterior_site<C>(m, r1, r2, q.tab1, q.tab2, tol, p, w, o);
-      w_row[p] = w;
-#pragma unroll
-      for (int c = 0; c < C; ++c) v_row[p * C + c] = o[c];
-    }
-    g.sync();  // row t is whole before anyone reads it
+    prof_mark(kPhQPost);
+    float* row = q.temps + t * row_floats;
+    posterior_row<C>(m, r1, r2, fmaxf((float)l1, lim.xmin), fmaxf((float)l2, lim.xmin), tol,
+                     nullptr, row, row + P);
+    prof_mark(kPhControl);
   };
   n_eval = 0;
+  stopped = false;
   float fx = 0.0f;
   auto search = [&](const RowRef& r1, const RowRef& r2, double guess) {
     int n;
-    const float x = line_search<C>(g, m, r1, r2, (float)guess, lim, q.eff1, q.eff2, q.rate,
-                                   q.tab1, q.red, fx, n);
+    const float x = line_search<C>(m, r1, r2, (float)guess, lim, q.eff1, q.eff2, q.rate, red, fx,
+                                   n, stop, stopped);
     n_eval += n;
     return (double)x;
   };
   auto pair = [&](const RowRef& r1, const RowRef& r2, double length, float* lk) {
-    return pair_loglk_block<C, kLkThreads>(g, m, r1, r2, (float)length, q.tab1, q.red, lk);
+    return pair_loglk_block<C, kLkThreads>(m, r1, r2, (float)length, red, lk);
   };
 
   post(kAB, A, B, len[kLenA], len[kLenB]);
   post(kCD, Cr, D, len[kLenC], len[kLenD]);
-  len[kLenI] = search(T[kAB], T[kCD], len[kLenI]);
+  len[kLenI] = search(T(kAB), T(kCD), len[kLenI]);
+  if (stopped) return false;
   if (star_test) {
-    const double ll_star = pair(T[kAB], T[kCD], (double)lim.xmin, nullptr);
+    const double ll_star = pair(T(kAB), T(kCD), (double)lim.xmin, nullptr);
     if (ll_star < -(double)fx - kCloseLogLkLimit) {
       parts[0] = -(double)fx;
       parts[1] = pair(A, B, len[kLenA] + len[kLenB], nullptr);
@@ -563,18 +692,22 @@ __device__ bool quartet_optimize(const G& g, const MLView& m, const QuartetScrat
       return true;
     }
   }
-  post(kBCD, B, T[kCD], len[kLenB], len[kLenI]);
-  len[kLenA] = search(A, T[kBCD], len[kLenA]);
-  post(kACD, A, T[kCD], len[kLenA], len[kLenI]);
-  len[kLenB] = search(B, T[kACD], len[kLenB]);
+  post(kBCD, B, T(kCD), len[kLenB], len[kLenI]);
+  len[kLenA] = search(A, T(kBCD), len[kLenA]);
+  if (stopped) return false;
+  post(kACD, A, T(kCD), len[kLenA], len[kLenI]);
+  len[kLenB] = search(B, T(kACD), len[kLenB]);
+  if (stopped) return false;
   post(kAB, A, B, len[kLenA], len[kLenB]);
-  post(kABD, T[kAB], D, len[kLenI], len[kLenD]);
-  len[kLenC] = search(Cr, T[kABD], len[kLenC]);
-  post(kABC, T[kAB], Cr, len[kLenI], len[kLenC]);
-  len[kLenD] = search(D, T[kABC], len[kLenD]);
+  post(kABD, T(kAB), D, len[kLenI], len[kLenD]);
+  len[kLenC] = search(Cr, T(kABD), len[kLenC]);
+  if (stopped) return false;
+  post(kABC, T(kAB), Cr, len[kLenI], len[kLenC]);
+  len[kLenD] = search(D, T(kABC), len[kLenD]);
+  if (stopped) return false;
   parts[0] = -(double)fx;
-  if (site != nullptr) pair(T[kABC], D, len[kLenD], site);
-  parts[1] = pair(T[kAB], Cr, len[kLenI] + len[kLenC], site != nullptr ? site + P : nullptr);
+  if (site != nullptr) pair(T(kABC), D, len[kLenD], site);
+  parts[1] = pair(T(kAB), Cr, len[kLenI] + len[kLenC], site != nullptr ? site + P : nullptr);
   parts[2] = pair(A, B, len[kLenA] + len[kLenB], site != nullptr ? site + 2 * P : nullptr);
   return false;
 }

@@ -9,7 +9,7 @@
 // fetch after each search; so did this port (engine/rearrange.do_nni,
 // engine/ml.optimize_all_branch_lengths, with the kernels ml_quartet_opt,
 // ml_opt_branch and ml_posterior).  The JAX package has no device round to
-// port.  Here one launch of one block runs, in the host loop's order:
+// port.  Here one launch runs, in the host loop's order:
 //
 // ml_nni_round_kernel, one ML NNI round (ref DoNNI tcc:5997-6183,
 //   traverseNNI :5797-5995, MLQuartetNNI :4885-5004): the fast-NNI skip set
@@ -29,49 +29,88 @@
 //   line search from max(length, ml_min_branch_length)), then the node's
 //   posterior and its memo entry reset.
 //
-// Bound: a round must read each store row it uses once and write each row
-// it changes once (P * (4C + 5) bytes each), and do each posterior's, line
-// search evaluation's and pair likelihood's operations per position.  Each
-// quartet depends on the one before (a swap changes the tree, the lengths
-// and the rows its successors read), and each line search is a chain of
-// about 15 dependent evaluations, so the work is serial and parallel only
-// over positions.  What the design does about it: no launch and no fetch
-// per quartet or search.  The block has two groups of kOptThreads threads,
-// each with a named barrier: the AC and AD optimizations, which are
-// independent, run side by side, one on each group; everything else runs on
-// group 0 (the AB optimization, the line searches of a lengths pass) or on
-// the whole block (the walk, the posteriors of node rows and up-profiles).
-// Group 0's quartet temporaries and line-search vectors stay where
-// ml_quartet_opt keeps them (shared memory at P=512); the tree, the
-// up-profile memo, its path and the traversal flags follow in shared memory
-// where they fit (26 bytes per node; else device memory, the same code on
-// other pointers); group 1's pieces take what room is left (at N=2000,
-// P=512: its vectors, while its temporaries go to device scratch); the
-// NNIStats and the branch lengths stay in device memory, read by every
-// thread and written by thread 0.
+// Bound (chip_smoke.ml_round_bound): a round must read each store row it
+// uses once and write each row it changes once (P * (4C + 5) bytes each),
+// and do each posterior's, line-search evaluation's and pair likelihood's
+// operations per position.  Each quartet depends on the one before (a swap
+// changes the tree, the lengths and the rows its successors read), and each
+// line search is a chain of about 9 dependent evaluations, so the work is
+// serial but for the positions and for the AB, AC and AD optimizations of
+// one quartet, which are independent.  What the design does about it:
+//
+// - No launch and no fetch per quartet or search, and one barrier per
+//   evaluation (ml_lk.cuh: each thread owns its positions and computes their
+//   rate entries; a reduction is one barrier on double-buffered partials;
+//   the bracket's first three evaluations share one sweep).
+// - The round is a cluster of three blocks of kOptThreads threads, one per
+//   SM.  Block 0 holds the tree and the up-profile memo in its shared memory
+//   and runs the walk, setup_abcd, the node and up-profile posteriors, the
+//   decisions and the AB optimization; block 1 runs AC and block 2 AD, each
+//   out of its own SM's shared memory.  So an iteration of ml_quartet_nni
+//   costs one optimization, not two (AB, then AC beside AD).
+// - Commands and results go through distributed shared memory: block 0
+//   writes a worker's command (rows, lengths, a sequence number) into the
+//   worker's shared memory and every block meets at a cluster barrier
+//   (barrier.cluster.arrive.release / wait.acquire); the workers read the
+//   store rows block 0 wrote before it, ordered by that barrier's release
+//   and acquire (block 0's threads also __threadfence() before arriving),
+//   and write their QuartetResult into block 0's shared memory before the
+//   next barrier.  Between the two barriers of an iteration block 0 writes
+//   no store row.
+// - Speculation: the host loop runs AC and AD only when AB's star test did
+//   not fire.  Here they start with AB, from the lengths the host loop would
+//   give them (each only ever changed by its own optimization); when AB's
+//   star test fires block 0 writes the iteration's sequence number into
+//   each worker's abandon flag, which the worker's thread 0 reads at each
+//   evaluation's barrier (ml_lk.cuh Stop), and block 0 drops the results.
+//   A worker writes only its own shared memory, so a discarded optimization
+//   leaves nothing behind, and the host loop's bits are kept: every
+//   optimization that counts ran the same body on the same inputs.  The
+//   counters add only what the host loop adds; discarded optimizations
+//   count in kSpeculative.
+// - Where each piece lives (P=512, C=4): each block's quartet pieces as
+//   ml_quartet_opt keeps them (77 KB: six temporaries, the search's vectors,
+//   rate bytes, reduction partials); block 0's tree, memo, path and
+//   traversal flags before them (26 bytes per node: 26 KB at N=500, 104 KB
+//   at N=2000; in device memory past about 5,800 nodes, the same code on
+//   other pointers).  Nothing goes to device scratch unless P is so large
+//   that a quartet's pieces leave shared memory.  The NNIStats and the
+//   branch lengths stay in device memory, read by every thread of block 0
+//   and written by its thread 0.
+// - The lengths pass is one block of kOptThreads threads with the same
+//   bodies and layout (its searches are serial).  Both kernels are bound to
+//   one block of kOptThreads threads per SM (__launch_bounds__(kOptThreads,
+//   1); with the thread count alone ptxas aims at two blocks and caps a
+//   thread at 128 registers, which spilled), so a thread may take up to 255
+//   registers; every function is inlined and no small array is indexed at
+//   run time (round_tree.cuh pick3): no stack frame.
 //
 // Bit for bit with the host loop through the per-call kernels: every
 // posterior, search and quartet runs the single-call kernels' bodies of
-// ml_lk.cuh with their thread maps on a group of kOptThreads threads (a
-// posterior on any); the host's casts
-// are repeated (posterior lengths to float and raised to xmin, quartet
-// lengths raised in float64, searched lengths back as float values, the
-// quartet loglk summed from its parts in the host's order), and the
-// criteria, pruning tests, deltas and supports are double in numpy's order
-// (this file is compiled with -fmad=false).  The debug counters grow by
-// the amounts the host's store calls add.
+// ml_lk.cuh with their thread maps on kOptThreads threads (a posterior's
+// positions one per thread on any count); the host's casts are repeated
+// (posterior lengths to float and raised to xmin, quartet lengths raised in
+// float64, searched lengths back as float values, the quartet loglk summed
+// from its parts in the host's order), and the criteria, pruning tests,
+// deltas and supports are double in numpy's order (this file is compiled
+// with -fmad=false).  The debug counters grow by the amounts the host's
+// store calls add.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#define VFT_TREE_INLINE __forceinline__
 #include "ml_lk.cuh"
 #include "round_tree.cuh"
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int kMlRoundSmemCap = 225 * 1024;  // dynamic shared memory of a round's block
-constexpr int kMlRoundThreads = 2 * kOptThreads;  // two groups of kOptThreads
+constexpr int kClusterBlocks = 3;            // block 0: walk and AB; 1: AC; 2: AD
 constexpr int kABvsCD = 0, kACvsBD = 1, kADvsBC = 2;
 
 // int64 counters of a round or pass, in the wrappers' order (ops/ml_round.py)
@@ -85,27 +124,52 @@ enum : int {
   kSearches,      // line searches
   kEvals,         // their evaluations
   kPairs,         // pair log-likelihoods
+  kSpeculative,   // AC and AD optimizations started and discarded (not above)
   kMlFault,       // a broken tree invariant: the round is void
   kMlCounters
 };
 
-// one quartet optimization's result, from the group that ran it to the
-// block
+// one worker's quartet optimization, written into block 0's shared memory
 struct QuartetResult {
   double parts[3];
   double len[5];
   int n_eval;
-  int star;
 };
 
-// shared scratch of the decisions
+enum { kIdle, kRun, kStop };
+
+// block 0's command to a worker, written into the worker's shared memory
+struct Command {
+  int op;     // kIdle, kRun, kStop
+  int seq;    // the iteration's sequence number
+  int rows[4];
+  double len[5];
+};
+
+// shared scratch of a block
 struct MlShared {
-  long long ctr[kMlCounters];
-  QuartetResult res[2];
-  float x;      // a lengths pass's searched length
-  int n_eval;   // and its evaluations
+  long long ctr[kMlCounters];                // block 0's
+  QuartetResult res[kClusterBlocks];         // block 0's: res[k] from block k
+  Command cmd;                               // a worker's
+  int abandon;                               // a worker's: the abandoned seq
   int any_bad;  // set by whichever thread finds a fault in the skip set
 };
+
+// ml_lk.cuh's Stop of a worker: block 0 abandoned the optimization of
+// sequence number seq
+struct AbandonFlag {
+  static constexpr bool kPolls = true;
+  const volatile int* flag;
+  int seq;
+  __device__ __forceinline__ bool operator()() const { return *flag == seq; }
+};
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::
+          : "memory");
+}
 
 struct MlArgs {
   int n_seqs;
@@ -116,13 +180,32 @@ struct MlArgs {
   float tol;        // f_post_total_tolerance
 };
 
+// where a round's or pass's block keeps its pieces, in shared memory in
+// this order: block 0's tree where it fits, then the block's quartet
+// pieces as ml_quartet_opt keeps them (quartet_layout); what does not fit
+// goes to device scratch, n_blocks shares of q.scratch_floats
+struct RoundLayout {
+  QuartetLayout q;
+  bool tree_smem;
+  size_t tree_bytes, smem, scratch_floats;
+};
+
+RoundLayout round_layout(int M, int P, int C, bool want_tree_smem, int n_blocks) {
+  const QuartetLayout q = quartet_layout(P, C);
+  const size_t tree = tree_smem_bytes(M, 2);
+  const bool tree_smem = want_tree_smem && tree + q.smem <= (size_t)kMlRoundSmemCap;
+  const size_t tree_bytes = tree_smem ? tree : 0;
+  return {q, tree_smem, tree_bytes, tree_bytes + q.smem, n_blocks * q.scratch_floats};
+}
+
 template <int C>
 struct MlRound : RoundTree {
   MLView m;
   int8_t* codes;      // the store, written in place
   float* W;
   float* V;
-  QuartetScratch q[2];  // group 0's (threads 0-255) and group 1's
+  QuartetScratch q;   // the block's quartet pieces
+  Red red;            // its reductions' partials (q.red)
   SearchLimits lim;
   MlArgs a;
   double* bl;         // [M] branch lengths
@@ -130,54 +213,42 @@ struct MlRound : RoundTree {
   uint8_t* trav;      // [M] the walk's traversal flags
   NniStats st;
   double max_delta;   // the NNI round's
+  int seq;            // the last command's sequence number
 
   __device__ __forceinline__ void count(int k, long long n) {
     if (tid == 0) sh->ctr[k] += n;
   }
 
-  // the thread's group: 0 (HalfBlock<1>) or 1 (HalfBlock<2>)
-  __device__ __forceinline__ int group() const { return tid / kOptThreads; }
-
   __device__ __forceinline__ RowRef row(int r) const { return store_row<C>(m, r); }
 
   // the posterior profile of rows r1 and r2 at lengths l1, l2 (as
   // MLProfiles.posterior_into: float lengths raised to the minimum) into
-  // store row t (codes_out not null) or a temporary, by the whole block
-  // with group 0's rate tables
-  __device__ void posterior_to(int8_t* codes_out, float* w_out, float* v_out, const RowRef& r1,
-                               const RowRef& r2, double l1, double l2) {
-    const WholeBlock all;
-    __syncthreads();  // earlier readers of the tables and of the target are done
-    fill_table<C>(all, m, fmaxf((float)l1, lim.xmin), q[0].tab1);
-    fill_table<C>(all, m, fmaxf((float)l2, lim.xmin), q[0].tab2);
-    __syncthreads();
-    for (int p = tid; p < m.P; p += kMlRoundThreads) {
-      float w, o[C];
-      posterior_site<C>(m, r1, r2, q[0].tab1, q[0].tab2, a.tol, p, w, o);
-      if (codes_out != nullptr) codes_out[p] = (int8_t)kNoCode;
-      w_out[p] = w;
-#pragma unroll
-      for (int c = 0; c < C; ++c) v_out[p * C + c] = o[c];
-    }
-    __syncthreads();  // the target is whole before anyone reads it
+  // store row t (codes_out not null) or a temporary; each position by its
+  // own thread, as every body that reads it but the pair log-likelihood,
+  // which synchronises first
+  __device__ __forceinline__ void posterior_to(int8_t* codes_out, float* w_out, float* v_out,
+                                               const RowRef& r1, const RowRef& r2, double l1,
+                                               double l2) {
+    posterior_row<C>(m, r1, r2, fmaxf((float)l1, lim.xmin), fmaxf((float)l2, lim.xmin), a.tol,
+                     codes_out, w_out, v_out);
     count(kPostCompute, 1);
     count(kPosteriors, 1);
   }
 
-  __device__ void posterior(int t, int r1, int r2, double l1, double l2) {
+  __device__ __forceinline__ void posterior(int t, int r1, int r2, double l1, double l2) {
     const int64_t at = (int64_t)t * m.P;
     posterior_to(codes + at, W + at, V + at * C, row(r1), row(r2), l1, l2);
   }
 
   // -------------------------------------------------- up-profiles, repairs
-  __device__ void setup_abcd(int node, int nodes4[4], int rows4[4]) {
+  __device__ __forceinline__ void setup_abcd(int node, int nodes4[4], int rows4[4]) {
     RoundTree::setup_abcd(node, nodes4, rows4, [this](int n, int nc, int d_row, int nd) {
       posterior(maxnodes + n, nc, d_row, bl[nc], bl[nd]);
     });
   }
 
   // ref recomputeProfile tcc:3436-3472 (ML)
-  __device__ void recompute_profile(int node) {
+  __device__ __forceinline__ void recompute_profile(int node) {
     if (node < n_seqs || node == root) return;
     if (!node_ok(node) || nch[node] != 2) {
       bad = true;
@@ -187,147 +258,156 @@ struct MlRound : RoundTree {
     posterior(node, c0, c1, bl[c0], bl[c1]);
   }
 
-  __device__ void update_for_nni(int node) {
+  __device__ __forceinline__ void update_for_nni(int node) {
     RoundTree::update_for_nni(node, [this](int n) { recompute_profile(n); });
   }
 
   // ------------------------------------------------------------- quartets
-  // one quartet optimization by group g, its result into `out`
-  template <class G>
-  __device__ void quartet_on(const G& g, const QuartetScratch& qs, const int* r,
-                             const double* len, bool star_test, QuartetResult& out) {
-    double parts[3], l[5];
-    for (int i = 0; i < 5; ++i) l[i] = len[i];
-    int n_eval;
-    const bool st = quartet_optimize<C>(g, m, qs, lim, a.tol, star_test, row(r[0]), row(r[1]),
-                                        row(r[2]), row(r[3]), l, parts, n_eval, nullptr);
-    if (g.tid() == 0) {
-      for (int i = 0; i < 3; ++i) out.parts[i] = parts[i];
-      for (int i = 0; i < 5; ++i) out.len[i] = l[i];
-      out.n_eval = n_eval;
-      out.star = st ? 1 : 0;
+  // the host's counts of one quartet optimization (MLProfiles.
+  // quartet_optimize) that ran n_eval evaluations and did (star) or did not
+  // end at the star test
+  __device__ __forceinline__ void count_quartet(bool star_test, bool star, int n_eval) {
+    count(kQuartetOpts, 1);
+    count(kEvals, n_eval);
+    count(kPostCompute, 2);
+    count(kLkCompute, 8 + (star_test ? 1 : 0));
+    if (star) {
+      count(kLkCompute, 2);
+      count(kPosteriors, 2);
+      count(kSearches, 1);
+      count(kPairs, 3);
+    } else {
+      count(kPostCompute, 5);
+      count(kLkCompute, 34);
+      count(kPosteriors, 7);
+      count(kSearches, 5);
+      count(kPairs, 2 + (star_test ? 1 : 0));
     }
   }
 
-  // MLProfiles.quartet_optimize of n (1 or 2) quartets of store rows r[k]
-  // from lengths len[k] (raised to the minimum in float64 first), side by
-  // side: group k runs quartet k on its own scratch, and every thread gets
-  // the searched lengths in len[k], the star decisions, and each quartet's
-  // loglk summed from its parts as the host sums them; counts as the host
-  // counts
-  __device__ void quartets(int n, const int* const r[2], double* const len[2], bool star_test,
-                           double ll[2], bool star[2]) {
-    for (int k = 0; k < n; ++k)
-      for (int i = 0; i < 5; ++i)
-        if (len[k][i] < a.min_len) len[k][i] = a.min_len;
-    const int k = group();
-    __syncthreads();  // earlier readers of the results are done
-    if (k == 0)
-      quartet_on(HalfBlock<1>(), q[0], r[0], len[0], star_test, sh->res[0]);
-    else if (k < n)
-      quartet_on(HalfBlock<2>(), q[1], r[1], len[1], star_test, sh->res[1]);
-    __syncthreads();
-    for (int j = 0; j < n; ++j) {
-      const QuartetResult& o = sh->res[j];
-      for (int i = 0; i < 5; ++i) len[j][i] = o.len[i];
-      star[j] = o.star != 0;
-      count(kQuartetOpts, 1);
-      count(kEvals, o.n_eval);
-      count(kPostCompute, 2);
-      count(kLkCompute, 8 + (star_test ? 1 : 0));
-      if (star[j]) {
-        count(kLkCompute, 2);
-        count(kPosteriors, 2);
-        count(kSearches, 1);
-        count(kPairs, 3);
-        ll[j] = o.parts[0] + (o.parts[1] + o.parts[2]);
-      } else {
-        count(kPostCompute, 5);
-        count(kLkCompute, 34);
-        count(kPosteriors, 7);
-        count(kSearches, 5);
-        count(kPairs, 2 + (star_test ? 1 : 0));
-        ll[j] = o.parts[0] + o.parts[1] + o.parts[2];
-      }
-    }
+  // the quartet's loglk summed from its parts as the host sums them
+  __device__ __forceinline__ static double quartet_ll(const double parts[3], bool star) {
+    return star ? parts[0] + (parts[1] + parts[2]) : parts[0] + parts[1] + parts[2];
   }
 
-  // ml.ml_quartet_nni (ref MLQuartetNNI tcc:4885-5004, no constraints):
-  // returns the choice; crit the criteria, out the chosen quartet's lengths
-  // (A, B, C, D, I in its own order)
-  __device__ int quartet_nni(const int r[4], const double len[5], double crit[3], double out[5]) {
+  // raise each of the five lengths to the minimum, in float64 (as
+  // MLProfiles.quartet_optimize does)
+  __device__ __forceinline__ void raise_to_min(double l[5]) const {
+#pragma unroll
+    for (int i = 0; i < 5; ++i)
+      if (l[i] < a.min_len) l[i] = a.min_len;
+  }
+
+  // block 0: the command of worker k for this iteration (kRun with the
+  // quartet's rows and lengths, or kIdle), in the worker's shared memory
+  __device__ __forceinline__ void send(const cg::cluster_group& cl, int k, bool run,
+                                       const int r[4], const double l[5]) {
+    if (tid != 0) return;
+    Command* c = cl.map_shared_rank(&sh->cmd, k);
+    c->op = run ? kRun : kIdle;
+    c->seq = seq;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) c->rows[i] = r[i];
+#pragma unroll
+    for (int i = 0; i < 5; ++i) c->len[i] = l[i];
+  }
+
+  // the worker's result into len and ll, counted as the host counts it
+  __device__ __forceinline__ void take(int k, double len[5], double& ll) {
+    const QuartetResult& o = sh->res[k];
+#pragma unroll
+    for (int i = 0; i < 5; ++i) len[i] = o.len[i];
+    ll = quartet_ll(o.parts, false);
+    count_quartet(false, false, o.n_eval);
+  }
+
+  // ml.ml_quartet_nni (ref MLQuartetNNI tcc:4885-5004, no constraints) on
+  // the cluster: returns the choice; crit the criteria, out the chosen
+  // quartet's lengths (A, B, C, D, I in its own order)
+  __device__ __forceinline__ int quartet_nni(const cg::cluster_group& cl, const int r[4],
+                                             const double len[5], double crit[3],
+                                             double out[5]) {
     double lab[5] = {len[kLenA], len[kLenB], len[kLenC], len[kLenD], len[kLenI]};
     double lac[5] = {len[kLenA], len[kLenC], len[kLenB], len[kLenD], len[kLenI]};
     double lad[5] = {len[kLenA], len[kLenD], len[kLenC], len[kLenB], len[kLenI]};
     const int rac[4] = {r[0], r[2], r[1], r[3]}, rad[4] = {r[0], r[3], r[2], r[1]};
     bool consider_ac = true, consider_ad = true;
     const int n_rounds = a.ml_accuracy < 2 ? 2 : a.ml_accuracy;
-    crit[0] = crit[1] = crit[2] = -1e20;
+    double c_ab = -1e20, c_ac = -1e20, c_ad = -1e20;
     for (int it = 0; it < n_rounds; ++it) {
-      bool star[2];
-      double ll[2];
-      {
-        const int* const rs[2] = {r, r};
-        double* const ls[2] = {lab, lab};
-        quartets(1, rs, ls, true, ll, star);
+      // AC and AD start beside AB, on the lengths the host loop would give
+      // them; they count only if AB's star test does not fire
+      raise_to_min(lab);
+      if (consider_ac) raise_to_min(lac);
+      if (consider_ad) raise_to_min(lad);
+      ++seq;
+      send(cl, 1, consider_ac, rac, lac);
+      send(cl, 2, consider_ad, rad, lad);
+      __threadfence();
+      prof_mark(kPhWait);
+      cluster_sync();  // the commands and the store rows they read
+      double parts[3];
+      int n_eval;
+      bool stopped;
+      const bool star = quartet_optimize<C>(m, q, red, lim, a.tol, true, row(r[0]), row(r[1]),
+                                            row(r[2]), row(r[3]), lab, parts, n_eval, nullptr,
+                                            NoStop{}, stopped);
+      if (star && tid == 0) {
+        if (consider_ac) *cl.map_shared_rank(&sh->abandon, 1) = seq;
+        if (consider_ad) *cl.map_shared_rank(&sh->abandon, 2) = seq;
       }
-      crit[kABvsCD] = ll[0];
-      if (star[0]) {
+      prof_mark(kPhWait);
+      cluster_sync();  // the workers' results
+      prof_mark(kPhWalk);
+      c_ab = quartet_ll(parts, star);
+      count_quartet(true, star, n_eval);
+      if (star) {
         count(kStarTests, 1);
+        count(kSpeculative, (consider_ac ? 1 : 0) + (consider_ad ? 1 : 0));
+        crit[kABvsCD] = c_ab;
         crit[kACvsBD] = -1e20;
         crit[kADvsBC] = -1e20;
+#pragma unroll
         for (int i = 0; i < 5; ++i) out[i] = len[i];
         out[kLenI] = lab[kLenI];
         return kABvsCD;
       }
-      // AC and AD are independent: side by side when both are due
-      if (consider_ac && consider_ad) {
-        const int* const rs[2] = {rac, rad};
-        double* const ls[2] = {lac, lad};
-        quartets(2, rs, ls, false, ll, star);
-        crit[kACvsBD] = ll[0];
-        crit[kADvsBC] = ll[1];
-      } else if (consider_ac || consider_ad) {
-        const int* const rs[2] = {consider_ac ? rac : rad, nullptr};
-        double* const ls[2] = {consider_ac ? lac : lad, nullptr};
-        quartets(1, rs, ls, false, ll, star);
-        crit[consider_ac ? kACvsBD : kADvsBC] = ll[0];
-      }
+      if (consider_ac) take(1, lac, c_ac);
+      if (consider_ad) take(2, lad, c_ad);
       if (a.ml_accuracy < 2) {
         const double close = kCloseLogLkLimit;
-        if (crit[kACvsBD] < crit[kABvsCD] - close ||
-            (lac[kLenI] <= 2.0 * a.min_len && crit[kACvsBD] < crit[kABvsCD]))
+        if (c_ac < c_ab - close || (lac[kLenI] <= 2.0 * a.min_len && c_ac < c_ab))
           consider_ac = false;
-        if (crit[kADvsBC] < crit[kABvsCD] - close ||
-            (lad[kLenI] <= 2.0 * a.min_len && crit[kADvsBC] < crit[kABvsCD]))
+        if (c_ad < c_ab - close || (lad[kLenI] <= 2.0 * a.min_len && c_ad < c_ab))
           consider_ad = false;
         if (!consider_ac && !consider_ad) break;
-        if (crit[kACvsBD] > crit[kABvsCD] + close && crit[kACvsBD] > crit[kADvsBC] + close) break;
-        if (crit[kADvsBC] > crit[kABvsCD] + close && crit[kADvsBC] > crit[kACvsBD] + close) break;
+        if (c_ac > c_ab + close && c_ac > c_ad + close) break;
+        if (c_ad > c_ab + close && c_ad > c_ac + close) break;
       }
     }
-    const double* chosen = lab;
     int choice = kABvsCD;
-    if (crit[kACvsBD] > crit[kABvsCD] && crit[kACvsBD] > crit[kADvsBC]) {
+    if (c_ac > c_ab && c_ac > c_ad)
       choice = kACvsBD;
-      chosen = lac;
-    } else if (crit[kADvsBC] > crit[kABvsCD] && crit[kADvsBC] > crit[kACvsBD]) {
+    else if (c_ad > c_ab && c_ad > c_ac)
       choice = kADvsBC;
-      chosen = lad;
-    }
-    for (int i = 0; i < 5; ++i) out[i] = chosen[i];
+    crit[kABvsCD] = c_ab;
+    crit[kACvsBD] = c_ac;
+    crit[kADvsBC] = c_ad;
+#pragma unroll
+    for (int i = 0; i < 5; ++i)
+      out[i] = choice == kACvsBD ? lac[i] : (choice == kADvsBC ? lad[i] : lab[i]);
     return choice;
   }
 
   // one quartet of the walk (rearrange.do_nni's body with use_ml)
-  __device__ void nni_node(int node) {
+  __device__ __forceinline__ void nni_node(const cg::cluster_group& cl, int node) {
     int n4[4], r4[4];
     setup_abcd(node, n4, r4);
     if (bad) return;
     const int na = n4[0], nb = n4[1], nc = n4[2], nd = n4[3];
     const double len[5] = {bl[na], bl[nb], bl[nc], bl[nd], bl[node]};
     double crit[3], nl[5];
-    const int choice = quartet_nni(r4, len, crit, nl);
+    const int choice = quartet_nni(cl, r4, len, crit, nl);
     if (choice != kABvsCD) {
       const int moved = choice == kACvsBD ? nb : na;
       replace_child(node, moved, nc);
@@ -336,36 +416,38 @@ struct MlRound : RoundTree {
     }
     // the lengths onto the post-swap topology (ref :5887-5917): nl is the
     // chosen quartet's (A, B, C, D, I) in its own order
-    const int ib = choice == kADvsBC ? 3 : (choice == kACvsBD ? 2 : 1);
-    const int ic = choice == kACvsBD ? 1 : 2;
-    const int id = choice == kADvsBC ? 1 : 3;
     nni_finish(
         node, n4, choice, crit, st, max_delta,
         [&] {
           bl[node] = nl[kLenI];
           bl[na] = nl[kLenA];
-          bl[nb] = nl[ib];
-          bl[nc] = nl[ic];
-          bl[nd] = nl[id];
+          bl[nb] = choice == kADvsBC ? nl[3] : (choice == kACvsBD ? nl[2] : nl[1]);
+          bl[nc] = choice == kACvsBD ? nl[1] : nl[2];
+          bl[nd] = choice == kADvsBC ? nl[1] : nl[3];
           if (choice != kABvsCD) sh->ctr[kMlNni] += 1;
         },
         [this](int n) { recompute_profile(n); });
   }
 
-  // the round (rearrange.do_nni with use_ml, not -slow)
-  __device__ void nni_round() {
-    nni_walk(
-        trav, st, &sh->any_bad, [this](int n) { nni_node(n); },
-        [this](int n) { recompute_profile(n); });
+  // the walk's visit of a node: a functor, not a lambda, so that nvcc
+  // inlines it as it is told (a lambda's call it kept, with spills)
+  struct Visit {
+    MlRound* self;
+    const cg::cluster_group* cl;
+    __device__ __forceinline__ void operator()(int n) const { self->nni_node(*cl, n); }
+  };
+
+  // the round (rearrange.do_nni with use_ml, not -slow), on block 0
+  __device__ __forceinline__ void nni_round(const cg::cluster_group& cl) {
+    nni_walk(trav, st, &sh->any_bad, Visit{this, &cl}, [this](int n) { recompute_profile(n); });
   }
 
   // --------------------------------------------------------- lengths pass
   // ml.optimize_all_branch_lengths for three tips or more: the temporary
-  // S_TMP1 is the first of group 0's quartet temporaries, and group 0 runs
-  // the line searches
-  __device__ void lengths_pass() {
-    float* tmp_w = q[0].temps;
-    float* tmp_v = q[0].temps + m.P;
+  // S_TMP1 is the first of the block's quartet temporaries
+  __device__ __forceinline__ void lengths_pass() {
+    float* tmp_w = q.temps;
+    float* tmp_v = q.temps + m.P;
     const RowRef tmp{nullptr, tmp_w, tmp_v};
     int node = root, climbs = 0;
     while (!bad) {
@@ -392,27 +474,22 @@ struct MlRound : RoundTree {
       if (bad) break;
       for (int sweep = 0; sweep < 2; ++sweep) {
         for (int i = 0; i < 3; ++i) {
-          const int b1 = (i + 1) % 3, b2 = (i + 2) % 3;
-          posterior_to(nullptr, tmp_w, tmp_v, row(rows3[b1]), row(rows3[b2]), bl[nodes3[b1]],
-                       bl[nodes3[b2]]);
-          const double cur = bl[nodes3[i]];
+          const int b1 = i == 2 ? 0 : i + 1, b2 = i == 0 ? 2 : i - 1;
+          const int n1 = pick3(nodes3, b1), n2 = pick3(nodes3, b2), ni = pick3(nodes3, i);
+          posterior_to(nullptr, tmp_w, tmp_v, row(pick3(rows3, b1)), row(pick3(rows3, b2)),
+                       bl[n1], bl[n2]);
+          const double cur = bl[ni];
           const double guess = cur < a.min_len ? a.min_len : cur;  // Python's max
-          if (group() == 0) {
-            const HalfBlock<1> g;
-            float fx;
-            int n;
-            const float x = line_search<C>(g, m, row(rows3[i]), tmp, (float)guess, lim, q[0].eff1,
-                                           q[0].eff2, q[0].rate, q[0].tab1, q[0].red, fx, n);
-            if (g.tid() == 0) {
-              sh->x = x;
-              sh->n_eval = n;
-            }
-          }
-          __syncthreads();
+          float fx;
+          int n;
+          bool stopped;
+          const float x = line_search<C>(m, row(pick3(rows3, i)), tmp, (float)guess, lim, q.eff1,
+                                         q.eff2, q.rate, red, fx, n, NoStop{}, stopped);
+          prof_mark(kPhWalk);
           count(kLkCompute, 8);
           count(kSearches, 1);
-          count(kEvals, sh->n_eval);
-          commit([&] { bl[nodes3[i]] = (double)sh->x; });
+          count(kEvals, n);
+          commit([&] { bl[ni] = (double)x; });
         }
       }
       if (node != root) {
@@ -423,79 +500,108 @@ struct MlRound : RoundTree {
   }
 };
 
-// where a round's block keeps its pieces, in shared memory in this order:
-// the tree where it fits (after group 0's pieces and the least of group
-// 1's), group 0's quartet pieces as ml_quartet_opt keeps them
-// (quartet_layout), then group 1's in what room is left under
-// kMlRoundSmemCap; what does not fit goes to device scratch, group 0's
-// first
-struct RoundLayout {
-  QuartetLayout q[2];
-  bool tree_smem;
-  size_t tree_bytes, smem, scratch_floats;
-};
-
-RoundLayout round_layout(int M, int P, int C, bool want_tree_smem) {
-  const QuartetLayout q0 = quartet_layout(P, C);
-  const size_t tree = tree_smem_bytes(M, 2);
-  const size_t least = quartet_layout(P, C, 0).smem;
-  const bool tree_smem =
-      want_tree_smem && tree + q0.smem + least <= (size_t)kMlRoundSmemCap;
-  const size_t used = (tree_smem ? tree : 0) + q0.smem;
-  const QuartetLayout q1 =
-      quartet_layout(P, C, used < (size_t)kMlRoundSmemCap ? kMlRoundSmemCap - used : 0);
-  return {{q0, q1}, tree_smem, tree_smem ? tree : 0, used + q1.smem,
-          q0.scratch_floats + q1.scratch_floats};
-}
-
-// the body of both kernels: stage the tree, run the NNI round or the
-// lengths pass, put the tree and the counters back
-template <int C>
-__device__ __forceinline__ void ml_round_body(MLView m, int8_t* codes, float* W, float* V,
-                                              SearchLimits lim, MlArgs args, NniStats st,
-                                              bool lengths, double* bl, int32_t* g_tree,
-                                              uint8_t* g_flags, int32_t* g_path, long long* g_ctr,
-                                              double* g_max_delta, float* scratch,
-                                              RoundLayout L) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ MlShared sh;
-  const int tid = threadIdx.x, M = args.maxnodes;
-  const TreeArrays t = stage_tree(smem, g_tree, g_path, g_flags, M, 2, L.tree_smem);
-  if (tid < kMlCounters) sh.ctr[tid] = 0;
-  __syncthreads();
-
-  unsigned char* at = smem + L.tree_bytes;
-  MlRound<C> b{{t.tree, t.tree + M, t.tree + 4 * M, t.flags, t.path, args.n_seqs, args.root, M,
-                tid, false},
-               m, codes, W, V,
-               {quartet_scratch<C>(at, scratch, L.q[0].temps_smem, L.q[0].eff_smem, m.P),
-                quartet_scratch<C>(at + L.q[0].smem, scratch + L.q[0].scratch_floats,
-                                   L.q[1].temps_smem, L.q[1].eff_smem, m.P)},
-               lim, args, bl, &sh, t.flags + M, st, 0.0};
-  if (lengths) {
-    b.lengths_pass();
-  } else {
-    if (args.n_seqs > 3) b.nni_round();
-    if (tid == 0) *g_max_delta = b.max_delta;
-  }
-  unstage_tree(t, g_tree, M, L.tree_smem, sh.ctr, kMlCounters, kMlFault, b.bad, g_ctr);
-}
-
 #define VFT_ML_ROUND_PARAMS                                                                    \
   MLView m, int8_t *codes, float *W, float *V, SearchLimits lim, MlArgs args, NniStats st,     \
       double *bl, int32_t *g_tree, uint8_t *g_flags, int32_t *g_path, long long *g_ctr,        \
       double *g_max_delta, float *scratch, RoundLayout L
 
+// block 0 of a round (kRound: the round, then kStop to the workers), or
+// the one block of a pass: stage the tree, run, put the tree and the
+// counters back.  No lambda: nvcc kept a lambda this large as a call, with
+// spills.
+template <int C, bool kRound>
+__device__ __forceinline__ void tree_block(VFT_ML_ROUND_PARAMS, MlShared& sh) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, M = args.maxnodes;
+  const TreeArrays t = stage_tree(smem, g_tree, g_path, g_flags, M, 2, L.tree_smem);
+  if (tid < kMlCounters) sh.ctr[tid] = 0;
+  __syncthreads();
+  const QuartetScratch q = quartet_scratch<C>(smem + L.tree_bytes, scratch, L.q.temps_smem,
+                                              L.q.eff_smem, m.P);
+  MlRound<C> b{{t.tree, t.tree + M, t.tree + 4 * M, t.flags, t.path, args.n_seqs, args.root, M,
+                tid, false},
+               m, codes, W, V, q, Red{q.red, 0}, lim, args, bl, &sh, t.flags + M, st, 0.0, 0};
+  if constexpr (kRound) {
+    const cg::cluster_group cl = cg::this_cluster();
+    if (args.n_seqs > 3) b.nni_round(cl);
+    if (tid == 0) {
+      *g_max_delta = b.max_delta;
+#pragma unroll
+      for (int k = 1; k < kClusterBlocks; ++k) cl.map_shared_rank(&sh.cmd, k)->op = kStop;
+    }
+    prof_mark(kPhWait);
+    cluster_sync();  // the workers read kStop and end
+    prof_mark(kPhWalk);
+  } else {
+    b.lengths_pass();
+  }
+  unstage_tree(t, g_tree, M, L.tree_smem, sh.ctr, kMlCounters, kMlFault, b.bad, g_ctr);
+}
+
+// a worker of the round (block k = 1, 2): run the commands of block 0 until
+// it sends kStop
 template <int C>
-__global__ void __launch_bounds__(kMlRoundThreads) ml_nni_round_kernel(VFT_ML_ROUND_PARAMS) {
-  ml_round_body<C>(m, codes, W, V, lim, args, st, false, bl, g_tree, g_flags, g_path, g_ctr,
-                   g_max_delta, scratch, L);
+__device__ __forceinline__ void worker_block(const cg::cluster_group& cl, int k, const MLView& m,
+                                             const SearchLimits& lim, float tol, float* scratch,
+                                             const RoundLayout& L, MlShared& sh) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const QuartetScratch q = quartet_scratch<C>(smem, scratch + k * L.q.scratch_floats,
+                                              L.q.temps_smem, L.q.eff_smem, m.P);
+  Red red{q.red, 0};
+  for (;;) {
+    prof_mark(kPhWait);
+    cluster_sync();  // block 0's command and the store rows it reads
+    const int op = sh.cmd.op, seq = sh.cmd.seq;
+    if (op == kStop) break;
+    if (op == kRun) {
+      double len[5], parts[3];
+#pragma unroll
+      for (int i = 0; i < 5; ++i) len[i] = sh.cmd.len[i];
+      const int r0 = sh.cmd.rows[0], r1 = sh.cmd.rows[1], r2 = sh.cmd.rows[2],
+                r3 = sh.cmd.rows[3];
+      int n_eval;
+      bool stopped;
+      quartet_optimize<C>(m, q, red, lim, tol, false, store_row<C>(m, r0), store_row<C>(m, r1),
+                          store_row<C>(m, r2), store_row<C>(m, r3), len, parts, n_eval, nullptr,
+                          AbandonFlag{&sh.abandon, seq}, stopped);
+      if (!stopped && threadIdx.x == 0) {
+        QuartetResult* o = cl.map_shared_rank(&sh.res[k], 0);
+#pragma unroll
+        for (int i = 0; i < 3; ++i) o->parts[i] = parts[i];
+#pragma unroll
+        for (int i = 0; i < 5; ++i) o->len[i] = len[i];
+        o->n_eval = n_eval;
+      }
+    }
+    prof_mark(kPhWait);
+    cluster_sync();  // the results
+  }
 }
 
 template <int C>
-__global__ void __launch_bounds__(kMlRoundThreads) ml_lengths_pass_kernel(VFT_ML_ROUND_PARAMS) {
-  ml_round_body<C>(m, codes, W, V, lim, args, st, true, bl, g_tree, g_flags, g_path, g_ctr,
-                   g_max_delta, scratch, L);
+__global__ void __launch_bounds__(kOptThreads, 1) ml_nni_round_kernel(VFT_ML_ROUND_PARAMS) {
+  __shared__ MlShared sh;
+  prof_begin();
+  const cg::cluster_group cl = cg::this_cluster();
+  const int rank = (int)cl.block_rank();
+  if (threadIdx.x == 0) sh.abandon = -1;
+  cluster_sync();  // every block runs before any writes another's memory
+  if (rank != 0) {
+    worker_block<C>(cl, rank, m, lim, args.tol, scratch, L, sh);
+  } else {
+    tree_block<C, true>(m, codes, W, V, lim, args, st, bl, g_tree, g_flags, g_path, g_ctr,
+                        g_max_delta, scratch, L, sh);
+  }
+  prof_end();
+}
+
+template <int C>
+__global__ void __launch_bounds__(kOptThreads, 1) ml_lengths_pass_kernel(VFT_ML_ROUND_PARAMS) {
+  __shared__ MlShared sh;
+  prof_begin();
+  tree_block<C, false>(m, codes, W, V, lim, args, st, bl, g_tree, g_flags, g_path, g_ctr,
+                       g_max_delta, scratch, L, sh);
+  prof_end();
 }
 
 template <int C>
@@ -503,16 +609,29 @@ int round_launch(const MLView& m, int8_t* codes, float* W, float* V, const Searc
                  const MlArgs& args, const NniStats& st, int lengths, double* bl, int32_t* tree,
                  uint8_t* flags, int32_t* path, long long* ctr, double* max_delta, float* scratch,
                  int smem_tree, cudaStream_t stream) {
-  const RoundLayout L = round_layout(args.maxnodes, m.P, C, smem_tree != 0);
+  const int n_blocks = lengths ? 1 : kClusterBlocks;
+  const RoundLayout L = round_layout(args.maxnodes, m.P, C, smem_tree != 0, n_blocks);
   if (L.scratch_floats > 0 && scratch == nullptr) return kBadArgs;
   if (L.smem > (size_t)kMlRoundSmemCap) return kBadArgs;
   auto kernel = lengths ? ml_lengths_pass_kernel<C> : ml_nni_round_kernel<C>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)kMlRoundSmemCap);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<1, kMlRoundThreads, L.smem, stream>>>(m, codes, W, V, lim, args, st, bl, tree, flags,
-                                                 path, ctr, max_delta, scratch, L);
-  err = cudaGetLastError();
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_blocks);
+  cfg.blockDim = dim3(kOptThreads);
+  cfg.dynamicSmemBytes = L.smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = n_blocks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = lengths ? 0 : 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, m, codes, W, V, lim, args, st, bl, tree, flags, path,
+                           ctr, max_delta, scratch, L);
+  if (err == cudaSuccess) err = cudaGetLastError();
   return err != cudaSuccess ? (int)err : 0;
 }
 
@@ -555,30 +674,31 @@ int launch(const int8_t* codes, const float* W, const float* V, const float* cod
 
 extern "C" {
 
-// 1 if a round's tree (M nodes) fits in shared memory beside its quartets'
-// pieces at (P, C); otherwise the round keeps it in device memory.
+// 1 if a round's tree (M nodes) fits in block 0's shared memory beside its
+// quartet pieces at (P, C); otherwise the round keeps it in device memory.
 int vft_ml_round_tree_fits_smem(int M, int P, int C) {
-  return round_layout(M, P, C, true).tree_smem ? 1 : 0;
+  return round_layout(M, P, C, true, kClusterBlocks).tree_smem ? 1 : 0;
 }
 
-// Floats of device scratch a round needs at (M, P, C) for the quartets'
-// pieces that do not fit in shared memory; smem_tree as the round's.
+// Floats of device scratch a round needs at (M, P, C) for the quartet
+// pieces that do not fit in its blocks' shared memory (0 unless P is very
+// large); a lengths pass needs no more.  smem_tree as the round's.
 int64_t vft_ml_round_scratch_floats(int M, int P, int C, int smem_tree) {
-  return (int64_t)round_layout(M, P, C, smem_tree != 0).scratch_floats;
+  return (int64_t)round_layout(M, P, C, smem_tree != 0, kClusterBlocks).scratch_floats;
 }
 
-// One ML NNI round on the ML store, in place, in one launch.  The line
-// searches' limits xmin, xmax, ftol, atol (float), min_len the minimum
-// length as the host's float64.  The round's state on the device: tree =
-// parent [M] | children [M, 3] | child counts [M] (int32), flags [2M]
-// (uint8 scratch: the memo, the traversal), path [M] (int32 scratch),
-// branch lengths bl [M] (double), the NNIStats age, subtree_age (int64),
-// delta, support (double), [n_stats] each, read and written; ctr
-// [kMlCounters] (int64, zero at the round's start, added to) and max_delta
-// (double, out).  scratch: vft_ml_round_scratch_floats(M, P, C, smem_tree)
-// floats, or NULL when that is 0.  smem_tree: 1 keeps the tree in shared memory where
-// it fits, 0 in device memory.  Returns 0, a cudaError of the launch, or -2
-// for arguments the kernel does not take.
+// One ML NNI round on the ML store, in place, in one launch of a cluster of
+// three blocks.  The line searches' limits xmin, xmax, ftol, atol (float),
+// min_len the minimum length as the host's float64.  The round's state on
+// the device: tree = parent [M] | children [M, 3] | child counts [M]
+// (int32), flags [2M] (uint8 scratch: the memo, the traversal), path [M]
+// (int32 scratch), branch lengths bl [M] (double), the NNIStats age,
+// subtree_age (int64), delta, support (double), [n_stats] each, read and
+// written; ctr [kMlCounters] (int64, zero at the round's start, added to)
+// and max_delta (double, out).  scratch: vft_ml_round_scratch_floats(M, P,
+// C, smem_tree) floats, or NULL when that is 0.  smem_tree: 1 keeps the
+// tree in shared memory where it fits, 0 in device memory.  Returns 0, a
+// cudaError of the launch, or -2 for arguments the kernel does not take.
 int vft_ml_nni_round_f32(VFT_ML_STORE_ARGS, float tol, float xmin, float xmax, float ftol,
                          float atol, double min_len, int ml_accuracy, int n_seqs, int maxnodes,
                          int root, int fast_nni, double min_delta, int n_stats, int64_t* age,
@@ -595,8 +715,8 @@ int vft_ml_nni_round_f32(VFT_ML_STORE_ARGS, float tol, float xmin, float xmax, f
 }
 
 // One pass of optimizeAllBranchLengths (three tips or more) on the ML
-// store, in place, in one launch; the state as for vft_ml_nni_round_f32,
-// without the NNIStats and max_delta.
+// store, in place, in one launch of one block; the state as for
+// vft_ml_nni_round_f32, without the NNIStats and max_delta.
 int vft_ml_lengths_pass_f32(VFT_ML_STORE_ARGS, float tol, float xmin, float xmax, float ftol,
                             float atol, double min_len, int n_seqs, int maxnodes, int root,
                             double* bl, int32_t* tree, uint8_t* flags, int32_t* path,
@@ -607,5 +727,20 @@ int vft_ml_lengths_pass_f32(VFT_ML_STORE_ARGS, float tol, float xmin, float xmax
   return launch(VFT_ML_STORE_PASS, lim, args, st, 1, bl, tree, flags, path, ctr, nullptr,
                 scratch, smem_tree, stream);
 }
+
+#ifdef VFT_ML_ROUND_PROFILE
+// The probes' cycles, [kProfSlots][kProfPhases] (block * 2 + group, then
+// ProfPhase), summed over the launches since the last reset, into out;
+// reset 1 zeroes them after.  Returns 0 or a cudaError.
+int vft_ml_round_profile_read(unsigned long long* out, int reset) {
+  cudaError_t err = cudaDeviceSynchronize();
+  if (err == cudaSuccess) err = cudaMemcpyFromSymbol(out, prof_total, sizeof(prof_total));
+  if (err == cudaSuccess && reset) {
+    static const unsigned long long zero[kProfSlots][kProfPhases] = {};
+    err = cudaMemcpyToSymbol(prof_total, zero, sizeof(prof_total));
+  }
+  return (int)err;
+}
+#endif
 
 }  // extern "C"

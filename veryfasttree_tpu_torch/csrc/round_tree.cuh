@@ -10,16 +10,33 @@
 //
 // Every thread of the block runs the same walks on the same data; only
 // thread 0 writes the tree, between two barriers (commit).  `bad` is set by
-// every thread alike, never inside a commit.
+// every thread alike, never inside a commit.  No small array is indexed by
+// a value known only at run time (pick3 instead), so the arrays stay in
+// registers and the kernels keep no stack frame.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// ml_round.cu defines this as __forceinline__, so that its kernels hold the
+// tree's state in registers (a member function that is not inlined takes
+// its object's address, which puts the object on the stack); the ME rounds
+// leave it to nvcc
+#ifndef VFT_TREE_INLINE
+#define VFT_TREE_INLINE
+#endif
+
 namespace {
 
 constexpr int kBadArgs = -2;
+
+// a[i] of a three-element array, i in [0, 3), without indexing it at run
+// time
+template <class T>
+__device__ __forceinline__ T pick3(const T* a, int i) {
+  return i == 0 ? a[0] : (i == 1 ? a[1] : a[2]);
+}
 
 // the round's tree (parent [M] | children [M, 3] | child counts [M]), the
 // up-profile path scratch [M] and n_flags byte arrays [M] (zeroed), in
@@ -71,23 +88,25 @@ struct NniStats {
   int fast_nni;
   double min_delta;  // the support threshold: me_min_delta, or TREE_LOGLK_DELTA under ML
 
-  __device__ bool ok(int node) const { return node >= 0 && node < n; }
+  __device__ VFT_TREE_INLINE bool ok(int node) const { return node >= 0 && node < n; }
 
   // ref tcc:5931-5971, by one thread: the entries of node after its quartet
   // (nodes n4; node's children ch0, ch1 after the swap) chose `choice` by
   // the criteria crit (higher is better); max_delta follows the deltas
-  __device__ void record(int node, const int n4[4], int ch0, int ch1, int choice,
-                         const double crit[3], double& max_delta) const {
+  __device__ VFT_TREE_INLINE void record(int node, const int n4[4], int ch0, int ch1,
+                                         int choice, const double crit[3],
+                                         double& max_delta) const {
     if (choice == 0)
       age[node] += 1;
     else
       age[node] = age[n4[0]] = age[n4[1]] = age[n4[2]] = age[n4[3]] = 0;
-    const double dl = crit[choice] - crit[0];
+    const double best = pick3(crit, choice);
+    const double dl = best - crit[0];
     delta[node] = dl;
     if (dl > max_delta) max_delta = dl;
     // Python's min over the other two, in index order
     const int k1 = choice == 0 ? 1 : 0, k2 = choice == 2 ? 1 : 2;
-    const double s1 = crit[choice] - crit[k1], s2 = crit[choice] - crit[k2];
+    const double s1 = best - pick3(crit, k1), s2 = best - pick3(crit, k2);
     support[node] = s2 < s1 ? s2 : s1;
     if (dl > min_delta) {
       subtree_age[node] = 0;
@@ -121,7 +140,7 @@ struct RoundTree {
 
   __device__ __forceinline__ bool node_ok(int n) const { return n >= 0 && n < maxnodes; }
 
-  __device__ int sibling(int node) {
+  __device__ VFT_TREE_INLINE int sibling(int node) {
     const int par = parent[node];
     if (par < 0 || par == root) return -1;
     for (int k = 0; k < nch[par]; ++k) {
@@ -133,19 +152,23 @@ struct RoundTree {
   }
 
   // the other two children of the (3-child) root, in slot order
-  __device__ void root_siblings(int node, int& s0, int& s1) {
-    int out[3] = {-1, -1, -1}, n = 0;
+  __device__ VFT_TREE_INLINE void root_siblings(int node, int& s0, int& s1) {
+    int n = 0;
+    s0 = s1 = -1;
+#pragma unroll
     for (int k = 0; k < 3; ++k) {
       const int c = child[3 * root + k];
-      if (c != node) out[n++] = c;
+      if (c != node) {
+        if (n == 0) s0 = c;
+        else if (n == 1) s1 = c;
+        ++n;
+      }
     }
     if (n != 2 || nch[root] != 3 || parent[node] != root) bad = true;
-    s0 = out[0];
-    s1 = out[1];
   }
 
   // ref replaceChild tcc:1930-1940
-  __device__ void replace_child(int par, int old, int nw) {
+  __device__ VFT_TREE_INLINE void replace_child(int par, int old, int nw) {
     if (!node_ok(par) || !node_ok(nw)) {
       bad = true;
       return;
@@ -169,7 +192,7 @@ struct RoundTree {
   // quartet's C and D: C its sibling (or the first other root child), D its
   // parent, whose up-profile is d_row (or the second other root child).
   template <class Fill>
-  __device__ int up_get(int node, Fill fill) {
+  __device__ VFT_TREE_INLINE int up_get(int node, Fill fill) {
     if (!node_ok(node) || node == root || node < n_seqs) {
       bad = true;
       return maxnodes;
@@ -215,7 +238,7 @@ struct RoundTree {
   // the parent's up-profile, through up_get(par, fill), unless the parent
   // is the root)
   template <class Fill>
-  __device__ void setup_abcd(int node, int nodes4[4], int rows4[4], Fill fill) {
+  __device__ VFT_TREE_INLINE void setup_abcd(int node, int nodes4[4], int rows4[4], Fill fill) {
     const int par = parent[node];
     if (par < 0 || nch[node] != 2) {
       bad = true;
@@ -237,31 +260,35 @@ struct RoundTree {
   // ref updateForNNI tcc:1882-1927 (not -slow): the memo entries around
   // node invalidated, then recompute(node) and recompute(its parent)
   template <class Recompute>
-  __device__ void update_for_nni(int node, Recompute recompute) {
+  __device__ VFT_TREE_INLINE void update_for_nni(int node, Recompute recompute) {
     if (!node_ok(node) || node == root) {
       bad = true;
       return;
     }
-    int ids[8], n = 0;
-    ids[n++] = node;
-    for (int k = 0; k < nch[node] && k < 3; ++k) ids[n++] = child[3 * node + k];
+    // the node, its children, its quartet's other two (the parent and the
+    // sibling, or the root's other children) and the uncle
+    const int n_ch = nch[node];
+    const int c0 = n_ch > 0 ? child[3 * node] : -1;
+    const int c1 = n_ch > 1 ? child[3 * node + 1] : -1;
+    const int c2 = n_ch > 2 ? child[3 * node + 2] : -1;
     const int par = parent[node];
     if (!node_ok(par)) {
       bad = true;
       return;
     }
+    int x0, x1;
     if (par == root) {
-      root_siblings(node, ids[n], ids[n + 1]);
+      root_siblings(node, x0, x1);
     } else {
-      ids[n] = par;
-      ids[n + 1] = sibling(node);
+      x0 = par;
+      x1 = sibling(node);
     }
-    n += 2;
     const int uncle = sibling(par);
-    if (uncle >= 0) ids[n++] = uncle;
     if (bad) return;
     commit([&] {
-      for (int k = 0; k < n; ++k)
+      const int ids[7] = {node, c0, c1, c2, x0, x1, uncle};
+#pragma unroll
+      for (int k = 0; k < 7; ++k)
         if (node_ok(ids[k])) uvalid[ids[k]] = 0;
     });
     recompute(node);
@@ -274,9 +301,9 @@ struct RoundTree {
   // commit, then the profile repairs (after no swap the memo entries of A,
   // B, C and recompute(node); else updateForNNI)
   template <class Extra, class Recompute>
-  __device__ void nni_finish(int node, const int n4[4], int choice, const double crit[3],
-                             const NniStats& st, double& max_delta, Extra extra,
-                             Recompute recompute) {
+  __device__ VFT_TREE_INLINE void nni_finish(int node, const int n4[4], int choice,
+                                             const double crit[3], const NniStats& st,
+                                             double& max_delta, Extra extra, Recompute recompute) {
     const int ch0 = child[3 * node], ch1 = child[3 * node + 1];
     if (!st.ok(node) || !st.ok(n4[0]) || !st.ok(n4[1]) || !st.ok(n4[2]) || !st.ok(n4[3]) ||
         !st.ok(ch0) || !st.ok(ch1)) {
@@ -300,8 +327,8 @@ struct RoundTree {
   // recompute(node) (ref :5809-5819), every other internal node
   // visit(node)
   template <class Visit, class Recompute>
-  __device__ void nni_walk(uint8_t* trav, const NniStats& st, int* any_bad, Visit visit,
-                           Recompute recompute) {
+  __device__ VFT_TREE_INLINE void nni_walk(uint8_t* trav, const NniStats& st, int* any_bad,
+                                           Visit visit, Recompute recompute) {
     skip_set(trav, st, any_bad);
     int node = root, climbs = 0;
     while (!bad) {
@@ -326,7 +353,7 @@ struct RoundTree {
   // whose quartet holds no newly swapped, well-supported node is marked
   // traversed in trav, which skips it and its subtree.  One thread per
   // node; a fault goes through *any_bad (shared memory) to every thread.
-  __device__ void skip_set(uint8_t* trav, const NniStats& st, int* any_bad) {
+  __device__ VFT_TREE_INLINE void skip_set(uint8_t* trav, const NniStats& st, int* any_bad) {
     if (tid == 0) *any_bad = 0;
     __syncthreads();
     if (st.fast_nni) {
@@ -340,13 +367,18 @@ struct RoundTree {
         if (!fault) {
           n4[0] = child[3 * node];
           n4[1] = child[3 * node + 1];
-          if (par == root) {  // root_siblings
-            int k = 2;
+          if (par == root) {  // root_siblings: the first two others
+            int k = 0;
+#pragma unroll
             for (int s = 0; s < 3; ++s) {
               const int c = child[3 * root + s];
-              if (c != node && k < 4) n4[k++] = c;
+              if (c != node) {
+                if (k == 0) n4[2] = c;
+                else if (k == 1) n4[3] = c;
+                ++k;
+              }
             }
-            fault = k != 4 || nch[root] != 3;
+            fault = k < 2 || nch[root] != 3;
           } else {            // sibling, then the parent
             for (int s = 0; s < nch[par] && s < 3; ++s)
               if (child[3 * par + s] != node) {
@@ -357,7 +389,9 @@ struct RoundTree {
           }
         }
         bool skip = !fault;
-        for (int k = 0; k < 4 && !fault; ++k) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          if (fault) break;
           if (!st.ok(n4[k])) {
             fault = true;
           } else if (st.age[n4[k]] == 0 && st.support[n4[k]] > st.min_delta) {
@@ -378,7 +412,7 @@ struct RoundTree {
   // revisits since the last newly traversed node, at most the depth.  On a
   // tree that does not change during the walk it never revisits, and is
   // TreeState.postorder_nodes.
-  __device__ int next_postorder(uint8_t* trav, int node, bool& up, int& climbs) {
+  __device__ VFT_TREE_INLINE int next_postorder(uint8_t* trav, int node, bool& up, int& climbs) {
     for (int steps = 0; steps <= 2 * maxnodes + 2; ++steps) {
       int next = -1;
       for (int k = 0; k < nch[node] && k < 3; ++k) {

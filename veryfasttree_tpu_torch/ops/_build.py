@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -70,13 +71,15 @@ def _run_all(cmds):
     return "".join(outs)
 
 
-def build() -> tuple[Path, str]:
-    """Compile the kernels if the library is missing or stale.  Returns the
-    library path and nvcc's report (ptxas register and shared-memory use),
-    which is empty when the existing library was current."""
+def build(force: bool = False) -> tuple[Path, str]:
+    """Compile the kernels if the library is missing or stale, or always
+    with force.  Returns the library path and nvcc's report (ptxas register,
+    stack and shared-memory use), which is empty when the existing library
+    was current."""
     digest = _digest()
     stamp = LIB_PATH.with_name(LIB_PATH.name + ".sha256")
-    if LIB_PATH.exists() and stamp.exists() and stamp.read_text() == digest:
+    if not force and LIB_PATH.exists() and stamp.exists() and \
+            stamp.read_text() == digest:
         return LIB_PATH, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
@@ -92,6 +95,85 @@ def build() -> tuple[Path, str]:
     os.replace(tmp, LIB_PATH)
     stamp.write_text(digest)
     return LIB_PATH, log
+
+
+def ptxas_report(log: str) -> dict:
+    """{entry function: {"registers", "stack", "spill_stores",
+    "spill_loads", "cumulative_stack"}} (bytes but the registers) from
+    nvcc's ``-Xptxas -v`` report, as build() returns it: each "Compiling
+    entry function" line names the kernel that the "Function properties"
+    and "Used ... registers" lines after it describe (the properties of a
+    function the kernel calls are not the kernel's, but its frame counts in
+    the kernel's cumulative stack)."""
+    out, entry, props = {}, None, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+            out[entry] = {"registers": None, "stack": None,
+                          "spill_stores": None, "spill_loads": None,
+                          "cumulative_stack": 0}
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and props is not None and props in out:
+            out[props].update(stack=int(m.group(1)),
+                              spill_stores=int(m.group(2)),
+                              spill_loads=int(m.group(3)))
+            props = None
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry is not None:
+            out[entry]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes cumulative stack size", line)
+            if m:
+                out[entry]["cumulative_stack"] = int(m.group(1))
+    return out
+
+
+def kernel_resources(report: dict, kernel: str, n_codes: int = 4) -> dict:
+    """The ptxas_report entry of the kernel template `kernel<n_codes>`
+    (found by its mangled name); raises if the report has none or two."""
+    tag = f"{kernel}ILi{n_codes}E"
+    hits = [v for k, v in report.items() if tag in k]
+    if len(hits) != 1:
+        raise KeyError(f"{len(hits)} entries of {kernel}<{n_codes}> in the "
+                       "ptxas report")
+    return hits[0]
+
+
+# the most stack (bytes) each kernel template (C=4) may keep, and no spill
+# stores: the ML round kernels hold their state in registers; the quartet
+# kernel keeps its 32 bytes
+STACK_LIMITS = {"ml_nni_round_kernel": 0, "ml_lengths_pass_kernel": 0,
+                "ml_quartet_opt_kernel": 32}
+
+
+def resource_faults(report: dict, limits: dict = STACK_LIMITS) -> list:
+    """What ptxas_report says against `limits`: one line for each kernel
+    missing from the report, reporting more stack (its own frame or with
+    the functions it calls) than its limit, or any spill store where its
+    limit is 0."""
+    out = []
+    for kernel, limit in limits.items():
+        try:
+            res = kernel_resources(report, kernel)
+        except KeyError as err:
+            out.append(err.args[0])
+            continue
+        stack = None if res["stack"] is None else max(
+            res["stack"], res["cumulative_stack"])
+        if stack is None or stack > limit:
+            out.append(f"{kernel}<4>: {stack} bytes of stack frame "
+                       f"(at most {limit})")
+        if limit == 0 and res["spill_stores"]:
+            out.append(f"{kernel}<4>: {res['spill_stores']} bytes of spill "
+                       "stores")
+    return out
 
 
 def _declare(lib) -> None:

@@ -9,7 +9,9 @@ launches and fetches per round; so does the JAX package
 (``veryfasttree_tpu/engine/rearrange.py``, ``veryfasttree_tpu/engine/ml.py``),
 which has no device round to port.  Here one launch runs a whole round or
 pass, and it makes one upload and one fetch: the tree, the branch lengths,
-the NNIStats, max_delta and the counters.
+the NNIStats, max_delta and the counters.  A round runs on a cluster of
+three blocks (the walk and the AB optimizations on block 0, the AC and AD
+optimizations beside them on blocks 1 and 2); a pass on one block.
 
 The twins are the host loops themselves on the per-call twins of
 ``ops/ml_kernels.py``: each wrapper runs its host loop for a store on the
@@ -28,9 +30,12 @@ from . import _build, me_round, ml_kernels
 # the kernels' int64 counters, in their order (csrc/ml_round.cu): the debug
 # counters the host loops add to, then the work done (quartet
 # optimizations, posteriors with the quartets' temporaries, line searches,
-# their evaluations, pair log-likelihoods) and the fault flag
+# their evaluations, pair log-likelihoods: the host loop's work), the AC
+# and AD optimizations a round started beside AB and discarded when AB's
+# star test fired (speculative, in none of the others) and the fault flag
 COUNTERS = ("n_ml_nni", "n_star_tests", "n_lk_compute", "n_posterior_compute",
-            "quartets", "posteriors", "searches", "evals", "pairs", "fault")
+            "quartets", "posteriors", "searches", "evals", "pairs",
+            "speculative", "fault")
 DEBUG = COUNTERS[:4]
 
 
@@ -143,6 +148,6 @@ for _fn in (ml_nni_round, ml_lengths_pass):
     # where the last launch kept the tree: "shared memory" or "device memory"
     _fn.tree_layout = None
     # the floats of device scratch the last launch took for the quartet
-    # pieces shared memory had no room for (group 1's temporaries at N=2000)
+    # pieces its blocks' shared memory had no room for (0 at P=512)
     _fn.scratch_floats = None
 del _fn
