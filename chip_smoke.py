@@ -8,8 +8,9 @@ passed):
 
 0. the card (nvidia-smi name and power limit), torch's CUDA version;
 1. build the CUDA kernels from veryfasttree_tpu_torch/csrc; ptxas must
-   report no stack frame and no spill store for the ML round kernels and
-   at most 32 bytes of stack for ml_quartet_opt (_build.resource_faults);
+   report no stack frame and no spill store for the ML and ME round
+   kernels, at most 32 bytes of stack for ml_quartet_opt and at most the
+   deciding warp's 616 bytes for nj_join_epoch (_build.resource_faults);
 2. each kernel against its plain PyTorch twin on the card, at the main
    path's shapes, with the median time of 50 runs of each (CUDA events):
    the scans and the pair distances in double (rtol 1e-12, atol 1e-12; best
@@ -40,7 +41,8 @@ passed):
    device memory (its layout above about 4,000 nodes); dense, also against
    the plain twin (the host loop on the per-call twins, on the CPU): the
    same tree and counters, rows within 1e-6; both walls, the launches, the
-   kernel's device time per node (torch.profiler), and its bound from the
+   kernel's device time per node and per chain step (torch.profiler), and
+   its bound from the
    distinct rows the round reads and writes and its operations;
 2c. one ME NNI round at N=500 from the same NJ starts, in the same cases:
    the round kernel (me_nni_round) against the host loop
@@ -50,7 +52,8 @@ passed):
    against the plain twin on the CPU (rows within 1e-6, deltas and supports
    within 1e-9); the walls, the device time per quartet, the rows averaged
    per quartet and the bound;
-2d. the NJ phase at N=500 (dense, two-tier, protein) and N=2000 (dense):
+2d. the NJ phase at N=500 (dense, two-tier, protein) and N=2000 (dense,
+   with the decisions' per-node arrays in shared and in device memory):
    its joins through the join epoch kernel (nj_join_epoch, one launch per
    out-profile reset) against the host loop through the per-call kernels,
    every array bit for bit (join log, tree, branch lengths, diameters,
@@ -58,7 +61,8 @@ passed):
    visible and top-visible sets, ages, debug counters); N=500 dense also
    against the plain twin (the host loop on the CPU): the same join log,
    values within 1e-4 (its out-profile weights round otherwise); both
-   walls, the launches, the device time per join and the bound;
+   walls, the launches, the device time in all and per join of each dense
+   case and the bound;
 2e. one ML lengths pass, then one ML NNI round, at N=500 from one NJ start
    with an ML store (Jukes-Cantor with one rate, Jukes-Cantor and GTR with
    fitted CAT 20 rates): the round kernels (ml_lengths_pass, ml_nni_round,
@@ -946,7 +950,8 @@ def phase_spr(report, dev):
     another order, 1e-12 apart; its averages round as the kernel's).  The
     kernel's device time comes from torch.profiler over three more rounds,
     each from a copy of the start (a trace of one round can lose its
-    event); ms and plain_ms are the kernel's and the twin's round walls (a round is one
+    event), in all, per node and per chain step (corrected quartet); ms and
+    plain_ms are the kernel's and the twin's round walls (a round is one
     launch).  The bound counts each row the round reads before writing it
     read once and each row it writes written once (the host loop's store
     calls, recorded), and the operations of the kernel's counted work."""
@@ -1020,14 +1025,16 @@ def phase_spr(report, dev):
             "host_loop_ms": 1e3 * runs["host loop"][1],
             "tree_in_device_memory_ms":
                 1e3 * runs["tree in device memory"][1],
-            "device_us": dev_us, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None})
+            "device_us": dev_us,
+            "device_us_per_step": dev_us / stats["quartets"],
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
         print(f"  me_spr_round [{label}]: the twin on the CPU "
               f"{runs['twin'][1]:.3f} s, rows max abs err {err:.3e}; the "
               "tree in device memory "
               f"{runs['tree in device memory'][1]:.3f} s; device "
               f"{dev_us / 1e3:.3f} ms for the round ({dev_us / n_nodes:.3f} "
-              f"us per node); {len(rows_in)} rows read, {len(rows_out)} "
+              f"us per node, {dev_us / stats['quartets']:.3f} us per chain "
+              f"step); {len(rows_in)} rows read, {len(rows_out)} "
               f"written, {n_ops:.4e} operations: bound {bound_ms:.4e} ms "
               f"({bound_by}; bytes {1e3 * n_bytes / HBM_BYTES_PER_S:.4e} ms, "
               f"operations {1e3 * n_ops / F32_OPS_PER_S:.4e} ms)")
@@ -1201,10 +1208,10 @@ EPOCH_DEBUG = ("outprofile_ops", "profile_ops", "seq_ops", "profile_avg_ops",
 def epoch_run(n, dev, kernel=True, max_joins=None, two_tier=False,
               protein=False, bionj=False, **launch):
     """The port's NJ phase (fast_nj) on synth_codes(n, MAIN_P) on dev, its
-    joins through the epoch kernel (launch: grid and state_in_smem of
-    ops/epoch_kernels.join_epoch) or, kernel=False, through the host loop
-    with the per-call kernels.  protein: 20 codes under BLOSUM45 (matrix
-    mode)."""
+    joins through the epoch kernel (launch: grid, state_in_smem and
+    lists_in_smem of ops/epoch_kernels.join_epoch) or, kernel=False,
+    through the host loop with the per-call kernels.  protein: 20 codes
+    under BLOSUM45 (matrix mode)."""
     import torch
 
     from veryfasttree_tpu_torch.engine import epoch
@@ -1287,16 +1294,18 @@ def epoch_bound(nj, totals):
 
 def phase_epoch(report, dev):
     """The NJ phase at N=SPR_N, dense, two-tier and protein, and at N=MAIN_N
-    dense: its joins through the epoch kernel (ops/epoch_kernels.join_epoch,
-    one launch per out-profile reset) and through the host loop with the
-    per-call kernels, every array of epoch_state bit for bit.  Dense at
+    dense, the decisions' per-node arrays in shared memory and in device
+    memory (their layout past N of about 2,300): its joins through the
+    epoch kernel (ops/epoch_kernels.join_epoch, one launch per out-profile
+    reset) and through the host loop with the per-call kernels (one run per
+    input), every array of epoch_state bit for bit.  Dense at
     N=SPR_N also through the plain twin (the host loop on the per-call
     twins, on the CPU): the same join log, the values within
     EPOCH_TWIN_ATOL (its counters, which a last-bit difference can move,
     are printed beside the kernel's).  Walls are the join
     phase's (nj.timings joins_s, _root_three included); the kernel's device
-    time comes from torch.profiler over one more join phase; the bound from
-    epoch_bound."""
+    time, in all and per join, comes from torch.profiler over one more join
+    phase of each dense case; the bound from epoch_bound."""
     import numpy as np
     import torch
 
@@ -1304,14 +1313,20 @@ def phase_epoch(report, dev):
 
     kern = epoch_kernels.join_epoch
     entry = report.setdefault("nj_join_epoch", {"max_abs_err": 0.0})
-    cases = ((f"N={SPR_N} dense", SPR_N, {}),
-             (f"N={SPR_N} two-tier", SPR_N, {"two_tier": True}),
-             (f"N={SPR_N} protein", SPR_N, {"protein": True}),
-             (f"N={MAIN_N} dense", MAIN_N, {}))
-    for label, n, kw in cases:
-        host = epoch_run(n, dev, kernel=False, **kw)
+    cases = ((f"N={SPR_N} dense", SPR_N, {}, {}),
+             (f"N={SPR_N} two-tier", SPR_N, {"two_tier": True}, {}),
+             (f"N={SPR_N} protein", SPR_N, {"protein": True}, {}),
+             (f"N={MAIN_N} dense", MAIN_N, {}, {}),
+             (f"N={MAIN_N} dense, per-node arrays in device memory", MAIN_N,
+              {}, {"state_in_smem": False}))
+    hosts = {}
+    for label, n, kw, launch in cases:
+        key = (n, tuple(sorted(kw.items())))
+        if key not in hosts:
+            hosts[key] = epoch_run(n, dev, kernel=False, **kw)
+        host = hosts[key]
         reset_launches()
-        nj = epoch_run(n, dev, **kw)
+        nj = epoch_run(n, dev, **kw, **launch)
         stats = dict(kern.totals, launches=kern.launches)
         diff = epoch_diff(epoch_state(host), epoch_state(nj))
         if diff:
@@ -1328,7 +1343,7 @@ def phase_epoch(report, dev):
               f"rows, grid {stats['grid']} blocks")
         if kw:
             continue
-        dev_us = device_us(lambda: epoch_run(n, dev, **kw),
+        dev_us = device_us(lambda: epoch_run(n, dev, **launch),
                            DEVICE_NAMES["nj_join_epoch"], runs=1)
         n_bytes, n_ops = epoch_bound(nj, stats)
         bound_ms, bound_by = bound(n_bytes, n_ops)
@@ -1337,6 +1352,10 @@ def phase_epoch(report, dev):
               f"{dev_us / stats['launches'] / 1e3:.3f} ms per launch); "
               f"{n_bytes / 1e6:.2f} MB, {n_ops:.4e} operations: bound "
               f"{bound_ms:.4e} ms ({bound_by})")
+        if n == MAIN_N and launch:
+            entry.update({"main_state_in_device_memory_ms": 1e3 * wall,
+                          "main_state_in_device_memory_device_us": dev_us})
+            continue
         if n == MAIN_N:
             entry.update({"main_ms": 1e3 * wall,
                           "main_host_loop_ms": 1e3 * host_wall,

@@ -386,9 +386,12 @@ def test_pipeline_on_cuda_matches_cpu(cuda, two_tier_min):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kw", [
     {}, {"two_tier": True}, {"protein": True}, {"bionj": True},
-    {"max_joins": 10}, {"grid": 1}, {"state_in_smem": False}],
+    {"max_joins": 10}, {"grid": 1}, {"state_in_smem": False},
+    {"lists_in_smem": False}, {"state_in_smem": False, "lists_in_smem": False},
+    {"protein": True, "lists_in_smem": False}],
     ids=["dense", "two-tier", "protein", "bionj", "max-joins", "one-block",
-         "state-in-device-memory"])
+         "state-in-device-memory", "lists-in-device-memory",
+         "all-in-device-memory", "protein-lists-in-device-memory"])
 def test_join_epoch_kernel_is_the_host_loop(cuda, kw):
     """The NJ phase at N=150 (chip_smoke.py's phase 2d): its joins through
     the epoch kernel and through the host loop with the per-call kernels
@@ -397,14 +400,16 @@ def test_join_epoch_kernel_is_the_host_loop(cuda, kw):
     the store rows and out-profile, the top-hits lists, visible and
     top-visible sets and ages, and the debug counters.  The cases cover a
     dense and a two-tier store, 4 codes and 20 under BLOSUM45, -bionj, the
-    max_joins stop, one block against the full grid (the default), and the
+    max_joins stop, one block against the full grid (the default), the
     decisions' per-node arrays in device memory (their layout past N of
-    about 2,300) against shared memory (the default)."""
+    about 2,300) against shared memory (the default), and the deciding
+    warp's small lists in device memory (their layout where they do not fit
+    beside the per-node arrays), alone and with the per-node arrays."""
     from chip_smoke import epoch_diff, epoch_run, epoch_state
     from veryfasttree_tpu_torch.ops import epoch_kernels
 
     host_kw = {k: v for k, v in kw.items()
-               if k not in ("grid", "state_in_smem")}
+               if k not in ("grid", "state_in_smem", "lists_in_smem")}
     host = epoch_state(epoch_run(150, cuda, kernel=False, **host_kw))
     before = epoch_kernels.join_epoch.launches
     kern = epoch_state(epoch_run(150, cuda, **kw))

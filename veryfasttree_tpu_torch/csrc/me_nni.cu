@@ -37,6 +37,10 @@
 // criteria, deltas and supports are double, in the host loop's order (this
 // file is compiled with -fmad=false).
 
+// every tree walk inlined (the round's state in registers, no stack
+// frame), and every thread makes the tree's writes (round_tree.cuh)
+#define VFT_TREE_INLINE __forceinline__
+#define VFT_TREE_WRITE_ALL
 #include "me_round.cuh"
 
 namespace {
@@ -61,8 +65,20 @@ struct NniBlock : MeRound<C> {
   NniStats st;
   double max_delta;   // thread 0's
 
+  // the walk's two steps (and the repairs after a quartet), as functors
+  // whose calls are inlined (a lambda's may not be, which would put the
+  // block's state on the stack)
+  struct Visit {
+    NniBlock* b;
+    __device__ __forceinline__ void operator()(int n) const { b->nni_node(n); }
+  };
+  struct Recompute {
+    NniBlock* b;
+    __device__ __forceinline__ void operator()(int n) const { b->recompute_profile(n); }
+  };
+
   // one quartet of the walk (rearrange.do_nni's body with use_ml off)
-  __device__ void nni_node(int node) {
+  __device__ __forceinline__ void nni_node(int node) {
     int n4[4], r4[4];
     this->setup_abcd(node, n4, r4);
     if (bad) return;
@@ -88,14 +104,12 @@ struct NniBlock : MeRound<C> {
         [&] {
           if (choice != kABvsCD) sh->ctr[kMoves] += 1;
         },
-        [this](int n) { this->recompute_profile(n); });
+        Recompute{this});
   }
 
   // the round (rearrange.do_nni with use_ml off, not -slow)
-  __device__ void round() {
-    this->nni_walk(
-        trav, st, &sh->any_bad, [this](int n) { nni_node(n); },
-        [this](int n) { this->recompute_profile(n); });
+  __device__ __forceinline__ void round() {
+    this->nni_walk(trav, st, &sh->any_bad, Visit{this}, Recompute{this});
   }
 };
 

@@ -22,14 +22,25 @@
 // do each step's operations: six pair distances of 2 (C + 1) operations per
 // position, an average of 4C + 6 per position.  Each step depends on the one
 // before, so the work is serial in steps and parallel only over positions.
-// What the design does about it: no launch and no fetch per step.  The tree
-// (parent, children, child counts), the up-profile memo's validity and the
-// up-profile path live in shared memory while they fit (25 bytes per node;
-// past that in device memory, the same code on other pointers), the store's
-// rows stay in L2, and store rows are written in place.  The tree walks are
+// What the design does about it: no launch and no fetch per step, and as
+// few waits per step as the bits allow.  The tree (parent, children, child
+// counts), the up-profile memo's validity and the up-profile path live in
+// shared memory while they fit (25 bytes per node; past that in device
+// memory, the same code on other pointers), the store's rows stay in L2,
+// and store rows are written in place.  Every walk is inlined, so the
+// round's state stays in registers (no stack frame: a local-memory access
+// missed L1 behind the streaming rows); a quartet's six distances take one
+// pass and one barrier, every thread writes the tree after one barrier,
+// and the averages need none of their own (me_round.cuh).  A ring of the
+// averaged rows in the shared memory beside the tree was measured slower
+// (a tag check before every load) and is not kept.  The tree walks are
 // round_tree.cuh's, the row work and profile repairs me_round.cuh's, shared
 // with the NNI round (me_nni.cu).
 
+// every tree walk inlined (the round's state in registers, no stack
+// frame), and every thread makes the tree's writes (round_tree.cuh)
+#define VFT_TREE_INLINE __forceinline__
+#define VFT_TREE_WRITE_ALL
 #include "me_round.cuh"
 
 namespace {
@@ -50,13 +61,14 @@ struct SprBlock : MeRound<C> {
   using B::uvalid;
 
   int max_spr_len;
-  int* n0;            // [kMaxChain] the chain's swaps (thread 0 writes)
+  int* n0;            // [kMaxChain] the chain's swaps (every thread writes alike)
   int* n1;
 
   // ref findSPRSteps tcc:1805-1858 with the best prefix (the first minimum
   // of the running sum of deltas); returns the chain's length, its swaps
   // in n0 / n1
-  __device__ int find_spr_steps(int node_move, int around, bool first_ac, int& best) {
+  __device__ __forceinline__ int find_spr_steps(int node_move, int around, bool first_ac,
+                                                int& best) {
     double d_tot = 0.0, d_min = 0.0;
     best = -1;
     int n_steps = 0;
@@ -73,10 +85,8 @@ struct SprBlock : MeRound<C> {
       const bool swap_bc = i == 0 ? first_ac : crit_ac < crit_ad;
       const int m0 = swap_bc ? nodes4[1] : nodes4[0], m1 = nodes4[2];
       const double delta = swap_bc ? crit_ac - crit_ab : crit_ad - crit_ab;
-      if (tid == 0) {
-        n0[i] = m0;
-        n1[i] = m1;
-      }
+      n0[i] = m0;
+      n1[i] = m1;
       n_steps = i + 1;
       d_tot = d_tot + delta;
       if (d_tot < d_min) {
@@ -103,7 +113,7 @@ struct SprBlock : MeRound<C> {
   }
 
   // ref unwindSPRStep tcc:1861-1879
-  __device__ void unwind_spr_step(int m0, int m1) {
+  __device__ __forceinline__ void unwind_spr_step(int m0, int m1) {
     if (!node_ok(m0) || !node_ok(m1)) {
       bad = true;
       return;
@@ -124,31 +134,33 @@ struct SprBlock : MeRound<C> {
   }
 
   // one node of the round (ref traverseSPR tcc:6185-6313 body)
-  __device__ void spr_node(int node) {
+  __device__ __forceinline__ void spr_node(int node) {
     if (!node_ok(node)) {
       bad = true;
       return;
     }
     if (node == a.root) return;
     const int par = parent[node];
-    int around[2];
+    int around0, around1;
     if (par == a.root) {
-      root_siblings(node, around[0], around[1]);
+      root_siblings(node, around0, around1);
     } else {
-      around[0] = par;
-      around[1] = sibling(node);
+      around0 = par;
+      around1 = sibling(node);
     }
     bool changed = false;
     for (int ia = 0; ia < 2 && !changed && !bad; ++ia) {
       for (int ac = 0; ac < 2 && !changed && !bad; ++ac) {
         int best;
-        const int n_steps = find_spr_steps(node, around[ia], ac == 1, best);
-        __syncthreads();  // the chain's swaps are in shared memory
+        const int n_steps = find_spr_steps(node, ia == 0 ? around0 : around1, ac == 1, best);
+        // each thread reads the chain's swaps it wrote itself
+        ProbeOuter probe(kMePUnwind);
         for (int ic = n_steps - 1; ic > best && !bad; --ic) unwind_spr_step(n0[ic], n1[ic]);
         changed = best >= 0;
       }
     }
     if (!changed || bad) return;
+    ProbeOuter probe(kMePAncestors);
     this->count(kMoves, 1);
     __syncthreads();
     for (int i = tid; i < a.maxnodes; i += kRoundThreads) uvalid[i] = 0;
@@ -174,7 +186,9 @@ __global__ void __launch_bounds__(kRoundThreads) me_spr_round_kernel(
                   tid, false},
                  s, codes, W, U, ev, et, args, &sh},
                 max_spr_len, n0, n1};
+  probe_begin(kMePDecide);
   for (int k = 0; k < n_nodes && !b.bad; ++k) b.spr_node(nodes[k]);
+  probe_end();
   unstage_tree(t, g_tree, M, tree_in_smem, sh.ctr, kNumCounters, kFault, b.bad, g_ctr);
 }
 
@@ -232,3 +246,5 @@ int vft_me_spr_round_f32(int8_t* codes, float* W, float* U, const float* code_fr
 }
 
 }  // extern "C"
+
+VFT_PROBE_READ(vft_me_round_profile_read)

@@ -91,6 +91,40 @@ __device__ __forceinline__ void pair_partial(const StoreView& s, int64_t ra, int
   dots = warp_sum(dots);
 }
 
+// Two pairs' shares in one pass over the positions, (ra, rb) and (rc, rd):
+// each sum is pair_partial's, term for term, so each pair's bits are its
+// own; the second pair's loads overlap the first's.
+template <int C>
+__device__ __forceinline__ void pair_partial2(const StoreView& s, int64_t ra, int64_t rb,
+                                              int64_t rc, int64_t rd, const double* ev, int t,
+                                              double& den1, double& dots1, double& den2,
+                                              double& dots2) {
+  den1 = dots1 = den2 = dots2 = 0.0;
+  for (int p = t; p < s.P; p += kDistThreads) {
+    float wa, wb, wc, wd, ua[C], ub[C], uc[C], ud[C];
+    load_pos<C>(s, ra, p, nullptr, nullptr, wa, ua);
+    load_pos<C>(s, rb, p, nullptr, nullptr, wb, ub);
+    load_pos<C>(s, rc, p, nullptr, nullptr, wc, uc);
+    load_pos<C>(s, rd, p, nullptr, nullptr, wd, ud);
+    den1 = __fma_rn((double)wa, (double)wb, den1);
+    den2 = __fma_rn((double)wc, (double)wd, den2);
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      if (ev != nullptr) {
+        dots1 = __fma_rn(__dmul_rn((double)ua[c], (double)ub[c]), ev[c], dots1);
+        dots2 = __fma_rn(__dmul_rn((double)uc[c], (double)ud[c]), ev[c], dots2);
+      } else {
+        dots1 = __fma_rn((double)ua[c], (double)ub[c], dots1);
+        dots2 = __fma_rn((double)uc[c], (double)ud[c], dots2);
+      }
+    }
+  }
+  den1 = warp_sum(den1);
+  dots1 = warp_sum(dots1);
+  den2 = warp_sum(den2);
+  dots2 = warp_sum(dots2);
+}
+
 // (dist, denom) of one pair from its warps' sums, added in warp order.
 __device__ __forceinline__ void pair_finish(const double* warp_den, const double* warp_dots,
                                             const double* ev, double& dist, double& denom) {

@@ -12,11 +12,15 @@
 // top-hits refresh, every active row once; a few MB per join phase at N=2000
 // against tens of microseconds of dependent decisions per join.  The host
 // loop spent 3-5 ms per join between its per-call launches and fetches.
-// Design: block 0's thread 0 takes every decision (nj_epoch.cuh, in double,
-// in the host loop's order).  Each wide step is a phase for the rest of the
-// grid: every other 128-thread group of the cooperative launch (one
-// 512-thread block per SM) waits on a sequence word, runs its share of the
-// phase's items and counts itself done; the master waits for the count.
+// Design: block 0's first warp takes every decision (nj_epoch.cuh, in
+// double, in the host loop's order), its lanes splitting each list loop and
+// each sweep over the nodes, with the per-node arrays it reads most and its
+// small lists in shared memory where they fit (smem_plan) and its
+// parameters in the constant bank (__grid_constant__).  Each wide step is a
+// phase for the rest of the grid: every other 128-thread group of the
+// cooperative launch (one 512-thread block per SM) waits on a sequence word,
+// runs its share of the phase's items and counts itself done; the master's
+// lane 0 waits for the count.
 // A pair distance is one group with the single-call kernel's
 // thread-to-position map (me_store.cuh pair_partial / pair_finish), a scanned
 // row one warp with the scan kernels' bodies (nj_scan.cuh), a position of an
@@ -37,7 +41,6 @@ namespace {
 constexpr int kEpochThreads = 512;
 constexpr int kGroupsPerBlock = kEpochThreads / kDistThreads;
 constexpr int kBadArgs = -2;
-constexpr int64_t kStateSmemCap = 200 * 1024;   // dynamic shared memory for the master's state
 
 __device__ __forceinline__ void group_sync(int g) {
   // named barrier 1 + g, over the group's 128 threads
@@ -48,21 +51,95 @@ __device__ __forceinline__ uint32_t load_volatile(const uint32_t* p) {
   return *reinterpret_cast<const volatile uint32_t*>(p);
 }
 
-// the master's side of a phase: publish the command, wait for every group
+// the master warp's collectives (nj_epoch.cuh Master's Wp)
+struct DeviceWarp {
+  static __device__ __forceinline__ unsigned lane() { return threadIdx.x & 31u; }
+  static __device__ __forceinline__ void sync() { __syncwarp(); }
+  static __device__ __forceinline__ unsigned ballot(bool p) {
+    return __ballot_sync(0xffffffffu, p);
+  }
+  static __device__ __forceinline__ unsigned match(int x) {
+    return __match_any_sync(0xffffffffu, x);
+  }
+  static __device__ __forceinline__ int shfl(int v, int src) {
+    return __shfl_sync(0xffffffffu, v, src);
+  }
+  static __device__ __forceinline__ double shfl(double v, int src) {
+    return __shfl_sync(0xffffffffu, v, src);
+  }
+  static __device__ __forceinline__ int shfl_xor(int v, int m) {
+    return __shfl_xor_sync(0xffffffffu, v, m);
+  }
+  static __device__ __forceinline__ double shfl_xor(double v, int m) {
+    return __shfl_xor_sync(0xffffffffu, v, m);
+  }
+};
+
+// the phases block 0 runs itself: its groups 1-3 meet the master's warp at
+// two named barriers (the command, then the results) instead of the grid's
+// sequence words; a phase of at most kLocalItems pairs, and the join's
+// average (spread over the three groups, then its self-distance on one),
+// and every phase when the grid is one block
+constexpr int kLocalGroups = kGroupsPerBlock - 1;
+constexpr int kLocalItems = 2 * kLocalGroups;
+constexpr int kLocalThreads = 32 + kLocalGroups * kDistThreads;  // the master warp and the groups
+constexpr int kBarStart = 5, kBarDone = 6, kBarJoin = 7;          // group_sync takes 1-4
+
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+
+// the master's side of a phase, called by every lane: lane 0 publishes the
+// command and waits for every group; the fences put every lane's items
+// before the publish and the phase's results before every lane's reads
 struct DevicePhases {
   const EpochParams& e;
+  PhaseCmd* local_cmd;   // shared memory: block 0's command
   uint32_t seq;
-  uint32_t n_groups;
+  uint32_t n_groups;     // the grid's worker groups (0: one block)
+
+  __device__ bool local(const PhaseCmd& c) const {
+    return n_groups == 0 || (c.kind == kPhPairs && c.n <= kLocalItems) || c.kind == kPhJoin;
+  }
 
   __device__ void run(const PhaseCmd& c) {
-    *e.cmd = c;
-    __threadfence();
-    ++seq;
-    atomicExch(&e.ctl[0], seq);
-    if (c.kind == kPhExit) return;
-    const uint32_t target = seq * n_groups;
-    while (load_volatile(&e.ctl[1]) < target) {
+    if (c.kind == kPhExit) {
+      run_local(c);
+      if (n_groups) run_grid(c);
+    } else if (local(c)) {
+      ProbeScope probe(kNjPLocal);
+      run_local(c);
+    } else {
+      ProbeScope probe(kNjPWait);
+      run_grid(c);
     }
+  }
+
+  __device__ void run_local(const PhaseCmd& c) {
+    __syncwarp();
+    if ((threadIdx.x & 31u) == 0) *local_cmd = c;
+    named_sync(kBarStart, kLocalThreads);
+    if (c.kind != kPhExit) named_sync(kBarDone, kLocalThreads);
+  }
+
+  __device__ void run_grid(const PhaseCmd& c) {
+    __threadfence();
+    __syncwarp();
+    if ((threadIdx.x & 31u) == 0) {
+      const unsigned long long published = c.kind == kPhExit ? 0 : probe_publish();
+      *e.cmd = c;
+      __threadfence();
+      ++seq;
+      atomicExch(&e.ctl[0], seq);
+      if (c.kind != kPhExit) {
+        const uint32_t target = seq * n_groups;
+        while (load_volatile(&e.ctl[1]) < target) {
+        }
+        __threadfence();
+        probe_resume(published);
+      }
+    }
+    __syncwarp();
     __threadfence();
   }
 };
@@ -109,16 +186,73 @@ __device__ __forceinline__ void warp_scan_row(const EpochParams& e, int64_t row,
   dist = row_dist(dots, den, e.use_matrix != 0);
 }
 
-// A worker group's loop: wait for a phase, run its share, count itself done.
+// Group gid's share of a phase over n_groups groups (g: its block's group,
+// t: its thread).  The join runs on block 0 alone (DevicePhases::local):
+// its average over the three groups, which meet at kBarJoin, then its
+// self-distance on the first.
 template <int C>
-__device__ void worker(const EpochParams& e, int gid, int n_groups, int g, int t) {
-  __shared__ double s_den[kGroupsPerBlock][kDistWarps];
-  __shared__ double s_dots[kGroupsPerBlock][kDistWarps];
-  __shared__ PhaseCmd s_cmd[kGroupsPerBlock];
+__device__ void phase_share(const EpochParams& e, const PhaseCmd& c, int gid, int n_groups, int g,
+                            int t, double* s_den, double* s_dots) {
   const StoreView s{e.codes, e.W, e.U, e.code_freq, e.leaf_rows, (int)e.P};
   const int lane = t & 31;
   const int warp = t >> 5;
   const int P = (int)e.P;
+  const int n_threads = n_groups * kDistThreads;
+  const int tid = gid * kDistThreads + t;
+  if (c.kind == kPhPairs) {
+    for (int64_t k = gid; k < c.n; k += n_groups) {
+      double dist, denom;
+      group_pair<C>(e, s, e.pa[k], e.pb[k], t, g, s_den, s_dots, dist, denom);
+      if (t == 0) {
+        e.rd[k] = dist;
+        e.rw[k] = denom;
+      }
+    }
+  } else if (c.kind == kPhJoin) {
+    const float bw = (float)c.bw;
+    const float omb = __fsub_rn(1.0f, bw);
+    const bool half = c.bw == 0.5;
+    const float fallback = (float)(1.0 / C);
+    for (int p = tid; p < P; p += n_threads) {
+      average_pos<C>(s, e.codes, e.W, e.U, e.et, c.t, c.i, c.j, p, bw, omb, half, (float)e.tol,
+                     fallback);
+      if (c.n_old > 0) out_update_pos<C>(e, s, c.i, c.j, c.t, c.n_old, p);
+    }
+    named_sync(kBarJoin, n_threads);
+    if (gid == 0) {
+      double dist, denom;
+      group_pair<C>(e, s, c.t, c.t, t, g, s_den, s_dots, dist, denom);
+      if (t == 0) {
+        e.rd[0] = dist;
+        e.rw[0] = denom;
+      }
+    }
+  } else if (c.kind == kPhQuery) {
+    for (int p = tid; p < P; p += n_threads) query_pos<C>(e, s, c.t, p);
+  } else if (c.kind == kPhScan) {
+    const int n_warps = n_groups * kDistWarps;
+    for (int64_t k = gid * kDistWarps + warp; k < c.n; k += n_warps) {
+      double dist, den;
+      warp_scan_row<C>(e, e.pa[k], lane, dist, den);
+      if (lane == 0) {
+        e.rd[k] = dist;
+        e.rw[k] = den;
+      }
+    }
+  } else if (c.kind == kPhOutQuery) {
+    for (int p = tid; p < P; p += n_threads)
+      for (int cc = 0; cc < C; ++cc) e.qU[p * C + cc] = __fmul_rn(e.w_out[p], e.f_out[p * C + cc]);
+  }
+}
+
+__shared__ double s_den[kGroupsPerBlock][kDistWarps];
+__shared__ double s_dots[kGroupsPerBlock][kDistWarps];
+
+// A grid worker group's loop: wait for a phase, run its share, count itself
+// done.
+template <int C>
+__device__ void worker(const EpochParams& e, int gid, int n_groups, int g, int t) {
+  __shared__ PhaseCmd s_cmd[kGroupsPerBlock];
   uint32_t seen = 0;
   for (;;) {
     if (t == 0) {
@@ -135,79 +269,53 @@ __device__ void worker(const EpochParams& e, int gid, int n_groups, int g, int t
       c.n_old = vc->n_old;
       c.bw = vc->bw;
       s_cmd[g] = c;
+      if (c.kind != kPhExit) probe_group_start();
     }
     group_sync(g);
     const PhaseCmd c = s_cmd[g];
     if (c.kind == kPhExit) return;
-    const int n_threads = n_groups * kDistThreads;
-    const int tid = gid * kDistThreads + t;
-    if (c.kind == kPhPairs) {
-      for (int64_t k = gid; k < c.n; k += n_groups) {
-        double dist, denom;
-        group_pair<C>(e, s, e.pa[k], e.pb[k], t, g, s_den[g], s_dots[g], dist, denom);
-        if (t == 0) {
-          e.rd[k] = dist;
-          e.rw[k] = denom;
-        }
-      }
-    } else if (c.kind == kPhJoin) {
-      if (gid == 0) {
-        const float bw = (float)c.bw;
-        const float omb = __fsub_rn(1.0f, bw);
-        const bool half = c.bw == 0.5;
-        const float fallback = (float)(1.0 / C);
-        for (int p = t; p < P; p += kDistThreads) {
-          average_pos<C>(s, e.codes, e.W, e.U, e.et, c.t, c.i, c.j, p, bw, omb, half,
-                         (float)e.tol, fallback);
-          if (c.n_old > 0) out_update_pos<C>(e, s, c.i, c.j, c.t, c.n_old, p);
-        }
-        group_sync(g);
-        double dist, denom;
-        group_pair<C>(e, s, c.t, c.t, t, g, s_den[g], s_dots[g], dist, denom);
-        if (t == 0) {
-          e.rd[0] = dist;
-          e.rw[0] = denom;
-        }
-      }
-    } else if (c.kind == kPhQuery) {
-      for (int p = tid; p < P; p += n_threads) query_pos<C>(e, s, c.t, p);
-    } else if (c.kind == kPhScan) {
-      const int n_warps = n_groups * kDistWarps;
-      for (int64_t k = gid * kDistWarps + warp; k < c.n; k += n_warps) {
-        double dist, den;
-        warp_scan_row<C>(e, e.pa[k], lane, dist, den);
-        if (lane == 0) {
-          e.rd[k] = dist;
-          e.rw[k] = den;
-        }
-      }
-    } else if (c.kind == kPhOutQuery) {
-      for (int p = tid; p < P; p += n_threads)
-        for (int cc = 0; cc < C; ++cc) e.qU[p * C + cc] = __fmul_rn(e.w_out[p], e.f_out[p * C + cc]);
-    }
+    phase_share<C>(e, c, gid, n_groups, g, t, s_den[g], s_dots[g]);
     group_sync(g);
     if (t == 0) {
+      probe_group_end();
       __threadfence();
       atomicAdd(&e.ctl[1], 1u);
     }
   }
 }
 
+// Block 0's groups 1-3: the master's local phases, between its barriers.
 template <int C>
-__global__ void __launch_bounds__(kEpochThreads) nj_epoch_kernel(EpochParams e) {
+__device__ void local_worker(const EpochParams& e, const PhaseCmd* cmd, int g, int t) {
+  for (;;) {
+    named_sync(kBarStart, kLocalThreads);
+    const PhaseCmd c = *cmd;
+    if (c.kind == kPhExit) return;
+    phase_share<C>(e, c, g - 1, kLocalGroups, g, t, s_den[g], s_dots[g]);
+    named_sync(kBarDone, kLocalThreads);
+  }
+}
+
+template <int C>
+__global__ void __launch_bounds__(kEpochThreads, 1)
+    nj_epoch_kernel(const __grid_constant__ EpochParams e) {
   extern __shared__ __align__(16) unsigned char epoch_smem[];
+  __shared__ PhaseCmd local_cmd;
   const int g = threadIdx.x / kDistThreads;
   const int t = threadIdx.x % kDistThreads;
-  if (blockIdx.x == 0 && g == 0) {
-    // the master's group: its thread 0 decides, the other threads leave
-    if (t == 0) {
-      DevicePhases ph{e, 0u, gridDim.x * kGroupsPerBlock - 1};
-      Master<DevicePhases> master(e, ph, e.smem_state ? epoch_smem : nullptr);
+  if (blockIdx.x == 0) {
+    if (g > 0) {
+      local_worker<C>(e, &local_cmd, g, t);
+    } else if (t < 32) {
+      // the master's group: its first warp decides, the other warps leave
+      DevicePhases ph{e, &local_cmd, 0u, (gridDim.x - 1) * kGroupsPerBlock};
+      Master<DeviceWarp, DevicePhases> master(e, ph, epoch_smem, e.smem_state != 0,
+                                              e.smem_lists != 0);
       master.run_launch();
     }
     return;
   }
-  worker<C>(e, blockIdx.x * kGroupsPerBlock + g - 1, gridDim.x * kGroupsPerBlock - 1, g, t);
+  worker<C>(e, (blockIdx.x - 1) * kGroupsPerBlock + g, (gridDim.x - 1) * kGroupsPerBlock, g, t);
 }
 
 template <int C>
@@ -218,9 +326,10 @@ int launch(const EpochParams& e, int grid, cudaStream_t st, int* used) {
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   EpochParams arg = e;
-  int64_t smem = state_smem_bytes(e.M);
-  if (!e.smem_state || smem > kStateSmemCap) smem = 0;
-  arg.smem_state = smem > 0;
+  const SmemPlan plan = smem_plan(e.M, e.m, e.ntv, e.smem_state != 0, e.smem_lists != 0);
+  const int64_t smem = plan.bytes;
+  arg.smem_state = plan.state;
+  arg.smem_lists = plan.lists;
   if (err == cudaSuccess && smem)
     err = cudaFuncSetAttribute(nj_epoch_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
@@ -247,8 +356,8 @@ extern "C" {
 // out[0] ints, out[1] doubles.
 void vft_nj_epoch_scratch(int64_t M, int64_t m, int64_t ntv, int64_t* out) {
   const ScratchLayout s = scratch_layout(M, m, ntv);
-  out[0] = s.iscr_len;
-  out[1] = s.dscr_len;
+  out[0] = s.i_small;
+  out[1] = s.d_len;
 }
 
 // One launch of the join epoch over the joins the parameters (an
@@ -265,3 +374,5 @@ int vft_nj_epoch_f32(const void* params, int grid, int* used_grid, void* stream)
 }
 
 }  // extern "C"
+
+VFT_PROBE_READ(vft_nj_epoch_profile_read)

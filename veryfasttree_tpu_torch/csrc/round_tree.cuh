@@ -8,9 +8,13 @@
 // quartet is decided are the caller's: the memo walk, the NNI walk and the
 // repairs after a swap call back into it.
 //
-// Every thread of the block runs the same walks on the same data; only
-// thread 0 writes the tree, between two barriers (commit).  `bad` is set by
-// every thread alike, never inside a commit.  No small array is indexed by
+// Every thread of the block runs the same walks on the same data.  In the
+// maximum-likelihood rounds only thread 0 writes the tree, between two
+// barriers (commit); the minimum-evolution rounds define
+// VFT_TREE_WRITE_ALL, and there every thread makes the same writes after
+// one barrier (each thread then reads its own writes, and another thread's
+// are the same values).  `bad` is set by every thread alike, never inside a
+// commit.  No small array is indexed by
 // a value known only at run time (pick3 instead), so the arrays stay in
 // registers and the kernels keep no stack frame.
 
@@ -18,6 +22,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "probes.cuh"
 
 // ml_round.cu defines this as __forceinline__, so that its kernels hold the
 // tree's state in registers (a member function that is not inlined takes
@@ -129,13 +135,31 @@ struct RoundTree {
   int maxnodes;       // M: node rows [0, M), up-profile rows M + node
   int tid;
   bool bad;           // the same in every thread
+  bool dirty = false; // rows written since the last barrier (VFT_TREE_WRITE_ALL)
 
-  // one thread writes, after every thread has read what it needs
+  // the tree's writes, after every thread has read what it needs
   template <class F>
   __device__ __forceinline__ void commit(F write) {
+    ProbeScope probe(kMePCommit);
     __syncthreads();
+#ifdef VFT_TREE_WRITE_ALL
+    dirty = false;
+    write();
+#else
     if (tid == 0) write();
     __syncthreads();
+#endif
+  }
+
+  // writes that thread 0 alone reads afterwards (a round's counters and
+  // NNIStats): with VFT_TREE_WRITE_ALL no barrier, else a commit
+  template <class F>
+  __device__ __forceinline__ void commit_own(F write) {
+#ifdef VFT_TREE_WRITE_ALL
+    if (tid == 0) write();
+#else
+    commit(write);
+#endif
   }
 
   __device__ __forceinline__ bool node_ok(int n) const { return n >= 0 && n < maxnodes; }
@@ -198,17 +222,33 @@ struct RoundTree {
       return maxnodes;
     }
     if (uvalid[node]) return maxnodes + node;
-    __syncthreads();  // earlier readers of path are done
     int len = 0;
-    for (int n = node; n >= 0; n = parent[n]) {
-      if (len == maxnodes) {  // a cycle
-        bad = true;
-        return maxnodes;
+    {
+      ProbeScope probe(kMePWalk);
+#ifdef VFT_TREE_WRITE_ALL
+      // every thread writes the path alike; the readers of the last path
+      // read it before its last fill's commit barrier
+      for (int n = node; n >= 0; n = parent[n]) {
+        if (len == maxnodes) {  // a cycle
+          bad = true;
+          return maxnodes;
+        }
+        path[len] = n;
+        ++len;
       }
-      if (tid == 0) path[len] = n;
-      ++len;
+#else
+      __syncthreads();  // earlier readers of path are done
+      for (int n = node; n >= 0; n = parent[n]) {
+        if (len == maxnodes) {  // a cycle
+          bad = true;
+          return maxnodes;
+        }
+        if (tid == 0) path[len] = n;
+        ++len;
+      }
+      __syncthreads();
+#endif
     }
-    __syncthreads();
     for (int k = len - 2; k >= 0 && !bad; --k) {
       const int n = path[k];
       if (uvalid[n]) continue;
@@ -310,7 +350,7 @@ struct RoundTree {
       bad = true;
       return;
     }
-    commit([&] {
+    commit_own([&] {
       extra();
       st.record(node, n4, ch0, ch1, choice, crit, max_delta);
     });

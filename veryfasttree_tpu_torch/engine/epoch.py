@@ -47,7 +47,7 @@ def run_epoch(nj, tophits, max_joins=None, **launch) -> None:
     """The join phase from the leaf top-hits to three active nodes (or
     max_joins joins): launches of the epoch kernel for a store on a CUDA
     device, the host loop for a store on the CPU.  Leaves nj and tophits as
-    the host loop would.  launch: grid and state_in_smem of
+    the host loop would.  launch: grid, state_in_smem and lists_in_smem of
     ops/epoch_kernels.join_epoch."""
     from ..ops import epoch_kernels
     epoch_kernels.join_epoch(nj, tophits, max_joins, **launch)

@@ -147,10 +147,12 @@ def kernel_resources(report: dict, kernel: str, n_codes: int = 4) -> dict:
 
 
 # the most stack (bytes) each kernel template (C=4) may keep, and no spill
-# stores: the ML round kernels hold their state in registers; the quartet
-# kernel keeps its 32 bytes
+# stores where the limit is 0: the ML and ME round kernels hold their state
+# in registers; the quartet kernel keeps its 32 bytes, the join epoch its
+# deciding warp's 616-byte frame (the master object; no spills)
 STACK_LIMITS = {"ml_nni_round_kernel": 0, "ml_lengths_pass_kernel": 0,
-                "ml_quartet_opt_kernel": 32}
+                "ml_quartet_opt_kernel": 32, "nj_epoch_kernel": 616,
+                "me_spr_round_kernel": 0, "me_nni_round_kernel": 0}
 
 
 def resource_faults(report: dict, limits: dict = STACK_LIMITS) -> list:

@@ -54,13 +54,14 @@ class EpochParams(ctypes.Structure):
                              "vard", "bl", "parent", "kids", "hits_j",
                              "hits_d", "age", "vis_j", "vis_d", "tv",
                              "join_i", "join_j", "totdiam", "words", "pa",
-                             "pb", "rd", "rw", "li", "lj", "ld", "lw", "lc",
+                             "pb", "rd", "rw", "li", "lj", "ld", "lc",
                              "iscr", "dscr", "mark", "mark2", "partner",
                              "cmd", "ctl")]
         + [(n, _I) for n in ("cap", "n_seqs", "M", "m", "ntv", "bionj")]
         + [("stale_limit", _D)]
         + [(n, _I) for n in ("refresh_thresh", "age_limit", "n_hi", "n_lo",
-                             "resume", "stop_reset", "smem_state")])
+                             "resume", "stop_reset", "smem_state",
+                             "smem_lists")])
 
 
 def segments(n_seqs: int, options, max_joins=None):
@@ -87,7 +88,7 @@ class EpochState:
     veryfasttree_tpu/engine/epoch.py:61-104); new profile rows go straight
     into the store."""
 
-    def __init__(self, nj, tophits, state_in_smem=True):
+    def __init__(self, nj, tophits, state_in_smem=True, lists_in_smem=True):
         prof, tree, opts = nj.prof, nj.tree, nj.options
         dev = self.dev = prof.codes.device
         n_rows, P, C = _check_store(prof.codes, prof.W, prof.U,
@@ -127,7 +128,7 @@ class EpochState:
         cap = self.cap = 2 * M + 3 * m * (2 * m + 2) + 64
         for name in ("pa", "pb", "li", "lj"):
             t[name] = torch.empty(cap, dtype=torch.int32, device=dev)
-        for name in ("rd", "rw", "ld", "lw", "lc"):
+        for name in ("rd", "rw", "ld", "lc"):
             t[name] = torch.empty(cap, dtype=torch.float64, device=dev)
         lens = (ctypes.c_int64 * 2)()
         lib = _build.library()
@@ -151,6 +152,7 @@ class EpochState:
             use_matrix=int(prof.use_matrix), tol=float(np.float32(prof.tol)),
             cap=cap, n_seqs=nj.n_seqs, M=M, m=m,
             ntv=ntv, bionj=int(opts.bionj), smem_state=int(state_in_smem),
+            smem_lists=int(lists_in_smem),
             stale_limit=float(opts.stale_out_limit),
             refresh_thresh=int(0.5 + m * opts.tophits_refresh),
             age_limit=max(1, int(0.5 + math.log2(m))),
@@ -198,7 +200,7 @@ def _launch(state, seg, grid) -> int:
 
 
 def join_epoch(nj, tophits, max_joins=None, grid=None,
-               state_in_smem=True) -> None:
+               state_in_smem=True, lists_in_smem=True) -> None:
     """The join phase of fast_nj from the leaf top-hits on (at most
     max_joins joins; the caller roots the three last nodes): the host loop
     for a store on the CPU, the epoch kernel's launches for a store on a
@@ -208,18 +210,21 @@ def join_epoch(nj, tophits, max_joins=None, grid=None,
     them.  grid: blocks of the cooperative launch (None: one per SM).
     state_in_smem=False keeps the decisions' per-node arrays in device
     memory, as the kernel does anyway where they would not fit in shared
-    memory (N above about 2,300)."""
+    memory (N above about 2,300); lists_in_smem=False the deciding warp's
+    small lists (hit-list remaps, merges, selections), as it does where
+    they would not fit beside the per-node arrays."""
     if nj.prof.codes.device.type == "cpu":
         nj._join_loop_host(tophits, None, max_joins)
         return
-    _run_launches(nj, tophits, max_joins, grid, state_in_smem)
+    _run_launches(nj, tophits, max_joins, grid, state_in_smem, lists_in_smem)
 
 
-def _run_launches(nj, tophits, max_joins, grid, state_in_smem=True) -> None:
+def _run_launches(nj, tophits, max_joins, grid, state_in_smem=True,
+                  lists_in_smem=True) -> None:
     segs = segments(nj.n_seqs, nj.options, max_joins)
     if not segs:
         return
-    state = EpochState(nj, tophits, state_in_smem)
+    state = EpochState(nj, tophits, state_in_smem, lists_in_smem)
     prof = nj.prof
     n_total = nj.n_seqs - 3
     for seg in segs:
