@@ -20,7 +20,10 @@ passed):
    against theirs on a store of the N=2000 layout (12008 rows of 512
    positions), Jukes-Cantor and GTR with 4 codes and JTT with 20: ll and
    per-site lk rtol 1e-6, posterior W and V atol 1e-6, line search x rtol
-   1e-4 and -loglk at x atol 1e-3.  The quartet kernel (ml_quartet_opt) on
+   1e-4 and -loglk at x atol 1e-3; a list of 300 pairs and one of 200
+   posteriors (past the old caps of a launch, 256 and 128) also bit for bit
+   their K=1 launches, and both timed at the SH pass's list shapes
+   (3 x 1997 pairs, 2 x 1997 posteriors).  The quartet kernel (ml_quartet_opt) on
    200 quartets of that layout, Jukes-Cantor and GTR, with the star test
    and with per-site likelihoods: bit for bit the chain of the three
    single-call kernels it fuses (ml_kernels.quartet_chain), and against
@@ -77,6 +80,16 @@ passed):
    beside the host loop's kernels', the round's speculative AC and AD
    optimizations (started beside AB on the cluster's other blocks, then
    discarded), and the bound;
+2f. the SH-like supports at N=500 from one start after an ML lengths pass
+   and NNI round (JC and GTR, CAT 20, 1000 resamples): the list pass
+   (ops/ml_round.sh_pass: the counts, a posterior launch per up-profile
+   level, one launch each of the AB posteriors, the AB pairs and the AC/AD
+   quartets, one more for the second pass) against the host loop
+   engine/ml.test_splits_ml with the per-call kernels: per-split
+   log-likelihoods, per-site likelihoods, choices, bad splits, supports,
+   SplitCount, counters and store rows bit for bit; its launches, walls,
+   device time and bound; the bootstrap counts kernel (sh_resample_counts)
+   equal to its twin at B=1000, P=500;
 3. the -noml pipeline at N=500, P=500 against the JAX package's tree
    (tests/data/torch_port_golden_n500_p500.nwk), dense and two-tier: RF 0
    to the golden, and the two layouts give the same Newick; then the same
@@ -104,9 +117,12 @@ passed):
    after it: every kernel of the dense path, the ML kernels included, must
    have launched (but ml_opt_branch, whose body runs inside the round
    kernels: its count, 0, is printed), the ML NNI rounds must have kept the
-   tree in shared memory with no device scratch, and the final LogLk and
-   the ML-NNIs per round must be the ones recorded in PERF.md for this
-   input (the kernels' arithmetic does not change the tree).
+   tree in shared memory with no device scratch, the SH pass must have run
+   on the card in its list launches (sh_launches: the counts once, one pair
+   launch, one or two quartet launches, one posterior launch per up-profile
+   level and one more), and the final LogLk and the ML-NNIs per round must
+   be the ones recorded in PERF.md for this input (the kernels' arithmetic
+   does not change the tree).
 
 The last lines are the card's name and power limit, one JSON line with each
 kernel's route, source, main-path launches (the ML main path's for the ML
@@ -169,9 +185,12 @@ KERNELS = {
                      "veryfasttree_tpu/engine/rearrange.py:246"),
     "ml_lengths_pass": ("veryfasttree_tpu_torch/csrc/ml_round.cu",
                         "veryfasttree_tpu/engine/ml.py:380"),
+    "sh_resample_counts": ("veryfasttree_tpu_torch/csrc/sh_resample.cu",
+                           "veryfasttree_tpu/engine/supports.py:37"),
 }
 ML_KERNELS = ("ml_pair_loglk", "ml_posterior", "ml_opt_branch",
-              "ml_quartet_opt", "ml_nni_round", "ml_lengths_pass")
+              "ml_quartet_opt", "ml_nni_round", "ml_lengths_pass",
+              "sh_resample_counts")
 # the ML kernels the default run launches: ml_opt_branch's one search per
 # launch came only from the lengths passes, whose kernel runs its body
 # (line_search) instead; its count (0) is printed and reported all the same
@@ -191,6 +210,7 @@ DEVICE_NAMES = {
     "nj_join_epoch": ("nj_epoch_kernel",),
     "ml_nni_round": ("ml_nni_round_kernel",),
     "ml_lengths_pass": ("ml_lengths_pass_kernel",),
+    "sh_resample_counts": ("sh_resample_counts_kernel",),
 }
 # final LogLk and ML-NNIs per round of the default -nt run at N=2000
 # (PERF.md, section 5)
@@ -214,7 +234,8 @@ def TWINS(n):
 def wrappers():
     """The kernel wrappers by name; each counts its launches."""
     from veryfasttree_tpu_torch.ops import epoch_kernels, ml_kernels, \
-        ml_round, nni_kernels, scan_kernels, spr_kernels, store_kernels
+        ml_round, nni_kernels, resample_kernels, scan_kernels, spr_kernels, \
+        store_kernels
 
     return {"nj_scan_dense": scan_kernels.nj_scan_dense,
             "nj_scan_codes": scan_kernels.nj_scan_codes,
@@ -228,7 +249,8 @@ def wrappers():
             "me_nni_round": nni_kernels.nni_round,
             "nj_join_epoch": epoch_kernels.join_epoch,
             "ml_nni_round": ml_round.ml_nni_round,
-            "ml_lengths_pass": ml_round.ml_lengths_pass}
+            "ml_lengths_pass": ml_round.ml_lengths_pass,
+            "sh_resample_counts": resample_kernels.sh_resample_counts}
 
 
 def reset_launches():
@@ -569,12 +591,36 @@ def ml_store_case(C, model, gen, dev, n_rows=3 * 2 * MAIN_N + 8, P=512,
                                 n_pos, 2.5e-4, 1e-10)
 
 
-def check_ml(label, C, model, gen, dev):
-    """The three ML kernels against their twins on one store: a tree level
-    of 200 pairs (ll and per-site lk), a level of 200 posteriors (on copies
-    of the store) and 16 line searches.  Times are of one call each, the
-    shape of the serial quartet loop.  Returns {name: (err, timing)}."""
+# the SH pass's list shapes at the main path's N: 3S pairs, 2S posteriors
+SH_SPLITS = MAIN_N - 3
+LIST_PAIRS, LIST_POSTERIORS = 3 * SH_SPLITS, 2 * SH_SPLITS
+
+
+def one_by_one(label, name, list_out, one_outs):
+    """Raise unless a list launch's outputs equal those of K=1 launches,
+    bit for bit."""
     import numpy as np
+
+    for k, one in enumerate(one_outs):
+        for a, b in zip(list_out, one):
+            if np.asarray(a[k]).tobytes() != np.asarray(b).tobytes():
+                raise AssertionError(f"{name} {label}: item {k} of the list "
+                                     "differs from its K=1 launch")
+
+
+def check_ml(label, C, model, gen, dev):
+    """The three ML kernels against their twins on one store: a list of 300
+    pairs (ll and per-site lk) and of 200 posteriors (on copies of the
+    store), past the old caps of a launch (256 and 128), each also bit for
+    bit its K=1 launches; the lists of the SH pass's shapes at N=MAIN_N
+    (3S pairs, 2S posteriors into the list-pass rows) against the twins at
+    the same tolerances, and 16 of their items spread over the list bit for
+    bit their K=1 launches; and 16 line searches.  The pair and posterior
+    kernels are timed at the SH pass's list shapes, with the time of one
+    item alone beside it; the line search at one call.  Returns {name:
+    (err, timing)}."""
+    import numpy as np
+    import torch
 
     from veryfasttree_tpu_torch.ops import ml_kernels as mk
 
@@ -584,8 +630,8 @@ def check_ml(label, C, model, gen, dev):
     row = ml_row_bytes(P, C)
     eff, site, post_ops = ml_ops(C, model == "jc")
     rng = np.random.default_rng(C + len(model))
-    r1, r2 = rng.integers(0, n_rows, 200), rng.integers(0, n_rows, 200)
-    lens = rng.uniform(0.0, 0.5, 200)
+    r1, r2 = rng.integers(0, n_rows, 300), rng.integers(0, n_rows, 300)
+    lens = rng.uniform(0.0, 0.5, 300)
     lens[:3] = (0.0, 5e-4, 6.0)
     out = {}
 
@@ -596,16 +642,46 @@ def check_ml(label, C, model, gen, dev):
                                err_msg=f"ml_pair_loglk {label} ll")
     np.testing.assert_allclose(lk, lk_t, rtol=1e-6, atol=1e-30,
                                err_msg=f"ml_pair_loglk {label} lk")
+    one_by_one(label, "ml_pair_loglk", (ll, lk), [
+        tuple(t[0].cpu().numpy() for t in mk.ml_pair_loglk(
+            *store, r1[k:k + 1], r2[k:k + 1], lens[k:k + 1], want_lk=True))
+        for k in range(len(r1))])
+    # the list: 3S pairs of rows of the store at the SH pass's lengths
+    K = LIST_PAIRS
+    lr1, lr2 = rng.integers(0, n_rows, K), rng.integers(0, n_rows, K)
+    llens = rng.uniform(0.0, 0.5, K)
+    lst = (*store, lr1, lr2, llens, True)
+    got = [t.cpu().numpy() for t in mk.ml_pair_loglk(*lst)]
+    want = [t.cpu().numpy() for t in mk.ml_pair_loglk_ref(*lst)]
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-6,
+                               err_msg=f"ml_pair_loglk {label} ll, {K} pairs")
+    np.testing.assert_allclose(got[1], want[1], rtol=1e-6, atol=1e-30,
+                               err_msg=f"ml_pair_loglk {label} lk, {K} pairs")
+    spread = np.linspace(0, K - 1, 16).astype(int)
+    one_by_one(f"{label} {K} pairs", "ml_pair_loglk",
+               tuple(g[spread] for g in got), [
+                   tuple(t[0].cpu().numpy() for t in mk.ml_pair_loglk(
+                       *store, lr1[k:k + 1], lr2[k:k + 1], llens[k:k + 1],
+                       want_lk=True)) for k in spread])
+    n_distinct = len(np.unique(np.concatenate([lr1, lr2])))
+    # the distinct rows and the rate categories in, K doubles and K per-site
+    # rows out
+    out["ml_pair_loglk"] = (max(float(np.max(np.abs(ll - ll_t))),
+                                float(np.max(np.abs(got[0] - want[0])))),
+                            timing(
+        "ml_pair_loglk", lambda: mk.ml_pair_loglk(*lst),
+        lambda: mk.ml_pair_loglk_ref(*lst),
+        n_distinct * row + 4 * P + K * (8 + 4 * P),
+        K * P * (eff + site), twin_runs=10))
     one = (*store, r1[:1], r2[:1], lens[3:4])
-    # two rows and the rate categories in, one double out
-    out["ml_pair_loglk"] = (float(np.max(np.abs(ll - ll_t))), timing(
-        "ml_pair_loglk", lambda: mk.ml_pair_loglk(*one),
-        lambda: mk.ml_pair_loglk_ref(*one), 2 * row + 4 * P + 8,
-        P * (eff + site)))
+    out["ml_pair_loglk"][1].update(
+        list_k=K, one_ms=median_ms(lambda: mk.ml_pair_loglk(*one)),
+        one_device_us=device_us(lambda: mk.ml_pair_loglk(*one),
+                                DEVICE_NAMES["ml_pair_loglk"]))
 
     targets = np.arange(n_rows - 200, n_rows)
-    post = (targets, r1 % MAIN_N + MAIN_N, r2 % MAIN_N, lens + 5e-4,
-            lens[::-1] + 5e-4)
+    post = (targets, r1[:200] % MAIN_N + MAIN_N, r2[:200] % MAIN_N,
+            lens[:200] + 5e-4, lens[100:] + 5e-4)
     copies = []
     for fn in (mk.ml_posterior, mk.ml_posterior_ref):
         c, w, v = codes.clone(), W.clone(), V.clone()
@@ -617,14 +693,60 @@ def check_ml(label, C, model, gen, dev):
                                err_msg=f"ml_posterior {label} W")
     np.testing.assert_allclose(v1, v2, rtol=0, atol=1e-6,
                                err_msg=f"ml_posterior {label} V")
+    c, w, v = codes.clone(), W.clone(), V.clone()
+    ones = []
+    for k in range(200):
+        mk.ml_posterior(c, w, v, m, *(a[k:k + 1] for a in post))
+        ones.append(tuple(t[targets[k]].cpu().numpy() for t in (c, w, v)))
+    one_by_one(label, "ml_posterior", tuple(t[targets] for t in (c1, w1, v1)),
+               ones)
+    # the list: 2S posteriors into the list-pass rows (the last maxnodes
+    # rows) from node and up-profile rows
+    K = LIST_POSTERIORS
+    lpost = (codes.clone(), W.clone(), V.clone(), m,
+             n_rows - 2 * MAIN_N + np.arange(K),
+             rng.integers(0, 2 * MAIN_N, K), rng.integers(0, 2 * MAIN_N, K),
+             rng.uniform(5e-4, 0.5, K), rng.uniform(5e-4, 0.5, K))
+    lt = lpost[4]
+    copies = []
+    for fn in (mk.ml_posterior, mk.ml_posterior_ref):
+        c, w, v = codes.clone(), W.clone(), V.clone()
+        fn(c, w, v, *lpost[3:])
+        copies.append((c, w, v))
+    (lc1, lw1, lv1), (lc2, lw2, lv2) = copies
+    if not torch.equal(lc1, lc2):
+        raise AssertionError(f"ml_posterior {label}: codes differ from the "
+                             f"twin's, {K} posteriors")
+    list_err = max(float((lw1 - lw2).abs().max()),
+                   float((lv1 - lv2).abs().max()))
+    if list_err > 1e-6:
+        raise AssertionError(f"ml_posterior {label}: W or V {list_err:.3e} "
+                             f"from the twin's, {K} posteriors")
+    spread = np.linspace(0, K - 1, 16).astype(int)
+    c, w, v = codes.clone(), W.clone(), V.clone()
+    ones = []
+    for k in spread:
+        mk.ml_posterior(c, w, v, m, *(a[k:k + 1] for a in lpost[4:]))
+        ones.append(tuple(t[lt[k]].cpu().numpy() for t in (c, w, v)))
+    one_by_one(f"{label} {K} posteriors", "ml_posterior",
+               tuple(t[lt[spread]].cpu().numpy() for t in (lc1, lw1, lv1)),
+               ones)
+    del copies, lc1, lw1, lv1, lc2, lw2, lv2, c, w, v
+    n_distinct = len(np.unique(np.concatenate([lpost[5], lpost[6]])))
+    # the distinct rows and the rate categories in, K rows out
+    out["ml_posterior"] = (
+        max(float(np.max(np.abs(w1 - w2))), float(np.max(np.abs(v1 - v2))),
+            list_err),
+        timing("ml_posterior", lambda: mk.ml_posterior(*lpost),
+               lambda: mk.ml_posterior_ref(*lpost),
+               (n_distinct + K) * row + 4 * P, K * P * post_ops,
+               twin_runs=10))
     one = (codes.clone(), W.clone(), V.clone(), m, targets[:1],
            post[1][:1], post[2][:1], post[3][:1], post[4][:1])
-    # two rows and the rate categories in, one row out
-    out["ml_posterior"] = (
-        max(float(np.max(np.abs(w1 - w2))), float(np.max(np.abs(v1 - v2)))),
-        timing("ml_posterior", lambda: mk.ml_posterior(*one),
-               lambda: mk.ml_posterior_ref(*one), 3 * row + 4 * P,
-               P * post_ops))
+    out["ml_posterior"][1].update(
+        list_k=K, one_ms=median_ms(lambda: mk.ml_posterior(*one)),
+        one_device_us=device_us(lambda: mk.ml_posterior(*one),
+                                DEVICE_NAMES["ml_posterior"]))
 
     guesses = np.concatenate([[5e-4, 9e-4, 0.1, 5.0],
                               rng.uniform(0.01, 1.0, 12)])
@@ -687,10 +809,10 @@ def check_quartets(model, gen, dev):
     wrong ones, 40 of random rows), with the star test and with per-site
     likelihoods: bit for bit the chain of single-call kernels, K=1
     launches equal to the K=200 launch, the twin on 24 of them (8 of each
-    kind) within the tolerances of the module's docstring.  The time is
-    that of one quartet with the star test that does not end at it, as an
-    ML NNI's first call; the chain's times are given beside it.  Returns
-    (err, timing)."""
+    kind) within the tolerances of the module's docstring.  Then the SH
+    pass's list (quartet_list).  The time is that of one quartet with the
+    star test that does not end at it, as an ML NNI's first call; the
+    chain's times are given beside it.  Returns (err, timing)."""
     import numpy as np
 
     from veryfasttree_tpu_torch.ops import ml_kernels as mk
@@ -760,6 +882,7 @@ def check_quartets(model, gen, dev):
             first = int(np.flatnonzero(rec["star"] == 0)[0])
             n_eval = int(rec["n_eval"][first])
 
+    err = max(err, quartet_list(model, store, rng))
     one = (*store, rows4[first:first + 1], lens[first:first + 1], *lims,
            True, False)
     row = ml_row_bytes(P, 4)
@@ -785,6 +908,64 @@ def check_quartets(model, gen, dev):
     return err, times
 
 
+def quartet_list(model, store, rng):
+    """ml_quartet_opt on the SH pass's list at N=MAIN_N: 2S quartets with
+    per-site likelihoods and no star test (the first 160 the families of
+    quartet_store, the rest of random rows), bit for bit the chain of
+    single-call kernels, and the twin on 24 spread over the list within
+    check_quartets' tolerances.  Prints the launch's launch-to-launch
+    time.  Returns the largest difference from the twin."""
+    import numpy as np
+
+    from veryfasttree_tpu_torch.ops import ml_kernels as mk
+
+    K = 2 * SH_SPLITS
+    fam = 4 * np.arange(N_FAMILIES)[:, None]
+    rows4 = np.concatenate([
+        fam[:100] + [0, 1, 2, 3], fam[100:] + [0, 2, 1, 3],
+        rng.integers(4 * N_FAMILIES, 4 * MAIN_N, (K - N_FAMILIES, 4))]) \
+        .astype(np.int32)
+    lens = np.maximum(rng.uniform(0.0, 0.3, (K, 5)), QUARTET_LIMS[0])
+    args = (*store, rows4, lens, SCRATCH_ROWS, *QUARTET_LIMS, False, True)
+    tag = f"{model}, the SH list of {K}"
+    rec, lk = mk.ml_quartet_opt(*args)
+    rec_c, lk_c = mk.quartet_chain(mk.ml_posterior, mk.ml_opt_branch,
+                                   mk.ml_pair_loglk, *args)
+    if rec.tobytes() != rec_c.tobytes() or lk.tobytes() != lk_c.tobytes():
+        bad = np.flatnonzero(
+            (rec.view(np.uint8).reshape(K, -1)
+             != rec_c.view(np.uint8).reshape(K, -1)).any(1)
+            | (lk.view(np.uint32) != lk_c.view(np.uint32))
+            .reshape(K, -1).any(1))
+        raise AssertionError(f"ml_quartet_opt [{tag}]: {len(bad)} quartets "
+                             f"differ from the chain of single-call kernels, "
+                             f"first {bad[:5].tolist()}")
+    pick = np.linspace(0, K - 1, 24).astype(int)
+    rec_t, lk_t = mk.ml_quartet_opt_ref(*store, rows4[pick], lens[pick],
+                                        *args[6:])
+    got = rec[pick]
+    ll = lambda r: r["parts"][:, 0] + r["parts"][:, 1] + r["parts"][:, 2]  # noqa: E731
+    len_err = np.abs(got["len"] - rec_t["len"])
+    ll_err = float(np.max(np.abs(ll(got) - ll(rec_t))))
+    ll_rel = float(np.max(np.abs(ll(got) - ll(rec_t)) / np.abs(ll(rec_t))))
+    np.testing.assert_allclose(got["len"], rec_t["len"], rtol=2e-2, atol=2e-3,
+                               err_msg=f"ml_quartet_opt [{tag}] lengths")
+    if ll_rel > 1e-4:
+        raise AssertionError(f"ml_quartet_opt [{tag}]: quartet LogLk "
+                             f"{ll_rel:.3e} relative from the twin's")
+    np.testing.assert_allclose(lk[pick], lk_t, rtol=5e-2, atol=1e-30,
+                               err_msg=f"ml_quartet_opt [{tag}] lk")
+    # launch to launch only: a torch.profiler trace of this launch left the
+    # traces after it short of launches (device_us)
+    ms = median_ms(lambda: mk.ml_quartet_opt(*args), runs=5)
+    print(f"  ml_quartet_opt [{tag}]: bit for bit the chain's "
+          f"({int(rec['n_eval'].sum())} line-search evaluations); the twin "
+          f"on {len(pick)}: lengths max abs err {float(len_err.max()):.3e}, "
+          f"quartet LogLk max abs err {ll_err:.3e} (max rel {ll_rel:.3e}); "
+          f"{ms:.4f} ms launch to launch")
+    return max(ll_err, float(len_err.max()))
+
+
 def phase_kernels(report):
     import torch
 
@@ -804,11 +985,14 @@ def phase_kernels(report):
          sk.nj_scan_codes_ref, codes_case(20, True, gen, dev)),
     ]
     def record(name, label, err, times):
+        lst = (f" (a list of {times['list_k']}; one item alone "
+               f"{times['one_ms']:.4f} ms, {times['one_device_us']:.3f} us)"
+               if "list_k" in times else "")
         print(f"  {name} [{label}]: max abs err {err:.3e}, kernel "
               f"{times['ms']:.4f} ms launch to launch, "
               f"{times['device_us']:.3f} us on the device, twin "
               f"{times['plain_ms']:.4f} ms, bound {times['bound_ms']:.3e} ms "
-              f"({times['bound_by']})")
+              f"({times['bound_by']}){lst}")
         entry = report.setdefault(name, {"max_abs_err": 0.0})
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
         if "ms" not in entry:         # the first case is the main path's shape
@@ -1799,6 +1983,252 @@ def phase_ml_round(report, dev):
                   f"{1e3 * n_ops / F32_OPS_PER_S:.4e} ms)")
 
 
+# ------------------------------------------------------------- phase 2f
+SH_BOOT = 1000                  # the resamples of the default run
+SH_KEYS = ("nodes", "loglk", "pair_lk", "quartet_lk", "choice", "bad",
+           "support")
+
+
+def sh_start(n, dev, model):
+    """ml_start(n, dev, model, cat=True) after one ML lengths pass and one
+    ML NNI round (the round kernels on a CUDA store, the host loops on a CPU
+    one), with SH_BOOT resamples: the state the default run's SH-like
+    supports start from, a few rounds early."""
+    from veryfasttree_tpu_torch.engine import rearrange
+    from veryfasttree_tpu_torch.ops import ml_round
+
+    nj = ml_start(n, dev, model, cat=True)
+    ml_round.ml_lengths_pass(nj)
+    ml_round.ml_nni_round(nj, 0, 2, rearrange.NNIStats.init(nj))
+    nj.options.n_bootstrap = SH_BOOT
+    return nj
+
+
+def sh_host_loop(nj):
+    """engine/ml.test_splits_ml on nj, its pair and quartet calls recorded
+    (the store's pair_loglk_rows and quartet_records): returns (SplitCount,
+    record) with the keys sh_run's record has (SH_KEYS),
+    built from the loop's calls as the loop uses them: per split, its three
+    AB pairs, its AC and AD optimizations and the second pass on the closer
+    one."""
+    import numpy as np
+
+    from veryfasttree_tpu_torch import constants
+    from veryfasttree_tpu_torch.engine import ml
+
+    events, store = [], nj.ml
+
+    def pair(*a, **k):
+        ll, lk = type(store).pair_loglk_rows(store, *a, **k)
+        events.append((np.array(ll), np.array(lk, dtype=np.float32)))
+        return ll, lk
+
+    def quartet(rows4, *a, **k):
+        rec, site = type(store).quartet_records(store, rows4, *a, **k)
+        events.append((np.asarray(rows4).reshape(-1, 4).copy(), rec.copy(),
+                       np.array(site)))
+        return rec, site
+
+    store.pair_loglk_rows, store.quartet_records = pair, quartet
+    try:
+        sc = ml.test_splits_ml(nj)
+    finally:
+        del store.pair_loglk_rows, store.quartet_records
+    tree, n = nj.tree, nj.n_pos
+    nodes = [v for v in tree.postorder_nodes()
+             if v >= nj.n_seqs and v != tree.root]
+    out = {k: [] for k in SH_KEYS}
+    i = 0
+    for node in nodes:
+        p, (rows, rec, site) = events[i:i + 3], events[i + 3]
+        i += 4
+        ll = [float(e[0][0]) for e in p]
+        parts = rec["parts"]
+        loglk = [ll[0] + ll[1] + ll[2], *(parts[:, 0] + parts[:, 1]
+                                          + parts[:, 2])]
+        q_lk = site[:, :, :n].copy()
+        if i < len(events) and len(events[i]) == 3:      # the second pass
+            rows2, rec2, site2 = events[i]
+            i += 1
+            which = 0 if (rows2[0] == rows[0]).all() else 1
+            parts = rec2["parts"][0]
+            loglk[1 + which] = parts[0] + parts[1] + parts[2]
+            q_lk[which] = site2[0, :, :n]
+        ab, ac, ad = loglk
+        if ab >= ac and ab >= ad:
+            choice = 0
+        elif ac >= ab and ac >= ad:
+            choice = 1
+        else:
+            choice = 2
+        out["nodes"].append(node)
+        out["loglk"].append(loglk)
+        out["pair_lk"].append(np.stack([e[1][0] for e in p]))
+        out["quartet_lk"].append(q_lk)
+        out["choice"].append(choice)
+        out["bad"].append(loglk[choice] > ab + constants.TREE_LOGLK_DELTA)
+    if i != len(events):
+        raise AssertionError(f"test_splits_ml: {len(events) - i} calls left "
+                             "over")
+    rec = {k: np.array(v) for k, v in out.items() if k != "support"}
+    rec["loglk"] = rec["loglk"].astype(np.float64)
+    rec["support"] = tree.support[rec["nodes"]].copy() \
+        if nj.options.n_bootstrap > 0 else None
+    return sc, rec
+
+
+def sh_run(nj):
+    """ops/ml_round.SHPass on nj, as sh_pass runs it: returns (SplitCount,
+    record of SH_KEYS, the pass)."""
+    from veryfasttree_tpu_torch.ops import ml_round
+
+    sh = ml_round.SHPass(nj).run()
+    return sh.sc, {k: getattr(sh, k) for k in SH_KEYS}, sh
+
+
+def sh_work(sh):
+    """The work an SHPass did: levels, up-profile rows, splits optimized
+    again, quartets, posteriors, pairs, line searches and their
+    evaluations, and the distinct store rows read or written."""
+    import numpy as np
+
+    S, again = sh.S, len(sh.again)
+    quartets = 2 * S + again
+    up = [np.concatenate(v) for v in zip(*sh.levels)] if sh.levels \
+        else [np.zeros(0, dtype=np.int64)] * 3
+    evals = int(sh.rec["n_eval"].sum()) + (
+        int(sh.rec2["n_eval"].sum()) if sh.rec2 is not None else 0)
+    return {"levels": len(sh.levels), "up_rows": len(up[0]), "again": again,
+            "quartets": quartets,
+            "posteriors": len(up[0]) + 2 * S + 7 * quartets,
+            "pairs": 3 * S + 3 * quartets, "searches": 5 * quartets,
+            "evals": evals,
+            "rows": 2 * S + len(np.unique(np.concatenate(
+                [sh.rows4.ravel(), *up[:3]]).astype(np.int64)))}
+
+
+def sh_state(nj, sc, record):
+    """What an SH pass leaves behind, for sh_diff: its record (tensors as
+    numpy arrays), the SplitCount, nj.debug's likelihood and posterior
+    counters, and the ML store's node and up-profile rows."""
+    import dataclasses
+
+    import numpy as np
+
+    state = {k: np.asarray(v.cpu().numpy() if hasattr(v, "cpu") else v)
+             for k, v in record.items()}
+    state["split_count"] = np.array(dataclasses.astuple(sc), dtype=np.float64)
+    state["counters"] = np.array([nj.debug.n_lk_compute,
+                                  nj.debug.n_posterior_compute])
+    m = 2 * nj.tree.maxnodes
+    for k in ("codes", "W", "V"):
+        state[f"rows_{k}"] = getattr(nj.ml, k)[:m].cpu().numpy()
+    return state
+
+
+def sh_diff(a, b):
+    """The names of what differs, bit for bit, between two sh_states."""
+    return [k for k in a if a[k].shape != b[k].shape
+            or a[k].tobytes() != b[k].tobytes()]
+
+
+def sh_bound(w, S, P, C, jc, n_boot):
+    """(bound_ms, bound_by) of one SH pass over S splits that did the work
+    w (sh_work): its distinct store rows read or written once and the
+    counts [P, B] written; each posterior's, pair's and quartet piece's
+    operations per position (ml_ops) and the resampled sums (two per
+    count)."""
+    eff, site, post = ml_ops(C, jc)
+    n_ops = P * (w["posteriors"] * post + w["pairs"] * (eff + site)
+                 + w["searches"] * eff + w["evals"] * site) \
+        + 2 * S * 3 * P * n_boot
+    return bound(w["rows"] * ml_row_bytes(P, C) + 8 * P * n_boot, n_ops)
+
+
+def check_resample(report, dev):
+    """The counts kernel against its twin at B=SH_BOOT, P=MAIN_P: equal.
+    Times: the kernel's launch to launch and device time, the twin's one
+    run (a Python draw per column)."""
+    from veryfasttree_tpu_torch.ops import resample_kernels as rk
+
+    P, B = MAIN_P, SH_BOOT
+    got = rk.sh_resample_counts(P, B, dev)
+    t0 = time.perf_counter()
+    want = rk.sh_resample_counts_ref(P, B)
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    if not (got.cpu() == want).all() or int(want.sum()) != P * B:
+        raise AssertionError("sh_resample_counts differs from its twin")
+    # the state in, the counts [P, B] float64 out; per draw its column
+    # (five operations) and ten values of the recurrence (two each)
+    bound_ms, bound_by = bound(400 + 8 * P * B, 25 * P * B)
+    fn = lambda: rk.sh_resample_counts(P, B, dev)  # noqa: E731
+    entry = {"max_abs_err": 0.0, "ms": median_ms(fn, runs=20),
+             "plain_ms": plain_ms,
+             "device_us": device_us(fn, DEVICE_NAMES["sh_resample_counts"],
+                                    runs=10),
+             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    report.setdefault("sh_resample_counts", {}).update(entry)
+    print(f"  sh_resample_counts [P={P} B={B}]: equal to the twin; kernel "
+          f"{entry['ms']:.4f} ms launch to launch, {entry['device_us']:.1f} "
+          f"us on the device, twin {plain_ms:.1f} ms, bound "
+          f"{bound_ms:.3e} ms ({bound_by})")
+
+
+def phase_sh(report, dev):
+    """The SH-like supports at N=SPR_N from sh_start, JC + CAT 20 and GTR +
+    CAT 20: ops/ml_round.SHPass (sh_pass's list launches) and the host loop
+    engine/ml.test_splits_ml with the per-call kernels, each on its own
+    copy of the start; per-split log-likelihoods, per-site likelihoods,
+    choices, bad splits, supports, SplitCount, counters and the store's node
+    and up-profile rows bit for bit (sh_diff).  Then the counts kernel
+    against its twin (check_resample).  Prints each pass's launches, walls,
+    device time (torch.profiler, every kernel of the pass) and bound
+    (sh_bound: each distinct row once)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from veryfasttree_tpu_torch.ops import ml_round
+
+    for label, model in (("JC CAT 20", "jc"), ("GTR CAT 20", "gtr")):
+        label = f"N={SPR_N} {label}"
+        start = sh_start(SPR_N, dev, model)
+        runs = {}
+        for name in ("pass", "host loop"):
+            nj = ml_copy(start, dev)
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sc, record, sh = sh_run(nj) if name == "pass" else \
+                (*sh_host_loop(nj), None)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {k: fn.launches for k, fn in wrappers().items()
+                        if fn.launches}
+            runs[name] = (sh_state(nj, sc, record), wall, launches, sh)
+        diff = sh_diff(runs["pass"][0], runs["host loop"][0])
+        state, wall, launches, sh = runs["pass"]
+        if diff:
+            raise AssertionError(f"sh_pass {label}: {diff} differ from the "
+                                 "host loop's")
+        nj = ml_copy(start, dev)
+        with profile(activities=[ProfilerActivity.CUDA]) as trace:
+            ml_round.sh_pass(nj)
+            torch.cuda.synchronize()
+        busy, _, n_events, top = busy_share(trace, 1.0)
+        P, C = start.ml.W.shape[1], start.ml.V.shape[2]
+        work = sh_work(sh)
+        bound_ms, bound_by = sh_bound(work, sh.S, P, C, model == "jc",
+                                      SH_BOOT)
+        print(f"  sh_pass [{label}]: bit for bit the host loop's ({sh.S} "
+              f"splits, {int(sh.bad.sum())} bad, {work['again']} optimized "
+              f"again); {wall:.3f} s (the host loop "
+              f"{runs['host loop'][1]:.3f} s); launches {launches} (the host "
+              f"loop's {runs['host loop'][2]}); device {1e3 * busy:.3f} ms "
+              f"in {n_events} events, top {top}; {work['rows']} rows, work "
+              f"{work}: bound {bound_ms:.4e} ms ({bound_by})")
+    check_resample(report, dev)
+
+
 # ------------------------------------------------------------- phases 3, 4
 ALPHA = "ACGT"
 
@@ -2086,13 +2516,36 @@ def phase_ml_golden(dev):
                              f"\n{res.stderr[-2000:]}")
 
 
+def sh_launches(fn):
+    """Run fn() noting each kernel's launches during the SH pass
+    (ops/ml_round.SHPass.run) and the pass: returns (fn's result,
+    launches, the pass)."""
+    from veryfasttree_tpu_torch.ops import ml_round
+
+    orig, launches, passes = ml_round.SHPass.run, {}, []
+
+    def traced(self):
+        before = {name: w.launches for name, w in wrappers().items()}
+        out = orig(self)
+        launches.update({name: w.launches - before[name]
+                         for name, w in wrappers().items()})
+        passes.append(self)
+        return out
+
+    ml_round.SHPass.run = traced
+    try:
+        return fn(), launches, passes[-1]
+    finally:
+        ml_round.SHPass.run = orig
+
+
 def phase_ml_main(report, dev):
     """The default -nt run at N=2000: the ML main path."""
     from util import newick_splits
 
     n = MAIN_N
-    nw, nj, wall, counts, rounds, final = run_ml(
-        fasta_text(synth_codes(n, MAIN_P)), dev)
+    (nw, nj, wall, counts, rounds, final), sh, sh_pass = sh_launches(
+        lambda: run_ml(fasta_text(synth_codes(n, MAIN_P)), dev))
     t = nj.timings
     nj_s = t["store_s"] + t["tophits_s"] + t["joins_s"]
     print(f"  N={n} P={MAIN_P} default -nt: wall {wall:.2f} s; NJ {nj_s:.3f} "
@@ -2133,6 +2586,20 @@ def phase_ml_main(report, dev):
             f"{ml_round.ml_nni_round.tree_layout} with "
             f"{ml_round.ml_nni_round.scratch_floats} floats of device "
             "scratch at the main path's shape")
+    # the SH pass on the card: the counts, one posterior launch per
+    # up-profile level and one of the AB posteriors, one pair launch, the
+    # AC/AD quartets and the second pass
+    work = sh_work(sh_pass)
+    print(f"  SH pass in the run: sh_s {t['sh_s']:.3f} s, "
+          f"{sh_pass.S} splits, {work['levels']} up-profile "
+          f"levels ({work['up_rows']} rows), {work['again']} optimized "
+          f"again; launches {({k: v for k, v in sh.items() if v})}")
+    want = {"sh_resample_counts": 1, "ml_pair_loglk": 1,
+            "ml_posterior": work["levels"] + 1,
+            "ml_quartet_opt": 1 + (work["again"] > 0)}
+    if any(sh.get(k) != v for k, v in want.items()) \
+            or sum(sh.values()) != sum(want.values()):
+        raise AssertionError(f"the SH pass launched {sh}, not {want}")
     nnis = [r[1] for r in rounds]
     if nnis != ML_MAIN_NNIS:
         raise AssertionError(f"ML-NNIs per round {nnis}, recorded "
@@ -2204,6 +2671,7 @@ def main() -> int:
         phase("2d join epoch vs host loop", phase_epoch, report, cuda)
         phase("2e ML round and lengths pass vs host loop", phase_ml_round,
               report, cuda)
+        phase("2f SH pass vs host loop", phase_sh, report, cuda)
         phase("3 N=500 vs JAX golden", phase_golden, cuda)
         phase(f"4 main path N={MAIN_N}", phase_main, report, cuda)
         phase(f"5 ML N={ML_GOLDEN_N} vs JAX golden", phase_ml_golden, cuda)

@@ -11,7 +11,10 @@ once.  Each run times the calls of chip_smoke.py's phase 2 (this
 checkout's chip_smoke.py makes the inputs, the checkout's own wrappers
 run them): one pair likelihood, one posterior and one quartet optimization
 whose star test does not end it, on chip_smoke.ml_store_case's and
-quartet_store's Jukes-Cantor stores (P=512, C=4).  For each it prints the
+quartet_store's Jukes-Cantor stores (P=512, C=4), and one call each at the
+SH pass's list shapes (chip_smoke.LIST_PAIRS pairs, LIST_POSTERIORS
+posteriors; a checkout whose launches took 256 pairs or 128 posteriors
+makes several launches of one call).  For each it prints the
 device time per call from torch.profiler (chip_smoke.device_us, 50 calls;
 a burst's time between CUDA events when the trace lost launches), the
 median launch-to-launch time of 50 calls between CUDA events
@@ -46,6 +49,7 @@ import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KERNELS = ("ml_pair_loglk", "ml_posterior", "ml_quartet_opt")
+LISTS = ("ml_pair_loglk_list", "ml_posterior_list")
 ROUNDS = ("ml_lengths_pass", "ml_nni_round")
 
 BUILD = r"""
@@ -97,6 +101,19 @@ post = (codes.clone(), W.clone(), V.clone(), m, np.array([n_rows - 1]),
         r1[:1] % s.MAIN_N + s.MAIN_N, r2[:1] % s.MAIN_N, lens[:1] + 5e-4,
         lens[1:2] + 5e-4)
 calls["ml_posterior"] = lambda: mk.ml_posterior(*post)
+# the SH pass's list shapes at N=MAIN_N (chip_smoke.LIST_PAIRS pairs and
+# LIST_POSTERIORS posteriors into the list-pass rows), in one call each
+K = s.LIST_PAIRS
+lr1, lr2 = rng.integers(0, n_rows, K), rng.integers(0, n_rows, K)
+llens = rng.uniform(0.0, 0.5, K)
+calls["ml_pair_loglk_list"] = lambda: mk.ml_pair_loglk(
+    codes, W, V, m, lr1, lr2, llens, True)
+K = s.LIST_POSTERIORS
+lpost = (codes.clone(), W.clone(), V.clone(), m,
+         n_rows - 2 * s.MAIN_N + np.arange(K),
+         rng.integers(0, 2 * s.MAIN_N, K), rng.integers(0, 2 * s.MAIN_N, K),
+         rng.uniform(5e-4, 0.5, K), rng.uniform(5e-4, 0.5, K))
+calls["ml_posterior_list"] = lambda: mk.ml_posterior(*lpost)
 store = s.quartet_store("jc", torch.Generator(dev).manual_seed(1), dev)
 qrng = np.random.default_rng(13)
 fam = 4 * np.arange(s.N_FAMILIES)[:, None]
@@ -121,7 +138,8 @@ def digest(*arrays):
 
 out = {}
 for name, fn in calls.items():
-    out[name] = {"device_us": s.device_us(fn, s.DEVICE_NAMES[name]),
+    kernel = name.replace("_list", "")
+    out[name] = {"device_us": s.device_us(fn, s.DEVICE_NAMES[kernel]),
                  "l_to_l_us": 1e3 * s.median_ms(fn),
                  "burst_us": burst_us(fn)}
 ll, _ = calls["ml_pair_loglk"]()
@@ -130,6 +148,9 @@ rec, _ = calls["ml_quartet_opt"]()
 out["ml_pair_loglk"]["digest"] = digest(ll)
 out["ml_posterior"]["digest"] = digest(post[1][-1], post[2][-1])
 out["ml_quartet_opt"]["digest"] = digest(rec)
+out["ml_pair_loglk_list"]["digest"] = digest(*calls["ml_pair_loglk_list"]())
+calls["ml_posterior_list"]()
+out["ml_posterior_list"]["digest"] = digest(*(t[lpost[4]] for t in lpost[:3]))
 
 # the round kernels at N=MAIN_N: a pass, then a round, from one start
 from veryfasttree_tpu_torch.engine import ml, rearrange
@@ -242,7 +263,8 @@ def main() -> int:
         print(f"{root}: " + "; ".join(
             f"{name} device {r['device_us']:.3f} us, l-to-l "
             f"{r['l_to_l_us']:.3f} us, burst {r['burst_us']:.3f} us"
-            for name, r in res.items() if name in KERNELS) + "; " + "; ".join(
+            for name, r in res.items() if name in KERNELS + LISTS)
+            + "; " + "; ".join(
             f"{name} device {r['device_us'] / 1e3:.3f} ms, wall "
             f"{r['wall_ms']:.3f} ms" + (f", speculative {r['speculative']}"
                                         if r.get("speculative") is not None
@@ -260,7 +282,7 @@ def main() -> int:
             for name, m in mean.items()))
     seen = {name: {(r[name]["digest"], r[name].get("tree_loglk"))
                    for runs in results.values() for r in runs}
-            for name in KERNELS + ROUNDS}
+            for name in KERNELS + LISTS + ROUNDS}
     differ = [name for name, vals in seen.items() if len(vals) != 1]
     print("outputs: " + ("the same in every run of both checkouts"
                          if not differ else f"{differ} differ"))

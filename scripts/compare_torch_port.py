@@ -46,7 +46,7 @@ from veryfasttree_tpu_torch.pipeline import run_pipeline
 mods = [importlib.import_module("." + name, "veryfasttree_tpu_torch.ops")
         for name in ("scan_kernels", "store_kernels", "ml_kernels",
                      "spr_kernels", "nni_kernels", "epoch_kernels",
-                     "ml_round")
+                     "ml_round", "resample_kernels")
         if os.path.exists(os.path.join(root, "veryfasttree_tpu_torch", "ops",
                                        name + ".py"))]
 

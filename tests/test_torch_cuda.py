@@ -571,3 +571,90 @@ def test_ml_nni_round_slow_keeps_the_host_loop(cuda):
         states.append(ml_state(nj, stats, result))
     assert states[0][1]["n_ml_nni"] > 0
     assert ml_diff(*states) == []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,jc", [(4, True), (4, False), (20, False)])
+def test_ml_list_kernels_past_the_old_caps(cuda, C, jc):
+    """ml_pair_loglk over 300 pairs and ml_posterior over 200 targets in one
+    launch each (past the 256 and 128 a launch took when the lists travelled
+    in the launch's parameters): every item bit for bit its K=1 launch, the
+    pairs alike in the store's buffers and in tensors of their own (keep);
+    a row outside the store raises before anything is launched."""
+    from veryfasttree_tpu_torch.ops import ml_kernels as mk
+
+    gen = torch.Generator(device=cuda).manual_seed(7 + C)
+    store = _ml_store(gen, C, jc, cuda)
+    rng = np.random.default_rng(C + 1)
+    r1, r2 = rng.integers(0, 800, 300), rng.integers(0, 800, 300)
+    lens = rng.uniform(0.0, 0.5, 300)
+    before = mk.ml_pair_loglk.launches
+    ll, lk = mk.ml_pair_loglk(*store, r1, r2, lens, want_lk=True, keep=True)
+    ll_b, lk_b = mk.ml_pair_loglk(*store, r1, r2, lens, want_lk=True)
+    assert mk.ml_pair_loglk.launches == before + 2
+    assert torch.equal(ll, ll_b) and torch.equal(lk, lk_b)
+    with pytest.raises(IndexError):
+        mk.ml_pair_loglk(*store, r1[:2], [0, store[0].shape[0]], lens[:2])
+    assert mk.ml_pair_loglk.launches == before + 2
+    for k in range(300):
+        one_ll, one_lk = mk.ml_pair_loglk(*store, r1[k:k + 1], r2[k:k + 1],
+                                          lens[k:k + 1], want_lk=True)
+        assert torch.equal(one_ll[0], ll[k]) and torch.equal(one_lk[0],
+                                                             lk[k]), k
+
+    targets = np.arange(800, 1000)
+    args = (targets, r1[:200], r2[:200], lens[:200] + 5e-4,
+            lens[100:] + 5e-4)
+    listed = [t.clone() for t in store[:3]]
+    before = mk.ml_posterior.launches
+    mk.ml_posterior(*listed, store[3], *args)
+    assert mk.ml_posterior.launches == before + 1
+    single = [t.clone() for t in store[:3]]
+    for k in range(200):
+        mk.ml_posterior(*single, store[3], *(a[k:k + 1] for a in args))
+    for a, b in zip(listed, single):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_pos,n_boot", [(37, 3), (200, 100), (500, 1000)])
+def test_sh_resample_counts_kernel_is_the_twin(cuda, n_pos, n_boot):
+    """The bootstrap counts kernel against resample_count_matrix(
+    resample_columns(...)): equal, where the draws end inside a cycle, on
+    its edge, and at the default run's B=1000, P=500."""
+    from veryfasttree_tpu_torch.ops import resample_kernels as rk
+
+    got = rk.sh_resample_counts(n_pos, n_boot, cuda)
+    assert got.dtype == torch.float64 and got.device.type == "cuda"
+    assert torch.equal(got.cpu(), rk.sh_resample_counts_ref(n_pos, n_boot))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["jc", "gtr"])
+def test_sh_pass_is_the_host_loop(cuda, model):
+    """The SH-like supports at N=150 (chip_smoke.sh_start: CAT 20 rates,
+    after a lengths pass and an NNI round, 1000 resamples): sh_pass's list
+    launches and the host loop engine/ml.test_splits_ml with the per-call
+    kernels leave the same per-split log-likelihoods, per-site
+    likelihoods, choices, bad splits, supports, SplitCount, counters and
+    store rows, bit for bit (chip_smoke.sh_diff); sh_pass itself leaves
+    the pass's SplitCount and supports."""
+    import dataclasses
+
+    from chip_smoke import (ml_copy, sh_diff, sh_host_loop, sh_run,
+                            sh_start, sh_state)
+    from veryfasttree_tpu_torch.ops import ml_round
+
+    start = sh_start(150, cuda, model)
+    nj = ml_copy(start, cuda)
+    sc, record, _ = sh_run(nj)
+    got = sh_state(nj, sc, record)
+    nj = ml_copy(start, cuda)
+    assert dataclasses.astuple(ml_round.sh_pass(nj)) == \
+        dataclasses.astuple(sc)
+    assert np.array_equal(nj.tree.support[record["nodes"]],
+                          record["support"])
+    nj = ml_copy(start, cuda)
+    want = sh_state(nj, *sh_host_loop(nj))
+    assert sh_diff(got, want) == []
+    assert 0 < np.count_nonzero(got["support"]) < len(got["nodes"])

@@ -13,7 +13,9 @@ one store call per tree level, and sum on the device with one fetch at the
 end.  On the card, a whole ML NNI round and a whole branch-length pass are
 one kernel launch each (ops/ml_round.py); their host loops here
 (rearrange.do_nni with use_ml, optimize_all_branch_lengths) are the twins
-that run for a store on the CPU.
+that run for a store on the CPU.  The SH-like supports run as list launches
+over all splits at once (ops/ml_round.sh_pass, on the card and on the
+CPU); test_splits_ml here is the host loop that pass is held to.
 """
 from __future__ import annotations
 
@@ -581,7 +583,9 @@ def sh_support(loglk3, site_loglk3, counts_pb):
 
 
 def test_splits_ml(nj, progress=None) -> SplitCount:
-    """ref testSplitsML tcc:6856-6999, without constraints."""
+    """ref testSplitsML tcc:6856-6999, without constraints: the host loop,
+    split by split.  The ML phase runs ops/ml_round.sh_pass, which gives
+    this loop's values over all splits at once."""
     sc = SplitCount()
     opts = nj.options
     tree = nj.tree
@@ -750,7 +754,7 @@ def run_ml_phase(nj, ml_nni_to_do: int, n_uniq: int, progress, log,
 
     sc = SplitCount()
     if (ml_nni_to_do > 0 and not opts.fastest) or opts.n_bootstrap > 0:
-        sc = timed("sh_s", test_splits_ml, nj, progress)
+        sc = timed("sh_s", ml_round.sh_pass, nj, progress)
 
     if opts.gamma_loglk and opts.n_rate_cats > 1:
         timed("gamma_s", branch_length_scale, nj, progress)

@@ -11,12 +11,13 @@ site (ops/kernels.ml_effective); positions with w == 0 hold the gap vector.
 
 Row layout, as in the JAX store: [0, maxnodes) node profiles, [maxnodes,
 2*maxnodes) up-profiles, then N_SCRATCH rows for quartet temporaries and a
-block of maxnodes rows that the batched (-threads > 1) path uses.
+block of maxnodes rows for list passes (the JAX package's batched
+-threads > 1 path): here the SH-like supports pass (ops/ml_round.sh_pass)
+keeps its 2S AB-quartet posteriors there (batch_row).
 
 Every likelihood, posterior and branch-length optimization is one call of
-the kernels in ops/ml_kernels.py, with the row indices and lengths in the
-launch parameters; the host loops (engine/ml.py) fetch only the values
-they decide on.
+the kernels in ops/ml_kernels.py over a list of rows and lengths; the host
+loops (engine/ml.py) fetch only the values they decide on.
 """
 from __future__ import annotations
 
@@ -149,6 +150,13 @@ class MLProfiles:
     def scratch_row(self, k: int) -> int:
         return 2 * self.maxnodes + k
 
+    def batch_row(self, k: int) -> int:
+        """Row k of the list-pass block (maxnodes rows after the scratch
+        rows)."""
+        if not 0 <= k < self.maxnodes:
+            raise IndexError(f"batch row {k} of {self.maxnodes}")
+        return 2 * self.maxnodes + N_SCRATCH + k
+
     # -- core ops ------------------------------------------------------------
     def _store(self):
         return self.codes, self.W, self.V, self.model
@@ -156,9 +164,10 @@ class MLProfiles:
     def pair_loglk_rows(self, r1s, r2s, lengths, want_site_lk=False,
                         fetch=True):
         """Log-likelihoods of row pairs at lengths -> (ll [K], per-site lk
-        [K, n_pos] or None).  fetch=False keeps both on the device."""
+        [K, n_pos] or None).  fetch=False keeps both on the device, in
+        tensors of their own."""
         ll, lk = ml_kernels.ml_pair_loglk(*self._store(), r1s, r2s, lengths,
-                                          want_site_lk)
+                                          want_site_lk, keep=not fetch)
         self.nj.debug.n_lk_compute += len(r1s)
         if lk is not None:
             lk = lk[:, : self.n_pos]
@@ -212,43 +221,57 @@ class MLProfiles:
         for level in levels:
             self.posterior_rows(*level)
 
-    def quartet_optimize(self, rows4s, lengths_list, star_test=False,
-                         want_site_lk=False):
+    def quartet_records(self, rows4, lengths, star_test=False,
+                        want_site_lk=False, keep_site=False):
         """K ML quartet optimizations (ref MLQuartetOptimize
-        tcc:1650-1788) in one kernel launch with one fetch.  rows4s: K store
-        rows (A, B, C, D); lengths_list: K float64 arrays [5] (A, B, C, D,
-        I), raised to the minimum length, then set to the optimized lengths
-        in place.  Returns K (quartet loglk, star_triggered, per-site
-        log-likelihoods [n_pos] or None); the loglk is summed from the
-        kernel's parts in the order the reference sums them.  The quartet
-        temporaries are scratch rows, which nothing reads after the call
-        without writing them first."""
+        tcc:1650-1788) in one kernel launch: rows4 [K, 4] store rows (A, B,
+        C, D), lengths [K, 5] float64 (A, B, C, D, I), raised to the
+        minimum length in place.  Returns what ml_kernels.ml_quartet_opt
+        returns (the records after one fetch; the per-site likelihoods on
+        the host, or with keep_site on the device); nj.debug counts the
+        single calls the kernel fuses.  The quartet temporaries are scratch
+        rows, which nothing reads after the call without writing them
+        first."""
         opts = self.options
         lo = opts.ml_min_branch_length
-        for lengths in lengths_list:
-            lengths[lengths < lo] = lo
+        lengths[lengths < lo] = lo
         rec, site = ml_kernels.ml_quartet_opt(
-            *self._store(), rows4s, np.stack(lengths_list),
+            *self._store(), rows4, lengths,
             [self.scratch_row(s) for s in QUARTET_TEMPS], lo, 6.0,
             opts.ml_ftol_branch_length, opts.ml_min_branch_length_tolerance,
-            star_test, want_site_lk)
+            star_test, want_site_lk, keep_site)
+        # the counts of the single calls the kernel fuses: 8 per line
+        # search (as opt_branch_length counts), 1 per pair likelihood
+        stars = int(rec["star"].sum())
+        full = len(rec) - stars
         debug = self.nj.debug
+        debug.n_posterior_compute += 2 * len(rec) + 5 * full
+        debug.n_lk_compute += (8 + int(star_test)) * len(rec) + 2 * stars \
+            + (32 + (3 if want_site_lk else 2)) * full
+        return rec, site
+
+    def quartet_optimize(self, rows4s, lengths_list, star_test=False,
+                         want_site_lk=False):
+        """quartet_records for K quartets as the host loops hold them:
+        lengths_list, K float64 arrays [5] (A, B, C, D, I), set to the
+        optimized lengths in place.  Returns K (quartet loglk,
+        star_triggered, per-site log-likelihoods [n_pos] or None); the
+        loglk is summed from the kernel's parts in the order the reference
+        sums them."""
+        lengths = np.stack(lengths_list)
+        rec, site = self.quartet_records(rows4s, lengths, star_test,
+                                         want_site_lk)
         out = []
-        for k, lengths in enumerate(lengths_list):
+        for k, held in enumerate(lengths_list):
             parts = [float(v) for v in rec["parts"][k]]
             found = [float(v) for v in rec["len"][k]]
-            lengths[LEN_I] = found[LEN_I]
-            # the counts of the single calls the kernel fuses: 8 per line
-            # search (as opt_branch_length counts), 1 per pair likelihood
-            debug.n_posterior_compute += 2
-            debug.n_lk_compute += 8 + int(star_test)
+            held[held < self.options.ml_min_branch_length] = \
+                self.options.ml_min_branch_length
+            held[LEN_I] = found[LEN_I]
             if rec["star"][k]:
-                debug.n_lk_compute += 2
                 out.append((parts[0] + (parts[1] + parts[2]), True, None))
                 continue
-            lengths[:LEN_I] = found[:LEN_I]
-            debug.n_posterior_compute += 5
-            debug.n_lk_compute += 32 + (3 if want_site_lk else 2)
+            held[:LEN_I] = found[:LEN_I]
             site_loglk = None
             if want_site_lk:
                 lk = site[k][:, : self.n_pos].astype(np.float64)

@@ -25,13 +25,14 @@ BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 LIB_PATH = BUILD_DIR / "libvft_scan.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# per-source flags: the likelihood kernels, the ML rounds and the decisions
-# of the SPR and NNI rounds and of the join epoch round every float and
-# double expression as written, as their plain twins and numpy do (no fused
-# multiply-adds)
+# per-source flags: the likelihood kernels, the ML rounds, the decisions of
+# the SPR and NNI rounds and of the join epoch, and the bootstrap columns
+# round every float and double expression as written, as their plain twins
+# and numpy do (no fused multiply-adds)
 SOURCE_FLAGS = {"ml_lk.cu": ["-fmad=false"], "ml_round.cu": ["-fmad=false"],
                 "me_spr.cu": ["-fmad=false"], "me_nni.cu": ["-fmad=false"],
-                "nj_epoch.cu": ["-fmad=false"]}
+                "nj_epoch.cu": ["-fmad=false"],
+                "sh_resample.cu": ["-fmad=false"]}
 
 _lib = None
 
@@ -212,14 +213,15 @@ def _declare(lib) -> None:
     lib.vft_nj_epoch_scratch.restype = None
     # the ML store's arguments, first in each ML entry (csrc/ml_lk.cu)
     ml_store = [ptr] * 9 + [i64, i32, i32, i32, i32, i32, f32]
-    lib.vft_ml_pair_loglk_f32.argtypes = ml_store + [ptr, ptr, i32, ptr, ptr,
-                                                     ptr]
-    lib.vft_ml_posterior_f32.argtypes = ml_store + [f32, ptr, ptr, i32, ptr]
+    lib.vft_ml_pair_loglk_f32.argtypes = ml_store + [ptr, ptr, i64, ptr, ptr,
+                                                     ptr, ptr]
+    lib.vft_ml_posterior_f32.argtypes = ml_store + [f32, ptr, ptr, i64, ptr,
+                                                    ptr]
     lib.vft_ml_opt_branch_f32.argtypes = ml_store + [
         ptr, ptr, i32, f32, f32, f32, f32, ptr, ptr, ptr, ptr, ptr]
     lib.vft_ml_opt_branch_fits_smem.argtypes = [i32, i32]
     lib.vft_ml_quartet_opt_f32.argtypes = ml_store + [
-        f32, ptr, ptr, i32, f32, f32, f32, f32, i32, ptr, ptr, ptr, ptr]
+        f32, ptr, ptr, i64, ptr, f32, f32, f32, f32, i32, ptr, ptr, ptr, ptr]
     lib.vft_ml_quartet_scratch_floats.argtypes = [i32, i32]
     lib.vft_ml_quartet_scratch_floats.restype = i64
     # the ML store, the model's tolerance and the line searches' limits,
@@ -233,6 +235,7 @@ def _declare(lib) -> None:
     lib.vft_ml_round_tree_fits_smem.argtypes = [i32, i32, i32]
     lib.vft_ml_round_scratch_floats.argtypes = [i32, i32, i32, i32]
     lib.vft_ml_round_scratch_floats.restype = i64
+    lib.vft_sh_resample_counts.argtypes = [ptr, i32, i32, ptr, ptr]
     for name in ("vft_nj_scan_dense_f64", "vft_nj_scan_codes_f64",
                  "vft_me_pair_dists_f32", "vft_me_average_f32",
                  "vft_me_spr_round_f32", "vft_me_nni_round_f32",
@@ -240,7 +243,7 @@ def _declare(lib) -> None:
                  "vft_ml_opt_branch_f32", "vft_ml_opt_branch_fits_smem",
                  "vft_ml_quartet_opt_f32", "vft_ml_nni_round_f32",
                  "vft_ml_lengths_pass_f32", "vft_ml_round_tree_fits_smem",
-                 "vft_nj_epoch_f32"):
+                 "vft_nj_epoch_f32", "vft_sh_resample_counts"):
         getattr(lib, name).restype = i32
 
 

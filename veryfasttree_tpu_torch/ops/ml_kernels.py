@@ -1,14 +1,14 @@
 """Likelihood kernels of the ML profile store: the CUDA kernels of
 ``csrc/ml_lk.cu`` and their plain PyTorch twins.
 
-The ML phase's host loops (quartet NNIs, branch-length passes, split tests)
-ask the store for one pair log-likelihood, one posterior profile or one
-branch-length optimization at a time, hundreds of thousands of times in a
-run.  The JAX package compiles each into one XLA computation
-(``veryfasttree_tpu/engine/ml_profiles.py``: ``_pair_loglk``,
-``_pair_loglk_rows``, ``_posterior_into``, ``_posterior_rows``,
-``_posterior_sweep``, ``_opt_branch_len``); here each is one kernel launch
-whose row indices and lengths travel in the launch's parameters:
+The ML phase asks the store for pair log-likelihoods, posterior profiles,
+branch-length optimizations and quartet optimizations.  The JAX package
+compiles each into one XLA computation (``veryfasttree_tpu/engine/
+ml_profiles.py``: ``_pair_loglk``, ``_pair_loglk_rows``, ``_posterior_into``,
+``_posterior_rows``, ``_posterior_sweep``, ``_opt_branch_len``); here each
+is one kernel launch over a list of any length K: the host's row indices,
+lengths and targets reach device memory in one copy, and the grid runs
+over the list:
 
 * ``ml_pair_loglk``: K row pairs at given lengths -> the pair log-likelihood
   (float64 sums of float32 per-site logs) and, on request, the per-site
@@ -17,12 +17,17 @@ whose row indices and lengths travel in the launch's parameters:
   profile of rows r1 and r2, written into row target in place;
 * ``ml_opt_branch``: K row pairs -> the whole bracketing + Brent line search
   over the branch length (``_onedimenmin_device``), one block per branch,
-  in float32 with the JAX package's constants and update rules;
+  in float32 with the JAX package's constants and update rules (its indices
+  still travel in the launch's parameters, 64 to a launch: no main-path
+  caller is left);
 * ``ml_quartet_opt``: K quartets -> a whole quartet optimization
   (``ml_quartet_optimize``: seven posteriors, five line searches, the star
   test, the closing pair log-likelihoods) per block, its temporaries in
   shared memory, bit for bit the chain of the three calls above
   (``quartet_chain``), with one fetch of its results.
+
+Each item of a list runs the body and thread map it runs alone, so its
+bits do not depend on K (the card tests hold K = 300 and K = 200 to K = 1).
 
 Store layout (``engine/ml_profiles.py``): codes int8 [n_rows, P], W float32
 [n_rows, P], V float32 [n_rows, P, C] raw (unmixed) rotated vectors.  The
@@ -32,7 +37,7 @@ As for the other kernels, a wrapper runs the twin for tensors on the CPU
 and launches its kernel for tensors on a CUDA device; anything else raises
 (no fallback), and ``launches`` counts its kernel launches.  A store and its
 model are checked once (``_bind``), and the wrappers reuse that binding's
-arguments, stream and buffers: a call allocates nothing.
+arguments, stream and buffers.
 """
 from __future__ import annotations
 
@@ -452,12 +457,14 @@ def _raise_on(rc, name):
         raise RuntimeError(f"{name}: CUDA kernel launch failed (cudaError {rc})")
 
 
-def ml_pair_loglk(codes, W, V, m, r1s, r2s, lengths, want_lk=False):
+def ml_pair_loglk(codes, W, V, m, r1s, r2s, lengths, want_lk=False,
+                  keep=False):
     """Pair log-likelihoods of rows (r1s[k], r2s[k]) at lengths[k] (ref
     pairLogLk tcc:1192-1447; host arrays).  Returns (ll [K] float64, lk
     [K, P] float32 per-site likelihoods, or None without want_lk), on the
     store's device; on CUDA they are views of the store's buffers, which the
-    next call on the same store overwrites (in stream order)."""
+    next call on the same store overwrites (in stream order), or with keep
+    new tensors."""
     if codes.device.type == "cpu":
         return ml_pair_loglk_ref(codes, W, V, m, r1s, r2s, lengths, want_lk)
     bound = _bind(codes, W, V, m)
@@ -467,12 +474,16 @@ def ml_pair_loglk(codes, W, V, m, r1s, r2s, lengths, want_lk=False):
     rows = np.concatenate([r1s, r2s]).astype(np.int32)
     lens = np.asarray(lengths, dtype=np.float32)
     lk_at = _align16(8 * K)
-    buf = bound.buffer("pair", lk_at + (4 * K * bound.P if want_lk else 0))
+    n_bytes = lk_at + (4 * K * bound.P if want_lk else 0)
+    buf = torch.empty(n_bytes, dtype=torch.uint8, device=bound.device) \
+        if keep else bound.buffer("pair", n_bytes)
     ll = _typed(buf, 0, (K,), torch.float64)
     lk = _typed(buf, lk_at, (K, bound.P), torch.float32) if want_lk else None
     if K:
+        lists = bound.buffer("lists", _align16(rows.nbytes) + lens.nbytes)
         _raise_on(_build.library().vft_ml_pair_loglk_f32(
-            *bound.args, rows.ctypes.data, lens.ctypes.data, K, ll.data_ptr(),
+            *bound.args, rows.ctypes.data, lens.ctypes.data, K,
+            lists.data_ptr(), ll.data_ptr(),
             lk.data_ptr() if want_lk else None, bound.stream),
             "ml_pair_loglk")
         ml_pair_loglk.launches += 1
@@ -486,9 +497,9 @@ def ml_posterior(codes, W, V, m, targets, r1s, r2s, len1s, len2s):
     """Posterior profiles (ref posteriorProfile tcc:2137-2447) of rows
     (r1s[k], r2s[k]) across lengths (len1s[k], len2s[k]), written into rows
     targets[k] in place: codes NOCODE, weight 0 at both-gap positions (which
-    get the gap vector), 1 elsewhere.  Every row is read before any is
-    written, so no target may be another item's source.  The matrix path is
-    the exact one (no -approxml rough posteriors)."""
+    get the gap vector), 1 elsewhere (host arrays).  Every row is read
+    before any is written, so no target may be another item's source.  The
+    matrix path is the exact one (no -approxml rough posteriors)."""
     targets = np.asarray(targets, dtype=np.int64)
     if len(targets) > 1 and (len(np.unique(targets)) != len(targets)
                              or np.isin(targets, [r1s, r2s]).any()):
@@ -505,9 +516,10 @@ def ml_posterior(codes, W, V, m, targets, r1s, r2s, len1s, len2s):
         return
     rows = np.concatenate([targets, r1s, r2s]).astype(np.int32)
     lens = np.concatenate([len1s, len2s]).astype(np.float32)
+    lists = bound.buffer("lists", _align16(rows.nbytes) + lens.nbytes)
     _raise_on(_build.library().vft_ml_posterior_f32(
         *bound.args, ctypes.c_float(m.tol), rows.ctypes.data,
-        lens.ctypes.data, K, bound.stream), "ml_posterior")
+        lens.ctypes.data, K, lists.data_ptr(), bound.stream), "ml_posterior")
     ml_posterior.launches += 1
 
 
@@ -555,7 +567,8 @@ ml_opt_branch.launches = 0
 
 
 def ml_quartet_opt(codes, W, V, m, rows4, lengths, scratch_rows, xmin, xmax,
-                   ftol, atol, star_test=False, want_site_lk=False):
+                   ftol, atol, star_test=False, want_site_lk=False,
+                   keep_site=False):
     """K quartet optimizations (ref MLQuartetOptimize tcc:1650-1788) in one
     launch, one block each: rows4 [K, 4] store rows (A, B, C, D), lengths
     [K, 5] float64 (A, B, C, D, I), each at least xmin.  In order: the
@@ -567,38 +580,49 @@ def ml_quartet_opt(codes, W, V, m, rows4, lengths, scratch_rows, xmin, xmax,
     in shared memory and leaves the store as it was; the twin computes them
     in the store rows scratch_rows.  Returns (records [K] of
     QUARTET_RECORD, per-site likelihoods [K, 3, P] float32 or None), both
-    on the host, after one fetch."""
+    on the host, after one fetch; with keep_site the per-site likelihoods
+    stay a tensor on the store's device and only the records are
+    fetched."""
     rows4 = np.ascontiguousarray(rows4, dtype=np.int32).reshape(-1, 4)
     lengths = np.ascontiguousarray(lengths, dtype=np.float64).reshape(-1, 5)
     if len(lengths) != len(rows4):
         raise ValueError("rows4 and lengths differ in length")
     if codes.device.type == "cpu":
-        return ml_quartet_opt_ref(codes, W, V, m, rows4, lengths,
-                                  scratch_rows, xmin, xmax, ftol, atol,
-                                  star_test, want_site_lk)
+        rec, site = ml_quartet_opt_ref(codes, W, V, m, rows4, lengths,
+                                       scratch_rows, xmin, xmax, ftol, atol,
+                                       star_test, want_site_lk)
+        if keep_site and site is not None:
+            site = torch.from_numpy(site)
+        return rec, site
     bound = _bind(codes, W, V, m)
     K, P = len(rows4), bound.P
     rec_bytes = K * QUARTET_RECORD.itemsize
-    n_bytes = rec_bytes + (4 * K * 3 * P if want_site_lk else 0)
-    buf = bound.buffer("quartet", n_bytes)
+    site_at = _align16(rec_bytes)
+    n_bytes = site_at + (4 * K * 3 * P if want_site_lk else 0)
+    out = torch.empty(n_bytes, dtype=torch.uint8, device=bound.device) \
+        if keep_site else bound.buffer("quartet", n_bytes)
     scratch = bound.buffer("quartet_scratch", 4 * K * bound.quartet_scratch) \
         if bound.quartet_scratch else None
     if K:
+        lists = bound.buffer("lists", _align16(rows4.nbytes) + lengths.nbytes)
         _raise_on(_build.library().vft_ml_quartet_opt_f32(
             *bound.args, ctypes.c_float(m.tol), rows4.ctypes.data,
-            lengths.ctypes.data, K, ctypes.c_float(xmin),
+            lengths.ctypes.data, K, lists.data_ptr(), ctypes.c_float(xmin),
             ctypes.c_float(xmax), ctypes.c_float(ftol), ctypes.c_float(atol),
-            int(bool(star_test)), buf.data_ptr(),
-            buf.data_ptr() + rec_bytes if want_site_lk else None,
+            int(bool(star_test)), out.data_ptr(),
+            out.data_ptr() + site_at if want_site_lk else None,
             scratch.data_ptr() if scratch is not None else None,
             bound.stream), "ml_quartet_opt")
         ml_quartet_opt.launches += 1
-    host = bound.buffer("quartet_host", n_bytes, pinned=True)
-    host.copy_(buf)                             # the one blocking fetch
+    site = _typed(out, site_at, (K, 3, P), torch.float32) \
+        if want_site_lk else None
+    fetched = out[:rec_bytes] if keep_site else out
+    host = bound.buffer("quartet_host", fetched.numel(), pinned=True)
+    host.copy_(fetched)                         # the one blocking fetch
     raw = host.numpy()
     rec = raw[:rec_bytes].view(QUARTET_RECORD).copy()
-    site = raw[rec_bytes:].view(np.float32).reshape(K, 3, P).copy() \
-        if want_site_lk else None
+    if want_site_lk and not keep_site:
+        site = raw[site_at:].view(np.float32).reshape(K, 3, P).copy()
     return rec, site
 
 
