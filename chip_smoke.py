@@ -90,6 +90,19 @@ passed):
    SplitCount, counters and store rows bit for bit; its launches, walls,
    device time and bound; the bootstrap counts kernel (sh_resample_counts)
    equal to its twin at B=1000, P=500;
+2g. the CAT fit and the tree log-likelihood as whole-tree launches
+   (ml_posterior_sweep, ml_tree_loglk) against the per-level launches of
+   ml_posterior and ml_pair_loglk, at N=2000, P=500 from the port's NJ
+   tree (Jukes-Cantor and GTR): the 20 rates' per-site log-likelihoods
+   within 1e-12 relative (the per-level path's sums take torch's
+   reduction orders), the categories equal, the store's rows after the
+   fit bit for bit; then one sweep and one tree log-likelihood at the
+   fitted categories, and on a caterpillar of 600 leaves (599 levels):
+   the sweep's rows bit for bit the per-level launches', the sums within
+   1e-12 relative, and against the twins on the card within the ML store
+   tolerances (rows rtol 1e-6, atol 1e-4; per-site sums rtol 1e-5, atol
+   1e-4); each kernel's device time, launch-to-launch time, the per-level
+   launches' time, the twin's and the bound;
 3. the -noml pipeline at N=500, P=500 against the JAX package's tree
    (tests/data/torch_port_golden_n500_p500.nwk), dense and two-tier: RF 0
    to the golden, and the two layouts give the same Newick; then the same
@@ -119,10 +132,12 @@ passed):
    kernels: its count, 0, is printed), the ML NNI rounds must have kept the
    tree in shared memory with no device scratch, the SH pass must have run
    on the card in its list launches (sh_launches: the counts once, one pair
-   launch, one or two quartet launches, one posterior launch per up-profile
-   level and one more), and the final LogLk and the ML-NNIs per round must
+   launch, one or two quartet launches, one sweep of the up-profiles and
+   one posterior launch), and the final LogLk and the ML-NNIs per round must
    be the ones recorded in PERF.md for this input (the kernels' arithmetic
-   does not change the tree).
+   does not change the tree).  The CAT fit (cat_launches) must launch 22
+   sweeps and 20 tree log-likelihoods and nothing else, and the whole run
+   ml_posterior and ml_pair_loglk only once each (the SH pass's lists).
 
 The last lines are the card's name and power limit, one JSON line with each
 kernel's route, source, main-path launches (the ML main path's for the ML
@@ -187,10 +202,14 @@ KERNELS = {
                         "veryfasttree_tpu/engine/ml.py:380"),
     "sh_resample_counts": ("veryfasttree_tpu_torch/csrc/sh_resample.cu",
                            "veryfasttree_tpu/engine/supports.py:37"),
+    "ml_posterior_sweep": ("veryfasttree_tpu_torch/csrc/ml_sweep.cu",
+                           "veryfasttree_tpu/engine/ml_profiles.py:123"),
+    "ml_tree_loglk": ("veryfasttree_tpu_torch/csrc/ml_sweep.cu",
+                      "veryfasttree_tpu/engine/ml.py:299"),
 }
 ML_KERNELS = ("ml_pair_loglk", "ml_posterior", "ml_opt_branch",
               "ml_quartet_opt", "ml_nni_round", "ml_lengths_pass",
-              "sh_resample_counts")
+              "sh_resample_counts", "ml_posterior_sweep", "ml_tree_loglk")
 # the ML kernels the default run launches: ml_opt_branch's one search per
 # launch came only from the lengths passes, whose kernel runs its body
 # (line_search) instead; its count (0) is printed and reported all the same
@@ -211,6 +230,8 @@ DEVICE_NAMES = {
     "ml_nni_round": ("ml_nni_round_kernel",),
     "ml_lengths_pass": ("ml_lengths_pass_kernel",),
     "sh_resample_counts": ("sh_resample_counts_kernel",),
+    "ml_posterior_sweep": ("ml_posterior_sweep_kernel",),
+    "ml_tree_loglk": ("ml_tree_loglk_kernel",),
 }
 # final LogLk and ML-NNIs per round of the default -nt run at N=2000
 # (PERF.md, section 5)
@@ -250,7 +271,9 @@ def wrappers():
             "nj_join_epoch": epoch_kernels.join_epoch,
             "ml_nni_round": ml_round.ml_nni_round,
             "ml_lengths_pass": ml_round.ml_lengths_pass,
-            "sh_resample_counts": resample_kernels.sh_resample_counts}
+            "sh_resample_counts": resample_kernels.sh_resample_counts,
+            "ml_posterior_sweep": ml_kernels.ml_posterior_sweep,
+            "ml_tree_loglk": ml_kernels.ml_tree_loglk}
 
 
 def reset_launches():
@@ -2229,6 +2252,419 @@ def phase_sh(report, dev):
     check_resample(report, dev)
 
 
+# ------------------------------------------------------------- phase 2g
+CAT_N = 20                      # the default run's CAT rate categories
+DEEP_N = 600                    # a caterpillar of DEEP_N - 1 levels
+# the whole-tree kernels' sums against the per-level path's: each level's
+# sum over its pairs in list order, where torch's reductions (ll.sum(),
+# a per-site sum over the level's pairs) take an order of their own, so
+# float64 sums of the same terms may part in their last bits
+SUM_RTOL = 1e-12
+# the kernels against their plain twins on the card: float32 posteriors
+# whose last bits differ, carried up the tree's levels (the tolerances at
+# which tests/test_torch_ml_store.py holds the port's rows and per-site
+# sums to the JAX package's)
+TWIN_ROWS = dict(rtol=1e-6, atol=1e-4)
+TWIN_SITE = dict(rtol=1e-5, atol=1e-4)
+
+
+def shaped_tree(nj, shape, seed=0):
+    """Replace nj's tree by one of its n_seqs leaves (at least four), with
+    branch lengths drawn from `seed`, some 0 (below the minimum length):
+    "caterpillar", each internal node the node below it and a leaf, the
+    root's three children the chain's top and the last two leaves
+    (n_seqs - 1 levels, one posterior each but the root's); or "balanced",
+    the leaves, then the nodes, paired in order level by level (its
+    deepest level n_seqs / 2 nodes of two leaves)."""
+    import numpy as np
+
+    from veryfasttree_tpu_torch.engine.state import TreeState
+
+    n = nj.n_seqs
+    tree = TreeState(n, nj.maxnodes)
+    top = n
+
+    def join(kids):
+        nonlocal top
+        tree.set_children(top, kids)
+        top += 1
+        return top - 1
+
+    if shape == "caterpillar":
+        node = join([0, 1])
+        for leaf in range(2, n - 2):
+            node = join([node, leaf])
+        tree.root = join([node, n - 2, n - 1])
+    else:
+        nodes = list(range(n))
+        while len(nodes) > 3:
+            if len(nodes) == 4:
+                nodes = [join(nodes[:2])] + nodes[2:]
+                continue
+            odd = len(nodes) % 2
+            nodes = [join(nodes[i:i + 2])
+                     for i in range(0, len(nodes) - 1, 2)] + \
+                nodes[len(nodes) - odd:]
+        tree.root = join(nodes)
+    tree.maxnode = top
+    rng = np.random.default_rng(seed)
+    bl = rng.uniform(0.0, 0.4, top)
+    bl[rng.random(top) < 0.02] = 0.0
+    tree.branchlength[:top] = bl
+    nj.tree = tree
+
+
+def shaped_start(n, dev, shape, model, p=MAIN_P, seed=0):
+    """An engine on synth_codes(n, p) on dev (no NJ phase) whose tree is
+    shaped_tree(shape), with an ML store under `model` (Jukes-Cantor or
+    GTR; its averaged profiles) at CAT_N rates, the categories drawn from
+    `seed`."""
+    import numpy as np
+
+    from veryfasttree_tpu_torch.engine import ml
+    from veryfasttree_tpu_torch.engine.ml_profiles import MLProfiles
+    from veryfasttree_tpu_torch.engine.nj import NeighbourJoining
+    from veryfasttree_tpu_torch.models import TransitionMatrix
+    from veryfasttree_tpu_torch.options import Options
+
+    opts = Options(n_codes=4, n_bootstrap=0, show_progress=False)
+    opts.derive_settings()
+    nj = NeighbourJoining(opts, synth_codes(n, p), None, None, device=dev)
+    shaped_tree(nj, shape, seed)
+    nj.ml = MLProfiles(nj, None if model == "jc"
+                       else TransitionMatrix.gtr(*GTR))
+    rng = np.random.default_rng(seed)
+    nj.ml.set_rates(ml.ml_site_rates(CAT_N),
+                    rng.integers(0, CAT_N, nj.n_pos).astype(np.int32))
+    return nj
+
+
+def per_level_recompute(ml):
+    """recompute_ml_profiles as it ran before ml_posterior_sweep: one
+    ml_posterior call per tree level (MLProfiles.posterior_rows)."""
+    tree = ml.nj.tree
+    bl = tree.branchlength
+    for level in tree.level_lists():
+        nodes = [int(nd) for nd in level if tree.n_child[nd] == 2]
+        if nodes:
+            i, j = tree.children[nodes, 0], tree.children[nodes, 1]
+            ml.posterior_rows(nodes, i, j, bl[i], bl[j])
+
+
+def per_level_loglk(nj, want_site=False):
+    """The sums of tree_loglk as they ran before ml_tree_loglk: one
+    ml_pair_loglk call per tree level, the root term through ml_posterior
+    and ml_pair_loglk, the level sums and per-site logs added in float64 by
+    torch on the device.  Returns (total, per-site [n_pos] or None),
+    tensors on the device, before the Jukes-Cantor correction."""
+    import torch
+
+    from veryfasttree_tpu_torch.engine.ml_profiles import S_AB
+
+    tree, ml = nj.tree, nj.ml
+    acc = torch.zeros((), dtype=torch.float64, device=ml.device)
+    site = torch.zeros(nj.n_pos, dtype=torch.float64, device=ml.device)
+
+    def add(ll, lk):
+        nonlocal acc, site
+        acc = acc + ll.sum()
+        if want_site:
+            site = site + torch.log(torch.clamp_min(lk.double(), 1e-300)) \
+                .reshape(-1, nj.n_pos).sum(0)
+
+    bl = tree.branchlength
+    for level in tree.level_lists():
+        nodes = [int(nd) for nd in level if tree.n_child[nd] >= 2]
+        if nodes:
+            r1s, r2s = tree.children[nodes, 0], tree.children[nodes, 1]
+            add(*ml.pair_loglk_rows(r1s, r2s, bl[r1s] + bl[r2s], want_site,
+                                    fetch=False))
+    if tree.n_child[tree.root] == 3:
+        c0, c1, c2 = (int(c) for c in tree.children[tree.root])
+        s_ab = ml.scratch_row(S_AB)
+        ml.posterior_into(s_ab, c0, c1, bl[c0], bl[c1])
+        add(*ml.pair_loglk(s_ab, c2, bl[c2], want_site, fetch=False))
+    return acc, (site if want_site else None)
+
+
+def per_level_site_likelihoods(nj, rates):
+    """engine/ml.ml_site_likelihoods_by_rate as it ran before the
+    whole-tree kernels: per rate per_level_recompute, per_level_loglk and a
+    fetch; [nRate, n_pos] float64 on the host, with the Jukes-Cantor
+    correction."""
+    import numpy as np
+
+    from veryfasttree_tpu_torch.engine import ml as eml
+
+    ml = nj.ml
+    old_rates, old_cats = ml.rates_np.copy(), ml.ratecat_np.copy()
+    out = np.zeros((len(rates), nj.n_pos))
+    for i, r in enumerate(rates):
+        ml.set_rates(np.full_like(old_rates, r), old_cats[: nj.n_pos])
+        per_level_recompute(ml)
+        out[i] = per_level_loglk(nj, True)[1].cpu().numpy()
+    eml._jc_correct(nj, site=out)
+    ml.set_rates(old_rates, old_cats[: nj.n_pos])
+    per_level_recompute(ml)
+    return out
+
+
+def store_diff(a, b):
+    """The arrays of two ML stores (codes, W, V) that differ, bit for
+    bit."""
+    import torch
+
+    return [k for k in ("codes", "W", "V") if not torch.equal(
+        getattr(a, k).contiguous().view(torch.uint8),
+        getattr(b, k).contiguous().view(torch.uint8))]
+
+
+def max_rel(a, b):
+    """The largest |a - b| / |b| of two float arrays (0 where both are
+    0)."""
+    import numpy as np
+
+    a, b = np.asarray(a, dtype=np.float64), np.asarray(b, dtype=np.float64)
+    d = np.abs(a - b)
+    return float(np.max(np.where(d == 0, 0.0, d / np.maximum(np.abs(b),
+                                                            1e-300))))
+
+
+def sweep_bound(tables, P, C, jc):
+    """(bound_ms, bound_by) of a posterior sweep: the rows it reads before
+    any item writes them and the rows it writes, once each, its tables
+    (seven words an item) and the rate categories; a posterior's
+    operations per position (ml_ops) for each item."""
+    import numpy as np
+
+    src = np.unique(np.concatenate([tables.r1, tables.r2]))
+    n_rows = len(np.setdiff1d(src, tables.targets)) + tables.n_items
+    return bound(n_rows * ml_row_bytes(P, C) + 28 * tables.n_items + 4 * P,
+                 tables.n_items * P * ml_ops(C, jc)[2])
+
+
+def loglk_bound(tables, P, C, jc, n_pos, want_site):
+    """(bound_ms, bound_by) of a tree log-likelihood: the distinct rows it
+    reads once, the root term's posterior row written, its tables (three
+    words a pair) and the rate categories, the total and the per-site sums
+    out; each pair's operations per position (ml_ops), the root term's
+    posterior and pair, and a log and an add for each per-site term."""
+    import numpy as np
+
+    eff, site, post = ml_ops(C, jc)
+    rows = [tables.r1, tables.r2]
+    n_terms = tables.n_pairs
+    n_ops = tables.n_pairs * P * (eff + site)
+    if tables.root is not None:
+        rows.append(np.asarray(tables.root[1:4]))
+        n_terms += 1
+        n_ops += P * (post + eff + site)
+    n_rows = len(np.unique(np.concatenate(rows)))
+    n_bytes = (n_rows + (tables.root is not None)) * ml_row_bytes(P, C) \
+        + 12 * tables.n_pairs + 4 * P + 8 * (1 + (n_pos if want_site else 0))
+    if want_site:
+        n_ops += 2 * n_terms * n_pos
+    return bound(n_bytes, n_ops)
+
+
+def check_sweep(label, nj, dev, kernel_runs=True):
+    """One posterior sweep and one tree log-likelihood with per-site sums
+    over nj's tree (its TreeSweep): the kernels against the per-level
+    launches (the rows bit for bit, the sums within SUM_RTOL) and against
+    their twins on the card (TWIN_ROWS, TWIN_SITE), each on its own copy of
+    nj.  Returns ({name: (max abs err against the twin, timing)}, the
+    TreeSweep); with kernel_runs False the timings are left out."""
+    import numpy as np
+
+    from veryfasttree_tpu_torch.ops import ml_kernels as mk
+
+    copies = {k: ml_copy(nj, dev) for k in ("kernel", "levels", "twin")}
+    sweeps = {k: c.ml.tree_sweep() for k, c in copies.items()}
+    out = {}
+    for k, c in copies.items():
+        if k == "twin":
+            mk.ml_posterior_sweep_ref(*c.ml._store(), sweeps[k].posteriors)
+        elif k == "kernel":
+            c.ml.recompute_ml_profiles(sweeps[k])
+        else:
+            per_level_recompute(c.ml)
+    kern, lev, twin = (copies[k].ml for k in ("kernel", "levels", "twin"))
+    diff = store_diff(kern, lev)
+    if diff:
+        raise AssertionError(f"ml_posterior_sweep {label}: {diff} differ "
+                             "from the per-level launches'")
+    rows = sweeps["kernel"].posteriors.targets
+    err = 0.0
+    for k in ("W", "V"):
+        a = getattr(kern, k)[rows].cpu().numpy()
+        b = getattr(twin, k)[rows].cpu().numpy()
+        np.testing.assert_allclose(a, b, err_msg=f"ml_posterior_sweep "
+                                   f"{label} {k} vs the twin", **TWIN_ROWS)
+        err = max(err, float(np.max(np.abs(a - b))))
+    if not np.array_equal(kern.codes.cpu().numpy(), twin.codes.cpu().numpy()):
+        raise AssertionError(f"ml_posterior_sweep {label}: codes differ from "
+                             "the twin's")
+    out["ml_posterior_sweep"] = [err]
+
+    # the tree log-likelihood, each copy on its own rows
+    ll_k, site_k = kern.tree_loglk(sweeps["kernel"], want_site=True)
+    ll_l, site_l = per_level_loglk(copies["levels"], want_site=True)
+    ll_t, site_t = mk.ml_tree_loglk_ref(*twin._store(), sweeps["twin"].loglk,
+                                        True)
+    (ll_k, site_k), (ll_l, site_l), (ll_t, site_t) = (
+        (float(a), b.cpu().numpy()) for a, b in ((ll_k, site_k),
+                                                 (ll_l, site_l),
+                                                 (ll_t, site_t)))
+    sum_err = max(max_rel(ll_k, ll_l), max_rel(site_k, site_l))
+    if not sum_err <= SUM_RTOL:
+        raise AssertionError(f"ml_tree_loglk {label}: {sum_err:.3e} "
+                             "relative from the per-level path's sums")
+    diff = store_diff(kern, lev)
+    if diff:
+        raise AssertionError(f"ml_tree_loglk {label}: {diff} differ from the "
+                             "per-level launches' (the root term's row)")
+    np.testing.assert_allclose(site_k, site_t, err_msg=f"ml_tree_loglk "
+                               f"{label} per-site sums vs the twin",
+                               **TWIN_SITE)
+    np.testing.assert_allclose(ll_k, ll_t, rtol=TWIN_SITE["rtol"],
+                               err_msg=f"ml_tree_loglk {label} vs the twin")
+    out["ml_tree_loglk"] = [max(abs(ll_k - ll_t),
+                                float(np.max(np.abs(site_k - site_t))))]
+    print(f"  [{label}] sweep: {sweeps['kernel'].posteriors.n_items} items "
+          f"in {sweeps['kernel'].posteriors.n_levels} levels, rows bit for "
+          f"bit the per-level launches', max abs err {err:.3e} against the "
+          f"twin; tree LogLk: {sweeps['kernel'].loglk.n_pairs} pairs in "
+          f"{sweeps['kernel'].loglk.n_levels} levels, total {ll_k!r} (per-"
+          f"level {ll_l!r}), sums {sum_err:.3e} relative from the per-level "
+          f"path's (bit for bit: total {ll_k == ll_l}, sites "
+          f"{np.array_equal(site_k, site_l)}), {out['ml_tree_loglk'][0]:.3e}"
+          " from the twin's")
+    if not kernel_runs:
+        return out, sweeps["kernel"]
+
+    # times, on the kernel's copy: the kernels, their twins, the per-level
+    # launches
+    ml, sw = kern, sweeps["kernel"]
+    P, C = ml.W.shape[1], ml.V.shape[2]
+    n_pos = ml.n_pos
+    store = ml._store()
+    post = sw.posteriors
+    levels_copy = copies["levels"]
+    runs = (
+        ("ml_posterior_sweep",
+         lambda: mk.ml_posterior_sweep(*store, post),
+         lambda: mk.ml_posterior_sweep_ref(*store, post),
+         lambda: per_level_recompute(levels_copy.ml),
+         sweep_bound(post, P, C, ml.jc)),
+        ("ml_tree_loglk",
+         lambda: mk.ml_tree_loglk(*store, sw.loglk, True),
+         lambda: mk.ml_tree_loglk_ref(*store, sw.loglk, True),
+         lambda: per_level_loglk(levels_copy, True),
+         loglk_bound(sw.loglk, P, C, ml.jc, n_pos, True)))
+    for name, fn, twin_fn, levels_fn, (bound_ms, bound_by) in runs:
+        times = {"ms": median_ms(fn), "plain_ms": median_ms(twin_fn, 5),
+                 "device_us": device_us(fn, DEVICE_NAMES[name]),
+                 "bound_ms": bound_ms, "bound_by": bound_by,
+                 "library_ms": None, "per_level_ms": median_ms(levels_fn, 10)}
+        out[name].append(times)
+        print(f"  {name} [{label}]: {times['ms']:.4f} ms launch to launch, "
+              f"{times['device_us']:.2f} us on the device; the per-level "
+              f"launches {times['per_level_ms']:.4f} ms; twin "
+              f"{times['plain_ms']:.3f} ms; bound {bound_ms:.4e} ms "
+              f"({bound_by})")
+    return out, sw
+
+
+def phase_cat_sweep(report, dev):
+    """The CAT fit and the tree log-likelihood as whole-tree launches
+    (ml_posterior_sweep, ml_tree_loglk) against the per-level launches of
+    ml_posterior and ml_pair_loglk: at the main shape (N=MAIN_N, P=MAIN_P,
+    the port's NJ tree with ME lengths), Jukes-Cantor and GTR, the 20
+    rates' per-site log-likelihoods of engine/ml.ml_site_likelihoods_by_rate
+    within SUM_RTOL of per_level_site_likelihoods', the categories they
+    give equal, the store's rows after the fit bit for bit and the tree
+    LogLk within SUM_RTOL; the walls and launches of both fits; then one
+    sweep and one tree log-likelihood (check_sweep) at the main shape with
+    the fitted categories, and on a caterpillar of DEEP_N leaves (DEEP_N -
+    1 levels), each timed: device us, launch to launch, the per-level
+    launches, the twin and the bound."""
+    import numpy as np
+    import torch
+
+    from veryfasttree_tpu_torch.engine import ml as eml
+
+    rates = eml.ml_site_rates(CAT_N)
+    prior = 2.0 * np.log(rates) - 3.0 * rates
+    for model in ("jc", "gtr"):
+        label = f"N={MAIN_N} {model.upper()}"
+        start = ml_start(MAIN_N, dev, model)
+        fits = {}
+        for name in ("kernels", "per-level"):
+            nj = ml_copy(start, dev)
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            site = eml.ml_site_likelihoods_by_rate(nj, rates) \
+                if name == "kernels" else per_level_site_likelihoods(nj, rates)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {k: fn.launches for k, fn in wrappers().items()
+                        if fn.launches}
+            fits[name] = (site, wall, launches, nj)
+        (ks, kwall, kl, knj), (ps, pwall, pl, pnj) = fits["kernels"], \
+            fits["per-level"]
+        rel = max_rel(ks, ps)
+        cats_k = np.argmax(ks + prior[:, None], axis=0)
+        cats_p = np.argmax(ps + prior[:, None], axis=0)
+        if not rel <= SUM_RTOL:
+            raise AssertionError(f"CAT fit {label}: per-site log-likelihoods "
+                                 f"{rel:.3e} relative from the per-level "
+                                 "path's")
+        if not np.array_equal(cats_k, cats_p):
+            raise AssertionError(f"CAT fit {label}: "
+                                 f"{int((cats_k != cats_p).sum())} categories"
+                                 " differ from the per-level path's")
+        diff = store_diff(knj.ml, pnj.ml)
+        if diff:
+            raise AssertionError(f"CAT fit {label}: {diff} differ from the "
+                                 "per-level path's after the fit")
+        ll_k = eml.tree_loglk(knj)
+        ll_p = float(per_level_loglk(pnj)[0])
+        ll_p = eml._jc_correct(pnj, ll_p)[0]
+        if not max_rel(ll_k, ll_p) <= SUM_RTOL:
+            raise AssertionError(f"tree LogLk {label}: {ll_k!r}, the "
+                                 f"per-level path's {ll_p!r}")
+        print(f"  CAT fit [{label}, {CAT_N} rates]: per-site log-likelihoods "
+              f"{rel:.3e} relative from the per-level path's (bit for bit "
+              f"{np.array_equal(ks, ps)}), categories equal "
+              f"({len(np.unique(cats_k))} used), rows bit for bit; wall "
+              f"{kwall:.4f} s ({kl}) against {pwall:.4f} s ({pl}); tree "
+              f"LogLk {ll_k!r} (per-level {ll_p!r})")
+        # one sweep and one tree log-likelihood at the fitted categories
+        nj = ml_copy(start, dev)
+        nj.ml.set_rates(rates / rates[cats_k].mean(), cats_k.astype(np.int32))
+        out, _ = check_sweep(label + " CAT 20", nj, dev,
+                             kernel_runs=model == "jc")
+        for name, (err, *times) in out.items():
+            entry = report.setdefault(name, {"max_abs_err": 0.0})
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+            if times:
+                entry.update(times[0])
+    for model in ("jc", "gtr"):
+        label = f"caterpillar N={DEEP_N} {model.upper()} CAT 20"
+        nj = shaped_start(DEEP_N, dev, "caterpillar", model)
+        out, sw = check_sweep(label, nj, dev, kernel_runs=model == "jc")
+        if sw.posteriors.n_levels < DEEP_N - 3:
+            raise AssertionError(f"{label}: {sw.posteriors.n_levels} levels")
+        for name, (err, *times) in out.items():
+            entry = report.setdefault(name, {"max_abs_err": 0.0})
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+            if times:
+                entry.update({f"deep_{k}": v for k, v in times[0].items()
+                              if k in ("ms", "device_us", "per_level_ms",
+                                       "bound_ms")})
+
+
 # ------------------------------------------------------------- phases 3, 4
 ALPHA = "ACGT"
 
@@ -2516,27 +2952,43 @@ def phase_ml_golden(dev):
                              f"\n{res.stderr[-2000:]}")
 
 
-def sh_launches(fn):
-    """Run fn() noting each kernel's launches during the SH pass
-    (ops/ml_round.SHPass.run) and the pass: returns (fn's result,
-    launches, the pass)."""
-    from veryfasttree_tpu_torch.ops import ml_round
+def launches_during(fn, owner, name):
+    """Run fn() noting each kernel's launches during the calls of
+    owner.name (a method or a module's function), summed over its calls:
+    returns (fn's result, launches, the first argument of its last
+    call)."""
+    orig, launches, firsts = getattr(owner, name), collections.Counter(), []
 
-    orig, launches, passes = ml_round.SHPass.run, {}, []
-
-    def traced(self):
-        before = {name: w.launches for name, w in wrappers().items()}
-        out = orig(self)
-        launches.update({name: w.launches - before[name]
-                         for name, w in wrappers().items()})
-        passes.append(self)
+    def traced(*a, **k):
+        before = {n: w.launches for n, w in wrappers().items()}
+        out = orig(*a, **k)
+        launches.update({n: w.launches - before[n]
+                         for n, w in wrappers().items()})
+        firsts.append(a[0] if a else None)
         return out
 
-    ml_round.SHPass.run = traced
+    setattr(owner, name, traced)
     try:
-        return fn(), launches, passes[-1]
+        return fn(), dict(launches), (firsts[-1] if firsts else None)
     finally:
-        ml_round.SHPass.run = orig
+        setattr(owner, name, orig)
+
+
+def sh_launches(fn):
+    """Run fn() noting each kernel's launches during the SH pass
+    (ops/ml_round.SHPass.run): returns (fn's result, launches, the
+    pass)."""
+    from veryfasttree_tpu_torch.ops import ml_round
+
+    return launches_during(fn, ml_round.SHPass, "run")
+
+
+def cat_launches(fn):
+    """Run fn() noting each kernel's launches during the CAT fit
+    (engine/ml.set_ml_rates): returns (fn's result, launches)."""
+    from veryfasttree_tpu_torch.engine import ml
+
+    return launches_during(fn, ml, "set_ml_rates")[:2]
 
 
 def phase_ml_main(report, dev):
@@ -2544,8 +2996,9 @@ def phase_ml_main(report, dev):
     from util import newick_splits
 
     n = MAIN_N
-    (nw, nj, wall, counts, rounds, final), sh, sh_pass = sh_launches(
-        lambda: run_ml(fasta_text(synth_codes(n, MAIN_P)), dev))
+    ((nw, nj, wall, counts, rounds, final), cat), sh, sh_pass = sh_launches(
+        lambda: cat_launches(
+            lambda: run_ml(fasta_text(synth_codes(n, MAIN_P)), dev)))
     t = nj.timings
     nj_s = t["store_s"] + t["tophits_s"] + t["joins_s"]
     print(f"  N={n} P={MAIN_P} default -nt: wall {wall:.2f} s; NJ {nj_s:.3f} "
@@ -2594,12 +3047,29 @@ def phase_ml_main(report, dev):
           f"{sh_pass.S} splits, {work['levels']} up-profile "
           f"levels ({work['up_rows']} rows), {work['again']} optimized "
           f"again; launches {({k: v for k, v in sh.items() if v})}")
-    want = {"sh_resample_counts": 1, "ml_pair_loglk": 1,
-            "ml_posterior": work["levels"] + 1,
+    want = {"sh_resample_counts": 1, "ml_pair_loglk": 1, "ml_posterior": 1,
+            "ml_posterior_sweep": 1,
             "ml_quartet_opt": 1 + (work["again"] > 0)}
     if any(sh.get(k) != v for k, v in want.items()) \
             or sum(sh.values()) != sum(want.values()):
         raise AssertionError(f"the SH pass launched {sh}, not {want}")
+    # the CAT fit: a sweep and a tree log-likelihood per rate, a sweep
+    # back at one rate and one at the fitted rates, and nothing per level
+    want = {"ml_posterior_sweep": CAT_N + 2, "ml_tree_loglk": CAT_N}
+    print(f"  CAT fit in the run: cat_s {t['cat_s']:.3f} s; launches "
+          f"{({k: v for k, v in cat.items() if v})}")
+    if any(cat.get(k) != v for k, v in want.items()) \
+            or sum(cat.values()) != sum(want.values()):
+        raise AssertionError(f"the CAT fit launched {cat}, not {want}")
+    # the whole run: the per-level kernels only in the SH pass's lists; a
+    # tree log-likelihood after each ML NNI round, per CAT rate and after
+    # the last lengths pass
+    want = {"ml_posterior": 1, "ml_pair_loglk": 1,
+            "ml_posterior_sweep": CAT_N + 3,
+            "ml_tree_loglk": CAT_N + len(rounds) + 1}
+    if any(counts[k] != v for k, v in want.items()):
+        raise AssertionError("the run launched "
+                             f"{ {k: counts[k] for k in want} }, not {want}")
     nnis = [r[1] for r in rounds]
     if nnis != ML_MAIN_NNIS:
         raise AssertionError(f"ML-NNIs per round {nnis}, recorded "
@@ -2672,6 +3142,8 @@ def main() -> int:
         phase("2e ML round and lengths pass vs host loop", phase_ml_round,
               report, cuda)
         phase("2f SH pass vs host loop", phase_sh, report, cuda)
+        phase("2g CAT sweep and tree LogLk vs per-level launches",
+              phase_cat_sweep, report, cuda)
         phase("3 N=500 vs JAX golden", phase_golden, cuda)
         phase(f"4 main path N={MAIN_N}", phase_main, report, cuda)
         phase(f"5 ML N={ML_GOLDEN_N} vs JAX golden", phase_ml_golden, cuda)

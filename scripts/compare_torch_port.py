@@ -16,7 +16,10 @@ LogLk (none with --noml), every kernel wrapper's launches and the round
 and epoch wrappers' totals (the join epoch's joins, phases and scans).  With
 --trace the second round's runs are traced with torch.profiler (CUDA
 activity): the device's busy seconds and share of that run's wall, and the
-kernels by device time.
+kernels by device time.  Beside each run, nvidia-smi samples the card's
+power draw, SM and memory clocks and temperature every 100 ms, from the
+end of its kernels' build to the end of its process; the RESULT line's
+"smi" holds their mean, least and largest values.
 At the end, one line per checkout: the walls and phases of its runs, and
 whether the trees, LogLk values and ML-NNI counts of all runs agree.
 
@@ -53,6 +56,7 @@ mods = [importlib.import_module("." + name, "veryfasttree_tpu_torch.ops")
 _build.library()
 torch.zeros(1, device="cuda")
 torch.cuda.synchronize()
+print("READY", flush=True)
 wrappers = {name: fn for mod in mods for name, fn in vars(mod).items()
             if callable(fn) and hasattr(fn, "launches")}
 for fn in wrappers.values():
@@ -98,6 +102,49 @@ print("RESULT " + json.dumps(res), flush=True)
 """
 
 
+SMI_FIELDS = ("power.draw", "clocks.sm", "clocks.mem", "temperature.gpu")
+
+
+def smi_sampler(path):
+    """An nvidia-smi process writing SMI_FIELDS to `path` every 100 ms."""
+    out = open(path, "w")
+    proc = subprocess.Popen(
+        ["nvidia-smi", f"--query-gpu={','.join(SMI_FIELDS)}",
+         "--format=csv,noheader,nounits", "-lms=100"],
+        stdout=out, stderr=subprocess.DEVNULL)
+    proc.log = out
+    return proc
+
+
+def smi_summary(proc, path):
+    """Stop the sampler (None: none started); {field: [mean, least,
+    largest], "samples": n}."""
+    if proc is None:
+        return None
+    proc.terminate()
+    try:
+        proc.wait(timeout=10)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    proc.log.close()
+    rows = []
+    with open(path) as f:
+        for line in f:
+            try:
+                rows.append([float(v) for v in line.split(",")])
+            except ValueError:
+                continue
+    rows = [r for r in rows if len(r) == len(SMI_FIELDS)]
+    if not rows:
+        return {"samples": 0}
+    cols = list(zip(*rows))
+    out = {k: [round(sum(c) / len(c), 2), min(c), max(c)]
+           for k, c in zip(SMI_FIELDS, cols)}
+    out["samples"] = len(rows)
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("roots", nargs="+", help="checkout roots to compare")
@@ -120,19 +167,38 @@ def main() -> int:
             order = args.roots if r % 2 == 0 else args.roots[::-1]
             for root in order:
                 trace = args.trace and r == 1
-                res = subprocess.run(
-                    [sys.executable, "-c", CHILD, os.path.abspath(root), fasta,
-                     "1" if trace else "0", "1" if args.noml else "0"],
-                    cwd=os.path.abspath(root),
-                    capture_output=True, text=True, check=False)
-                lines = [ln for ln in res.stdout.splitlines()
+                smi_path = os.path.join(tmp, "smi.csv")
+                err_path = os.path.join(tmp, "stderr.txt")
+                sampler = None
+                with open(err_path, "w") as err:
+                    child = subprocess.Popen(
+                        [sys.executable, "-c", CHILD, os.path.abspath(root),
+                         fasta, "1" if trace else "0",
+                         "1" if args.noml else "0"],
+                        cwd=os.path.abspath(root), stdout=subprocess.PIPE,
+                        stderr=err, text=True)
+                    try:
+                        # sample from the end of the kernels' build on
+                        first = child.stdout.readline()
+                        if first.startswith("READY"):
+                            sampler = smi_sampler(smi_path)
+                        stdout = first + child.communicate()[0]
+                    finally:
+                        smi = smi_summary(sampler, smi_path)
+                        if child.poll() is None:
+                            child.kill()
+                            child.wait()
+                lines = [ln for ln in stdout.splitlines()
                          if ln.startswith("RESULT ")]
-                if res.returncode != 0 or not lines:
-                    print(f"{root}: exit {res.returncode}\n"
-                          f"{res.stderr[-3000:]}", flush=True)
+                if child.returncode != 0 or not lines:
+                    with open(err_path) as f:
+                        print(f"{root}: exit {child.returncode}\n"
+                              f"{f.read()[-3000:]}", flush=True)
                     return 1
-                print(lines[-1], flush=True)
-                results[root].append(json.loads(lines[-1][len("RESULT "):]))
+                result = json.loads(lines[-1][len("RESULT "):])
+                result["smi"] = smi
+                print("RESULT " + json.dumps(result), flush=True)
+                results[root].append(result)
     runs = [res for rs in results.values() for res in rs]
     same = all((res["final"], res["rounds"], res["newick_sha256"])
                == (runs[0]["final"], runs[0]["rounds"],

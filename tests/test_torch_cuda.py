@@ -658,3 +658,114 @@ def test_sh_pass_is_the_host_loop(cuda, model):
     want = sh_state(nj, *sh_host_loop(nj))
     assert sh_diff(got, want) == []
     assert 0 < np.count_nonzero(got["support"]) < len(got["nodes"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["jc", "gtr"])
+@pytest.mark.parametrize("shape,n,p", [("balanced", 300, 500),
+                                       ("caterpillar", 520, 128),
+                                       ("wide", 9000, 128)])
+def test_whole_tree_kernels_are_the_per_level_launches(cuda, shape, n, p,
+                                                       model):
+    """ml_posterior_sweep and ml_tree_loglk (one launch each) against the
+    per-level launches of ml_posterior and ml_pair_loglk
+    (chip_smoke.per_level_recompute, per_level_loglk) on a tree of n
+    leaves (chip_smoke.shaped_tree) at CAT 20: a balanced tree; a
+    caterpillar of at least 500 levels; and a balanced tree whose deepest
+    level holds more items than the sweep's grid has blocks.  The store's
+    rows bit for bit after the sweep and after the tree log-likelihood
+    (the root term's row); the total and the per-site sums within 1e-12
+    relative (each level's sum in list order, where the per-level path's
+    torch reductions take orders of their own), and the total equal with
+    and without the per-site sums."""
+    from chip_smoke import (max_rel, ml_copy, per_level_loglk,
+                            per_level_recompute, shaped_start, store_diff)
+    from veryfasttree_tpu_torch.ops import _build
+    from veryfasttree_tpu_torch.ops import ml_kernels as mk
+
+    start = shaped_start(n, cuda, "balanced" if shape == "wide" else shape,
+                         model, p=p)
+    kern, levels = ml_copy(start, cuda), ml_copy(start, cuda)
+    sweep = kern.ml.tree_sweep()
+    widths = np.diff(sweep.posteriors.offsets)
+    if shape == "caterpillar":
+        assert sweep.posteriors.n_levels >= 500
+    if shape == "wide":
+        assert widths.max() > _build.library().vft_ml_posterior_sweep_grid(4)
+    before = {fn: fn.launches for fn in (mk.ml_posterior_sweep,
+                                         mk.ml_posterior, mk.ml_tree_loglk,
+                                         mk.ml_pair_loglk)}
+    kern.ml.recompute_ml_profiles(sweep)
+    ll_k, site_k = kern.ml.tree_loglk(sweep, want_site=True)
+    ll_only, _ = kern.ml.tree_loglk(sweep)
+    assert {fn.__name__: fn.launches - b for fn, b in before.items()} == {
+        "ml_posterior_sweep": 1, "ml_posterior": 0, "ml_tree_loglk": 2,
+        "ml_pair_loglk": 0}
+    per_level_recompute(levels.ml)
+    ll_l, site_l = per_level_loglk(levels, want_site=True)
+    assert store_diff(kern.ml, levels.ml) == []
+    ll_k, ll_only, ll_l = float(ll_k), float(ll_only), float(ll_l)
+    assert ll_k == ll_only
+    assert max_rel(ll_k, ll_l) <= 1e-12
+    assert max_rel(site_k.cpu().numpy(), site_l.cpu().numpy()) <= 1e-12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["jc", "gtr"])
+def test_cat_fit_is_the_per_level_path(cuda, model):
+    """engine/ml.ml_site_likelihoods_by_rate (21 sweeps and 20 tree
+    log-likelihoods over one TreeSweep, one fetch) against the per-level
+    path (chip_smoke.per_level_site_likelihoods) from the port's NJ tree
+    at N=300: the 20 rates' per-site log-likelihoods within 1e-12
+    relative, the CAT categories they give equal, the store's rows bit for
+    bit after the fit; a CUDA store runs no twin and no per-level kernel."""
+    from chip_smoke import (max_rel, ml_copy, ml_start,
+                            per_level_site_likelihoods, store_diff)
+    from veryfasttree_tpu_torch.engine import ml
+    from veryfasttree_tpu_torch.ops import ml_kernels as mk
+
+    start = ml_start(300, cuda, model)
+    rates = ml.ml_site_rates(20)
+    prior = 2.0 * np.log(rates) - 3.0 * rates
+    kern, levels = ml_copy(start, cuda), ml_copy(start, cuda)
+    before = (mk.ml_posterior_sweep.launches, mk.ml_tree_loglk.launches,
+              mk.ml_posterior.launches, mk.ml_pair_loglk.launches)
+    twins = (mk.ml_posterior_sweep_ref, mk.ml_tree_loglk_ref)
+
+    def refused(*a, **k):
+        raise AssertionError("a twin ran for a CUDA store")
+
+    mk.ml_posterior_sweep_ref = mk.ml_tree_loglk_ref = refused
+    try:
+        site_k = ml.ml_site_likelihoods_by_rate(kern, rates)
+    finally:
+        mk.ml_posterior_sweep_ref, mk.ml_tree_loglk_ref = twins
+    assert (mk.ml_posterior_sweep.launches - before[0],
+            mk.ml_tree_loglk.launches - before[1],
+            mk.ml_posterior.launches - before[2],
+            mk.ml_pair_loglk.launches - before[3]) == (21, 20, 0, 0)
+    site_l = per_level_site_likelihoods(levels, rates)
+    assert max_rel(site_k, site_l) <= 1e-12
+    np.testing.assert_array_equal(np.argmax(site_k + prior[:, None], 0),
+                                  np.argmax(site_l + prior[:, None], 0))
+    assert store_diff(kern.ml, levels.ml) == []
+
+
+@pytest.mark.cuda
+def test_whole_tree_kernels_refuse_rows_outside_the_store(cuda):
+    """A table row outside the store raises before anything is
+    launched."""
+    from chip_smoke import shaped_start
+    from veryfasttree_tpu_torch.ops import ml_kernels as mk
+
+    nj = shaped_start(40, cuda, "balanced", "jc", p=128)
+    n_rows = nj.ml.codes.shape[0]
+    bad = mk.SweepTables.from_levels([([n_rows - 1], [0], [n_rows], [0.1],
+                                       [0.1])])
+    before = mk.ml_posterior_sweep.launches
+    with pytest.raises(IndexError):
+        mk.ml_posterior_sweep(*nj.ml._store(), bad)
+    bad = mk.LoglkTables([0, 1], [0], [n_rows + 5], [0.1])
+    with pytest.raises(IndexError):
+        mk.ml_tree_loglk(*nj.ml._store(), bad)
+    assert mk.ml_posterior_sweep.launches == before

@@ -16,10 +16,10 @@
 // bound by its launch; what the kernels do about it is take whole lists.
 // The row indices, lengths and targets of a pair, posterior or quartet
 // list, of any length K, reach device memory in one copy (stage), and the
-// grid runs over the list: a tree level, or
-// every split of the SH-like supports pass (ops/ml_round.sh_pass: 3S
-// pairs, 2S posteriors, 2S quartets in a launch each), fills the card's
-// 132 SMs in one launch.  Each item runs the body
+// grid runs over the list: every split of the SH-like supports pass
+// (ops/ml_round.sh_pass: 3S pairs, 2S posteriors, 2S quartets in a launch
+// each) fills the card's 132 SMs in one launch.  A whole tree's levels run
+// in one launch of ml_sweep.cu's kernels, on these bodies.  Each item runs the body
 // it ran alone, with the same thread map, so its bits do not depend on K.
 // A whole branch-length line search runs inside one launch, and a whole
 // quartet optimization (two posteriors, a line search, the star test, five
@@ -103,12 +103,14 @@ __global__ void __launch_bounds__(kLkThreads)
   if (threadIdx.x == 0) ll[k] = total;
 }
 
-// Replaces _posterior_into_impl, _posterior_rows_impl and
-// _posterior_sweep_impl (veryfasttree_tpu/engine/ml_profiles.py:77-218): the
-// posterior parent profile of rows r1[k], r2[k] at len1[k], len2[k] written
-// into row t[k].  blockIdx.x the item, one thread per position of
-// blockIdx.y's chunk; each block builds its item's two rate tables (the
-// rate entries of every category).
+// Replaces _posterior_into_impl and _posterior_rows_impl
+// (veryfasttree_tpu/engine/ml_profiles.py:77-111, 183-218), the single and
+// list calls: the posterior parent profile of rows r1[k], r2[k] at len1[k],
+// len2[k] written into row t[k].  blockIdx.x the item, one thread per
+// position of blockIdx.y's chunk; each block builds its item's two rate
+// tables (the rate entries of every category).  _posterior_sweep_impl
+// (:123-177), a whole run of levels, is ml_sweep.cu's
+// ml_posterior_sweep_kernel, which runs this body and thread map.
 template <int C>
 __global__ void __launch_bounds__(kPostThreads)
     ml_posterior_kernel(MLView m, int8_t* codes_out, float* W_out, float* V_out,

@@ -8,12 +8,14 @@ GTR and Gamma line searches -- ref MLQuartetOptimize tcc:1650-1788,
 MLQuartetNNI :4885-5004) run on the host as in the reference; every
 likelihood, posterior and branch-length line search is one call of the ML
 store (engine/ml_profiles.py), whose kernels take their row indices in the
-launch parameters.  treeLogLk and recomputeMLProfiles go level by level,
-one store call per tree level, and sum on the device with one fetch at the
-end.  On the card, a whole ML NNI round and a whole branch-length pass are
-one kernel launch each (ops/ml_round.py); their host loops here
-(rearrange.do_nni with use_ml, optimize_all_branch_lengths) are the twins
-that run for a store on the CPU.  The SH-like supports run as list launches
+launch parameters.  treeLogLk and recomputeMLProfiles are one launch each
+over the level tables of a TreeSweep (ml_profiles.py), which sums on the
+device; a CAT fit builds one TreeSweep for its 20 rates and fetches the
+rates' per-site log-likelihoods once.  On the card, a whole ML NNI round
+and a whole branch-length pass are one kernel launch each
+(ops/ml_round.py); their host loops here (rearrange.do_nni with use_ml,
+optimize_all_branch_lengths) are the twins that run for a store on the
+CPU.  The SH-like supports run as list launches
 over all splits at once (ops/ml_round.sh_pass, on the card and on the
 CPU); test_splits_ml here is the host loop that pass is held to.
 """
@@ -250,51 +252,33 @@ def ml_quartet_nni(nj, rows4, lengths):
 # ---------------------------------------------------------------------------
 
 
-def tree_loglk(nj, want_site_loglk=False):
-    """ref treeLogLk tcc:5160-5258: one pair log-likelihood call per tree
-    level; the level sums (and the per-site logs) accumulate in float64 on
-    the device, with one fetch at the end."""
-    tree = nj.tree
+def tree_loglk(nj, want_site_loglk=False, sweep=None):
+    """ref treeLogLk tcc:5160-5258: one tree log-likelihood launch over the
+    tables of `sweep` (a TreeSweep of the current tree and branch lengths,
+    or one built here), the sums in float64 on the device, then one fetch
+    and the Jukes-Cantor correction."""
     ml = nj.ml
     if nj.n_seqs < 2:
         return (0.0, None) if want_site_loglk else 0.0
-    acc = torch.zeros((), dtype=torch.float64, device=ml.device)
-    site = torch.zeros(nj.n_pos, dtype=torch.float64, device=ml.device)
-
-    def add(ll, lk):
-        nonlocal acc, site
-        acc = acc + ll.sum()
-        if want_site_loglk:
-            site = site + torch.log(torch.clamp_min(lk.double(), 1e-300)) \
-                .reshape(-1, nj.n_pos).sum(0)
-
-    for level in tree.level_lists():
-        nodes = [int(nd) for nd in level if tree.n_child[nd] >= 2]
-        if not nodes:
-            continue
-        r1s = tree.children[nodes, 0]
-        r2s = tree.children[nodes, 1]
-        lens = tree.branchlength[r1s] + tree.branchlength[r2s]
-        add(*ml.pair_loglk_rows(r1s, r2s, lens, want_site_loglk, fetch=False))
-    # root 3-way term (ref :5142-5155)
-    root = tree.root
-    if tree.n_child[root] == 3:
-        c0, c1, c2 = (int(tree.children[root, k]) for k in range(3))
-        s_ab = ml.scratch_row(S_AB)
-        ml.posterior_into(s_ab, c0, c1, tree.branchlength[c0],
-                          tree.branchlength[c1])
-        add(*ml.pair_loglk(s_ab, c2, tree.branchlength[c2], want_site_loglk,
-                           fetch=False))
-    loglk = float(acc)                  # the one blocking fetch
+    ll, site = ml.tree_loglk(sweep or ml.tree_sweep(), want_site_loglk)
+    loglk = float(ll)                   # the one blocking fetch
     site = site.cpu().numpy() if want_site_loglk else None
-    # Jukes-Cantor gap/log-4 correction (ref :5236-5257)
-    if nj.options.n_codes == 4 and ml.jc:
-        log4 = math.log(4.0)
-        if want_site_loglk:
-            site += nj.gaps_per_pos() * log4 - log4
-        loglk -= nj.n_pos * log4
-        loglk += int(nj.prof.n_gaps.sum()) * log4
+    loglk, site = _jc_correct(nj, loglk, site)
     return (loglk, site) if want_site_loglk else loglk
+
+
+def _jc_correct(nj, loglk=None, site=None):
+    """The Jukes-Cantor gap/log-4 correction (ref :5236-5257) of a total
+    and of per-site log-likelihoods ([P] or [nRate, P], in place), each
+    where given; other models' values as they are."""
+    if nj.options.n_codes == 4 and nj.ml.jc:
+        log4 = math.log(4.0)
+        if site is not None:
+            site += nj.gaps_per_pos() * log4 - log4
+        if loglk is not None:
+            loglk -= nj.n_pos * log4
+            loglk += int(nj.prof.n_gaps.sum()) * log4
+    return loglk, site
 
 
 def optimize_all_branch_lengths(nj) -> None:
@@ -348,22 +332,30 @@ def ml_site_rates(n_cats: int) -> np.ndarray:
     return np.exp(np.linspace(-log_n, log_n, n_cats))
 
 
-def ml_site_likelihoods_by_rate(nj, rates: np.ndarray, progress=None):
-    """ref MLSiteLikelihoodsByRate tcc:5381-5408 -> site_loglk [nRate, P]."""
+def ml_site_likelihoods_by_rate(nj, rates: np.ndarray, progress=None,
+                                sweep=None):
+    """ref MLSiteLikelihoodsByRate tcc:5381-5408 -> site_loglk [nRate, P]:
+    per rate one posterior sweep and one tree log-likelihood launch over
+    the tables of `sweep` (one TreeSweep for every rate), each rate's
+    per-site log-likelihoods into a row of a [nRate, P] tensor on the
+    device, fetched once after the last rate."""
     ml = nj.ml
+    sweep = sweep or ml.tree_sweep()
     old_rates = ml.rates_np.copy()
     old_cats = ml.ratecat_np.copy()
-    out = np.zeros((len(rates), nj.n_pos))
+    out = torch.empty((len(rates), nj.n_pos), dtype=torch.float64,
+                      device=ml.device)
     for i, r in enumerate(rates):
         ml.set_rates(np.full_like(old_rates, r), old_cats[: nj.n_pos])
-        ml.recompute_ml_profiles()
-        _, out[i] = tree_loglk(nj, want_site_loglk=True)
+        ml.recompute_ml_profiles(sweep)
+        ml.tree_loglk(sweep, want_site=True, site_out=out[i])
         if progress is not None:
             progress.print("Site likelihoods with rate category %d of %d",
                            i + 1, len(rates))
+    _, site = _jc_correct(nj, site=out.cpu().numpy())  # the one fetch
     ml.set_rates(old_rates, old_cats[: nj.n_pos])
-    ml.recompute_ml_profiles()
-    return out
+    ml.recompute_ml_profiles(sweep)
+    return site
 
 
 def log_ml_rates(nj, log) -> None:
@@ -382,17 +374,18 @@ def set_ml_rates(nj, progress=None) -> None:
     prior, mean-normalized."""
     opts = nj.options
     ml = nj.ml
+    sweep = ml.tree_sweep()
     ml.set_rates(np.ones(1), np.zeros(nj.n_pos, dtype=np.int32))
     if opts.n_rate_cats == 1:
-        ml.recompute_ml_profiles()
+        ml.recompute_ml_profiles(sweep)
         return
     rates = ml_site_rates(opts.n_rate_cats)
-    site_loglk = ml_site_likelihoods_by_rate(nj, rates, progress)
+    site_loglk = ml_site_likelihoods_by_rate(nj, rates, progress, sweep)
     prior = 2.0 * np.log(rates) - 3.0 * rates
     best = np.argmax(site_loglk + prior[:, None], axis=0)
     rates = rates / rates[best].mean()
     ml.set_rates(rates, best.astype(np.int32))
-    ml.recompute_ml_profiles()
+    ml.recompute_ml_profiles(sweep)
 
 
 def set_ml_gtr(nj, freq_in=None, progress=None) -> None:
@@ -413,13 +406,15 @@ def set_ml_gtr(nj, freq_in=None, progress=None) -> None:
 
     rates = np.ones(6)
     n_rounds = 2 if opts.ml_accuracy < 2 else opts.ml_accuracy
+    sweep = ml.tree_sweep()             # the tree and lengths stay until
+                                        # the lengths pass at the end
 
     def neg_loglk(x, i_rate):
         r = rates.copy()
         r[i_rate] = x
         ml.set_transmat(TransitionMatrix.gtr(r, freq, dtype=ml.dtype))
-        ml.recompute_ml_profiles()
-        return -tree_loglk(nj)
+        ml.recompute_ml_profiles(sweep)
+        return -tree_loglk(nj, sweep=sweep)
 
     for rnd in range(n_rounds):
         for i_rate in range(6):
@@ -437,7 +432,7 @@ def set_ml_gtr(nj, freq_in=None, progress=None) -> None:
     tm = TransitionMatrix.gtr(rates, freq, dtype=ml.dtype)
     nj.transmat = tm
     ml.set_transmat(tm)
-    ml.recompute_ml_profiles()
+    ml.recompute_ml_profiles(sweep)
     ml_round.ml_lengths_pass(nj)
 
 

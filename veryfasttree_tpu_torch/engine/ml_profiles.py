@@ -17,7 +17,11 @@ keeps its 2S AB-quartet posteriors there (batch_row).
 
 Every likelihood, posterior and branch-length optimization is one call of
 the kernels in ops/ml_kernels.py over a list of rows and lengths; the host
-loops (engine/ml.py) fetch only the values they decide on.
+loops (engine/ml.py) fetch only the values they decide on.  The recompute
+of every internal profile and the tree's log-likelihood are one launch
+each, over the level tables of a TreeSweep, which a caller builds once for
+a tree and its branch lengths and reuses while neither changes (the 20
+rates of a CAT fit, the evaluations of a GTR fit).
 """
 from __future__ import annotations
 
@@ -111,12 +115,20 @@ class MLProfiles:
         self.gap_vec = self.code_freq[NOCODE]
         self._push_model()
 
+    def _upload(self, x, dtype):
+        """x on the store's device; to a CUDA device through pinned memory,
+        in stream order, so that the host does not wait for the card."""
+        x = torch.from_numpy(np.ascontiguousarray(x)).to(dtype)
+        if self.device.type != "cuda":
+            return x.to(self.device)
+        return x.pin_memory().to(self.device, non_blocking=True)
+
     def _push_model(self) -> None:
         self.model = MLModel(
             jc=self.jc, code_freq=self.code_freq, eigenval=self.eigenval,
             eigeninv=self.eigeninv, statinv=self.statinv,
-            rates=self._tensor(self.rates_np),
-            ratecat=torch.as_tensor(self.ratecat_np, device=self.device),
+            rates=self._upload(self.rates_np, self.tdtype),
+            ratecat=self._upload(self.ratecat_np, torch.int32),
             n_pos=self.n_pos, min_rel_len=float(self.min_rel_len),
             tol=self.tol)
 
@@ -215,11 +227,34 @@ class MLProfiles:
         self.posterior_rows([target], [r1], [r2], [len1], [len2])
 
     def posterior_sweep(self, levels) -> None:
-        """Dependency-ordered posterior level sweep: `levels` is a list of
-        (targets, r1s, r2s, len1s, len2s); one kernel call per level, in
-        stream order, so level k+1 reads what level k wrote."""
-        for level in levels:
-            self.posterior_rows(*level)
+        """Dependency-ordered posterior level sweep: `levels` is a
+        SweepTables, or a list of (targets, r1s, r2s, len1s, len2s) whose
+        lengths are raised to the minimum as posterior_rows raises them,
+        where level k+1 reads what level k wrote; one kernel launch in all
+        on the card, ml_posterior's rows bit for bit."""
+        if not isinstance(levels, ml_kernels.SweepTables):
+            levels = ml_kernels.SweepTables.from_levels(
+                [(t, r1, r2, self._clamped(l1), self._clamped(l2))
+                 for t, r1, r2, l1, l2 in levels])
+        ml_kernels.ml_posterior_sweep(*self._store(), levels)
+        self.nj.debug.n_posterior_compute += levels.n_items
+
+    def tree_sweep(self) -> "TreeSweep":
+        return TreeSweep(self)
+
+    def tree_loglk(self, sweep, want_site=False, site_out=None):
+        """The tree's log-likelihood over sweep's tables, before the
+        Jukes-Cantor correction (engine/ml.tree_loglk): (total [], per-site
+        [n_pos] or None) float64 on the device, in one kernel launch
+        (ml_kernels.ml_tree_loglk), the per-site sums in site_out when
+        given; nj.debug counts the pair and posterior calls it fuses."""
+        tables = sweep.loglk
+        out = ml_kernels.ml_tree_loglk(*self._store(), tables, want_site,
+                                       site_out)
+        root = int(tables.root is not None)
+        self.nj.debug.n_lk_compute += tables.n_pairs + root
+        self.nj.debug.n_posterior_compute += root
+        return out
 
     def quartet_records(self, rows4, lengths, star_test=False,
                         want_site_lk=False, keep_site=False):
@@ -304,20 +339,65 @@ class MLProfiles:
             self.W[t] = w
             self.V[t] = torch.where(w[..., None] > 0, f, self.gap_vec)
 
-    def recompute_ml_profiles(self) -> None:
+    def recompute_ml_profiles(self, sweep=None) -> None:
         """Posterior recompute of all internal profiles bottom-up (ref
-        recomputeMLProfiles tcc:3516-3539)."""
-        tree = self.nj.tree
+        recomputeMLProfiles tcc:3516-3539): one sweep over the tables of
+        `sweep` (a TreeSweep of the current tree and branch lengths, or
+        one built here)."""
+        self.posterior_sweep((sweep or self.tree_sweep()).posteriors)
+
+
+def level_order(tree):
+    """tree.level_lists() (the levels leaves first, each level in the
+    breadth-first order from the root) by a frontier walk with one numpy
+    step per level, where level_lists takes a Python step per node
+    (engine/state.py is a copy of the JAX package's module, kept equal to
+    it)."""
+    levels = []
+    level = np.array([tree.root], dtype=np.int64)
+    slots = np.arange(3)
+    while len(level):
+        levels.append(level)
+        level = tree.children[level][slots < tree.n_child[level][:, None]]
+    return levels[::-1]
+
+
+class TreeSweep:
+    """The level tables of the store's tree and branch lengths, built once
+    and sent to the device once, for as long as neither changes:
+    posteriors (SweepTables), the recompute of every node of two children
+    from its children at their lengths, bottom-up; loglk (LoglkTables),
+    the pair of the first two children of every node of two or three
+    children at the sum of their lengths, and with a root of three
+    children the root's 3-way term (ref treeLogLk tcc:5142-5155).  Each
+    level keeps level_lists' order, so the twins' sums are those of the
+    per-level loops."""
+
+    def __init__(self, ml):
+        tree = ml.nj.tree
         bl = tree.branchlength
-        levels = []
-        for level in tree.level_lists():
-            nodes = [int(nd) for nd in level if tree.n_child[nd] == 2]
-            if not nodes:
-                continue
-            iis = tree.children[nodes, 0]
-            jjs = tree.children[nodes, 1]
-            levels.append((nodes, iis, jjs, bl[iis], bl[jjs]))
-        self.posterior_sweep(levels)
+        levels = level_order(tree)
+        nodes = np.concatenate(levels)
+        level = np.repeat(np.arange(len(levels)), [len(v) for v in levels])
+        n_child = tree.n_child[nodes]
+        two = n_child == 2
+        t = nodes[two]
+        i, j = tree.children[t, 0], tree.children[t, 1]
+        self.posteriors = ml_kernels.SweepTables(
+            ml_kernels.csr_offsets(level[two], len(levels)), t, i, j,
+            ml._clamped(bl[i]), ml._clamped(bl[j]))
+        pairs = n_child >= 2
+        t = nodes[pairs]
+        i, j = tree.children[t, 0], tree.children[t, 1]
+        root = None
+        if tree.n_child[tree.root] == 3:
+            c0, c1, c2 = (int(c) for c in tree.children[tree.root])
+            root = (ml.scratch_row(S_AB), c0, c1, c2,
+                    *(float(x) for x in ml._clamped([bl[c0], bl[c1]])),
+                    float(np.float32(bl[c2])))
+        self.loglk = ml_kernels.LoglkTables(
+            ml_kernels.csr_offsets(level[pairs], len(levels)), i, j,
+            bl[i] + bl[j], root)
 
 
 def site_log(lk):

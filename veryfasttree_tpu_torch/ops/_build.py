@@ -25,11 +25,13 @@ BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 LIB_PATH = BUILD_DIR / "libvft_scan.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# per-source flags: the likelihood kernels, the ML rounds, the decisions of
+# per-source flags: the likelihood kernels, the ML rounds and the
+# whole-tree sweep and log-likelihood, the decisions of
 # the SPR and NNI rounds and of the join epoch, and the bootstrap columns
 # round every float and double expression as written, as their plain twins
 # and numpy do (no fused multiply-adds)
 SOURCE_FLAGS = {"ml_lk.cu": ["-fmad=false"], "ml_round.cu": ["-fmad=false"],
+                "ml_sweep.cu": ["-fmad=false"],
                 "me_spr.cu": ["-fmad=false"], "me_nni.cu": ["-fmad=false"],
                 "nj_epoch.cu": ["-fmad=false"],
                 "sh_resample.cu": ["-fmad=false"]}
@@ -224,6 +226,21 @@ def _declare(lib) -> None:
         f32, ptr, ptr, i64, ptr, f32, f32, f32, f32, i32, ptr, ptr, ptr, ptr]
     lib.vft_ml_quartet_scratch_floats.argtypes = [i32, i32]
     lib.vft_ml_quartet_scratch_floats.restype = i64
+    # the whole-tree kernels (csrc/ml_sweep.cu)
+    lib.vft_ml_sweep_ctrl_words.argtypes = []
+    lib.vft_ml_posterior_sweep_grid.argtypes = [i32]
+    lib.vft_ml_posterior_sweep_units.argtypes = [i64, i32]
+    lib.vft_ml_posterior_sweep_units.restype = i64
+    lib.vft_ml_tree_loglk_units.argtypes = [i64, i32, i32, i32, i32]
+    lib.vft_ml_tree_loglk_units.restype = i64
+    lib.vft_ml_tree_loglk_scratch_bytes.argtypes = [i64, i32, i32, i32, i32,
+                                                    i32]
+    lib.vft_ml_tree_loglk_scratch_bytes.restype = i64
+    lib.vft_ml_posterior_sweep_f32.argtypes = ml_store + [
+        f32, ptr, ptr, i64, ptr, i64, i32, ptr]
+    lib.vft_ml_tree_loglk_f32.argtypes = ml_store + [
+        f32, ptr, ptr, ptr, i64, i32, i32, i32, i32, i32, f32, f32, f32, i32,
+        ptr, ptr, ptr, i64, ptr, i64, i32, ptr]
     # the ML store, the model's tolerance and the line searches' limits,
     # first in each ML round entry (ops/ml_round.py)
     ml_round = ml_store + [f32, f32, f32, f32, f32, f64]
@@ -243,7 +260,10 @@ def _declare(lib) -> None:
                  "vft_ml_opt_branch_f32", "vft_ml_opt_branch_fits_smem",
                  "vft_ml_quartet_opt_f32", "vft_ml_nni_round_f32",
                  "vft_ml_lengths_pass_f32", "vft_ml_round_tree_fits_smem",
-                 "vft_nj_epoch_f32", "vft_sh_resample_counts"):
+                 "vft_nj_epoch_f32", "vft_sh_resample_counts",
+                 "vft_ml_sweep_ctrl_words", "vft_ml_posterior_sweep_grid",
+                 "vft_ml_posterior_sweep_f32",
+                 "vft_ml_tree_loglk_f32"):
         getattr(lib, name).restype = i32
 
 

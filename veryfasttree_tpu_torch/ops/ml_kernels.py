@@ -29,6 +29,19 @@ over the list:
 Each item of a list runs the body and thread map it runs alone, so its
 bits do not depend on K (the card tests hold K = 300 and K = 200 to K = 1).
 
+Two kernels of ``csrc/ml_sweep.cu`` take a whole tree in one launch, over
+level tables that reach the device once (``SweepTables``,
+``LoglkTables``; engine/ml_profiles.TreeSweep builds them for a tree):
+
+* ``ml_posterior_sweep``: a dependency-ordered sweep of posteriors, level
+  after level (the JAX package's ``_posterior_sweep``), each row bit for
+  bit what ``ml_posterior``'s per-level launches write;
+* ``ml_tree_loglk``: a tree's log-likelihood (treeLogLk): every level's
+  pairs, the root's 3-way term, and the float64 total and per-site sums,
+  on the device.
+
+Their twins run the per-level twins over the same tables.
+
 Store layout (``engine/ml_profiles.py``): codes int8 [n_rows, P], W float32
 [n_rows, P], V float32 [n_rows, P, C] raw (unmixed) rotated vectors.  The
 model constants travel in an ``MLModel``.
@@ -340,6 +353,187 @@ def ml_quartet_opt_ref(codes, W, V, m, rows4, lengths, scratch_rows, xmin,
                          want_site_lk)
 
 
+# ---------------------------------------------------------- level tables
+def csr_offsets(level_ids, n_levels):
+    """Offsets [L + 1] of the non-empty levels of items whose level indices
+    (non-decreasing, below n_levels) are level_ids."""
+    counts = np.bincount(level_ids, minlength=n_levels)
+    return np.concatenate([[0], np.cumsum(counts[counts > 0])]) \
+        .astype(np.int64)
+
+
+def _producers(targets, sources, level):
+    """The item that writes each source row (-1: none), which must lie in
+    an earlier level than the reader's."""
+    order = np.argsort(targets, kind="stable")
+    st = targets[order]
+    if len(st) == 0:
+        return np.full(len(sources), -1, dtype=np.int64)
+    at = np.minimum(np.searchsorted(st, sources), len(st) - 1)
+    hit = st[at] == sources
+    prod = np.where(hit, order[at], -1)
+    if (hit & (level[np.maximum(prod, 0)] >= level)).any():
+        raise ValueError("posterior sweep: a level reads a row that it or a "
+                         "later level writes")
+    return prod
+
+
+class _Tables:
+    """Level tables in CSR form: level l's items from offsets[l] to
+    offsets[l + 1].  upload(dev) sends the kernel's arrays to a device
+    once, through pinned memory, in stream order."""
+
+    def levels(self):
+        """Each level's slices of `fields`, in order."""
+        for a, b in zip(self.offsets[:-1], self.offsets[1:]):
+            yield tuple(getattr(self, f)[a:b] for f in self.fields)
+
+    @property
+    def n_levels(self) -> int:
+        return len(self.offsets) - 1
+
+    def _rows(self):
+        return np.concatenate([getattr(self, f) for f in self.row_fields])
+
+    def check_rows(self, n_rows, name):
+        rows = self._rows()
+        if len(rows) and (rows.min() < 0 or rows.max() >= n_rows):
+            raise IndexError(f"{name}: a row index lies outside the store")
+
+    def upload(self, dev):
+        """{name: tensor on dev} of the kernel's arrays (kernel_arrays())."""
+        key = str(dev)
+        if key not in self._on:
+            arrays = self.kernel_arrays()
+            at, n = {}, 0
+            for name, a in arrays.items():
+                at[name] = n
+                n += _align16(a.nbytes)
+            host = torch.empty(max(n, 16), dtype=torch.uint8,
+                               pin_memory=True)
+            raw = host.numpy()
+            for name, a in arrays.items():
+                raw[at[name]:at[name] + a.nbytes] = a.view(np.uint8)
+            buf = host.to(dev, non_blocking=True)
+            self._on[key] = {name: _typed(buf, at[name], a.shape,
+                                          _TORCH[a.dtype])
+                             for name, a in arrays.items()}
+        return self._on[key]
+
+
+_TORCH = {np.dtype(np.int32): torch.int32, np.dtype(np.float32): torch.float32}
+
+
+class SweepTables(_Tables):
+    """A dependency-ordered posterior sweep: per item, the target row, the
+    source rows r1, r2 and their lengths len1, len2 (float32, raised to
+    the minimum length as the store raises them); and the items of earlier
+    levels that write r1 and r2 (prod1, prod2, -1 for none), which the
+    kernel waits on.  Targets are distinct and no level reads a row that it
+    or a later level writes (checked here), so the level-by-level order and
+    the kernel's order of waits give the same rows."""
+
+    fields = ("targets", "r1", "r2", "len1", "len2")
+    row_fields = fields[:3]
+
+    def __init__(self, offsets, targets, r1, r2, len1, len2):
+        self.offsets = np.asarray(offsets, dtype=np.int64)
+        self.targets, self.r1, self.r2 = (np.asarray(a, dtype=np.int64)
+                                          for a in (targets, r1, r2))
+        self.len1, self.len2 = (np.asarray(a, dtype=np.float32)
+                                for a in (len1, len2))
+        st = np.sort(self.targets)
+        if (st[1:] == st[:-1]).any():
+            raise ValueError("posterior sweep: targets must be distinct")
+        level = np.repeat(np.arange(self.n_levels), np.diff(self.offsets))
+        self.prod1 = _producers(self.targets, self.r1, level)
+        self.prod2 = _producers(self.targets, self.r2, level)
+        self.n_items = len(self.targets)
+        self._on = {}
+
+    @classmethod
+    def from_levels(cls, levels):
+        """The tables of a list of levels (targets, r1s, r2s, len1s,
+        len2s), empty levels left out."""
+        levels = [lv for lv in levels if len(lv[0])]
+        sizes = [len(lv[0]) for lv in levels]
+        cols = [np.concatenate([np.asarray(lv[i]) for lv in levels])
+                if levels else np.zeros(0) for i in range(5)]
+        return cls(np.concatenate([[0], np.cumsum(sizes)]), *cols)
+
+    def kernel_arrays(self):
+        return {"rows": np.concatenate([self.targets, self.r1, self.r2,
+                                        self.prod1, self.prod2])
+                .astype(np.int32),
+                "lens": np.concatenate([self.len1, self.len2])}
+
+
+class LoglkTables(_Tables):
+    """A tree log-likelihood: per level, its pairs of rows r1, r2 at length
+    len (float32), in list order; and the root's 3-way term, root = (s_ab,
+    c0, c1, c2, l0, l1, l2): the posterior of rows c0, c1 at l0, l1
+    (raised to the minimum length) into row s_ab, then the pair of s_ab
+    and c2 at l2; or None."""
+
+    fields = ("r1", "r2", "len")
+    row_fields = fields[:2]
+
+    def __init__(self, offsets, r1, r2, lens, root=None):
+        self.offsets = np.asarray(offsets, dtype=np.int64)
+        self.r1, self.r2 = (np.asarray(a, dtype=np.int64) for a in (r1, r2))
+        self.len = np.asarray(lens, dtype=np.float32)
+        self.root = root
+        self.n_pairs = len(self.r1)
+        self._on = {}
+
+    def _rows(self):
+        rows = super()._rows()
+        return rows if self.root is None else np.concatenate(
+            [rows, np.asarray(self.root[:4], dtype=np.int64)])
+
+    def kernel_arrays(self):
+        return {"offsets": self.offsets.astype(np.int32),
+                "rows": np.concatenate([self.r1, self.r2]).astype(np.int32),
+                "lens": self.len}
+
+
+def ml_posterior_sweep_ref(codes, W, V, m, tables):
+    """Plain twin of ml_posterior_sweep: ml_posterior_ref level by level."""
+    for level in tables.levels():
+        ml_posterior_ref(codes, W, V, m, *level)
+
+
+def ml_tree_loglk_ref(codes, W, V, m, tables, want_site=False,
+                      site_out=None):
+    """Plain twin of ml_tree_loglk: ml_pair_loglk_ref level by level, each
+    level's sum and per-site logs added to float64 running sums, then the
+    root term through ml_posterior_ref and ml_pair_loglk_ref."""
+    dev, n_pos = codes.device, m.n_pos
+    acc = torch.zeros((), dtype=torch.float64, device=dev)
+    site = torch.zeros(n_pos, dtype=torch.float64, device=dev)
+
+    def add(ll, lk):
+        nonlocal acc, site
+        acc = acc + ll.sum()
+        if want_site:
+            site = site + torch.log(torch.clamp_min(
+                lk[:, :n_pos].double(), 1e-300)).reshape(-1, n_pos).sum(0)
+
+    for r1s, r2s, lens in tables.levels():
+        add(*ml_pair_loglk_ref(codes, W, V, m, r1s, r2s, lens, want_site))
+    if tables.root is not None:
+        s_ab, c0, c1, c2, l0, l1, l2 = tables.root
+        ml_posterior_ref(codes, W, V, m, [s_ab], [c0], [c1], [l0], [l1])
+        add(*ml_pair_loglk_ref(codes, W, V, m, [s_ab], [c2], [l2],
+                               want_site))
+    if not want_site:
+        return acc, None
+    if site_out is not None:
+        site_out.copy_(site)
+        site = site_out
+    return acc, site
+
+
 # ---------------------------------------------------------------- kernels
 def _check_store(codes, W, V, m):
     dev = codes.device
@@ -627,3 +821,127 @@ def ml_quartet_opt(codes, W, V, m, rows4, lengths, scratch_rows, xmin, xmax,
 
 
 ml_quartet_opt.launches = 0
+
+
+class _Workspace:
+    """The control words, ready flags and scratch of the whole-tree kernels
+    on one stream (csrc/ml_sweep.cu): the flags are zeroed when allocated
+    and tagged with each launch's epoch, so no launch resets them."""
+
+    def __init__(self, device):
+        self.device = device
+        self.ctrl = None
+        self.scratch = None
+        self.epoch = 0
+
+    def flags(self, n_units):
+        """(control block and flags, flags they hold) for n_units."""
+        words = _build.library().vft_ml_sweep_ctrl_words()
+        if self.ctrl is None or self.ctrl.numel() < words + n_units:
+            size = max(words + n_units,
+                       2 * (0 if self.ctrl is None else self.ctrl.numel()))
+            self.ctrl = torch.zeros(size, dtype=torch.int32,
+                                    device=self.device)
+        return self.ctrl, self.ctrl.numel() - words
+
+    def scratch_buffer(self, n_bytes):
+        if self.scratch is None or self.scratch.numel() < n_bytes:
+            size = max(n_bytes, 2 * (0 if self.scratch is None
+                                     else self.scratch.numel()), 256)
+            self.scratch = torch.empty(size, dtype=torch.uint8,
+                                       device=self.device)
+        return self.scratch
+
+    def next_epoch(self) -> int:
+        self.epoch = self.epoch % 0x7FFFFFFF + 1
+        return self.epoch
+
+
+_WORKSPACES = {}
+
+
+def _workspace(bound) -> _Workspace:
+    key = (str(bound.device), bound.stream)
+    if key not in _WORKSPACES:
+        _WORKSPACES[key] = _Workspace(bound.device)
+    return _WORKSPACES[key]
+
+
+def ml_posterior_sweep(codes, W, V, m, tables):
+    """The posteriors of a SweepTables, level after level (the JAX
+    package's _posterior_sweep; ref recomputeMLProfiles tcc:3516-3539 and
+    the up-profiles of testSplitsML), written into the store in place: one
+    launch on CUDA, each row bit for bit ml_posterior's level by level;
+    the twin on the CPU."""
+    if codes.device.type == "cpu":
+        return ml_posterior_sweep_ref(codes, W, V, m, tables)
+    bound = _bind(codes, W, V, m)
+    tables.check_rows(codes.shape[0], "ml_posterior_sweep")
+    if tables.n_items == 0:
+        return
+    lib = _build.library()
+    dev = tables.upload(bound.device)
+    ws = _workspace(bound)
+    ctrl, n_flags = ws.flags(
+        lib.vft_ml_posterior_sweep_units(tables.n_items, bound.P))
+    _raise_on(lib.vft_ml_posterior_sweep_f32(
+        *bound.args, ctypes.c_float(m.tol), dev["rows"].data_ptr(),
+        dev["lens"].data_ptr(), tables.n_items, ctrl.data_ptr(), n_flags,
+        ws.next_epoch(), bound.stream), "ml_posterior_sweep")
+    ml_posterior_sweep.launches += 1
+
+
+ml_posterior_sweep.launches = 0
+
+
+def ml_tree_loglk(codes, W, V, m, tables, want_site=False, site_out=None):
+    """The log-likelihood of a LoglkTables (ref treeLogLk tcc:5160-5258,
+    before its Jukes-Cantor correction): each level's pair log-likelihoods
+    summed in list order and added to a float64 total level by level, the
+    root term last; with want_site the same for each site's
+    log(max(lk, 1e-300)).  Returns (total [] float64, per-site [n_pos]
+    float64 or None) on the store's device, the per-site sums in site_out
+    when given (a contiguous float64 tensor of n_pos).  One launch on CUDA;
+    the root term's posterior is written into its scratch row as the
+    twin writes it."""
+    if site_out is not None and (
+            site_out.dtype != torch.float64 or not site_out.is_contiguous()
+            or site_out.numel() != m.n_pos or site_out.device != codes.device):
+        raise ValueError("ml_tree_loglk: site_out must be a contiguous "
+                         "float64 tensor of n_pos on the store's device")
+    if codes.device.type == "cpu":
+        return ml_tree_loglk_ref(codes, W, V, m, tables, want_site, site_out)
+    bound = _bind(codes, W, V, m)
+    tables.check_rows(codes.shape[0], "ml_tree_loglk")
+    ll = torch.empty((), dtype=torch.float64, device=bound.device)
+    site = None
+    if want_site:
+        site = site_out if site_out is not None else torch.empty(
+            m.n_pos, dtype=torch.float64, device=bound.device)
+    K, L, root = tables.n_pairs, tables.n_levels, tables.root
+    lib = _build.library()
+    dev = tables.upload(bound.device)
+    ws = _workspace(bound)
+    ctrl, n_flags = ws.flags(lib.vft_ml_tree_loglk_units(
+        K, L, int(m.n_pos), int(root is not None), int(want_site)))
+    n_scratch = lib.vft_ml_tree_loglk_scratch_bytes(
+        K, L, bound.P, int(m.n_pos), bound.C, int(want_site))
+    if n_scratch <= 0:
+        raise RuntimeError("ml_tree_loglk: the card's occupancy could not "
+                           "be read")
+    scratch = ws.scratch_buffer(n_scratch)
+    s_ab, c0, c1, c2, l0, l1, l2 = root if root is not None else \
+        (0, -1, 0, 0, 0.0, 0.0, 0.0)
+    _raise_on(lib.vft_ml_tree_loglk_f32(
+        *bound.args, ctypes.c_float(m.tol), dev["offsets"].data_ptr(),
+        dev["rows"].data_ptr(), dev["lens"].data_ptr(), K, L, int(s_ab),
+        int(c0), int(c1), int(c2), ctypes.c_float(l0), ctypes.c_float(l1),
+        ctypes.c_float(l2), int(want_site), ll.data_ptr(),
+        site.data_ptr() if want_site else None, scratch.data_ptr(),
+        scratch.numel(), ctrl.data_ptr(), n_flags, ws.next_epoch(),
+        bound.stream), "ml_tree_loglk")
+    ml_tree_loglk.launches += 1
+    return ll, site
+
+
+ml_tree_loglk.launches = 0

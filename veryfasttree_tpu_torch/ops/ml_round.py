@@ -33,6 +33,7 @@ import torch
 
 from .. import constants
 from ..engine import rearrange
+from ..engine.ml_profiles import level_order
 from ..engine.supports import SplitCount
 from . import _build, me_round, ml_kernels, resample_kernels
 
@@ -185,8 +186,8 @@ class SHPass:
 
     (a) draw: the bootstrap counts [P, B] (resample_kernels.
         sh_resample_counts);
-    (b) up_profiles: the up-profiles the loop computes, top-down, one
-        ml_posterior launch per tree level (_up_levels);
+    (b) up_profiles: the up-profiles the loop computes, top-down, level
+        by level (_up_levels), in one ml_posterior_sweep launch;
     (c) gather: the quartets (A, B, C, D) of the splits, as setup_abcd
         gives them (_quartets);
     (d) ab_quartets: one ml_posterior launch of the AB quartets' 2S
@@ -365,11 +366,10 @@ def _up_levels(nj, nodes):
     compute_up_profiles_levelwise order)."""
     tree = nj.tree
     bl = tree.branchlength
-    need = set(tree.parent[nodes].tolist()) - {tree.root}
+    need = np.setdiff1d(tree.parent[nodes], [tree.root])
     levels = []
-    for level in reversed(tree.level_lists()):
-        us = np.array([u for u in level.tolist() if u in need],
-                      dtype=np.int64)
+    for level in reversed(level_order(tree)):
+        us = level[np.isin(level, need)]
         if len(us):
             c, d, d_row = _cd(nj, us)
             levels.append([nj.prof.up_row(us), c, d_row, bl[c], bl[d]])
