@@ -23,7 +23,14 @@ passed):
    1e-4 and -loglk at x atol 1e-3; a list of 300 pairs and one of 200
    posteriors (past the old caps of a launch, 256 and 128) also bit for bit
    their K=1 launches, and both timed at the SH pass's list shapes
-   (3 x 1997 pairs, 2 x 1997 posteriors).  The quartet kernel (ml_quartet_opt) on
+   (3 x 1997 pairs, 2 x 1997 posteriors).  The ME whole-tree kernels on
+   the port's NJ tree at N=2000 (dense): me_average_sweep (the 1,997
+   up-profiles of the split test and the ME lengths) bit for bit the
+   per-level launches of me_average and one me_average launch per
+   up-profile, codes equal and W, U within 1e-12 of its twin;
+   me_dists_list (the split test's 11,982 pairs, quartet by quartet) bit
+   for bit me_dists' calls of six pairs, within 1e-12 of its twin; each
+   also timed against those per-call paths.  The quartet kernel (ml_quartet_opt) on
    200 quartets of that layout, Jukes-Cantor and GTR, with the star test
    and with per-site likelihoods: bit for bit the chain of the three
    single-call kernels it fuses (ml_kernels.quartet_chain), and against
@@ -103,6 +110,14 @@ passed):
    tolerances (rows rtol 1e-6, atol 1e-4; per-site sums rtol 1e-5, atol
    1e-4); each kernel's device time, launch-to-launch time, the per-level
    launches' time, the twin's and the bound;
+2h. the ME branch lengths, then the split test, at N=2000 from the port's
+   NJ tree, dense and two-tier: the whole-tree path
+   (batched.update_branch_lengths_batched,
+   supports.test_splits_min_evo_batched: one me_average_sweep and one
+   me_dists_list launch each, one fetch) against the serial walks through
+   the per-call kernels (rearrange.update_branch_lengths,
+   supports.test_splits_min_evo): the SplitCount, the debug counters and
+   every branch length bit for bit; the walls and launches of both;
 3. the -noml pipeline at N=500, P=500 against the JAX package's tree
    (tests/data/torch_port_golden_n500_p500.nwk), dense and two-tier: RF 0
    to the golden, and the two layouts give the same Newick; then the same
@@ -113,7 +128,10 @@ passed):
    with the two-tier store forced on (-two-tier-min 0), which must give the
    same tree.  The kernel launch counts are reset just before the warm run
    and read just after it: each kernel of the dense path must have
-   launched.  The scans run inside the join epoch's refreshes, so its
+   launched, the single-call me_average never (the ME lengths and the
+   split test take one me_average_sweep and one me_dists_list launch
+   each, and no more), and me_dists only in the NJ phase (NJ_DISTS_CALLS).
+   The scans run inside the join epoch's refreshes, so its
    refresh scans must be nonzero there (and in the two-tier run, where the
    leaf rows take the codes scan's body);
 5. the ML phase against the JAX package's trees at N=200, P=500
@@ -182,6 +200,11 @@ KERNELS = {
                  "veryfasttree_tpu/engine/profiles.py:244"),
     "me_average": ("veryfasttree_tpu_torch/csrc/me_store.cu",
                    "veryfasttree_tpu/engine/profiles.py:310"),
+    "me_average_sweep": ("veryfasttree_tpu_torch/csrc/me_store.cu",
+                         "veryfasttree_tpu/engine/profiles.py:375"),
+    # the same XLA function as me_dists, over a whole list (dist_pairs :708)
+    "me_dists_list": ("veryfasttree_tpu_torch/csrc/me_store.cu",
+                      "veryfasttree_tpu/engine/profiles.py:244"),
     "ml_pair_loglk": ("veryfasttree_tpu_torch/csrc/ml_lk.cu",
                       "veryfasttree_tpu/engine/ml_profiles.py:52"),
     "ml_posterior": ("veryfasttree_tpu_torch/csrc/ml_lk.cu",
@@ -220,6 +243,8 @@ DEVICE_NAMES = {
     "nj_scan_codes": ("nj_scan_codes_kernel", "argmin_partials_kernel"),
     "me_dists": ("me_pair_dist_kernel",),
     "me_average": ("me_average_kernel",),
+    "me_dists_list": ("me_pair_list_kernel",),
+    "me_average_sweep": ("me_average_sweep_kernel",),
     "ml_pair_loglk": ("ml_pair_loglk_kernel",),
     "ml_posterior": ("ml_posterior_kernel",),
     "ml_opt_branch": ("ml_opt_branch_kernel",),
@@ -262,6 +287,8 @@ def wrappers():
             "nj_scan_codes": scan_kernels.nj_scan_codes,
             "me_dists": store_kernels.me_dists,
             "me_average": store_kernels.me_average,
+            "me_dists_list": store_kernels.me_dists_list,
+            "me_average_sweep": store_kernels.me_average_sweep,
             "ml_pair_loglk": ml_kernels.ml_pair_loglk,
             "ml_posterior": ml_kernels.ml_posterior,
             "ml_opt_branch": ml_kernels.ml_opt_branch,
@@ -1041,6 +1068,238 @@ def phase_kernels(report):
     for model in ("jc", "gtr"):
         err, times = check_quartets(model, gen, dev)
         record("ml_quartet_opt", f"12008x512 C=4 {model.upper()}", err, times)
+    check_me_whole_tree(report, dev)
+
+
+def me_row_bytes(P, C):
+    """Bytes of one ME store row: codes int8, W float32, U float32 [P, C]."""
+    return P * (4 * C + 5)
+
+
+def me_read_bytes(rows, leaf_rows, P, C):
+    """Bytes a distance reads of `rows` (distinct): a float row's W and U
+    (load_pos reads no codes there), a code-only leaf row's codes."""
+    leaves = int((rows < leaf_rows).sum())
+    return leaves * P + (len(rows) - leaves) * P * (4 * C + 4)
+
+
+def me_sweep_bound(tables, P, C):
+    """(bound_ms, bound_by) of an up-profile sweep: the rows it reads
+    before any item writes them and the rows it writes, once each, and its
+    tables (five words an item); an average's operations per position
+    (check_average's count) for each item."""
+    import numpy as np
+
+    src = np.unique(np.concatenate([tables.iis, tables.jjs]))
+    n_rows = len(np.setdiff1d(src, tables.targets)) + tables.n_items
+    return bound(n_rows * me_row_bytes(P, C) + 20 * tables.n_items,
+                 tables.n_items * P * (4 * C + 6))
+
+
+def me_list_bound(iis, jjs, leaf_rows, P, C):
+    """(bound_ms, bound_by) of a pair-distance list: what a distance reads
+    of its distinct rows, once each (me_read_bytes), the list (two words a
+    pair) in and (dist, denom) out; a pair's operations per position
+    (check_dists' count) for each pair."""
+    import numpy as np
+
+    rows = np.unique(np.concatenate([iis, jjs]))
+    return bound(me_read_bytes(rows, leaf_rows, P, C) + 24 * len(iis),
+                 len(iis) * P * (2 * C + 2))
+
+
+def check_me_whole_tree(report, dev):
+    """The ME whole-tree kernels at the main path's shapes, on the port's
+    NJ tree at N=MAIN_N (dense store): me_average_sweep, the up-profiles of
+    the split test and the ME lengths, against the per-level launches of
+    me_average and against one me_average launch per up-profile (the serial
+    walk's calls), every row bit for bit, and against its twin on the card
+    (codes equal, W and U within TOL); me_dists_list, the split test's
+    quartets' pairs, against me_dists' calls of six pairs (the serial
+    walk's), bit for bit, and its twin within TOL.  Each timed: device us,
+    launch to launch, the per-level launches (the sweep), the per-call path
+    (the serial walk's calls, each list of six fetched), the twin and the
+    bound."""
+    import numpy as np
+
+    from veryfasttree_tpu_torch.engine import batched
+    from veryfasttree_tpu_torch.ops import store_kernels as st
+
+    nj = spr_start(MAIN_N, dev)
+    levels = batched.up_profile_levels(nj)
+    tables = st.AverageTables.from_levels(levels)
+    iis, jjs = batched.pair_list(
+        batched.quartet_rows(nj, batched.split_nodes(nj)),
+        batched.QUARTET_PAIRS)
+    profs = {k: engine_copy(nj, dev).prof
+             for k in ("sweep", "levels", "calls", "twin")}
+
+    def store(p):
+        return p.codes, p.W, p.U, p.code_freq
+
+    def sweep(p):
+        st.me_average_sweep(*store(p), p._et, p._leaf_rows, tables, p.tol)
+
+    def per_level(p):
+        for t, i, j in levels:
+            st.me_average(*store(p), p._et, p._leaf_rows, t, i, j, 0.5, p.tol)
+
+    def per_call(p):
+        for t, i, j in levels:
+            for k in range(len(t)):
+                st.me_average(*store(p), p._et, p._leaf_rows, t[k:k + 1],
+                              i[k:k + 1], j[k:k + 1], 0.5, p.tol)
+
+    def twin(p):
+        st.me_average_sweep_ref(*store(p), p._et, p._leaf_rows, tables, p.tol)
+
+    for k, fn in (("sweep", sweep), ("levels", per_level), ("calls", per_call),
+                  ("twin", twin)):
+        fn(profs[k])
+    rows = {k: [t.cpu().numpy() for t in (p.codes, p.W, p.U)]
+            for k, p in profs.items()}
+    for k in ("levels", "calls"):
+        for name, a, b in zip(("codes", "W", "U"), rows["sweep"], rows[k]):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"me_average_sweep: {name} differ from "
+                                     f"the {k} of me_average")
+    if not np.array_equal(rows["sweep"][0], rows["twin"][0]):
+        raise AssertionError("me_average_sweep: codes differ from the twin's")
+    err = 0.0
+    for name, a, b in zip("WU", rows["sweep"][1:], rows["twin"][1:]):
+        np.testing.assert_allclose(a, b, err_msg=f"me_average_sweep {name}",
+                                   **TOL)
+        err = max(err, float(np.max(np.abs(a - b))))
+    p = profs["sweep"]
+    P, C = p.W.shape[1], p.U.shape[2]
+    bound_ms, bound_by = me_sweep_bound(tables, P, C)
+    times = {"ms": median_ms(lambda: sweep(p)),
+             "plain_ms": median_ms(lambda: twin(profs["twin"]), 5),
+             "device_us": device_us(lambda: sweep(p),
+                                    DEVICE_NAMES["me_average_sweep"]),
+             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+             "per_level_ms": median_ms(lambda: per_level(profs["levels"]), 10),
+             "per_call_ms": median_ms(lambda: per_call(profs["calls"]), 5),
+             "items": tables.n_items, "levels": tables.n_levels}
+    report["me_average_sweep"] = {"max_abs_err": err, **times}
+    print(f"  me_average_sweep [N={MAIN_N} NJ tree, {tables.n_items} "
+          f"up-profiles in {tables.n_levels} levels]: rows bit for bit the "
+          f"per-level and the per-call launches', max abs err {err:.3e} "
+          f"against the twin; {times['ms']:.4f} ms launch to launch, "
+          f"{times['device_us']:.2f} us on the device; the per-level "
+          f"launches {times['per_level_ms']:.4f} ms, one launch per "
+          f"up-profile {times['per_call_ms']:.3f} ms; twin "
+          f"{times['plain_ms']:.3f} ms; bound {bound_ms:.4e} ms ({bound_by})")
+
+    # the split test's list over the up-profiles just written
+    args = (*store(p), p._ev, p._leaf_rows)
+    got = st.me_dists_list(*args, iis, jjs).cpu().numpy()
+
+    def per_quartet():
+        return [st.me_dists(*args, (), None, None, iis[k:k + 6],
+                            jjs[k:k + 6]).cpu() for k in range(0, len(iis), 6)]
+
+    one = np.concatenate([x.numpy() for x in per_quartet()], axis=1)
+    if not np.array_equal(got, one):
+        raise AssertionError("me_dists_list: distances differ from me_dists' "
+                             "calls of six pairs")
+    exp = st.me_dists_list_ref(*args, iis, jjs).cpu().numpy()
+    np.testing.assert_allclose(got, exp, err_msg="me_dists_list vs the twin",
+                               **TOL)
+    err = float(np.max(np.abs(got - exp)))
+    bound_ms, bound_by = me_list_bound(iis, jjs, p._leaf_rows, P, C)
+    times = {"ms": median_ms(lambda: st.me_dists_list(*args, iis, jjs)),
+             "plain_ms": median_ms(lambda: st.me_dists_list_ref(
+                 *args, iis, jjs), 5),
+             "device_us": device_us(lambda: st.me_dists_list(*args, iis, jjs),
+                                    DEVICE_NAMES["me_dists_list"]),
+             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+             "per_call_ms": median_ms(per_quartet, 5), "pairs": len(iis)}
+    report["me_dists_list"] = {"max_abs_err": err, **times}
+    print(f"  me_dists_list [N={MAIN_N} split test, {len(iis)} pairs]: bit "
+          "for bit me_dists' calls of six pairs, max abs err "
+          f"{err:.3e} against the twin; {times['ms']:.4f} ms launch to "
+          f"launch, {times['device_us']:.2f} us on the device; the serial "
+          f"walk's {len(iis) // 6} calls {times['per_call_ms']:.3f} ms; twin "
+          f"{times['plain_ms']:.3f} ms; bound {bound_ms:.4e} ms ({bound_by})")
+
+
+# ------------------------------------------------------------- phase 2h
+def me_pass_run(nj, batched_path):
+    """The ME lengths, then the split test, on nj, through the whole-tree
+    path (batched_path) or the serial walks on the per-call kernels:
+    returns (SplitCount, debug counters, branch lengths, walls, launches of
+    each)."""
+    import dataclasses
+
+    import torch
+
+    from veryfasttree_tpu_torch.engine import batched, rearrange, supports
+
+    lengths, splits = ((batched.update_branch_lengths_batched,
+                        supports.test_splits_min_evo_batched) if batched_path
+                       else (rearrange.update_branch_lengths,
+                             supports.test_splits_min_evo))
+    walls, launches = [], []
+
+    def timed(fn, *args):
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(nj, *args)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        launches.append({k: w.launches for k, w in wrappers().items()
+                         if w.launches})
+        return out
+
+    # the split test takes the lengths pass's sweep tables, as the pipeline does
+    tables = timed(lengths)
+    sc = timed(splits, *([tables] if batched_path else []))
+    m = nj.tree.maxnode
+    return (sc, dataclasses.asdict(nj.debug), nj.tree.branchlength[:m].copy(),
+            walls, launches)
+
+
+def phase_me_passes(report, dev):
+    """The ME lengths and the split test at N=MAIN_N from the port's NJ
+    tree, dense and two-tier: the whole-tree path (one me_average_sweep
+    and one me_dists_list launch each, one fetch) against the serial walks
+    through the per-call kernels (rearrange.update_branch_lengths,
+    supports.test_splits_min_evo): the SplitCount, the debug counters and
+    every branch length bit for bit; the walls and launches of both."""
+    import numpy as np
+
+    want = {"me_average_sweep": 1, "me_dists_list": 1}
+    for label, kw in (("dense", {}), ("two-tier", {"two_tier": True})):
+        start = spr_start(MAIN_N, dev, **kw)
+        runs = {k: me_pass_run(engine_copy(start, dev), k == "batched")
+                for k in ("batched", "serial")}
+        (sc, dbg, bl, walls, launches), (sc_s, dbg_s, bl_s, walls_s,
+                                          launches_s) = runs.values()
+        print(f"  N={MAIN_N} {label}: lengths {walls[0]:.4f} s "
+              f"({launches[0]}) against the serial walk's {walls_s[0]:.4f} s "
+              f"({launches_s[0]}); split test {walls[1]:.4f} s "
+              f"({launches[1]}) against {walls_s[1]:.4f} s ({launches_s[1]});"
+              f" {sc}")
+        if (sc.n_splits, sc.n_bad_splits, sc.d_worst_delta_unconstrained) != (
+                sc_s.n_splits, sc_s.n_bad_splits,
+                sc_s.d_worst_delta_unconstrained):
+            raise AssertionError(f"{label}: SplitCount {sc}, the serial "
+                                 f"walk's {sc_s}")
+        if dbg != dbg_s:
+            raise AssertionError(f"{label}: counters {dbg}, the serial "
+                                 f"walk's {dbg_s}")
+        if not np.array_equal(bl, bl_s):
+            raise AssertionError(f"{label}: branch lengths differ from the "
+                                 "serial walk's")
+        if launches != [want, want]:
+            raise AssertionError(f"{label}: the whole-tree passes launched "
+                                 f"{launches}, not {want} each")
+        if label == "dense":
+            report.setdefault("me_average_sweep", {}).update(
+                splits_s=walls[1], serial_splits_s=walls_s[1],
+                lengths_s=walls[0], serial_lengths_s=walls_s[0])
 
 
 # ------------------------------------------------------------- phase 2b
@@ -2725,9 +2984,23 @@ def require_launched(label, counts, names):
 
 
 # the -noml path's kernels; the scans' bodies run inside nj_join_epoch's
-# refreshes (require_scans), no longer as launches of their own
-DENSE_PATH = ("me_dists", "me_average", "me_spr_round", "me_nni_round",
-              "nj_join_epoch")
+# refreshes (require_scans), no longer as launches of their own, and the
+# single-call me_average's calls in the whole-tree passes' sweeps
+DENSE_PATH = ("me_dists", "me_dists_list", "me_average_sweep",
+              "me_spr_round", "me_nni_round", "nj_join_epoch")
+# me_dists' single calls in the N=2000 -noml run, all in the NJ phase: the
+# leaves' out-distances (1), the top-hits seeding (19) and the root's three
+# pairs (3)
+NJ_DISTS_CALLS = 23
+
+
+def require_whole_tree_passes(label, counts):
+    """The ME lengths and the split test ran as one sweep and one list
+    each, and no single-call average ran."""
+    me = {k: counts[k] for k in ("me_average", "me_average_sweep",
+                                 "me_dists_list")}
+    if me != {"me_average": 0, "me_average_sweep": 2, "me_dists_list": 2}:
+        raise AssertionError(f"{label}: ME store launches {me}")
 
 
 def require_scans(label):
@@ -2758,6 +3031,7 @@ def phase_golden(dev):
         if rf != 0:
             raise AssertionError(f"{label}: RF {rf} to the golden tree")
         require_launched(label, counts, DENSE_PATH)
+        require_whole_tree_passes(label, counts)
         require_scans(label)
         trees[label] = nw
     if trees["dense"] != trees["two-tier"]:
@@ -2809,6 +3083,10 @@ def phase_main(report, dev):
         runs[label] = nw
         if label == "warm":                  # the -noml main path's run
             require_launched(label, counts, DENSE_PATH)
+            require_whole_tree_passes(label, counts)
+            if counts["me_dists"] > NJ_DISTS_CALLS:
+                raise AssertionError(f"{label}: {counts['me_dists']} "
+                                     "single me_dists calls")
             scans = require_scans(label)
             epoch = wrappers()["nj_join_epoch"].totals
             print(f"  nj_join_epoch in the warm run: "
@@ -2837,7 +3115,11 @@ def phase_main(report, dev):
                   f"averaged, {nni['n_nni']} NNIs; per round, operations "
                   f"{1e3 * spr_ops(nni, P, C) / rounds / F32_OPS_PER_S:.4e}"
                   f" ms; launches beside it: me_average "
-                  f"{counts['me_average']}, me_dists {counts['me_dists']}")
+                  f"{counts['me_average']}, me_average_sweep "
+                  f"{counts['me_average_sweep']}, me_dists "
+                  f"{counts['me_dists']} and its list "
+                  f"{counts['me_dists_list']}; split test "
+                  f"{t['splits_s']:.4f} s, lengths {t['lengths_s']:.4f} s")
             for name, count in counts.items():
                 if name not in ML_KERNELS:
                     report.setdefault(name, {})["launches"] = count
@@ -3064,9 +3346,11 @@ def phase_ml_main(report, dev):
     # the whole run: the per-level kernels only in the SH pass's lists; a
     # tree log-likelihood after each ML NNI round, per CAT rate and after
     # the last lengths pass
+    # and the ME lengths as one sweep and one list
     want = {"ml_posterior": 1, "ml_pair_loglk": 1,
             "ml_posterior_sweep": CAT_N + 3,
-            "ml_tree_loglk": CAT_N + len(rounds) + 1}
+            "ml_tree_loglk": CAT_N + len(rounds) + 1,
+            "me_average": 0, "me_average_sweep": 1, "me_dists_list": 1}
     if any(counts[k] != v for k, v in want.items()):
         raise AssertionError("the run launched "
                              f"{ {k: counts[k] for k in want} }, not {want}")
@@ -3144,6 +3428,8 @@ def main() -> int:
         phase("2f SH pass vs host loop", phase_sh, report, cuda)
         phase("2g CAT sweep and tree LogLk vs per-level launches",
               phase_cat_sweep, report, cuda)
+        phase("2h ME split test and lengths vs serial walks",
+              phase_me_passes, report, cuda)
         phase("3 N=500 vs JAX golden", phase_golden, cuda)
         phase(f"4 main path N={MAIN_N}", phase_main, report, cuda)
         phase(f"5 ML N={ML_GOLDEN_N} vs JAX golden", phase_ml_golden, cuda)

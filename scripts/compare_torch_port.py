@@ -5,7 +5,7 @@ chip_smoke.py's -noml main path), in two or more checkouts, in turns, each
 run in a process of its own.
 
     python scripts/compare_torch_port.py OLD NEW [--rounds 2] [--trace]
-                                         [--noml]
+                                         [--noml] [--profile-sh]
 
 OLD and NEW are roots of checkouts (this one is "."); with two rounds the
 runs go OLD, NEW, NEW, OLD.  Each run builds its checkout's kernels first
@@ -16,7 +16,13 @@ LogLk (none with --noml), every kernel wrapper's launches and the round
 and epoch wrappers' totals (the join epoch's joins, phases and scans).  With
 --trace the second round's runs are traced with torch.profiler (CUDA
 activity): the device's busy seconds and share of that run's wall, and the
-kernels by device time.  Beside each run, nvidia-smi samples the card's
+kernels by device time.  With --profile-sh (the default run) every run's
+first SH pass, the only one of its process, runs under cProfile: its wall
+(the device waited for), its host functions by own time with the chain
+of callers that spent the most time in each, and the
+garbage collections inside it (count, seconds, oldest generation) with
+the objects the collector tracked when it began ("sh_profile").  Beside
+each run, nvidia-smi samples the card's
 power draw, SM and memory clocks and temperature every 100 ms, from the
 end of its kernels' build to the end of its process; the RESULT line's
 "smi" holds their mean, least and largest values.
@@ -40,6 +46,7 @@ CHILD = r"""
 import collections, hashlib, importlib, io, json, os, re, sys, time
 root, fasta, trace = sys.argv[1], sys.argv[2], sys.argv[3] == "1"
 noml = sys.argv[4] == "1"
+profile_sh = sys.argv[5] == "1"
 sys.path.insert(0, root)
 import torch
 from veryfasttree_tpu_torch.ops import _build
@@ -61,6 +68,57 @@ wrappers = {name: fn for mod in mods for name, fn in vars(mod).items()
             if callable(fn) and hasattr(fn, "launches")}
 for fn in wrappers.values():
     fn.launches = 0
+sh = {}
+if profile_sh:
+    import cProfile, gc, pstats
+    from veryfasttree_tpu_torch.ops import ml_round
+    inner = ml_round.sh_pass
+
+    def sh_pass(*args, **kw):
+        if sh:
+            return inner(*args, **kw)
+        sh["gc_objects"] = len(gc.get_objects())
+        gcs, began = [], [0.0]
+
+        def on_gc(phase, info):
+            if phase == "start":
+                began[0] = time.perf_counter()
+            else:
+                gcs.append((info["generation"], time.perf_counter() - began[0]))
+
+        gc.callbacks.append(on_gc)
+        prof_sh = cProfile.Profile()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        prof_sh.enable()
+        out = inner(*args, **kw)
+        torch.cuda.synchronize()
+        prof_sh.disable()
+        sh["wall"] = time.perf_counter() - t
+        gc.callbacks.remove(on_gc)
+        sh["gc"] = [len(gcs), sum(s for _, s in gcs),
+                    max((g for g, _ in gcs), default=None)]
+        stats = pstats.Stats(prof_sh).stats
+
+        def label(func):
+            return f"{os.path.basename(func[0])}:{func[1]}:{func[2]}"
+
+        def callers(func, depth=8):
+            # up the callers that spent the most time in it
+            chain = []
+            while depth and stats.get(func, (0,) * 5)[4]:
+                up = stats[func][4]
+                func = max(up, key=lambda c: up[c][3])
+                chain.append(label(func))
+                depth -= 1
+            return chain
+
+        top = sorted(stats.items(), key=lambda kv: -kv[1][2])[:15]
+        sh["top_own"] = [(label(func), calls, tt, ct, callers(func))
+                         for func, (_, calls, tt, ct, _) in top]
+        return out
+
+    ml_round.sh_pass = sh_pass
 with open(fasta) as f:
     text = f.read()
 out, log = io.StringIO(), io.StringIO()
@@ -86,6 +144,8 @@ res = {"root": root, "wall": wall, "timings": nj.timings,
                             log.getvalue()) or [None])[-1],
        "newick_sha256": hashlib.sha256(out.getvalue().encode()).hexdigest(),
        "card": torch.cuda.get_device_name(0)}
+if sh:
+    res["sh_profile"] = sh
 if prof is not None:
     prof.__exit__(None, None, None)
     count, total = collections.Counter(), collections.Counter()
@@ -153,6 +213,8 @@ def main() -> int:
                         help="trace the second round's runs")
     parser.add_argument("--noml", action="store_true",
                         help="the -nt -noml -nosupport run")
+    parser.add_argument("--profile-sh", action="store_true",
+                        help="profile each run's SH pass (the default run)")
     args = parser.parse_args()
     sys.path.insert(0, REPO)
     from chip_smoke import MAIN_N, MAIN_P, card_line, fasta_text, synth_codes
@@ -174,7 +236,8 @@ def main() -> int:
                     child = subprocess.Popen(
                         [sys.executable, "-c", CHILD, os.path.abspath(root),
                          fasta, "1" if trace else "0",
-                         "1" if args.noml else "0"],
+                         "1" if args.noml else "0",
+                         "1" if args.profile_sh else "0"],
                         cwd=os.path.abspath(root), stdout=subprocess.PIPE,
                         stderr=err, text=True)
                     try:

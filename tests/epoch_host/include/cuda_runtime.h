@@ -24,6 +24,10 @@ inline double __dsub_rn(double a, double b) { return a - b; }
 inline double __ddiv_rn(double a, double b) { return a / b; }
 inline double __fma_rn(double a, double b, double c) { return std::fma(a, b, c); }
 inline float __double2float_rn(double x) { return (float)x; }
+// the vector of load_pos's 16-byte loads (me_store.cuh)
+struct alignas(16) float4 {
+  float x, y, z, w;
+};
 // the phase bodies' warp sums are not run on the host (host_epoch.cpp has
 // its own phases)
 inline double __shfl_xor_sync(unsigned, double v, int) { return v; }

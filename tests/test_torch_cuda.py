@@ -124,6 +124,91 @@ def test_store_kernels_match_twins(cuda, leaf_rows):
                           1e-10)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,matrix,leaf_rows", [(4, False, 0), (4, False, 300),
+                                                (20, True, 0)])
+def test_me_list_and_sweep_kernels(cuda, C, matrix, leaf_rows):
+    """me_dists_list: each pair bit for bit me_dists' single calls, and
+    within TOL of the twin; me_average_sweep over three dependent levels:
+    every row bit for bit the per-level me_average launches, and the twin's
+    (rtol 1e-6 in matrix mode, as chip_smoke.check_average)."""
+    from chip_smoke import store_case
+    from veryfasttree_tpu_torch.ops import store_kernels as st
+
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(3)
+    codes, W, U, cf, ev, et = store_case(C, matrix, leaf_rows, gen, cuda,
+                                         n_rows=1024, P=256)
+    store = (codes, W, U, cf, ev, leaf_rows)
+    rng = np.random.default_rng(C + leaf_rows)
+    ii, jj = rng.integers(0, 1024, 1500), rng.integers(0, 1024, 1500)
+    before = st.me_dists_list.launches
+    got = st.me_dists_list(*store, ii, jj).cpu().numpy()
+    assert st.me_dists_list.launches == before + 1
+    one = st.me_dists(*store, [], None, None, ii, jj).cpu().numpy()
+    np.testing.assert_array_equal(got, one)
+    np.testing.assert_allclose(got, st.me_dists_list_ref(
+        *store, ii, jj).cpu().numpy(), **TOL)
+    with pytest.raises(IndexError):
+        st.me_dists_list(*store, [3], [1024])
+
+    rows = rng.permutation(np.arange(max(leaf_rows, 16), 1024))
+    t0, t1, t2 = rows[:200], rows[200:260], rows[260:280]
+    free = rows[280:]
+    levels = [(t0, free[:200], rng.choice(np.r_[:max(leaf_rows, 16), free],
+                                          200)),
+              (t1, t0[:60], free[200:260]),
+              (t2, t1[::3], t0[100:120])]
+    levels[0][2][:5] = 5                        # NOCODE rows as sources
+    tables = st.AverageTables.from_levels(levels)
+    outs = []
+    for run in ("sweep", "levels", "twin"):
+        c, w, u = codes.clone(), W.clone(), U.clone()
+        if run == "sweep":
+            st.me_average_sweep(c, w, u, cf, et, leaf_rows, tables, 1e-10)
+        elif run == "levels":
+            for t, i, j in levels:
+                st.me_average(c, w, u, cf, et, leaf_rows, t, i, j, 0.5, 1e-10)
+        else:
+            st.me_average_sweep_ref(c, w, u, cf, et, leaf_rows, tables,
+                                    1e-10)
+        outs.append([x.cpu().numpy() for x in (c, w, u)])
+    for a, b in zip(outs[0], outs[1]):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(outs[0][0], outs[2][0])
+    tol = dict(rtol=1e-6, atol=1e-7) if matrix else dict(rtol=0, atol=0)
+    for a, b in zip(outs[0][1:], outs[2][1:]):
+        np.testing.assert_allclose(a, b, **tol)
+    bad = st.AverageTables.from_levels([([1024], [0], [1])])
+    with pytest.raises(IndexError):
+        st.me_average_sweep(codes, W, U, cf, et, leaf_rows, bad, 1e-10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("two_tier", [False, True])
+def test_batched_split_test_on_cuda_is_the_serial_walk(cuda, two_tier):
+    """The split test and the ME lengths through the sweep and the list
+    kernels against the serial walks through the per-call kernels, on the
+    card: the SplitCount, the counters and every branch length bit for
+    bit."""
+    from chip_smoke import engine_copy, spr_start
+    from veryfasttree_tpu_torch.engine import batched, rearrange, supports
+
+    start = spr_start(300, cuda, two_tier=two_tier)
+    serial, batch = engine_copy(start, cuda), engine_copy(start, cuda)
+    rearrange.update_branch_lengths(serial)
+    batched.update_branch_lengths_batched(batch)
+    m = start.tree.maxnode
+    np.testing.assert_array_equal(batch.tree.branchlength[:m],
+                                  serial.tree.branchlength[:m])
+    want = supports.test_splits_min_evo(serial)
+    got = supports.test_splits_min_evo_batched(batch)
+    assert (got.n_bad_splits, got.n_splits) == (want.n_bad_splits,
+                                                want.n_splits)
+    assert got.d_worst_delta_unconstrained == want.d_worst_delta_unconstrained
+    assert batch.debug == serial.debug
+
+
 def _ml_store(gen, C, jc, dev):
     """chip_smoke.py's random ML store (leaf rows with gaps, posterior rows
     with weights 0, 1 and a few fractions, 20 CAT rates), at a small

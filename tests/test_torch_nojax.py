@@ -36,7 +36,8 @@ def _run(code, *args):
 
 
 @pytest.mark.parametrize("module", ["veryfasttree_tpu_torch.pipeline",
-                                    "veryfasttree_tpu_torch.cli"])
+                                    "veryfasttree_tpu_torch.cli",
+                                    "veryfasttree_tpu_torch.ops.dataflow"])
 def test_imports_without_jax(module):
     res = _run(f"import {module}; {NOT_LOADED}")
     assert res.returncode == 0, res.stderr

@@ -1,26 +1,36 @@
-// Small profile-store kernels for Hopper (sm_90a) that serve the host-driven
-// minimum-evolution loops (join bookkeeping, NNI quartets, SPR chains,
-// up-profiles), with a plain C interface loaded through ctypes
-// (veryfasttree_tpu_torch/ops/_build.py).
+// Profile-store kernels for Hopper (sm_90a) that serve the minimum-evolution
+// loops (join bookkeeping, NNI quartets, SPR chains, up-profiles, branch
+// lengths, the split test), with a plain C interface loaded through ctypes
+// (veryfasttree_tpu_torch/ops/_build.py; wrappers in
+// veryfasttree_tpu_torch/ops/store_kernels.py).
 //
 // Store layout and the kernels' per-pair and per-position bodies:
-// me_store.cuh, which the SPR round kernel (me_spr.cu) shares.
+// me_store.cuh, which the round kernels and the join epoch share.
 //
-// The row indices of a call travel by value in the kernel's parameters
-// (kDistCap pairs or kAvgCap targets per launch; the C entry launches once per
-// chunk), so a call needs no host-to-device copy and no synchronisation.  The
-// C entries check every index against the store's rows before the first
-// launch and return kBadRow, launching nothing, if one is out of range.
+// The single-call kernels (me_pair_dist_kernel, me_average_kernel) serve the
+// host loops that still ask for a few rows at a time (-slow, -bionj, the
+// unfused join loop): the row indices of a call travel by value in the
+// kernel's parameters (kDistCap pairs or kAvgCap targets per launch; the C
+// entry launches once per chunk), so a call needs no host-to-device copy and
+// no synchronisation.  Their C entries check every index against the store's
+// rows before the first launch and return kBadRow, launching nothing, if one
+// is out of range.
+//
+// The whole-tree kernels (me_pair_list_kernel, me_average_sweep_kernel) take
+// their tables in device memory, sent once by the wrapper, which checks the
+// rows on the host before it sends them.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
 
+#include "dataflow.cuh"
 #include "me_store.cuh"
 
 namespace {
 
 constexpr int kDistCap = 256;
+constexpr int kListGroups = 4;  // pairs of a list launch's block
 constexpr int kAvgThreads = 128;
 constexpr int kAvgCap = 128;
 constexpr int kBadRow = -1;
@@ -65,7 +75,7 @@ __global__ void __launch_bounds__(kDistThreads) me_pair_dist_kernel(
   if (threadIdx.x == 0) pair_finish(s_den, s_dots, ev, dist[k], denom[k]);
 }
 
-// Replaces the XLA-compiled store functions _join_update and _avg_sweep_impl
+// Replaces the XLA-compiled store function _join_update
 // (veryfasttree_tpu/engine/profiles.py): averageProfile of rows (i, j)
 // written into row t, in place (average_pos, me_store.cuh).
 // Bound: launch latency (a call reads two rows and writes one, 30 KB at
@@ -81,6 +91,82 @@ __global__ void __launch_bounds__(kAvgThreads) me_average_kernel(
   if (p >= s.P) return;
   average_pos<C>(s, codes_out, W_out, U_out, eigentot, ab.t[k], ab.i[k], ab.j[k], p, bw, omb,
                  half != 0, tol, fallback);
+}
+
+// Replaces the XLA-compiled gather of every quartet's six distances in
+// test_splits_min_evo_batched and update_branch_lengths_batched
+// (veryfasttree_tpu/engine/supports.py:145, engine/batched.py:346, through
+// profiles.py:244 _dist_rows): n pairs (rows[k], rows[n + k]) from a
+// device list, in one launch at any n.
+// Bound: bytes.  The split test at N=2000, P=512, C=4 asks 11,982 pairs of
+// about 5,500 distinct rows, of which a distance reads W and U, not the
+// codes (56 MB, 16.8 us at 3.35 TB/s); the list streams 245 MB of row
+// reads, so what does not hit L2 costs.
+// Design: each pair keeps me_pair_dist_kernel's thread map and sum order (a
+// group of kDistThreads per pair, pair_partial then the warps' sums in
+// order in pair_finish), so every pair's bits are a single call's and the
+// round kernels'.  kListGroups pairs share a block; a position's C=4
+// vector is one 16-byte load; the host orders the list quartet by
+// quartet, so a quartet's four rows are read close in time and mostly
+// from L2.
+template <int C>
+__global__ void __launch_bounds__(kDistThreads * kListGroups) me_pair_list_kernel(
+    StoreView s, const double* ev, const int32_t* __restrict__ rows, int64_t n,
+    double* __restrict__ dist, double* __restrict__ denom) {
+  const int g = threadIdx.x / kDistThreads, t = threadIdx.x % kDistThreads;
+  const int64_t k = (int64_t)blockIdx.x * kListGroups + g;
+  __shared__ double s_den[kListGroups][kDistWarps], s_dots[kListGroups][kDistWarps];
+  double den = 0.0, dots = 0.0;
+  if (k < n)  // a whole group, so every lane of its warps takes part in the sums
+    pair_partial<C, true>(s, rows[k], rows[n + k], nullptr, nullptr, ev, t, den, dots);
+  if ((t & 31) == 0) {
+    s_den[g][t >> 5] = den;
+    s_dots[g][t >> 5] = dots;
+  }
+  __syncthreads();
+  if (t == 0 && k < n) pair_finish(s_den[g], s_dots[g], ev, dist[k], denom[k]);
+}
+
+// Replaces _avg_sweep_impl (veryfasttree_tpu/engine/profiles.py:375, a
+// fori_loop over the level tables: the up-profiles of
+// compute_up_profiles_levelwise, engine/batched.py:26, and the bottom-up
+// recompute of recompute_profiles_levelwise): every
+// balanced (0.5) average of a dependency-ordered table in one launch, in
+// place.  The per-level launches of me_average made the split test and the
+// ME lengths one launch per tree level or per up-profile, bound by the host.
+// Bound: bytes.  At N=2000, P=512, C=4 a sweep reads about 2,000 rows that
+// no item writes and writes about 2,000 (43 MB, 13 us at 3.35 TB/s); its
+// critical path is the tree's depth times one chunk and its hand-off.
+// Design: the scheduler of dataflow.cuh over units (item, chunk of
+// kAvgThreads positions), item-major.  Unit (k, c) waits on the units
+// (producer, c) of its two source rows, the items of earlier levels that
+// write them (the host gives each item's producers, or -1): position p of
+// an average reads only position p of its sources.  Each position runs
+// average_pos with me_average_kernel's thread map, so every row is the
+// per-level launches' bit for bit.
+template <int C>
+__global__ void __launch_bounds__(kAvgThreads) me_average_sweep_kernel(
+    StoreView s, int8_t* codes_out, float* W_out, float* U_out, const float* eigentot,
+    const int32_t* __restrict__ t, const int32_t* __restrict__ i, const int32_t* __restrict__ j,
+    const int32_t* __restrict__ prod_i, const int32_t* __restrict__ prod_j, float tol,
+    float fallback, int n_units, int n_chunks, int* ctrl, int* flags, int epoch) {
+  __shared__ int slot;
+  for (;;) {
+    const int u = next_unit(ctrl, &slot);
+    if (u >= n_units) break;
+    const int k = u / n_chunks, c = u - k * n_chunks;
+    if (threadIdx.x == 0) {
+      if (prod_i[k] >= 0) wait_flag(flags + (int64_t)prod_i[k] * n_chunks + c, epoch);
+      if (prod_j[k] >= 0) wait_flag(flags + (int64_t)prod_j[k] * n_chunks + c, epoch);
+    }
+    __syncthreads();
+    const int p = c * kAvgThreads + threadIdx.x;
+    if (p < s.P)
+      average_pos<C>(s, codes_out, W_out, U_out, eigentot, t[k], i[k], j[k], p, 0.5f, 0.5f, true,
+                     tol, fallback);
+    publish(flags + u, epoch);
+  }
+  finish(ctrl);
 }
 
 template <int C>
@@ -121,6 +207,38 @@ int average_rows(const StoreView& s, int8_t* codes, float* W, float* U, const fl
   return 0;
 }
 
+template <int C>
+int pair_list(const StoreView& s, const double* ev, const int32_t* rows, int64_t n, double* out,
+              cudaStream_t st) {
+  const int64_t blocks = (n + kListGroups - 1) / kListGroups;
+  me_pair_list_kernel<C><<<(unsigned)blocks, kDistThreads * kListGroups, 0, st>>>(
+      s, ev, rows, n, out, out + n);
+  return (int)cudaGetLastError();
+}
+
+template <int C>
+int average_grid() {
+  static int blocks = resident_blocks(me_average_sweep_kernel<C>, kAvgThreads);
+  return blocks;
+}
+
+int64_t sweep_units(int64_t n, int P) { return n * ((P + kAvgThreads - 1) / kAvgThreads); }
+
+template <int C>
+int average_sweep(const StoreView& s, int8_t* codes, float* W, float* U, const float* eigentot,
+                  const int32_t* rows, int64_t n, float tol, int* ctrl, int epoch,
+                  cudaStream_t st) {
+  const int resident = average_grid<C>();
+  if (resident <= 0) return (int)cudaErrorInvalidValue;
+  const int n_units = (int)sweep_units(n, s.P);
+  const int grid = n_units < resident ? n_units : resident;
+  me_average_sweep_kernel<C><<<grid, kAvgThreads, 0, st>>>(
+      s, codes, W, U, eigentot, rows, rows + n, rows + 2 * n, rows + 3 * n, rows + 4 * n, tol,
+      (float)(1.0 / C), n_units, (s.P + kAvgThreads - 1) / kAvgThreads, ctrl, ctrl + kCtrlWords,
+      epoch);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -157,6 +275,47 @@ int vft_me_average_f32(int8_t* codes, float* W, float* U, const float* code_freq
   const int32_t *t = rows, *i = rows + n, *j = rows + 2 * n;
   if (C == 4) return average_rows<4>(s, codes, W, U, eigentot, t, i, j, n, bw, half, tol, st);
   if (C == 20) return average_rows<20>(s, codes, W, U, eigentot, t, i, j, n, bw, half, tol, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// (dist, denom) of n pairs (rows[k], rows[n + k]), rows an int32 [2n] list
+// in device memory whose rows the caller checked against the store's; out
+// [2n] float64 in device memory: dist, then denom.  ev as for
+// vft_me_pair_dists_f32.
+int vft_me_pair_list_f32(const int8_t* codes, const float* W, const float* U,
+                         const float* code_freq, int64_t leaf_rows, int P, int C,
+                         const double* ev, const int32_t* rows, int64_t n, double* out,
+                         void* stream) {
+  if (n <= 0 || (n + kListGroups - 1) / kListGroups > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const StoreView s{codes, W, U, code_freq, leaf_rows, P};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (C == 4) return pair_list<4>(s, ev, rows, n, out, st);
+  if (C == 20) return pair_list<20>(s, ev, rows, n, out, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Work units (ready flags) of an up-profile sweep of n items at P positions.
+int64_t vft_me_average_sweep_units(int64_t n, int P) { return sweep_units(n, P); }
+
+// The balanced averages of n items in dependency order, in place: rows [5n]
+// in device memory = targets, i, j and the producers of i and j (item
+// indices, -1 for none; each in an earlier level than its reader), checked
+// by the caller against the store's rows (targets at or above leaf_rows).
+// eigentot: [C] in matrix mode, NULL in %different mode.  ctrl: kCtrlWords
+// control words then n_flags ready flags (zeroed when first allocated);
+// epoch differs from every earlier launch's on the same ctrl and is not 0.
+int vft_me_average_sweep_f32(int8_t* codes, float* W, float* U, const float* code_freq,
+                             int64_t leaf_rows, int P, int C, const float* eigentot,
+                             const int32_t* rows, int64_t n, float tol, int* ctrl,
+                             int64_t n_flags, int epoch, void* stream) {
+  if (n <= 0 || epoch == 0) return (int)cudaErrorInvalidValue;
+  const int64_t units = sweep_units(n, P);
+  if (units > n_flags || units > 0x7fff0000LL) return (int)cudaErrorInvalidValue;
+  const StoreView s{codes, W, U, code_freq, leaf_rows, P};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (C == 4) return average_sweep<4>(s, codes, W, U, eigentot, rows, n, tol, ctrl, epoch, st);
+  if (C == 20) return average_sweep<20>(s, codes, W, U, eigentot, rows, n, tol, ctrl, epoch, st);
   return (int)cudaErrorInvalidValue;
 }
 

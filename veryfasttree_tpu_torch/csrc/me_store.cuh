@@ -1,6 +1,8 @@
 // Device bodies of the minimum-evolution store kernels, shared by the
-// single-call kernels (me_store.cu) and the SPR round kernel (me_spr.cu), so
-// that both give the same distances and the same averaged rows bit for bit.
+// single-call, list and sweep kernels (me_store.cu) and the round kernels
+// (me_spr.cu, me_nni.cu, through me_round.cuh) and the join epoch
+// (nj_epoch.cu), so that all give the same distances and the same averaged
+// rows bit for bit.
 //
 // Store layout (veryfasttree_tpu_torch/engine/profiles.py): codes int8
 // [n_rows, P] for every row; W float [n_float, P] and U float [n_float, P, C]
@@ -32,8 +34,9 @@ struct StoreView {
   int P;
 };
 
-// weight and vector of one row at position p (row -1: the query)
-template <int C>
+// weight and vector of one row at position p (row -1: the query); kVec
+// reads a float row's C=4 vector in one 16-byte load (U is 16-byte aligned)
+template <int C, bool kVec = false>
 __device__ __forceinline__ void load_pos(const StoreView& s, int64_t row, int p, const float* qU,
                                          const float* qW, float& w, float (&u)[C]) {
   if (row < 0) {
@@ -54,6 +57,14 @@ __device__ __forceinline__ void load_pos(const StoreView& s, int64_t row, int p,
   const int64_t phys = row - s.leaf_rows;
   w = s.W[phys * s.P + p];
   const float* up = s.U + (phys * s.P + p) * C;
+  if constexpr (kVec && C == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(up);
+    u[0] = v.x;
+    u[1] = v.y;
+    u[2] = v.z;
+    u[3] = v.w;
+    return;
+  }
 #pragma unroll
   for (int c = 0; c < C; ++c) u[c] = up[c];
 }
@@ -68,7 +79,8 @@ __device__ __forceinline__ double warp_sum(double v) {
 // kDistThreads group strides the positions, converting each float to double
 // before the products (the reference's CPU path upcasts the rows before the
 // contraction), then the warp's sum.  Every lane returns its warp's sums.
-template <int C>
+// kVec: load_pos's 16-byte loads (no query), the same values.
+template <int C, bool kVec = false>
 __device__ __forceinline__ void pair_partial(const StoreView& s, int64_t ra, int64_t rb,
                                              const float* qU, const float* qW, const double* ev,
                                              int t, double& den, double& dots) {
@@ -76,8 +88,8 @@ __device__ __forceinline__ void pair_partial(const StoreView& s, int64_t ra, int
   dots = 0.0;
   for (int p = t; p < s.P; p += kDistThreads) {
     float wa, wb, ua[C], ub[C];
-    load_pos<C>(s, ra, p, qU, qW, wa, ua);
-    load_pos<C>(s, rb, p, qU, qW, wb, ub);
+    load_pos<C, kVec>(s, ra, p, qU, qW, wa, ua);
+    load_pos<C, kVec>(s, rb, p, qU, qW, wb, ub);
     den = __fma_rn((double)wa, (double)wb, den);
 #pragma unroll
     for (int c = 0; c < C; ++c) {

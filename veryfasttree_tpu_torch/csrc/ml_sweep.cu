@@ -17,13 +17,8 @@
 // out, 43 MB, 12.8 us at 3.35 TB/s); a sweep's critical path is the tree's
 // depth times the latency of one posterior chunk.
 //
-// Design: dataflow over work units.  The work is a list of units in which
-// each unit depends only on units before it.  A grid of at most the blocks
-// that fit on the card at once takes the units in list order from an
-// integer counter, and a unit waits on the integer ready flags of the units
-// it reads (release and acquire at gpu scope).  Every unit it waits on was
-// taken before it, by a block that is running, so nothing deadlocks: for
-// any depth, any level width, and no grid-wide barrier.  A unit runs the
+// Design: dataflow over work units (the scheduler of dataflow.cuh, which
+// the ME up-profile sweep of me_store.cu shares).  A unit runs the
 // body and thread map of the per-level kernels: posterior_site with its
 // item's two rate tables from fill_table, one thread per position of a
 // chunk of 128; pair_loglk_block on 128 threads.  So every row and every
@@ -43,79 +38,18 @@
 // the root term last.  No float atomics: every sum has one order, whatever
 // the grid.
 //
-// The ready flags hold the epoch of the launch that set them: the host
-// gives every launch a new epoch, so no flag is ever reset; the work
-// counter is put back to 0 by the last block to finish.  A wait that lasts
-// 10 s traps (a fault on the host's side, not a hang of the card).
-//
 // Compiled with -fmad=false (ml_lk.cuh's arithmetic).
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "dataflow.cuh"
 #include "ml_lk.cuh"
 
 namespace {
 
 constexpr int kUnitThreads = 128;  // ml_lk.cu's kPostThreads and kLkThreads
-constexpr int kCtrlWords = 4;      // the counter, the blocks done, padding
-constexpr unsigned long long kWaitLimitNs = 10ull * 1000 * 1000 * 1000;
-
-__device__ __forceinline__ int ld_acquire(const int* p) {
-  int v;
-  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void st_release(int* p, int v) {
-  asm volatile("st.release.gpu.global.b32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
-}
-
-__device__ __forceinline__ unsigned long long global_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// Spin until the flag holds this launch's epoch.
-__device__ __forceinline__ void wait_flag(const int* flag, int epoch) {
-  if (ld_acquire(flag) == epoch) return;
-  const unsigned long long t0 = global_ns();
-  while (ld_acquire(flag) != epoch) {
-    __nanosleep(64);
-    if (global_ns() - t0 > kWaitLimitNs) __trap();
-  }
-}
-
-// The next unit of the list, the same in every thread.  Its barrier also
-// ends the block's previous unit: every thread has read the shared tables
-// and the slot of that unit.
-__device__ __forceinline__ int next_unit(int* ctrl, int* slot) {
-  if (threadIdx.x == 0) *slot = atomicAdd(ctrl, 1);
-  __syncthreads();
-  return *slot;
-}
-
-// Every thread's writes of the unit, then its ready flag.
-__device__ __forceinline__ void publish(int* flag, int epoch) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    st_release(flag, epoch);
-  }
-}
-
-// The last block to finish puts the counter back to 0 for the next launch
-// (every block has taken its last unit before it counts itself done).
-__device__ __forceinline__ void finish(int* ctrl) {
-  if (threadIdx.x != 0) return;
-  __threadfence();
-  if (atomicAdd(ctrl + 1, 1) == (int)gridDim.x - 1) {
-    atomicExch(ctrl, 0);
-    atomicExch(ctrl + 1, 0);
-  }
-}
 
 // log(max(lk, 1e-300)) in float64, as torch.log(torch.clamp_min(lk.double(),
 // 1e-300)) takes it (a NaN stays NaN).
@@ -282,27 +216,16 @@ __global__ void __launch_bounds__(kUnitThreads) ml_tree_loglk_kernel(
   finish(ctrl);
 }
 
-// Blocks of one launch of `kernel`: as many as fit on the card at once.
-template <class Kernel>
-int resident_blocks(Kernel kernel) {
-  int dev = 0, sms = 0, per_sm = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kUnitThreads, 0) !=
-          cudaSuccess)
-    return 0;
-  return per_sm * sms;
-}
-
+// Blocks of one launch: as many as fit on the card at once.
 template <int C>
 int sweep_grid() {
-  static int blocks = resident_blocks(ml_posterior_sweep_kernel<C>);
+  static int blocks = resident_blocks(ml_posterior_sweep_kernel<C>, kUnitThreads);
   return blocks;
 }
 
 template <int C>
 int tree_grid() {
-  static int blocks = resident_blocks(ml_tree_loglk_kernel<C>);
+  static int blocks = resident_blocks(ml_tree_loglk_kernel<C>, kUnitThreads);
   return blocks;
 }
 
@@ -368,9 +291,6 @@ int tree_loglk(const MLView& m, int8_t* codes, float* W, float* V, float tol, co
       int n_rates, int jc, float min_rel_len
 
 extern "C" {
-
-// Int32 words of the control block before the ready flags.
-int vft_ml_sweep_ctrl_words() { return kCtrlWords; }
 
 // Blocks of a posterior sweep's launch with at least that many units at C
 // codes (the blocks that fit on the card at once; 0 if it cannot be asked).

@@ -1,17 +1,25 @@
 """Level-batched minimum-evolution passes (counterpart of the ME parts of
 ``veryfasttree_tpu/engine/batched.py``).
 
-All up-profiles are computed top-down with one store call per tree level,
-and the branch lengths of the whole tree come from one gathered
-pair-distance call (the thread-level-1 analog of ref updateBranchLengths
-tcc:6502-6598).  With -bionj off these are value-identical to the serial
-walks in rearrange.py.
+All up-profiles are computed top-down in one sweep of balanced averages
+(one launch of ``me_average_sweep`` on the card), and the branch lengths of
+the whole tree come from one pair-distance list (one launch of
+``me_dists_list``; the thread-level-1 analog of ref updateBranchLengths
+tcc:6502-6598).  The tables are gathered with one numpy step per tree
+level or per pass, not per node.  With -bionj off these are
+value-identical to the serial walks in rearrange.py.
 """
 from __future__ import annotations
 
 import numpy as np
 
+from ..ops.store_kernels import AverageTables
 from . import rearrange
+from .state import level_order
+
+# a quartet's six pairs in QAB .. QCD order, and a leaf's three (AB, AC, BC)
+QUARTET_PAIRS = ((0, 0, 0, 1, 1, 2), (1, 2, 3, 2, 3, 3))
+LEAF_PAIRS = ((0, 0, 1), (1, 2, 2))
 
 
 def _me_only(use_ml: bool) -> None:
@@ -20,104 +28,105 @@ def _me_only(use_ml: bool) -> None:
                                   "not ported yet")
 
 
-def compute_up_profiles_levelwise(nj, use_ml: bool) -> None:
-    """Compute ALL up-profiles top-down, one batched call per level.
-
-    up[node] = combine(C, D), where C is node's sibling and D is up[parent]
-    (or the other root sibling); rows are maxnodes + node.
-    """
-    _me_only(use_ml)
+def _other_sides(nj, nodes):
+    """(c, d_row) of each of `nodes` (not the root; each with a parent), as
+    rearrange.setup_abcd takes them: its sibling and the row of its
+    parent's up-profile; below the root, the root's other two children
+    (ref rootSiblings tcc:1991-2003)."""
     tree = nj.tree
-    levels = []
-    for level in reversed(tree.level_lists()):  # top-down
-        nodes = [int(n) for n in level
-                 if n != tree.root and n >= nj.n_seqs and tree.n_child[n] == 2]
-        if not nodes:
-            continue
-        r1s, r2s, targets = [], [], []
-        for node in nodes:
-            par = int(tree.parent[node])
-            if par == tree.root:
-                c_row, d_row = tree.root_siblings(node)
-            else:
-                c_row = tree.sibling(node)
-                d_row = nj.prof.up_row(par)
-            targets.append(nj.prof.up_row(node))
-            r1s.append(c_row)
-            r2s.append(d_row)
-        levels.append((targets, r1s, r2s))
-    if levels:
-        nj.prof.average_sweep(levels)
+    par = tree.parent[nodes]
+    ch = tree.children[par]
+    sib = np.where(ch[:, 0] != nodes, ch[:, 0], ch[:, 1])
+    at_root = par == tree.root
+    rc = tree.children[tree.root]
+    if at_root.any() and tree.n_child[tree.root] != 3:
+        raise AssertionError("the root has no three children")
+    first = np.where(rc[0] != nodes, rc[0], rc[1])
+    second = np.where(rc[2] != nodes, rc[2], rc[1])
+    return (np.where(at_root, first, sib),
+            np.where(at_root, second, nj.prof.up_row(par)))
 
 
-def _gather_quartets(nj, nodes, use_ml: bool):
-    """rows4 + nodes4 for a batch of internal nodes (up-profiles precomputed)."""
-    _me_only(use_ml)
+def split_nodes(nj) -> np.ndarray:
+    """The internal nodes of two children but the root, in index order:
+    the nodes of a split test and the internal nodes of the branch
+    lengths."""
     tree = nj.tree
-    rows = np.zeros((len(nodes), 4), dtype=np.int64)
-    nodes4 = np.zeros((len(nodes), 4), dtype=np.int64)
-    for k, node in enumerate(nodes):
-        a, b = int(tree.children[node, 0]), int(tree.children[node, 1])
-        par = int(tree.parent[node])
-        if par == tree.root:
-            c, d = tree.root_siblings(node)
-            d_row = d
-        else:
-            c = tree.sibling(node)
-            d = par
-            d_row = nj.prof.up_row(par)
-        rows[k] = [a, b, c, d_row]
-        nodes4[k] = [a, b, c, d]
-    return rows, nodes4
+    n = np.arange(nj.n_seqs, tree.maxnode)
+    return n[(n != tree.root) & (tree.parent[n] >= 0)
+             & (tree.n_child[n] == 2)]
 
 
-def update_branch_lengths_batched(nj) -> None:
-    """ME branch lengths for ALL nodes in one batched distance call
-    (thread-level-1 analog of ref updateBranchLengths tcc:6502-6598)."""
+def up_profile_levels(nj):
+    """The up-profile sweep, top-down: per tree level (level_lists' order,
+    empty levels left out), (targets, c rows, d rows) of its internal
+    nodes of two children but the root; up[node] = combine(C, D), C the
+    node's sibling and D up[parent] (or the root's other two children)."""
+    tree = nj.tree
+    levels = level_order(tree)[::-1]
+    nodes = np.concatenate(levels)
+    level = np.repeat(np.arange(len(levels)), [len(v) for v in levels])
+    keep = (nodes != tree.root) & (nodes >= nj.n_seqs) \
+        & (tree.n_child[nodes] == 2)
+    nodes, level = nodes[keep], level[keep]
+    c, d_row = _other_sides(nj, nodes)
+    cuts = np.flatnonzero(np.diff(level)) + 1
+    return list(zip(*(np.split(a, cuts) for a in (nj.prof.up_row(nodes), c,
+                                                   d_row)))) \
+        if len(nodes) else []
+
+
+def compute_up_profiles_levelwise(nj, use_ml: bool, tables=None):
+    """Compute ALL up-profiles top-down in one sweep (rows maxnodes +
+    node).  tables: the AverageTables of up_profile_levels of this
+    topology, as an earlier call returned them, or None to build them.
+    Returns the tables, for the next call while the topology stands."""
+    _me_only(use_ml)
+    if tables is None:
+        tables = AverageTables.from_levels(up_profile_levels(nj))
+    nj.prof.sweep_averages(tables)
+    return tables
+
+
+def quartet_rows(nj, nodes) -> np.ndarray:
+    """The rows (A, B, C, D) [K, 4] of the quartet around each of `nodes`
+    (internal nodes of two children but the root), D an up-profile row
+    (ref setupABCD tcc:1942-1974)."""
+    tree = nj.tree
+    c, d_row = _other_sides(nj, nodes)
+    return np.stack([tree.children[nodes, 0], tree.children[nodes, 1], c,
+                     d_row], 1)
+
+
+def pair_list(rows, pairs):
+    """The pairs of each row of `rows` [K, m] in turn: (iis, jjs), K *
+    len(pairs[0]) each, a row's pairs side by side."""
+    return rows[:, list(pairs[0])].ravel(), rows[:, list(pairs[1])].ravel()
+
+
+def update_branch_lengths_batched(nj):
+    """ME branch lengths for ALL nodes in one pair-distance list
+    (thread-level-1 analog of ref updateBranchLengths tcc:6502-6598).
+    Returns the up-profile sweep's AverageTables (None below three
+    leaves), which a split test of the same topology takes again."""
     tree = nj.tree
     if nj.n_seqs < 2:
-        return
+        return None
     if nj.n_seqs == 2:
         rearrange.update_branch_lengths(nj)
-        return
-    compute_up_profiles_levelwise(nj, use_ml=False)
-    leaf_nodes, leaf_rows = [], []
-    int_nodes, int_rows = [], []
-    for node in range(tree.maxnode):
-        if node == tree.root or tree.parent[node] < 0:
-            continue
-        if node < nj.n_seqs:
-            sib = tree.sibling(node)
-            if sib == -1:
-                sibs = tree.root_siblings(node)
-                rows3 = [node, sibs[0], sibs[1]]
-            else:
-                rows3 = [node, sib, nj.prof.up_row(int(tree.parent[node]))]
-            leaf_nodes.append(node)
-            leaf_rows.append(rows3)
-        elif tree.n_child[node] == 2:
-            a, b = int(tree.children[node, 0]), int(tree.children[node, 1])
-            par = int(tree.parent[node])
-            if par == tree.root:
-                sibs = tree.root_siblings(node)
-                rows4 = [a, b, sibs[0], sibs[1]]
-            else:
-                rows4 = [a, b, tree.sibling(node), nj.prof.up_row(par)]
-            int_nodes.append(node)
-            int_rows.append(rows4)
-
-    iis, jjs = [], []
-    for rows3 in leaf_rows:  # AB, AC, BC
-        for i, j in ((0, 1), (0, 2), (1, 2)):
-            iis.append(rows3[i])
-            jjs.append(rows3[j])
-    for rows4 in int_rows:   # AB, AC, AD, BC, BD, CD
-        for i, j in ((0, 1), (0, 2), (0, 3), (1, 2), (1, 3), (2, 3)):
-            iis.append(rows4[i])
-            jjs.append(rows4[j])
-    if not iis:
-        return
-    dist, weight = nj.prof.dist_pairs(np.array(iis), np.array(jjs))
+        return None
+    tables = compute_up_profiles_levelwise(nj, use_ml=False)
+    n = np.arange(nj.n_seqs)
+    leaf_nodes = n[(n != tree.root) & (tree.parent[n] >= 0)]
+    int_nodes = split_nodes(nj)
+    leaf_ii, leaf_jj = pair_list(
+        np.stack([leaf_nodes, *_other_sides(nj, leaf_nodes)], 1), LEAF_PAIRS)
+    int_ii, int_jj = pair_list(quartet_rows(nj, int_nodes), QUARTET_PAIRS)
+    iis = np.concatenate([leaf_ii, int_ii])
+    jjs = np.concatenate([leaf_jj, int_jj])
+    if not len(iis):
+        return tables
+    dist, weight = nj.prof.dist_pair_list(iis, jjs)
     dist = np.array(dist)
     nj.debug.profile_ops += len(iis)
     weight = np.where(weight > 0, weight, 0.01)
@@ -134,16 +143,12 @@ def update_branch_lengths_batched(nj) -> None:
             off += group
     if nj.options.logdist:
         dist = nj.log_corrected(dist)
-    off = 0
-    for node in leaf_nodes:
-        d = dist[off:off + 3]
-        tree.branchlength[node] = (d[0] + d[1] - d[2]) / 2.0
-        off += 3
-    for node in int_nodes:
-        d = dist[off:off + 6]
-        tree.branchlength[node] = (d[1] + d[2] + d[3] + d[4]) / 4.0 \
-            - (d[0] + d[5]) / 2.0
-        off += 6
+    d = dist[:len(leaf_ii)].reshape(-1, 3)
+    tree.branchlength[leaf_nodes] = (d[:, 0] + d[:, 1] - d[:, 2]) / 2.0
+    d = dist[len(leaf_ii):].reshape(-1, 6)
+    tree.branchlength[int_nodes] = (d[:, 1] + d[:, 2] + d[:, 3] + d[:, 4]) \
+        / 4.0 - (d[:, 0] + d[:, 5]) / 2.0
+    return tables
 
 
 def tree_length_batched(nj, recompute_profiles: bool) -> float:

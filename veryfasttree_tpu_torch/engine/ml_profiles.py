@@ -30,8 +30,9 @@ import torch
 
 from ..constants import NOCODE
 
-from ..ops import kernels, ml_kernels
+from ..ops import dataflow, kernels, ml_kernels
 from ..ops.ml_kernels import MLModel
+from .state import level_order
 
 N_SCRATCH = 8
 # scratch row names used by the quartet optimizer
@@ -347,21 +348,6 @@ class MLProfiles:
         self.posterior_sweep((sweep or self.tree_sweep()).posteriors)
 
 
-def level_order(tree):
-    """tree.level_lists() (the levels leaves first, each level in the
-    breadth-first order from the root) by a frontier walk with one numpy
-    step per level, where level_lists takes a Python step per node
-    (engine/state.py is a copy of the JAX package's module, kept equal to
-    it)."""
-    levels = []
-    level = np.array([tree.root], dtype=np.int64)
-    slots = np.arange(3)
-    while len(level):
-        levels.append(level)
-        level = tree.children[level][slots < tree.n_child[level][:, None]]
-    return levels[::-1]
-
-
 class TreeSweep:
     """The level tables of the store's tree and branch lengths, built once
     and sent to the device once, for as long as neither changes:
@@ -384,7 +370,7 @@ class TreeSweep:
         t = nodes[two]
         i, j = tree.children[t, 0], tree.children[t, 1]
         self.posteriors = ml_kernels.SweepTables(
-            ml_kernels.csr_offsets(level[two], len(levels)), t, i, j,
+            dataflow.csr_offsets(level[two], len(levels)), t, i, j,
             ml._clamped(bl[i]), ml._clamped(bl[j]))
         pairs = n_child >= 2
         t = nodes[pairs]
@@ -396,7 +382,7 @@ class TreeSweep:
                     *(float(x) for x in ml._clamped([bl[c0], bl[c1]])),
                     float(np.float32(bl[c2])))
         self.loglk = ml_kernels.LoglkTables(
-            ml_kernels.csr_offsets(level[pairs], len(levels)), i, j,
+            dataflow.csr_offsets(level[pairs], len(levels)), i, j,
             bl[i] + bl[j], root)
 
 

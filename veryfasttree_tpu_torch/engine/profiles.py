@@ -275,6 +275,15 @@ class MEProfiles:
     def dist_pairs(self, iis: np.ndarray, jjs: np.ndarray):
         return self._dists(iis=iis, jjs=jjs)
 
+    def dist_pair_list(self, iis: np.ndarray, jjs: np.ndarray):
+        """dist_pairs of a whole-tree list: one launch of the list kernel
+        and one fetch -> (dist, denom) numpy arrays, each pair's value
+        dist_pairs' bit for bit."""
+        out = _np(store_kernels.me_dists_list(
+            self.codes, self.W, self.U, self.code_freq, self._ev,
+            self._leaf_rows, iis, jjs))
+        return out[0], out[1]
+
     def refresh_and_pairs(self, rrows: np.ndarray, iis: np.ndarray,
                           jjs: np.ndarray):
         """Out-profile distances of `rrows` plus pair distances of (iis,
@@ -307,5 +316,12 @@ class MEProfiles:
     def average_sweep(self, levels) -> None:
         """Balanced-average level sweep: `levels` is a dependency-ordered
         list of (targets, iis, jjs); level k+1 reads rows level k wrote."""
-        for t, i, j in levels:
-            self._average_into(t, i, j, 0.5)
+        self.sweep_averages(store_kernels.AverageTables.from_levels(levels))
+
+    def sweep_averages(self, tables) -> None:
+        """The sweep of an AverageTables: one launch
+        (store_kernels.me_average_sweep), each row what the per-level
+        averages write."""
+        store_kernels.me_average_sweep(
+            self.codes, self.W, self.U, self.code_freq, self._et,
+            self._leaf_rows, tables, self.tol)

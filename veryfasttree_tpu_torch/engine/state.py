@@ -1,4 +1,5 @@
-# Copy of veryfasttree_tpu/engine/state.py (which imports no jax itself, but importing it runs veryfasttree_tpu/engine/__init__.py, which does).
+# Copy of veryfasttree_tpu/engine/state.py (which imports no jax itself, but importing it runs veryfasttree_tpu/engine/__init__.py, which does),
+# with level_order added at the end.
 """Flat-array tree topology state + traversals.
 
 The reference keeps the inferred tree as flat arrays indexed by node id
@@ -128,3 +129,16 @@ class TreeState:
             levels.append(nxt)
         levels.pop()
         return [np.array(lv, dtype=np.int64) for lv in reversed(levels)]
+
+
+def level_order(tree):
+    """tree.level_lists() (the levels leaves first, each level in the
+    breadth-first order from the root) by a frontier walk with one numpy
+    step per level, where level_lists takes a Python step per node."""
+    levels = []
+    level = np.array([tree.root], dtype=np.int64)
+    slots = np.arange(3)
+    while len(level):
+        levels.append(level)
+        level = tree.children[level][slots < tree.n_child[level][:, None]]
+    return levels[::-1]

@@ -3,7 +3,10 @@
 bootstrap, reliabilityNJ, is not ported yet).
 
 * testSplitsMinEvo (ref tcc:6639-6797): count splits where an NNI would
-  shorten the tree, using corrected quartet distances.
+  shorten the tree, using corrected quartet distances: the serial walk
+  (test_splits_min_evo, which -bionj takes), and the batched test
+  (test_splits_min_evo_batched: one up-profile sweep, one pair-distance
+  list, one fetch), value-identical to it with -bionj off.
 * resampleColumns (ref tcc:705-727): the Knuth-stream column picks of the
   SH-like supports, bit-identical to the reference (which never seeds the
   generator, so the default 314159 stream is used).
@@ -17,7 +20,7 @@ import numpy as np
 
 from ..utils.knuth import KnuthRandom
 
-from . import rearrange
+from . import batched, rearrange
 from .rearrange import QAB, QAC, QAD, QBC, QBD, QCD, UpProfiles
 
 
@@ -75,4 +78,54 @@ def test_splits_min_evo(nj) -> SplitCount:
                 delta, sc.d_worst_delta_unconstrained)
         ups.reset(nodes4[0])
         ups.reset(nodes4[1])
+    return sc
+
+
+def test_splits_min_evo_batched(nj, up_tables=None) -> SplitCount:
+    """Level-batched testSplitsMinEvo (ref tcc:6639-6797; the JAX package's
+    test_splits_min_evo_batched without the constraint counts): every
+    up-profile in one sweep of balanced averages, every quartet's six pair
+    distances in one list and one fetch, then the corrections and the
+    counts in host numpy.  With -bionj off (plain 0.5 up-profiles) the
+    SplitCount and the debug counters are the serial walk's bit for bit:
+    each distance is its pair's, and each correction takes numpy's
+    operations in the serial walk's order.  up_tables: the up-profile
+    sweep's tables of this topology (update_branch_lengths_batched returns
+    them), or None to build them."""
+    sc = SplitCount()
+    if nj.n_seqs <= 3:
+        return sc
+    tol = 1e-6
+    batched.compute_up_profiles_levelwise(nj, False, up_tables)
+    nodes = batched.split_nodes(nj)
+    K = len(nodes)
+    if not K:
+        return sc
+    # quartet by quartet, so that a quartet's rows are read close in time
+    dist, weight = nj.prof.dist_pair_list(*batched.pair_list(
+        batched.quartet_rows(nj, nodes), batched.QUARTET_PAIRS))
+    nj.debug.profile_ops += 6 * K
+    dist = np.ascontiguousarray(dist.reshape(K, 6).T)
+    weight = np.ascontiguousarray(np.where(weight > 0, weight, 0.01)
+                                  .reshape(K, 6).T)
+    if nj.options.pseudo_weight > 0:
+        # each quartet's sums over its six pairs in order, as the serial
+        # walk's 6-element sums take them
+        bottom = weight.sum(axis=0)
+        prior = np.where(bottom > 0.01,
+                         (dist * weight).sum(axis=0) / bottom, 3.0)
+        pw = nj.options.pseudo_weight
+        dist = (dist * weight + prior[None, :] * pw) / (weight + pw)
+    if nj.options.logdist:
+        dist = nj.log_corrected(dist)
+    s_ab_cd = dist[QAB] + dist[QCD]
+    s_ac_bd = dist[QAC] + dist[QBD]
+    s_ad_bc = dist[QAD] + dist[QBC]
+    # min(s_ac_bd, s_ad_bc) as Python's min takes it
+    delta = s_ab_cd - np.where(s_ad_bc < s_ac_bd, s_ad_bc, s_ac_bd)
+    bad = delta > tol
+    sc.n_splits = K
+    sc.n_bad_splits = int(bad.sum())
+    if sc.n_bad_splits:
+        sc.d_worst_delta_unconstrained = float(delta[bad].max())
     return sc

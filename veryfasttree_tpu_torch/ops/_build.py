@@ -200,6 +200,13 @@ def _declare(lib) -> None:
     lib.vft_me_average_f32.argtypes = [
         ptr, ptr, ptr, ptr, i64, i64, i32, i32, ptr, ptr, i32,
         f32, i32, f32, ptr]
+    lib.vft_me_pair_list_f32.argtypes = [
+        ptr, ptr, ptr, ptr, i64, i32, i32, ptr, ptr, i64, ptr, ptr]
+    lib.vft_me_average_sweep_units.argtypes = [i64, i32]
+    lib.vft_me_average_sweep_units.restype = i64
+    lib.vft_me_average_sweep_f32.argtypes = [
+        ptr, ptr, ptr, ptr, i64, i32, i32, ptr, ptr, i64, f32, ptr, i64, i32,
+        ptr]
     # the store, model, tree and options, first in each round entry
     # (ops/me_round.entry_args)
     me_round = [ptr, ptr, ptr, ptr, i64, i64, i32, i32, ptr, ptr, f32, i32,
@@ -226,8 +233,9 @@ def _declare(lib) -> None:
         f32, ptr, ptr, i64, ptr, f32, f32, f32, f32, i32, ptr, ptr, ptr, ptr]
     lib.vft_ml_quartet_scratch_floats.argtypes = [i32, i32]
     lib.vft_ml_quartet_scratch_floats.restype = i64
-    # the whole-tree kernels (csrc/ml_sweep.cu)
-    lib.vft_ml_sweep_ctrl_words.argtypes = []
+    # the whole-tree kernels' scheduler (csrc/dataflow.cuh) and the ML
+    # sweep and tree log-likelihood (csrc/ml_sweep.cu)
+    lib.vft_dataflow_ctrl_words.argtypes = []
     lib.vft_ml_posterior_sweep_grid.argtypes = [i32]
     lib.vft_ml_posterior_sweep_units.argtypes = [i64, i32]
     lib.vft_ml_posterior_sweep_units.restype = i64
@@ -261,7 +269,7 @@ def _declare(lib) -> None:
                  "vft_ml_quartet_opt_f32", "vft_ml_nni_round_f32",
                  "vft_ml_lengths_pass_f32", "vft_ml_round_tree_fits_smem",
                  "vft_nj_epoch_f32", "vft_sh_resample_counts",
-                 "vft_ml_sweep_ctrl_words", "vft_ml_posterior_sweep_grid",
+                 "vft_dataflow_ctrl_words", "vft_ml_posterior_sweep_grid",
                  "vft_ml_posterior_sweep_f32",
                  "vft_ml_tree_loglk_f32"):
         getattr(lib, name).restype = i32

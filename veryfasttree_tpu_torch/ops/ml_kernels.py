@@ -65,6 +65,7 @@ import torch
 from ..constants import CLOSE_LOGLK_LIMIT, NOCODE
 
 from . import _build, kernels
+from .dataflow import LevelTables, align16, typed, workspace
 
 _C_CODES = (4, 20)
 MAX_RATES = 32          # rate categories a kernel takes (CAT uses 20)
@@ -354,77 +355,7 @@ def ml_quartet_opt_ref(codes, W, V, m, rows4, lengths, scratch_rows, xmin,
 
 
 # ---------------------------------------------------------- level tables
-def csr_offsets(level_ids, n_levels):
-    """Offsets [L + 1] of the non-empty levels of items whose level indices
-    (non-decreasing, below n_levels) are level_ids."""
-    counts = np.bincount(level_ids, minlength=n_levels)
-    return np.concatenate([[0], np.cumsum(counts[counts > 0])]) \
-        .astype(np.int64)
-
-
-def _producers(targets, sources, level):
-    """The item that writes each source row (-1: none), which must lie in
-    an earlier level than the reader's."""
-    order = np.argsort(targets, kind="stable")
-    st = targets[order]
-    if len(st) == 0:
-        return np.full(len(sources), -1, dtype=np.int64)
-    at = np.minimum(np.searchsorted(st, sources), len(st) - 1)
-    hit = st[at] == sources
-    prod = np.where(hit, order[at], -1)
-    if (hit & (level[np.maximum(prod, 0)] >= level)).any():
-        raise ValueError("posterior sweep: a level reads a row that it or a "
-                         "later level writes")
-    return prod
-
-
-class _Tables:
-    """Level tables in CSR form: level l's items from offsets[l] to
-    offsets[l + 1].  upload(dev) sends the kernel's arrays to a device
-    once, through pinned memory, in stream order."""
-
-    def levels(self):
-        """Each level's slices of `fields`, in order."""
-        for a, b in zip(self.offsets[:-1], self.offsets[1:]):
-            yield tuple(getattr(self, f)[a:b] for f in self.fields)
-
-    @property
-    def n_levels(self) -> int:
-        return len(self.offsets) - 1
-
-    def _rows(self):
-        return np.concatenate([getattr(self, f) for f in self.row_fields])
-
-    def check_rows(self, n_rows, name):
-        rows = self._rows()
-        if len(rows) and (rows.min() < 0 or rows.max() >= n_rows):
-            raise IndexError(f"{name}: a row index lies outside the store")
-
-    def upload(self, dev):
-        """{name: tensor on dev} of the kernel's arrays (kernel_arrays())."""
-        key = str(dev)
-        if key not in self._on:
-            arrays = self.kernel_arrays()
-            at, n = {}, 0
-            for name, a in arrays.items():
-                at[name] = n
-                n += _align16(a.nbytes)
-            host = torch.empty(max(n, 16), dtype=torch.uint8,
-                               pin_memory=True)
-            raw = host.numpy()
-            for name, a in arrays.items():
-                raw[at[name]:at[name] + a.nbytes] = a.view(np.uint8)
-            buf = host.to(dev, non_blocking=True)
-            self._on[key] = {name: _typed(buf, at[name], a.shape,
-                                          _TORCH[a.dtype])
-                             for name, a in arrays.items()}
-        return self._on[key]
-
-
-_TORCH = {np.dtype(np.int32): torch.int32, np.dtype(np.float32): torch.float32}
-
-
-class SweepTables(_Tables):
+class SweepTables(LevelTables):
     """A dependency-ordered posterior sweep: per item, the target row, the
     source rows r1, r2 and their lengths len1, len2 (float32, raised to
     the minimum length as the store raises them); and the items of earlier
@@ -442,24 +373,10 @@ class SweepTables(_Tables):
                                           for a in (targets, r1, r2))
         self.len1, self.len2 = (np.asarray(a, dtype=np.float32)
                                 for a in (len1, len2))
-        st = np.sort(self.targets)
-        if (st[1:] == st[:-1]).any():
-            raise ValueError("posterior sweep: targets must be distinct")
-        level = np.repeat(np.arange(self.n_levels), np.diff(self.offsets))
-        self.prod1 = _producers(self.targets, self.r1, level)
-        self.prod2 = _producers(self.targets, self.r2, level)
+        self.prod1, self.prod2 = self.producers_of(
+            "posterior sweep", self.targets, self.r1, self.r2)
         self.n_items = len(self.targets)
         self._on = {}
-
-    @classmethod
-    def from_levels(cls, levels):
-        """The tables of a list of levels (targets, r1s, r2s, len1s,
-        len2s), empty levels left out."""
-        levels = [lv for lv in levels if len(lv[0])]
-        sizes = [len(lv[0]) for lv in levels]
-        cols = [np.concatenate([np.asarray(lv[i]) for lv in levels])
-                if levels else np.zeros(0) for i in range(5)]
-        return cls(np.concatenate([[0], np.cumsum(sizes)]), *cols)
 
     def kernel_arrays(self):
         return {"rows": np.concatenate([self.targets, self.r1, self.r2,
@@ -468,7 +385,7 @@ class SweepTables(_Tables):
                 "lens": np.concatenate([self.len1, self.len2])}
 
 
-class LoglkTables(_Tables):
+class LoglkTables(LevelTables):
     """A tree log-likelihood: per level, its pairs of rows r1, r2 at length
     len (float32), in list order; and the root's 3-way term, root = (s_ab,
     c0, c1, c2, l0, l1, l2): the posterior of rows c0, c1 at l0, l1
@@ -631,17 +548,6 @@ def _bind(codes, W, V, m) -> _Bound:
     return bound
 
 
-def _typed(buf, offset, shape, dtype):
-    """A view of bytes [offset, ...) of a uint8 buffer as `dtype`; offset is
-    a multiple of 16."""
-    n = int(np.prod(shape)) * dtype.itemsize
-    return buf[offset:offset + n].view(dtype).view(shape)
-
-
-def _align16(n: int) -> int:
-    return (n + 15) // 16 * 16
-
-
 def _raise_on(rc, name):
     """The C entries return 0, a cudaError of the launch, or -1 for a row
     index outside the store (checked before anything is launched)."""
@@ -667,14 +573,14 @@ def ml_pair_loglk(codes, W, V, m, r1s, r2s, lengths, want_lk=False,
         raise ValueError("r1s, r2s and lengths differ in length")
     rows = np.concatenate([r1s, r2s]).astype(np.int32)
     lens = np.asarray(lengths, dtype=np.float32)
-    lk_at = _align16(8 * K)
+    lk_at = align16(8 * K)
     n_bytes = lk_at + (4 * K * bound.P if want_lk else 0)
     buf = torch.empty(n_bytes, dtype=torch.uint8, device=bound.device) \
         if keep else bound.buffer("pair", n_bytes)
-    ll = _typed(buf, 0, (K,), torch.float64)
-    lk = _typed(buf, lk_at, (K, bound.P), torch.float32) if want_lk else None
+    ll = typed(buf, 0, (K,), torch.float64)
+    lk = typed(buf, lk_at, (K, bound.P), torch.float32) if want_lk else None
     if K:
-        lists = bound.buffer("lists", _align16(rows.nbytes) + lens.nbytes)
+        lists = bound.buffer("lists", align16(rows.nbytes) + lens.nbytes)
         _raise_on(_build.library().vft_ml_pair_loglk_f32(
             *bound.args, rows.ctypes.data, lens.ctypes.data, K,
             lists.data_ptr(), ll.data_ptr(),
@@ -710,7 +616,7 @@ def ml_posterior(codes, W, V, m, targets, r1s, r2s, len1s, len2s):
         return
     rows = np.concatenate([targets, r1s, r2s]).astype(np.int32)
     lens = np.concatenate([len1s, len2s]).astype(np.float32)
-    lists = bound.buffer("lists", _align16(rows.nbytes) + lens.nbytes)
+    lists = bound.buffer("lists", align16(rows.nbytes) + lens.nbytes)
     _raise_on(_build.library().vft_ml_posterior_f32(
         *bound.args, ctypes.c_float(m.tol), rows.ctypes.data,
         lens.ctypes.data, K, lists.data_ptr(), bound.stream), "ml_posterior")
@@ -737,11 +643,11 @@ def ml_opt_branch(codes, W, V, m, r1s, r2s, guesses, xmin, xmax, ftol, atol):
         raise ValueError("r1s, r2s and guesses differ in length")
     rows = np.concatenate([r1s, r2s]).astype(np.int32)
     guess = np.asarray(guesses, dtype=np.float32)
-    step = _align16(4 * K)
+    step = align16(4 * K)
     buf = bound.buffer("opt", 3 * step)
-    x = _typed(buf, 0, (K,), torch.float32)
-    fx = _typed(buf, step, (K,), torch.float32)
-    n_eval = _typed(buf, 2 * step, (K,), torch.int32)
+    x = typed(buf, 0, (K,), torch.float32)
+    fx = typed(buf, step, (K,), torch.float32)
+    n_eval = typed(buf, 2 * step, (K,), torch.int32)
     if K:
         # effective vectors in device memory where they exceed shared
         scratch = bound.buffer("opt_scratch", 4 * K * bound.opt_scratch) \
@@ -791,14 +697,14 @@ def ml_quartet_opt(codes, W, V, m, rows4, lengths, scratch_rows, xmin, xmax,
     bound = _bind(codes, W, V, m)
     K, P = len(rows4), bound.P
     rec_bytes = K * QUARTET_RECORD.itemsize
-    site_at = _align16(rec_bytes)
+    site_at = align16(rec_bytes)
     n_bytes = site_at + (4 * K * 3 * P if want_site_lk else 0)
     out = torch.empty(n_bytes, dtype=torch.uint8, device=bound.device) \
         if keep_site else bound.buffer("quartet", n_bytes)
     scratch = bound.buffer("quartet_scratch", 4 * K * bound.quartet_scratch) \
         if bound.quartet_scratch else None
     if K:
-        lists = bound.buffer("lists", _align16(rows4.nbytes) + lengths.nbytes)
+        lists = bound.buffer("lists", align16(rows4.nbytes) + lengths.nbytes)
         _raise_on(_build.library().vft_ml_quartet_opt_f32(
             *bound.args, ctypes.c_float(m.tol), rows4.ctypes.data,
             lengths.ctypes.data, K, lists.data_ptr(), ctypes.c_float(xmin),
@@ -808,7 +714,7 @@ def ml_quartet_opt(codes, W, V, m, rows4, lengths, scratch_rows, xmin, xmax,
             scratch.data_ptr() if scratch is not None else None,
             bound.stream), "ml_quartet_opt")
         ml_quartet_opt.launches += 1
-    site = _typed(out, site_at, (K, 3, P), torch.float32) \
+    site = typed(out, site_at, (K, 3, P), torch.float32) \
         if want_site_lk else None
     fetched = out[:rec_bytes] if keep_site else out
     host = bound.buffer("quartet_host", fetched.numel(), pinned=True)
@@ -821,50 +727,6 @@ def ml_quartet_opt(codes, W, V, m, rows4, lengths, scratch_rows, xmin, xmax,
 
 
 ml_quartet_opt.launches = 0
-
-
-class _Workspace:
-    """The control words, ready flags and scratch of the whole-tree kernels
-    on one stream (csrc/ml_sweep.cu): the flags are zeroed when allocated
-    and tagged with each launch's epoch, so no launch resets them."""
-
-    def __init__(self, device):
-        self.device = device
-        self.ctrl = None
-        self.scratch = None
-        self.epoch = 0
-
-    def flags(self, n_units):
-        """(control block and flags, flags they hold) for n_units."""
-        words = _build.library().vft_ml_sweep_ctrl_words()
-        if self.ctrl is None or self.ctrl.numel() < words + n_units:
-            size = max(words + n_units,
-                       2 * (0 if self.ctrl is None else self.ctrl.numel()))
-            self.ctrl = torch.zeros(size, dtype=torch.int32,
-                                    device=self.device)
-        return self.ctrl, self.ctrl.numel() - words
-
-    def scratch_buffer(self, n_bytes):
-        if self.scratch is None or self.scratch.numel() < n_bytes:
-            size = max(n_bytes, 2 * (0 if self.scratch is None
-                                     else self.scratch.numel()), 256)
-            self.scratch = torch.empty(size, dtype=torch.uint8,
-                                       device=self.device)
-        return self.scratch
-
-    def next_epoch(self) -> int:
-        self.epoch = self.epoch % 0x7FFFFFFF + 1
-        return self.epoch
-
-
-_WORKSPACES = {}
-
-
-def _workspace(bound) -> _Workspace:
-    key = (str(bound.device), bound.stream)
-    if key not in _WORKSPACES:
-        _WORKSPACES[key] = _Workspace(bound.device)
-    return _WORKSPACES[key]
 
 
 def ml_posterior_sweep(codes, W, V, m, tables):
@@ -881,7 +743,7 @@ def ml_posterior_sweep(codes, W, V, m, tables):
         return
     lib = _build.library()
     dev = tables.upload(bound.device)
-    ws = _workspace(bound)
+    ws = workspace(bound.device, bound.stream)
     ctrl, n_flags = ws.flags(
         lib.vft_ml_posterior_sweep_units(tables.n_items, bound.P))
     _raise_on(lib.vft_ml_posterior_sweep_f32(
@@ -921,7 +783,7 @@ def ml_tree_loglk(codes, W, V, m, tables, want_site=False, site_out=None):
     K, L, root = tables.n_pairs, tables.n_levels, tables.root
     lib = _build.library()
     dev = tables.upload(bound.device)
-    ws = _workspace(bound)
+    ws = workspace(bound.device, bound.stream)
     ctrl, n_flags = ws.flags(lib.vft_ml_tree_loglk_units(
         K, L, int(m.n_pos), int(root is not None), int(want_site)))
     n_scratch = lib.vft_ml_tree_loglk_scratch_bytes(

@@ -33,7 +33,7 @@ import torch
 
 from .. import constants
 from ..engine import rearrange
-from ..engine.ml_profiles import level_order
+from ..engine.state import level_order
 from ..engine.supports import SplitCount
 from . import _build, me_round, ml_kernels, resample_kernels
 

@@ -1,14 +1,23 @@
-"""Small profile-store kernels for the host-driven loops: the CUDA kernels of
-``csrc/me_store.cu`` and their plain PyTorch twins.
+"""Profile-store kernels of the minimum-evolution phases: the CUDA kernels
+of ``csrc/me_store.cu`` and their plain PyTorch twins.
 
-The join loop, the NNI and SPR walks and the up-profiles ask the store for a
-handful of row-pair distances, or one profile average, at a time, some
-hundred thousand times in a run.  The JAX package compiles each such store
-call into one XLA computation (``veryfasttree_tpu/engine/profiles.py``:
-``_dist_rows``, ``_dist_gather``, ``_refresh_and_pairs``, ``_join_update``,
-``_avg_sweep_impl``); here each is one kernel launch whose row indices
-travel in the launch's parameters, so a call costs no host-to-device copy
-and, for an average, no synchronisation.
+The host loops that are left (-slow, -bionj, the unfused join loop) ask the
+store for a handful of row-pair distances, or one profile average, at a
+time.  The JAX package compiles each such store call into one XLA
+computation (``veryfasttree_tpu/engine/profiles.py``: ``_dist_rows``,
+``_dist_gather``, ``_refresh_and_pairs``, ``_join_update``); here each is
+one launch of ``me_dists`` or ``me_average`` whose row indices travel in
+the launch's parameters, so a call costs no host-to-device copy and, for an
+average, no synchronisation.
+
+The whole-tree passes (the ME branch lengths, the split test, the bottom-up
+recompute) take two kernels over tables sent to the card once:
+
+* ``me_average_sweep``: every balanced average of a dependency-ordered
+  ``AverageTables`` in one launch (the JAX package's ``_avg_sweep_impl``),
+  each row bit for bit what ``me_average``'s per-level launches write;
+* ``me_dists_list``: the distances of a list of row pairs of any length in
+  one launch, each pair bit for bit what ``me_dists`` gives it.
 
 Store layout: codes int8 [n_rows, P] for every row, W [n_float, P] and U
 [n_float, P, C] for the float rows; rows below ``leaf_rows`` (the leaves of
@@ -27,7 +36,7 @@ import numpy as np
 import torch
 
 from ..utils.device import ACCUM_DTYPE
-from . import _build, kernels
+from . import _build, dataflow, kernels
 
 _C_CODES = (4, 20)
 
@@ -208,3 +217,125 @@ def me_average(codes, W, U, code_freq, eigentot, leaf_rows, targets, iis, jjs,
 
 
 me_average.launches = 0
+
+
+# --------------------------------------------------------- whole-tree passes
+class AverageTables(dataflow.LevelTables):
+    """A dependency-ordered sweep of balanced (0.5) profile averages: per
+    item, the target row and the source rows iis, jjs; and the items of
+    earlier levels that write iis and jjs (prod_i, prod_j, -1 for none),
+    which the kernel waits on.  Targets are distinct and no level reads a
+    row that it or a later level writes (checked here), so the
+    level-by-level order and the kernel's order of waits give the same
+    rows."""
+
+    fields = ("targets", "iis", "jjs")
+    row_fields = fields
+
+    def __init__(self, offsets, targets, iis, jjs):
+        self.offsets = np.asarray(offsets, dtype=np.int64)
+        self.targets, self.iis, self.jjs = (np.asarray(a, dtype=np.int64)
+                                            for a in (targets, iis, jjs))
+        self.prod_i, self.prod_j = self.producers_of(
+            "average sweep", self.targets, self.iis, self.jjs)
+        self.n_items = len(self.targets)
+        self._on = {}
+
+    def kernel_arrays(self):
+        return {"rows": np.concatenate([self.targets, self.iis, self.jjs,
+                                        self.prod_i, self.prod_j])
+                .astype(np.int32)}
+
+
+def me_average_sweep_ref(codes, W, U, code_freq, eigentot, leaf_rows, tables,
+                         tol):
+    """Plain twin of me_average_sweep: me_average_ref level by level."""
+    for t, i, j in tables.levels():
+        me_average_ref(codes, W, U, code_freq, eigentot, leaf_rows, t, i, j,
+                       0.5, tol)
+
+
+def me_average_sweep(codes, W, U, code_freq, eigentot, leaf_rows, tables,
+                     tol):
+    """The balanced averages (weight 0.5) of an AverageTables, level after
+    level, written into the store in place: one launch on CUDA, each row
+    bit for bit me_average's level by level; the twin on the CPU.  A row
+    outside the store, or a target below leaf_rows, raises IndexError
+    before anything is launched."""
+    if codes.device.type == "cpu":
+        return me_average_sweep_ref(codes, W, U, code_freq, eigentot,
+                                    leaf_rows, tables, tol)
+    n_rows, P, C = _check_store(codes, W, U, code_freq, leaf_rows)
+    tables.check_rows(n_rows, "me_average_sweep")
+    if tables.n_items == 0:
+        return
+    if tables.targets.min() < leaf_rows:
+        raise IndexError("me_average_sweep: a target among the code-only "
+                         "leaves")
+    et = None
+    if eigentot is not None:
+        et = eigentot.to(device=codes.device, dtype=torch.float32).contiguous()
+    dev = tables.upload(codes.device)
+    stream = torch.cuda.current_stream(codes.device).cuda_stream
+    ws = dataflow.workspace(codes.device, stream)
+    lib = _build.library()
+    ctrl, n_flags = ws.flags(lib.vft_me_average_sweep_units(tables.n_items,
+                                                            P))
+    _raise_on(lib.vft_me_average_sweep_f32(
+        codes.data_ptr(), W.data_ptr(), U.data_ptr(), code_freq.data_ptr(),
+        int(leaf_rows), P, C, et.data_ptr() if et is not None else None,
+        dev["rows"].data_ptr(), tables.n_items, ctypes.c_float(tol),
+        ctrl.data_ptr(), n_flags, ws.next_epoch(), stream),
+        "me_average_sweep")
+    me_average_sweep.launches += 1
+
+
+me_average_sweep.launches = 0
+
+
+def me_dists_list_ref(codes, W, U, code_freq, eigenval, leaf_rows, iis,
+                      jjs):
+    """Plain twin of me_dists_list: me_dists_ref's pairs."""
+    if len(iis) == 0:
+        return torch.empty((2, 0), dtype=ACCUM_DTYPE, device=codes.device)
+    return me_dists_ref(codes, W, U, code_freq, eigenval, leaf_rows, (),
+                        None, None, iis, jjs)
+
+
+def me_dists_list(codes, W, U, code_freq, eigenval, leaf_rows, iis, jjs):
+    """The distances of the row pairs (iis[k], jjs[k]) of a list of any
+    length (host integer arrays): one launch on CUDA over the list sent in
+    one copy, each pair bit for bit what me_dists gives it; the twin on
+    the CPU.  Returns [2, K] float64 on the store's device: dist, then
+    denom.  An index outside the store raises IndexError before anything
+    is launched."""
+    iis = np.asarray(iis, dtype=np.int64)
+    jjs = np.asarray(jjs, dtype=np.int64)
+    if len(iis) != len(jjs):
+        raise ValueError("iis and jjs differ in length")
+    K = len(iis)
+    if codes.device.type == "cpu":
+        return me_dists_list_ref(codes, W, U, code_freq, eigenval, leaf_rows,
+                                 iis, jjs)
+    n_rows, P, C = _check_store(codes, W, U, code_freq, leaf_rows)
+    rows = np.concatenate([iis, jjs])
+    if K and (rows.min() < 0 or rows.max() >= n_rows):
+        raise IndexError("me_dists_list: a row index lies outside the store")
+    dev = codes.device
+    out = torch.empty((2, K), dtype=ACCUM_DTYPE, device=dev)
+    if K == 0:
+        return out
+    ev = None
+    if eigenval is not None:
+        ev = eigenval.to(device=dev, dtype=ACCUM_DTYPE).contiguous()
+    rows = dataflow.to_device({"rows": rows.astype(np.int32)}, dev)["rows"]
+    _raise_on(_build.library().vft_me_pair_list_f32(
+        codes.data_ptr(), W.data_ptr(), U.data_ptr(), code_freq.data_ptr(),
+        int(leaf_rows), P, C, ev.data_ptr() if ev is not None else None,
+        rows.data_ptr(), K, out.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream), "me_dists_list")
+    me_dists_list.launches += 1
+    return out
+
+
+me_dists_list.launches = 0

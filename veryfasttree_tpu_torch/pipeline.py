@@ -222,10 +222,11 @@ def _run_single(options, input_fp, output_fp, log_fp, device):
         run_spr_round()
 
     t1 = time.perf_counter()
+    up_tables = None
     if not options.bionj:
         # one gathered distance call for the whole tree; value-identical to
         # the serial walk with the plain 0.5 up-profile average
-        batched.update_branch_lengths_batched(nj)
+        up_tables = batched.update_branch_lengths_batched(nj)
     else:
         rearrange.update_branch_lengths(nj)
     log_tree("ME_Lengths", 0)
@@ -241,7 +242,10 @@ def _run_single(options, input_fp, output_fp, log_fp, device):
         split_count = ml.run_ml_phase(nj, ml_nni_to_do, n_uniq, progress,
                                       log, log_tree)
     else:
-        split_count = supports.test_splits_min_evo(nj)
+        # one sweep and one distance list for the whole tree; with -bionj
+        # the up-profiles are BIONJ-weighted, and the serial walk stays
+        split_count = supports.test_splits_min_evo(nj) if options.bionj \
+            else supports.test_splits_min_evo_batched(nj, up_tables)
         nj.timings["splits_s"] = time.perf_counter() - t2
 
     newick = print_newick(nj.tree, names, unique, options.n_bootstrap > 0,
