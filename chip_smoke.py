@@ -15,7 +15,10 @@ passed):
    path's shapes, with the median time of 50 runs of each (CUDA events):
    the scans and the pair distances in double (rtol 1e-12, atol 1e-12; best
    index equal), the profile average bit-identical (rtol 1e-6 in BLOSUM45
-   matrix mode).
+   matrix mode).  The code scan (L=20000, P=512 at 4 and 20 codes, and
+   P=1536 at 20, two tiles of its query table) also bit for bit the numpy
+   replay of its lane order (codes_lane_replay): dist, denom, crit and the
+   best index.
    The ML store's kernels (ml_pair_loglk, ml_posterior, ml_opt_branch)
    against theirs on a store of the N=2000 layout (12008 rows of 512
    positions), Jukes-Cantor and GTR with 4 codes and JTT with 20: ll and
@@ -72,7 +75,10 @@ passed):
    against the plain twin (the host loop on the CPU): the same join log,
    values within 1e-4 (its out-profile weights round otherwise); both
    walls, the launches, the device time in all and per join of each dense
-   case and the bound;
+   case and the bound; then the N=2000 join phase, dense and two-tier,
+   through a build of the epoch kernel with its clock64 probes (built
+   beside phase 1's, csrc/probes.cuh): the refresh scans' time, which in
+   the two-tier store read the leaf rows with the code scan's body;
 2e. one ML lengths pass, then one ML NNI round, at N=500 from one NJ start
    with an ML store (Jukes-Cantor with one rate, Jukes-Cantor and GTR with
    fitted CAT 20 rates): the round kernels (ml_lengths_pass, ml_nni_round,
@@ -96,7 +102,7 @@ passed):
    log-likelihoods, per-site likelihoods, choices, bad splits, supports,
    SplitCount, counters and store rows bit for bit; its launches, walls,
    device time and bound; the bootstrap counts kernel (sh_resample_counts)
-   equal to its twin at B=1000, P=500;
+   equal to its twin at B=1000, P=500 and P=5000, both timed;
 2g. the CAT fit and the tree log-likelihood as whole-tree launches
    (ml_posterior_sweep, ml_tree_loglk) against the per-level launches of
    ml_posterior and ml_pair_loglk, at N=2000, P=500 from the port's NJ
@@ -565,6 +571,53 @@ def check_average(label, C, use_matrix, leaf_rows, gen, dev):
                        P * (4 * C + 6))
 
 
+def codes_lane_replay(codes, G, wq, outd, n_active, l_real, use_matrix):
+    """nj_scan_codes's arithmetic in numpy, in the kernel's order: lane l of
+    a row's warp sums, tile by tile (scan_kernels.codes_p_tile), the
+    positions 16 v + j of its chunks v = l, l + 32, ... in the order j = 0
+    .. 15: wq[p] into den where the code is not NOCODE (127), G[code, p]
+    into pick where it is a code below C; then the xor butterfly (lane l
+    adds lane l ^ off's sum, off = 16 .. 1), dist (top / den, or 1), crit
+    and the lowest index of the least crit.  Arguments as nj_scan_codes's
+    (tensors or arrays); returns (best_idx, best_crit, dist, denom, crit) in
+    numpy."""
+    import numpy as np
+
+    from veryfasttree_tpu_torch.ops.scan_kernels import codes_p_tile
+
+    codes, G, wq, outd = (np.asarray(x.cpu()) if hasattr(x, "cpu")
+                          else np.asarray(x) for x in (codes, G, wq, outd))
+    L, P = codes.shape
+    C = G.shape[0]
+    lanes = np.arange(32)
+    den = np.zeros((L, 32))
+    pick = np.zeros((L, 32))
+    p_tile = codes_p_tile(P, C)
+    for p0 in range(0, P, p_tile):
+        n_chunks = min(p_tile, P - p0) // 16
+        for v0 in range(0, n_chunks, 32):
+            v = v0 + lanes
+            live = v < n_chunks
+            for j in range(16):
+                p = p0 + 16 * np.minimum(v, n_chunks - 1) + j
+                code = codes[:, p].astype(np.int64)
+                take = live & (code != 127)
+                den = np.where(take, den + wq[p], den)
+                hit = take & (code >= 0) & (code < C)
+                pick = np.where(hit, pick + G[np.clip(code, 0, C - 1), p],
+                                pick)
+    for off in (16, 8, 4, 2, 1):
+        den = den + den[:, lanes ^ off]
+        pick = pick + pick[:, lanes ^ off]
+    den, pick = den[:, 0], pick[:, 0]
+    top = pick if use_matrix else den - pick
+    dist = np.where(den > 0, top / np.where(den > 0, den, 1.0), 1.0)
+    crit = np.where(np.arange(L) < l_real,
+                    dist - outd / (float(n_active) - 2.0), 1e30)
+    best = int(np.argmin(crit))
+    return best, crit[best], dist, den, crit
+
+
 def check_kernel(name, kernel, twin, args):
     import numpy as np
     import torch
@@ -581,6 +634,13 @@ def check_kernel(name, kernel, twin, args):
         g, e = g.cpu().numpy(), e.cpu().numpy()
         np.testing.assert_allclose(g, e, err_msg=f"{name} {label}", **TOL)
         err = max(err, float(np.max(np.abs(g - e))))
+    if name == "nj_scan_codes":            # its lane order, bit for bit
+        want = codes_lane_replay(*args)
+        if int(got[0]) != want[0] or any(
+                g.cpu().numpy().tobytes() != w.tobytes()
+                for g, w in zip(got[2:], want[2:])):
+            raise AssertionError("nj_scan_codes: dist, denom or crit not bit "
+                                 "for bit the lane-order replay's")
     # dense: (U2, W, a, wq, outd, ...); codes: (codes, G, wq, outd, ...)
     dense = name == "nj_scan_dense"
     rows, q, wq, outd = (args[0], args[2], args[3], args[4]) if dense else \
@@ -1033,6 +1093,9 @@ def phase_kernels(report):
          sk.nj_scan_codes_ref, codes_case(4, False, gen, dev)),
         ("nj_scan_codes", "L=20000 P=512 C=20 BLOSUM45", sk.nj_scan_codes,
          sk.nj_scan_codes_ref, codes_case(20, True, gen, dev)),
+        ("nj_scan_codes", "L=20000 P=1536 C=20 BLOSUM45, two tiles",
+         sk.nj_scan_codes, sk.nj_scan_codes_ref,
+         codes_case(20, True, gen, dev, P=1536)),
     ]
     def record(name, label, err, times):
         lst = (f" (a list of {times['list_k']}; one item alone "
@@ -1050,8 +1113,15 @@ def phase_kernels(report):
 
     for name, shape, kernel, twin, args in cases:
         best, err, times = check_kernel(name, kernel, twin, args)
-        record(name, f"{shape}, best {best}: the tie's lowest index", err,
-               times)
+        lanes = ("; dist, denom, crit bit for bit the lane-order replay"
+                 if name == "nj_scan_codes" else "")
+        record(name, f"{shape}, best {best}: the tie's lowest index{lanes}",
+               err, times)
+        if name == "nj_scan_codes" and "C=20" in shape and "tiles" not in \
+                shape:
+            report[name].update({"c20_ms": times["ms"],
+                                 "c20_device_us": times["device_us"],
+                                 "c20_bound_ms": times["bound_ms"]})
     for name, check in (("me_dists", check_dists),
                         ("me_average", check_average)):
         for C, use_matrix, leaf_rows, label in (
@@ -1758,7 +1828,7 @@ def epoch_bound(nj, totals):
     return n_bytes, P * (2 * (C + 1) * n_dists + (4 * C + 6) * joins)
 
 
-def phase_epoch(report, dev):
+def phase_epoch(report, dev, probe):
     """The NJ phase at N=SPR_N, dense, two-tier and protein, and at N=MAIN_N
     dense, the decisions' per-node arrays in shared memory and in device
     memory (their layout past N of about 2,300): its joins through the
@@ -1771,7 +1841,8 @@ def phase_epoch(report, dev):
     are printed beside the kernel's).  Walls are the join
     phase's (nj.timings joins_s, _root_three included); the kernel's device
     time, in all and per join, comes from torch.profiler over one more join
-    phase of each dense case; the bound from epoch_bound."""
+    phase of each dense case; the bound from epoch_bound.  Then the refresh
+    scans' time at N=MAIN_N, dense and two-tier (refresh_scan_times)."""
     import numpy as np
     import torch
 
@@ -1853,6 +1924,84 @@ def phase_epoch(report, dev):
               f"max abs err {err:.3e}; counters {counters} (the kernel's "
               f"{b['debug'].tolist()}); {' '.join(epoch_diff(a, b))} "
               "differ")
+    refresh_scan_times(report, dev, probe)
+
+
+def start_probe_build():
+    """nvcc of csrc/nj_epoch.cu with -DVFT_PROBES (csrc/probes.cuh; as
+    scripts/profile_me_kernels.py builds it) into build/epoch_probes/,
+    started beside phase 1's build: returns (library path, process)."""
+    from veryfasttree_tpu_torch.ops import _build
+
+    out_dir = os.path.join(REPO, "build", "epoch_probes")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "libvft_nj_epoch_probes.so")
+    src = "nj_epoch.cu"
+    proc = subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, *_build.SOURCE_FLAGS.get(src, []),
+         "-DVFT_PROBES", "-shared", "-o", path, str(_build.SRC_DIR / src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return path, proc
+
+
+def refresh_scan_times(report, dev, probe):
+    """The join phase at N=MAIN_N, dense and two-tier, through the probe
+    build of the epoch kernel (start_probe_build): the master's clock of
+    the refresh scans' grid phases (probe_ns[2], from the first worker
+    group's start to the last group's end of each scan phase), beside all
+    grid phases' work.  The two-tier run's leaf rows take the code scan's
+    body on the laid-out query."""
+    import ctypes
+
+    import torch
+
+    from veryfasttree_tpu_torch.ops import _build
+
+    path, proc = probe
+    out = proc.communicate()[0]
+    if proc.returncode:
+        raise RuntimeError(f"the probe build failed:\n{out[-4000:]}")
+    lib, main = ctypes.CDLL(path), _build.library()
+    routed = ("vft_nj_epoch_f32", "vft_nj_epoch_scratch")
+    for name in routed:
+        fn, ref = getattr(lib, name), getattr(main, name)
+        fn.argtypes, fn.restype = ref.argtypes, ref.restype
+    reader = lib.vft_nj_epoch_profile_read
+    reader.argtypes, reader.restype = [ctypes.c_void_p, ctypes.c_int], \
+        ctypes.c_int
+
+    class Routed:
+        def __getattr__(self, name):
+            return getattr(lib if name in routed else main, name)
+
+    def read():
+        buf = (ctypes.c_ulonglong * 19)()
+        rc = reader(buf, 1)
+        if rc:
+            raise RuntimeError(f"vft_nj_epoch_profile_read: {rc}")
+        return list(buf[16:19])
+
+    saved, _build._lib = _build._lib, Routed()
+    try:
+        for label, kw in (("dense", {}), ("two-tier", {"two_tier": True})):
+            read()
+            reset_launches()
+            nj = epoch_run(MAIN_N, dev, **kw)
+            torch.cuda.synchronize()
+            _, work_ns, scan_ns = read()
+            t = wrappers()["nj_join_epoch"].totals
+            print(f"  refresh scans [N={MAIN_N} {label}, probes on]: "
+                  f"{scan_ns / 1e6:.4f} ms of grid-phase work "
+                  f"({work_ns / 1e6:.4f} ms in all), {t['scans']} scans of "
+                  f"{t['scan_rows']} rows ({scan_ns / 1e3 / t['scans']:.3f} "
+                  f"us a scan), {nj.prof._leaf_rows} leaf rows in the store")
+            if label == "two-tier":
+                report.setdefault("nj_scan_codes", {}).update({
+                    "two_tier_refresh_scan_ms": scan_ns / 1e6,
+                    "two_tier_refresh_scans": t["scans"],
+                    "two_tier_refresh_scan_rows": t["scan_rows"]})
+    finally:
+        _build._lib = saved
 
 
 # ------------------------------------------------------------- phase 2e
@@ -2267,6 +2416,7 @@ def phase_ml_round(report, dev):
 
 # ------------------------------------------------------------- phase 2f
 SH_BOOT = 1000                  # the resamples of the default run
+RESAMPLE_WIDE = 5000            # a wider alignment for the counts kernel
 SH_KEYS = ("nodes", "loglk", "pair_lk", "quartet_lk", "choice", "bad",
            "support")
 
@@ -2427,33 +2577,81 @@ def sh_bound(w, S, P, C, jc, n_boot):
     return bound(w["rows"] * ml_row_bytes(P, C) + 8 * P * n_boot, n_ops)
 
 
-def check_resample(report, dev):
-    """The counts kernel against its twin at B=SH_BOOT, P=MAIN_P: equal.
-    Times: the kernel's launch to launch and device time, the twin's one
-    run (a Python draw per column)."""
+def resample_replay(P, B, n_sms):
+    """sh_resample_counts's kernel replayed in numpy, all its warps at once:
+    the plan's chunk start states (resample_kernels.chunk_states), then
+    each chunk's cycles from its state as a warp runs them: a cycle's first
+    100 values the draws that fall in its block's resamples, counted into
+    [P, B]; then its values 100 .. 1108, 32 a step, value j the value of
+    j - 100 less that of j - 37 mod 2^30, the last 100 the next state."""
+    import numpy as np
+
     from veryfasttree_tpu_torch.ops import resample_kernels as rk
 
-    P, B = MAIN_P, SH_BOOT
-    got = rk.sh_resample_counts(P, B, dev)
-    t0 = time.perf_counter()
-    want = rk.sh_resample_counts_ref(P, B)
-    plain_ms = 1e3 * (time.perf_counter() - t0)
-    if not (got.cpu() == want).all() or int(want.sum()) != P * B:
-        raise AssertionError("sh_resample_counts differs from its twin")
-    # the state in, the counts [P, B] float64 out; per draw its column
-    # (five operations) and ten values of the recurrence (two each)
-    bound_ms, bound_by = bound(400 + 8 * P * B, 25 * P * B)
-    fn = lambda: rk.sh_resample_counts(P, B, dev)  # noqa: E731
-    entry = {"max_abs_err": 0.0, "ms": median_ms(fn, runs=20),
-             "plain_ms": plain_ms,
-             "device_us": device_us(fn, DEVICE_NAMES["sh_resample_counts"],
-                                    runs=10),
-             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
-    report.setdefault("sh_resample_counts", {}).update(entry)
-    print(f"  sh_resample_counts [P={P} B={B}]: equal to the twin; kernel "
-          f"{entry['ms']:.4f} ms launch to launch, {entry['device_us']:.1f} "
-          f"us on the device, twin {plain_ms:.1f} ms, bound "
-          f"{bound_ms:.3e} ms ({bound_by})")
+    plan = rk.resample_plan(P, B, n_sms)
+    k0, k1 = plan.cycle_ranges()
+    b0 = np.arange(len(k0), dtype=np.int64) * plan.R
+    d0 = (b0 * P)[:, None, None]
+    d1 = (np.minimum(b0 + plan.R, B) * P)[:, None, None]
+    a = np.zeros((len(k0), plan.W, 1109), dtype=np.int64)
+    a[..., :100] = rk.chunk_states(plan)
+    start = k0[:, None] + plan.T * np.arange(plan.W, dtype=np.int64)
+    counts = np.zeros((P, B), dtype=np.int64)
+    for t in range(plan.T):
+        k = start + t
+        d = 100 * k[..., None] + np.arange(100)
+        take = (k < k1[:, None])[..., None] & (d >= d0) & (d < d1)
+        u = 9.31322574615479e-10 * a[..., :100].astype(np.float64)
+        col = np.clip((u * P).astype(np.int64), 0, P - 1)
+        np.add.at(counts, (col[take], d[take] // P), 1)
+        for j in range(100, 1109, 32):
+            hi = min(j + 32, 1109)
+            a[..., j:hi] = (a[..., j - 100:hi - 100]
+                            - a[..., j - 37:hi - 37]) & rk.MASK
+        a[..., :100] = a[..., 1009:1109]
+    return counts.astype(np.float64)
+
+
+def check_resample(report, dev):
+    """The counts kernel against its twin at B=SH_BOOT, P=MAIN_P (the main
+    path's) and P=RESAMPLE_WIDE: equal.  Times: the kernel's launch to
+    launch and device time, the twin's one run (a Python draw per
+    column)."""
+    import torch
+
+    from veryfasttree_tpu_torch.ops import resample_kernels as rk
+
+    B = SH_BOOT
+    for P in (MAIN_P, RESAMPLE_WIDE):
+        got = rk.sh_resample_counts(P, B, dev)
+        t0 = time.perf_counter()
+        want = rk.sh_resample_counts_ref(P, B)
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        if not (got.cpu() == want).all() or int(want.sum()) != P * B:
+            raise AssertionError(f"sh_resample_counts P={P}: differs from "
+                                 "its twin")
+        # the state in, the counts [P, B] float64 out; per draw its column
+        # (five operations) and ten values of the recurrence (two each)
+        bound_ms, bound_by = bound(400 + 8 * P * B, 25 * P * B)
+        fn = lambda: rk.sh_resample_counts(P, B, dev)  # noqa: E731
+        entry = {"max_abs_err": 0.0, "ms": median_ms(fn, runs=20),
+                 "plain_ms": plain_ms,
+                 "device_us": device_us(
+                     fn, DEVICE_NAMES["sh_resample_counts"], runs=10),
+                 "bound_ms": bound_ms, "bound_by": bound_by,
+                 "library_ms": None}
+        plan = rk.resample_plan(
+            P, B, torch.cuda.get_device_properties(dev).multi_processor_count)
+        if P == MAIN_P:
+            report.setdefault("sh_resample_counts", {}).update(entry)
+        else:
+            report["sh_resample_counts"].update(
+                {f"p{P}_{k}": entry[k] for k in ("ms", "device_us",
+                                                 "plain_ms", "bound_ms")})
+        print(f"  sh_resample_counts [P={P} B={B}, {plan}]: equal to the "
+              f"twin; kernel {entry['ms']:.4f} ms launch to launch, "
+              f"{entry['device_us']:.2f} us on the device, twin "
+              f"{plain_ms:.1f} ms, bound {bound_ms:.3e} ms ({bound_by})")
 
 
 def phase_sh(report, dev):
@@ -3398,8 +3596,11 @@ def main() -> int:
               f"{torch.cuda.device_count()} device(s)")
         torch.use_deterministic_algorithms(True)
 
+    probe = {}
+
     def build():
         t0 = time.perf_counter()
+        probe["epoch"] = start_probe_build()   # beside the library's nvccs
         path, log = _build.build(force=True)
         print(f"  built {os.path.relpath(path, REPO)} in "
               f"{time.perf_counter() - t0:.1f} s")
@@ -3422,7 +3623,8 @@ def main() -> int:
         cuda = torch.device("cuda")
         phase("2b SPR round vs host loop", phase_spr, report, cuda)
         phase("2c NNI round vs host loop", phase_nni, report, cuda)
-        phase("2d join epoch vs host loop", phase_epoch, report, cuda)
+        phase("2d join epoch vs host loop", phase_epoch, report, cuda,
+              probe["epoch"])
         phase("2e ML round and lengths pass vs host loop", phase_ml_round,
               report, cuda)
         phase("2f SH pass vs host loop", phase_sh, report, cuda)
@@ -3434,6 +3636,9 @@ def main() -> int:
         phase(f"4 main path N={MAIN_N}", phase_main, report, cuda)
         phase(f"5 ML N={ML_GOLDEN_N} vs JAX golden", phase_ml_golden, cuda)
         phase(f"6 ML main path N={MAIN_N}", phase_ml_main, report, cuda)
+    if "epoch" in probe and probe["epoch"][1].poll() is None:
+        probe["epoch"][1].kill()             # phase 2d did not wait for it
+        probe["epoch"][1].wait()
     if failed:
         print(f"chip_smoke: failed phases {failed}", file=sys.stderr)
         return 1

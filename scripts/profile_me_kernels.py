@@ -5,7 +5,7 @@ start, ten launches) and the main path's first SPR round at N=2000 (the
 -noml pipeline on chip_smoke.py's input, stopped at its first call of the
 round), on one or more checkouts, each in a process of its own.
 
-    python scripts/profile_me_kernels.py [ROOT ...] [--n N]
+    python scripts/profile_me_kernels.py [ROOT ...] [--n N] [--two-tier]
 
 Each ROOT (default ".") gets second copies of its csrc/nj_epoch.cu and
 csrc/me_spr.cu built with -DVFT_PROBES into ROOT/build/me_kernels_profile/
@@ -14,8 +14,10 @@ csrc/me_spr.cu built with -DVFT_PROBES into ROOT/build/me_kernels_profile/
 the clock64() cycles between its probes to the phase it was in, and the
 epoch's master splits its waits on the grid by the global timer into the
 handshake (its publish to the first worker group's start, the last group's
-end to its resume) and the phase work; the phases block 0 runs itself
-count apart.  The join phase and the round run
+end to its resume) and the phase work, of which it also counts the refresh
+scans' apart; the phases block 0 runs itself count apart.  With
+--two-tier the join phase runs on the two-tier store, whose leaf rows the
+refresh scans read with the code scan's body.  The join phase and the round run
 through the ROOT's own wrappers (ops/epoch_kernels.py, ops/spr_kernels.py)
 with the profiled library in place of their entries; the starts come from
 this checkout's chip_smoke.py.  Each child prints one line "PROFILE
@@ -52,6 +54,7 @@ KERNELS = {"nj": NJ_PHASES, "spr": ME_PHASES}
 CHILD = r"""
 import ctypes, json, os, subprocess, sys, time
 root, smoke_path, n = sys.argv[1], sys.argv[2], int(sys.argv[3])
+two_tier = sys.argv[4] == "1"
 sys.path.insert(0, root)
 import importlib.util
 spec = importlib.util.spec_from_file_location("smoke", smoke_path)
@@ -95,11 +98,11 @@ class Lib:
 
 
 def read(what):
-    buf = (ctypes.c_ulonglong * 18)()
+    buf = (ctypes.c_ulonglong * 19)()
     rc = getattr(libs[what], FILES[what][2])(buf, 1)
     if rc:
         raise RuntimeError(f"{FILES[what][2]}: {rc}")
-    return list(buf[:16]), list(buf[16:18])
+    return list(buf[:16]), list(buf[16:19])
 
 
 dev = torch.device("cuda")
@@ -135,7 +138,7 @@ for what in ("nj", "spr"):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     if what == "nj":
-        s.epoch_run(n, dev)
+        s.epoch_run(n, dev, two_tier=two_tier)
         fn = epoch_kernels.join_epoch
     else:
         nj = s.engine_copy(start, dev)
@@ -146,8 +149,8 @@ for what in ("nj", "spr"):
     result[what] = {"cycles": cycles, "ns": ns,
                     "wall_s": time.perf_counter() - t0,
                     "launches": fn.launches, "totals": dict(fn.totals)}
-print("PROFILE " + json.dumps({"root": root, "n": n, "card": s.card_line(),
-                               **result}), flush=True)
+print("PROFILE " + json.dumps({"root": root, "n": n, "two_tier": two_tier,
+                               "card": s.card_line(), **result}), flush=True)
 """
 
 
@@ -184,15 +187,16 @@ print("RESOURCES " + json.dumps({"root": root, "kernels": out}), flush=True)
 def parse_breakdown(text):
     """The PROFILE records of a child's output: a list of dicts with the
     root, N, the card line and, for "nj" and "spr", the cycles per phase
-    ([N_SLOTS]), the handshake and work nanoseconds ([2]), the wall, the
-    launches and the wrapper's totals."""
+    ([N_SLOTS]), the handshake, work and refresh-scan work nanoseconds ([3];
+    [2] from probes that have no scan slot), the wall, the launches and the
+    wrapper's totals."""
     out = []
     for line in text.splitlines():
         if line.startswith("PROFILE "):
             rec = json.loads(line[len("PROFILE "):])
             for what in KERNELS:
                 r = rec[what]
-                if len(r["cycles"]) != N_SLOTS or len(r["ns"]) != 2:
+                if len(r["cycles"]) != N_SLOTS or len(r["ns"]) not in (2, 3):
                     raise ValueError(f"{what}: {len(r['cycles'])} phases and "
                                      f"{len(r['ns'])} times")
             out.append(rec)
@@ -211,7 +215,7 @@ def shares(what, r):
     out = {p: (c / total if total else 0.0) for p, c in zip(names, cyc)}
     if what == "nj":
         wait = out.pop("waiting")
-        hand, work = r["ns"]
+        hand, work = r["ns"][:2]
         split = hand / (hand + work) if hand + work else 0.0
         out["handshake"] = wait * split
         out["phase work"] = wait * (1 - split)
@@ -228,7 +232,8 @@ def per_unit(what, r):
 
 def report(rec):
     """Text lines of one PROFILE record."""
-    lines = [f"{rec['root']} (N={rec['n']}, {rec['card']}):"]
+    store = ", two-tier" if rec.get("two_tier") else ""
+    lines = [f"{rec['root']} (N={rec['n']}{store}, {rec['card']}):"]
     for what in KERNELS:
         r = rec[what]
         total, sh = shares(what, r)
@@ -238,6 +243,12 @@ def report(rec):
                      f"(probes on)")
         lines.append("    " + ", ".join(f"{p} {100 * x:.1f}%"
                                         for p, x in sh.items()))
+        if what == "nj" and len(r["ns"]) == 3:
+            t = r["totals"]
+            lines.append(f"    refresh scans: {r['ns'][2] / 1e6:.4f} ms of "
+                         f"phase work ({r['ns'][1] / 1e6:.4f} ms in all), "
+                         f"{t.get('scans', 0)} scans of "
+                         f"{t.get('scan_rows', 0)} rows")
     return lines
 
 
@@ -245,6 +256,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("roots", nargs="*", default=["."])
     ap.add_argument("--n", type=int, default=2000)
+    ap.add_argument("--two-tier", action="store_true",
+                    help="the join phase on the two-tier store (leaf rows "
+                    "as codes, scanned by the code scan's body)")
     ap.add_argument("--resources", action="store_true",
                     help="registers, stack, spills and SASS instructions")
     args = ap.parse_args()
@@ -264,7 +278,8 @@ def main() -> int:
     smoke = os.path.join(REPO, "chip_smoke.py")
     for root in map(os.path.abspath, args.roots):
         proc = subprocess.run([sys.executable, "-c", CHILD, root, smoke,
-                               str(args.n)], capture_output=True, text=True)
+                               str(args.n), str(int(args.two_tier))],
+                              capture_output=True, text=True)
         recs = parse_breakdown(proc.stdout)
         if proc.returncode or not recs:
             print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)

@@ -702,16 +702,62 @@ def test_ml_list_kernels_past_the_old_caps(cuda, C, jc):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_pos,n_boot", [(37, 3), (200, 100), (500, 1000)])
+@pytest.mark.parametrize("n_pos,n_boot", [(37, 3), (200, 100), (500, 1000),
+                                          (5000, 1000)])
 def test_sh_resample_counts_kernel_is_the_twin(cuda, n_pos, n_boot):
     """The bootstrap counts kernel against resample_count_matrix(
     resample_columns(...)): equal, where the draws end inside a cycle, on
-    its edge, and at the default run's B=1000, P=500."""
+    its edge, and at the default run's B=1000, P=500; at P=5000 against
+    the kernel's chunks replayed in numpy (chip_smoke.resample_replay, held
+    to the twin on the CPU by tests/test_torch_sh_pass.py), which takes
+    seconds where the twin takes tens."""
+    from chip_smoke import resample_replay
     from veryfasttree_tpu_torch.ops import resample_kernels as rk
 
     got = rk.sh_resample_counts(n_pos, n_boot, cuda)
     assert got.dtype == torch.float64 and got.device.type == "cuda"
-    assert torch.equal(got.cpu(), rk.sh_resample_counts_ref(n_pos, n_boot))
+    if n_pos * n_boot > 10 ** 6:
+        n_sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+        want = torch.from_numpy(resample_replay(n_pos, n_boot, n_sms))
+    else:
+        want = rk.sh_resample_counts_ref(n_pos, n_boot)
+    assert torch.equal(got.cpu(), want)
+    assert int(got.sum()) == n_pos * n_boot
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,C,matrix", [(256, 4, False), (512, 20, True),
+                                        (1536, 20, True)])
+def test_codes_scan_is_the_lane_replay(cuda, P, C, matrix):
+    """nj_scan_codes's dist, denom and crit bit for bit the numpy replay of
+    its lane order (chip_smoke.codes_lane_replay), the best index equal: one
+    tile of the query table and, at 20 codes and P=1536, two."""
+    from chip_smoke import codes_lane_replay
+    from veryfasttree_tpu_torch.ops import scan_kernels as sk
+
+    gen = torch.Generator()
+    gen.manual_seed(P + C)
+    codes, G, wq, outd, n_active, l_real, _ = _codes(gen, P=P, C=C)
+    args = (codes, G, wq, outd, n_active, l_real, matrix)
+    got = sk.nj_scan_codes(*(a.to(cuda) if torch.is_tensor(a) else a
+                             for a in args))
+    want = codes_lane_replay(*args)
+    assert int(got[0]) == want[0] == 40
+    for g, w in zip(got[2:], want[2:]):
+        assert g.cpu().numpy().tobytes() == w.tobytes()
+
+
+@pytest.mark.cuda
+def test_two_tier_join_epoch_at_500_is_the_host_loop(cuda):
+    """The two-tier NJ phase at N=500 (chip_smoke.py phase 2d's case): the
+    epoch kernel's refresh scans read the query in the code scan's layout;
+    every array bit for bit the host loop with the per-call kernels."""
+    from chip_smoke import epoch_diff, epoch_run, epoch_state
+
+    host = epoch_state(epoch_run(500, cuda, kernel=False, two_tier=True))
+    kern = epoch_state(epoch_run(500, cuda, two_tier=True))
+    assert len(host["join_log"]) == 497
+    assert epoch_diff(host, kern) == []
 
 
 @pytest.mark.cuda

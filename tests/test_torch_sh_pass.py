@@ -26,20 +26,29 @@ resamples.  Tolerances:
   equal (a twin's arithmetic is elementwise per item; the card holds the
   kernels to the same, tests/test_torch_cuda.py);
 * the level-wise up-profile rows against the lazy UpProfiles.get's: equal;
-* the bootstrap counts: the kernel's algorithm (a cycle's recurrence 37
-  values wide from the state, its first 100 values the draws), replayed in
-  numpy, against resample_count_matrix(resample_columns(...)): equal, at
-  shapes whose draws end inside a cycle and on its edge.
+* the bootstrap counts: the serial stream (a cycle's recurrence 37 values
+  wide from the state, its first 100 values the draws) and the kernel's
+  chunks (chip_smoke.resample_replay: each warp's chunk from the start
+  state resample_kernels.chunk_states gives it, its recurrence 32 values
+  a step as the kernel's warp runs it), replayed in numpy, against
+  resample_count_matrix(resample_columns(...)): equal, at shapes whose
+  draws end inside a cycle and on its edge, and with chunk boundaries inside
+  a resample; the start states equal KnuthRandom's state after that many
+  cycles, for chunks of several lengths, one that does not divide the
+  cycle count; the plan's chunks cover every range's cycles and its
+  histogram fits.
 
 About 25 s in one process.
 """
 import dataclasses
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import sh_diff, sh_host_loop, sh_run, sh_state
+from chip_smoke import (resample_replay, sh_diff, sh_host_loop, sh_run,
+                        sh_state)
 from test_torch_quartet import one_torch_thread  # noqa: F401
 from util import simulate_alignment
 
@@ -218,9 +227,9 @@ def test_up_profile_levels_are_the_lazy_rows(tmp_path):
 
 
 def _kernel_counts(n_pos, n_boot):
-    """sh_resample_counts's kernel, replayed in numpy: from the state,
-    each cycle's draws are its first 100 values, and the next state comes
-    from a[j] = a[j - 100] - a[j - 37] mod 2^30, 37 values at a time."""
+    """The serial stream, replayed in numpy: from the state, each cycle's
+    draws are its first 100 values, and the next state comes from a[j] =
+    a[j - 100] - a[j - 37] mod 2^30, 37 values at a time."""
     a = np.zeros(1109, dtype=np.int64)
     a[:100] = resample_kernels.knuth_state()
     counts = np.zeros((n_pos, n_boot), dtype=np.int64)
@@ -240,8 +249,6 @@ def _kernel_counts(n_pos, n_boot):
 @pytest.mark.parametrize("n_pos,n_boot", [(37, 3), (200, 100), (50, 2),
                                           (101, 7)])
 def test_resample_counts(n_pos, n_boot):
-    from types import SimpleNamespace
-
     nj = SimpleNamespace(n_pos=n_pos,
                          options=SimpleNamespace(n_bootstrap=n_boot))
     want = resample_count_matrix(resample_columns(nj), n_pos)
@@ -253,6 +260,67 @@ def test_resample_counts(n_pos, n_boot):
     rng = KnuthRandom()
     first = [rng.next_int() for _ in range(100)]
     assert first == resample_kernels.knuth_state().tolist()
+
+
+@pytest.mark.parametrize("T", [1, 3, 7, 10])
+def test_chunk_states_are_the_stream(T):
+    """knuth_states after c T cycles (jump-ahead by powers of the cycle's
+    matrix) against KnuthRandom run cycle by cycle: 23 cycles, which 3, 7
+    and 10 do not divide."""
+    n_cycles = 23
+    rng = KnuthRandom(resample_kernels.SEED)
+    stream = [rng._x.copy()]
+    for _ in range(n_cycles):
+        rng._ran_array(1009)
+        stream.append(rng._x.copy())
+    starts = np.arange(0, n_cycles + 1, T)
+    got = resample_kernels.knuth_states(starts)
+    np.testing.assert_array_equal(got, np.array(stream)[starts])
+    # the cycle's matrix, one step: M s mod 2^30
+    M = resample_kernels.cycle_matrix()
+    s0 = np.array(stream[0], dtype=np.uint64)
+    step = (M.astype(np.uint64) @ s0) & np.uint64(resample_kernels.MASK)
+    np.testing.assert_array_equal(step.astype(np.int64), stream[1])
+
+
+@pytest.mark.parametrize("n_pos,n_boot,n_sms",
+                         [(37, 3, 132), (200, 100, 132), (50, 2, 132),
+                          (101, 7, 132), (101, 7, 1), (333, 40, 4)])
+def test_chunked_resample_counts(n_pos, n_boot, n_sms):
+    """The kernel's chunks replayed in numpy equal the twin; with few
+    multiprocessors (n_sms 1, 4) ranges hold several resamples and several
+    chunks, whose boundaries fall inside resamples."""
+    plan = resample_kernels.resample_plan(n_pos, n_boot, n_sms)
+    nj = SimpleNamespace(n_pos=n_pos,
+                         options=SimpleNamespace(n_bootstrap=n_boot))
+    want = resample_count_matrix(resample_columns(nj), n_pos)
+    np.testing.assert_array_equal(resample_replay(n_pos, n_boot, n_sms),
+                                  want)
+    k0, _ = plan.cycle_ranges()
+    starts = (k0[:, None] + plan.T * np.arange(plan.W)).reshape(-1)
+    np.testing.assert_array_equal(
+        resample_kernels.chunk_states(plan).reshape(-1, 100),
+        resample_kernels.knuth_states(starts))
+    if n_sms < 132:
+        inside = (100 * starts) % n_pos != 0
+        assert plan.W > 1 and inside[1:].any()
+
+
+@pytest.mark.parametrize("n_pos,n_boot", [(37, 3), (500, 1000), (5000, 1000),
+                                          (20000, 1000), (100000, 1000)])
+def test_resample_plan_covers_the_draws(n_pos, n_boot):
+    """Every range's cycles lie in its W chunks of T; the [S, R] histogram
+    and the warps' rings fit the kernel's shared memory; the slabs cover
+    the columns."""
+    plan = resample_kernels.resample_plan(n_pos, n_boot, 132)
+    k0, k1 = plan.cycle_ranges()
+    assert len(k0) == -(-n_boot // plan.R)
+    assert ((k1 - k0) <= plan.W * plan.T).all()
+    assert 1 <= plan.W <= resample_kernels.MAX_WARPS
+    assert 4 * plan.S * plan.R <= resample_kernels.HIST_BYTES
+    assert 4 * (plan.S * plan.R + 256 * plan.W) <= 227 * 1024
+    assert -(-n_pos // plan.S) * plan.S >= n_pos
+    assert plan.S == n_pos or plan.R == 1
 
 
 def test_postorder_is_the_tree_walk(tmp_path):

@@ -136,7 +136,7 @@ struct DevicePhases {
         while (load_volatile(&e.ctl[1]) < target) {
         }
         __threadfence();
-        probe_resume(published);
+        probe_resume(published, c.kind == kPhScan);
       }
     }
     __syncwarp();
@@ -166,13 +166,17 @@ __device__ __forceinline__ void warp_scan_row(const EpochParams& e, int64_t row,
                                               double& dist, double& den) {
   const int P = (int)e.P;
   if (row < e.leaf_rows) {
-    const int p_tile = codes_p_tile(P, C);
+    // the query table in the code scan's layout: tile t at t * tile_len of
+    // each code's row of len, the weights in row C (nj_scan.cuh
+    // codes_table_index)
+    const int p_tile = codes_p_tile(P, C), tile_len = codes_tile_len(p_tile);
+    const int len = (int)codes_table_len(P, C);
     double pick = 0.0;
     den = 0.0;
-    for (int p0 = 0; p0 < P; p0 += p_tile) {
+    for (int p0 = 0, t = 0; p0 < P; p0 += p_tile, ++t) {
       const int pt = min(p_tile, P - p0);
-      codes_row_tile<double, true>(e.codes + row * P + p0, pt, C, e.qg + p0, P, e.qw + p0, lane,
-                                   den, pick);
+      codes_row_tile<double, true>(e.codes + row * P + p0, pt, C, e.qg + t * tile_len, len,
+                                   e.qg + C * len + t * tile_len, lane, den, pick);
     }
     den = scan_warp_sum(den);
     pick = scan_warp_sum(pick);

@@ -28,6 +28,7 @@
 #include <stdint.h>
 
 #include "me_store.cuh"
+#include "nj_scan.cuh"
 #include "probes.cuh"
 
 namespace {
@@ -88,7 +89,9 @@ struct EpochParams {
   float* qU;                // [P, C] w_out * f_out: the out-profile as a query
   double* qa;               // [P, C] refresh-scan query (times ev in matrix mode)
   double* qw;               // [P] its weights
-  double* qg;               // [C, P] its projection on the codes (two-tier)
+  double* qg;               // [C + 1, Z] its projection on the codes and, row C, its
+                            // weights, in the code scan's layout (two-tier; Z =
+                            // codes_table_len)
   int64_t n_rows, leaf_rows, P, C, use_matrix;
   double tol;               // f_post_total_tolerance (rounded to float)
   // the engine state, [M] unless stated
@@ -199,7 +202,9 @@ __device__ __forceinline__ void out_update_pos(const EpochParams& e, const Store
 // The refresh scan's query at position p from row t (scan_kernels.nj_scan,
 // nj_scan_two_tier): a = u (times eigenval), wq = w, and for a two-tier
 // store G[c][p] = sum_k a[p][k] * code_freq[c][k] left to right
-// (scan_kernels.project_query), or a[p][c] in %different mode.
+// (scan_kernels.project_query), or a[p][c] in %different mode; G and, after
+// it, a copy of wq in the code scan's layout (nj_scan.cuh
+// codes_table_index).
 template <int C>
 __device__ __forceinline__ void query_pos(const EpochParams& e, const StoreView& s, int64_t t,
                                           int p) {
@@ -214,13 +219,15 @@ __device__ __forceinline__ void query_pos(const EpochParams& e, const StoreView&
   }
   e.qw[p] = (double)w;
   if (e.leaf_rows == 0) return;
+  const int64_t z = codes_table_index(p, (int)e.P, C), len = codes_table_len((int)e.P, C);
+  e.qg[C * len + z] = (double)w;
   for (int c = 0; c < C; ++c) {
     double g = a[c];
     if (e.use_matrix) {
       g = __dmul_rn(a[0], (double)e.code_freq[c * C]);
       for (int k = 1; k < C; ++k) g = __dadd_rn(g, __dmul_rn(a[k], (double)e.code_freq[c * C + k]));
     }
-    e.qg[(int64_t)c * e.P + p] = g;
+    e.qg[c * len + z] = g;
   }
 }
 

@@ -28,8 +28,8 @@ namespace {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kCodesRowsPerWarp = 4;
 constexpr int kCodesRowsPerBlock = kWarps * kCodesRowsPerWarp;
+constexpr int kCodesBlocksPerSm = 4;
 
 template <typename Acc>
 __device__ __forceinline__ bool better(Acc c, int64_t i, Acc bc, int64_t bi) {
@@ -37,7 +37,8 @@ __device__ __forceinline__ bool better(Acc c, int64_t i, Acc bc, int64_t bi) {
 }
 
 // dist / crit of one row; writes the row's outputs and folds it into the
-// warp's running best (rows arrive in ascending order)
+// warp's running best (better() orders by (crit, index), so the lowest index
+// wins a tie in whatever order the rows arrive)
 template <typename Acc>
 __device__ __forceinline__ void row_epilogue(
     int64_t m, Acc dots, Acc den, Acc outd_m, bool use_matrix, Acc n_active_m2,
@@ -108,60 +109,100 @@ __global__ void __launch_bounds__(kThreads) nj_scan_dense_kernel(
   block_partial(best_c, best_i, part_crit, part_idx);
 }
 
+// the tile of G and wq that starts at position p0, laid out (codes_slot)
+template <typename Acc>
+__device__ __forceinline__ void stage_codes_tile(const Acc* __restrict__ G,
+                                                 const Acc* __restrict__ wq, int P, int C, int p0,
+                                                 int pt, int tile_len, Acc* sG, Acc* sW) {
+#pragma unroll 4
+  for (int i = threadIdx.x; i < C * pt; i += kThreads) {
+    const int c = i / pt, q = i - c * pt;
+    sG[c * tile_len + codes_slot(q, pt)] = G[(int64_t)c * P + p0 + q];
+  }
+  for (int q = threadIdx.x; q < pt; q += kThreads) sW[codes_slot(q, pt)] = wq[p0 + q];
+}
+
 // Replaces the Pallas kernel _scan_codes_kernel / _scan_codes_pallas
 // (veryfasttree_tpu/ops/pallas_kernels.py), the two-tier leaf scan.
 // Bound: device memory, L*P bytes of int8 codes (10 MB at L=20000, P=512).
-// Design: the projected query table G[C, P] and wq[P] are staged in dynamic
-// shared memory in double (16 KB + 4 KB for nt at P=512, 80 KB + 4 KB for
-// protein), in tiles of positions when (C+1)*P*8 bytes would not fit.  One
-// warp per leaf row, four rows per warp so that a staged tile serves 32
-// rows; lanes read 16 codes per 16-byte load.  A code other than NOCODE (127)
-// adds wq[p] to denom and G[code][p] to the pick sum.
-template <typename Acc>
+// Design: persistent blocks, a few per multiprocessor (vft_scan_codes_blocks),
+// each staging the projected query table G[C, P] and wq[P] in dynamic shared
+// memory once, in double and laid out (codes_slot: at each step the lanes
+// read consecutive doubles, in 16 bank pairs a half-warp; 16.5 KB + 4.1 KB
+// for nt at P=512, 83 KB + 4.1 KB for protein), and taking groups of 32
+// rows in a grid-stride loop.  Where (C+1)*P*8 bytes would not fit, the
+// table goes in tiles of positions, staged again for each group (the
+// kOneTile = false instantiation).  One warp
+// per leaf row, four rows per warp sharing each weight load; lanes read 16
+// codes per 16-byte load, and lane r row r's out-distance with them, which
+// lane 0's epilogue takes by a shuffle.  A code other than NOCODE (127) adds
+// wq[p] to denom and G[code][p] to the pick sum.
+template <typename Acc, bool kOneTile>
 __global__ void __launch_bounds__(kThreads) nj_scan_codes_kernel(
     const int8_t* __restrict__ codes, const Acc* __restrict__ G, const Acc* __restrict__ wq,
     const Acc* __restrict__ outd, int64_t L, int64_t l_real, int P, int C, int p_tile,
     Acc n_active_m2, int use_matrix, Acc* __restrict__ dist, Acc* __restrict__ denom,
     Acc* __restrict__ crit, Acc* __restrict__ part_crit, int64_t* __restrict__ part_idx) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Acc* sG = reinterpret_cast<Acc*>(smem_raw);  // [C, p_tile]
-  Acc* sW = sG + (size_t)C * p_tile;           // [p_tile]
+  const int tile_len = codes_tile_len(p_tile);
+  Acc* sG = reinterpret_cast<Acc*>(smem_raw);  // [C, tile_len]
+  Acc* sW = sG + (size_t)C * tile_len;         // [tile_len]
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int64_t row0 = ((int64_t)blockIdx.x * kWarps + warp) * kCodesRowsPerWarp;
-  Acc den[kCodesRowsPerWarp], pick[kCodesRowsPerWarp];
-#pragma unroll
-  for (int r = 0; r < kCodesRowsPerWarp; ++r) den[r] = pick[r] = 0;
-
-  for (int p0 = 0; p0 < P; p0 += p_tile) {
-    const int pt = min(p_tile, P - p0);
-    __syncthreads();  // the previous tile is consumed
-    for (int i = threadIdx.x; i < C * pt; i += kThreads) {
-      const int c = i / pt, p = i - c * pt;
-      sG[c * p_tile + p] = G[(int64_t)c * P + p0 + p];
-    }
-    for (int i = threadIdx.x; i < pt; i += kThreads) sW[i] = wq[p0 + i];
+  if (kOneTile) {
+    stage_codes_tile(G, wq, P, C, 0, P, tile_len, sG, sW);
     __syncthreads();
-#pragma unroll
-    for (int r = 0; r < kCodesRowsPerWarp; ++r) {
-      const int64_t l = row0 + r;
-      if (l >= L) break;
-      codes_row_tile(codes + l * P + p0, pt, C, sG, p_tile, sW, lane, den[r], pick[r]);
-    }
   }
-
   Acc best_c = Acc(INFINITY);
   int64_t best_i = INT64_MAX;
+  const int64_t n_groups = (L + kCodesRowsPerBlock - 1) / kCodesRowsPerBlock;
+  for (int64_t grp = blockIdx.x; grp < n_groups; grp += gridDim.x) {
+    const int64_t row0 = grp * kCodesRowsPerBlock + warp * kCodesRowsPerWarp;
+    const int64_t left = L - row0;
+    const int n = left <= 0 ? 0 : (left < kCodesRowsPerWarp ? (int)left : kCodesRowsPerWarp);
+    // row r's out-distance, loaded by lane r beside the codes
+    const Acc outd_r = lane < n ? outd[row0 + lane] : Acc(0);
+    Acc den[kCodesRowsPerWarp], pick[kCodesRowsPerWarp];
 #pragma unroll
-  for (int r = 0; r < kCodesRowsPerWarp; ++r) {
-    const int64_t l = row0 + r;
-    if (l >= L) break;
-    const Acc d = scan_warp_sum(den[r]);
-    const Acc s = scan_warp_sum(pick[r]);
-    if (lane == 0)
-      row_epilogue(l, s, d, outd[l], use_matrix != 0, n_active_m2, l_real, dist, denom, crit,
-                   best_c, best_i);
+    for (int r = 0; r < kCodesRowsPerWarp; ++r) den[r] = pick[r] = 0;
+    if (kOneTile) {
+      if (n > 0)
+        codes_rows_tile<Acc, kCodesRowsPerWarp>(codes + row0 * P, P, n, P, C, sG, tile_len, sW,
+                                                lane, den, pick);
+    } else {
+      for (int p0 = 0; p0 < P; p0 += p_tile) {
+        const int pt = min(p_tile, P - p0);
+        __syncthreads();  // the previous tile is consumed
+        stage_codes_tile(G, wq, P, C, p0, pt, tile_len, sG, sW);
+        __syncthreads();
+        if (n > 0)
+          codes_rows_tile<Acc, kCodesRowsPerWarp>(codes + row0 * P + p0, P, n, pt, C, sG,
+                                                  tile_len, sW, lane, den, pick);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kCodesRowsPerWarp; ++r) {
+      if (r >= n) break;
+      const Acc d = scan_warp_sum(den[r]);
+      const Acc s = scan_warp_sum(pick[r]);
+      const Acc od = __shfl_sync(0xffffffffu, outd_r, r);
+      if (lane == 0)
+        row_epilogue(row0 + r, s, d, od, use_matrix != 0, n_active_m2, l_real, dist, denom, crit,
+                     best_c, best_i);
+    }
   }
   block_partial(best_c, best_i, part_crit, part_idx);
+}
+
+// the code scan's dynamic shared memory: the laid-out tile of G and wq
+size_t codes_smem(int P, int C) {
+  return (size_t)(C + 1) * codes_tile_len(codes_p_tile(P, C)) * sizeof(double);
+}
+
+// the code scan's instantiation: the table staged once where one tile holds
+// all P positions, else tile by tile for each group
+const void* codes_kernel(int P, int C) {
+  return codes_p_tile(P, C) >= P ? (const void*)nj_scan_codes_kernel<double, true>
+                                 : (const void*)nj_scan_codes_kernel<double, false>;
 }
 
 // Second pass of both scans: the (min crit, lowest index) of the partials.
@@ -201,8 +242,23 @@ extern "C" {
 
 int64_t vft_scan_dense_blocks(int64_t M) { return (M + kWarps - 1) / kWarps; }
 
-int64_t vft_scan_codes_blocks(int64_t L) {
-  return (L + kCodesRowsPerBlock - 1) / kCodesRowsPerBlock;
+// the code scan's grid: kCodesBlocksPerSm persistent blocks a multiprocessor
+// (fewer where they do not fit), no more than the row groups; 0 on an error
+int64_t vft_scan_codes_blocks(int64_t L, int P, int C) {
+  const int smem = (int)codes_smem(P, C);
+  const void* kernel = codes_kernel(P, C);
+  int dev = 0, n_sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&n_sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem) !=
+          cudaSuccess ||
+      per_sm < 1)
+    return 0;
+  const int64_t groups = (L + kCodesRowsPerBlock - 1) / kCodesRowsPerBlock;
+  const int64_t grid = (int64_t)n_sms * (per_sm < kCodesBlocksPerSm ? per_sm : kCodesBlocksPerSm);
+  return groups < grid ? (groups > 0 ? groups : 1) : grid;
 }
 
 int vft_nj_scan_dense_f64(const float* U2, const float* W, const double* a, const double* wq,
@@ -224,20 +280,21 @@ int vft_nj_scan_dense_f64(const float* U2, const float* W, const double* a, cons
 
 int vft_nj_scan_codes_f64(const int8_t* codes, const double* G, const double* wq,
                           const double* outd, int64_t L, int64_t l_real, int P, int C,
-                          int64_t n_active, int use_matrix, double* dist, double* denom,
-                          double* crit, double* part_crit, int64_t* part_idx,
+                          int64_t n_active, int use_matrix, int64_t blocks, double* dist,
+                          double* denom, double* crit, double* part_crit, int64_t* part_idx,
                           int64_t* best_idx, double* best_crit, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (blocks < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = codes_smem(P, C);
   const int p_tile = codes_p_tile(P, C);
-  const size_t smem = (size_t)(C + 1) * p_tile * sizeof(double);
-  cudaError_t err = cudaFuncSetAttribute(nj_scan_codes_kernel<double>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+  cudaError_t err = cudaFuncSetAttribute(codes_kernel(P, C),
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int64_t blocks = vft_scan_codes_blocks(L);
-  nj_scan_codes_kernel<double><<<(unsigned)blocks, kThreads, smem, s>>>(
-      codes, G, wq, outd, L, l_real, P, C, p_tile, double(n_active) - 2.0, use_matrix, dist,
-      denom, crit, part_crit, part_idx);
+  auto kernel =
+      p_tile >= P ? nj_scan_codes_kernel<double, true> : nj_scan_codes_kernel<double, false>;
+  kernel<<<(unsigned)blocks, kThreads, smem, s>>>(codes, G, wq, outd, L, l_real, P, C, p_tile,
+                                                  double(n_active) - 2.0, use_matrix, dist,
+                                                  denom, crit, part_crit, part_idx);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   argmin_partials_kernel<double><<<1, kThreads, 0, s>>>(part_crit, part_idx, blocks, best_idx,

@@ -10,7 +10,8 @@
 // own phase (an unwind's averages count to the unwind).  The join epoch's
 // master also splits its waits on the grid by the global timer: from its
 // publish to the first worker group's start and from the last group's end
-// to its resume (the handshake), and from that start to that end (the work).
+// to its resume (the handshake), and from that start to that end (the work;
+// the refresh scans' work also apart).
 
 #pragma once
 
@@ -50,7 +51,7 @@ enum : int {
 
 #ifdef VFT_PROBES
 __device__ unsigned long long probe_total[kProbeSlots];  // cycles per phase, all launches
-__device__ unsigned long long probe_ns[2];               // handshake, phase work (ns)
+__device__ unsigned long long probe_ns[3];               // handshake, phase work, of it scans (ns)
 __device__ unsigned long long probe_first;               // this phase's first group start
 __device__ unsigned long long probe_last;                // its last group end
 __shared__ unsigned long long probe_acc[kProbeSlots];
@@ -120,7 +121,7 @@ __device__ __forceinline__ unsigned long long probe_publish() {
   __threadfence();
   return probe_gtime();
 }
-__device__ __forceinline__ void probe_resume(unsigned long long published) {
+__device__ __forceinline__ void probe_resume(unsigned long long published, bool scan = false) {
   if (!probe_on()) return;
   const unsigned long long now = probe_gtime();
   const unsigned long long first = *(volatile unsigned long long*)&probe_first;
@@ -128,6 +129,7 @@ __device__ __forceinline__ void probe_resume(unsigned long long published) {
   if (first > last) return;  // no group ran (cannot happen)
   probe_ns[0] += (first > published ? first - published : 0) + (now > last ? now - last : 0);
   probe_ns[1] += last - first;
+  if (scan) probe_ns[2] += last - first;
 }
 // a worker group's start and end of a phase
 __device__ __forceinline__ void probe_group_start() { atomicMin(&probe_first, probe_gtime()); }
@@ -143,7 +145,7 @@ struct ProbeOuter {
   __host__ __device__ __forceinline__ explicit ProbeOuter(int) {}
 };
 __host__ __device__ __forceinline__ unsigned long long probe_publish() { return 0; }
-__host__ __device__ __forceinline__ void probe_resume(unsigned long long) {}
+__host__ __device__ __forceinline__ void probe_resume(unsigned long long, bool = false) {}
 __host__ __device__ __forceinline__ void probe_group_start() {}
 __host__ __device__ __forceinline__ void probe_group_end() {}
 #endif

@@ -184,15 +184,15 @@ def resource_faults(report: dict, limits: dict = STACK_LIMITS) -> list:
 def _declare(lib) -> None:
     ptr, i64, i32, f32, f64 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
                                ctypes.c_float, ctypes.c_double)
-    for name in ("vft_scan_dense_blocks", "vft_scan_codes_blocks"):
-        fn = getattr(lib, name)
-        fn.argtypes = [i64]
-        fn.restype = i64
+    lib.vft_scan_dense_blocks.argtypes = [i64]
+    lib.vft_scan_dense_blocks.restype = i64
+    lib.vft_scan_codes_blocks.argtypes = [i64, i32, i32]
+    lib.vft_scan_codes_blocks.restype = i64
     lib.vft_nj_scan_dense_f64.argtypes = [
         ptr, ptr, ptr, ptr, ptr, i64, i64, i32, i32, i64, i32,
         ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr]
     lib.vft_nj_scan_codes_f64.argtypes = [
-        ptr, ptr, ptr, ptr, i64, i64, i32, i32, i64, i32,
+        ptr, ptr, ptr, ptr, i64, i64, i32, i32, i64, i32, i64,
         ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr]
     lib.vft_me_pair_dists_f32.argtypes = [
         ptr, ptr, ptr, ptr, i64, i64, i32, i32, ptr, ptr, ptr, ptr, i32,
@@ -260,7 +260,8 @@ def _declare(lib) -> None:
     lib.vft_ml_round_tree_fits_smem.argtypes = [i32, i32, i32]
     lib.vft_ml_round_scratch_floats.argtypes = [i32, i32, i32, i32]
     lib.vft_ml_round_scratch_floats.restype = i64
-    lib.vft_sh_resample_counts.argtypes = [ptr, i32, i32, ptr, ptr]
+    lib.vft_sh_resample_counts.argtypes = [ptr, ptr, i32, i32, i32, i32, i32,
+                                           i32, ptr, ptr]
     for name in ("vft_nj_scan_dense_f64", "vft_nj_scan_codes_f64",
                  "vft_me_pair_dists_f32", "vft_me_average_f32",
                  "vft_me_spr_round_f32", "vft_me_nni_round_f32",

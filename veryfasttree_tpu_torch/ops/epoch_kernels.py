@@ -24,6 +24,7 @@ import torch
 
 from ..engine.epoch import reset_plan
 from . import _build, me_round
+from .scan_kernels import codes_table_len
 from .store_kernels import _check_store
 
 # the kernel's int64 words, in its order (csrc/nj_epoch.cuh)
@@ -142,7 +143,10 @@ class EpochState:
         t["qU"] = torch.empty(P * C, dtype=torch.float32, device=dev)
         t["qa"] = torch.empty(P * C, dtype=torch.float64, device=dev)
         t["qw"] = torch.empty(P, dtype=torch.float64, device=dev)
-        t["qg"] = torch.empty(C * P, dtype=torch.float64, device=dev)
+        # the query's projection and weights in the code scan's layout
+        # (csrc/nj_scan.cuh codes_table_len)
+        t["qg"] = torch.empty((C + 1) * codes_table_len(P, C),
+                              dtype=torch.float64, device=dev)
         self.ev = self.et = None
         if prof.use_matrix:
             self.ev = prof.eigenval.to(dtype=torch.float64).contiguous()

@@ -26,6 +26,30 @@ from .kernels import _piece_dist
 # Row alignment of the profile store; the row layout follows the reference
 # (tile of its Pallas scan), so row indices mean the same in both packages.
 TILE_M = 256
+# The code scan's shared memory for its query table (csrc/nj_scan.cuh
+# kMaxCodesSmem); the three functions below mirror codes_p_tile, codes_slot
+# and codes_table_len there.
+MAX_CODES_SMEM = 200 * 1024
+
+
+def codes_p_tile(P, C):
+    """The positions of one tile of the code scan's query table."""
+    per_pos = (C + 1) * 8
+    if P * per_pos <= MAX_CODES_SMEM:
+        return P
+    return (MAX_CODES_SMEM // per_pos) // 16 * 16
+
+
+def codes_slot(q, pt):
+    """The slot of position q (int or integer array) of a tile of pt in the
+    laid-out table: (q % 16) * S + q // 16, S = pt // 16 rounded up to odd."""
+    return (q & 15) * ((pt // 16) | 1) + (q >> 4)
+
+
+def codes_table_len(P, C):
+    """One code's row of the laid-out table over P positions."""
+    pt = codes_p_tile(P, C)
+    return -(-P // pt) * 16 * ((pt // 16) | 1)
 
 
 def _criterion(dist, outd, n_active, m_real):
@@ -148,10 +172,14 @@ def nj_scan_codes(codes, G, wq, outd, n_active, l_real, use_matrix):
     _check("wq", wq, ACCUM_DTYPE, (P,))
     _check("outd", outd, ACCUM_DTYPE, (L,))
     lib = _build.library()
-    outs = _outputs(L, lib.vft_scan_codes_blocks(L), codes.device)
+    blocks = lib.vft_scan_codes_blocks(L, P, C)
+    if blocks < 1:
+        raise RuntimeError("nj_scan_codes: no grid for the code scan (CUDA "
+                           "device query failed)")
+    outs = _outputs(L, blocks, codes.device)
     _launch(lib.vft_nj_scan_codes_f64, "nj_scan_codes", (codes, G, wq, outd),
-            (L, int(l_real), P, C, int(n_active), int(bool(use_matrix))),
-            outs, codes.device)
+            (L, int(l_real), P, C, int(n_active), int(bool(use_matrix)),
+             blocks), outs, codes.device)
     nj_scan_codes.launches += 1
     dist, denom, crit, _, _, best_idx, best_crit = outs
     return best_idx, best_crit, dist, denom, crit
