@@ -33,7 +33,12 @@ passed):
    up-profile, codes equal and W, U within 1e-12 of its twin;
    me_dists_list (the split test's 11,982 pairs, quartet by quartet) bit
    for bit me_dists' calls of six pairs, within 1e-12 of its twin; each
-   also timed against those per-call paths.  The quartet kernel (ml_quartet_opt) on
+   also timed against those per-call paths; me_dist_pieces_list (the
+   local bootstrap's per-position pieces and weights, float32) bit for bit
+   its twin on that list, on the same list of a two-tier store and on
+   random pairs of a C=20 BLOSUM45 store, timed beside the bootstrap's
+   float64 products with the resample counts (cuBLAS, printed apart).
+   The quartet kernel (ml_quartet_opt) on
    200 quartets of that layout, Jukes-Cantor and GTR, with the star test
    and with per-site likelihoods: bit for bit the chain of the three
    single-call kernels it fuses (ml_kernels.quartet_chain), and against
@@ -124,11 +129,24 @@ passed):
    the per-call kernels (rearrange.update_branch_lengths,
    supports.test_splits_min_evo): the SplitCount, the debug counters and
    every branch length bit for bit; the walls and launches of both;
+2i. the ME local bootstrap at N=2000 from the port's NJ tree (1000
+   resamples): the whole-tree path (supports.reliability_nj_list: one
+   sweep, one me_dist_pieces_list launch, the float64 products and the
+   decisions on the card) against the serial walk
+   (supports.reliability_nj, a six-pair list a split): every support and
+   the count of suboptimal splits equal; the walls, launches and the
+   splits re-decided on the host;
 3. the -noml pipeline at N=500, P=500 against the JAX package's tree
    (tests/data/torch_port_golden_n500_p500.nwk), dense and two-tier: RF 0
-   to the golden, and the two layouts give the same Newick; then the same
-   input through the command line (python -m veryfasttree_tpu_torch -nt
-   -noml -nosupport), RF 0 to the golden;
+   to the golden, and the two layouts give the same Newick; against the
+   JAX package's outputs of scripts/make_torch_port_noml_golden.py
+   (tests/data/torch_port_noml_golden_n500_p500.*): -nt -noml with its
+   1000-resample supports, dense and two-tier, byte-identical; -makematrix
+   (dense and two-tier, one nj_scan_dense or nj_scan_codes launch a
+   sequence), the SHA-256 of its output equal; -intree from the N=500
+   golden tree, byte-identical, no NJ launch; then the same input through
+   the command line (python -m veryfasttree_tpu_torch -nt -noml), RF 0 to
+   the golden and byte-identical to the supports golden;
 4. the -noml main path: full -nt -noml -nosupport at N=2000, P=500 (the
    bench.py input) through run_pipeline, cold, then warm, then once more
    with the two-tier store forced on (-two-tier-min 0), which must give the
@@ -139,7 +157,11 @@ passed):
    each, and no more), and me_dists only in the NJ phase (NJ_DISTS_CALLS).
    The scans run inside the join epoch's refreshes, so its
    refresh scans must be nonzero there (and in the two-tier run, where the
-   leaf rows take the codes scan's body);
+   leaf rows take the codes scan's body); then one -nt -noml run with
+   the local bootstrap's supports (1000 resamples), its wall, split test
+   and bootstrap time: the same tree, and the bootstrap in one
+   me_dist_pieces_list and one sh_resample_counts launch beside the
+   lengths' and split test's two sweeps and two lists;
 5. the ML phase against the JAX package's trees at N=200, P=500
    (tests/data/torch_port_ml_golden_n200_p500*): the default -nt run (ML
    NNIs, CAT 20, SH-like supports from 1000 resamples) and -nt -gtr
@@ -177,6 +199,7 @@ import os
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import collections  # noqa: E402
+import hashlib  # noqa: E402
 import io  # noqa: E402
 import json  # noqa: E402
 import math  # noqa: E402
@@ -192,6 +215,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(REPO, "tests", "data", "torch_port_golden_n500_p500")
 ML_GOLDEN = os.path.join(REPO, "tests", "data",
                          "torch_port_ml_golden_n200_p500")
+NOML_GOLDEN = os.path.join(REPO, "tests", "data",
+                           "torch_port_noml_golden_n500_p500")
 MAIN_N, MAIN_P = 2000, 500          # bench.py's input
 ML_GOLDEN_N = 200
 
@@ -211,6 +236,9 @@ KERNELS = {
     # the same XLA function as me_dists, over a whole list (dist_pairs :708)
     "me_dists_list": ("veryfasttree_tpu_torch/csrc/me_store.cu",
                       "veryfasttree_tpu/engine/profiles.py:244"),
+    # the local bootstrap's pieces (_dist_pieces, via dist_pieces_pairs :718)
+    "me_dist_pieces_list": ("veryfasttree_tpu_torch/csrc/me_store.cu",
+                            "veryfasttree_tpu/engine/profiles.py:293"),
     "ml_pair_loglk": ("veryfasttree_tpu_torch/csrc/ml_lk.cu",
                       "veryfasttree_tpu/engine/ml_profiles.py:52"),
     "ml_posterior": ("veryfasttree_tpu_torch/csrc/ml_lk.cu",
@@ -250,6 +278,7 @@ DEVICE_NAMES = {
     "me_dists": ("me_pair_dist_kernel",),
     "me_average": ("me_average_kernel",),
     "me_dists_list": ("me_pair_list_kernel",),
+    "me_dist_pieces_list": ("me_pieces_list_kernel",),
     "me_average_sweep": ("me_average_sweep_kernel",),
     "ml_pair_loglk": ("ml_pair_loglk_kernel",),
     "ml_posterior": ("ml_posterior_kernel",),
@@ -294,6 +323,7 @@ def wrappers():
             "me_dists": store_kernels.me_dists,
             "me_average": store_kernels.me_average,
             "me_dists_list": store_kernels.me_dists_list,
+            "me_dist_pieces_list": store_kernels.me_dist_pieces_list,
             "me_average_sweep": store_kernels.me_average_sweep,
             "ml_pair_loglk": ml_kernels.ml_pair_loglk,
             "ml_posterior": ml_kernels.ml_posterior,
@@ -1178,6 +1208,86 @@ def me_list_bound(iis, jjs, leaf_rows, P, C):
                  len(iis) * P * (2 * C + 2))
 
 
+def pieces_bound(iis, jjs, leaf_rows, n_pos, C):
+    """(bound_ms, bound_by) of a pieces list: the n_pos positions of its
+    distinct rows read once each (me_read_bytes), the list (two words a
+    pair) in, and the pieces and weights (two floats a pair and position)
+    out; 2C + 3 operations a pair and position (the C products of the dot,
+    its C sums, the weight, the eigenvalue or the subtraction)."""
+    import numpy as np
+
+    rows = np.unique(np.concatenate([iis, jjs]))
+    return bound(me_read_bytes(rows, leaf_rows, n_pos, C)
+                 + 8 * len(iis) * (1 + n_pos), len(iis) * n_pos * (2 * C + 3))
+
+
+def check_pieces(report, dev, p, iis, jjs):
+    """me_dist_pieces_list at the main path's shapes: the N=MAIN_N split
+    test's list over the store p (its up-profiles written), then the same
+    list on a two-tier store of the same input, then random pairs of a
+    C=20 BLOSUM45 store: pieces and weights bit for bit the twin's on the
+    card.  The first case timed (device us, launch to launch, the twin,
+    the bound), and beside it the float64 products of the local bootstrap
+    with the [P, B + 1] resample counts (cuBLAS, not a port kernel)."""
+    import numpy as np
+    import torch
+
+    from veryfasttree_tpu_torch.engine import batched
+    from veryfasttree_tpu_torch.ops import resample_kernels as rk
+    from veryfasttree_tpu_torch.ops import store_kernels as st
+
+    def case(label, store, ii, jj):
+        got = st.me_dist_pieces_list(*store, ii, jj)
+        want = st.me_dist_pieces_list_ref(*store, ii, jj)
+        for name, a, b in zip(("pieces", "weights"), got, want):
+            if not torch.equal(a, b):
+                raise AssertionError(f"me_dist_pieces_list [{label}]: {name} "
+                                     "differ from the twin's")
+        print(f"  me_dist_pieces_list [{label}, {len(ii)} pairs]: pieces "
+              "and weights bit for bit the twin's")
+        return got
+
+    n_pos = p.n_pos
+    store = (p.codes, p.W, p.U, p.code_freq, p._ev, p._leaf_rows, n_pos)
+    pieces, weights = case(f"N={MAIN_N} split test, dense", store, iis, jjs)
+    tt = spr_start(MAIN_N, dev, two_tier=True)
+    batched.compute_up_profiles_levelwise(tt, False)
+    tp = tt.prof
+    case(f"N={MAIN_N} split test, two-tier ({tp._leaf_rows} code-only "
+         "leaves)", (tp.codes, tp.W, tp.U, tp.code_freq, tp._ev,
+                     tp._leaf_rows, tp.n_pos),
+         *batched.pair_list(batched.quartet_rows(tt, batched.split_nodes(tt)),
+                            batched.QUARTET_PAIRS))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    codes, W, U, cf, ev, _ = store_case(20, True, 0, gen, dev)
+    rng = np.random.default_rng(20)
+    case("8192x512 C=20 BLOSUM45", (codes, W, U, cf, ev, 0, n_pos),
+         rng.integers(0, 8192, len(iis)), rng.integers(0, 8192, len(iis)))
+
+    bound_ms, bound_by = pieces_bound(iis, jjs, p._leaf_rows, n_pos,
+                                      p.U.shape[2])
+    fn = lambda: st.me_dist_pieces_list(*store, iis, jjs)  # noqa: E731
+    times = {"ms": median_ms(fn),
+             "plain_ms": median_ms(lambda: st.me_dist_pieces_list_ref(
+                 *store, iis, jjs), 5),
+             "device_us": device_us(fn, DEVICE_NAMES["me_dist_pieces_list"]),
+             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+             "pairs": len(iis)}
+    counts = rk.sh_resample_counts(n_pos, 1000, dev)
+    cx = torch.cat([counts, torch.ones_like(counts[:, :1])], 1)
+    times["product_ms"] = median_ms(
+        lambda: (pieces.double() @ cx, weights.double() @ cx), 20)
+    report["me_dist_pieces_list"] = {"max_abs_err": 0.0, **times}
+    print(f"  me_dist_pieces_list [N={MAIN_N} split test, {len(iis)} pairs, "
+          f"{n_pos} positions]: {times['ms']:.4f} ms launch to launch, "
+          f"{times['device_us']:.2f} us on the device; twin "
+          f"{times['plain_ms']:.3f} ms; bound {bound_ms:.4e} ms ({bound_by})")
+    print(f"  the local bootstrap's float64 products (cuBLAS, not a port "
+          f"kernel): [{len(iis)}, {n_pos}] x [{n_pos}, 1001] twice, "
+          f"{times['product_ms']:.4f} ms")
+
+
 def check_me_whole_tree(report, dev):
     """The ME whole-tree kernels at the main path's shapes, on the port's
     NJ tree at N=MAIN_N (dense store): me_average_sweep, the up-profiles of
@@ -1292,6 +1402,7 @@ def check_me_whole_tree(report, dev):
           f"launch, {times['device_us']:.2f} us on the device; the serial "
           f"walk's {len(iis) // 6} calls {times['per_call_ms']:.3f} ms; twin "
           f"{times['plain_ms']:.3f} ms; bound {bound_ms:.4e} ms ({bound_by})")
+    check_pieces(report, dev, p, iis, jjs)
 
 
 # ------------------------------------------------------------- phase 2h
@@ -1370,6 +1481,60 @@ def phase_me_passes(report, dev):
             report.setdefault("me_average_sweep", {}).update(
                 splits_s=walls[1], serial_splits_s=walls_s[1],
                 lengths_s=walls[0], serial_lengths_s=walls_s[0])
+
+
+# ------------------------------------------------------------- phase 2i
+def phase_boot(report, dev):
+    """The ME local bootstrap at N=MAIN_N from the port's NJ tree (1000
+    resamples): the whole-tree path (supports.reliability_nj_list: one
+    sweep of the up-profiles, one me_dist_pieces_list launch, the float64
+    products and the decisions on the card, one fetch) against the serial
+    walk (supports.reliability_nj, -bionj's path: a six-pair list and a
+    fetch a split): every support and the count of suboptimal splits
+    equal; the walls, the launches and the splits re-decided on the host
+    by the reference's operations."""
+    import numpy as np
+    import torch
+
+    from veryfasttree_tpu_torch.engine import supports
+
+    start = spr_start(MAIN_N, dev)
+    start.options.n_bootstrap = 1000
+    m = start.tree.maxnode
+    runs = {}
+    for label, fn in (("list", supports.reliability_nj_list),
+                      ("serial", supports.reliability_nj)):
+        nj = engine_copy(start, dev)
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = fn(nj)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: w.launches for k, w in wrappers().items()
+                    if w.launches}
+        runs[label] = (nj.tree.support[:m].copy(),
+                       nj.debug.n_suboptimal_splits, wall, launches, stats)
+        print(f"  N={MAIN_N} {label}: {wall:.4f} s, launches {launches}, "
+              f"{stats['splits']} splits, {nj.debug.n_suboptimal_splits} "
+              f"suboptimal, re-decided on the host: "
+              f"{stats['redecided_splits']} splits "
+              f"({stats['redecided_entries']} entries)")
+    (sup, sub, wall, launches, stats), (sup_s, sub_s, wall_s, _, _) = \
+        runs.values()
+    if not np.array_equal(sup, sup_s) or sub != sub_s:
+        bad = np.flatnonzero(sup != sup_s)
+        raise AssertionError(f"the list's supports differ from the serial "
+                             f"walk's at {len(bad)} nodes {bad[:10]}; "
+                             f"suboptimal {sub} against {sub_s}")
+    want = {"me_average_sweep": 1, "me_dist_pieces_list": 1,
+            "sh_resample_counts": 1}
+    if launches != want:
+        raise AssertionError(f"the list launched {launches}, not {want}")
+    report.setdefault("me_dist_pieces_list", {}).update(
+        boot_list_s=wall, boot_serial_s=wall_s,
+        redecided_splits=stats["redecided_splits"],
+        redecided_entries=stats["redecided_entries"])
 
 
 # ------------------------------------------------------------- phase 2b
@@ -3210,16 +3375,21 @@ def require_scans(label):
     return scans
 
 
-def phase_golden(dev):
+def phase_golden(report, dev):
     from util import rf_distance
 
     with open(GOLDEN + ".nwk") as f:
         golden = f.read()
     with open(GOLDEN + ".json") as f:
         golden_len = json.load(f)["total_len"]
+    with open(NOML_GOLDEN + ".nwk") as f:
+        boot_golden = f.read()
+    with open(NOML_GOLDEN + ".json") as f:
+        noml = json.load(f)
     fasta = fasta_text(synth_codes(500, 500, seed=0))
+    layouts = (("dense", {}), ("two-tier", {"two_tier_min": 0}))
     trees = {}
-    for label, overrides in (("dense", {}), ("two-tier", {"two_tier_min": 0})):
+    for label, overrides in layouts:
         nw, nj, wall, counts = counted_run(fasta, dev, **overrides)
         rf, n_splits = rf_distance(nw, golden)
         print(f"  N=500 {label}: {wall:.2f} s, RF {rf}/{n_splits} to the JAX "
@@ -3235,7 +3405,54 @@ def phase_golden(dev):
     if trees["dense"] != trees["two-tier"]:
         raise AssertionError("two-tier and dense Newick differ")
 
-    # the same input through the command line, in a process of its own
+    # -nt -noml: the ME local bootstrap's supports from 1000 resamples
+    for label, overrides in layouts:
+        nw, nj, wall, counts = counted_run(fasta, dev, n_bootstrap=1000,
+                                           **overrides)
+        print(f"  N=500 {label} -nt -noml: {wall:.2f} s (boot_s "
+              f"{nj.timings['boot_s']:.4f} s, {nj.boot_stats}), "
+              f"byte-identical to the JAX golden {nw == boot_golden}, "
+              f"suboptimal splits {nj.debug.n_suboptimal_splits} (golden "
+              f"{noml['n_suboptimal_splits']})")
+        if nw != boot_golden or \
+                nj.debug.n_suboptimal_splits != noml["n_suboptimal_splits"]:
+            raise AssertionError(f"{label} -nt -noml: the Newick with "
+                                 "supports differs from the golden")
+        require_launched(label, counts, DENSE_PATH + (
+            "me_dist_pieces_list", "sh_resample_counts"))
+
+    # -makematrix: one scan of each sequence against every row
+    for (label, overrides), scan in zip(layouts, ("nj_scan_dense",
+                                                  "nj_scan_codes")):
+        out, _, wall, counts = counted_run(fasta, dev, make_matrix=True,
+                                           **overrides)
+        sha = hashlib.sha256(out.encode()).hexdigest()
+        print(f"  N=500 {label} -makematrix: {wall:.2f} s, {len(out)} bytes, "
+              f"SHA-256 {sha[:16]}... (golden "
+              f"{noml['makematrix_sha256'][:16]}...), {scan} launches "
+              f"{counts[scan]}")
+        if sha != noml["makematrix_sha256"]:
+            raise AssertionError(f"{label} -makematrix: SHA-256 differs from "
+                                 "the golden's")
+        if counts[scan] != 500:
+            raise AssertionError(f"{label} -makematrix: {counts[scan]} "
+                                 f"{scan} launches, not one a sequence")
+        report.setdefault(scan, {})["makematrix_launches"] = counts[scan]
+
+    # -intree: the ME rounds and lengths from the N=500 golden tree
+    nw, _, wall, counts = counted_run(fasta, dev,
+                                      intree_file=GOLDEN + ".nwk")
+    print(f"  N=500 -nosupport -intree {os.path.relpath(GOLDEN, REPO)}.nwk: "
+          f"{wall:.2f} s, byte-identical to the JAX golden "
+          f"{nw == noml['intree_newick']}, nj_join_epoch launches "
+          f"{counts['nj_join_epoch']}")
+    if nw != noml["intree_newick"] or counts["nj_join_epoch"]:
+        raise AssertionError("-intree: the Newick differs from the golden, "
+                             "or the NJ phase ran")
+
+    # the same input through the command line, in a process of its own:
+    # -nt -noml with its supports, the topology RF 0 to the -nosupport
+    # golden and the Newick the supports golden's
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "n500.fasta")
         with open(path, "w") as f:
@@ -3243,13 +3460,14 @@ def phase_golden(dev):
         t0 = time.perf_counter()
         res = subprocess.run(
             [sys.executable, "-m", "veryfasttree_tpu_torch", "-nt", "-noml",
-             "-nosupport", "-quiet", path], cwd=REPO, capture_output=True,
+             "-quiet", path], cwd=REPO, capture_output=True,
             text=True, timeout=600, check=False)
     rf = rf_distance(res.stdout, golden)[0] if res.returncode == 0 else None
-    print(f"  N=500 command line: exit {res.returncode} in "
+    print(f"  N=500 command line -nt -noml: exit {res.returncode} in "
           f"{time.perf_counter() - t0:.2f} s, RF {rf} to the JAX golden, "
-          f"byte-identical {res.stdout == golden}")
-    if res.returncode != 0 or rf != 0:
+          f"byte-identical to the supports golden "
+          f"{res.stdout == boot_golden}")
+    if res.returncode != 0 or rf != 0 or res.stdout != boot_golden:
         raise AssertionError(f"command line: exit {res.returncode}, RF {rf}"
                              f"\n{res.stderr[-2000:]}")
 
@@ -3326,6 +3544,29 @@ def phase_main(report, dev):
                 require_scans(label)
     if runs["two-tier"] != runs["cold"] or runs["warm"] != runs["cold"]:
         raise AssertionError("the three runs gave different trees")
+
+    # -nt -noml: the same input with the ME local bootstrap's supports
+    # (1000 resamples): its launches are the new kernel's main path
+    nw, nj, wall, counts = counted_run(fasta, dev, n_bootstrap=1000)
+    t = nj.timings
+    boot = {k: counts[k] for k in ("me_dist_pieces_list", "sh_resample_counts",
+                                   "me_average_sweep", "me_dists_list")}
+    print(f"  N={n} P={MAIN_P} -nt -noml (supports): wall {wall:.2f} s; "
+          f"split test {t['splits_s']:.4f} s, local bootstrap "
+          f"{t['boot_s']:.4f} s ({nj.boot_stats}); launches {boot}")
+    require_launched("supports", counts, DENSE_PATH + (
+        "me_dist_pieces_list", "sh_resample_counts"))
+    if boot != {"me_dist_pieces_list": 1, "sh_resample_counts": 1,
+                "me_average_sweep": 2, "me_dists_list": 2}:
+        raise AssertionError(f"supports: the bootstrap's launches {boot}")
+    if re.sub(r"\)[\d.]+:", "):", nw) != runs["cold"]:
+        raise AssertionError("supports: the tree differs from the -nosupport "
+                             "runs'")
+    report.setdefault("me_dist_pieces_list", {}).update(
+        launches=counts["me_dist_pieces_list"], noml_wall_s=wall,
+        boot_s=t["boot_s"], splits_s=t["splits_s"])
+    report.setdefault("sh_resample_counts", {})["noml_launches"] = \
+        counts["sh_resample_counts"]
 
 
 # ------------------------------------------------------------- phases 5, 6
@@ -3632,7 +3873,9 @@ def main() -> int:
               phase_cat_sweep, report, cuda)
         phase("2h ME split test and lengths vs serial walks",
               phase_me_passes, report, cuda)
-        phase("3 N=500 vs JAX golden", phase_golden, cuda)
+        phase("2i ME local bootstrap vs serial walk", phase_boot, report,
+              cuda)
+        phase("3 N=500 vs JAX golden", phase_golden, report, cuda)
         phase(f"4 main path N={MAIN_N}", phase_main, report, cuda)
         phase(f"5 ML N={ML_GOLDEN_N} vs JAX golden", phase_ml_golden, cuda)
         phase(f"6 ML main path N={MAIN_N}", phase_ml_main, report, cuda)

@@ -209,6 +209,56 @@ def test_batched_split_test_on_cuda_is_the_serial_walk(cuda, two_tier):
     assert batch.debug == serial.debug
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,matrix,leaf_rows", [(4, False, 0), (4, False, 300),
+                                                (20, True, 0), (20, True, 300)])
+def test_pieces_list_kernel_is_the_twin(cuda, C, matrix, leaf_rows):
+    """me_dist_pieces_list: the pieces and weights bit for bit its twin's
+    (the same float32 operations, csrc/me_store.cuh pieces_pos), one
+    launch; a row outside the store raises before any launch."""
+    from chip_smoke import store_case
+    from veryfasttree_tpu_torch.ops import store_kernels as st
+
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(5)
+    codes, W, U, cf, ev, _ = store_case(C, matrix, leaf_rows, gen, cuda,
+                                        n_rows=1024, P=256)
+    store = (codes, W, U, cf, ev, leaf_rows, 250)
+    rng = np.random.default_rng(C + leaf_rows)
+    ii, jj = rng.integers(0, 1024, 3000), rng.integers(0, 1024, 3000)
+    before = st.me_dist_pieces_list.launches
+    got = st.me_dist_pieces_list(*store, ii, jj)
+    assert st.me_dist_pieces_list.launches == before + 1
+    want = st.me_dist_pieces_list_ref(*store, ii, jj)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float32 and tuple(a.shape) == (3000, 250)
+        np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+    with pytest.raises(IndexError):
+        st.me_dist_pieces_list(*store, [3], [1024])
+    assert st.me_dist_pieces_list.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("two_tier", [False, True])
+def test_local_bootstrap_list_is_the_serial_walk(cuda, two_tier):
+    """The ME local bootstrap's whole-tree lists (chunks of 64 splits)
+    against its serial walk of six-pair lists, on the card: every support
+    and the count of suboptimal splits equal."""
+    from chip_smoke import engine_copy, spr_start
+    from veryfasttree_tpu_torch.engine import supports
+
+    start = spr_start(300, cuda, two_tier=two_tier)
+    start.options.n_bootstrap = 1000
+    serial, listed = engine_copy(start, cuda), engine_copy(start, cuda)
+    supports.reliability_nj(serial)
+    stats = supports.reliability_nj_list(listed, chunk=64)
+    m = start.tree.maxnode
+    np.testing.assert_array_equal(listed.tree.support[:m],
+                                  serial.tree.support[:m])
+    assert listed.debug == serial.debug
+    assert stats["splits"] == 297 and stats["launches"] == 5
+
+
 def _ml_store(gen, C, jc, dev):
     """chip_smoke.py's random ML store (leaf rows with gaps, posterior rows
     with weights 0, 1 and a few fractions, 20 CAT rates), at a small

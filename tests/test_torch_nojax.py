@@ -6,9 +6,10 @@ chip_smoke.py imports only the port and tests/util.py, and without a CUDA
 device, or alone in a directory, it fails and prints no result.
 
 What the port shares with the JAX package it keeps as copies (constants,
-options, the model matrices, the command-line parser); these must equal
-their originals: the constants and matrices exactly, Options' fields and
-defaults (the seed's default is the clock), and the options that
+options, the model matrices, the Newick printer and reader, the
+command-line parser); these must equal their originals: the constants and
+matrices exactly, Options' fields and defaults (the seed's default is the
+clock), the Newick functions' source, and the options that
 args_to_options makes of a few command lines.
 """
 import ast
@@ -37,7 +38,9 @@ def _run(code, *args):
 
 @pytest.mark.parametrize("module", ["veryfasttree_tpu_torch.pipeline",
                                     "veryfasttree_tpu_torch.cli",
-                                    "veryfasttree_tpu_torch.ops.dataflow"])
+                                    "veryfasttree_tpu_torch.ops.dataflow",
+                                    "veryfasttree_tpu_torch.engine.supports",
+                                    "veryfasttree_tpu_torch.io.newick"])
 def test_imports_without_jax(module):
     res = _run(f"import {module}; {NOT_LOADED}")
     assert res.returncode == 0, res.stderr
@@ -181,6 +184,18 @@ ARGV = [
 ]
 
 
+def _copy_newick():
+    """The printer and the reader of -intree, function by function."""
+    import inspect
+
+    from veryfasttree_tpu.io import newick as j
+    from veryfasttree_tpu_torch.io import newick as t
+    for name in ("quote_name", "print_newick", "tokenize_newick",
+                 "parse_newick"):
+        assert inspect.getsource(getattr(t, name)) == \
+            inspect.getsource(getattr(j, name)), name
+
+
 def _copy_parser():
     from veryfasttree_tpu import cli as j
     from veryfasttree_tpu_torch import cli as t
@@ -192,7 +207,8 @@ def _copy_parser():
 
 
 @pytest.mark.parametrize("check", [_copy_constants, _copy_matrices_data,
-                                   _copy_models, _copy_options, _copy_parser],
+                                   _copy_models, _copy_options, _copy_newick,
+                                   _copy_parser],
                          ids=lambda f: f.__name__[len("_copy_"):])
 def test_copy_equals_original(check):
     check()

@@ -102,13 +102,11 @@ def test_bionj_join_rows_identical_to_jax():
 
 
 @pytest.mark.parametrize("flags", [dict(n_codes=20, ml_nni=-1),
-                                   dict(n_bootstrap=100),
-                                   dict(threads=2), dict(make_matrix=True),
+                                   dict(threads=2),
                                    dict(constraints_file="c.fasta"),
                                    dict(checkpoint_file="ckpt.npz")])
 def test_unported_options_raise(flags):
-    """Protein ML, the -noml local bootstrap (n_bootstrap with ml_nni 0),
-    -threads > 1, -makematrix, -constraints and -checkpoint."""
+    """Protein ML, -threads > 1, -constraints and -checkpoint."""
     opts = TOptions(**{"n_codes": 4, "show_progress": False, "ml_nni": 0,
                        "n_bootstrap": 0, **flags})
     opts.derive_settings()

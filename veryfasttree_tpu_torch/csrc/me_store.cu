@@ -16,9 +16,9 @@
 // rows before the first launch and return kBadRow, launching nothing, if one
 // is out of range.
 //
-// The whole-tree kernels (me_pair_list_kernel, me_average_sweep_kernel) take
-// their tables in device memory, sent once by the wrapper, which checks the
-// rows on the host before it sends them.
+// The whole-tree kernels (me_pair_list_kernel, me_average_sweep_kernel,
+// me_pieces_list_kernel) take their tables in device memory, sent once by
+// the wrapper, which checks the rows on the host before it sends them.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -32,6 +32,7 @@ namespace {
 constexpr int kDistCap = 256;
 constexpr int kListGroups = 4;  // pairs of a list launch's block
 constexpr int kAvgThreads = 128;
+constexpr int kPieceThreads = 128;  // positions of a pieces block
 constexpr int kAvgCap = 128;
 constexpr int kBadRow = -1;
 
@@ -127,6 +128,32 @@ __global__ void __launch_bounds__(kDistThreads * kListGroups) me_pair_list_kerne
   if (t == 0 && k < n) pair_finish(s_den[g], s_dots[g], ev, dist[k], denom[k]);
 }
 
+// Replaces the XLA-compiled _dist_pieces (veryfasttree_tpu/engine/
+// profiles.py:293, through dist_pieces_pairs :718), which the JAX package's
+// local bootstrap (reliability_nj, engine/supports.py:190-237) calls once
+// per split: the per-position pieces and weights of n pairs (rows[k],
+// rows[n + k]) from a device list, in one launch at any n, written as
+// float32 [n, n_pos] each (pieces_pos, me_store.cuh, which rounds them as
+// that CPU build does).
+// Bound: bytes.  At N=2000, P=512, C=4 the split test's 11,982 pairs read
+// about 5,500 distinct rows (56 MB, as me_pair_list_kernel) and write
+// 2 x 11,982 x 500 floats (48 MB): 31 us at 3.35 TB/s.
+// Design: one thread per (pair, position), blockIdx.x the pair, so a
+// block's loads and stores are contiguous; the host orders the list quartet
+// by quartet, so a quartet's rows are read close in time and mostly from L2.
+template <int C>
+__global__ void __launch_bounds__(kPieceThreads) me_pieces_list_kernel(
+    StoreView s, int n_pos, const float* ev, const int32_t* __restrict__ rows, int64_t n,
+    float* __restrict__ pieces, float* __restrict__ weights) {
+  const int64_t k = blockIdx.x;
+  const int p = blockIdx.y * kPieceThreads + threadIdx.x;
+  if (p >= n_pos) return;
+  float piece, weight;
+  pieces_pos<C, true>(s, rows[k], rows[n + k], p, ev, piece, weight);
+  pieces[k * n_pos + p] = piece;
+  weights[k * n_pos + p] = weight;
+}
+
 // Replaces _avg_sweep_impl (veryfasttree_tpu/engine/profiles.py:375, a
 // fori_loop over the level tables: the up-profiles of
 // compute_up_profiles_levelwise, engine/batched.py:26, and the bottom-up
@@ -217,6 +244,15 @@ int pair_list(const StoreView& s, const double* ev, const int32_t* rows, int64_t
 }
 
 template <int C>
+int pieces_list(const StoreView& s, int n_pos, const float* ev, const int32_t* rows, int64_t n,
+                float* pieces, float* weights, cudaStream_t st) {
+  const dim3 grid((unsigned)n, (n_pos + kPieceThreads - 1) / kPieceThreads);
+  me_pieces_list_kernel<C><<<grid, kPieceThreads, 0, st>>>(s, n_pos, ev, rows, n, pieces,
+                                                          weights);
+  return (int)cudaGetLastError();
+}
+
+template <int C>
 int average_grid() {
   static int blocks = resident_blocks(me_average_sweep_kernel<C>, kAvgThreads);
   return blocks;
@@ -292,6 +328,23 @@ int vft_me_pair_list_f32(const int8_t* codes, const float* W, const float* U,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (C == 4) return pair_list<4>(s, ev, rows, n, out, st);
   if (C == 20) return pair_list<20>(s, ev, rows, n, out, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The local bootstrap's pieces and weights (pieces_pos) of n pairs
+// (rows[k], rows[n + k]) at positions [0, n_pos), rows an int32 [2n] list
+// in device memory whose rows the caller checked against the store's;
+// pieces and weights float32 [n, n_pos] each in device memory.  ev: [C]
+// float eigenvalues in matrix mode, NULL in %different mode.
+int vft_me_pieces_list_f32(const int8_t* codes, const float* W, const float* U,
+                           const float* code_freq, int64_t leaf_rows, int P, int n_pos, int C,
+                           const float* ev, const int32_t* rows, int64_t n, float* pieces,
+                           float* weights, void* stream) {
+  if (n <= 0 || n > 0x7fffffffLL || n_pos <= 0 || n_pos > P) return (int)cudaErrorInvalidValue;
+  const StoreView s{codes, W, U, code_freq, leaf_rows, P};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (C == 4) return pieces_list<4>(s, n_pos, ev, rows, n, pieces, weights, st);
+  if (C == 20) return pieces_list<20>(s, n_pos, ev, rows, n, pieces, weights, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -150,6 +150,39 @@ __device__ __forceinline__ void pair_finish(const double* warp_den, const double
   denom = d;
 }
 
+// The local bootstrap's per-position pieces of rows (ra, rb) at position p
+// (the JAX package's _dist_pieces, veryfasttree_tpu/engine/profiles.py:293),
+// rounded as its XLA CPU build rounds them: weight = wa*wb; the dot over the
+// C codes is XLA's column-major GEMV of a 1 x C row, which takes the first
+// eight products in plain multiplies and adds (its first column tile sets
+// the sum from product 0 and adds each product in turn) and fuses every
+// later product into the sum.  %different mode: piece = wa*wb - dot, in a
+// dense store one fused multiply-add (XLA fuses the subtraction into the
+// weight's product), in a two-tier store the rounded weight less the dot
+// (there the weight is a fusion of its own).  Matrix mode (ev non-null):
+// piece = the dot of rb's vector with ua[c]*ev[c], each product rounded
+// first.
+template <int C, bool kVec = false>
+__device__ __forceinline__ void pieces_pos(const StoreView& s, int64_t ra, int64_t rb, int p,
+                                           const float* ev, float& piece, float& weight) {
+  float wa, wb, ua[C], ub[C];
+  load_pos<C, kVec>(s, ra, p, nullptr, nullptr, wa, ua);
+  load_pos<C, kVec>(s, rb, p, nullptr, nullptr, wb, ub);
+  if (ev != nullptr) {
+#pragma unroll
+    for (int c = 0; c < C; ++c) ua[c] = __fmul_rn(ua[c], ev[c]);
+  }
+  float dot = __fmul_rn(ua[0], ub[0]);
+#pragma unroll
+  for (int c = 1; c < C; ++c)
+    dot = c < 8 ? __fadd_rn(dot, __fmul_rn(ua[c], ub[c])) : __fmaf_rn(ua[c], ub[c], dot);
+  weight = __fmul_rn(wa, wb);
+  if (ev != nullptr)
+    piece = dot;
+  else
+    piece = s.leaf_rows == 0 ? __fmaf_rn(wa, wb, -dot) : __fsub_rn(weight, dot);
+}
+
 // a*b + c rounded once to float (up to a rare double-rounding tie), as the
 // plain twins' _fma rounds it: the float product is exact in double.
 __device__ __forceinline__ float fma_via_double(float a, float b, float c) {

@@ -284,6 +284,15 @@ class MEProfiles:
             self._leaf_rows, iis, jjs))
         return out[0], out[1]
 
+    def dist_pieces_list(self, iis: np.ndarray, jjs: np.ndarray):
+        """The local bootstrap's per-position pieces and weights of the row
+        pairs (iis[k], jjs[k]) at the alignment's positions: one launch of
+        store_kernels.me_dist_pieces_list.  Returns (pieces, weights),
+        float32 [K, n_pos] tensors on the store's device, not fetched."""
+        return store_kernels.me_dist_pieces_list(
+            self.codes, self.W, self.U, self.code_freq, self._ev,
+            self._leaf_rows, self.n_pos, iis, jjs)
+
     def refresh_and_pairs(self, rrows: np.ndarray, iis: np.ndarray,
                           jjs: np.ndarray):
         """Out-profile distances of `rrows` plus pair distances of (iis,

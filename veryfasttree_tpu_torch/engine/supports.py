@@ -1,14 +1,21 @@
-"""Split tests and bootstrap resampling (counterpart of
-``veryfasttree_tpu/engine/supports.py``; the minimum-evolution local
-bootstrap, reliabilityNJ, is not ported yet).
+"""Split tests, the minimum-evolution local bootstrap and bootstrap
+resampling (counterpart of ``veryfasttree_tpu/engine/supports.py``).
 
 * testSplitsMinEvo (ref tcc:6639-6797): count splits where an NNI would
   shorten the tree, using corrected quartet distances: the serial walk
   (test_splits_min_evo, which -bionj takes), and the batched test
   (test_splits_min_evo_batched: one up-profile sweep, one pair-distance
   list, one fetch), value-identical to it with -bionj off.
+* reliabilityNJ / splitSupport (ref tcc:608-703, 3191-3238): the local
+  bootstrap of every split (LocalBootstrap): each quartet's six pairs'
+  per-position distance pieces and weights in one kernel launch, their
+  sums under every resample as one float64 product with the [P, B + 1]
+  resample counts (and a column of ones for the plain sums), the
+  decisions on the device.  The whole-tree form (reliability_nj_list: the
+  split test's up-profiles and quartets, chunks of splits) is the serial
+  walk's (reliability_nj, which -bionj takes) bit for bit.
 * resampleColumns (ref tcc:705-727): the Knuth-stream column picks of the
-  SH-like supports, bit-identical to the reference (which never seeds the
+  bootstraps, bit-identical to the reference (which never seeds the
   generator, so the default 314159 stream is used).
 * The SH-like supports themselves live in engine/ml.py.
 """
@@ -17,7 +24,9 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
+from ..ops import resample_kernels
 from ..utils.knuth import KnuthRandom
 
 from . import batched, rearrange
@@ -129,3 +138,197 @@ def test_splits_min_evo_batched(nj, up_tables=None) -> SplitCount:
     if sc.n_bad_splits:
         sc.d_worst_delta_unconstrained = float(delta[bad].max())
     return sc
+
+
+def split_support_host(nj, pieces, weights, counts):
+    """The reference's splitSupport (ref tcc:608-703; the JAX package's
+    split_support after its fetch) of one split in host numpy: pieces and
+    weights float64 [6, P] (QAB .. QCD), counts the [P, B] resample counts.
+    Returns (suboptimal, n_support): whether the split is not the best of
+    its quartet's three, and the number of resamples that support it."""
+    def dists_from(totp, totw):
+        d = np.where(totw > 0.01, totp / np.where(totw > 0.01, totw, 1.0), 3.0)
+        if nj.options.logdist:
+            d = nj.log_corrected(d)
+        return d
+
+    dists = dists_from(pieces.sum(axis=1), weights.sum(axis=1))
+    support1 = dists[QAC] + dists[QBD] - dists[QAB] - dists[QCD]
+    support2 = dists[QAD] + dists[QBC] - dists[QAB] - dists[QCD]
+    d = dists_from(pieces @ counts, weights @ counts)
+    s1 = d[QAC] + d[QBD] - d[QAB] - d[QCD]
+    s2 = d[QAD] + d[QBC] - d[QAB] - d[QCD]
+    return (bool(support1 < 0 or support2 < 0),
+            int(((s1 > 0) & (s2 > 0)).sum()))
+
+
+# unit roundoff of float64
+_U64 = 2.0 ** -53
+
+
+class LocalBootstrap:
+    """The local bootstrap of lists of splits on the store's device
+    (counterpart of the JAX package's split_support and
+    reliability_nj_batched, ref splitSupport tcc:608-703).
+
+    For a list of quartets (rows A, B, C, D): the six pairs' pieces and
+    weights in one launch of store_kernels.me_dist_pieces_list, then
+    tot = pieces @ [counts | 1] and the same of the weights, float64 on
+    the device.  The products are exact (float32 values times small
+    integers); only the order of the sums is not the reference's numpy's.
+    So the device decides each comparison with zero only where it clears
+    a bound of what that order, the division and log1p can move it, and
+    where the 0.01 weight threshold is not in doubt; a split with any
+    comparison in doubt is fetched and decided again on the host by the
+    reference's own operations (split_support_host).  stats counts the
+    splits, the launches and the re-decided splits and entries."""
+
+    # how many times its bound a sum must clear zero to be decided on the
+    # device (the tests set it to 0 and to a huge value to drive each side)
+    margin = 2.0
+
+    def __init__(self, nj):
+        self.nj = nj
+        opts = nj.options
+        self.n_boot = opts.n_bootstrap
+        dev = nj.prof.device
+        counts = resample_kernels.sh_resample_counts(nj.n_pos, self.n_boot,
+                                                     dev)
+        self.counts = counts
+        ones = torch.ones((nj.n_pos, 1), dtype=counts.dtype, device=dev)
+        self.cx = torch.cat([counts, ones], 1)                  # [P, B + 1]
+        self.cmax = self.cx.max(0).values                       # [B + 1]
+        self._host_counts = None
+        # NeighbourJoining.log_corrected's two laws
+        self.nucleotide_log = opts.n_codes == 4 and not opts.use_matrix
+        self.stats = {"splits": 0, "launches": 0, "redecided_splits": 0,
+                      "redecided_entries": 0}
+
+    def host_counts(self) -> np.ndarray:
+        if self._host_counts is None:
+            self._host_counts = self.counts.cpu().numpy()
+        return self._host_counts
+
+    def _log_corrected(self, d, ed):
+        """NeighbourJoining.log_corrected's formula in torch, and the bound
+        of the difference it makes of a difference of at most ed in d: its
+        slope at min(d + ed, the clamp), the largest over [d - ed, d + ed];
+        log1p's last bits on either side and the rounding after it."""
+        if self.nucleotide_log:
+            out = torch.where(d < 0.74, -0.75 * torch.log1p(
+                -torch.clamp_max(d, 0.7399) * 4.0 / 3.0), 3.0)
+            slope = 1.0 / (1.0 - torch.clamp_max(d + ed, 0.7399) * 4.0 / 3.0)
+        else:
+            out = torch.where(d < 0.99, -1.3 * torch.log1p(
+                -torch.clamp_max(d, 0.9899)), 3.0)
+            slope = 1.3 / (1.0 - torch.clamp_max(d + ed, 0.9899))
+        out = torch.clamp_max(out, 3.0)
+        return out, slope * ed * 1.01 + 1e-14 + 8.0 * _U64 * out.abs()
+
+    def supports(self, rows):
+        """(n_support [k], suboptimal [k]) numpy arrays of the k quartets
+        of rows [k, 4]."""
+        nj = self.nj
+        k, B, P = len(rows), self.n_boot, nj.n_pos
+        pieces, weights = nj.prof.dist_pieces_list(*batched.pair_list(
+            np.asarray(rows), batched.QUARTET_PAIRS))
+        self.stats["launches"] += 1
+        self.stats["splits"] += k
+        p64, w64 = pieces.double(), weights.double()
+        tp = (p64 @ self.cx).view(k, 6, B + 1)
+        tw = (w64 @ self.cx).view(k, 6, B + 1)
+        # two sums of the same P terms in any orders differ by at most
+        # 2 (P - 1) u times the sum of the terms' magnitudes
+        gam = 2.0 * P * _U64 * 1.01 * self.cmax
+        ep = gam * p64.abs().sum(1).view(k, 6, 1)
+        ew = gam * w64.sum(1).view(k, 6, 1)
+        ok = tw > 0.01
+        doubt = ((tw - 0.01).abs() <= ew).any(1)                 # [k, B + 1]
+        d = torch.where(ok, tp / torch.where(ok, tw, 1.0), 3.0)
+        ed = torch.where(ok, (ep + d.abs() * ew)
+                         / torch.clamp_min(tw - ew, 1e-300)
+                         + 4.0 * _U64 * d.abs(), 0.0)
+        if nj.options.logdist:
+            d, ed = self._log_corrected(d, ed)
+        s1 = d[:, QAC] + d[:, QBD] - d[:, QAB] - d[:, QCD]
+        s2 = d[:, QAD] + d[:, QBC] - d[:, QAB] - d[:, QCD]
+        e1 = ed[:, QAC] + ed[:, QBD] + ed[:, QAB] + ed[:, QCD]
+        e2 = ed[:, QAD] + ed[:, QBC] + ed[:, QAB] + ed[:, QCD]
+        # the sums' own rounding on either side
+        e1 += 8.0 * _U64 * d[:, [QAC, QBD, QAB, QCD]].abs().sum(1)
+        e2 += 8.0 * _U64 * d[:, [QAD, QBC, QAB, QCD]].abs().sum(1)
+        # a comparison with zero is sure where |s| clears `margin` times its
+        # bound; (s1 > 0) & (s2 > 0) and (s1 < 0) | (s2 < 0) are sure where
+        # either is surely negative or both surely positive
+        m1, m2 = self.margin * e1, self.margin * e2
+        sure = (s1 < -m1) | (s2 < -m2) | ((s1 > m1) & (s2 > m2))
+        doubt |= ~sure
+        n_support = ((s1[:, :B] > 0) & (s2[:, :B] > 0)).sum(1)
+        subopt = (s1[:, B] < 0) | (s2[:, B] < 0)
+        n_doubt = doubt.sum(1)
+        out = torch.stack([n_support, subopt.long(), n_doubt]).cpu().numpy()
+        n_support, subopt = out[0].copy(), out[1].astype(bool)
+        again = np.flatnonzero(out[2])
+        if len(again):
+            self.stats["redecided_splits"] += len(again)
+            self.stats["redecided_entries"] += int(out[2].sum())
+            idx = torch.as_tensor(again, device=pieces.device)
+            hp = p64.view(k, 6, P)[idx].cpu().numpy()
+            hw = w64.view(k, 6, P)[idx].cpu().numpy()
+            counts = self.host_counts()
+            for i, j in enumerate(again):
+                subopt[j], n_support[j] = split_support_host(
+                    nj, np.ascontiguousarray(hp[i]),
+                    np.ascontiguousarray(hw[i]), counts)
+        return n_support, subopt
+
+
+def reliability_nj(nj):
+    """ME local bootstrap over all internal splits, the serial walk (ref
+    reliabilityNJ tcc:3191-3238): each split's quartet from the lazily
+    computed up-profiles (with -bionj their BIONJ weights), one
+    LocalBootstrap list of one quartet at a time.  Sets tree.support and
+    debug.n_suboptimal_splits; returns LocalBootstrap.stats, or None where
+    there is nothing to do."""
+    if nj.n_seqs <= 3 or nj.options.n_bootstrap <= 0:
+        return None
+    boot = LocalBootstrap(nj)
+    tree = nj.tree
+    ups = UpProfiles(nj)
+    for node in tree.postorder_nodes():
+        if node < nj.n_seqs or node == tree.root:
+            continue
+        rows4, nodes4 = rearrange.setup_abcd(nj, ups, node, use_ml=False)
+        n_support, subopt = boot.supports(np.array([rows4]))
+        tree.support[node] = n_support[0] / boot.n_boot
+        nj.debug.n_suboptimal_splits += int(subopt[0])
+        for nd in nodes4[:3]:
+            ups.reset(nd)
+    return boot.stats
+
+
+# splits of one LocalBootstrap list: at B = 1000 its float64 sums take
+# 2 x 6 x 8,192 x 1,001 x 8 bytes (0.8 GB)
+BOOT_CHUNK = 8192
+
+
+def reliability_nj_list(nj, swept=False, chunk=BOOT_CHUNK):
+    """ME local bootstrap over all internal splits (ref reliabilityNJ
+    tcc:3191-3238) as whole-tree lists: the up-profiles in one sweep (none
+    where swept says the split test's sweep of this topology stands),
+    every split's quartet (batched.quartet_rows), and one LocalBootstrap
+    list per chunk of splits.  With -bionj off the supports and the count
+    of suboptimal splits are the serial walk's bit for bit.  Returns
+    LocalBootstrap.stats, or None where there is nothing to do."""
+    if nj.n_seqs <= 3 or nj.options.n_bootstrap <= 0:
+        return None
+    boot = LocalBootstrap(nj)
+    if not swept:
+        batched.compute_up_profiles_levelwise(nj, False)
+    nodes = batched.split_nodes(nj)
+    rows = batched.quartet_rows(nj, nodes)
+    for start in range(0, len(nodes), chunk):
+        n_support, subopt = boot.supports(rows[start:start + chunk])
+        nj.tree.support[nodes[start:start + chunk]] = n_support / boot.n_boot
+        nj.debug.n_suboptimal_splits += int(subopt.sum())
+    return boot.stats

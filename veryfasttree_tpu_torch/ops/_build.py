@@ -202,6 +202,8 @@ def _declare(lib) -> None:
         f32, i32, f32, ptr]
     lib.vft_me_pair_list_f32.argtypes = [
         ptr, ptr, ptr, ptr, i64, i32, i32, ptr, ptr, i64, ptr, ptr]
+    lib.vft_me_pieces_list_f32.argtypes = [
+        ptr, ptr, ptr, ptr, i64, i32, i32, i32, ptr, ptr, i64, ptr, ptr, ptr]
     lib.vft_me_average_sweep_units.argtypes = [i64, i32]
     lib.vft_me_average_sweep_units.restype = i64
     lib.vft_me_average_sweep_f32.argtypes = [

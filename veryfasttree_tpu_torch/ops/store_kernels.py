@@ -17,7 +17,11 @@ recompute) take two kernels over tables sent to the card once:
   ``AverageTables`` in one launch (the JAX package's ``_avg_sweep_impl``),
   each row bit for bit what ``me_average``'s per-level launches write;
 * ``me_dists_list``: the distances of a list of row pairs of any length in
-  one launch, each pair bit for bit what ``me_dists`` gives it.
+  one launch, each pair bit for bit what ``me_dists`` gives it;
+* ``me_dist_pieces_list``: the local bootstrap's per-position pieces and
+  weights of a list of row pairs in one launch (the JAX package's
+  ``_dist_pieces``), float32 rounded as that package's CPU build rounds
+  them.
 
 Store layout: codes int8 [n_rows, P] for every row, W [n_float, P] and U
 [n_float, P, C] for the float rows; rows below ``leaf_rows`` (the leaves of
@@ -31,6 +35,7 @@ its kernel launches.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import numpy as np
 import torch
@@ -339,3 +344,95 @@ def me_dists_list(codes, W, U, code_freq, eigenval, leaf_rows, iis, jjs):
 
 
 me_dists_list.launches = 0
+
+
+def fma_f32(a, b, c):
+    """a * b + c of float32 tensors, rounded once to float32 (a fused
+    multiply-add).  The product is exact in float64 and TwoSum gives the
+    float64 sum's error, which decides the sums that land on a midpoint
+    between two floats (where rounding twice would go astray)."""
+    p = a.double() * b.double()
+    cd = c.double()
+    s = p + cd
+    bp = s - cd
+    err = (p - bp) + (cd - (s - bp))
+    f = s.float()
+    up = torch.nextafter(f, torch.full_like(f, math.inf))
+    dn = torch.nextafter(f, torch.full_like(f, -math.inf))
+    fd = f.double()
+    f = torch.where((s == (fd + up.double()) * 0.5) & (err > 0), up, f)
+    return torch.where((s == (fd + dn.double()) * 0.5) & (err < 0), dn, f)
+
+
+def me_dist_pieces_list_ref(codes, W, U, code_freq, eigenval, leaf_rows,
+                            n_pos, iis, jjs):
+    """Plain twin of me_dist_pieces_list, each operation in the kernel's
+    order (csrc/me_store.cuh pieces_pos)."""
+    dev = codes.device
+    _, W1, U1 = rows_cwu(codes, W, U, _index(iis, dev), code_freq, leaf_rows)
+    _, W2, U2 = rows_cwu(codes, W, U, _index(jjs, dev), code_freq, leaf_rows)
+    W1, W2, U1, U2 = W1[:, :n_pos], W2[:, :n_pos], U1[:, :n_pos], \
+        U2[:, :n_pos]
+    # a float64 store (-double-precision, CPU only) takes plain operations
+    fma = fma_f32 if U.dtype == torch.float32 else \
+        (lambda a, b, c: a * b + c)
+    if eigenval is not None:
+        U1 = U1 * eigenval.to(U.dtype)
+    dot = U1[..., 0] * U2[..., 0]
+    for c in range(1, U1.shape[-1]):
+        dot = dot + U1[..., c] * U2[..., c] if c < 8 else \
+            fma(U1[..., c], U2[..., c], dot)
+    weights = W1 * W2
+    if eigenval is not None:
+        pieces = dot
+    else:
+        pieces = weights - dot if leaf_rows else fma(W1, W2, -dot)
+    return pieces.contiguous(), weights.contiguous()
+
+
+def me_dist_pieces_list(codes, W, U, code_freq, eigenval, leaf_rows, n_pos,
+                        iis, jjs):
+    """The local bootstrap's pieces and weights of the row pairs (iis[k],
+    jjs[k]) of a list of any length (host integer arrays) at positions
+    [0, n_pos): weight = W_i * W_j and piece = weight - U_i . U_j, or in
+    matrix mode (eigenval [C]) U_i . U_j weighted by eigenval, per
+    position in float32.  One launch on CUDA over the list sent in one
+    copy; the twin on the CPU.  Returns (pieces, weights), float32 [K,
+    n_pos] each on the store's device.  An index outside the store raises
+    IndexError before anything is launched."""
+    iis = np.asarray(iis, dtype=np.int64)
+    jjs = np.asarray(jjs, dtype=np.int64)
+    if len(iis) != len(jjs):
+        raise ValueError("iis and jjs differ in length")
+    K = len(iis)
+    if codes.device.type == "cpu":
+        return me_dist_pieces_list_ref(codes, W, U, code_freq, eigenval,
+                                       leaf_rows, n_pos, iis, jjs)
+    n_rows, P, C = _check_store(codes, W, U, code_freq, leaf_rows)
+    if not 0 < n_pos <= P:
+        raise ValueError(f"me_dist_pieces_list: n_pos {n_pos} outside "
+                         f"(0, {P}]")
+    rows = np.concatenate([iis, jjs])
+    if K and (rows.min() < 0 or rows.max() >= n_rows):
+        raise IndexError("me_dist_pieces_list: a row index lies outside the "
+                         "store")
+    dev = codes.device
+    pieces = torch.empty((K, n_pos), dtype=torch.float32, device=dev)
+    weights = torch.empty((K, n_pos), dtype=torch.float32, device=dev)
+    if K == 0:
+        return pieces, weights
+    ev = None
+    if eigenval is not None:
+        ev = eigenval.to(device=dev, dtype=torch.float32).contiguous()
+    rows = dataflow.to_device({"rows": rows.astype(np.int32)}, dev)["rows"]
+    _raise_on(_build.library().vft_me_pieces_list_f32(
+        codes.data_ptr(), W.data_ptr(), U.data_ptr(), code_freq.data_ptr(),
+        int(leaf_rows), P, int(n_pos), C,
+        ev.data_ptr() if ev is not None else None, rows.data_ptr(), K,
+        pieces.data_ptr(), weights.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream), "me_dist_pieces_list")
+    me_dist_pieces_list.launches += 1
+    return pieces, weights
+
+
+me_dist_pieces_list.launches = 0

@@ -1,13 +1,15 @@
 """End-to-end pipeline on one torch device (counterpart of the serial path
 of ``veryfasttree_tpu/pipeline.py``).
 
-read + uniquify -> ME profile store -> top-hits seeding -> NJ join loop ->
-ME NNI rounds interleaved with SPR -> ME branch lengths -> [ML phase: ML
-lengths, ML NNIs, CAT rates, GTR, SH-like supports, Gamma20] or the ME
-split test -> Newick (ref VeryFastTreeImpl.tcc:46-472).
+read + uniquify -> ME profile store -> top-hits seeding -> NJ join loop
+(or a starting tree, -intree) -> ME NNI rounds interleaved with SPR -> ME
+branch lengths -> [ML phase: ML lengths, ML NNIs, CAT rates, GTR, SH-like
+supports, Gamma20] or the ME split test and the ME local bootstrap ->
+Newick (ref VeryFastTreeImpl.tcc:46-472); or, with -makematrix, the
+distance matrix of every sequence.
 
-Protein ML, the -noml local bootstrap, -threads > 1, -makematrix, -intree,
--checkpoint and -constraints are not ported yet and raise.
+Protein ML, -threads > 1, -checkpoint and -constraints are not ported yet
+and raise.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ import numpy as np
 from .engine import batched, ml, rearrange, spr, supports
 from .engine.nj import NeighbourJoining
 from .io.alignment import Alignment, Uniquify, read_alignment, seqs_to_codes
-from .io.newick import print_newick
+from .io.newick import parse_newick, print_newick
 from .models import DistanceMatrix, TransitionMatrix
 from .ops import nni_kernels, spr_kernels
 from .utils.debug import Debug
@@ -99,12 +101,9 @@ def _ml_on(options) -> bool:
 
 def _check_ported(options) -> None:
     missing = [
-        ("protein ML (use -noml)", _ml_on(options) and options.n_codes == 20),
-        ("-noml local-bootstrap supports (use -nosupport)",
-         not _ml_on(options) and options.n_bootstrap > 0),
+        ("protein ML (use -noml)", _ml_on(options) and options.n_codes == 20
+         and not options.make_matrix),
         ("-threads > 1", options.threads > 1),
-        ("-makematrix", options.make_matrix),
-        ("-intree", bool(options.intree_file)),
         ("-checkpoint", bool(options.checkpoint_file)),
         ("-constraints", bool(options.constraints_file)),
     ]
@@ -134,7 +133,9 @@ def _run_single(options, input_fp, output_fp, log_fp, device):
                               options.relative_progress)
     options.debug = Debug()
 
-    native_read = _try_native_read(options)
+    # -makematrix needs per-sequence (not uniquified) codes, so it takes the
+    # Python read path; the native path returns the unique code matrix only
+    native_read = None if options.make_matrix else _try_native_read(options)
     if native_read is not None:
         names, codes, unique = native_read
         progress.print("Read alignment (native parser)")
@@ -145,13 +146,22 @@ def _run_single(options, input_fp, output_fp, log_fp, device):
             raise ValueError("No alignment sequences")
         progress.print("Read alignment")
         names = aln.names
-    if aln.tree:
-        raise NotImplementedError("a starting tree (-intree) is not ported yet")
 
     if len(set(names)) != len(names):
         seen = set()
         dup = next(n for n in names if n in seen or seen.add(n))
         raise ValueError(f"Non-unique name '{dup}' in the alignment")
+    name_to_idx = {n: i for i, n in enumerate(names)}
+
+    if options.make_matrix:
+        # print the pairwise (log-corrected) distance matrix and stop
+        # (ref printDistances NeighbourJoining.tcc:274-288)
+        dmat, _ = build_models(options)
+        mm = NeighbourJoining(options, seqs_to_codes(aln.seqs, options, log),
+                              dmat, None, log=log, progress=progress,
+                              names=names, device=device)
+        _print_distances(mm, names, output_fp)
+        return mm, None
 
     if native_read is None:
         unique = Uniquify.build(aln)
@@ -162,7 +172,13 @@ def _run_single(options, input_fp, output_fp, log_fp, device):
     nj = NeighbourJoining(options, codes, dmat, tmat, log=log,
                           progress=progress, names=names, device=device)
     n_uniq = len(unique.unique_seq)
-    nj.fast_nj()
+    if options.intree_file and not options.intree_file.startswith("*"):
+        with open(options.intree_file) as fp:
+            _load_intree(nj, fp.read(), name_to_idx, unique)
+    elif aln.tree:
+        _load_intree(nj, aln.tree, name_to_idx, unique)
+    else:
+        nj.fast_nj()
     progress.print("Initial topology complete")
 
     def log_tree(fmt, i):
@@ -246,7 +262,14 @@ def _run_single(options, input_fp, output_fp, log_fp, device):
         # the up-profiles are BIONJ-weighted, and the serial walk stays
         split_count = supports.test_splits_min_evo(nj) if options.bionj \
             else supports.test_splits_min_evo_batched(nj, up_tables)
-        nj.timings["splits_s"] = time.perf_counter() - t2
+        t3 = time.perf_counter()
+        nj.timings["splits_s"] = t3 - t2
+        if options.n_bootstrap > 0 and n_uniq > 3:
+            # the ME local bootstrap; without -bionj over the up-profiles
+            # the split test's sweep just wrote
+            nj.boot_stats = supports.reliability_nj(nj) if options.bionj \
+                else supports.reliability_nj_list(nj, swept=True)
+            nj.timings["boot_s"] = time.perf_counter() - t3
 
     newick = print_newick(nj.tree, names, unique, options.n_bootstrap > 0,
                           options.double_precision, options.quote)
@@ -288,3 +311,36 @@ def _report_stats(options, nj, sc, n_seq, n_uniq, ml_nni_to_do, progress,
                 if options.ml_accuracy < 2 else ""
             print(f"Max-lk operations: lk {d.n_lk_compute} posterior "
                   f"{d.n_posterior_compute}{extra}", file=log)
+
+
+def _print_distances(nj, names, out):
+    """All-pairs leaf distances (ref printDistances tcc:274-288): one scan
+    of each sequence against every row (scan_kernels.nj_scan_dense, or
+    nj_scan_codes over a two-tier store's leaves)."""
+    n = nj.n_seqs
+    for i in range(n):
+        dist, _ = nj.prof.dist_one_vs_all(i)
+        d = dist[:n]
+        if nj.options.logdist:
+            d = nj.log_corrected(d)
+        out.write(names[i])
+        for j in range(n):
+            out.write(" %f" % max(d[j], 0.0))
+        out.write("\n")
+
+
+def _load_intree(nj, text, name_to_idx, unique):
+    """Read a starting tree and compute its profiles bottom-up (ref
+    readTree; the JAX package's _load_intree)."""
+    parent, children, root, n_used = parse_newick(text, name_to_idx, unique)
+    tree = nj.tree
+    tree.root = root
+    tree.maxnode = n_used
+    for node in range(n_used):
+        tree.parent[node] = parent[node]
+        kids = children[node]
+        tree.n_child[node] = len(kids)
+        tree.children[node, :] = -1
+        for k, c in enumerate(kids):
+            tree.children[node, k] = c
+    rearrange.recompute_profiles_levelwise(nj)
