@@ -11,6 +11,9 @@ passed):
    report no stack frame and no spill store for the ML and ME round
    kernels, at most 32 bytes of stack for ml_quartet_opt and at most the
    deciding warp's 616 bytes for nj_join_epoch (_build.resource_faults);
+   for the ML kernels' 20-code templates the limits of
+   _build.STACK_LIMITS_20 (the lengths pass and the quartet kernel no
+   stack and no spills, the NNI round at most 128 bytes of stack);
 2. each kernel against its plain PyTorch twin on the card, at the main
    path's shapes, with the median time of 50 runs of each (CUDA events):
    the scans and the pair distances in double (rtol 1e-12, atol 1e-12; best
@@ -184,11 +187,42 @@ passed):
    does not change the tree).  The CAT fit (cat_launches) must launch 22
    sweeps and 20 tree log-likelihoods and nothing else, and the whole run
    ml_posterior and ml_pair_loglk only once each (the SH pass's lists).
+2j. the ML kernels at 20 codes (protein): one ML lengths pass, then one
+   ML NNI round, at N=500 (JTT, CAT 20 rates fitted to the port's NJ tree
+   of a protein alignment) through ml_lengths_pass<20> and
+   ml_nni_round<20> (one launch each, the quartet temporaries in device
+   scratch) against the host loops with the per-call kernels (tree,
+   lengths, NNIStats, counters, rough/exact counts and rows bit for bit)
+   and against the plain twins on the CPU (the pass's tree LogLk within
+   1e-5 relative; the round's decisions equal up to a flip where the
+   quartet's two choices lie closer than the two runs' criteria for it,
+   reported with its margins, and then its LogLk within 1e-4); the
+   rough-posterior gate (-approxml) in an ml_posterior list of the SH
+   pass's shape against its twin, the rough/exact counts equal; one
+   ml_posterior_sweep<20> and ml_tree_loglk<20> with the gate on over a
+   balanced tree of 2000 leaves against the per-level launches (rows bit
+   for bit, counts equal) and the twins; each timed with its bound;
+7a. protein ML against the JAX package's trees at N=200, P=300
+   (tests/data/torch_port_protein_ml_golden_n200_p300*, from
+   scripts/make_torch_port_protein_golden.py): the default run (JTT, CAT
+   20, SH-like supports from 1000 resamples), -lg -gamma and -approxml,
+   each RF 0 to its golden and final LogLk within 1e-4 relative, with the
+   ML-NNIs per round and the approximate-posteriors share printed beside
+   the golden's;
+7b. the protein ML main path: the default protein run at N=5000, P=400
+   (synth_codes(5000, 400, seed=0, n_codes=20); BASELINE.json's ~5k-taxa
+   JTT+CAT config), warm, with its phase split, final LogLk, ML-NNIs per
+   round and approximate-posteriors share.  The launch counts are reset
+   just before it and read just after it: ml_nni_round and
+   ml_lengths_pass launched (at 20 codes; their scratch and tree layout
+   printed), ml_posterior and ml_pair_loglk only in the SH pass's lists,
+   the CAT fit in whole-tree sweeps only.
 
 The last lines are the card's name and power limit, one JSON line with each
 kernel's route, source, main-path launches (the ML main path's for the ML
 kernels, the -noml one's for the others, with their ML-path and two-tier
-launches apart), error, times and bound, and the result line.  Without a CUDA
+launches apart; the "<20>" entries the protein main path's), error, times
+and bound, and the result line.  Without a CUDA
 device, or outside the repository, it exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -219,6 +253,16 @@ NOML_GOLDEN = os.path.join(REPO, "tests", "data",
                            "torch_port_noml_golden_n500_p500")
 MAIN_N, MAIN_P = 2000, 500          # bench.py's input
 ML_GOLDEN_N = 200
+# protein ML: the JAX package's goldens (scripts/make_torch_port_protein_
+# golden.py) and the main path, BASELINE.json's ~5k-taxa JTT+CAT config
+PROTEIN_GOLDEN = os.path.join(REPO, "tests", "data",
+                              "torch_port_protein_ml_golden_n200_p300")
+PROTEIN_GOLDEN_N, PROTEIN_GOLDEN_P = 200, 300
+# -approxml's rough and exact counts against the golden's, relative: the
+# runs' line searches take their own numbers of evaluations (1.5e-4 and
+# 2.2e-4 read on the H100)
+PROTEIN_COUNT_RTOL = 1e-3
+PROTEIN_N, PROTEIN_P = 5000, 400
 
 # name -> (source, what it replaces in the JAX package on the TPU: the two
 # Pallas kernels, and the XLA-compiled store functions behind the host loops)
@@ -263,7 +307,22 @@ KERNELS = {
                            "veryfasttree_tpu/engine/ml_profiles.py:123"),
     "ml_tree_loglk": ("veryfasttree_tpu_torch/csrc/ml_sweep.cu",
                       "veryfasttree_tpu/engine/ml.py:299"),
+    # the 20-code launches of the protein main path (phase 7b), each with
+    # the rough-posterior gate of posterior_matrix
+    # (veryfasttree_tpu/ops/kernels.py:267) in its posteriors
+    "ml_nni_round<20>": ("veryfasttree_tpu_torch/csrc/ml_round.cu",
+                         "veryfasttree_tpu/engine/rearrange.py:246"),
+    "ml_lengths_pass<20>": ("veryfasttree_tpu_torch/csrc/ml_round.cu",
+                            "veryfasttree_tpu/engine/ml.py:380"),
+    "ml_posterior_sweep<20>": ("veryfasttree_tpu_torch/csrc/ml_sweep.cu",
+                               "veryfasttree_tpu/engine/ml_profiles.py:123"),
+    "ml_tree_loglk<20>": ("veryfasttree_tpu_torch/csrc/ml_sweep.cu",
+                          "veryfasttree_tpu/engine/ml.py:299"),
+    "ml_posterior<20>": ("veryfasttree_tpu_torch/csrc/ml_lk.cu",
+                         "veryfasttree_tpu/engine/ml_profiles.py:77"),
 }
+# the wrapper each 20-code entry of KERNELS counts
+PROTEIN_KERNELS = {k: k[:-len("<20>")] for k in KERNELS if k.endswith("<20>")}
 ML_KERNELS = ("ml_pair_loglk", "ml_posterior", "ml_opt_branch",
               "ml_quartet_opt", "ml_nni_round", "ml_lengths_pass",
               "sh_resample_counts", "ml_posterior_sweep", "ml_tree_loglk")
@@ -299,10 +358,12 @@ ML_MAIN_LOGLK = "-427535.845"
 ML_MAIN_NNIS = [706, 447, 198, 113, 53, 32, 13, 4, 0, 7]
 # the least time of a call (NVIDIA's H100 SXM data sheet, at 700 W): bytes
 # over the memory rate, operations over the float32 rate outside the
-# tensor cores (double operations are counted at that rate too, which can
-# only lower the bound)
+# tensor cores, the double operations of the ML posteriors' rotations over
+# the float64 rate (ml_ops weighs each as F32_OPS_PER_S / F64_OPS_PER_S
+# float32 operations)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+F64_OPS_PER_S = 34e12
 TOL = dict(rtol=1e-12, atol=1e-12)
 BEST = 100                      # the row the scan inputs make the best
 
@@ -440,11 +501,13 @@ def ml_row_bytes(P, C):
 # operations per position, counted as the kernels write them (csrc/ml_lk.cu):
 # the effective vectors of two rows (three per element each), one site
 # likelihood (three per element) with its log and sum, a posterior (JC:
-# ten per element and a division; matrix: the products, two C x C rotations
-# and the normalisation)
+# ten per element and a division; matrix: the products, the normalisation,
+# and the two C x C rotations into character space and the one back, 6 C^2
+# double operations, weighed at the float64 rate)
 def ml_ops(C, jc):
     eff, site = 6 * C, 3 * C + 2
-    post = eff + (11 * C if jc else 6 * C * C + 6 * C)
+    post = eff + (11 * C if jc else
+                  6 * C * C * F32_OPS_PER_S / F64_OPS_PER_S + 6 * C)
     return eff, site, post
 
 
@@ -689,10 +752,12 @@ def check_kernel(name, kernel, twin, args):
 
 
 def ml_store_case(C, model, gen, dev, n_rows=3 * 2 * MAIN_N + 8, P=512,
-                  n_pos=MAIN_P, n_leaf=MAIN_N):
+                  n_pos=MAIN_P, n_leaf=MAIN_N, approx=False):
     """A random ML store in the N=2000 layout: leaf rows (codes with gaps)
     below n_leaf, posterior rows (NOCODE; weights 0, 1 and a few fractions)
-    above, 20 CAT rates.  Returns (codes, W, V, MLModel)."""
+    above, 20 CAT rates; "jtt" and "lg" at 20 codes carry the rough
+    posteriors' tables, used where approx is set.  Returns (codes, W, V,
+    MLModel)."""
     import torch
 
     from veryfasttree_tpu_torch.models import TransitionMatrix
@@ -707,10 +772,13 @@ def ml_store_case(C, model, gen, dev, n_rows=3 * 2 * MAIN_N + 8, P=512,
                       torch.ones(C, **f32))
     else:
         tm = TransitionMatrix.jtt92() if model == "jtt" else \
+            TransitionMatrix.lg08() if model == "lg" else \
             TransitionMatrix.gtr([1.2, 3.1, 0.8, 1.1, 2.9, 1.0],
                                  [0.3, 0.2, 0.24, 0.26])
         cf, ev, ei, si = (torch.tensor(a, **f32).contiguous() for a in (
             tm.code_freq, tm.eigenval, tm.eigeninv, tm.statinv))
+        near = {k: torch.tensor(getattr(tm, k), **f32).contiguous()
+                for k in ("near_p", "near_freq")}
     codes = torch.randint(0, C, (n_rows, P), generator=gen, device=dev,
                           dtype=torch.int8)
     codes[torch.rand((n_rows, P), generator=gen, **f32) < 0.05] = 127
@@ -728,7 +796,9 @@ def ml_store_case(C, model, gen, dev, n_rows=3 * 2 * MAIN_N + 8, P=512,
     ratecat = torch.randint(0, 20, (P,), generator=gen, device=dev,
                             dtype=torch.int32)
     return codes, W, V, MLModel(model == "jc", cf, ev, ei, si, rates, ratecat,
-                                n_pos, 2.5e-4, 1e-10)
+                                n_pos, 2.5e-4, 1e-10,
+                                **(near if model != "jc" else {}),
+                                approx=approx)
 
 
 # the SH pass's list shapes at the main path's N: 3S pairs, 2S posteriors
@@ -2183,23 +2253,43 @@ ML_DEBUG = ("n_ml_nni", "n_star_tests", "n_lk_compute", "n_posterior_compute")
 # lengths differ by up to about 1e-2 at N=500.
 ML_TWIN_RTOL = 1e-5
 ML_TWIN_NEAR_TIE = 5e-3
+# At 20 codes (phases 2j, 7a) each quartet's deciding differences (its
+# criteria less its first) must also agree within ML_CRITERIA_TOL_20 (up
+# to a flip where the runs then part).  Read on the H100 up to the first
+# flip: 0.022 and 0.054 against the JAX package's protein goldens (7a,
+# P=300, 403 and 183 decisions), 0.052 between the card's round and the
+# twins' round from the same state (2j, P=512, 67 quartets), each
+# quartet's lengths there carrying the float32 searches of the quartets
+# before it, and 0.028 with each of the 497 quartets decided by the twins
+# from the card's own inputs.  A flip's two choices lie within
+# ML_TWIN_NEAR_TIE in both runs, but in 2j's whole twin round within
+# ML_ROUND_NEAR_TIE_20 (its flip at quartet 67 read 0.038 on the card,
+# 0.014 in the twins).
+ML_CRITERIA_TOL_20 = 0.1
+ML_ROUND_NEAR_TIE_20 = 0.05
 GTR = ([1.2, 3.1, 0.8, 1.1, 2.9, 1.0], [0.3, 0.2, 0.24, 0.26])
 
 
-def ml_start(n, dev, model="jc", cat=False):
+def ml_start(n, dev, model="jc", cat=False, approx=False):
     """The port's NJ tree of synth_codes(n, MAIN_P) on dev with its ME
-    branch lengths and an ML store (Jukes-Cantor or GTR) with recomputed
-    posteriors: the start of the default run's first ML lengths pass and
-    NNI round (one rate), or with cat, of its later ones (the CAT 20 rates
-    fitted to the tree, engine/ml.set_ml_rates)."""
+    branch lengths and an ML store (Jukes-Cantor or GTR; "jtt" and "lg" a
+    protein alignment of 20 codes, its NJ tree under BLOSUM45) with
+    recomputed posteriors: the start of the default run's first ML lengths
+    pass and NNI round (one rate), or with cat, of its later ones (the CAT
+    20 rates fitted to the tree, engine/ml.set_ml_rates).  approx turns on
+    -approxml's rough posteriors (protein only)."""
     from veryfasttree_tpu_torch.engine import ml, rearrange
     from veryfasttree_tpu_torch.engine.ml_profiles import MLProfiles
     from veryfasttree_tpu_torch.models import TransitionMatrix
 
-    nj = spr_start(n, dev)
+    protein = model in ("jtt", "lg")
+    nj = spr_start(n, dev, protein=protein)
+    nj.options.exact_ml = not approx
     rearrange.update_branch_lengths(nj)
-    nj.ml = MLProfiles(nj, None if model == "jc"
-                       else TransitionMatrix.gtr(*GTR))
+    nj.ml = MLProfiles(nj, None if model == "jc" else
+                       TransitionMatrix.jtt92() if model == "jtt" else
+                       TransitionMatrix.lg08() if model == "lg" else
+                       TransitionMatrix.gtr(*GTR))
     if cat:
         ml.set_ml_rates(nj)
     else:
@@ -2217,7 +2307,8 @@ def ml_copy(nj, dev):
     c.ml = copy.copy(nj.ml)
     c.ml.nj, c.ml.device = c, torch.device(dev)
     for name in ("codes", "W", "V", "code_freq", "eigenval", "statinv",
-                 "eigeninv", "eigentot"):
+                 "eigeninv", "eigentot", "near_p", "near_freq",
+                 "post_counts"):
         setattr(c.ml, name, getattr(nj.ml, name).to(dev, copy=True))
     c.ml.gap_vec = c.ml.code_freq[127]
     c.ml._push_model()
@@ -2234,6 +2325,8 @@ def ml_state(nj, stats=None, result=None):
     if stats is not None:
         tree.update({k: getattr(stats, k).copy() for k in NNI_STATS})
     ctr = {k: getattr(nj.debug, k) for k in ML_DEBUG}
+    # the posteriors' rough and exact positions (20 codes)
+    ctr["aa_counts"] = tuple(nj.ml.post_counts.tolist())
     if result is not None:
         ctr["round"] = (int(result[0]), float(result[1]))
     m = 2 * nj.tree.maxnodes
@@ -2295,19 +2388,32 @@ def ml_round_bound(totals, n_rows, P, C, jc):
     return (*bound(n_bytes, n_ops), n_bytes, n_ops)
 
 
-def ml_decisions(fn):
+def ml_decisions(fn, twin=None):
     """Run fn() with engine/ml.ml_quartet_nni logging its quartets:
-    returns [(rows, choice, criteria)]."""
+    returns [(rows, choice, criteria)].  With twin (an engine on the CPU),
+    each quartet is also decided by the twin from the same inputs (its four
+    store rows copied in, the same lengths), and the twin's decisions come
+    back as a second log."""
     import numpy as np
 
     from veryfasttree_tpu_torch.engine import ml
 
-    log, orig = [], ml.ml_quartet_nni
+    log, twin_log, orig = [], [], ml.ml_quartet_nni
+
+    def entry(rows4, out):
+        return (tuple(int(r) for r in rows4), int(out[0]),
+                np.array(out[1], dtype=np.float64))
 
     def rec(nj_, rows4, lengths):
+        given = np.array(lengths, copy=True)
         out = orig(nj_, rows4, lengths)
-        log.append((tuple(int(r) for r in rows4), int(out[0]),
-                    np.array(out[1], dtype=np.float64)))
+        log.append(entry(rows4, out))
+        if twin is not None:
+            rows = list(rows4)
+            for name in ("codes", "W", "V"):
+                getattr(twin.ml, name)[rows] = \
+                    getattr(nj_.ml, name)[rows].cpu()
+            twin_log.append(entry(rows4, orig(twin, rows4, given)))
         return out
 
     ml.ml_quartet_nni = rec
@@ -2315,7 +2421,7 @@ def ml_decisions(fn):
         fn()
     finally:
         ml.ml_quartet_nni = orig
-    return log
+    return log if twin is None else (log, twin_log)
 
 
 def second_sweep_left_out(fn):
@@ -2339,28 +2445,38 @@ def second_sweep_left_out(fn):
         ml.ml_pair_optimize = orig
 
 
-def first_flip(label, a, b):
+def first_flip(label, a, b, near_tie=ML_TWIN_NEAR_TIE, crit_tol=None):
     """The index of the first quartet two logs of the same round decide
-    otherwise, or None; raises unless it is a near tie in both, or if the
-    logs part before it.  Returns (index, the criteria's max abs difference
-    up to it)."""
+    otherwise, or None; raises unless it is a near tie in both (its two
+    criteria within near_tie of each other), if the logs part before it,
+    or, with crit_tol, if before it a quartet's criteria less their first
+    (the differences that decide) part by more than crit_tol.  Returns
+    (index, the criteria's max abs difference up to it, the deciding
+    differences' max abs difference up to it)."""
     import numpy as np
 
-    err = 0.0
+    err = dec = 0.0
     for k, (x, y) in enumerate(zip(a, b)):
         if x[0] != y[0]:
             raise AssertionError(f"{label}: quartet {k} differs ({x[0]}, "
                                  f"{y[0]})")
         err = max(err, float(np.max(np.abs(x[2] - y[2]))))
+        here = float(np.max(np.abs((x[2] - x[2][0]) - (y[2] - y[2][0]))))
+        dec = max(dec, here)
+        if crit_tol is not None and here > crit_tol:
+            raise AssertionError(f"{label}: quartet {k}'s deciding "
+                                 f"differences part by {here:.3e} (limit "
+                                 f"{crit_tol:.0e}): {x} {y}")
         if x[1] != y[1]:
-            if any(abs(c[x[1]] - c[y[1]]) > ML_TWIN_NEAR_TIE
-                   for c in (x[2], y[2])):
+            margins = [abs(c[x[1]] - c[y[1]]) for c in (x[2], y[2])]
+            if max(margins) > near_tie:
                 raise AssertionError(f"{label}: quartet {k} flips, not on a "
-                                     f"near tie: {x} {y}")
-            return k, err
+                                     f"near tie (margins {margins}, limit "
+                                     f"{near_tie:.0e}): {x} {y}")
+            return k, err, dec
     if len(a) != len(b):
         raise AssertionError(f"{label}: {len(a)} and {len(b)} quartets")
-    return None, err
+    return None, err, dec
 
 
 def phase_ml_round(report, dev):
@@ -2489,8 +2605,8 @@ def phase_ml_round(report, dev):
         t = runs["twin"]
         rel = {what: abs(t[f"{what}_loglk"] - k[f"{what}_loglk"])
                / abs(k[f"{what}_loglk"]) for what in ("pass", "round")}
-        flip, crit_err = first_flip(f"ml_nni_round {label} twin", h["log"],
-                                    t["log"])
+        flip, crit_err, _ = first_flip(f"ml_nni_round {label} twin",
+                                       h["log"], t["log"])
         bl_err = float(abs(t["pass"][0]["branchlength"]
                            - k["pass"][0]["branchlength"]).max())
         print(f"  twins on the CPU [{label}]: lengths pass {t['pass_s']:.3f}"
@@ -2936,11 +3052,12 @@ def shaped_tree(nj, shape, seed=0):
     nj.tree = tree
 
 
-def shaped_start(n, dev, shape, model, p=MAIN_P, seed=0):
+def shaped_start(n, dev, shape, model, p=MAIN_P, seed=0, approx=False):
     """An engine on synth_codes(n, p) on dev (no NJ phase) whose tree is
     shaped_tree(shape), with an ML store under `model` (Jukes-Cantor or
-    GTR; its averaged profiles) at CAT_N rates, the categories drawn from
-    `seed`."""
+    GTR; "jtt" a protein alignment of 20 codes, with -approxml's rough
+    posteriors where approx is set; its averaged profiles) at CAT_N rates,
+    the categories drawn from `seed`."""
     import numpy as np
 
     from veryfasttree_tpu_torch.engine import ml
@@ -2949,12 +3066,16 @@ def shaped_start(n, dev, shape, model, p=MAIN_P, seed=0):
     from veryfasttree_tpu_torch.models import TransitionMatrix
     from veryfasttree_tpu_torch.options import Options
 
-    opts = Options(n_codes=4, n_bootstrap=0, show_progress=False)
+    C = 20 if model == "jtt" else 4
+    opts = Options(n_codes=C, n_bootstrap=0, show_progress=False,
+                   exact_ml=not approx)
     opts.derive_settings()
-    nj = NeighbourJoining(opts, synth_codes(n, p), None, None, device=dev)
+    nj = NeighbourJoining(opts, synth_codes(n, p, n_codes=C), None, None,
+                          device=dev)
     shaped_tree(nj, shape, seed)
-    nj.ml = MLProfiles(nj, None if model == "jc"
-                       else TransitionMatrix.gtr(*GTR))
+    nj.ml = MLProfiles(nj, None if model == "jc" else
+                       TransitionMatrix.jtt92() if model == "jtt" else
+                       TransitionMatrix.gtr(*GTR))
     rng = np.random.default_rng(seed)
     nj.ml.set_rates(ml.ml_site_rates(CAT_N),
                     rng.integers(0, CAT_N, nj.n_pos).astype(np.int32))
@@ -3145,6 +3266,12 @@ def check_sweep(label, nj, dev, kernel_runs=True):
     if diff:
         raise AssertionError(f"ml_tree_loglk {label}: {diff} differ from the "
                              "per-level launches' (the root term's row)")
+    # the posteriors' rough and exact positions (20 codes; 0 at 4)
+    counts = [c.post_counts.tolist() for c in (kern, lev, twin)]
+    if counts[0] != counts[1]:
+        raise AssertionError(f"ml_posterior_sweep {label}: rough/exact "
+                             f"counts {counts[0]}, the per-level launches' "
+                             f"{counts[1]}")
     np.testing.assert_allclose(site_k, site_t, err_msg=f"ml_tree_loglk "
                                f"{label} per-site sums vs the twin",
                                **TWIN_SITE)
@@ -3160,7 +3287,8 @@ def check_sweep(label, nj, dev, kernel_runs=True):
           f"level {ll_l!r}), sums {sum_err:.3e} relative from the per-level "
           f"path's (bit for bit: total {ll_k == ll_l}, sites "
           f"{np.array_equal(site_k, site_l)}), {out['ml_tree_loglk'][0]:.3e}"
-          " from the twin's")
+          f" from the twin's; rough/exact posterior positions {counts[0]} "
+          f"(the twin's {counts[2]})")
     if not kernel_runs:
         return out, sweeps["kernel"]
 
@@ -3311,9 +3439,10 @@ def synth_codes(n, p, seed=0, n_codes=4):
     return rows.astype(np.int8)
 
 
-def fasta_text(codes) -> str:
-    """The alignment as FASTA text, names s0 .. s{N-1} (as bench.py)."""
-    return "".join(f">s{i}\n{''.join(ALPHA[c] for c in row)}\n"
+def fasta_text(codes, alphabet=ALPHA) -> str:
+    """The alignment as FASTA text, names s0 .. s{N-1} (as bench.py);
+    protein codes with alphabet=CODES_STRING_AA."""
+    return "".join(f">s{i}\n{''.join(alphabet[c] for c in row)}\n"
                    for i, row in enumerate(codes))
 
 
@@ -3574,11 +3703,11 @@ ROUND = re.compile(r"ML-NNI round (\d+): LogLk = (-?[\d.]+) NNIs (\d+)")
 FINAL = re.compile(r"Optimize all lengths: LogLk = (-?[\d.]+)")
 
 
-def run_ml(fasta, dev, **overrides):
+def run_ml(fasta, dev, log_out=None, **overrides):
     """One ML run through run_pipeline with every launch count set to 0
     just before it.  Returns (newick, nj, wall, counts, per-round
     (LogLk, NNIs), final LogLk); the LogLk values are the run's log
-    lines."""
+    lines, whose text goes into the list log_out where given."""
     import torch
 
     from veryfasttree_tpu_torch.options import ml_options
@@ -3594,6 +3723,8 @@ def run_ml(fasta, dev, **overrides):
     wall = time.perf_counter() - t0
     counts = {name: fn.launches for name, fn in wrappers().items()}
     text = log.getvalue()
+    if log_out is not None:
+        log_out.append(text)
     rounds = [(float(ll), int(n)) for _, ll, n in ROUND.findall(text)]
     return out.getvalue(), nj, wall, counts, rounds, \
         float(FINAL.findall(text)[-1])
@@ -3802,6 +3933,480 @@ def phase_ml_main(report, dev):
         report.setdefault(name, {})[key] = count
 
 
+# ------------------------------------------------------------- phase 2j
+def protein_round_case(report, dev):
+    """One ML lengths pass, then one ML NNI round, at 20 codes (JTT, CAT 20
+    rates fitted to the port's NJ tree of a protein alignment, N=SPR_N,
+    -approxml's rough posteriors off as in the default run) through one
+    launch of each kernel, through the host loops with the per-call
+    kernels (tree, branch lengths, NNIStats, counters, the rough and exact
+    posterior counts and the node and up-profile rows bit for bit) and
+    through the plain twins on CPU copies, the pass from the start and the
+    round from the kernel's state after its pass (the tree LogLk after the
+    pass within ML_TWIN_RTOL; each quartet's deciding differences within
+    ML_CRITERIA_TOL_20; the round's tree, NNI count, counters, max_delta
+    and LogLk (ML_TWIN_RTOL) as the kernel's, unless a quartet decision
+    flips on a near tie, ML_ROUND_NEAR_TIE_20, where the trees part); and
+    every quartet of the card's round decided again by the twins from the
+    card's inputs (the deciding differences within ML_CRITERIA_TOL_20, a
+    flip only on a near tie, ML_TWIN_NEAR_TIE).  Reports the kernels' device
+    times, walls and bounds under ml_nni_round<20> and
+    ml_lengths_pass<20>."""
+    import numpy as np
+    import torch
+
+    from veryfasttree_tpu_torch.engine import ml, rearrange
+    from veryfasttree_tpu_torch.ops import ml_round
+
+    cpu = torch.device("cpu")
+    lengths, nni = ml_round.ml_lengths_pass, ml_round.ml_nni_round
+    label = f"N={SPR_N} JTT CAT 20"
+    start = ml_start(SPR_N, dev, "jtt", cat=True)
+    # the first launch of each 20-code kernel in the process loads it (some
+    # seconds): once each on a copy before the timed runs
+    warm = ml_copy(start, dev)
+    lengths(warm)
+    nni(warm, 0, 2, rearrange.NNIStats.init(warm))
+    runs = {}
+    for name, where, kernel in (("kernel", dev, True),
+                                ("host loop", dev, False),
+                                ("twin", cpu, True)):
+        nj = ml_copy(start, where)
+        stats = rearrange.NNIStats.init(nj)
+        if kernel:
+            steps = (("pass", lambda: lengths(nj)),
+                     ("round", lambda: nni(nj, 0, 2, stats)))
+        else:
+            steps = (("pass", lambda: ml.optimize_all_branch_lengths(nj)),
+                     ("round", lambda: rearrange.do_nni(nj, 0, 2, True,
+                                                        stats)))
+        run = {}
+        reset_launches()
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)         # the twin's tiny ops only contend
+        for what, fn in steps:
+            if name == "twin" and what == "round":
+                # the twins' round from the kernel's state after its pass,
+                # not from their own pass's lengths: the decisions then part
+                # only by the round's own float32 searches
+                nj = ml_copy(after_pass, where)
+                stats = rearrange.NNIStats.init(nj)
+            if name == "host loop":
+                rows = record_ml_rows(nj)
+            out = []
+            t0 = time.perf_counter()
+            if name != "kernel" and what == "round":
+                run["log"] = ml_decisions(lambda: out.append(fn()))
+            else:
+                out.append(fn())
+            torch.cuda.synchronize()
+            run[f"{what}_s"] = time.perf_counter() - t0
+            run[what] = ml_state(nj, stats if what == "round" else None,
+                                 out[0] if what == "round" else None)
+            run[f"{what}_loglk"] = ml.tree_loglk(nj)
+            if name == "host loop":
+                run[f"{what}_rows"] = len(rows[0]) + len(rows[1])
+                rows[2]()
+            if name == "kernel" and what == "pass":
+                after_pass = ml_copy(nj, cpu)
+        torch.set_num_threads(threads)
+        run.update(layout=nni.tree_layout, scratch=nni.scratch_floats,
+                   pass_totals=dict(lengths.totals),
+                   round_totals=dict(nni.totals),
+                   launches=(lengths.launches, nni.launches))
+        runs[name] = run
+    k, h, t = runs["kernel"], runs["host loop"], runs["twin"]
+    if k["launches"] != (1, 1):
+        raise AssertionError(f"ml round kernels {label}: launches "
+                             f"{k['launches']}, not one each")
+    for what in ("pass", "round"):
+        diff = ml_diff(h[what], k[what])
+        if diff:
+            raise AssertionError(f"ml round kernels {label}: after the "
+                                 f"{what}, {diff} differ between the kernel "
+                                 "and the host loop")
+    P, C = start.ml.W.shape[1], start.ml.V.shape[2]
+    print(f"  ml_lengths_pass<20> [{label}]: bit for bit the host loop's; one "
+          f"launch, {k['pass_s']:.3f} s (the host loop {h['pass_s']:.3f} s), "
+          f"LogLk {k['pass_loglk']:.3f}; {k['pass_totals']}")
+    print(f"  ml_nni_round<20> [{label}]: bit for bit the host loop's; one "
+          f"launch, {k['round_s']:.3f} s (the host loop {h['round_s']:.3f} "
+          f"s), {k['round'][1]['round']} (NNIs, max delta), LogLk "
+          f"{k['round_loglk']:.3f}, tree in {k['layout']}, {k['scratch']} "
+          "floats of device scratch (the six quartet temporaries of each "
+          f"block); {k['round_totals']}")
+    rel = {what: abs(t[f"{what}_loglk"] - k[f"{what}_loglk"])
+           / abs(k[f"{what}_loglk"]) for what in ("pass", "round")}
+    # every quartet of the round decided again by the twins from the card's
+    # own inputs: the host loop on the card (bit for bit the kernel) from the
+    # kernel's state after its pass, each quartet's rows copied to a twin
+    # engine on the CPU
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    nj = ml_copy(after_pass, dev)
+    card_log, twin_log = ml_decisions(
+        lambda: rearrange.do_nni(nj, 0, 2, True, rearrange.NNIStats.init(nj)),
+        ml_copy(after_pass, cpu))
+    torch.set_num_threads(threads)
+    if [x[:2] for x in card_log] != [x[:2] for x in h["log"]]:
+        raise AssertionError(f"ml round kernels {label}: the host loop's "
+                             "round from the kernel's pass decides otherwise")
+    q_dec = max(float(np.max(np.abs((x[2] - x[2][0]) - (y[2] - y[2][0]))))
+                for x, y in zip(card_log, twin_log))
+    q_flips = [(q, [abs(c[x[1]] - c[y[1]]) for c in (x[2], y[2])])
+               for q, (x, y) in enumerate(zip(card_log, twin_log))
+               if x[1] != y[1]]
+    print(f"  twins on the CPU [{label}], each of the round's "
+          f"{len(card_log)} quartets from the card's inputs: deciding "
+          f"differences within {q_dec:.3e} (limit {ML_CRITERIA_TOL_20:.0e}); "
+          f"{len(q_flips)} decisions flip (quartet, margins on the card and "
+          f"in the twins: {q_flips}; limit {ML_TWIN_NEAR_TIE:.0e})")
+    if q_dec > ML_CRITERIA_TOL_20 or any(max(m) > ML_TWIN_NEAR_TIE
+                                         for _, m in q_flips):
+        raise AssertionError(f"ml round kernels {label}: the twins decide "
+                             "the card's quartets otherwise")
+    flip, crit_err, dec_err = first_flip(
+        f"ml_nni_round<20> {label} twin", h["log"], t["log"],
+        ML_ROUND_NEAR_TIE_20, ML_CRITERIA_TOL_20)
+    margins = None if flip is None else [
+        abs(c[h["log"][flip][1]] - c[t["log"][flip][1]])
+        for c in (h["log"][flip][2], t["log"][flip][2])]
+    print(f"  twins on the CPU [{label}]: lengths pass {t['pass_s']:.3f} s, "
+          f"LogLk {t['pass_loglk']:.3f} ({rel['pass']:.2e} relative); NNI "
+          f"round from the kernel's pass {t['round_s']:.3f} s, "
+          f"{t['round'][1]['round']}, LogLk {t['round_loglk']:.3f} "
+          f"({rel['round']:.2e} relative), {len(t['log'])} quartets, "
+          + (f"the same decisions, criteria within {crit_err:.3e} (deciding "
+             f"differences {dec_err:.3e}); counters {t['round'][1]}"
+             if flip is None else
+             f"a near tie flips at quartet {flip} of {len(h['log'])} "
+             f"(margins {margins[0]:.4f} on the card, {margins[1]:.4f} in "
+             f"the twins; criteria within {crit_err:.3e}, deciding "
+             f"differences {dec_err:.3e} up to it)"))
+    # after a flip the two rounds' trees part: the round is then held by
+    # the quartets decided from the card's inputs above
+    if rel["pass"] > ML_TWIN_RTOL or (flip is None
+                                      and rel["round"] > ML_TWIN_RTOL):
+        raise AssertionError(f"ml round kernels {label}: tree LogLk {rel} "
+                             "relative from the twins'")
+    (k_nni, k_max), (t_nni, t_max) = (r["round"][1]["round"] for r in (k, t))
+    trees = [{n: r["round"][0][n] for n in ("parent", "children", "n_child")}
+             for r in (k, t)]
+    if flip is None and (
+            k_nni != t_nni or abs(k_max - t_max) > ML_TWIN_NEAR_TIE
+            or any(not np.array_equal(trees[0][n], trees[1][n])
+                   for n in trees[0])
+            or {c: v for c, v in k["round"][1].items() if c != "round"}
+            != {c: v for c, v in t["round"][1].items() if c != "round"}):
+        same = {n: np.array_equal(trees[0][n], trees[1][n]) for n in trees[0]}
+        raise AssertionError(f"ml round kernels {label}: {k['round'][1]}, "
+                             f"the twins' {t['round'][1]}; trees {same}")
+    for wrapper, what in ((lengths, "pass"), (nni, "round")):
+        def one(wrapper=wrapper):
+            nj = ml_copy(start, dev)
+            if wrapper is nni:
+                wrapper(nj, 0, 2, rearrange.NNIStats.init(nj))
+            else:
+                wrapper(nj)
+
+        name = wrapper.__name__
+        dev_us = device_us(one, DEVICE_NAMES[name], runs=2)
+        totals = k[f"{what}_totals"]
+        bound_ms, bound_by, n_bytes, n_ops = ml_round_bound(
+            totals, h[f"{what}_rows"], P, C, False)
+        per, unit = (totals["quartets"], "quartet optimization") \
+            if wrapper is nni else (totals["searches"], "line search")
+        report[f"{name}<20>"] = {
+            "max_abs_err": abs(t[f"{what}_loglk"] - k[f"{what}_loglk"]),
+            "ms": 1e3 * k[f"{what}_s"], "plain_ms": 1e3 * t[f"{what}_s"],
+            "host_loop_ms": 1e3 * h[f"{what}_s"], "device_us": dev_us,
+            "device_us_per_node": dev_us / (SPR_N - 2),
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "scratch_floats": k["scratch"], "tree_layout": k["layout"]}
+        print(f"  {name}<20> [{label}]: device {dev_us / 1e3:.3f} ms for the "
+              f"{what} ({dev_us / max(per, 1):.3f} us per {unit}); "
+              f"{h[f'{what}_rows']} rows read or written, {n_ops:.4e} "
+              f"operations: bound {bound_ms:.4e} ms ({bound_by}; bytes "
+              f"{1e3 * n_bytes / HBM_BYTES_PER_S:.4e} ms, operations "
+              f"{1e3 * n_ops / F32_OPS_PER_S:.4e} ms)")
+
+
+def check_gate(report, dev):
+    """ml_posterior at 20 codes with -approxml's rough-posterior gate on a
+    random JTT store of the N=MAIN_N layout: the SH pass's list shape (2S
+    posteriors into the list-pass rows), half of leaf pairs at short
+    lengths (mostly rough) and half of internal rows, against the twin on
+    the card: codes and weights equal, vectors within 1e-6, the rough and
+    exact counts equal (and neither 0).  Timed as phase 2's lists;
+    reported under ml_posterior<20>."""
+    import numpy as np
+    import torch
+
+    from veryfasttree_tpu_torch.ops import ml_kernels as mk
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20)
+    codes, W, V, m = ml_store_case(20, "jtt", gen, dev, approx=True)
+    n_rows, P = codes.shape
+    rng = np.random.default_rng(20)
+    K, half = LIST_POSTERIORS, LIST_POSTERIORS // 2
+    r1 = np.concatenate([rng.integers(0, MAIN_N, half),
+                         rng.integers(MAIN_N, 2 * MAIN_N, K - half)])
+    r2 = np.concatenate([rng.integers(0, MAIN_N, half),
+                         rng.integers(0, 2 * MAIN_N, K - half)])
+    lens = np.concatenate([rng.uniform(5e-4, 0.05, half),
+                           rng.uniform(5e-4, 0.5, K - half)])
+    args = (n_rows - 2 * MAIN_N + np.arange(K), r1, r2, lens,
+            rng.permutation(lens))
+    outs, counts = [], []
+    for fn in (mk.ml_posterior, mk.ml_posterior_ref):
+        c, w, v = codes.clone(), W.clone(), V.clone()
+        m.counts.zero_()
+        fn(c, w, v, m, *args)
+        outs.append((c, w, v))
+        counts.append(m.counts.tolist())
+    (c1, w1, v1), (c2, w2, v2) = outs
+    err = float((v1 - v2).abs().max())
+    if not (torch.equal(c1, c2) and torch.equal(w1, w2)) or err > 1e-6:
+        raise AssertionError(f"ml_posterior<20> gate: rows {err:.3e} from "
+                             "the twin's (codes, weights equal: "
+                             f"{torch.equal(c1, c2)}, {torch.equal(w1, w2)})")
+    if counts[0] != counts[1] or min(counts[0]) == 0:
+        raise AssertionError(f"ml_posterior<20> gate: rough/exact counts "
+                             f"{counts[0]}, the twin's {counts[1]}")
+    del outs, c1, w1, v1, c2, w2, v2
+    lst = (codes.clone(), W.clone(), V.clone(), m, *args)
+    n_distinct = len(np.unique(np.concatenate([r1, r2])))
+    times = timing("ml_posterior", lambda: mk.ml_posterior(*lst),
+                   lambda: mk.ml_posterior_ref(*lst),
+                   (n_distinct + K) * ml_row_bytes(P, 20) + 4 * P,
+                   K * P * ml_ops(20, False)[2], twin_runs=5)
+    report["ml_posterior<20>"] = {"max_abs_err": err, "list_k": K,
+                                  "rough_exact": counts[0], **times}
+    print(f"  ml_posterior<20> [{n_rows}x{P} JTT, -approxml gate, {K} "
+          f"posteriors]: rough/exact positions {counts[0]} (the twin's "
+          f"{counts[1]}), max abs err {err:.3e}; kernel {times['ms']:.4f} "
+          f"ms launch to launch, {times['device_us']:.3f} us on the device, "
+          f"twin {times['plain_ms']:.4f} ms, bound {times['bound_ms']:.3e} "
+          f"ms ({times['bound_by']})")
+
+
+def phase_protein_kernels(report, dev):
+    """The ML kernels at 20 codes: the round kernels (protein_round_case),
+    the rough-posterior gate (check_gate), and the whole-tree sweep and
+    tree log-likelihood (check_sweep) on a balanced tree of MAIN_N leaves of
+    a protein alignment (JTT, CAT 20, the gate on), whose rough and exact
+    counts must equal the per-level launches'."""
+    protein_round_case(report, dev)
+    check_gate(report, dev)
+    nj = shaped_start(MAIN_N, dev, "balanced", "jtt", approx=True)
+    out, _ = check_sweep(f"balanced N={MAIN_N} JTT CAT 20 -approxml", nj, dev)
+    for name, (err, times) in out.items():
+        report[f"{name}<20>"] = {"max_abs_err": err, **times}
+
+
+# ------------------------------------------------------------- phases 7a, 7b
+SHARE = re.compile(r"approximate-posteriors ([\d.]+)%")
+
+
+def run_protein(fasta, dev, **overrides):
+    """run_ml of a protein run (n_codes 20, the stats block printed):
+    also returns the approximate-posteriors share of its stats line."""
+    log = []
+    out = run_ml(fasta, dev, log, n_codes=20, verbose=2, **overrides)
+    shares = SHARE.findall(log[0])
+    return (*out, shares[-1] if shares else None)
+
+
+def host_loop_rounds(fn):
+    """Run fn() with every ML NNI round through the host loop with the
+    per-call kernels (engine/rearrange.do_nni; bit for bit the round
+    kernel, phase 2j) and engine/ml.ml_quartet_nni logging its decisions:
+    returns (fn's result, [(rows, choice, criteria)])."""
+    from veryfasttree_tpu_torch.engine import rearrange
+    from veryfasttree_tpu_torch.ops import ml_round
+
+    orig, out = ml_round.ml_nni_round, []
+    ml_round.ml_nni_round = \
+        lambda nj, i, n, stats, **kw: rearrange.do_nni(nj, i, n, True, stats)
+    try:
+        log = ml_decisions(lambda: out.append(fn()))
+    finally:
+        ml_round.ml_nni_round = orig
+    return out[0], log
+
+
+def golden_flip(label, suffix, rerun, newick):
+    """Where the port's tree is not the golden's: rerun() the same run with
+    the ML NNI rounds through the host loop, its decisions logged
+    (host_loop_rounds), which must give the same Newick, and find the first
+    decision it takes otherwise than the JAX package's (the golden's
+    _decisions.json): before it each quartet's deciding differences within
+    ML_CRITERIA_TOL_20 of the golden's, and it a near tie (first_flip).
+    Returns (index, count, margins, the deciding differences' max abs
+    difference up to it)."""
+    import numpy as np
+
+    out, log = host_loop_rounds(rerun)
+    if out[0] != newick:
+        raise AssertionError(f"{label}: the host loop's Newick is not the "
+                             "round kernel's")
+    with open(PROTEIN_GOLDEN + suffix + "_decisions.json") as f:
+        golden = [(tuple(rows), choice, np.array(crit, dtype=np.float64))
+                  for rows, choice, crit in json.load(f)]
+    flip, _, dec_err = first_flip(f"{label} against the JAX package", golden,
+                                  log, ML_TWIN_NEAR_TIE, ML_CRITERIA_TOL_20)
+    if flip is None:
+        raise AssertionError(f"{label}: the trees differ, but no ML NNI "
+                             "decision does")
+    margins = [abs(c[golden[flip][1]] - c[log[flip][1]])
+               for c in (golden[flip][2], log[flip][2])]
+    return flip, len(golden), margins, dec_err
+
+
+def phase_protein_golden(dev):
+    """The default protein run (JTT, CAT 20, SH-like supports from 1000
+    resamples), -lg -gamma and -approxml at N=PROTEIN_GOLDEN_N,
+    P=PROTEIN_GOLDEN_P against the JAX package's trees
+    (scripts/make_torch_port_protein_golden.py): RF 0 and the final LogLk
+    within 1e-4 relative; the ML-NNIs per round and the
+    approximate-posteriors share printed beside the golden's, the rough
+    count 0 without -approxml, and with it, where the trees agree, the
+    share within 0.02 points and the rough and exact counts within
+    PROTEIN_COUNT_RTOL of the golden's.  Where the RF is not 0, the trees
+    must part at an ML NNI decision that is a near tie, the decisions
+    before it alike (golden_flip), which is printed with its margins."""
+    from veryfasttree_tpu_torch.constants import CODES_STRING_AA
+
+    from util import rf_distance
+
+    fasta = fasta_text(synth_codes(PROTEIN_GOLDEN_N, PROTEIN_GOLDEN_P, seed=0,
+                                   n_codes=20), CODES_STRING_AA)
+    for suffix, overrides in (("", {}), ("_lg_gamma", {
+            "use_lg": True, "gamma_loglk": True}),
+            ("_approxml", {"exact_ml": False})):
+        with open(PROTEIN_GOLDEN + suffix + ".nwk") as f:
+            golden = f.read()
+        with open(PROTEIN_GOLDEN + suffix + ".json") as f:
+            meta = json.load(f)
+        label = (f"N={PROTEIN_GOLDEN_N} P={PROTEIN_GOLDEN_P} protein "
+                 f"{suffix[1:].replace('_', ' -') or 'default'}")
+        nw, nj, wall, counts, rounds, final, share = run_protein(
+            fasta, dev, **overrides)
+        rf, n_splits = rf_distance(nw, golden)
+        rel = abs(final - meta["final_loglk"]) / abs(meta["final_loglk"])
+        print(f"  {label}: {wall:.2f} s, RF {rf}/{n_splits} to the JAX "
+              f"golden, final LogLk {final:.3f} (golden "
+              f"{meta['final_loglk']:.3f}, rel diff {rel:.2e}); ML-NNIs per "
+              f"round {[r[1] for r in rounds]} (golden {meta['round_nnis']});"
+              f" approximate-posteriors {share}% (golden "
+              f"{meta['approx_share']}%), rough/exact "
+              f"{nj.debug.n_aa_posterior_rough}/"
+              f"{nj.debug.n_aa_posterior_exact} (golden "
+              f"{meta['n_aa_posterior_rough']}/"
+              f"{meta['n_aa_posterior_exact']}); launches "
+              f"{ {k: v for k, v in counts.items() if v} }")
+        if not rel <= 1e-4:
+            raise AssertionError(f"{label}: RF {rf}, final LogLk rel diff "
+                                 f"{rel:.2e}")
+        rough, exact = (nj.debug.n_aa_posterior_rough,
+                        nj.debug.n_aa_posterior_exact)
+        if not overrides.get("exact_ml", True):
+            # -approxml: the share within 0.02 points and each count within
+            # PROTEIN_COUNT_RTOL of the golden's (where the trees agree: the
+            # counts follow the run's searches)
+            off = [abs(x - meta[k]) / meta[k] for x, k in (
+                (rough, "n_aa_posterior_rough"),
+                (exact, "n_aa_posterior_exact"))]
+            print(f"  {label}: rough/exact counts {off[0]:.2e}, {off[1]:.2e}"
+                  f" relative from the golden's")
+            if rf == 0 and (abs(float(share) - float(meta["approx_share"]))
+                            > 0.02
+                            or max(off) > PROTEIN_COUNT_RTOL):
+                raise AssertionError(f"{label}: approximate-posteriors "
+                                     f"{share}%, counts {rough}/{exact}, "
+                                     "against the golden's")
+        elif rough != 0 or meta["n_aa_posterior_rough"] != 0:
+            raise AssertionError(f"{label}: {rough} rough positions (golden "
+                                 f"{meta['n_aa_posterior_rough']}) without "
+                                 "-approxml")
+        if rf != 0:
+            flip, n_dec, margins, dec_err = golden_flip(
+                label, suffix, lambda: run_protein(fasta, dev, **overrides),
+                nw)
+            print(f"  {label}: the trees part at ML NNI decision {flip} of "
+                  f"{n_dec}, a near tie: its two choices {margins[0]:.2e} "
+                  f"apart in the JAX package, {margins[1]:.2e} in the port "
+                  f"(limit {ML_TWIN_NEAR_TIE:.0e}); the deciding differences"
+                  f" within {dec_err:.3e} up to it (limit "
+                  f"{ML_CRITERIA_TOL_20:.0e})")
+
+
+def phase_protein_main(report, dev):
+    """The default protein run at N=PROTEIN_N, P=PROTEIN_P: the protein ML
+    main path (BASELINE.json's ~5k-taxa JTT+CAT config), warm (phase 7a ran
+    the code).  The launch counts are reset just before it and read just
+    after it: ml_nni_round and ml_lengths_pass launched at 20 codes (their
+    scratch and tree layout printed), ml_posterior and ml_pair_loglk only in
+    the SH pass's lists, the CAT fit in whole-tree sweeps only (CAT_N + 2
+    sweeps, CAT_N tree log-likelihoods)."""
+    from veryfasttree_tpu_torch.constants import CODES_STRING_AA
+    from veryfasttree_tpu_torch.ops import ml_round
+
+    from util import newick_splits
+
+    n = PROTEIN_N
+    fasta = fasta_text(synth_codes(n, PROTEIN_P, seed=0, n_codes=20),
+                       CODES_STRING_AA)
+    ((nw, nj, wall, counts, rounds, final, share), cat), sh, sh_pass = \
+        sh_launches(lambda: cat_launches(lambda: run_protein(fasta, dev)))
+    t = nj.timings
+    nj_s = t["store_s"] + t["tophits_s"] + t["joins_s"]
+    print(f"  N={n} P={PROTEIN_P} protein default: wall {wall:.2f} s; NJ "
+          f"{nj_s:.3f} s (store {t['store_s']:.3f}, top-hits "
+          f"{t['tophits_s']:.3f}, joins {t['joins_s']:.3f}), ME NNI "
+          f"{t['nni_s']:.3f} s, SPR {t['spr_s']:.3f} s, ME lengths "
+          f"{t['lengths_s']:.3f} s, ML lengths {t['ml_lengths_s']:.3f} s, ML "
+          f"NNI {t['ml_nni_s']:.3f} s ({len(rounds)} rounds), CAT "
+          f"{t['cat_s']:.3f} s, SH {t['sh_s']:.3f} s; final LogLk "
+          f"{final:.3f}; ML-NNIs per round {[r[1] for r in rounds]}; "
+          f"approximate-posteriors {share}% (rough/exact "
+          f"{nj.debug.n_aa_posterior_rough}/{nj.debug.n_aa_posterior_exact});"
+          f" launches {counts}")
+    _, leaves = newick_splits(nw)
+    if len(leaves) != n or not math.isfinite(final):
+        raise AssertionError(f"{len(leaves)} leaves, final LogLk {final}")
+    require_launched("protein main path", counts, ML_PATH + (
+        "nj_join_epoch", "me_spr_round", "me_nni_round"))
+    rounds_t, pass_t = (wrappers()[k].totals
+                        for k in ("ml_nni_round", "ml_lengths_pass"))
+    print(f"  ML round kernels at 20 codes: ml_nni_round "
+          f"{counts['ml_nni_round']} launches ({rounds_t['quartets']} quartet"
+          f" optimizations, {rounds_t['n_ml_nni']} NNIs, "
+          f"{rounds_t['speculative']} speculative AC/AD discarded), "
+          f"ml_lengths_pass {counts['ml_lengths_pass']} launches "
+          f"({pass_t['searches']} line searches); the tree in "
+          f"{ml_round.ml_nni_round.tree_layout}, "
+          f"{ml_round.ml_nni_round.scratch_floats} floats of device scratch")
+    print(f"  SH pass: sh_s {t['sh_s']:.3f} s, {sh_pass.S} splits; launches "
+          f"{ {k: v for k, v in sh.items() if v} }; CAT fit: cat_s "
+          f"{t['cat_s']:.3f} s, launches "
+          f"{ {k: v for k, v in cat.items() if v} }")
+    for name in ("ml_posterior", "ml_pair_loglk"):
+        if counts[name] != sh.get(name, 0):
+            raise AssertionError(f"{name}: {counts[name]} launches in the "
+                                 f"run, {sh.get(name, 0)} in the SH pass")
+    want = {"ml_posterior_sweep": CAT_N + 2, "ml_tree_loglk": CAT_N}
+    if any(cat.get(k) != v for k, v in want.items()) \
+            or sum(cat.values()) != sum(want.values()):
+        raise AssertionError(f"the CAT fit launched {cat}, not {want}")
+    for entry, name in PROTEIN_KERNELS.items():
+        report.setdefault(entry, {})["launches"] = counts[name]
+    report["ml_nni_round<20>"].update(
+        main_path_scratch_floats=ml_round.ml_nni_round.scratch_floats,
+        main_path_tree_layout=ml_round.ml_nni_round.tree_layout)
+
+
 def main() -> int:
     import torch
 
@@ -3850,10 +4455,13 @@ def main() -> int:
                         or "Compiling entry" in line or "stack frame" in line))
         _build.library()
         report = _build.ptxas_report(log)
-        for kernel in _build.STACK_LIMITS:
-            print(f"  {kernel}<4>: "
-                  f"{_build.kernel_resources(report, kernel)}")
-        faults = _build.resource_faults(report)
+        for limits, n_codes in ((_build.STACK_LIMITS, 4),
+                                (_build.STACK_LIMITS_20, 20)):
+            for kernel in limits:
+                print(f"  {kernel}<{n_codes}>: "
+                      f"{_build.kernel_resources(report, kernel, n_codes)}")
+        faults = _build.resource_faults(report) + _build.resource_faults(
+            report, _build.STACK_LIMITS_20, 20)
         if faults:
             raise AssertionError("; ".join(faults))
 
@@ -3879,6 +4487,12 @@ def main() -> int:
         phase(f"4 main path N={MAIN_N}", phase_main, report, cuda)
         phase(f"5 ML N={ML_GOLDEN_N} vs JAX golden", phase_ml_golden, cuda)
         phase(f"6 ML main path N={MAIN_N}", phase_ml_main, report, cuda)
+        phase("2j ML kernels at 20 codes vs host loop, twins",
+              phase_protein_kernels, report, cuda)
+        phase(f"7a protein ML N={PROTEIN_GOLDEN_N} vs JAX goldens",
+              phase_protein_golden, cuda)
+        phase(f"7b protein ML main path N={PROTEIN_N}", phase_protein_main,
+              report, cuda)
     if "epoch" in probe and probe["epoch"][1].poll() is None:
         probe["epoch"][1].kill()             # phase 2d did not wait for it
         probe["epoch"][1].wait()

@@ -259,14 +259,56 @@ def test_local_bootstrap_list_is_the_serial_walk(cuda, two_tier):
     assert stats["splits"] == 297 and stats["launches"] == 5
 
 
-def _ml_store(gen, C, jc, dev):
+def _ml_store(gen, C, jc, dev, model=None, approx=False):
     """chip_smoke.py's random ML store (leaf rows with gaps, posterior rows
     with weights 0, 1 and a few fractions, 20 CAT rates), at a small
     layout."""
     from chip_smoke import ml_store_case
 
-    return ml_store_case(C, "jc" if jc else ("jtt" if C == 20 else "gtr"),
-                         gen, dev, n_rows=1024, P=256, n_pos=250, n_leaf=400)
+    model = model or ("jc" if jc else ("jtt" if C == 20 else "gtr"))
+    return ml_store_case(C, model, gen, dev, n_rows=1024, P=256, n_pos=250,
+                         n_leaf=400, approx=approx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["jtt", "lg"])
+def test_posterior_gate_counts_are_the_twins(cuda, model):
+    """ml_posterior at 20 codes with -approxml's rough-posterior gate, over
+    200 items (leaf pairs at short lengths, where most positions take the
+    rough path, and internal rows): the rows against the twin's on the
+    same CUDA tensors (codes and weights equal, vectors within 1e-6), and
+    the rough and exact counts equal, both nonzero; the exact path counts
+    every position that is not both gaps as exact."""
+    from veryfasttree_tpu_torch.ops import ml_kernels as mk
+
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    store = _ml_store(gen, 20, False, cuda, model, approx=True)
+    rng = np.random.default_rng(5)
+    r1 = np.concatenate([rng.integers(0, 400, 150), rng.integers(400, 800, 50)])
+    r2 = np.concatenate([rng.integers(0, 400, 150), rng.integers(0, 800, 50)])
+    lens = np.concatenate([rng.uniform(5e-4, 0.05, 150),
+                           rng.uniform(5e-4, 0.5, 50)])
+    args = (np.arange(800, 1000), r1, r2, lens, lens[::-1].copy())
+    m = store[3]
+    ours = [t.clone() for t in store[:3]]
+    mk.ml_posterior(*ours, m, *args)
+    got = m.counts.clone()
+    m.counts.zero_()
+    mk.ml_posterior_ref(*store, *args)
+    np.testing.assert_array_equal(ours[0].cpu().numpy(),
+                                  store[0].cpu().numpy())
+    np.testing.assert_array_equal(ours[1].cpu().numpy(),
+                                  store[1].cpu().numpy())
+    np.testing.assert_allclose(ours[2].cpu().numpy(), store[2].cpu().numpy(),
+                               rtol=0, atol=1e-6)
+    assert got.tolist() == m.counts.tolist()
+    assert min(got.tolist()) > 0
+    m.approx = False
+    m.counts.zero_()
+    mk.ml_posterior(*[t.clone() for t in store[:3]], m, *args)
+    w = store[1][torch.as_tensor(np.concatenate([r1, r2]), device=cuda)]
+    live = ((w[:200] > 0) | (w[200:] > 0)).sum().item()
+    assert m.counts.tolist() == [0, live]
 
 
 @pytest.mark.cuda
@@ -659,6 +701,39 @@ def test_ml_round_kernels_are_the_host_loops(cuda, n, model, cat,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("model,approx,tree_in_smem", [
+    ("jtt", False, True), ("jtt", True, True), ("lg", True, False)],
+    ids=["jtt", "jtt-approxml", "lg-approxml-tree-in-device-memory"])
+def test_ml_round_kernels_at_20_codes_are_the_host_loops(cuda, model, approx,
+                                                         tree_in_smem):
+    """The round kernels at 20 codes (protein, CAT 20 rates, N=150, P=500):
+    an ML lengths pass and an ML NNI round through ml_lengths_pass and
+    ml_nni_round (one launch each) and through the host loops with the
+    per-call kernels leave the same tree, lengths, NNIStats, debug
+    counters, rough and exact posterior counts and store rows, bit for
+    bit.  The quartet temporaries of the cluster's blocks lie in device
+    scratch (six rows of P * 21 floats each do not fit beside the rest)."""
+    from chip_smoke import ml_diff, ml_start
+    from veryfasttree_tpu_torch.ops import _build, ml_round
+
+    start = ml_start(150, cuda, model, cat=True, approx=approx)
+    host = _ml_runs(start, cuda, 1, False)
+    kern = _ml_runs(start, cuda, 1, True, tree_in_smem=tree_in_smem)
+    P = start.ml.p_pad
+    M = start.tree.maxnodes
+    scratch = _build.library().vft_ml_round_scratch_floats(
+        M, P, 20, int(tree_in_smem))
+    assert scratch >= 3 * 6 * P * 21
+    for fn in (ml_round.ml_lengths_pass, ml_round.ml_nni_round):
+        assert (fn.tree_layout, fn.scratch_floats) == (
+            "shared memory" if tree_in_smem else "device memory", scratch)
+    rough, exact = kern[1][1]["aa_counts"]
+    assert exact > 0 and (rough > 0) == approx
+    for h, k in zip(host, kern):
+        assert ml_diff(h, k) == []
+
+
+@pytest.mark.cuda
 def test_ml_round_speculation_is_discarded(cuda):
     """At N=500 the round's AC and AD optimizations start beside AB and are
     discarded where AB's star test fires: some are (the round's
@@ -811,7 +886,7 @@ def test_two_tier_join_epoch_at_500_is_the_host_loop(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("model", ["jc", "gtr"])
+@pytest.mark.parametrize("model", ["jc", "gtr", "jtt"])
 def test_sh_pass_is_the_host_loop(cuda, model):
     """The SH-like supports at N=150 (chip_smoke.sh_start: CAT 20 rates,
     after a lengths pass and an NNI round, 1000 resamples): sh_pass's list
@@ -892,7 +967,7 @@ def test_whole_tree_kernels_are_the_per_level_launches(cuda, shape, n, p,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("model", ["jc", "gtr"])
+@pytest.mark.parametrize("model", ["jc", "gtr", "jtt"])
 def test_cat_fit_is_the_per_level_path(cuda, model):
     """engine/ml.ml_site_likelihoods_by_rate (21 sweeps and 20 tree
     log-likelihoods over one TreeSweep, one fetch) against the per-level
@@ -930,6 +1005,32 @@ def test_cat_fit_is_the_per_level_path(cuda, model):
     np.testing.assert_array_equal(np.argmax(site_k + prior[:, None], 0),
                                   np.argmax(site_l + prior[:, None], 0))
     assert store_diff(kern.ml, levels.ml) == []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,n,p", [("balanced", 300, 500),
+                                       ("caterpillar", 520, 128)])
+def test_whole_tree_kernels_at_20_codes(cuda, shape, n, p):
+    """ml_posterior_sweep and ml_tree_loglk at 20 codes (JTT, CAT 20,
+    -approxml's gate on) against the per-level launches of ml_posterior
+    and ml_pair_loglk: the rows bit for bit, the totals within 1e-12
+    relative, and the rough and exact posterior counts equal."""
+    from chip_smoke import (max_rel, ml_copy, per_level_loglk,
+                            per_level_recompute, shaped_start, store_diff)
+
+    start = shaped_start(n, cuda, shape, "jtt", p=p, approx=True)
+    kern, levels = ml_copy(start, cuda), ml_copy(start, cuda)
+    sweep = kern.ml.tree_sweep()
+    kern.ml.recompute_ml_profiles(sweep)
+    ll_k, site_k = kern.ml.tree_loglk(sweep, want_site=True)
+    per_level_recompute(levels.ml)
+    ll_l, site_l = per_level_loglk(levels, want_site=True)
+    assert store_diff(kern.ml, levels.ml) == []
+    assert max_rel(float(ll_k), float(ll_l)) <= 1e-12
+    assert max_rel(site_k.cpu().numpy(), site_l.cpu().numpy()) <= 1e-12
+    counts = kern.ml.post_counts.tolist()
+    assert counts == levels.ml.post_counts.tolist()
+    assert min(counts) > 0
 
 
 @pytest.mark.cuda

@@ -42,6 +42,7 @@ from veryfasttree_tpu.engine import rearrange as jrearrange
 from veryfasttree_tpu.engine.nj import NeighbourJoining as JNJ
 from veryfasttree_tpu.io.alignment import seqs_to_codes
 from veryfasttree_tpu.models import DistanceMatrix, TransitionMatrix
+from veryfasttree_tpu import constants as jconst
 from veryfasttree_tpu.ops import kernels as jk
 from veryfasttree_tpu.options import Options
 from veryfasttree_tpu_torch.ops import kernels as tk
@@ -166,14 +167,32 @@ def test_ml_ops_match_jax(model):
                     np.asarray(f1), np.asarray(f2), w1, w2,
                     *(np.asarray(e) for e in ee), ratecat, cf[:C],
                     np.asarray(ml.eigeninv), np.asarray(ml.statinv), ml.tol)
-                with pytest.raises(NotImplementedError):
-                    tk.posterior_matrix(f1, f2, _t(w1), _t(w2), *ee,
-                                        _t(ratecat).long(), _t(cf[:C]),
-                                        _t(ml.eigeninv), _t(ml.statinv),
-                                        ml.tol, approx=(None,) * 4)
+                if C == 20:
+                    # the -approxml gate on the same rows: the same rough
+                    # and exact counts
+                    near = tuple(np.asarray(a, dtype=np.float32) for a in (
+                        ml.transmat.near_p, ml.transmat.near_freq))
+                    limits = (jconst.APPROX_ML_MIN_F,
+                              jconst.APPROX_ML_MIN_RATIO)
+                    gated = tk.posterior_matrix(
+                        f1, f2, _t(w1), _t(w2), *ee, _t(ratecat).long(),
+                        _t(cf[:C]), _t(ml.eigeninv), _t(ml.statinv), ml.tol,
+                        (*map(_t, near), *limits))
+                    jgated = jk.posterior_matrix(
+                        np.asarray(f1), np.asarray(f2), w1, w2,
+                        *(np.asarray(e) for e in ee), ratecat, cf[:C],
+                        np.asarray(ml.eigeninv), np.asarray(ml.statinv),
+                        ml.tol, (*near, *limits))
+                    assert [int(x) for x in gated[2:]] == \
+                        [int(x) for x in jgated[2:]]
+                    _close(gated[1], jgated[1], rtol=1e-6, atol=5e-4)
             np.testing.assert_array_equal(ours[0].numpy(), np.asarray(ref[0]))
             _close(ours[1], ref[1], rtol=1e-6,
                    atol=5e-4 if C == 20 else 5e-6 if not jc else 1e-6)
+            if not jc:
+                # at 20 codes the exact path counts every position that is
+                # not both gaps as exact, at 4 codes nothing
+                assert [int(x) for x in ours[2:]] == [int(x) for x in ref[2:]]
 
 
 @pytest.mark.parametrize("x0,guess", [

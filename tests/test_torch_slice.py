@@ -101,12 +101,14 @@ def test_bionj_join_rows_identical_to_jax():
         np.testing.assert_array_equal(ours, ref)
 
 
-@pytest.mark.parametrize("flags", [dict(n_codes=20, ml_nni=-1),
+@pytest.mark.parametrize("flags", [dict(n_codes=20, ml_nni=-1,
+                                        constraints_file="c.fasta"),
                                    dict(threads=2),
                                    dict(constraints_file="c.fasta"),
                                    dict(checkpoint_file="ckpt.npz")])
 def test_unported_options_raise(flags):
-    """Protein ML, -threads > 1, -constraints and -checkpoint."""
+    """-threads > 1, -constraints (also under protein ML, which runs:
+    tests/test_torch_protein_ml.py) and -checkpoint."""
     opts = TOptions(**{"n_codes": 4, "show_progress": False, "ml_nni": 0,
                        "n_bootstrap": 0, **flags})
     opts.derive_settings()

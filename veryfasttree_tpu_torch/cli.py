@@ -298,6 +298,36 @@ def args_to_options(ns) -> Options:
     return opts
 
 
+def report_settings(opts, log):
+    """Startup banner (ref VeryFastTree.cpp:131-259): the alignment, the
+    distances, joins and supports, and under ML the model line."""
+    print(f"{constants.NAME} Version {constants.VERSION} (PyTorch/CUDA)"
+          + (" Double precision" if opts.double_precision else ""), file=log)
+    print(f"Alignment: {opts.in_file_name or 'standard input'}", file=log)
+    ml = opts.ml_nni != 0 or opts.ml_len
+    support = "none"
+    if opts.n_bootstrap > 0:
+        support = f"SH-like {opts.n_bootstrap}" if ml \
+            else f"Local boot {opts.n_bootstrap}"
+    dist = opts.matrix_prefix or ("BLOSUM45" if opts.use_matrix else (
+        "Jukes-Cantor" if opts.n_codes == 4 and opts.logdist
+        else "%different"))
+    print(f"{'Amino acid' if opts.n_codes == 20 else 'Nucleotide'} distances: "
+          f"{dist} Joins: {'weighted' if opts.bionj else 'balanced'} "
+          f"Support: {support}", file=log)
+    if ml:
+        if opts.n_codes == 4:
+            model = "Generalized Time-Reversible" if opts.use_gtr \
+                else "Jukes-Cantor"
+        else:
+            model = opts.transition_file or (
+                "Le-Gascuel 2008" if opts.use_lg else "Whelan-And-Goldman"
+                if opts.use_wag else "Jones-Taylor-Thorton")
+        cats = "No rate variation across sites" if opts.n_rate_cats == 1 \
+            else f"CAT approximation with {opts.n_rate_cats} rate categories"
+        print(f"ML Model: {model}, {cats}", file=log)
+
+
 def main(argv=None) -> int:
     parser = build_parser()
     ns = parser.parse_args(argv)
@@ -314,6 +344,8 @@ def main(argv=None) -> int:
     log = TeeStream(log_file, sys.stderr) if log_file else sys.stderr
     try:
         opts.derive_settings(log)
+        if opts.verbose > 0:
+            report_settings(opts, log)
         in_fp = open_maybe_compressed(opts.in_file_name) if opts.in_file_name \
             else sys.stdin
         out_fp = open(opts.out_file_name, "w") if opts.out_file_name \

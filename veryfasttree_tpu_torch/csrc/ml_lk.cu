@@ -124,17 +124,19 @@ __global__ void __launch_bounds__(kPostThreads)
   fill_table<C>(m, len2[k], tab2);
   __syncthreads();
   const int p = blockIdx.y * kPostThreads + threadIdx.x;
-  if (p >= m.P) return;
-  float w, out[C];
-  const int rate = m.ratecat[p];
-  posterior_site<C>(m, store_row<C>(m, r1[k]), store_row<C>(m, r2[k]), tab1 + rate * C,
-                    tab2 + rate * C, tol, p, w, out);
-  const int64_t row = t[k];
-  codes_out[row * m.P + p] = (int8_t)kNoCode;
-  W_out[row * m.P + p] = w;
-  float* vo = V_out + (row * m.P + p) * C;
-#pragma unroll
-  for (int c = 0; c < C; ++c) vo[c] = out[c];
+  int kind = kCountNone;
+  if (p < m.P) {
+    float w;
+    const int rate = m.ratecat[p];
+    const int64_t row = t[k];
+    kind = posterior_site<C>(m, store_row<C>(m, r1[k]), store_row<C>(m, r2[k]),
+                             tab1 + rate * C, tab2 + rate * C, tol, p, w,
+                             V_out + (row * m.P + p) * C);
+    codes_out[row * m.P + p] = (int8_t)kNoCode;
+    W_out[row * m.P + p] = w;
+  }
+  if constexpr (C == 20)
+    count_kinds(kind == kCountRough ? 1u : 0u, kind == kCountExact ? 1u : 0u, m.counts);
 }
 
 // Shared memory of one line search: both effective vectors (unless they
@@ -195,7 +197,10 @@ __global__ void __launch_bounds__(kOptThreads) ml_quartet_opt_kernel(
     QuartetOut* __restrict__ out, float* __restrict__ site_lk, float* scratch,
     int64_t scratch_floats) {
   extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ unsigned long long kinds[2];  // the posteriors' rough, exact positions
   const int64_t k = blockIdx.x;
+  if (threadIdx.x < 2) kinds[threadIdx.x] = 0;
+  __syncthreads();
   const QuartetScratch q = quartet_scratch<C>(
       smem, scratch != nullptr ? scratch + k * scratch_floats : nullptr, temps_smem,
       eff_smem, m.P);
@@ -209,8 +214,12 @@ __global__ void __launch_bounds__(kOptThreads) ml_quartet_opt_kernel(
   const bool star = quartet_optimize<C>(
       m, q, red, lim, tol, star_test != 0, store_row<C>(m, r[0]), store_row<C>(m, r[1]),
       store_row<C>(m, r[2]), store_row<C>(m, r[3]), len, parts, n_eval,
-      site_lk != nullptr ? site_lk + k * 3 * m.P : nullptr, NoStop{}, stopped);
+      site_lk != nullptr ? site_lk + k * 3 * m.P : nullptr, NoStop{}, stopped, kinds);
   if (threadIdx.x == 0) {
+    if constexpr (C == 20) {
+      if (kinds[0]) atomicAdd(m.counts, kinds[0]);
+      if (kinds[1]) atomicAdd(m.counts + 1, kinds[1]);
+    }
     QuartetOut& o = out[k];
 #pragma unroll
     for (int i = 0; i < 3; ++i) o.parts[i] = parts[i];
@@ -286,9 +295,10 @@ int quartet_opt(const MLView& m, const int32_t* rows, const double* lens, int64_
 MLView make_view(const int8_t* codes, const float* W, const float* V, const float* code_freq,
                  const float* eigenval, const float* eigeninv, const float* statinv,
                  const float* rates, const int32_t* ratecat, int P, int n_pos, int n_rates, int jc,
-                 float min_rel_len) {
-  return MLView{codes, W, V, code_freq, eigenval, eigeninv, statinv, rates, ratecat,
-                P, n_pos, n_rates, jc, min_rel_len};
+                 float min_rel_len, const float* near_p, const float* near_freq, int approx,
+                 unsigned long long* counts) {
+  return MLView{codes, W, V, code_freq, eigenval, eigeninv, statinv, rates, ratecat, P,
+                n_pos, n_rates, jc, min_rel_len, near_p, near_freq, approx, counts};
 }
 
 }  // namespace
@@ -297,7 +307,11 @@ MLView make_view(const int8_t* codes, const float* W, const float* V, const floa
   const int8_t *codes, const float *W, const float *V, const float *code_freq,           \
       const float *eigenval, const float *eigeninv, const float *statinv,                 \
       const float *rates, const int32_t *ratecat, int64_t n_rows, int P, int C, int n_pos, \
-      int n_rates, int jc, float min_rel_len
+      int n_rates, int jc, float min_rel_len, const float *near_p, const float *near_freq, \
+      int approx, unsigned long long *counts
+#define VFT_ML_VIEW_PASS                                                                 \
+  codes, W, V, code_freq, eigenval, eigeninv, statinv, rates, ratecat, P, n_pos, n_rates, jc, \
+      min_rel_len, near_p, near_freq, approx, counts
 
 extern "C" {
 
@@ -322,8 +336,7 @@ int vft_ml_pair_loglk_f32(VFT_ML_STORE_ARGS, const int32_t* rows, const float* l
   if (!list_fits(n)) return (int)cudaErrorInvalidValue;
   if (!rows_in(rows, 2 * n, n_rows)) return kBadRow;
   if (n_rates < 1 || n_rates > kMaxRates) return (int)cudaErrorInvalidValue;
-  const MLView m = make_view(codes, W, V, code_freq, eigenval, eigeninv, statinv, rates, ratecat,
-                             P, n_pos, n_rates, jc, min_rel_len);
+  const MLView m = make_view(VFT_ML_VIEW_PASS);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int err = stage(rows, 2 * n * sizeof(int32_t), lens, n * sizeof(float), lists, st);
   if (err != 0) return err;
@@ -345,8 +358,7 @@ int vft_ml_posterior_f32(VFT_ML_STORE_ARGS, float tol, const int32_t* rows, cons
   if (!list_fits(n)) return (int)cudaErrorInvalidValue;
   if (!rows_in(rows, 3 * n, n_rows)) return kBadRow;
   if (n_rates < 1 || n_rates > kMaxRates) return (int)cudaErrorInvalidValue;
-  const MLView m = make_view(codes, W, V, code_freq, eigenval, eigeninv, statinv, rates, ratecat,
-                             P, n_pos, n_rates, jc, min_rel_len);
+  const MLView m = make_view(VFT_ML_VIEW_PASS);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int err = stage(rows, 3 * n * sizeof(int32_t), lens, 2 * n * sizeof(float), lists, st);
   if (err != 0) return err;
@@ -370,8 +382,7 @@ int vft_ml_opt_branch_f32(VFT_ML_STORE_ARGS, const int32_t* rows, const float* g
                           int32_t* n_eval, float* scratch, void* stream) {
   if (!rows_in(rows, 2 * n, n_rows)) return kBadRow;
   if (n_rates < 1 || n_rates > kMaxRates) return (int)cudaErrorInvalidValue;
-  const MLView m = make_view(codes, W, V, code_freq, eigenval, eigeninv, statinv, rates, ratecat,
-                             P, n_pos, n_rates, jc, min_rel_len);
+  const MLView m = make_view(VFT_ML_VIEW_PASS);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const SearchLimits lim{xmin, xmax, ftol, atol};
   if (C == 4) return opt_branch<4>(m, rows, rows + n, guess, n, lim, x, fx, n_eval, scratch, st);
@@ -395,8 +406,7 @@ int vft_ml_quartet_opt_f32(VFT_ML_STORE_ARGS, float tol, const int32_t* rows, co
   if (!list_fits(n)) return (int)cudaErrorInvalidValue;
   if (!rows_in(rows, 4 * n, n_rows)) return kBadRow;
   if (n_rates < 1 || n_rates > kMaxRates) return (int)cudaErrorInvalidValue;
-  const MLView m = make_view(codes, W, V, code_freq, eigenval, eigeninv, statinv, rates, ratecat,
-                             P, n_pos, n_rates, jc, min_rel_len);
+  const MLView m = make_view(VFT_ML_VIEW_PASS);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int err = stage(rows, 4 * n * sizeof(int32_t), lens, 5 * n * sizeof(double), lists, st);
   if (err != 0) return err;

@@ -13,6 +13,10 @@
 // code_freq [128, C] (rows 0..C-1 the rotated one-hots, row 127 the gap
 // vector), eigenval [C], eigeninv [C, C], statinv [C], rates [n_rates],
 // ratecat [P].  jc selects Jukes-Cantor (uniform 0.25 gap, pSame/pDiff).
+// approx turns on -approxml's rough posteriors (20 codes, matrix mode), from
+// near_p and near_freq [C, C]; counts [2] (rough, exact) gets the positions
+// of the posteriors that take each path at 20 codes (ref
+// nAAPosteriorRough/Exact), integer sums that feed no decision.
 //
 // Arithmetic: float32 per position with IEEE expf/logf and divisions; the
 // files that include this one are compiled with -fmad=false, so every float
@@ -50,6 +54,8 @@ constexpr float kCGold = 0.3819660f;
 constexpr float kZeps = 1.0e-10f;
 constexpr int kBrentItmax = 100;
 constexpr double kCloseLogLkLimit = 5.0;  // constants.CLOSE_LOGLK_LIMIT
+constexpr float kApproxMinF = 0.95f;      // constants.APPROX_ML_MIN_F
+constexpr float kApproxMinRatio = (float)(2.0 / 3.0);  // APPROX_ML_MIN_RATIO
 
 struct MLView {
   const int8_t* codes;      // [n_rows, P]
@@ -66,7 +72,28 @@ struct MLView {
   int n_rates;
   int jc;
   float min_rel_len;
+  const float* near_p;           // [C, C] the rough posteriors' tables
+  const float* near_freq;        // [C, C]
+  int approx;                    // -approxml's rough-posterior gate
+  unsigned long long* counts;    // [2] rough, exact positions (20 codes)
 };
+
+// What a posterior position adds to the rough/exact counts.
+enum { kCountNone, kCountRough, kCountExact };
+
+// A warp's rough and exact positions (each lane's counts), added n times to
+// sink[0] and sink[1] by lane 0, atomically; every lane of the warp calls
+// it.
+__device__ __forceinline__ void count_kinds(unsigned rough, unsigned exact,
+                                           unsigned long long* sink,
+                                           unsigned long long n = 1) {
+  rough = __reduce_add_sync(0xffffffffu, rough);
+  exact = __reduce_add_sync(0xffffffffu, exact);
+  if ((threadIdx.x & 31) == 0 && sink != nullptr) {
+    if (rough) atomicAdd(sink, n * rough);
+    if (exact) atomicAdd(sink + 1, n * exact);
+  }
+}
 
 // One profile row: a row of the store, or a quartet temporary (codes null:
 // every position NOCODE, as a posterior writes it).
@@ -312,20 +339,37 @@ __device__ __forceinline__ double pair_loglk_block(const MLView& m, const RowRef
 }
 
 // Posterior parent profile of rows r1 and r2 at position p (ops/kernels.py
-// posterior_jc, posterior_matrix, exact path) from the rate entries e1, e2
-// of p's category at their two lengths: the weight (0 where both are gaps,
-// else 1) and the vector.
+// posterior_jc, posterior_matrix) from the rate entries e1, e2 of p's
+// category at their two lengths: the weight (0 where both are gaps, else
+// 1) into w_out, the vector into vo[0 .. C-1] (position p of the target
+// row, which no other thread touches).  At 20 codes in matrix mode, with
+// m.approx, the rough gate of posterior_matrix: a position whose
+// normalized posterior has one character ch (the lowest index of the
+// maximum) at kApproxMinF or more, and whose mixture w onehot + (1 - w)
+// near_p[ch] under-estimates no other character by more than
+// kApproxMinRatio, takes w statinv[ch] code_freq[ch] + (1 - w)
+// near_freq[ch] instead of the rotation back.  Returns what the position
+// counts: kCountRough or kCountExact at 20 codes in matrix mode where not
+// both are gaps, else kCountNone.
+//
+// At 20 codes the rotations run one character at a time (rolled loops),
+// the character-space values staged in vo itself, so that a thread holds
+// one rotated vector and the posterior in registers, not 20 x 20 unrolled
+// products (the round kernels, which inline it many times, spilled); the
+// sums, their order and every rounding are those of 4 codes.
 template <int C>
-__device__ __forceinline__ void posterior_site(const MLView& m, const RowRef& r1, const RowRef& r2,
-                                               const float* e1, const float* e2, float tol, int p,
-                                               float& w_out, float (&out)[C]) {
+__device__ __forceinline__ int posterior_site(const MLView& m, const RowRef& r1, const RowRef& r2,
+                                              const float* e1, const float* e2, float tol, int p,
+                                              float& w_out, float* vo) {
   float w1, w2, f1[C], f2[C];
   effective<C>(m, r1, p, true, w1, f1);
   effective<C>(m, r2, p, true, w2, f2);
   const bool both_gap = w1 == 0.0f && w2 == 0.0f;
+  w_out = both_gap ? 0.0f : 1.0f;
   if (m.jc) {
     const float ps1 = e1[0], pd1 = e1[1];
     const float ps2 = e2[0], pd2 = e2[1];
+    float out[C];
     float tot = 0.0f;
 #pragma unroll
     for (int c = 0; c < C; ++c) {
@@ -336,19 +380,42 @@ __device__ __forceinline__ void posterior_site(const MLView& m, const RowRef& r1
     }
     const float den = fmaxf(tot, 1e-37f);
 #pragma unroll
-    for (int c = 0; c < C; ++c) out[c] = both_gap ? 0.25f : out[c] / den;
-  } else {
-    float m1[C], m2[C], fpost[C];
+    for (int c = 0; c < C; ++c) vo[c] = both_gap ? 0.25f : out[c] / den;
+    return kCountNone;
+  }
+  float m1[C], m2[C], fpost[C];
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
-      m1[c] = f1[c] * e1[c];
-      m2[c] = f2[c] * e2[c];
+  for (int c = 0; c < C; ++c) {
+    m1[c] = f1[c] * e1[c];
+    m2[c] = f2[c] * e2[c];
+  }
+  // rotate to character space, x[j] = code_freq[j] . m, and back,
+  // out[c] = sum_j fpost[j] * eigeninv[c][j]: each a double sum rounded
+  // once (probabilities near 0 are sums of large signed terms, which a
+  // float sum would round by its order; ops/kernels.py _rotate)
+  float tot = 0.0f;
+  if constexpr (C == 20) {
+#pragma unroll 1
+    for (int j = 0; j < C; ++j) {  // x1 into vo
+      const float* cf = m.code_freq + j * C;
+      double x1 = 0.0;
+#pragma unroll
+      for (int c = 0; c < C; ++c) x1 += (double)m1[c] * (double)cf[c];
+      vo[j] = (float)x1;
     }
-    // rotate to character space, x[j] = code_freq[j] . m, and back,
-    // out[c] = sum_j fpost[j] * eigeninv[c][j]: each a double sum rounded
-    // once (probabilities near 0 are sums of large signed terms, which a
-    // float sum would round by its order; ops/kernels.py _rotate)
-    float tot = 0.0f;
+#pragma unroll 1
+    for (int j = 0; j < C; ++j) {  // x2, and the unnormalized posterior into vo
+      const float* cf = m.code_freq + j * C;
+      double x2 = 0.0;
+#pragma unroll
+      for (int c = 0; c < C; ++c) x2 += (double)m2[c] * (double)cf[c];
+      const float f = fmaxf(vo[j] * (float)x2 * m.statinv[j], 0.0f);
+      vo[j] = f;
+      tot = j == 0 ? f : tot + f;
+    }
+#pragma unroll
+    for (int j = 0; j < C; ++j) fpost[j] = vo[j];
+  } else {
 #pragma unroll
     for (int j = 0; j < C; ++j) {
       const float* cf = m.code_freq + j * C;
@@ -361,41 +428,92 @@ __device__ __forceinline__ void posterior_site(const MLView& m, const RowRef& r1
       fpost[j] = fmaxf((float)x1 * (float)x2 * m.statinv[j], 0.0f);
       tot = j == 0 ? fpost[j] : tot + fpost[j];
     }
-    if (tot > tol) {
+  }
+  if (tot > tol) {
 #pragma unroll
-      for (int j = 0; j < C; ++j) fpost[j] = fpost[j] / tot;
+    for (int j = 0; j < C; ++j) fpost[j] = fpost[j] / tot;
+  }
+  const float* gap = m.code_freq + kNoCode * C;
+  if constexpr (C == 20) {
+    bool rough = false;
+    if (m.approx) {
+      int ch = 0;
+      float fmax = fpost[0];
+#pragma unroll
+      for (int j = 1; j < C; ++j) {
+        if (fpost[j] > fmax) {
+          fmax = fpost[j];
+          ch = j;
+        }
+      }
+      const float* np_ch = m.near_p + ch * C;
+      const float npdiag = np_ch[ch];
+      const float w = (fmax - npdiag) / (1.0f - npdiag);
+      bool under = false;
+#pragma unroll
+      for (int j = 0; j < C; ++j)
+        under = under || (j != ch && (1.0f - w) * np_ch[j] < fpost[j] * kApproxMinRatio);
+      rough = fmax >= kApproxMinF && !under;
+      if (rough) {
+        const float wi = w * m.statinv[ch];
+        const float* cf = m.code_freq + ch * C;
+        const float* nf = m.near_freq + ch * C;
+#pragma unroll 1
+        for (int c = 0; c < C; ++c) vo[c] = both_gap ? gap[c] : wi * cf[c] + (1.0f - w) * nf[c];
+      }
     }
+    if (!rough) {
+#pragma unroll 1
+      for (int c = 0; c < C; ++c) {
+        const float* ei = m.eigeninv + c * C;
+        double v = 0.0;
+#pragma unroll
+        for (int j = 0; j < C; ++j) v += (double)fpost[j] * (double)ei[j];
+        vo[c] = both_gap ? gap[c] : (float)v;
+      }
+    }
+    if (both_gap) return kCountNone;
+    return rough ? kCountRough : kCountExact;
+  } else {
+    float out[C];
 #pragma unroll
     for (int c = 0; c < C; ++c) {
       const float* ei = m.eigeninv + c * C;
       double v = 0.0;
 #pragma unroll
       for (int j = 0; j < C; ++j) v += (double)fpost[j] * (double)ei[j];
-      out[c] = both_gap ? m.code_freq[kNoCode * C + c] : (float)v;
+      out[c] = both_gap ? gap[c] : (float)v;
     }
+#pragma unroll
+    for (int c = 0; c < C; ++c) vo[c] = out[c];
+    return kCountNone;
   }
-  w_out = both_gap ? 0.0f : 1.0f;
 }
 
 // The posterior profile of rows r1 and r2 at lengths len1, len2 into a row
 // (codes_out NOCODE where not null, w_out [P], v_out [P, C]), each position
 // by the thread that owns it, from that thread's own rate entries: no
-// barrier.
+// barrier.  At 20 codes its rough and exact positions are added to sink[0]
+// and sink[1] (shared memory, atomically, one add a warp); every thread of
+// the block calls it.
 template <int C>
 __device__ __forceinline__ void posterior_row(const MLView& m, const RowRef& r1, const RowRef& r2,
                                               float len1, float len2, float tol,
-                                              int8_t* codes_out, float* w_out, float* v_out) {
+                                              int8_t* codes_out, float* w_out, float* v_out,
+                                              unsigned long long* sink) {
+  unsigned n_rough = 0, n_exact = 0;
   for (int p = threadIdx.x; p < m.P; p += kOptThreads) {
     const int rate = m.ratecat[p];
-    float e1[C], e2[C], w, o[C];
+    float e1[C], e2[C], w;
     rate_entries<C>(m, len1, rate, e1);
     rate_entries<C>(m, len2, rate, e2);
-    posterior_site<C>(m, r1, r2, e1, e2, tol, p, w, o);
+    const int kind = posterior_site<C>(m, r1, r2, e1, e2, tol, p, w, v_out + (int64_t)p * C);
+    n_rough += kind == kCountRough ? 1u : 0u;
+    n_exact += kind == kCountExact ? 1u : 0u;
     if (codes_out != nullptr) codes_out[p] = (int8_t)kNoCode;
     w_out[p] = w;
-#pragma unroll
-    for (int c = 0; c < C; ++c) v_out[(int64_t)p * C + c] = o[c];
   }
+  if constexpr (C == 20) count_kinds(n_rough, n_exact, sink);
 }
 
 // -log-likelihood of the searched branch at K lengths x, in one sweep over
@@ -641,7 +759,9 @@ __device__ QuartetScratch quartet_scratch(unsigned char* smem, float* glob, bool
 // the closing pairs' per-site likelihoods.  Returns whether the star test
 // ended the optimization; every thread gets the same values.  With a
 // polling Stop it ends after the search in which stop() answered true,
-// with `stopped` set and its results void.
+// with `stopped` set and its results void.  At 20 codes the posteriors'
+// rough and exact positions are added to sink[0], sink[1] (shared memory),
+// each before a barrier that every thread passes before the return.
 template <int C, class Stop>
 __device__ __forceinline__ bool quartet_optimize(const MLView& m, const QuartetScratch& q,
                                                  Red& red, const SearchLimits& lim, float tol,
@@ -649,7 +769,7 @@ __device__ __forceinline__ bool quartet_optimize(const MLView& m, const QuartetS
                                                  const RowRef& B, const RowRef& Cr,
                                                  const RowRef& D, double len[5], double parts[3],
                                                  int& n_eval, float* site, const Stop& stop,
-                                                 bool& stopped) {
+                                                 bool& stopped, unsigned long long* sink) {
   const int P = m.P;
   const size_t row_floats = (size_t)P * (C + 1);
   auto T = [&](int t) {
@@ -662,7 +782,7 @@ __device__ __forceinline__ bool quartet_optimize(const MLView& m, const QuartetS
     prof_mark(kPhQPost);
     float* row = q.temps + t * row_floats;
     posterior_row<C>(m, r1, r2, fmaxf((float)l1, lim.xmin), fmaxf((float)l2, lim.xmin), tol,
-                     nullptr, row, row + P);
+                     nullptr, row, row + P, sink);
     prof_mark(kPhControl);
   };
   n_eval = 0;

@@ -74,7 +74,10 @@
 //   traversal flags before them (26 bytes per node: 26 KB at N=500, 104 KB
 //   at N=2000; in device memory past about 5,800 nodes, the same code on
 //   other pointers).  Nothing goes to device scratch unless P is so large
-//   that a quartet's pieces leave shared memory.  The NNIStats and the
+//   that a quartet's pieces leave shared memory, as at 20 codes: there each
+//   block's six temporaries (258 KB at P=512) lie in device scratch, the
+//   search's vectors, rate bytes and partials in shared memory (83 KB), the
+//   tree beside them to about 5,600 nodes.  The NNIStats and the
 //   branch lengths stay in device memory, read by every thread of block 0
 //   and written by its thread 0.
 // - The lengths pass is one block of kOptThreads threads with the same
@@ -124,6 +127,8 @@ enum : int {
   kSearches,      // line searches
   kEvals,         // their evaluations
   kPairs,         // pair log-likelihoods
+  kAaRough,       // positions of those posteriors that took the rough path,
+  kAaExact,       // and the exact one (20 codes; added to atomically)
   kSpeculative,   // AC and AD optimizations started and discarded (not above)
   kMlFault,       // a broken tree invariant: the round is void
   kMlCounters
@@ -133,6 +138,7 @@ enum : int {
 struct QuartetResult {
   double parts[3];
   double len[5];
+  unsigned long long kinds[2];  // its posteriors' rough and exact positions
   int n_eval;
 };
 
@@ -190,12 +196,51 @@ struct RoundLayout {
   size_t tree_bytes, smem, scratch_floats;
 };
 
+// At 20 codes the model tables that a posterior reads character by
+// character (code_freq's 128 rows, eigeninv, and -approxml's near_p and
+// near_freq: 15,040 bytes) are staged at the front of every block's dynamic
+// shared memory (stage_tables), ahead of the pieces above; at 4 codes none.
+template <int C>
+struct MlTables {
+  float code_freq[128 * C];
+  float eigeninv[C * C];
+  float near_p[C * C];
+  float near_freq[C * C];
+};
+static_assert(sizeof(MlTables<20>) % 16 == 0, "the pieces after it stay 16-byte aligned");
+
+template <int C>
+constexpr size_t kTablesBytes = C == 20 ? sizeof(MlTables<20>) : 0;
+
 RoundLayout round_layout(int M, int P, int C, bool want_tree_smem, int n_blocks) {
+  const size_t tables = C == 20 ? kTablesBytes<20> : 0;
   const QuartetLayout q = quartet_layout(P, C);
   const size_t tree = tree_smem_bytes(M, 2);
-  const bool tree_smem = want_tree_smem && tree + q.smem <= (size_t)kMlRoundSmemCap;
+  const bool tree_smem = want_tree_smem && tables + tree + q.smem <= (size_t)kMlRoundSmemCap;
   const size_t tree_bytes = tree_smem ? tree : 0;
-  return {q, tree_smem, tree_bytes, tree_bytes + q.smem, n_blocks * q.scratch_floats};
+  return {q, tree_smem, tree_bytes, tables + tree_bytes + q.smem, n_blocks * q.scratch_floats};
+}
+
+// The MLView of a block with its 20-code tables copied into its shared
+// memory (every thread calls it; one barrier); m itself at 4 codes.
+template <int C>
+__device__ __forceinline__ MLView stage_tables(MLView m) {
+  if constexpr (C == 20) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    MlTables<C>& s = *reinterpret_cast<MlTables<C>*>(smem);
+    for (int i = threadIdx.x; i < 128 * C; i += kOptThreads) s.code_freq[i] = m.code_freq[i];
+    for (int i = threadIdx.x; i < C * C; i += kOptThreads) {
+      s.eigeninv[i] = m.eigeninv[i];
+      s.near_p[i] = m.near_p[i];
+      s.near_freq[i] = m.near_freq[i];
+    }
+    __syncthreads();
+    m.code_freq = s.code_freq;
+    m.eigeninv = s.eigeninv;
+    m.near_p = s.near_p;
+    m.near_freq = s.near_freq;
+  }
+  return m;
 }
 
 template <int C>
@@ -219,6 +264,12 @@ struct MlRound : RoundTree {
     if (tid == 0) sh->ctr[k] += n;
   }
 
+  // where the posteriors' rough and exact positions go: kAaRough and
+  // kAaExact, which every warp adds to atomically
+  __device__ __forceinline__ unsigned long long* kinds() const {
+    return reinterpret_cast<unsigned long long*>(sh->ctr + kAaRough);
+  }
+
   __device__ __forceinline__ RowRef row(int r) const { return store_row<C>(m, r); }
 
   // the posterior profile of rows r1 and r2 at lengths l1, l2 (as
@@ -230,7 +281,7 @@ struct MlRound : RoundTree {
                                                const RowRef& r1, const RowRef& r2, double l1,
                                                double l2) {
     posterior_row<C>(m, r1, r2, fmaxf((float)l1, lim.xmin), fmaxf((float)l2, lim.xmin), a.tol,
-                     codes_out, w_out, v_out);
+                     codes_out, w_out, v_out, kinds());
     count(kPostCompute, 1);
     count(kPosteriors, 1);
   }
@@ -319,6 +370,11 @@ struct MlRound : RoundTree {
     for (int i = 0; i < 5; ++i) len[i] = o.len[i];
     ll = quartet_ll(o.parts, false);
     count_quartet(false, false, o.n_eval);
+    // atomically: block 0's other warps may be in a posterior already
+    if (tid == 0) {
+      atomicAdd(kinds(), o.kinds[0]);
+      atomicAdd(kinds() + 1, o.kinds[1]);
+    }
   }
 
   // ml.ml_quartet_nni (ref MLQuartetNNI tcc:4885-5004, no constraints) on
@@ -351,7 +407,7 @@ struct MlRound : RoundTree {
       bool stopped;
       const bool star = quartet_optimize<C>(m, q, red, lim, a.tol, true, row(r[0]), row(r[1]),
                                             row(r[2]), row(r[3]), lab, parts, n_eval, nullptr,
-                                            NoStop{}, stopped);
+                                            NoStop{}, stopped, kinds());
       if (star && tid == 0) {
         if (consider_ac) *cl.map_shared_rank(&sh->abandon, 1) = seq;
         if (consider_ad) *cl.map_shared_rank(&sh->abandon, 2) = seq;
@@ -513,11 +569,12 @@ template <int C, bool kRound>
 __device__ __forceinline__ void tree_block(VFT_ML_ROUND_PARAMS, MlShared& sh) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x, M = args.maxnodes;
-  const TreeArrays t = stage_tree(smem, g_tree, g_path, g_flags, M, 2, L.tree_smem);
+  const TreeArrays t = stage_tree(smem + kTablesBytes<C>, g_tree, g_path, g_flags, M, 2,
+                                  L.tree_smem);
   if (tid < kMlCounters) sh.ctr[tid] = 0;
   __syncthreads();
-  const QuartetScratch q = quartet_scratch<C>(smem + L.tree_bytes, scratch, L.q.temps_smem,
-                                              L.q.eff_smem, m.P);
+  const QuartetScratch q = quartet_scratch<C>(smem + kTablesBytes<C> + L.tree_bytes, scratch,
+                                              L.q.temps_smem, L.q.eff_smem, m.P);
   MlRound<C> b{{t.tree, t.tree + M, t.tree + 4 * M, t.flags, t.path, args.n_seqs, args.root, M,
                 tid, false},
                m, codes, W, V, q, Red{q.red, 0}, lim, args, bl, &sh, t.flags + M, st, 0.0, 0};
@@ -539,14 +596,17 @@ __device__ __forceinline__ void tree_block(VFT_ML_ROUND_PARAMS, MlShared& sh) {
 }
 
 // a worker of the round (block k = 1, 2): run the commands of block 0 until
-// it sends kStop
+// it sends kStop.  Its posteriors' rough and exact positions gather in its
+// own ctr[kAaRough], ctr[kAaExact] (zero at each command's start), and go to
+// block 0 with the result, where they count only if the result is taken
 template <int C>
 __device__ __forceinline__ void worker_block(const cg::cluster_group& cl, int k, const MLView& m,
                                              const SearchLimits& lim, float tol, float* scratch,
                                              const RoundLayout& L, MlShared& sh) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const QuartetScratch q = quartet_scratch<C>(smem, scratch + k * L.q.scratch_floats,
-                                              L.q.temps_smem, L.q.eff_smem, m.P);
+  const QuartetScratch q = quartet_scratch<C>(smem + kTablesBytes<C>,
+                                              scratch + k * L.q.scratch_floats, L.q.temps_smem,
+                                              L.q.eff_smem, m.P);
   Red red{q.red, 0};
   for (;;) {
     prof_mark(kPhWait);
@@ -561,16 +621,23 @@ __device__ __forceinline__ void worker_block(const cg::cluster_group& cl, int k,
                 r3 = sh.cmd.rows[3];
       int n_eval;
       bool stopped;
+      unsigned long long* kinds = reinterpret_cast<unsigned long long*>(sh.ctr + kAaRough);
       quartet_optimize<C>(m, q, red, lim, tol, false, store_row<C>(m, r0), store_row<C>(m, r1),
                           store_row<C>(m, r2), store_row<C>(m, r3), len, parts, n_eval, nullptr,
-                          AbandonFlag{&sh.abandon, seq}, stopped);
-      if (!stopped && threadIdx.x == 0) {
-        QuartetResult* o = cl.map_shared_rank(&sh.res[k], 0);
+                          AbandonFlag{&sh.abandon, seq}, stopped, kinds);
+      // every posterior's adds came before a barrier this thread passed
+      if (threadIdx.x == 0) {
+        if (!stopped) {
+          QuartetResult* o = cl.map_shared_rank(&sh.res[k], 0);
 #pragma unroll
-        for (int i = 0; i < 3; ++i) o->parts[i] = parts[i];
+          for (int i = 0; i < 3; ++i) o->parts[i] = parts[i];
 #pragma unroll
-        for (int i = 0; i < 5; ++i) o->len[i] = len[i];
-        o->n_eval = n_eval;
+          for (int i = 0; i < 5; ++i) o->len[i] = len[i];
+          o->kinds[0] = kinds[0];
+          o->kinds[1] = kinds[1];
+          o->n_eval = n_eval;
+        }
+        kinds[0] = kinds[1] = 0;
       }
     }
     prof_mark(kPhWait);
@@ -584,12 +651,16 @@ __global__ void __launch_bounds__(kOptThreads, 1) ml_nni_round_kernel(VFT_ML_ROU
   prof_begin();
   const cg::cluster_group cl = cg::this_cluster();
   const int rank = (int)cl.block_rank();
-  if (threadIdx.x == 0) sh.abandon = -1;
+  if (threadIdx.x == 0) {
+    sh.abandon = -1;
+    sh.ctr[kAaRough] = sh.ctr[kAaExact] = 0;  // a worker's
+  }
+  const MLView mt = stage_tables<C>(m);
   cluster_sync();  // every block runs before any writes another's memory
   if (rank != 0) {
-    worker_block<C>(cl, rank, m, lim, args.tol, scratch, L, sh);
+    worker_block<C>(cl, rank, mt, lim, args.tol, scratch, L, sh);
   } else {
-    tree_block<C, true>(m, codes, W, V, lim, args, st, bl, g_tree, g_flags, g_path, g_ctr,
+    tree_block<C, true>(mt, codes, W, V, lim, args, st, bl, g_tree, g_flags, g_path, g_ctr,
                         g_max_delta, scratch, L, sh);
   }
   prof_end();
@@ -599,8 +670,8 @@ template <int C>
 __global__ void __launch_bounds__(kOptThreads, 1) ml_lengths_pass_kernel(VFT_ML_ROUND_PARAMS) {
   __shared__ MlShared sh;
   prof_begin();
-  tree_block<C, false>(m, codes, W, V, lim, args, st, bl, g_tree, g_flags, g_path, g_ctr,
-                       g_max_delta, scratch, L, sh);
+  tree_block<C, false>(stage_tables<C>(m), codes, W, V, lim, args, st, bl, g_tree, g_flags,
+                       g_path, g_ctr, g_max_delta, scratch, L, sh);
   prof_end();
 }
 
@@ -638,7 +709,8 @@ int round_launch(const MLView& m, int8_t* codes, float* W, float* V, const Searc
 int launch(const int8_t* codes, const float* W, const float* V, const float* code_freq,
            const float* eigenval, const float* eigeninv, const float* statinv,
            const float* rates, const int32_t* ratecat, int64_t n_rows, int P, int C, int n_pos,
-           int n_rates, int jc, float min_rel_len, const SearchLimits& lim, const MlArgs& args,
+           int n_rates, int jc, float min_rel_len, const float* near_p, const float* near_freq,
+           int approx, unsigned long long* counts, const SearchLimits& lim, const MlArgs& args,
            const NniStats& st, int lengths, double* bl, int32_t* tree, uint8_t* flags,
            int32_t* path, int64_t* ctr, double* max_delta, float* scratch, int smem_tree,
            void* stream) {
@@ -646,18 +718,21 @@ int launch(const int8_t* codes, const float* W, const float* V, const float* cod
       args.root >= args.maxnodes || args.n_seqs < 3 || st.n > args.maxnodes ||
       n_rates < 1 || n_rates > kMaxRates)
     return kBadArgs;
-  const MLView m{codes, W, V, code_freq, eigenval, eigeninv, statinv, rates, ratecat,
-                 P, n_pos, n_rates, jc, min_rel_len};
+  // the store's counts stay untouched: the round's rough and exact
+  // positions come back in ctr, and the caller adds them
+  const MLView m{codes, W, V, code_freq, eigenval, eigeninv, statinv, rates, ratecat, P,
+                 n_pos, n_rates, jc, min_rel_len, near_p, near_freq, approx, counts};
   int8_t* c_out = const_cast<int8_t*>(codes);
   float* w_out = const_cast<float*>(W);
   float* v_out = const_cast<float*>(V);
   long long* c = reinterpret_cast<long long*>(ctr);
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
-  // 4 codes: the ML store takes no protein alignment yet
-  // (engine/ml_profiles.py), so the 20-code kernels are not built
   if (C == 4)
     return round_launch<4>(m, c_out, w_out, v_out, lim, args, st, lengths, bl, tree, flags, path,
                            c, max_delta, scratch, smem_tree, cs);
+  if (C == 20)
+    return round_launch<20>(m, c_out, w_out, v_out, lim, args, st, lengths, bl, tree, flags, path,
+                            c, max_delta, scratch, smem_tree, cs);
   return kBadArgs;
 }
 
@@ -667,10 +742,11 @@ int launch(const int8_t* codes, const float* W, const float* V, const float* cod
   const int8_t *codes, const float *W, const float *V, const float *code_freq,           \
       const float *eigenval, const float *eigeninv, const float *statinv,                 \
       const float *rates, const int32_t *ratecat, int64_t n_rows, int P, int C, int n_pos, \
-      int n_rates, int jc, float min_rel_len
+      int n_rates, int jc, float min_rel_len, const float *near_p, const float *near_freq, \
+      int approx, unsigned long long *counts
 #define VFT_ML_STORE_PASS                                                               \
   codes, W, V, code_freq, eigenval, eigeninv, statinv, rates, ratecat, n_rows, P, C, n_pos, \
-      n_rates, jc, min_rel_len
+      n_rates, jc, min_rel_len, near_p, near_freq, approx, counts
 
 extern "C" {
 

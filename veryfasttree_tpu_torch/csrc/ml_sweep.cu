@@ -59,32 +59,33 @@ __device__ __forceinline__ double site_log(float lk) {
 }
 
 // The posterior of rows r1 and r2 at position p, from the item's tables,
-// into row `row` (ml_posterior_kernel's body).
+// into row `row` (ml_posterior_kernel's body); returns what p counts.
 template <int C>
-__device__ __forceinline__ void posterior_into(const MLView& m, int8_t* codes_out, float* W_out,
-                                               float* V_out, const RowRef& r1, const RowRef& r2,
-                                               const float* tab1, const float* tab2, float tol,
-                                               int64_t row, int p) {
-  float w, out[C];
+__device__ __forceinline__ int posterior_into(const MLView& m, int8_t* codes_out, float* W_out,
+                                              float* V_out, const RowRef& r1, const RowRef& r2,
+                                              const float* tab1, const float* tab2, float tol,
+                                              int64_t row, int p) {
+  float w;
   const int rate = m.ratecat[p];
-  posterior_site<C>(m, r1, r2, tab1 + rate * C, tab2 + rate * C, tol, p, w, out);
+  const int kind = posterior_site<C>(m, r1, r2, tab1 + rate * C, tab2 + rate * C, tol, p, w,
+                                     V_out + (row * m.P + p) * C);
   codes_out[row * m.P + p] = (int8_t)kNoCode;
   W_out[row * m.P + p] = w;
-  float* vo = V_out + (row * m.P + p) * C;
-#pragma unroll
-  for (int c = 0; c < C; ++c) vo[c] = out[c];
+  return kind;
 }
 
 // A dependency-ordered posterior sweep: item k writes the posterior of rows
 // r1[k], r2[k] at len1[k], len2[k] into row t[k]; prod1[k], prod2[k] are the
-// items that write its source rows (-1: none).  n_units = items * n_chunks.
+// items that write its source rows (-1: none); its rough and exact positions
+// count weight[k] times.  n_units = items * n_chunks.
 template <int C>
 __global__ void __launch_bounds__(kUnitThreads) ml_posterior_sweep_kernel(
     MLView m, int8_t* codes_out, float* W_out, float* V_out, const int32_t* __restrict__ t,
     const int32_t* __restrict__ r1, const int32_t* __restrict__ r2,
     const int32_t* __restrict__ prod1, const int32_t* __restrict__ prod2,
-    const float* __restrict__ len1, const float* __restrict__ len2, float tol, int n_units,
-    int n_chunks, int* ctrl, int* flags, int epoch) {
+    const int32_t* __restrict__ weight, const float* __restrict__ len1,
+    const float* __restrict__ len2, float tol, int n_units, int n_chunks, int* ctrl, int* flags,
+    int epoch) {
   __shared__ float tab1[kMaxRates * C];
   __shared__ float tab2[kMaxRates * C];
   __shared__ int slot;
@@ -100,9 +101,13 @@ __global__ void __launch_bounds__(kUnitThreads) ml_posterior_sweep_kernel(
     }
     __syncthreads();
     const int p = c * kUnitThreads + threadIdx.x;
+    int kind = kCountNone;
     if (p < m.P)
-      posterior_into<C>(m, codes_out, W_out, V_out, store_row<C>(m, r1[k]), store_row<C>(m, r2[k]),
-                        tab1, tab2, tol, t[k], p);
+      kind = posterior_into<C>(m, codes_out, W_out, V_out, store_row<C>(m, r1[k]),
+                               store_row<C>(m, r2[k]), tab1, tab2, tol, t[k], p);
+    if constexpr (C == 20)
+      count_kinds(kind == kCountRough ? 1u : 0u, kind == kCountExact ? 1u : 0u, m.counts,
+                  (unsigned long long)weight[k]);
     publish(flags + u, epoch);
   }
   finish(ctrl);
@@ -163,8 +168,14 @@ __global__ void __launch_bounds__(kUnitThreads) ml_tree_loglk_kernel(
       fill_table<C>(m, a.l1, tab2);
       __syncthreads();
       const RowRef A = store_row<C>(m, a.c0), B = store_row<C>(m, a.c1);
-      for (int p = tid; p < m.P; p += kUnitThreads)
-        posterior_into<C>(m, codes_out, W_out, V_out, A, B, tab1, tab2, tol, a.s_ab, p);
+      for (int p0 = 0; p0 < m.P; p0 += kUnitThreads) {
+        const int p = p0 + tid;
+        int kind = kCountNone;
+        if (p < m.P)
+          kind = posterior_into<C>(m, codes_out, W_out, V_out, A, B, tab1, tab2, tol, a.s_ab, p);
+        if constexpr (C == 20)
+          count_kinds(kind == kCountRough ? 1u : 0u, kind == kCountExact ? 1u : 0u, m.counts);
+      }
       pair(a.K, store_row<C>(m, a.s_ab), store_row<C>(m, a.c2), a.l2);
     } else if (u < lvl0) {
       const int j = u - pair0;
@@ -256,9 +267,10 @@ int site_chunks(int n_pos, int want_site) {
 MLView make_view(const int8_t* codes, const float* W, const float* V, const float* code_freq,
                  const float* eigenval, const float* eigeninv, const float* statinv,
                  const float* rates, const int32_t* ratecat, int P, int n_pos, int n_rates, int jc,
-                 float min_rel_len) {
-  return MLView{codes, W, V, code_freq, eigenval, eigeninv, statinv, rates, ratecat,
-                P, n_pos, n_rates, jc, min_rel_len};
+                 float min_rel_len, const float* near_p, const float* near_freq, int approx,
+                 unsigned long long* counts) {
+  return MLView{codes, W, V, code_freq, eigenval, eigeninv, statinv, rates, ratecat, P,
+                n_pos, n_rates, jc, min_rel_len, near_p, near_freq, approx, counts};
 }
 
 template <int C>
@@ -269,8 +281,8 @@ int posterior_sweep(const MLView& m, int8_t* codes, float* W, float* V, const in
   if (resident <= 0) return (int)cudaErrorInvalidValue;
   const int grid = n_units < resident ? n_units : resident;
   ml_posterior_sweep_kernel<C><<<grid, kUnitThreads, 0, st>>>(
-      m, codes, W, V, rows, rows + n, rows + 2 * n, rows + 3 * n, rows + 4 * n, lens, lens + n,
-      tol, n_units, n_chunks, ctrl, ctrl + kCtrlWords, epoch);
+      m, codes, W, V, rows, rows + n, rows + 2 * n, rows + 3 * n, rows + 4 * n, rows + 5 * n,
+      lens, lens + n, tol, n_units, n_chunks, ctrl, ctrl + kCtrlWords, epoch);
   return (int)cudaGetLastError();
 }
 
@@ -288,7 +300,11 @@ int tree_loglk(const MLView& m, int8_t* codes, float* W, float* V, float tol, co
   const int8_t *codes, const float *W, const float *V, const float *code_freq,           \
       const float *eigenval, const float *eigeninv, const float *statinv,                 \
       const float *rates, const int32_t *ratecat, int64_t n_rows, int P, int C, int n_pos, \
-      int n_rates, int jc, float min_rel_len
+      int n_rates, int jc, float min_rel_len, const float *near_p, const float *near_freq, \
+      int approx, unsigned long long *counts
+#define VFT_ML_VIEW_PASS                                                                 \
+  codes, W, V, code_freq, eigenval, eigeninv, statinv, rates, ratecat, P, n_pos, n_rates, jc, \
+      min_rel_len, near_p, near_freq, approx, counts
 
 extern "C" {
 
@@ -320,10 +336,10 @@ int64_t vft_ml_tree_loglk_scratch_bytes(int64_t K, int L, int P, int n_pos, int 
   return (int64_t)tree_scratch(a, K, L, P, n_pos, grid, nullptr);
 }
 
-// The posterior sweep of n items in dependency order: rows [5n] = targets,
-// r1, r2 and the producers of r1 and r2 (item indices, -1 for none; each
-// before its reader's level), lens [2n] = len1, len2 (clamped), both in
-// device memory.  ctrl: kCtrlWords control words then n_flags ready flags
+// The posterior sweep of n items in dependency order: rows [6n] = targets,
+// r1, r2, the producers of r1 and r2 (item indices, -1 for none; each
+// before its reader's level) and the times each item's rough and exact
+// positions count, lens [2n] = len1, len2 (clamped), both in device memory.  ctrl: kCtrlWords control words then n_flags ready flags
 // (zeroed when first allocated); epoch differs from every earlier launch's
 // on the same ctrl and is not 0.
 int vft_ml_posterior_sweep_f32(VFT_ML_STORE_ARGS, float tol, const int32_t* rows,
@@ -334,8 +350,7 @@ int vft_ml_posterior_sweep_f32(VFT_ML_STORE_ARGS, float tol, const int32_t* rows
   if (n_rates < 1 || n_rates > kMaxRates) return (int)cudaErrorInvalidValue;
   const int64_t units = vft_ml_posterior_sweep_units(n, P);
   if (units > n_flags || units > 0x7fff0000LL) return (int)cudaErrorInvalidValue;
-  const MLView m = make_view(codes, W, V, code_freq, eigenval, eigeninv, statinv, rates, ratecat,
-                             P, n_pos, n_rates, jc, min_rel_len);
+  const MLView m = make_view(VFT_ML_VIEW_PASS);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int8_t* c_out = const_cast<int8_t*>(codes);
   float* w_out = const_cast<float*>(W);
@@ -393,8 +408,7 @@ int vft_ml_tree_loglk_f32(VFT_ML_STORE_ARGS, float tol, const int32_t* off, cons
   if ((int64_t)tree_scratch(a, K, L, P, n_pos, grid, static_cast<char*>(scratch)) >
       scratch_bytes)
     return (int)cudaErrorInvalidValue;
-  const MLView m = make_view(codes, W, V, code_freq, eigenval, eigeninv, statinv, rates, ratecat,
-                             P, n_pos, n_rates, jc, min_rel_len);
+  const MLView m = make_view(VFT_ML_VIEW_PASS);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int g = units < grid ? (int)units : grid;
   int8_t* c_out = const_cast<int8_t*>(codes);

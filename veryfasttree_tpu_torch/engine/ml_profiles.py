@@ -47,8 +47,6 @@ class MLProfiles:
         """Build the ML store from the leaf codes and the current topology
         (the reference's profile switch, VeryFastTreeImpl.tcc:252-256)."""
         opts = nj.options
-        if opts.n_codes == 20:
-            raise NotImplementedError("protein ML is not ported yet")
         self.options = opts
         self.nj = nj
         me = nj.prof
@@ -64,6 +62,11 @@ class MLProfiles:
         self.min_rel_len = self.dtype(opts.ml_min_rel_branch_length)
         self.rates_np = np.ones(1, dtype=np.float64)
         self.ratecat_np = np.zeros(self.p_pad, dtype=np.int32)
+        # the posteriors' rough and exact positions (ref
+        # nAAPosteriorRough/Exact), int64 on the device until
+        # flush_posterior_counters
+        self.post_counts = torch.zeros(2, dtype=torch.int64,
+                                       device=self.device)
         self._set_constants(transmat)
 
         n_rows = 3 * self.maxnodes + N_SCRATCH
@@ -105,9 +108,18 @@ class MLProfiles:
             cf[:C] = np.eye(C)
             cf[NOCODE] = 0.25
             ev, statinv, eigeninv = np.zeros(C), np.ones(C), np.eye(C)
+            near_p = near_freq = np.zeros((C, C))
         else:
             cf, ev = transmat.code_freq, transmat.eigenval
             statinv, eigeninv = transmat.statinv, transmat.eigeninv
+            near_p, near_freq = transmat.near_p, transmat.near_freq
+        # -approxml's rough posteriors: amino-acid matrix models only (ref
+        # posteriorProfile tcc:2390-2421 sits inside the nCodes == 20
+        # branch)
+        self.use_approx = not self.options.exact_ml and C == 20 \
+            and not self.jc
+        self.near_p = self._tensor(near_p)
+        self.near_freq = self._tensor(near_freq)
         self.code_freq = self._tensor(cf)
         self.eigenval = self._tensor(ev)
         self.statinv = self._tensor(statinv)
@@ -131,7 +143,8 @@ class MLProfiles:
             rates=self._upload(self.rates_np, self.tdtype),
             ratecat=self._upload(self.ratecat_np, torch.int32),
             n_pos=self.n_pos, min_rel_len=float(self.min_rel_len),
-            tol=self.tol)
+            tol=self.tol, near_p=self.near_p, near_freq=self.near_freq,
+            approx=self.use_approx, counts=self.post_counts)
 
     def set_transmat(self, transmat) -> None:
         """Swap in a new transition matrix (GTR refitting, ref setMLGtr
@@ -159,6 +172,16 @@ class MLProfiles:
             raise ValueError("arrays do not match the store layout")
         self._put(codes, W, V)
         self.set_rates(rates, np.asarray(ratecat)[: self.n_pos])
+
+    def flush_posterior_counters(self) -> None:
+        """Fetch the rough/exact posterior position counts into nj.debug's
+        n_aa_posterior_rough and n_aa_posterior_exact (one fetch, before
+        the stats print) and zero them.  The JAX package counts in float32
+        sums, exact up to 2^24; these are int64."""
+        rough, exact = self.post_counts.tolist()
+        self.nj.debug.n_aa_posterior_rough += rough
+        self.nj.debug.n_aa_posterior_exact += exact
+        self.post_counts.zero_()
 
     def scratch_row(self, k: int) -> int:
         return 2 * self.maxnodes + k
@@ -227,18 +250,24 @@ class MLProfiles:
                        len2: float) -> None:
         self.posterior_rows([target], [r1], [r2], [len1], [len2])
 
-    def posterior_sweep(self, levels) -> None:
+    def posterior_sweep(self, levels, weights=None) -> None:
         """Dependency-ordered posterior level sweep: `levels` is a
         SweepTables, or a list of (targets, r1s, r2s, len1s, len2s) whose
         lengths are raised to the minimum as posterior_rows raises them,
-        where level k+1 reads what level k wrote; one kernel launch in all
-        on the card, ml_posterior's rows bit for bit."""
+        where level k+1 reads what level k wrote, with `weights` (the times
+        the host loop computes each item, in the levels' order; 1 each by
+        default); one kernel launch in all on the card, ml_posterior's rows
+        bit for bit.  nj.debug counts each item as often as its weight."""
         if not isinstance(levels, ml_kernels.SweepTables):
             levels = ml_kernels.SweepTables.from_levels(
                 [(t, r1, r2, self._clamped(l1), self._clamped(l2))
                  for t, r1, r2, l1, l2 in levels])
+            if weights is not None:
+                levels = ml_kernels.SweepTables(
+                    levels.offsets, levels.targets, levels.r1, levels.r2,
+                    levels.len1, levels.len2, weights)
         ml_kernels.ml_posterior_sweep(*self._store(), levels)
-        self.nj.debug.n_posterior_compute += levels.n_items
+        self.nj.debug.n_posterior_compute += int(levels.weights.sum())
 
     def tree_sweep(self) -> "TreeSweep":
         return TreeSweep(self)

@@ -156,28 +156,36 @@ def kernel_resources(report: dict, kernel: str, n_codes: int = 4) -> dict:
 STACK_LIMITS = {"ml_nni_round_kernel": 0, "ml_lengths_pass_kernel": 0,
                 "ml_quartet_opt_kernel": 32, "nj_epoch_kernel": 616,
                 "me_spr_round_kernel": 0, "me_nni_round_kernel": 0}
+# the same for the ML kernels' 20-code templates (protein ML), at what the
+# builds reach: the NNI round's block 0 and workers in one kernel keep a
+# 120-byte frame at 255 registers (with 152 bytes of spill stores), with
+# the rotations' loops rolled and the model tables in shared memory; the
+# pass and the quartet kernel none
+STACK_LIMITS_20 = {"ml_nni_round_kernel": 120, "ml_lengths_pass_kernel": 0,
+                   "ml_quartet_opt_kernel": 0}
 
 
-def resource_faults(report: dict, limits: dict = STACK_LIMITS) -> list:
-    """What ptxas_report says against `limits`: one line for each kernel
-    missing from the report, reporting more stack (its own frame or with
-    the functions it calls) than its limit, or any spill store where its
-    limit is 0."""
+def resource_faults(report: dict, limits: dict = STACK_LIMITS,
+                    n_codes: int = 4) -> list:
+    """What ptxas_report says against `limits` for the kernel templates
+    <n_codes>: one line for each kernel missing from the report, reporting
+    more stack (its own frame or with the functions it calls) than its
+    limit, or any spill store where its limit is 0."""
     out = []
     for kernel, limit in limits.items():
         try:
-            res = kernel_resources(report, kernel)
+            res = kernel_resources(report, kernel, n_codes)
         except KeyError as err:
             out.append(err.args[0])
             continue
         stack = None if res["stack"] is None else max(
             res["stack"], res["cumulative_stack"])
         if stack is None or stack > limit:
-            out.append(f"{kernel}<4>: {stack} bytes of stack frame "
+            out.append(f"{kernel}<{n_codes}>: {stack} bytes of stack frame "
                        f"(at most {limit})")
         if limit == 0 and res["spill_stores"]:
-            out.append(f"{kernel}<4>: {res['spill_stores']} bytes of spill "
-                       "stores")
+            out.append(f"{kernel}<{n_codes}>: {res['spill_stores']} bytes of "
+                       "spill stores")
     return out
 
 
@@ -223,7 +231,8 @@ def _declare(lib) -> None:
     lib.vft_nj_epoch_scratch.argtypes = [i64, i64, i64, ptr]
     lib.vft_nj_epoch_scratch.restype = None
     # the ML store's arguments, first in each ML entry (csrc/ml_lk.cu)
-    ml_store = [ptr] * 9 + [i64, i32, i32, i32, i32, i32, f32]
+    ml_store = [ptr] * 9 + [i64, i32, i32, i32, i32, i32, f32, ptr, ptr, i32,
+                            ptr]
     lib.vft_ml_pair_loglk_f32.argtypes = ml_store + [ptr, ptr, i64, ptr, ptr,
                                                      ptr, ptr]
     lib.vft_ml_posterior_f32.argtypes = ml_store + [f32, ptr, ptr, i64, ptr,

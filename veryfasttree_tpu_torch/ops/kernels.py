@@ -296,12 +296,21 @@ def _log_sum(lk):
 def posterior_matrix(f1, f2, w1, w2, expeigen1, expeigen2, ratecat,
                      code_freq_n, eigeninv, statinv, tol, approx=None):
     """Posterior profile of a parent from two children, matrix model (ref
-    posteriorProfile tcc:2262-2429), exact path only.  Returns (w_out [P],
-    v_out [P, C]) in rotated space; gap-gap positions get weight 0 (the
-    caller puts the gap row there)."""
-    if approx is not None:
-        raise NotImplementedError(
-            "-approxml rough posteriors are not ported yet")
+    posteriorProfile tcc:2262-2429).  Returns (w_out [P], v_out [P, C],
+    n_rough, n_exact) in rotated space, the counts int64 over the leading
+    dimensions; gap-gap positions get weight 0 (the caller puts the gap row
+    there).
+
+    approx: None for the exact path, else (near_p [C, C], near_freq [C, C],
+    minf, minratio), the -approxml rough-posterior gate (ref
+    tcc:2390-2421): where one character ch (the first index of the
+    maximum, as jnp.argmax takes it) has fPost[ch] >= minf and the mixture
+    w onehot + (1 - w) nearP[ch] under-estimates no other character by more
+    than minratio, the output is w statinv[ch] codeFreq[ch] + (1 - w)
+    nearFreq[ch], without the rotation back.  n_rough and n_exact count the
+    positions that are not both gaps on each branch (ref
+    nAAPosteriorRough/Exact); at 20 codes the exact path counts every such
+    position as exact, at 4 codes nothing is counted (tcc:2424)."""
     x1 = _rotate(f1 * expeigen1[..., ratecat, :], code_freq_n)
     x2 = _rotate(f2 * expeigen2[..., ratecat, :], code_freq_n)
     fpost = torch.clamp_min(x1 * x2 * statinv, 0.0)
@@ -309,7 +318,32 @@ def posterior_matrix(f1, f2, w1, w2, expeigen1, expeigen2, ratecat,
     fpost = fpost / torch.where(tot > tol, tot, 1.0)[..., None]
     both_gap = (w1 == 0) & (w2 == 0)
     w_out = torch.where(both_gap, 0.0, 1.0).to(f1.dtype)
-    return w_out, _rotate(fpost, eigeninv)
+    v_out = _rotate(fpost, eigeninv)
+    live = ~both_gap
+    rough = torch.zeros_like(live)
+    if approx is not None:
+        near_p, near_freq, minf, minratio = approx
+        # the limits in fpost's dtype, as the JAX package's weak-typed
+        # scalars and the CUDA body's float constants
+        minf, minratio = (fpost.new_tensor(x) for x in (minf, minratio))
+        ch = torch.argmax(fpost, dim=-1, keepdim=True)
+        fmax = torch.gather(fpost, -1, ch)
+        npch = near_p[ch[..., 0]]                               # [..., P, C]
+        npdiag = torch.gather(npch, -1, ch)
+        w = (fmax - npdiag) / (1.0 - npdiag)
+        frough = (1.0 - w) * npch
+        onehot = torch.zeros_like(fpost, dtype=torch.bool).scatter_(
+            -1, ch, True)
+        under = (frough < fpost * minratio) & ~onehot
+        rough = (fmax[..., 0] >= minf) & ~under.any(dim=-1)
+        v_rough = (w * statinv[ch]) * code_freq_n[ch[..., 0]] \
+            + (1.0 - w) * near_freq[ch[..., 0]]
+        v_out = torch.where(rough[..., None], v_rough, v_out)
+    if approx is None and fpost.shape[-1] != 20:
+        zero = torch.zeros(live.shape[:-1], dtype=torch.int64,
+                           device=live.device)
+        return w_out, v_out, zero, zero
+    return w_out, v_out, (rough & live).sum(-1), (~rough & live).sum(-1)
 
 
 def _rotate(vec, mat):

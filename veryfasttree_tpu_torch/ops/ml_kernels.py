@@ -62,13 +62,18 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..constants import CLOSE_LOGLK_LIMIT, NOCODE
+from ..constants import (APPROX_ML_MIN_F, APPROX_ML_MIN_RATIO,
+                         CLOSE_LOGLK_LIMIT, NOCODE)
 
 from . import _build, kernels
 from .dataflow import LevelTables, align16, typed, workspace
 
 _C_CODES = (4, 20)
 MAX_RATES = 32          # rate categories a kernel takes (CAT uses 20)
+# device scratch a quartet list may take at once where a quartet's
+# temporaries leave shared memory (20 codes: 258 KB a quartet at P=512, so
+# a launch takes at most 16,644 quartets there)
+QUARTET_SCRATCH_BYTES = 4 << 30
 
 F32 = np.float32
 _CGOLD = F32(0.3819660)
@@ -80,7 +85,13 @@ _BRENT_ITMAX = 100
 class MLModel:
     """Model constants of an ML store, on the store's device.  code_freq
     [NOCODE + 1, C]: rows 0..C-1 the rotated one-hots, row NOCODE the gap
-    vector (matrix mode); rates [n_rates] float32; ratecat [P] int32."""
+    vector (matrix mode); rates [n_rates] float32; ratecat [P] int32.
+    near_p, near_freq [C, C] float32: the -approxml rough posteriors'
+    tables (TransitionMatrix.near_p, near_freq; zeros by default), taken
+    where approx is set; counts int64 [2]: the positions of the posteriors
+    computed so far that took the rough and the exact path (ref
+    nAAPosteriorRough/Exact; 20 codes only), added to on the device by
+    every posterior kernel and twin."""
     jc: bool
     code_freq: torch.Tensor
     eigenval: torch.Tensor
@@ -91,6 +102,28 @@ class MLModel:
     n_pos: int
     min_rel_len: float
     tol: float
+    near_p: torch.Tensor = None
+    near_freq: torch.Tensor = None
+    approx: bool = False
+    counts: torch.Tensor = None
+
+    def __post_init__(self):
+        C, dev = self.eigenval.shape[0], self.eigenval.device
+        if self.near_p is None:
+            self.near_p = torch.zeros((C, C), dtype=self.eigenval.dtype,
+                                      device=dev)
+        if self.near_freq is None:
+            self.near_freq = torch.zeros_like(self.near_p)
+        if self.counts is None:
+            self.counts = torch.zeros(2, dtype=torch.int64, device=dev)
+
+    def gate(self):
+        """posterior_matrix's approx argument: the rough-posterior gate's
+        tables and limits, or None for the exact path."""
+        if not self.approx:
+            return None
+        return (self.near_p, self.near_freq, APPROX_ML_MIN_F,
+                APPROX_ML_MIN_RATIO)
 
 
 def _index(rows, device):
@@ -130,8 +163,10 @@ def ml_pair_loglk_ref(codes, W, V, m, r1s, r2s, lengths, want_lk=False):
     return ll, (lk if want_lk else None)
 
 
-def ml_posterior_ref(codes, W, V, m, targets, r1s, r2s, len1s, len2s):
-    """Plain twin of ml_posterior."""
+def ml_posterior_ref(codes, W, V, m, targets, r1s, r2s, len1s, len2s,
+                     weights=None):
+    """Plain twin of ml_posterior; weights [K], the times each item's
+    positions count in m.counts (1 each by default)."""
     dev = codes.device
     f1, w1 = _effective(codes, W, V, _index(r1s, dev), m, True)
     f2, w2 = _effective(codes, W, V, _index(r2s, dev), m, True)
@@ -148,9 +183,14 @@ def ml_posterior_ref(codes, W, V, m, targets, r1s, r2s, len1s, len2s):
         C = V.shape[-1]
         ee1 = kernels.exp_eigen_rates(l1, m.rates, m.eigenval, m.min_rel_len)
         ee2 = kernels.exp_eigen_rates(l2, m.rates, m.eigenval, m.min_rel_len)
-        w_out, v_out = kernels.posterior_matrix(
+        w_out, v_out, n_rough, n_exact = kernels.posterior_matrix(
             f1, f2, w1, w2, ee1, ee2, rc, m.code_freq[:C], m.eigeninv,
-            m.statinv, m.tol)
+            m.statinv, m.tol, m.gate())
+        n = torch.stack([n_rough, n_exact], dim=-1)
+        if weights is not None:
+            n = n * torch.as_tensor(np.asarray(weights, dtype=np.int64),
+                                    device=dev)[:, None]
+        m.counts += n.sum(0)
         gap = m.code_freq[NOCODE]
     v_out = torch.where(w_out[..., None] > 0, v_out, gap)
     t = _index(targets, dev)
@@ -362,17 +402,24 @@ class SweepTables(LevelTables):
     levels that write r1 and r2 (prod1, prod2, -1 for none), which the
     kernel waits on.  Targets are distinct and no level reads a row that it
     or a later level writes (checked here), so the level-by-level order and
-    the kernel's order of waits give the same rows."""
+    the kernel's order of waits give the same rows.  weights: the times
+    each item's positions count in the model's rough/exact counts (1 each
+    by default; the SH pass's up-profiles, which the host loop computes
+    again after resets, more)."""
 
     fields = ("targets", "r1", "r2", "len1", "len2")
     row_fields = fields[:3]
 
-    def __init__(self, offsets, targets, r1, r2, len1, len2):
+    def __init__(self, offsets, targets, r1, r2, len1, len2, weights=None):
         self.offsets = np.asarray(offsets, dtype=np.int64)
         self.targets, self.r1, self.r2 = (np.asarray(a, dtype=np.int64)
                                           for a in (targets, r1, r2))
         self.len1, self.len2 = (np.asarray(a, dtype=np.float32)
                                 for a in (len1, len2))
+        self.weights = np.ones(len(self.targets), dtype=np.int64) \
+            if weights is None else np.asarray(weights, dtype=np.int64)
+        if self.weights.shape != self.targets.shape:
+            raise ValueError("posterior sweep: one weight an item")
         self.prod1, self.prod2 = self.producers_of(
             "posterior sweep", self.targets, self.r1, self.r2)
         self.n_items = len(self.targets)
@@ -380,7 +427,7 @@ class SweepTables(LevelTables):
 
     def kernel_arrays(self):
         return {"rows": np.concatenate([self.targets, self.r1, self.r2,
-                                        self.prod1, self.prod2])
+                                        self.prod1, self.prod2, self.weights])
                 .astype(np.int32),
                 "lens": np.concatenate([self.len1, self.len2])}
 
@@ -416,8 +463,9 @@ class LoglkTables(LevelTables):
 
 def ml_posterior_sweep_ref(codes, W, V, m, tables):
     """Plain twin of ml_posterior_sweep: ml_posterior_ref level by level."""
-    for level in tables.levels():
-        ml_posterior_ref(codes, W, V, m, *level)
+    for a, level in zip(tables.offsets, tables.levels()):
+        ml_posterior_ref(codes, W, V, m, *level,
+                         weights=tables.weights[a:a + len(level[0])])
 
 
 def ml_tree_loglk_ref(codes, W, V, m, tables, want_site=False,
@@ -475,7 +523,10 @@ def _check_store(codes, W, V, m):
               (m.eigeninv, torch.float32, (C, C)),
               (m.statinv, torch.float32, (C,)),
               (m.rates, torch.float32, (n_rates,)),
-              (m.ratecat, torch.int32, (P,)))
+              (m.ratecat, torch.int32, (P,)),
+              (m.near_p, torch.float32, (C, C)),
+              (m.near_freq, torch.float32, (C, C)),
+              (m.counts, torch.int64, (2,)))
     for t, dtype, shape in shapes:
         if t.dtype != dtype or tuple(t.shape) != shape:
             raise ValueError(f"model constant: expected {dtype} {shape}, got "
@@ -505,7 +556,9 @@ class _Bound:
                      m.eigeninv.data_ptr(), m.statinv.data_ptr(),
                      m.rates.data_ptr(), m.ratecat.data_ptr(), n_rows, P, C,
                      int(m.n_pos), n_rates, int(bool(m.jc)),
-                     ctypes.c_float(m.min_rel_len)]
+                     ctypes.c_float(m.min_rel_len), m.near_p.data_ptr(),
+                     m.near_freq.data_ptr(), int(bool(m.approx)),
+                     m.counts.data_ptr()]
         self.device = codes.device
         self.stream = torch.cuda.current_stream(self.device).cuda_stream
         lib = _build.library()
@@ -598,8 +651,10 @@ def ml_posterior(codes, W, V, m, targets, r1s, r2s, len1s, len2s):
     (r1s[k], r2s[k]) across lengths (len1s[k], len2s[k]), written into rows
     targets[k] in place: codes NOCODE, weight 0 at both-gap positions (which
     get the gap vector), 1 elsewhere (host arrays).  Every row is read
-    before any is written, so no target may be another item's source.  The
-    matrix path is the exact one (no -approxml rough posteriors)."""
+    before any is written, so no target may be another item's source.  In
+    matrix mode the rough-posterior gate applies where m.approx is set,
+    and at 20 codes each position that is not both gaps adds one to
+    m.counts' rough or exact count."""
     targets = np.asarray(targets, dtype=np.int64)
     if len(targets) > 1 and (len(np.unique(targets)) != len(targets)
                              or np.isin(targets, [r1s, r2s]).any()):
@@ -677,8 +732,8 @@ def ml_quartet_opt(codes, W, V, m, rows4, lengths, scratch_rows, xmin, xmax,
     more than CLOSE_LOGLK_LIMIT), then the posteriors and line searches of
     A, B, C and D, and the closing pair log-likelihoods; with want_site_lk
     also their per-site likelihoods.  The kernel keeps the six temporaries
-    in shared memory and leaves the store as it was; the twin computes them
-    in the store rows scratch_rows.  Returns (records [K] of
+    in shared memory (at 20 codes in device scratch) and leaves the store
+    as it was; the twin computes them in the store rows scratch_rows.  Returns (records [K] of
     QUARTET_RECORD, per-site likelihoods [K, 3, P] float32 or None), both
     on the host, after one fetch; with keep_site the per-site likelihoods
     stay a tensor on the store's device and only the records are
@@ -701,16 +756,24 @@ def ml_quartet_opt(codes, W, V, m, rows4, lengths, scratch_rows, xmin, xmax,
     n_bytes = site_at + (4 * K * 3 * P if want_site_lk else 0)
     out = torch.empty(n_bytes, dtype=torch.uint8, device=bound.device) \
         if keep_site else bound.buffer("quartet", n_bytes)
-    scratch = bound.buffer("quartet_scratch", 4 * K * bound.quartet_scratch) \
+    # one launch, or chunks of quartets whose device scratch fits in
+    # QUARTET_SCRATCH_BYTES, in stream order on one scratch buffer
+    chunk = max(1, QUARTET_SCRATCH_BYTES // (4 * bound.quartet_scratch)) \
+        if bound.quartet_scratch else max(K, 1)
+    scratch = bound.buffer("quartet_scratch",
+                           4 * min(K, chunk) * bound.quartet_scratch) \
         if bound.quartet_scratch else None
-    if K:
-        lists = bound.buffer("lists", align16(rows4.nbytes) + lengths.nbytes)
+    for a in range(0, K, chunk):
+        b = min(K, a + chunk)
+        lists = bound.buffer("lists", align16(rows4[a:b].nbytes)
+                             + lengths[a:b].nbytes)
         _raise_on(_build.library().vft_ml_quartet_opt_f32(
-            *bound.args, ctypes.c_float(m.tol), rows4.ctypes.data,
-            lengths.ctypes.data, K, lists.data_ptr(), ctypes.c_float(xmin),
-            ctypes.c_float(xmax), ctypes.c_float(ftol), ctypes.c_float(atol),
-            int(bool(star_test)), out.data_ptr(),
-            out.data_ptr() + site_at if want_site_lk else None,
+            *bound.args, ctypes.c_float(m.tol), rows4[a:b].ctypes.data,
+            lengths[a:b].ctypes.data, b - a, lists.data_ptr(),
+            ctypes.c_float(xmin), ctypes.c_float(xmax), ctypes.c_float(ftol),
+            ctypes.c_float(atol), int(bool(star_test)),
+            out.data_ptr() + a * QUARTET_RECORD.itemsize,
+            out.data_ptr() + site_at + 4 * a * 3 * P if want_site_lk else None,
             scratch.data_ptr() if scratch is not None else None,
             bound.stream), "ml_quartet_opt")
         ml_quartet_opt.launches += 1

@@ -28,6 +28,8 @@ a handful of list launches of the kernels of ``ops/ml_kernels.py`` and
 """
 from __future__ import annotations
 
+import collections
+
 import numpy as np
 import torch
 
@@ -40,12 +42,14 @@ from . import _build, me_round, ml_kernels, resample_kernels
 # the kernels' int64 counters, in their order (csrc/ml_round.cu): the debug
 # counters the host loops add to, then the work done (quartet
 # optimizations, posteriors with the quartets' temporaries, line searches,
-# their evaluations, pair log-likelihoods: the host loop's work), the AC
-# and AD optimizations a round started beside AB and discarded when AB's
-# star test fired (speculative, in none of the others) and the fault flag
+# their evaluations, pair log-likelihoods: the host loop's work), the
+# positions of those posteriors that took the rough and the exact path (20
+# codes; the store's rough/exact counts), the AC and AD optimizations a
+# round started beside AB and discarded when AB's star test fired
+# (speculative, in none of the others) and the fault flag
 COUNTERS = ("n_ml_nni", "n_star_tests", "n_lk_compute", "n_posterior_compute",
             "quartets", "posteriors", "searches", "evals", "pairs",
-            "speculative", "fault")
+            "aa_rough", "aa_exact", "speculative", "fault")
 DEBUG = COUNTERS[:4]
 
 
@@ -146,6 +150,8 @@ def _launch(wrapper, nj, stats, tree_in_smem):
         stats.support[:] = w[k + 3 * n: bl_at].view(np.float64)
     for key in DEBUG:
         setattr(nj.debug, key, getattr(nj.debug, key) + ctr[key])
+    ml.post_counts += torch.tensor([ctr["aa_rough"], ctr["aa_exact"]],
+                                   device=ml.post_counts.device)
     for key in wrapper.totals:
         wrapper.totals[key] += ctr[key]
     return ctr, float(w[k - 1: k].view(np.float64)[0])
@@ -239,11 +245,12 @@ class SHPass:
 
     def up_profiles(self):                                            # (b)
         nj = self.nj
-        n_post = nj.debug.n_posterior_compute
         self.levels = _up_levels(nj, self.nodes)
-        nj.ml.posterior_sweep(self.levels)
-        nj.debug.n_posterior_compute = n_post + _lazy_up_count(nj,
-                                                               self.nodes)
+        # each up-profile counts as often as the loop computes it
+        times = _lazy_up_counts(nj, self.nodes)
+        nj.ml.posterior_sweep(self.levels, [
+            times[u] for lv in self.levels
+            for u in (np.asarray(lv[0]) - nj.prof.maxnodes).tolist()])
 
     def gather(self):                                                 # (c)
         bl = self.nj.tree.branchlength
@@ -376,26 +383,26 @@ def _up_levels(nj, nodes):
     return levels
 
 
-def _lazy_up_count(nj, nodes) -> int:
-    """The posteriors test_splits_ml's UpProfiles makes over `nodes` in
-    postorder: each get() computes the nodes not valid on the path from
-    below the root down, and each split resets its A, B and C (engine/
-    rearrange.UpProfiles)."""
+def _lazy_up_counts(nj, nodes) -> collections.Counter:
+    """How often test_splits_ml's UpProfiles computes each node's
+    up-profile over `nodes` in postorder: each get() computes the nodes
+    not valid on the path from below the root down, and each split resets
+    its A, B and C (engine/rearrange.UpProfiles)."""
     tree = nj.tree
     parent, root = tree.parent.tolist(), tree.root
     resets = np.concatenate([tree.children[nodes, :2],
                              _cd(nj, nodes)[0][:, None]], axis=1).tolist()
-    valid, n = set(), 0
+    valid, times = set(), collections.Counter()
     for node, reset in zip(nodes.tolist(), resets):
         u = parent[node]
         if u not in valid:
             while u != root:
                 if u not in valid:
                     valid.add(u)
-                    n += 1
+                    times[u] += 1
                 u = parent[u]
         valid.difference_update(reset)
-    return n
+    return times
 
 
 def _quartets(nj, nodes):

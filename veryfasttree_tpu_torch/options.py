@@ -180,6 +180,7 @@ def noml_options(**overrides) -> Options:
 def ml_options(**overrides) -> Options:
     """Derived options of the default ``-nt`` run (ML NNIs, CAT 20 rates,
     1000-resample SH-like supports), with no progress output; keyword
-    arguments set further fields before the derivation."""
-    opts = Options(n_codes=4, show_progress=False, **overrides)
+    arguments set further fields before the derivation (n_codes=20: the
+    default protein run)."""
+    opts = Options(**{"n_codes": 4, "show_progress": False, **overrides})
     return opts.derive_settings()

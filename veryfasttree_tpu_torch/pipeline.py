@@ -8,8 +8,7 @@ supports, Gamma20] or the ME split test and the ME local bootstrap ->
 Newick (ref VeryFastTreeImpl.tcc:46-472); or, with -makematrix, the
 distance matrix of every sequence.
 
-Protein ML, -threads > 1, -checkpoint and -constraints are not ported yet
-and raise.
+-threads > 1, -checkpoint and -constraints are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -101,8 +100,6 @@ def _ml_on(options) -> bool:
 
 def _check_ported(options) -> None:
     missing = [
-        ("protein ML (use -noml)", _ml_on(options) and options.n_codes == 20
-         and not options.make_matrix),
         ("-threads > 1", options.threads > 1),
         ("-checkpoint", bool(options.checkpoint_file)),
         ("-constraints", bool(options.constraints_file)),
@@ -285,6 +282,9 @@ def _report_stats(options, nj, sc, n_seq, n_uniq, ml_nni_to_do, progress,
     """Final stats block (ref VeryFastTreeImpl.tcc:403-465)."""
     if log is None:
         return
+    ml_store = getattr(nj, "ml", None)
+    if ml_store is not None:
+        ml_store.flush_posterior_counters()
     d = nj.debug
     line = (f"Total time: {progress.clock_diff():.2f} seconds "
             f"Unique: {n_uniq}/{n_seq} "
@@ -307,8 +307,13 @@ def _report_stats(options, nj, sc, n_seq, n_uniq, ml_nni_to_do, progress,
                   file=log)
         print(f"NNI: {d.n_nni} SPR: {d.n_spr} ML-NNI: {d.n_ml_nni}", file=log)
         if ml_nni_to_do > 0:
-            extra = f" star-only {d.n_star_tests}" \
-                if options.ml_accuracy < 2 else ""
+            extra = ""
+            if d.n_aa_posterior_exact or d.n_aa_posterior_rough:
+                frac = 100.0 * d.n_aa_posterior_rough / max(
+                    d.n_aa_posterior_exact + d.n_aa_posterior_rough, 1)
+                extra += f" approximate-posteriors {frac:.2f}%"
+            if options.ml_accuracy < 2:
+                extra += f" star-only {d.n_star_tests}"
             print(f"Max-lk operations: lk {d.n_lk_compute} posterior "
                   f"{d.n_posterior_compute}{extra}", file=log)
 
