@@ -31,7 +31,12 @@ are made from numpy seeds; tests/conftest.py turns on jax_enable_x64.
     (scripts/compare_protein_supports.py --lengths).
 (c) ``run_pipeline`` on a protein alignment (simulate_alignment with the
     package's amino-acid alphabet, N=40, P=120, seed 5) through both
-    packages, the default run, ``-lg -gamma`` and ``-approxml``, held
+    packages, the default run, ``-lg -gamma`` and ``-approxml``, each in a
+    file of its own (tests/test_torch_protein_ml_{default,lg_gamma,
+    approxml}.py; the JAX package's runs read from the goldens of
+    scripts/make_torch_port_protein_cpu_golden.py, which
+    ``test_protein_goldens_are_the_jax_packages`` here holds to the JAX
+    package's sources), held
     together by tests/torch_protein_runs.py's check_pipeline: the final
     LogLk and the stats block, the decisions alike up to the first that
     flips, which must be a near tie, and where none flips RF 0 and the
@@ -40,20 +45,22 @@ are made from numpy seeds; tests/conftest.py turns on jax_enable_x64.
     minimum length: its criteria 8.9e-4 (JAX package) and 1.2e-5 (port)
     apart by default, 4.0e-4 and 1.6e-4 under -lg -gamma, 8.6e-4 and
     2.8e-4 under -approxml; the trees end RF 2, 2 and 4 apart, the final
-    LogLks within 5.9e-5 relative.  tests/test_torch_protein_ml_agree.py
-    runs the whole list on an alignment where no decision flips.
+    LogLks within 5.9e-5 relative.  tests/test_torch_protein_ml_agree_*.py
+    run the whole list on an alignment where no decision flips.
 (d) ``MLProfiles.load_state`` takes a 20-code JAX store exactly, and the
     port's own store built on the same tree agrees with it (vectors rtol
     1e-6, atol 5e-6: balanced averages in float32).
 """
 import dataclasses
+import importlib.util
+import os
 
 import numpy as np
 import pytest
 import torch
 
-from torch_protein_runs import (AA, CONFIGS, check_pipeline,  # noqa: F401
-                                one_torch_thread, runs_at)
+from torch_protein_runs import (AA, CONFIGS, GOLDEN,  # noqa: F401
+                                golden_meta, jax_golden, one_torch_thread)
 from util import simulate_alignment
 
 from veryfasttree_tpu import constants as jconst
@@ -76,6 +83,7 @@ from veryfasttree_tpu_torch.ops import kernels as tk
 from veryfasttree_tpu_torch.ops import ml_round
 from veryfasttree_tpu_torch.options import Options as TOptions
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DEBUG = ("n_ml_nni", "n_star_tests", "n_lk_compute", "n_posterior_compute")
 
 
@@ -224,11 +232,24 @@ def test_load_state_takes_a_20_code_jax_store(tmp_path):
 
 
 # ------------------------------------------------------------------- (c)
-@pytest.fixture(scope="module")
-def protein_runs(tmp_path_factory):
-    return runs_at(5, tmp_path_factory.mktemp("protein"))
-
-
-@pytest.mark.parametrize("name", list(CONFIGS))
-def test_protein_pipeline_matches_jax(protein_runs, name):
-    check_pipeline(name, *protein_runs[name])
+def test_protein_goldens_are_the_jax_packages():
+    """The JAX half of (c) and of tests/test_torch_protein_ml_agree_*.py
+    comes from goldens: they must have been written from the JAX package
+    and the alignment generator as they are now, and hold every (seed,
+    config) run."""
+    spec = importlib.util.spec_from_file_location(
+        "make_golden", os.path.join(REPO, "scripts",
+                                    "make_torch_port_protein_cpu_golden.py"))
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    meta = golden_meta()
+    assert script.source_hash() == meta["source_hash"], (
+        "veryfasttree_tpu/ or tests/util.py changed since the protein "
+        f"goldens tests/data/{GOLDEN}_* were written: rerun "
+        "python scripts/make_torch_port_protein_cpu_golden.py")
+    for seed in script.SEEDS:
+        for name in CONFIGS:
+            newick, log, (rough, exact), decisions = jax_golden(seed, name)
+            assert newick.count("(") == 38 and "Optimize all lengths" in log
+            assert rough + exact > 0 and len(decisions) > 100
+            assert all(d[2].shape == (3,) for d in decisions)

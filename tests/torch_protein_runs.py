@@ -1,11 +1,17 @@
 """Protein runs of the JAX package and the port on one alignment, and the
-checks that hold them together (tests/test_torch_protein_ml*.py).
+checks that hold them together (tests/test_torch_protein_ml_*.py).
 
-``runs_at(seed, directory)`` runs ``run_pipeline`` of both packages (the
-port on the CPU, its plain twins) on simulate_alignment(40, 120) with the
-package's amino-acid alphabet at that seed: the default run (JTT, CAT 20,
-SH-like supports from 1000 resamples), ``-lg -gamma`` and ``-approxml``,
-each at verbose 2 with every ML NNI decision logged.
+``run_at(seed, name, directory)`` runs the port's ``run_pipeline`` (on the
+CPU, its plain twins) on simulate_alignment(40, 120) with the package's
+amino-acid alphabet at that seed, in one of CONFIGS: the default run (JTT,
+CAT 20, SH-like supports from 1000 resamples), ``-lg -gamma`` or
+``-approxml``, at verbose 2 with every ML NNI decision logged, and pairs it
+with the JAX package's run of the same seed and config, read from the
+goldens that scripts/make_torch_port_protein_cpu_golden.py wrote with
+``_run`` on the JAX package (``jax_golden``; tests/test_torch_protein_ml.py
+holds them to the JAX package's sources by their hash).  Each (seed,
+config) has a test file of its own, so that the runs spread over the test
+workers.
 
 ``check_pipeline`` holds a pair of runs together: the final LogLk within
 1e-4 relative, and the stats block at verbose 2 equal line by line but
@@ -37,6 +43,8 @@ same in both packages.
 """
 import dataclasses
 import io
+import json
+import os
 import re
 
 import numpy as np
@@ -45,8 +53,6 @@ import torch
 
 from util import rf_distance, simulate_alignment, write_fasta
 
-from veryfasttree_tpu import pipeline as jax_pipeline
-from veryfasttree_tpu.engine import ml as jml
 from veryfasttree_tpu.options import Options
 from veryfasttree_tpu_torch import pipeline as torch_pipeline
 from veryfasttree_tpu_torch.engine import ml as tml
@@ -111,14 +117,42 @@ def _run(run_pipeline, fasta, flags, mod, **kw):
         nj.debug.n_aa_posterior_exact), decisions
 
 
-def runs_at(seed, directory):
-    """{config: (JAX run, port run)} on the alignment of `seed`."""
+DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
+GOLDEN = "torch_port_protein_cpu"         # the goldens' stem in tests/data
+
+
+def golden_meta():
+    """The goldens' record: the source hash they were written under, the
+    command and each run's seconds."""
+    with open(os.path.join(DATA, GOLDEN + ".json")) as f:
+        return json.load(f)
+
+
+def jax_golden(seed, name):
+    """The JAX package's run of `seed` in config `name`, as _run returns it,
+    from the goldens."""
+    stem = os.path.join(DATA, f"{GOLDEN}_s{seed}_{name.replace('-', '_')}")
+    with open(stem + ".nwk") as f:
+        newick = f.read()
+    with open(stem + ".log") as f:
+        log = f.read()
+    with np.load(stem + ".npz") as z:
+        decisions = [(tuple(int(r) for r in rows), int(choice),
+                      np.array(crit, dtype=np.float64))
+                     for rows, choice, crit in zip(z["rows"], z["choice"],
+                                                   z["criteria"])]
+        aa = tuple(int(x) for x in z["aa"])
+    return newick, log, aa, decisions
+
+
+def run_at(seed, name, directory):
+    """(JAX run, port run) of config `name` on the alignment of `seed`: the
+    JAX package's from its golden, the port's run here."""
     fasta = str(directory / "aa.fasta")
     write_fasta(fasta, simulate_alignment(40, 120, alphabet=AA, seed=seed))
-    return {name: (_run(jax_pipeline.run_pipeline, fasta, flags, jml),
-                   _run(torch_pipeline.run_pipeline, fasta, flags, tml,
-                        device=torch.device("cpu")))
-            for name, flags in CONFIGS.items()}
+    return jax_golden(seed, name), _run(
+        torch_pipeline.run_pipeline, fasta, CONFIGS[name], tml,
+        device=torch.device("cpu"))
 
 
 def _stats(log):
