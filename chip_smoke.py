@@ -2267,6 +2267,9 @@ ML_TWIN_NEAR_TIE = 5e-3
 # 0.014 in the twins).
 ML_CRITERIA_TOL_20 = 0.1
 ML_ROUND_NEAR_TIE_20 = 0.05
+# phase 1's ptxas report (registers, stack, spills of every kernel), for
+# phase 2j's print of the 20-code round kernels
+PTXAS = {}
 GTR = ([1.2, 3.1, 0.8, 1.1, 2.9, 1.0], [0.3, 0.2, 0.24, 0.26])
 
 
@@ -3956,7 +3959,7 @@ def protein_round_case(report, dev):
     import torch
 
     from veryfasttree_tpu_torch.engine import ml, rearrange
-    from veryfasttree_tpu_torch.ops import ml_round
+    from veryfasttree_tpu_torch.ops import _build, ml_round
 
     cpu = torch.device("cpu")
     lengths, nni = ml_round.ml_lengths_pass, ml_round.ml_nni_round
@@ -4033,8 +4036,26 @@ def protein_round_case(report, dev):
           f"launch, {k['round_s']:.3f} s (the host loop {h['round_s']:.3f} "
           f"s), {k['round'][1]['round']} (NNIs, max delta), LogLk "
           f"{k['round_loglk']:.3f}, tree in {k['layout']}, {k['scratch']} "
-          "floats of device scratch (the six quartet temporaries of each "
-          f"block); {k['round_totals']}")
+          "floats of device scratch (the quartet temporaries, in the group "
+          f"blocks' shared memory where they fit); {k['round_totals']}")
+    # the layout of the groups (ml_round.GROUP blocks each): no quartet
+    # piece in device scratch at P=512, round or pass
+    for wrapper in (lengths, nni):
+        lay = wrapper.layout
+        print(f"  {wrapper.__name__}<20> layout: a cluster of {lay['blocks']} "
+              f"blocks (groups of k={lay['group']}), "
+              f"{lay['smem_bytes']} bytes of dynamic shared memory a block "
+              f"(a group block's {lay['group_smem_bytes']}), "
+              f"{lay['local_positions']} positions a group block, "
+              f"{lay['scratch_floats']} floats of device scratch")
+        if k["scratch"] or lay["scratch_floats"]:
+            raise AssertionError(f"{wrapper.__name__}<20> [{label}]: "
+                                 f"{lay['scratch_floats']} floats of device "
+                                 f"scratch at P={P}")
+    for kernel in ("ml_nni_round_kernel", "ml_lengths_pass_kernel"):
+        if PTXAS:
+            print(f"  {kernel}<20> (ptxas): "
+                  f"{_build.kernel_resources(PTXAS, kernel, 20)}")
     rel = {what: abs(t[f"{what}_loglk"] - k[f"{what}_loglk"])
            / abs(k[f"{what}_loglk"]) for what in ("pass", "round")}
     # every quartet of the round decided again by the twins from the card's
@@ -4129,6 +4150,49 @@ def protein_round_case(report, dev):
               f"operations: bound {bound_ms:.4e} ms ({bound_by}; bytes "
               f"{1e3 * n_bytes / HBM_BYTES_PER_S:.4e} ms, operations "
               f"{1e3 * n_ops / F32_OPS_PER_S:.4e} ms)")
+    # a row for each group size the kernels take: the pass and the round
+    # from the same start, bit for bit the host loop's, and their device
+    # times (the default, ml_round.GROUP, is the one reported above)
+    for k_blocks in ml_round.GROUPS:
+        row = {}
+        for wrapper, what in ((lengths, "pass"), (nni, "round")):
+            def one(wrapper=wrapper, k_blocks=k_blocks):
+                nj = ml_copy(start, dev)
+                if wrapper is nni:
+                    wrapper(nj, 0, 2, rearrange.NNIStats.init(nj),
+                            group=k_blocks)
+                else:
+                    wrapper(nj, group=k_blocks)
+                return nj
+
+            nj = ml_copy(start, dev)
+            stats = rearrange.NNIStats.init(nj)
+            lengths(nj, group=k_blocks)
+            got = ml_state(nj)
+            if what == "round":
+                ml.tree_loglk(nj)       # as the runs above, between the two
+                res = nni(nj, 0, 2, stats, group=k_blocks)
+                got = ml_state(nj, stats, res)
+            diff = ml_diff(h[what], got)
+            if diff:
+                raise AssertionError(f"{wrapper.__name__}<20> with groups of "
+                                     f"{k_blocks} blocks: {diff} differ from "
+                                     f"the host loop (counters {got[1]}, the "
+                                     f"host loop's {h[what][1]})")
+            us = device_us(one, DEVICE_NAMES[wrapper.__name__], runs=2)
+            per = k[f"{what}_totals"]["quartets" if what == "round"
+                                      else "searches"]
+            row[what] = {"device_us": us, "us_per_item": us / max(per, 1),
+                         **wrapper.layout}
+        report["ml_nni_round<20>"].setdefault("groups", {})[k_blocks] = row
+        r, ps = row["round"], row["pass"]
+        print(f"  groups of k={k_blocks}: round {r['device_us'] / 1e3:.3f} ms "
+              f"({r['us_per_item']:.2f} us per quartet optimization, "
+              f"{r['blocks']} blocks, {r['smem_bytes']} bytes of shared "
+              f"memory a block, {r['scratch_floats']} floats of scratch), "
+              f"pass {ps['device_us'] / 1e3:.3f} ms ({ps['us_per_item']:.2f} "
+              f"us per line search, {ps['blocks']} blocks); bit for bit the "
+              "host loop's")
 
 
 def check_gate(report, dev):
@@ -4387,7 +4451,8 @@ def phase_protein_main(report, dev):
           f"ml_lengths_pass {counts['ml_lengths_pass']} launches "
           f"({pass_t['searches']} line searches); the tree in "
           f"{ml_round.ml_nni_round.tree_layout}, "
-          f"{ml_round.ml_nni_round.scratch_floats} floats of device scratch")
+          f"{ml_round.ml_nni_round.scratch_floats} floats of device scratch;"
+          f" round layout {ml_round.ml_nni_round.layout}")
     print(f"  SH pass: sh_s {t['sh_s']:.3f} s, {sh_pass.S} splits; launches "
           f"{ {k: v for k, v in sh.items() if v} }; CAT fit: cat_s "
           f"{t['cat_s']:.3f} s, launches "
@@ -4404,7 +4469,8 @@ def phase_protein_main(report, dev):
         report.setdefault(entry, {})["launches"] = counts[name]
     report["ml_nni_round<20>"].update(
         main_path_scratch_floats=ml_round.ml_nni_round.scratch_floats,
-        main_path_tree_layout=ml_round.ml_nni_round.tree_layout)
+        main_path_tree_layout=ml_round.ml_nni_round.tree_layout,
+        main_path_layout=ml_round.ml_nni_round.layout)
 
 
 def main() -> int:
@@ -4455,6 +4521,7 @@ def main() -> int:
                         or "Compiling entry" in line or "stack frame" in line))
         _build.library()
         report = _build.ptxas_report(log)
+        PTXAS.update(report)
         for limits, n_codes in ((_build.STACK_LIMITS, 4),
                                 (_build.STACK_LIMITS_20, 20)):
             for kernel in limits:

@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Where the ML round kernels spend their cycles: one ML lengths pass and
-one ML NNI round at N=2000 (chip_smoke.py phase 2e's N=MAIN_N start), on
-one or more checkouts, each in a process of its own.
+one ML NNI round at N=2000 (chip_smoke.py phase 2e's N=MAIN_N start), or
+with --protein at 20 codes (JTT, CAT 20 rates, N=500, P=512: phase 2j's
+start), on one or more checkouts, each in a process of its own.
 
-    python scripts/profile_ml_round.py [ROOT ...]
+    python scripts/profile_ml_round.py [ROOT ...] [--protein] [--n N]
+                                       [--group K]
 
 Each ROOT (default ".") gets a second copy of its csrc/ml_round.cu built
 with -DVFT_ML_ROUND_PROFILE into ROOT/build/ml_round_profile/ (the library
@@ -12,7 +14,11 @@ group of 256 threads adds the clock64() cycles between its probes
 (csrc/ml_lk.cuh, ProfPhase) to the phase it was in: rate tables, site
 sums, reductions, the scalar Brent and bracket control, effective-vector
 staging, quartet posteriors, the walk with setup_abcd and the node
-posteriors, and waiting for the other group or blocks.  The round and the
+posteriors, waiting for the other group or blocks, and (where the ROOT's
+probes have it) the posteriors' rotations to character space and back,
+taken out of the phase the posterior ran in.  The quartet temporaries'
+device-scratch traffic, where a layout has any, falls in the phases that
+read and write them (posteriors, staging).  The round and the
 pass run through the ROOT's own wrappers (ops/ml_round.py) with the
 profiled library in place of the round entries; the start comes from this
 checkout's chip_smoke.ml_start.  Each child prints one line "PROFILE
@@ -33,12 +39,18 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # csrc/ml_lk.cuh ProfPhase, in its order
 PHASES = ("tables", "site sums", "reductions", "control", "staging",
-          "quartet posteriors", "walk", "waiting")
-N_SLOTS = 8                     # kProfSlots: block * 2 + group
+          "quartet posteriors", "walk", "waiting", "rotations")
+# kProfSlots (block * 2 + group): 8 in builds whose probes have no
+# rotations phase (8 phases), 32 in those that have it (9 phases)
+N_SLOTS = 8
+SLOT_COUNTS = (N_SLOTS, 32)
 
 CHILD = r"""
 import ctypes, json, os, subprocess, sys, time
 root, smoke_path, n = sys.argv[1], sys.argv[2], int(sys.argv[3])
+protein = sys.argv[4] == "1"
+# the wrappers' group keyword (20-code groups of blocks), where given
+kw = {"group": int(sys.argv[5])} if sys.argv[5] != "0" else {}
 sys.path.insert(0, root)
 import importlib.util
 spec = importlib.util.spec_from_file_location("smoke", smoke_path)
@@ -66,6 +78,13 @@ for name in ENTRIES:
     fn.argtypes, fn.restype = ref.argtypes, ref.restype
 prof.vft_ml_round_profile_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
 prof.vft_ml_round_profile_read.restype = ctypes.c_int
+# the probes' table, kProfSlots x kProfPhases (8 x 8 where the build has no
+# shape entry)
+shape = (ctypes.c_int(8), ctypes.c_int(8))
+if hasattr(prof, "vft_ml_round_profile_shape"):
+    prof.vft_ml_round_profile_shape(ctypes.byref(shape[0]),
+                                    ctypes.byref(shape[1]))
+n_slots, n_phases = shape[0].value, shape[1].value
 
 
 class Lib:
@@ -74,15 +93,16 @@ class Lib:
 
 
 def read():
-    buf = (ctypes.c_ulonglong * (8 * 8))()
+    buf = (ctypes.c_ulonglong * (n_slots * n_phases))()
     rc = prof.vft_ml_round_profile_read(buf, 1)
     if rc:
         raise RuntimeError(f"vft_ml_round_profile_read: {rc}")
-    return [list(buf[8 * k: 8 * k + 8]) for k in range(8)]
+    return [list(buf[n_phases * k: n_phases * k + n_phases])
+            for k in range(n_slots)]
 
 
 dev = torch.device("cuda")
-start = s.ml_start(n, dev)
+start = s.ml_start(n, dev, "jtt", cat=True) if protein else s.ml_start(n, dev)
 nj = s.ml_copy(start, dev)
 _build._lib = Lib()
 read()
@@ -92,30 +112,36 @@ for what in ("pass", "round"):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     if what == "pass":
-        ml_round.ml_lengths_pass(nj)
+        ml_round.ml_lengths_pass(nj, **kw)
     else:
-        ml_round.ml_nni_round(nj, 0, 2, stats)
+        ml_round.ml_nni_round(nj, 0, 2, stats, **kw)
     torch.cuda.synchronize()
     fn = ml_round.ml_lengths_pass if what == "pass" else ml_round.ml_nni_round
     result[what] = {"cycles": read(), "wall_s": time.perf_counter() - t0,
-                    "totals": dict(fn.totals)}
-print("PROFILE " + json.dumps({"root": root, "n": n, "card": s.card_line(),
-                               **result}), flush=True)
+                    "totals": dict(fn.totals),
+                    "scratch_floats": fn.scratch_floats,
+                    "tree_layout": fn.tree_layout,
+                    "layout": getattr(fn, "layout", None)}
+print("PROFILE " + json.dumps({"root": root, "n": n, "protein": protein,
+                               "group": kw.get("group"),
+                               "P": int(start.ml.W.shape[1]),
+                               "card": s.card_line(), **result}), flush=True)
 """
 
 
 def parse_breakdown(text):
     """The PROFILE records of a child's output: a list of dicts with the
     root, N, the card line and, for "pass" and "round", the cycles per
-    slot and phase ([N_SLOTS][len(PHASES)]), the wall and the totals."""
+    slot and phase (SLOT_COUNTS slots of 8 phases or more, PHASES' order),
+    the wall and the totals."""
     out = []
     for line in text.splitlines():
         if line.startswith("PROFILE "):
             rec = json.loads(line[len("PROFILE "):])
             for what in ("pass", "round"):
                 cyc = rec[what]["cycles"]
-                if len(cyc) != N_SLOTS or any(len(r) != len(PHASES)
-                                               for r in cyc):
+                if len(cyc) not in SLOT_COUNTS or any(
+                        not 8 <= len(r) <= len(PHASES) for r in cyc):
                     raise ValueError(f"{what}: cycles of shape "
                                      f"{len(cyc)} x {len(cyc[0])}")
             out.append(rec)
@@ -139,11 +165,19 @@ def slot_name(slot):
 
 def report(rec):
     """Text lines of one PROFILE record."""
-    lines = [f"{rec['root']} (N={rec['n']}, {rec['card']}):"]
+    shape = f"N={rec['n']}"
+    if rec.get("protein") is not None:
+        shape += (f", P={rec['P']}, " + ("20 codes, JTT CAT 20"
+                                         if rec["protein"] else "4 codes, JC"))
+    if rec.get("group"):
+        shape += f", groups of {rec['group']} blocks"
+    lines = [f"{rec['root']} ({shape}, {rec['card']}):"]
     for what in ("pass", "round"):
         r = rec[what]
-        lines.append(f"  {what}: wall {r['wall_s']:.4f} s (probes on), "
-                     f"totals {r['totals']}")
+        where = "".join(f", {key.replace('_', ' ')} {r[key]}" for key in (
+            "tree_layout", "scratch_floats", "layout") if r.get(key) is not None)
+        lines.append(f"  {what}: wall {r['wall_s']:.4f} s (probes on)"
+                     f"{where}, totals {r['totals']}")
         for slot, (total, sh) in shares(r["cycles"]).items():
             lines.append(
                 f"    {slot_name(slot)}: {total} cycles; " + ", ".join(
@@ -154,12 +188,21 @@ def report(rec):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("roots", nargs="*", default=["."])
-    ap.add_argument("--n", type=int, default=2000)
+    ap.add_argument("--n", type=int, default=None,
+                    help="taxa (default 2000; 500 with --protein)")
+    ap.add_argument("--protein", action="store_true",
+                    help="20 codes: JTT, CAT 20 rates (phase 2j's start)")
+    ap.add_argument("--group", type=int, default=0,
+                    help="the blocks of a 20-code group (the wrappers' "
+                         "group; default theirs)")
     args = ap.parse_args()
+    n = args.n or (500 if args.protein else 2000)
     smoke = os.path.join(REPO, "chip_smoke.py")
     for root in map(os.path.abspath, args.roots):
         proc = subprocess.run([sys.executable, "-c", CHILD, root, smoke,
-                               str(args.n)], capture_output=True, text=True)
+                               str(n), str(int(args.protein)),
+                               str(args.group)],
+                              capture_output=True, text=True)
         recs = parse_breakdown(proc.stdout)
         if proc.returncode or not recs:
             print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)

@@ -711,8 +711,9 @@ def test_ml_round_kernels_at_20_codes_are_the_host_loops(cuda, model, approx,
     ml_nni_round (one launch each) and through the host loops with the
     per-call kernels leave the same tree, lengths, NNIStats, debug
     counters, rough and exact posterior counts and store rows, bit for
-    bit.  The quartet temporaries of the cluster's blocks lie in device
-    scratch (six rows of P * 21 floats each do not fit beside the rest)."""
+    bit.  With the default groups of ml_round.GROUP blocks the quartet
+    temporaries lie in the group blocks' shared memory: no device
+    scratch."""
     from chip_smoke import ml_diff, ml_start
     from veryfasttree_tpu_torch.ops import _build, ml_round
 
@@ -722,8 +723,8 @@ def test_ml_round_kernels_at_20_codes_are_the_host_loops(cuda, model, approx,
     P = start.ml.p_pad
     M = start.tree.maxnodes
     scratch = _build.library().vft_ml_round_scratch_floats(
-        M, P, 20, int(tree_in_smem))
-    assert scratch >= 3 * 6 * P * 21
+        M, P, 20, int(tree_in_smem), ml_round.GROUP)
+    assert scratch == 0
     for fn in (ml_round.ml_lengths_pass, ml_round.ml_nni_round):
         assert (fn.tree_layout, fn.scratch_floats) == (
             "shared memory" if tree_in_smem else "device memory", scratch)
@@ -731,6 +732,76 @@ def test_ml_round_kernels_at_20_codes_are_the_host_loops(cuda, model, approx,
     assert exact > 0 and (rough > 0) == approx
     for h, k in zip(host, kern):
         assert ml_diff(h, k) == []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [1, 2, 4])
+def test_ml_round_groups_at_20_codes_are_the_host_loops(cuda, group):
+    """The 20-code round and pass with each quartet optimization's (each
+    search's) positions over a group of 1, 2 or 4 blocks, at N=60 and
+    P=512, where the parent's one-block workers kept their temporaries in
+    device scratch: the tree, lengths, NNIStats, debug counters, rough and
+    exact counts and store rows of one pass and one round are the host
+    loops' with the per-call kernels, bit for bit, and the cluster is
+    1 + 3 groups (round) or 1 + 1 group (pass) of `group` blocks."""
+    from chip_smoke import ml_diff, ml_start
+    from veryfasttree_tpu_torch.ops import ml_round
+
+    start = ml_start(60, cuda, "jtt", cat=True)
+    assert start.ml.p_pad == 512
+    host = _ml_runs(start, cuda, 1, False)
+    kern = _ml_runs(start, cuda, 1, True, group=group)
+    assert ml_round.ml_nni_round.layout["blocks"] == 1 + 3 * group
+    assert ml_round.ml_lengths_pass.layout["blocks"] == 1 + group
+    for h, k in zip(host, kern):
+        assert ml_diff(h, k) == []
+
+
+@pytest.mark.cuda
+def test_ml_round_20_codes_keeps_no_scratch_at_p512(cuda):
+    """At P=512 (20 codes) a group of 2 or 4 blocks holds its share of the
+    six quartet temporaries, the search vectors and the sums' values in
+    its blocks' shared memory: no device scratch, round or pass, with the
+    tree in shared or device memory; one block alone (the parent's
+    workers' share) does not fit and takes device scratch."""
+    from veryfasttree_tpu_torch.ops import ml_round
+
+    for group in (2, 4):
+        for lengths in (False, True):
+            for smem_tree in (True, False):
+                lay = ml_round.layout(1000, 512, 20, smem_tree, lengths,
+                                      group)
+                assert lay["scratch_floats"] == 0, lay
+                assert lay["local_positions"] == 512 // group
+                assert lay["group_smem_bytes"] <= 225 * 1024
+    assert ml_round.layout(1000, 512, 20, True, False, 1)[
+        "scratch_floats"] >= 3 * 6 * 512 * 21
+
+
+@pytest.mark.cuda
+def test_ml_round_refuses_a_group_it_cannot_launch(cuda):
+    """A group size the kernels do not take (3 blocks: not a power of two;
+    8: a round's cluster of 25 blocks, past the card's 16) raises, through
+    the wrappers and through the C entries' layout, rather than falling
+    back to another layout."""
+    from chip_smoke import ml_copy, ml_start
+    from veryfasttree_tpu_torch.engine import rearrange
+    from veryfasttree_tpu_torch.ops import _build, ml_round
+
+    start = ml_start(60, cuda, "jtt", cat=True)
+    for group in (3, 8):
+        nj = ml_copy(start, cuda)
+        launches = ml_round.ml_nni_round.launches
+        with pytest.raises(ValueError):
+            ml_round.ml_nni_round(nj, 0, 1, rearrange.NNIStats.init(nj),
+                                  group=group)
+        with pytest.raises(ValueError):
+            ml_round.ml_lengths_pass(nj, group=group)
+        assert ml_round.ml_nni_round.launches == launches
+        with pytest.raises(ValueError):
+            ml_round.layout(120, 512, 20, True, False, group)
+        assert _build.library().vft_ml_round_scratch_floats(
+            120, 512, 20, 1, group) == -2
 
 
 @pytest.mark.cuda

@@ -56,6 +56,7 @@ constexpr int kBrentItmax = 100;
 constexpr double kCloseLogLkLimit = 5.0;  // constants.CLOSE_LOGLK_LIMIT
 constexpr float kApproxMinF = 0.95f;      // constants.APPROX_ML_MIN_F
 constexpr float kApproxMinRatio = (float)(2.0 / 3.0);  // APPROX_ML_MIN_RATIO
+constexpr int kRotJ = 2;   // a 20-code rotation's sums in flight per thread
 
 struct MLView {
   const int8_t* codes;      // [n_rows, P]
@@ -96,11 +97,14 @@ __device__ __forceinline__ void count_kinds(unsigned rough, unsigned exact,
 }
 
 // One profile row: a row of the store, or a quartet temporary (codes null:
-// every position NOCODE, as a posterior writes it).
+// every position NOCODE, as a posterior writes it).  Position p of the row
+// is its entry p >> shift: a store row holds every position (shift 0), a
+// temporary of a block of a Part only the block's own (shift log2 k).
 struct RowRef {
   const int8_t* codes;  // [P] or nullptr
   const float* W;       // [P]
   const float* V;       // [P, C]
+  int shift = 0;
 };
 
 struct SearchLimits {
@@ -121,9 +125,10 @@ enum ProfPhase {
   kPhQPost,    // quartet posteriors
   kPhWalk,     // the walk, setup_abcd and node posteriors
   kPhWait,     // waiting for the other group or blocks
+  kPhRotate,   // a posterior's rotations to character space and back
   kProfPhases
 };
-constexpr int kProfSlots = 8;  // groups of kOptThreads: block * 2 + group
+constexpr int kProfSlots = 32;  // groups of kOptThreads: block * 2 + group
 
 #ifdef VFT_ML_ROUND_PROFILE
 __device__ unsigned long long prof_total[kProfSlots][kProfPhases];
@@ -138,6 +143,11 @@ __device__ __forceinline__ void prof_mark(int phase) {
   prof_acc[s][prof_cur[s]] += (unsigned long long)(now - prof_last[s]);
   prof_last[s] = now;
   prof_cur[s] = phase;
+}
+
+// the phase the group is in (the first thread's; -1 for the others)
+__device__ __forceinline__ int prof_phase() {
+  return threadIdx.x % kOptThreads == 0 ? prof_cur[threadIdx.x / kOptThreads] : -1;
 }
 
 __device__ __forceinline__ void prof_begin() {
@@ -158,6 +168,7 @@ __device__ __forceinline__ void prof_end() {
 }
 #else
 __device__ __forceinline__ void prof_mark(int) {}
+__device__ __forceinline__ int prof_phase() { return -1; }
 __device__ __forceinline__ void prof_begin() {}
 __device__ __forceinline__ void prof_end() {}
 #endif
@@ -179,9 +190,10 @@ __device__ __forceinline__ RowRef store_row(const MLView& m, int64_t row) {
 template <int C>
 __device__ __forceinline__ void effective(const MLView& m, const RowRef& r, int p, bool for_post,
                                           float& w, float (&f)[C]) {
-  const int code = r.codes != nullptr ? r.codes[p] : kNoCode;
-  w = r.W[p];
-  const float* v = r.V + (int64_t)p * C;
+  const int i = p >> r.shift;
+  const int code = r.codes != nullptr ? r.codes[i] : kNoCode;
+  w = r.W[i];
+  const float* v = r.V + (int64_t)i * C;
   const bool stored = code == kNoCode && w > 0.0f;
   bool mix = w > 0.0f && w < 1.0f;
   if (m.jc || for_post) mix = mix && !stored;
@@ -270,6 +282,7 @@ constexpr int kRedSlots = 32;
 struct Red {
   double* slot;  // [2 * kRedSlots]
   int buf;
+  unsigned buf2 = 0;  // a Part's combines so far (part_sum): its values' buffer
 };
 
 // A body that runs to its end: every caller but a round's speculative
@@ -306,19 +319,144 @@ __device__ __forceinline__ void block_sum(double (&v)[K], Red& red, const Stop& 
   if (Stop::kPolls) stopped = s[kRedSlots - 1] != 0.0;
 }
 
+// Where a body's positions are.  Solo: the whole block's, position p by
+// thread p % kOptThreads (every single-call kernel, the 4-code rounds).
+// Part: one block of a group of k (a power of two, at most kMaxGroup)
+// blocks of a cluster that run the same body on the same inputs, block j
+// of the group owning the positions p = j + k l, l its local index (the
+// 20-code round kernels, ml_round.cu); each sum then goes through part_sum,
+// which adds the positions in Solo's order, so that every result is Solo's
+// bit for bit.
+constexpr int kMaxGroup = 4;
+
+struct Solo {
+  static constexpr bool kSplit = false;
+  __device__ __forceinline__ int first() const { return threadIdx.x; }
+  __device__ __forceinline__ int stride() const { return kOptThreads; }
+  __device__ __forceinline__ int shift() const { return 0; }
+};
+
+// a Part's pointers, in its block's shared memory (so that the bodies do
+// not hold them in registers)
+struct PartLinks {
+  double* vals;                       // this block's [2][3][P] per-position values, then 2 stop flags
+  double* peer[kMaxGroup];            // each group block's vals (distributed shared memory)
+  unsigned* peer_arrived[kMaxGroup];  // each group block's `arrived`
+  unsigned arrived[kMaxGroup];        // the combines each group block has reached
+};
+
+struct Part {
+  static constexpr bool kSplit = true;
+  int k, log2k, j;
+  int L;              // local positions, ceil(P / k)
+  PartLinks* links;
+  // at most kOptThreads / 2 local positions: a 20-code posterior takes two
+  // threads a position (posterior_row, posterior_site20)
+  __device__ __forceinline__ bool pairs() const { return 2 * L <= kOptThreads; }
+  __device__ __forceinline__ int first() const { return j + k * (int)threadIdx.x; }
+  __device__ __forceinline__ int stride() const { return k * kOptThreads; }
+  __device__ __forceinline__ int shift() const { return log2k; }
+  // where this combine's K values go in every group block's vals: value k
+  // of position p at buffer(red, P) + k P + p
+  __device__ __forceinline__ int buffer(const Red& red, int P) const {
+    return (int)(red.buf2 & 1) * 3 * P;
+  }
+  // a value into every group block's vals (this block's among them)
+  __device__ __forceinline__ void put(int i, double v) const {
+    for (int q = 0; q < k; ++q) links->peer[q][i] = v;
+  }
+};
+
+__device__ __forceinline__ void fence_cluster() {
+  asm volatile("fence.acq_rel.cluster;" ::: "memory");
+}
+
+__device__ __forceinline__ void store_cluster(unsigned* p, unsigned v) {
+  asm volatile("st.relaxed.cluster.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ unsigned load_cluster(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.relaxed.cluster.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// K sums over the positions of a group each of whose blocks has put the
+// values of its own positions into every group block's vals (Part::put, at
+// g.buffer(red, P)): after a group barrier (the first thread of each block
+// tells every other block of the group how many combines it has reached,
+// and waits until they have all reached this one), thread t of every block
+// adds the positions t, t + NT, ... in that order from its own shared
+// memory as Solo's thread t does, then block_sum adds the threads as
+// Solo's does: every block of the group gets Solo's sums.  With a polling Stop the group's first block asks it
+// and every block gets its answer.  The values are double-buffered: a block
+// writes a buffer again only after every other block has reached the next
+// combine, when it has read this one.
+template <int K, int NT, class Stop>
+__device__ __forceinline__ void part_sum(double (&v)[K], Red& red, const Part& g, int P,
+                                         const Stop& stop, bool& stopped) {
+  const int buf = red.buf2 & 1;
+  const unsigned n = ++red.buf2;
+  prof_mark(kPhWait);
+  __syncthreads();
+  PartLinks* ln = g.links;
+  if (threadIdx.x == 0) {
+    if (Stop::kPolls && g.j == 0) ln->vals[6 * P + buf] = stop() ? 1.0 : 0.0;
+    fence_cluster();
+    for (int q = 0; q < g.k; ++q)
+      if (q != g.j) store_cluster(ln->peer_arrived[q] + g.j, n);
+    for (int q = 0; q < g.k; ++q)
+      if (q != g.j)
+        while (load_cluster(ln->arrived + q) < n) {
+        }
+    fence_cluster();
+  }
+  __syncthreads();
+  prof_mark(kPhReduce);
+  const double* vals = ln->vals + buf * 3 * P;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    double acc = 0.0;
+    if (threadIdx.x < NT)
+      for (int p = threadIdx.x; p < P; p += NT) acc += vals[k * P + p];
+    v[k] = acc;
+  }
+  if (Stop::kPolls) stopped = ln->peer[0][6 * P + buf] != 0.0;
+  bool unused = false;
+  block_sum<K>(v, red, NoStop{}, unused);
+  prof_mark(kPhControl);
+}
+
 // Pair log-likelihood of rows r1, r2 at len (ref pairLogLk tcc:1192-1447):
 // the float64 sum of the float32 per-site logs, returned to every thread;
 // lk_out [P], when not null, gets the per-site likelihoods.  Threads below
 // NT stride the positions and the rest add nothing, so in a block of more
 // than NT threads the sum keeps the order of an NT-thread block (warps past
 // NT / 32 add exact zeros at the end).
-template <int C, int NT>
+template <int C, int NT, class G = Solo>
 __device__ __forceinline__ double pair_loglk_block(const MLView& m, const RowRef& r1,
                                                    const RowRef& r2, float len, Red& red,
-                                                   float* lk_out) {
+                                                   float* lk_out, const G& g = G{}) {
   prof_mark(kPhSites);
-  __syncthreads();  // the rows' positions are other threads' in the other bodies
   double acc[1] = {0.0};
+  if constexpr (G::kSplit) {
+    // each position by its owner, its log into every group block's values
+    const int at = g.buffer(red, m.P);
+    for (int p = g.first(); p < m.P; p += g.stride()) {
+      float w1, w2, f1[C], f2[C], e[C];
+      effective<C>(m, r1, p, false, w1, f1);
+      effective<C>(m, r2, p, false, w2, f2);
+      rate_entries<C>(m, len, m.ratecat[p], e);
+      float lk = site_lk<C>(m, e, f1, f2);
+      if (p >= m.n_pos || (!m.jc && w1 == 0.0f && w2 == 0.0f)) lk = 1.0f;
+      if (lk_out != nullptr) lk_out[p] = lk;
+      g.put(at + p, (double)logf(fmaxf(lk, 1e-37f)));
+    }
+    bool stopped = false;
+    part_sum<1, NT>(acc, red, g, m.P, NoStop{}, stopped);
+    return acc[0];
+  }
+  __syncthreads();  // the rows' positions are other threads' in the other bodies
   if (threadIdx.x < NT) {
     for (int p = threadIdx.x; p < m.P; p += NT) {
       float w1, w2, f1[C], f2[C], e[C];
@@ -338,6 +476,120 @@ __device__ __forceinline__ double pair_loglk_block(const MLView& m, const RowRef
   return acc[0];
 }
 
+// The 20-code matrix-mode posterior of position p (posterior_site's), its
+// characters' rotations split over the threads that share the position:
+// this thread rotates characters [jlo, jhi) to character space and back,
+// kRotJ sums in flight, each sum over c in order from 0.0 as the 4-code
+// loops sum it (a float product is exact in float64, so fma rounds each
+// step as the product and the sum rounded it: the same bits in half the
+// float64 instructions).  The unnormalized posterior of each character is
+// staged in vo; where threads share the position (lanes of one warp, mask)
+// they meet at __syncwarp before each reads all of it; every thread then
+// normalizes and takes the gate alike.  Returns the position's kind.
+template <int C>
+__device__ __forceinline__ int posterior_site20(const MLView& m, const RowRef& r1,
+                                                const RowRef& r2, const float* e1,
+                                                const float* e2, float tol, int p, int jlo,
+                                                int jhi, unsigned mask, float& w_out,
+                                                float* vo) {
+  float w1, w2, f1[C], f2[C];
+  effective<C>(m, r1, p, true, w1, f1);
+  effective<C>(m, r2, p, true, w2, f2);
+  const bool both_gap = w1 == 0.0f && w2 == 0.0f;
+  w_out = both_gap ? 0.0f : 1.0f;
+  float m1[C], m2[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    m1[c] = f1[c] * e1[c];
+    m2[c] = f2[c] * e2[c];
+  }
+  const int phase = prof_phase();
+  prof_mark(kPhRotate);
+  // rotate to character space, x[j] = code_freq[j] . m, the unnormalized
+  // posterior x1 x2 statinv into vo
+#pragma unroll 1
+  for (int j0 = jlo; j0 < jhi; j0 += kRotJ) {
+    double x1[kRotJ], x2[kRotJ];
+#pragma unroll
+    for (int i = 0; i < kRotJ; ++i) x1[i] = x2[i] = 0.0;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const double a1 = (double)m1[c], a2 = (double)m2[c];
+#pragma unroll
+      for (int i = 0; i < kRotJ; ++i) {
+        const double cf = (double)m.code_freq[(j0 + i) * C + c];
+        x1[i] = fma(a1, cf, x1[i]);
+        x2[i] = fma(a2, cf, x2[i]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kRotJ; ++i) {
+      const int j = j0 + i;
+      vo[j] = fmaxf((float)x1[i] * (float)x2[i] * m.statinv[j], 0.0f);
+    }
+  }
+  if (jhi - jlo < C) __syncwarp(mask);
+  float fpost[C];
+#pragma unroll
+  for (int j = 0; j < C; ++j) fpost[j] = vo[j];
+  if (jhi - jlo < C) __syncwarp(mask);  // every thread has read vo before any writes it
+  float tot = fpost[0];
+#pragma unroll
+  for (int j = 1; j < C; ++j) tot = tot + fpost[j];
+  if (tot > tol) {
+#pragma unroll
+    for (int j = 0; j < C; ++j) fpost[j] = fpost[j] / tot;
+  }
+  const float* gap = m.code_freq + kNoCode * C;
+  bool rough = false;
+  if (m.approx) {
+    int ch = 0;
+    float fmax = fpost[0];
+#pragma unroll
+    for (int j = 1; j < C; ++j) {
+      if (fpost[j] > fmax) {
+        fmax = fpost[j];
+        ch = j;
+      }
+    }
+    const float* np_ch = m.near_p + ch * C;
+    const float npdiag = np_ch[ch];
+    const float w = (fmax - npdiag) / (1.0f - npdiag);
+    bool under = false;
+#pragma unroll
+    for (int j = 0; j < C; ++j)
+      under = under || (j != ch && (1.0f - w) * np_ch[j] < fpost[j] * kApproxMinRatio);
+    rough = fmax >= kApproxMinF && !under;
+    if (rough) {
+      const float wi = w * m.statinv[ch];
+      const float* cf = m.code_freq + ch * C;
+      const float* nf = m.near_freq + ch * C;
+#pragma unroll 1
+      for (int c = jlo; c < jhi; ++c) vo[c] = both_gap ? gap[c] : wi * cf[c] + (1.0f - w) * nf[c];
+    }
+  }
+  if (!rough) {
+    // rotate back, out[c] = sum_j fpost[j] * eigeninv[c][j]
+#pragma unroll 1
+    for (int c0 = jlo; c0 < jhi; c0 += kRotJ) {
+      double v[kRotJ];
+#pragma unroll
+      for (int i = 0; i < kRotJ; ++i) v[i] = 0.0;
+#pragma unroll
+      for (int j = 0; j < C; ++j) {
+        const double fj = (double)fpost[j];
+#pragma unroll
+        for (int i = 0; i < kRotJ; ++i) v[i] = fma(fj, (double)m.eigeninv[(c0 + i) * C + j], v[i]);
+      }
+#pragma unroll
+      for (int i = 0; i < kRotJ; ++i) vo[c0 + i] = both_gap ? gap[c0 + i] : (float)v[i];
+    }
+  }
+  prof_mark(phase);
+  if (both_gap) return kCountNone;
+  return rough ? kCountRough : kCountExact;
+}
+
 // Posterior parent profile of rows r1 and r2 at position p (ops/kernels.py
 // posterior_jc, posterior_matrix) from the rate entries e1, e2 of p's
 // category at their two lengths: the weight (0 where both are gaps, else
@@ -352,15 +604,19 @@ __device__ __forceinline__ double pair_loglk_block(const MLView& m, const RowRef
 // counts: kCountRough or kCountExact at 20 codes in matrix mode where not
 // both are gaps, else kCountNone.
 //
-// At 20 codes the rotations run one character at a time (rolled loops),
-// the character-space values staged in vo itself, so that a thread holds
-// one rotated vector and the posterior in registers, not 20 x 20 unrolled
+// At 20 codes in matrix mode it is posterior_site20 on one thread: the
+// rotations kRotJ characters at a time (rolled loops over the chunks), the
+// character-space values staged in vo itself, so that a thread holds one
+// rotated vector and the posterior in registers, not 20 x 20 unrolled
 // products (the round kernels, which inline it many times, spilled); the
 // sums, their order and every rounding are those of 4 codes.
 template <int C>
 __device__ __forceinline__ int posterior_site(const MLView& m, const RowRef& r1, const RowRef& r2,
                                               const float* e1, const float* e2, float tol, int p,
                                               float& w_out, float* vo) {
+  if constexpr (C == 20) {
+    if (!m.jc) return posterior_site20<C>(m, r1, r2, e1, e2, tol, p, 0, C, 0u, w_out, vo);
+  }
   float w1, w2, f1[C], f2[C];
   effective<C>(m, r1, p, true, w1, f1);
   effective<C>(m, r2, p, true, w2, f2);
@@ -383,39 +639,20 @@ __device__ __forceinline__ int posterior_site(const MLView& m, const RowRef& r1,
     for (int c = 0; c < C; ++c) vo[c] = both_gap ? 0.25f : out[c] / den;
     return kCountNone;
   }
-  float m1[C], m2[C], fpost[C];
+  if constexpr (C != 20) {
+    float m1[C], m2[C], fpost[C];
 #pragma unroll
-  for (int c = 0; c < C; ++c) {
-    m1[c] = f1[c] * e1[c];
-    m2[c] = f2[c] * e2[c];
-  }
-  // rotate to character space, x[j] = code_freq[j] . m, and back,
-  // out[c] = sum_j fpost[j] * eigeninv[c][j]: each a double sum rounded
-  // once (probabilities near 0 are sums of large signed terms, which a
-  // float sum would round by its order; ops/kernels.py _rotate)
-  float tot = 0.0f;
-  if constexpr (C == 20) {
-#pragma unroll 1
-    for (int j = 0; j < C; ++j) {  // x1 into vo
-      const float* cf = m.code_freq + j * C;
-      double x1 = 0.0;
-#pragma unroll
-      for (int c = 0; c < C; ++c) x1 += (double)m1[c] * (double)cf[c];
-      vo[j] = (float)x1;
+    for (int c = 0; c < C; ++c) {
+      m1[c] = f1[c] * e1[c];
+      m2[c] = f2[c] * e2[c];
     }
-#pragma unroll 1
-    for (int j = 0; j < C; ++j) {  // x2, and the unnormalized posterior into vo
-      const float* cf = m.code_freq + j * C;
-      double x2 = 0.0;
-#pragma unroll
-      for (int c = 0; c < C; ++c) x2 += (double)m2[c] * (double)cf[c];
-      const float f = fmaxf(vo[j] * (float)x2 * m.statinv[j], 0.0f);
-      vo[j] = f;
-      tot = j == 0 ? f : tot + f;
-    }
-#pragma unroll
-    for (int j = 0; j < C; ++j) fpost[j] = vo[j];
-  } else {
+    // rotate to character space, x[j] = code_freq[j] . m, and back,
+    // out[c] = sum_j fpost[j] * eigeninv[c][j]: each a double sum rounded
+    // once (probabilities near 0 are sums of large signed terms, which a
+    // float sum would round by its order; ops/kernels.py _rotate)
+    float tot = 0.0f;
+    const int phase = prof_phase();
+    prof_mark(kPhRotate);
 #pragma unroll
     for (int j = 0; j < C; ++j) {
       const float* cf = m.code_freq + j * C;
@@ -428,53 +665,11 @@ __device__ __forceinline__ int posterior_site(const MLView& m, const RowRef& r1,
       fpost[j] = fmaxf((float)x1 * (float)x2 * m.statinv[j], 0.0f);
       tot = j == 0 ? fpost[j] : tot + fpost[j];
     }
-  }
-  if (tot > tol) {
+    if (tot > tol) {
 #pragma unroll
-    for (int j = 0; j < C; ++j) fpost[j] = fpost[j] / tot;
-  }
-  const float* gap = m.code_freq + kNoCode * C;
-  if constexpr (C == 20) {
-    bool rough = false;
-    if (m.approx) {
-      int ch = 0;
-      float fmax = fpost[0];
-#pragma unroll
-      for (int j = 1; j < C; ++j) {
-        if (fpost[j] > fmax) {
-          fmax = fpost[j];
-          ch = j;
-        }
-      }
-      const float* np_ch = m.near_p + ch * C;
-      const float npdiag = np_ch[ch];
-      const float w = (fmax - npdiag) / (1.0f - npdiag);
-      bool under = false;
-#pragma unroll
-      for (int j = 0; j < C; ++j)
-        under = under || (j != ch && (1.0f - w) * np_ch[j] < fpost[j] * kApproxMinRatio);
-      rough = fmax >= kApproxMinF && !under;
-      if (rough) {
-        const float wi = w * m.statinv[ch];
-        const float* cf = m.code_freq + ch * C;
-        const float* nf = m.near_freq + ch * C;
-#pragma unroll 1
-        for (int c = 0; c < C; ++c) vo[c] = both_gap ? gap[c] : wi * cf[c] + (1.0f - w) * nf[c];
-      }
+      for (int j = 0; j < C; ++j) fpost[j] = fpost[j] / tot;
     }
-    if (!rough) {
-#pragma unroll 1
-      for (int c = 0; c < C; ++c) {
-        const float* ei = m.eigeninv + c * C;
-        double v = 0.0;
-#pragma unroll
-        for (int j = 0; j < C; ++j) v += (double)fpost[j] * (double)ei[j];
-        vo[c] = both_gap ? gap[c] : (float)v;
-      }
-    }
-    if (both_gap) return kCountNone;
-    return rough ? kCountRough : kCountExact;
-  } else {
+    const float* gap = m.code_freq + kNoCode * C;
     float out[C];
 #pragma unroll
     for (int c = 0; c < C; ++c) {
@@ -486,8 +681,9 @@ __device__ __forceinline__ int posterior_site(const MLView& m, const RowRef& r1,
     }
 #pragma unroll
     for (int c = 0; c < C; ++c) vo[c] = out[c];
-    return kCountNone;
+    prof_mark(phase);
   }
+  return kCountNone;
 }
 
 // The posterior profile of rows r1 and r2 at lengths len1, len2 into a row
@@ -496,22 +692,54 @@ __device__ __forceinline__ int posterior_site(const MLView& m, const RowRef& r1,
 // barrier.  At 20 codes its rough and exact positions are added to sink[0]
 // and sink[1] (shared memory, atomically, one add a warp); every thread of
 // the block calls it.
-template <int C>
+template <int C, class G = Solo>
 __device__ __forceinline__ void posterior_row(const MLView& m, const RowRef& r1, const RowRef& r2,
                                               float len1, float len2, float tol,
                                               int8_t* codes_out, float* w_out, float* v_out,
-                                              unsigned long long* sink) {
+                                              unsigned long long* sink, const G& g = G{},
+                                              int out_shift = 0) {
   unsigned n_rough = 0, n_exact = 0;
-  for (int p = threadIdx.x; p < m.P; p += kOptThreads) {
+  if constexpr (G::kSplit && C == 20) {
+    // one or two threads a position (lanes 2l, 2l + 1 of local position l,
+    // each rotating half of the characters): one code path for both
+    const int s2 = g.pairs() ? 1 : 0;
+    const int h = threadIdx.x & s2, span = C >> s2;
+    for (int l0 = 0; l0 < g.L; l0 += kOptThreads >> s2) {
+      const int l = l0 + (threadIdx.x >> s2);
+      const int p = g.j + g.k * l;
+      const bool live = l < g.L && p < m.P;  // alike in both lanes of a pair
+      const unsigned mask = __ballot_sync(0xffffffffu, live);
+      if (live) {
+        const int rate = m.ratecat[p];
+        const int i = p >> out_shift;
+        float e1[C], e2[C], w;
+        rate_entries<C>(m, len1, rate, e1);
+        rate_entries<C>(m, len2, rate, e2);
+        const int kind = posterior_site20<C>(m, r1, r2, e1, e2, tol, p, h * span,
+                                             (h + 1) * span, mask, w, v_out + (int64_t)i * C);
+        if (h == 0) {
+          n_rough += kind == kCountRough ? 1u : 0u;
+          n_exact += kind == kCountExact ? 1u : 0u;
+          if (codes_out != nullptr) codes_out[i] = (int8_t)kNoCode;
+          w_out[i] = w;
+        }
+      }
+    }
+    count_kinds(n_rough, n_exact, sink);
+    if (s2) __syncthreads();  // the other bodies read a position on one thread
+    return;
+  }
+  for (int p = g.first(); p < m.P; p += g.stride()) {
     const int rate = m.ratecat[p];
+    const int i = p >> out_shift;
     float e1[C], e2[C], w;
     rate_entries<C>(m, len1, rate, e1);
     rate_entries<C>(m, len2, rate, e2);
-    const int kind = posterior_site<C>(m, r1, r2, e1, e2, tol, p, w, v_out + (int64_t)p * C);
+    const int kind = posterior_site<C>(m, r1, r2, e1, e2, tol, p, w, v_out + (int64_t)i * C);
     n_rough += kind == kCountRough ? 1u : 0u;
     n_exact += kind == kCountExact ? 1u : 0u;
-    if (codes_out != nullptr) codes_out[p] = (int8_t)kNoCode;
-    w_out[p] = w;
+    if (codes_out != nullptr) codes_out[i] = (int8_t)kNoCode;
+    w_out[i] = w;
   }
   if constexpr (C == 20) count_kinds(n_rough, n_exact, sink);
 }
@@ -519,14 +747,45 @@ __device__ __forceinline__ void posterior_row(const MLView& m, const RowRef& r1,
 // -log-likelihood of the searched branch at K lengths x, in one sweep over
 // the thread's positions and one reduction (each sum in its own order, the
 // order of one evaluation alone); every thread of the block gets fx.
-template <int C, int K, class Stop>
+template <int C, int K, class Stop, class G = Solo>
 __device__ __forceinline__ void neg_loglk(const MLView& m, const float* eff1, const float* eff2,
                                           const int8_t* rate, Red& red, const float (&x)[K],
-                                          float (&fx)[K], const Stop& stop, bool& stopped) {
+                                          float (&fx)[K], const Stop& stop, bool& stopped,
+                                          const G& g = G{}) {
   prof_mark(kPhSites);
   double acc[K];
 #pragma unroll
   for (int k = 0; k < K; ++k) acc[k] = 0.0;
+  if constexpr (G::kSplit) {
+    // each local position's K logs into every group block's values (0
+    // where its likelihood is 1: Solo adds nothing there, and adding 0 to
+    // a sum of logs that starts at +0 changes no bit)
+    const int at = g.buffer(red, m.P);
+    for (int p = g.first(); p < m.P; p += g.stride()) {
+      const int l = p >> g.log2k;
+      const int r = rate[l];
+      float f1[C], f2[C];
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        f1[c] = eff1[l * C + c];
+        f2[c] = eff2[l * C + c];
+      }
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        double val = 0.0;
+        if (r >= 0) {
+          float e[C];
+          rate_entries<C>(m, x[k], r, e);
+          val = (double)logf(fmaxf(site_lk<C>(m, e, f1, f2), 1e-37f));
+        }
+        g.put(at + k * m.P + p, val);
+      }
+    }
+    part_sum<K, kOptThreads>(acc, red, g, m.P, stop, stopped);
+#pragma unroll
+    for (int k = 0; k < K; ++k) fx[k] = -(float)acc[k];
+    return;
+  }
   for (int p = threadIdx.x; p < m.P; p += kOptThreads) {
     const int r = rate[p];
     if (r < 0) continue;  // lk 1: log 0
@@ -550,13 +809,13 @@ __device__ __forceinline__ void neg_loglk(const MLView& m, const float* eff1, co
   for (int k = 0; k < K; ++k) fx[k] = -(float)acc[k];
 }
 
-template <int C, class Stop>
+template <int C, class Stop, class G = Solo>
 __device__ __forceinline__ float neg_loglk1(const MLView& m, const float* eff1, const float* eff2,
                                             const int8_t* rate, Red& red, float x,
-                                            const Stop& stop, bool& stopped) {
+                                            const Stop& stop, bool& stopped, const G& g = G{}) {
   const float xs[1] = {x};
   float fs[1];
-  neg_loglk<C, 1>(m, eff1, eff2, rate, red, xs, fs, stop, stopped);
+  neg_loglk<C, 1>(m, eff1, eff2, rate, red, xs, fs, stop, stopped, g);
   return fs[0];
 }
 
@@ -570,30 +829,33 @@ __device__ __forceinline__ float neg_loglk1(const MLView& m, const float* eff1, 
 // Returns x; fx_out = -loglk at x.  With a polling Stop the search ends at
 // the first evaluation after stop() answers true, with `stopped` set and
 // its results void.
-template <int C, class Stop>
+template <int C, class Stop, class G = Solo>
 __device__ __forceinline__ float line_search(const MLView& m, const RowRef& r1, const RowRef& r2,
                                              float guess, const SearchLimits& lim, float* eff1,
                                              float* eff2, int8_t* rate, Red& red, float& fx_out,
-                                             int& n_eval_out, const Stop& stop, bool& stopped) {
+                                             int& n_eval_out, const Stop& stop, bool& stopped,
+                                             const G& g = G{}) {
   prof_mark(kPhStage);
-  for (int p = threadIdx.x; p < m.P; p += kOptThreads) {
+  for (int p = g.first(); p < m.P; p += g.stride()) {
+    const int l = p >> g.shift();
     float w1, w2, f1[C], f2[C];
     effective<C>(m, r1, p, false, w1, f1);
     effective<C>(m, r2, p, false, w2, f2);
 #pragma unroll
     for (int c = 0; c < C; ++c) {
-      eff1[p * C + c] = f1[c];
-      eff2[p * C + c] = f2[c];
+      eff1[l * C + c] = f1[c];
+      eff2[l * C + c] = f2[c];
     }
     const bool skip = p >= m.n_pos || (!m.jc && w1 == 0.0f && w2 == 0.0f);
-    rate[p] = skip ? (int8_t)-1 : (int8_t)m.ratecat[p];
+    rate[l] = skip ? (int8_t)-1 : (int8_t)m.ratecat[p];
   }
+  if constexpr (G::kSplit) __syncthreads();  // a pair's lanes read them (neg_loglk)
   prof_mark(kPhControl);
   stopped = false;
   int n_eval = 0;
   auto f = [&](float x) {
     ++n_eval;
-    return neg_loglk1<C>(m, eff1, eff2, rate, red, x, stop, stopped);
+    return neg_loglk1<C>(m, eff1, eff2, rate, red, x, stop, stopped, g);
   };
   const float xmin = lim.xmin, xmax = lim.xmax;
 
@@ -613,7 +875,7 @@ __device__ __forceinline__ float line_search(const MLView& m, const RowRef& r1, 
     const float xs[3] = {ax, bx, cx};
     float fs[3];
     n_eval += 3;
-    neg_loglk<C, 3>(m, eff1, eff2, rate, red, xs, fs, stop, stopped);
+    neg_loglk<C, 3>(m, eff1, eff2, rate, red, xs, fs, stop, stopped, g);
     fa = fs[0];
     fb = fs[1];
     fc = fs[2];
@@ -762,19 +1024,22 @@ __device__ QuartetScratch quartet_scratch(unsigned char* smem, float* glob, bool
 // with `stopped` set and its results void.  At 20 codes the posteriors'
 // rough and exact positions are added to sink[0], sink[1] (shared memory),
 // each before a barrier that every thread passes before the return.
-template <int C, class Stop>
+template <int C, class Stop, class G = Solo>
 __device__ __forceinline__ bool quartet_optimize(const MLView& m, const QuartetScratch& q,
                                                  Red& red, const SearchLimits& lim, float tol,
                                                  bool star_test, const RowRef& A,
                                                  const RowRef& B, const RowRef& Cr,
                                                  const RowRef& D, double len[5], double parts[3],
                                                  int& n_eval, float* site, const Stop& stop,
-                                                 bool& stopped, unsigned long long* sink) {
-  const int P = m.P;
-  const size_t row_floats = (size_t)P * (C + 1);
+                                                 bool& stopped, unsigned long long* sink,
+                                                 const G& g = G{}) {
+  // a temporary holds the block's own positions: L of them at local index
+  // p >> shift
+  const int L = (m.P + (1 << g.shift()) - 1) >> g.shift();
+  const size_t row_floats = (size_t)L * (C + 1);
   auto T = [&](int t) {
     float* row = q.temps + t * row_floats;
-    return RowRef{nullptr, row, row + P};
+    return RowRef{nullptr, row, row + L, g.shift()};
   };
 
   // posterior into temporary t, lengths clamped as the store clamps them
@@ -782,7 +1047,7 @@ __device__ __forceinline__ bool quartet_optimize(const MLView& m, const QuartetS
     prof_mark(kPhQPost);
     float* row = q.temps + t * row_floats;
     posterior_row<C>(m, r1, r2, fmaxf((float)l1, lim.xmin), fmaxf((float)l2, lim.xmin), tol,
-                     nullptr, row, row + P, sink);
+                     nullptr, row, row + L, sink, g, g.shift());
     prof_mark(kPhControl);
   };
   n_eval = 0;
@@ -791,12 +1056,12 @@ __device__ __forceinline__ bool quartet_optimize(const MLView& m, const QuartetS
   auto search = [&](const RowRef& r1, const RowRef& r2, double guess) {
     int n;
     const float x = line_search<C>(m, r1, r2, (float)guess, lim, q.eff1, q.eff2, q.rate, red, fx,
-                                   n, stop, stopped);
+                                   n, stop, stopped, g);
     n_eval += n;
     return (double)x;
   };
   auto pair = [&](const RowRef& r1, const RowRef& r2, double length, float* lk) {
-    return pair_loglk_block<C, kLkThreads>(m, r1, r2, (float)length, red, lk);
+    return pair_loglk_block<C, kLkThreads>(m, r1, r2, (float)length, red, lk, g);
   };
 
   post(kAB, A, B, len[kLenA], len[kLenB]);
@@ -827,8 +1092,8 @@ __device__ __forceinline__ bool quartet_optimize(const MLView& m, const QuartetS
   if (stopped) return false;
   parts[0] = -(double)fx;
   if (site != nullptr) pair(T(kABC), D, len[kLenD], site);
-  parts[1] = pair(T(kAB), Cr, len[kLenI] + len[kLenC], site != nullptr ? site + P : nullptr);
-  parts[2] = pair(A, B, len[kLenA] + len[kLenB], site != nullptr ? site + 2 * P : nullptr);
+  parts[1] = pair(T(kAB), Cr, len[kLenI] + len[kLenC], site != nullptr ? site + m.P : nullptr);
+  parts[2] = pair(A, B, len[kLenA] + len[kLenB], site != nullptr ? site + 2 * m.P : nullptr);
   return false;
 }
 

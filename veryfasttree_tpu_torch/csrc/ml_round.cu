@@ -113,8 +113,11 @@ namespace {
 namespace cg = cooperative_groups;
 
 constexpr int kMlRoundSmemCap = 225 * 1024;  // dynamic shared memory of a round's block
-constexpr int kClusterBlocks = 3;            // block 0: walk and AB; 1: AC; 2: AD
+constexpr int kClusterBlocks = 3;            // 4 codes: block 0: walk and AB; 1: AC; 2: AD
 constexpr int kABvsCD = 0, kACvsBD = 1, kADvsBC = 2;
+// 20 codes: block 0 walks; group g of kg blocks (ranks 1 + g kg ...) runs the
+// AB (g = 0), AC (1) and AD (2) optimizations, or the pass's searches (0)
+constexpr int kMaxRanks = 1 + 3 * kMaxGroup;
 
 // int64 counters of a round or pass, in the wrappers' order (ops/ml_round.py)
 enum : int {
@@ -134,20 +137,29 @@ enum : int {
   kMlCounters
 };
 
-// one worker's quartet optimization, written into block 0's shared memory
+// one worker's quartet optimization (20 codes: or line search), written
+// into block 0's shared memory
 struct QuartetResult {
   double parts[3];
   double len[5];
   unsigned long long kinds[2];  // its posteriors' rough and exact positions
   int n_eval;
+  int star;                     // 20 codes: the AB optimization's star test fired
+  float x;                      // 20 codes: a search's length
 };
 
 enum { kIdle, kRun, kStop };
+// what a 20-code group runs: a quartet optimization (rows A B C D, lengths
+// A B C D I), a pass's search (the posterior of rows 0, 1 at lengths 0, 1
+// into a temporary, then the search against row 2 from length 2), or a
+// posterior of rows 0, 1 at lengths 0, 1 into store row 2
+enum { kOpQuartet, kOpSearch, kOpPosterior };
 
 // block 0's command to a worker, written into the worker's shared memory
 struct Command {
   int op;     // kIdle, kRun, kStop
   int seq;    // the iteration's sequence number
+  int what;   // 20 codes: kOpQuartet, kOpSearch or kOpPosterior
   int rows[4];
   double len[5];
 };
@@ -155,10 +167,11 @@ struct Command {
 // shared scratch of a block
 struct MlShared {
   long long ctr[kMlCounters];                // block 0's
-  QuartetResult res[kClusterBlocks];         // block 0's: res[k] from block k
+  QuartetResult res[kMaxRanks];              // block 0's: res[k] from block k
   Command cmd;                               // a worker's
   int abandon;                               // a worker's: the abandoned seq
   int any_bad;  // set by whichever thread finds a fault in the skip set
+  PartLinks links;                           // a 20-code group block's (part_sum)
 };
 
 // ml_lk.cuh's Stop of a worker: block 0 abandoned the optimization of
@@ -189,11 +202,22 @@ struct MlArgs {
 // where a round's or pass's block keeps its pieces, in shared memory in
 // this order: block 0's tree where it fits, then the block's quartet
 // pieces as ml_quartet_opt keeps them (quartet_layout); what does not fit
-// goes to device scratch, n_blocks shares of q.scratch_floats
+// goes to device scratch, n_blocks shares of q.scratch_floats.  At 20 codes
+// block 0 keeps the tree alone and each group block (after the model
+// tables) its share of the pieces, `local` positions of each temporary and
+// search vector (quartet_layout(local, 20)), then part_sum's values at
+// vals_at; smem is the larger of the two.
 struct RoundLayout {
   QuartetLayout q;
   bool tree_smem;
   size_t tree_bytes, smem, scratch_floats;
+  int kg;          // 20 codes: the blocks of a group (1, 2 or 4); else 1
+  int n_blocks;    // the cluster's blocks
+  int local;       // 20 codes: a group block's positions, ceil(P / kg)
+  size_t vals_at;  // 20 codes: a group block's part_sum values in shared
+                   // memory, or 0: at the end of its scratch share
+  size_t group_smem;  // 20 codes: a group block's shared memory
+  size_t block_scratch;  // 20 codes: a group block's share of the scratch (floats)
 };
 
 // At 20 codes the model tables that a posterior reads character by
@@ -218,7 +242,33 @@ RoundLayout round_layout(int M, int P, int C, bool want_tree_smem, int n_blocks)
   const size_t tree = tree_smem_bytes(M, 2);
   const bool tree_smem = want_tree_smem && tables + tree + q.smem <= (size_t)kMlRoundSmemCap;
   const size_t tree_bytes = tree_smem ? tree : 0;
-  return {q, tree_smem, tree_bytes, tables + tree_bytes + q.smem, n_blocks * q.scratch_floats};
+  return {q, tree_smem, tree_bytes, tables + tree_bytes + q.smem, n_blocks * q.scratch_floats,
+          1, n_blocks, P, 0, 0, q.scratch_floats};
+}
+
+// The 20-code layout: block 0 and n_groups groups of kg blocks (3 for a
+// round, 1 for a pass).  A group block keeps part_sum's values of all P
+// positions (48 P bytes) in its shared memory up to P = 1,200, in device
+// scratch past it, and its share of the quartet pieces in shared memory
+// where they fit beside them: every piece stays out of device scratch at
+// kg = 1 up to P of about 300, at kg = 2 about 560, at kg = 4 about 1,000.
+RoundLayout round_layout20(int M, int P, bool want_tree_smem, int n_groups, int kg) {
+  const size_t tables = kTablesBytes<20>;
+  const int local = (P + kg - 1) / kg;
+  const size_t vals = align16((6 * (size_t)P + 2) * sizeof(double));
+  const bool vals_smem = vals <= (size_t)kMlRoundSmemCap / 4;
+  const size_t vals_in_smem = vals_smem ? vals : 0;
+  const QuartetLayout q = quartet_layout(local, 20, kMlRoundSmemCap - tables - vals_in_smem);
+  const size_t tree = tree_smem_bytes(M, 2);
+  const bool tree_smem = want_tree_smem && tables + tree <= (size_t)kMlRoundSmemCap;
+  const size_t tree_bytes = tree_smem ? tree : 0;
+  const size_t group = tables + q.smem + vals_in_smem;
+  const size_t block0 = tables + tree_bytes;
+  const int n_blocks = 1 + n_groups * kg;
+  const size_t per_block = q.scratch_floats + (vals_smem ? 0 : vals / sizeof(float));
+  return {q, tree_smem, tree_bytes, group > block0 ? group : block0,
+          (size_t)(n_blocks - 1) * per_block, kg, n_blocks, local,
+          vals_smem ? tables + q.smem : 0, group, per_block};
 }
 
 // The MLView of a block with its 20-code tables copied into its shared
@@ -259,6 +309,8 @@ struct MlRound : RoundTree {
   NniStats st;
   double max_delta;   // the NNI round's
   int seq;            // the last command's sequence number
+  int kg;             // 20 codes: the blocks of a group
+  int n_groups;       // 20 codes: the groups (3 in a round, 1 in a pass)
 
   __device__ __forceinline__ void count(int k, long long n) {
     if (tid == 0) sh->ctr[k] += n;
@@ -287,6 +339,20 @@ struct MlRound : RoundTree {
   }
 
   __device__ __forceinline__ void posterior(int t, int r1, int r2, double l1, double l2) {
+    if constexpr (C == 20) {
+      // on group 0, each block its positions
+      ++seq;
+      const int r[4] = {r1, r2, t, 0};
+      const double l[5] = {l1, l2, 0.0, 0.0, 0.0};
+      const cg::cluster_group cl = cg::this_cluster();
+      send_group(cl, 0, true, kOpPosterior, r, l);
+      for (int g = 1; g < n_groups; ++g) send_group(cl, g, false, kOpPosterior, r, l);
+      run_groups();
+      count(kPostCompute, 1);
+      count(kPosteriors, 1);
+      take_kinds(0);
+      return;
+    }
     const int64_t at = (int64_t)t * m.P;
     posterior_to(codes + at, W + at, V + at * C, row(r1), row(r2), l1, l2);
   }
@@ -383,6 +449,7 @@ struct MlRound : RoundTree {
   __device__ __forceinline__ int quartet_nni(const cg::cluster_group& cl, const int r[4],
                                              const double len[5], double crit[3],
                                              double out[5]) {
+    if constexpr (C == 20) return quartet_nni_groups(cl, r, len, crit, out);
     double lab[5] = {len[kLenA], len[kLenB], len[kLenC], len[kLenD], len[kLenI]};
     double lac[5] = {len[kLenA], len[kLenC], len[kLenB], len[kLenD], len[kLenI]};
     double lad[5] = {len[kLenA], len[kLenD], len[kLenC], len[kLenB], len[kLenI]};
@@ -455,6 +522,122 @@ struct MlRound : RoundTree {
     return choice;
   }
 
+  // 20 codes: block 0's command to every block of group g (kRun with the
+  // rows and lengths, or kIdle), in the blocks' shared memory
+  __device__ __forceinline__ void send_group(const cg::cluster_group& cl, int g, bool run,
+                                             int what, const int r[4], const double l[5]) {
+    if (tid != 0) return;
+    for (int j = 0; j < kg; ++j) {
+      Command* c = cl.map_shared_rank(&sh->cmd, 1 + g * kg + j);
+      c->op = run ? kRun : kIdle;
+      c->seq = seq;
+      c->what = what;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) c->rows[i] = r[i];
+#pragma unroll
+      for (int i = 0; i < 5; ++i) c->len[i] = l[i];
+    }
+  }
+
+  // 20 codes: the commands out, every block at a cluster barrier (the
+  // commands and the store rows they read), the groups run, and a second
+  // barrier (their results in sh->res)
+  __device__ __forceinline__ void run_groups() {
+    __threadfence();
+    prof_mark(kPhWait);
+    cluster_sync();
+    cluster_sync();
+    prof_mark(kPhWalk);
+  }
+
+  // 20 codes: the rough and exact positions of group g's posteriors
+  __device__ __forceinline__ void take_kinds(int g) {
+    if (tid != 0) return;
+    for (int j = 0; j < kg; ++j) {
+      const QuartetResult& o = sh->res[1 + g * kg + j];
+      atomicAdd(kinds(), o.kinds[0]);
+      atomicAdd(kinds() + 1, o.kinds[1]);
+    }
+  }
+
+  // 20 codes: group g's optimization into len and ll, counted as the host
+  // counts it
+  __device__ __forceinline__ void take_group(int g, double len[5], double& ll) {
+    const QuartetResult& o = sh->res[1 + g * kg];
+#pragma unroll
+    for (int i = 0; i < 5; ++i) len[i] = o.len[i];
+    ll = quartet_ll(o.parts, false);
+    count_quartet(false, false, o.n_eval);
+    take_kinds(g);
+  }
+
+  // quartet_nni at 20 codes: the AB, AC and AD optimizations on groups 0, 1
+  // and 2 (AC and AD speculative as above: group 0's first block abandons
+  // them when AB's star test fires), block 0 deciding
+  __device__ __forceinline__ int quartet_nni_groups(const cg::cluster_group& cl, const int r[4],
+                                                    const double len[5], double crit[3],
+                                                    double out[5]) {
+    double lab[5] = {len[kLenA], len[kLenB], len[kLenC], len[kLenD], len[kLenI]};
+    double lac[5] = {len[kLenA], len[kLenC], len[kLenB], len[kLenD], len[kLenI]};
+    double lad[5] = {len[kLenA], len[kLenD], len[kLenC], len[kLenB], len[kLenI]};
+    const int rac[4] = {r[0], r[2], r[1], r[3]}, rad[4] = {r[0], r[3], r[2], r[1]};
+    bool consider_ac = true, consider_ad = true;
+    const int n_rounds = a.ml_accuracy < 2 ? 2 : a.ml_accuracy;
+    double c_ab = -1e20, c_ac = -1e20, c_ad = -1e20;
+    for (int it = 0; it < n_rounds; ++it) {
+      raise_to_min(lab);
+      if (consider_ac) raise_to_min(lac);
+      if (consider_ad) raise_to_min(lad);
+      ++seq;
+      send_group(cl, 0, true, kOpQuartet, r, lab);
+      send_group(cl, 1, consider_ac, kOpQuartet, rac, lac);
+      send_group(cl, 2, consider_ad, kOpQuartet, rad, lad);
+      run_groups();
+      const QuartetResult& ab = sh->res[1];
+      const bool star = ab.star != 0;
+#pragma unroll
+      for (int i = 0; i < 5; ++i) lab[i] = ab.len[i];
+      c_ab = quartet_ll(ab.parts, star);
+      count_quartet(true, star, ab.n_eval);
+      take_kinds(0);
+      if (star) {
+        count(kStarTests, 1);
+        count(kSpeculative, (consider_ac ? 1 : 0) + (consider_ad ? 1 : 0));
+        crit[kABvsCD] = c_ab;
+        crit[kACvsBD] = -1e20;
+        crit[kADvsBC] = -1e20;
+#pragma unroll
+        for (int i = 0; i < 5; ++i) out[i] = len[i];
+        out[kLenI] = lab[kLenI];
+        return kABvsCD;
+      }
+      if (consider_ac) take_group(1, lac, c_ac);
+      if (consider_ad) take_group(2, lad, c_ad);
+      if (a.ml_accuracy < 2) {
+        const double close = kCloseLogLkLimit;
+        if (c_ac < c_ab - close || (lac[kLenI] <= 2.0 * a.min_len && c_ac < c_ab))
+          consider_ac = false;
+        if (c_ad < c_ab - close || (lad[kLenI] <= 2.0 * a.min_len && c_ad < c_ab))
+          consider_ad = false;
+        if (!consider_ac && !consider_ad) break;
+        if (c_ac > c_ab + close && c_ac > c_ad + close) break;
+        if (c_ad > c_ab + close && c_ad > c_ac + close) break;
+      }
+    }
+    int choice = kABvsCD;
+    if (c_ac > c_ab && c_ac > c_ad)
+      choice = kACvsBD;
+    else if (c_ad > c_ab && c_ad > c_ac)
+      choice = kADvsBC;
+    crit[kABvsCD] = c_ab;
+    crit[kACvsBD] = c_ac;
+    crit[kADvsBC] = c_ad;
+#pragma unroll
+    for (int i = 0; i < 5; ++i)
+      out[i] = choice == kACvsBD ? lac[i] : (choice == kADvsBC ? lad[i] : lab[i]);
+    return choice;
+  }
+
   // one quartet of the walk (rearrange.do_nni's body with use_ml)
   __device__ __forceinline__ void nni_node(const cg::cluster_group& cl, int node) {
     int n4[4], r4[4];
@@ -501,7 +684,7 @@ struct MlRound : RoundTree {
   // --------------------------------------------------------- lengths pass
   // ml.optimize_all_branch_lengths for three tips or more: the temporary
   // S_TMP1 is the first of the block's quartet temporaries
-  __device__ __forceinline__ void lengths_pass() {
+  __device__ __forceinline__ void lengths_pass(const cg::cluster_group* cl = nullptr) {
     float* tmp_w = q.temps;
     float* tmp_v = q.temps + m.P;
     const RowRef tmp{nullptr, tmp_w, tmp_v};
@@ -532,15 +715,30 @@ struct MlRound : RoundTree {
         for (int i = 0; i < 3; ++i) {
           const int b1 = i == 2 ? 0 : i + 1, b2 = i == 0 ? 2 : i - 1;
           const int n1 = pick3(nodes3, b1), n2 = pick3(nodes3, b2), ni = pick3(nodes3, i);
-          posterior_to(nullptr, tmp_w, tmp_v, row(pick3(rows3, b1)), row(pick3(rows3, b2)),
-                       bl[n1], bl[n2]);
           const double cur = bl[ni];
           const double guess = cur < a.min_len ? a.min_len : cur;  // Python's max
-          float fx;
+          float x;
           int n;
-          bool stopped;
-          const float x = line_search<C>(m, row(pick3(rows3, i)), tmp, (float)guess, lim, q.eff1,
-                                         q.eff2, q.rate, red, fx, n, NoStop{}, stopped);
+          if constexpr (C == 20) {
+            // the temporary's posterior and the search on group 0
+            ++seq;
+            const int r[4] = {pick3(rows3, b1), pick3(rows3, b2), pick3(rows3, i), 0};
+            const double l[5] = {bl[n1], bl[n2], guess, 0.0, 0.0};
+            send_group(*cl, 0, true, kOpSearch, r, l);
+            run_groups();
+            count(kPostCompute, 1);
+            count(kPosteriors, 1);
+            take_kinds(0);
+            x = sh->res[1].x;
+            n = sh->res[1].n_eval;
+          } else {
+            posterior_to(nullptr, tmp_w, tmp_v, row(pick3(rows3, b1)), row(pick3(rows3, b2)),
+                         bl[n1], bl[n2]);
+            float fx;
+            bool stopped;
+            x = line_search<C>(m, row(pick3(rows3, i)), tmp, (float)guess, lim, q.eff1, q.eff2,
+                               q.rate, red, fx, n, NoStop{}, stopped);
+          }
           prof_mark(kPhWalk);
           count(kLkCompute, 8);
           count(kSearches, 1);
@@ -562,9 +760,9 @@ struct MlRound : RoundTree {
       double *g_max_delta, float *scratch, RoundLayout L
 
 // block 0 of a round (kRound: the round, then kStop to the workers), or
-// the one block of a pass: stage the tree, run, put the tree and the
-// counters back.  No lambda: nvcc kept a lambda this large as a call, with
-// spills.
+// the one block of a pass (at 20 codes block 0 of the pass's cluster, then
+// kStop to its group): stage the tree, run, put the tree and the counters
+// back.  No lambda: nvcc kept a lambda this large as a call, with spills.
 template <int C, bool kRound>
 __device__ __forceinline__ void tree_block(VFT_ML_ROUND_PARAMS, MlShared& sh) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -573,19 +771,24 @@ __device__ __forceinline__ void tree_block(VFT_ML_ROUND_PARAMS, MlShared& sh) {
                                   L.tree_smem);
   if (tid < kMlCounters) sh.ctr[tid] = 0;
   __syncthreads();
-  const QuartetScratch q = quartet_scratch<C>(smem + kTablesBytes<C> + L.tree_bytes, scratch,
-                                              L.q.temps_smem, L.q.eff_smem, m.P);
+  QuartetScratch q{};
+  if constexpr (C != 20)  // at 20 codes the groups keep the quartet pieces
+    q = quartet_scratch<C>(smem + kTablesBytes<C> + L.tree_bytes, scratch, L.q.temps_smem,
+                           L.q.eff_smem, m.P);
   MlRound<C> b{{t.tree, t.tree + M, t.tree + 4 * M, t.flags, t.path, args.n_seqs, args.root, M,
                 tid, false},
-               m, codes, W, V, q, Red{q.red, 0}, lim, args, bl, &sh, t.flags + M, st, 0.0, 0};
-  if constexpr (kRound) {
+               m, codes, W, V, q, Red{q.red, 0}, lim, args, bl, &sh, t.flags + M, st, 0.0, 0,
+               L.kg, (L.n_blocks - 1) / L.kg};
+  if constexpr (kRound || C == 20) {
     const cg::cluster_group cl = cg::this_cluster();
-    if (args.n_seqs > 3) b.nni_round(cl);
-    if (tid == 0) {
-      *g_max_delta = b.max_delta;
-#pragma unroll
-      for (int k = 1; k < kClusterBlocks; ++k) cl.map_shared_rank(&sh.cmd, k)->op = kStop;
+    if constexpr (kRound) {
+      if (args.n_seqs > 3) b.nni_round(cl);
+      if (tid == 0) *g_max_delta = b.max_delta;
+    } else {
+      b.lengths_pass(&cl);
     }
+    if (tid == 0)
+      for (int k = 1; k < L.n_blocks; ++k) cl.map_shared_rank(&sh.cmd, k)->op = kStop;
     prof_mark(kPhWait);
     cluster_sync();  // the workers read kStop and end
     prof_mark(kPhWalk);
@@ -595,10 +798,11 @@ __device__ __forceinline__ void tree_block(VFT_ML_ROUND_PARAMS, MlShared& sh) {
   unstage_tree(t, g_tree, M, L.tree_smem, sh.ctr, kMlCounters, kMlFault, b.bad, g_ctr);
 }
 
-// a worker of the round (block k = 1, 2): run the commands of block 0 until
-// it sends kStop.  Its posteriors' rough and exact positions gather in its
-// own ctr[kAaRough], ctr[kAaExact] (zero at each command's start), and go to
-// block 0 with the result, where they count only if the result is taken
+// a worker of the 4-code round (block k = 1, 2): run the commands of block 0
+// until it sends kStop.  Its posteriors' rough and exact positions gather in
+// its own ctr[kAaRough], ctr[kAaExact] (zero at each command's start), and
+// go to block 0 with the result, where they count only if the result is
+// taken
 template <int C>
 __device__ __forceinline__ void worker_block(const cg::cluster_group& cl, int k, const MLView& m,
                                              const SearchLimits& lim, float tol, float* scratch,
@@ -645,20 +849,135 @@ __device__ __forceinline__ void worker_block(const cg::cluster_group& cl, int k,
   }
 }
 
+// a block of a 20-code group (rank 1 + g kg + j: block j of group g): run
+// block 0's commands until it sends kStop, each spread over the group's kg
+// blocks (ml_lk.cuh Part), its pieces in this block's shared memory where
+// they fit.  A quartet (group 0 with the star test, whose first block then
+// abandons the other groups' optimizations; groups 1 and 2 polling their
+// abandon flag, through their first block) or a pass's search: the
+// posterior of two rows into the first temporary, then the line search
+// (kRound false: a pass's group, which runs only searches).
+// Every block of the group sends block 0 its posteriors' rough and exact
+// positions, the first block the result, unless it was abandoned.
+template <int C, bool kRound>
+__device__ __forceinline__ void group_block(const cg::cluster_group& cl, int rank,
+                                            const MLView& m, const SearchLimits& lim, float tol,
+                                            float* scratch, const RoundLayout& L, MlShared& sh) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int g = (rank - 1) / L.kg, lead = 1 + g * L.kg;
+  float* share = scratch + (size_t)(rank - 1) * L.block_scratch;
+  const QuartetScratch q = quartet_scratch<C>(smem + kTablesBytes<C>, share, L.q.temps_smem,
+                                              L.q.eff_smem, L.local);
+  Red red{q.red, 0};
+  const Part part{L.kg, L.kg == 4 ? 2 : (L.kg == 2 ? 1 : 0), rank - lead, L.local, &sh.links};
+  if (threadIdx.x == 0) {
+    // part_sum's values: each group block's, in its shared memory or at the
+    // end of its scratch share
+    for (int i = 0; i < kMaxGroup; ++i) {
+      const int peer = lead + (i < L.kg ? i : 0);
+      sh.links.peer[i] =
+          L.vals_at ? cl.map_shared_rank(reinterpret_cast<double*>(smem + L.vals_at), peer)
+                    : reinterpret_cast<double*>(scratch + (size_t)(peer - 1) * L.block_scratch +
+                                                L.q.scratch_floats);
+      sh.links.peer_arrived[i] = cl.map_shared_rank(sh.links.arrived, peer);
+    }
+    sh.links.vals = sh.links.peer[rank - lead];
+  }
+  __syncthreads();
+  unsigned long long* kinds = reinterpret_cast<unsigned long long*>(sh.ctr + kAaRough);
+  for (;;) {
+    prof_mark(kPhWait);
+    cluster_sync();  // block 0's command and the store rows it reads
+    const int op = sh.cmd.op, seq = sh.cmd.seq;
+    if (op == kStop) break;
+    if (op == kRun) {
+      double len[5], parts[3] = {0.0, 0.0, 0.0};
+#pragma unroll
+      for (int i = 0; i < 5; ++i) len[i] = sh.cmd.len[i];
+      const int r0 = sh.cmd.rows[0], r1 = sh.cmd.rows[1], r2 = sh.cmd.rows[2],
+                r3 = sh.cmd.rows[3];
+      int n_eval;
+      bool stopped = false, star = false;
+      float x = 0.0f;
+      if (sh.cmd.what == kOpPosterior) {
+        // into store row r2, each position by its block and thread; the
+        // fence before the results' barrier lets every block read it
+        const int64_t at = (int64_t)r2 * m.P;
+        prof_mark(kPhWalk);
+        posterior_row<C>(m, store_row<C>(m, r0), store_row<C>(m, r1),
+                         fmaxf((float)len[0], lim.xmin), fmaxf((float)len[1], lim.xmin), tol,
+                         const_cast<int8_t*>(m.codes) + at, const_cast<float*>(m.W) + at,
+                         const_cast<float*>(m.V) + at * C, kinds, part, 0);
+        __threadfence();
+        __syncthreads();  // every warp's rough and exact adds, before thread 0 sends them
+        n_eval = 0;
+      } else if constexpr (kRound) {
+        star = quartet_optimize<C>(m, q, red, lim, tol, g == 0, store_row<C>(m, r0),
+                                   store_row<C>(m, r1), store_row<C>(m, r2),
+                                   store_row<C>(m, r3), len, parts, n_eval, nullptr,
+                                   AbandonFlag{&sh.abandon, seq}, stopped, kinds, part);
+        if (star && g == 0 && part.j == 0 && threadIdx.x == 0)
+          for (int k = 1; k < 3; ++k) *cl.map_shared_rank(&sh.abandon, 1 + k * L.kg) = seq;
+      } else {
+        float* tw = q.temps;
+        const RowRef tmp{nullptr, tw, tw + L.local, part.log2k};
+        prof_mark(kPhQPost);
+        posterior_row<C>(m, store_row<C>(m, r0), store_row<C>(m, r1),
+                         fmaxf((float)len[0], lim.xmin), fmaxf((float)len[1], lim.xmin), tol,
+                         nullptr, tw, tw + L.local, kinds, part, part.log2k);
+        float fx;
+        x = line_search<C>(m, store_row<C>(m, r2), tmp, (float)len[2], lim, q.eff1, q.eff2,
+                           q.rate, red, fx, n_eval, NoStop{}, stopped, part);
+      }
+      // every posterior's adds came before a barrier this thread passed
+      if (threadIdx.x == 0) {
+        QuartetResult* o = cl.map_shared_rank(&sh.res[rank], 0);
+        o->kinds[0] = kinds[0];
+        o->kinds[1] = kinds[1];
+        if (!stopped && rank == lead) {
+#pragma unroll
+          for (int i = 0; i < 3; ++i) o->parts[i] = parts[i];
+#pragma unroll
+          for (int i = 0; i < 5; ++i) o->len[i] = len[i];
+          o->n_eval = n_eval;
+          o->star = star ? 1 : 0;
+          o->x = x;
+        }
+        kinds[0] = kinds[1] = 0;
+      }
+    }
+    prof_mark(kPhWait);
+    cluster_sync();  // the results
+  }
+}
+
+// the start of every block of a cluster: its flags zeroed and the model
+// tables staged before any block writes another's shared memory
+template <int C>
+__device__ __forceinline__ MLView cluster_start(const MLView& m, MlShared& sh) {
+  if (threadIdx.x == 0) {
+    sh.abandon = -1;
+    sh.ctr[kAaRough] = sh.ctr[kAaExact] = 0;  // a worker's
+#pragma unroll
+    for (int i = 0; i < kMaxGroup; ++i) sh.links.arrived[i] = 0;
+  }
+  const MLView mt = stage_tables<C>(m);
+  cluster_sync();
+  return mt;
+}
+
 template <int C>
 __global__ void __launch_bounds__(kOptThreads, 1) ml_nni_round_kernel(VFT_ML_ROUND_PARAMS) {
   __shared__ MlShared sh;
   prof_begin();
   const cg::cluster_group cl = cg::this_cluster();
   const int rank = (int)cl.block_rank();
-  if (threadIdx.x == 0) {
-    sh.abandon = -1;
-    sh.ctr[kAaRough] = sh.ctr[kAaExact] = 0;  // a worker's
-  }
-  const MLView mt = stage_tables<C>(m);
-  cluster_sync();  // every block runs before any writes another's memory
+  const MLView mt = cluster_start<C>(m, sh);
   if (rank != 0) {
-    worker_block<C>(cl, rank, mt, lim, args.tol, scratch, L, sh);
+    if constexpr (C == 20)
+      group_block<C, true>(cl, rank, mt, lim, args.tol, scratch, L, sh);
+    else
+      worker_block<C>(cl, rank, mt, lim, args.tol, scratch, L, sh);
   } else {
     tree_block<C, true>(mt, codes, W, V, lim, args, st, bl, g_tree, g_flags, g_path, g_ctr,
                         g_max_delta, scratch, L, sh);
@@ -670,36 +989,69 @@ template <int C>
 __global__ void __launch_bounds__(kOptThreads, 1) ml_lengths_pass_kernel(VFT_ML_ROUND_PARAMS) {
   __shared__ MlShared sh;
   prof_begin();
-  tree_block<C, false>(stage_tables<C>(m), codes, W, V, lim, args, st, bl, g_tree, g_flags,
-                       g_path, g_ctr, g_max_delta, scratch, L, sh);
+  if constexpr (C == 20) {
+    const cg::cluster_group cl = cg::this_cluster();
+    const int rank = (int)cl.block_rank();
+    const MLView mt = cluster_start<C>(m, sh);
+    if (rank != 0)
+      group_block<C, false>(cl, rank, mt, lim, args.tol, scratch, L, sh);
+    else
+      tree_block<C, false>(mt, codes, W, V, lim, args, st, bl, g_tree, g_flags, g_path, g_ctr,
+                           g_max_delta, scratch, L, sh);
+  } else {
+    tree_block<C, false>(stage_tables<C>(m), codes, W, V, lim, args, st, bl, g_tree, g_flags,
+                         g_path, g_ctr, g_max_delta, scratch, L, sh);
+  }
   prof_end();
 }
+
+// the layout of a round (lengths 0) or a pass at (M, P, C); kg the blocks
+// of a 20-code group
+RoundLayout layout_of(int M, int P, int C, bool smem_tree, int lengths, int kg) {
+  if (C == 20) return round_layout20(M, P, smem_tree, lengths ? 1 : 3, kg);
+  return round_layout(M, P, C, smem_tree, lengths ? 1 : kClusterBlocks);
+}
+
+bool group_ok(int kg) { return kg == 1 || kg == 2 || kg == kMaxGroup; }
+
+constexpr int kClusterRefused = -3;  // the card cannot place the cluster
 
 template <int C>
 int round_launch(const MLView& m, int8_t* codes, float* W, float* V, const SearchLimits& lim,
                  const MlArgs& args, const NniStats& st, int lengths, double* bl, int32_t* tree,
                  uint8_t* flags, int32_t* path, long long* ctr, double* max_delta, float* scratch,
-                 int smem_tree, cudaStream_t stream) {
-  const int n_blocks = lengths ? 1 : kClusterBlocks;
-  const RoundLayout L = round_layout(args.maxnodes, m.P, C, smem_tree != 0, n_blocks);
+                 int smem_tree, int kg, cudaStream_t stream) {
+  if (C == 20 && !group_ok(kg)) return kBadArgs;
+  const RoundLayout L = layout_of(args.maxnodes, m.P, C, smem_tree != 0, lengths, kg);
   if (L.scratch_floats > 0 && scratch == nullptr) return kBadArgs;
   if (L.smem > (size_t)kMlRoundSmemCap) return kBadArgs;
   auto kernel = lengths ? ml_lengths_pass_kernel<C> : ml_nni_round_kernel<C>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)kMlRoundSmemCap);
   if (err != cudaSuccess) return (int)err;
+  // a cluster of more than 8 blocks (kg = 4: 13) is not portable
+  if (L.n_blocks > 8)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(n_blocks);
+  cfg.gridDim = dim3(L.n_blocks);
   cfg.blockDim = dim3(kOptThreads);
   cfg.dynamicSmemBytes = L.smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = n_blocks;
+  attr[0].val.clusterDim.x = L.n_blocks;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = lengths ? 0 : 1;
+  cfg.numAttrs = L.n_blocks > 1 ? 1 : 0;
+  // a cluster the card cannot place is refused here, not left to hang
+  if (L.n_blocks > 1) {
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    if (err != cudaSuccess) return (int)err;
+    if (clusters < 1) return kClusterRefused;
+  }
   err = cudaLaunchKernelEx(&cfg, kernel, m, codes, W, V, lim, args, st, bl, tree, flags, path,
                            ctr, max_delta, scratch, L);
   if (err == cudaSuccess) err = cudaGetLastError();
@@ -713,7 +1065,7 @@ int launch(const int8_t* codes, const float* W, const float* V, const float* cod
            int approx, unsigned long long* counts, const SearchLimits& lim, const MlArgs& args,
            const NniStats& st, int lengths, double* bl, int32_t* tree, uint8_t* flags,
            int32_t* path, int64_t* ctr, double* max_delta, float* scratch, int smem_tree,
-           void* stream) {
+           int kg, void* stream) {
   if (3 * (int64_t)args.maxnodes > n_rows || args.root < args.n_seqs ||
       args.root >= args.maxnodes || args.n_seqs < 3 || st.n > args.maxnodes ||
       n_rates < 1 || n_rates > kMaxRates)
@@ -729,10 +1081,10 @@ int launch(const int8_t* codes, const float* W, const float* V, const float* cod
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
   if (C == 4)
     return round_launch<4>(m, c_out, w_out, v_out, lim, args, st, lengths, bl, tree, flags, path,
-                           c, max_delta, scratch, smem_tree, cs);
+                           c, max_delta, scratch, smem_tree, 1, cs);
   if (C == 20)
     return round_launch<20>(m, c_out, w_out, v_out, lim, args, st, lengths, bl, tree, flags, path,
-                            c, max_delta, scratch, smem_tree, cs);
+                            c, max_delta, scratch, smem_tree, kg, cs);
   return kBadArgs;
 }
 
@@ -750,21 +1102,46 @@ int launch(const int8_t* codes, const float* W, const float* V, const float* cod
 
 extern "C" {
 
-// 1 if a round's tree (M nodes) fits in block 0's shared memory beside its
-// quartet pieces at (P, C); otherwise the round keeps it in device memory.
+// 1 if a round's tree (M nodes) fits in block 0's shared memory (beside its
+// quartet pieces at 4 codes) at (P, C); otherwise the round keeps it in
+// device memory.
 int vft_ml_round_tree_fits_smem(int M, int P, int C) {
-  return round_layout(M, P, C, true, kClusterBlocks).tree_smem ? 1 : 0;
+  return layout_of(M, P, C, true, 0, 1).tree_smem ? 1 : 0;
 }
 
 // Floats of device scratch a round needs at (M, P, C) for the quartet
-// pieces that do not fit in its blocks' shared memory (0 unless P is very
-// large); a lengths pass needs no more.  smem_tree as the round's.
-int64_t vft_ml_round_scratch_floats(int M, int P, int C, int smem_tree) {
-  return (int64_t)round_layout(M, P, C, smem_tree != 0, kClusterBlocks).scratch_floats;
+// pieces that do not fit in its blocks' shared memory (at 4 codes 0 unless
+// P is very large; at 20 codes 0 for P up to about 600 with groups of 2
+// blocks); a lengths pass needs no more.  smem_tree as the round's, group
+// the blocks of a 20-code group (1, 2 or 4); -2 for a group the kernels do
+// not take.
+int64_t vft_ml_round_scratch_floats(int M, int P, int C, int smem_tree, int group) {
+  if (C == 20 && !group_ok(group)) return kBadArgs;
+  return (int64_t)layout_of(M, P, C, smem_tree != 0, 0, group).scratch_floats;
+}
+
+// A round's (lengths 0) or pass's layout into out [7]: the cluster's
+// blocks, the dynamic shared memory of each, a 20-code group block's, the
+// floats of device scratch, whether the tree is in shared memory, a group
+// block's positions and the blocks of a group.  Returns 0, or -2 for a
+// group the kernels do not take.
+int vft_ml_round_layout(int M, int P, int C, int smem_tree, int lengths, int group,
+                        int64_t* out) {
+  if (C == 20 && !group_ok(group)) return kBadArgs;
+  const RoundLayout L = layout_of(M, P, C, smem_tree != 0, lengths, group);
+  out[0] = L.n_blocks;
+  out[1] = (int64_t)L.smem;
+  out[2] = (int64_t)L.group_smem;
+  out[3] = (int64_t)L.scratch_floats;
+  out[4] = L.tree_smem ? 1 : 0;
+  out[5] = L.local;
+  out[6] = L.kg;
+  return 0;
 }
 
 // One ML NNI round on the ML store, in place, in one launch of a cluster of
-// three blocks.  The line searches' limits xmin, xmax, ftol, atol (float),
+// three blocks (at 20 codes, 1 + 3 group blocks: the walk, then groups of
+// `group` blocks for AB, AC and AD).  The line searches' limits xmin, xmax, ftol, atol (float),
 // min_len the minimum length as the host's float64.  The round's state on
 // the device: tree = parent [M] | children [M, 3] | child counts [M]
 // (int32), flags [2M] (uint8 scratch: the memo, the traversal), path [M]
@@ -772,39 +1149,49 @@ int64_t vft_ml_round_scratch_floats(int M, int P, int C, int smem_tree) {
 // subtree_age (int64), delta, support (double), [n_stats] each, read and
 // written; ctr [kMlCounters] (int64, zero at the round's start, added to)
 // and max_delta (double, out).  scratch: vft_ml_round_scratch_floats(M, P,
-// C, smem_tree) floats, or NULL when that is 0.  smem_tree: 1 keeps the
-// tree in shared memory where it fits, 0 in device memory.  Returns 0, a
-// cudaError of the launch, or -2 for arguments the kernel does not take.
+// C, smem_tree, group) floats, or NULL when that is 0.  smem_tree: 1 keeps
+// the tree in shared memory where it fits, 0 in device memory.  Returns 0,
+// a cudaError of the launch, -3 for a cluster the card cannot place, or -2
+// for arguments the kernel does not take.
 int vft_ml_nni_round_f32(VFT_ML_STORE_ARGS, float tol, float xmin, float xmax, float ftol,
                          float atol, double min_len, int ml_accuracy, int n_seqs, int maxnodes,
                          int root, int fast_nni, double min_delta, int n_stats, int64_t* age,
                          int64_t* subtree_age, double* delta, double* support, double* bl,
                          int32_t* tree, uint8_t* flags, int32_t* path, int64_t* ctr,
-                         double* max_delta, float* scratch, int smem_tree, void* stream) {
+                         double* max_delta, float* scratch, int smem_tree, int group,
+                         void* stream) {
   const SearchLimits lim{xmin, xmax, ftol, atol};
   const MlArgs args{n_seqs, maxnodes, root, ml_accuracy, min_len, tol};
   const NniStats st{reinterpret_cast<long long*>(age), reinterpret_cast<long long*>(subtree_age),
                     delta, support, n_stats, fast_nni, min_delta};
   if (root >= n_stats) return kBadArgs;
   return launch(VFT_ML_STORE_PASS, lim, args, st, 0, bl, tree, flags, path, ctr, max_delta,
-                scratch, smem_tree, stream);
+                scratch, smem_tree, group, stream);
 }
 
 // One pass of optimizeAllBranchLengths (three tips or more) on the ML
-// store, in place, in one launch of one block; the state as for
-// vft_ml_nni_round_f32, without the NNIStats and max_delta.
+// store, in place, in one launch of one block (at 20 codes a cluster of
+// 1 + group blocks: the walk, then one group for the searches); the state
+// as for vft_ml_nni_round_f32, without the NNIStats and max_delta.
 int vft_ml_lengths_pass_f32(VFT_ML_STORE_ARGS, float tol, float xmin, float xmax, float ftol,
                             float atol, double min_len, int n_seqs, int maxnodes, int root,
                             double* bl, int32_t* tree, uint8_t* flags, int32_t* path,
-                            int64_t* ctr, float* scratch, int smem_tree, void* stream) {
+                            int64_t* ctr, float* scratch, int smem_tree, int group,
+                            void* stream) {
   const SearchLimits lim{xmin, xmax, ftol, atol};
   const MlArgs args{n_seqs, maxnodes, root, 1, min_len, tol};
   const NniStats st{nullptr, nullptr, nullptr, nullptr, 0, 0, 0.0};
   return launch(VFT_ML_STORE_PASS, lim, args, st, 1, bl, tree, flags, path, ctr, nullptr,
-                scratch, smem_tree, stream);
+                scratch, smem_tree, group, stream);
 }
 
 #ifdef VFT_ML_ROUND_PROFILE
+// The probes' table shape: kProfSlots rows of kProfPhases phases.
+void vft_ml_round_profile_shape(int* slots, int* phases) {
+  *slots = kProfSlots;
+  *phases = kProfPhases;
+}
+
 // The probes' cycles, [kProfSlots][kProfPhases] (block * 2 + group, then
 // ProfPhase), summed over the launches since the last reset, into out;
 // reset 1 zeroes them after.  Returns 0 or a cudaError.

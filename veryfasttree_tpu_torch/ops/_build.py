@@ -157,11 +157,11 @@ STACK_LIMITS = {"ml_nni_round_kernel": 0, "ml_lengths_pass_kernel": 0,
                 "ml_quartet_opt_kernel": 32, "nj_epoch_kernel": 616,
                 "me_spr_round_kernel": 0, "me_nni_round_kernel": 0}
 # the same for the ML kernels' 20-code templates (protein ML), at what the
-# builds reach: the NNI round's block 0 and workers in one kernel keep a
-# 120-byte frame at 255 registers (with 152 bytes of spill stores), with
-# the rotations' loops rolled and the model tables in shared memory; the
-# pass and the quartet kernel none
-STACK_LIMITS_20 = {"ml_nni_round_kernel": 120, "ml_lengths_pass_kernel": 0,
+# builds reach: the NNI round, its walk on a block of its own and each
+# optimization over a group of blocks, keeps a 16-byte frame at 255
+# registers (16 bytes of spill stores: the quartet bodies' Part state beside
+# the posteriors' rotations); the pass and the quartet kernel none
+STACK_LIMITS_20 = {"ml_nni_round_kernel": 16, "ml_lengths_pass_kernel": 0,
                    "ml_quartet_opt_kernel": 0}
 
 
@@ -265,12 +265,13 @@ def _declare(lib) -> None:
     ml_round = ml_store + [f32, f32, f32, f32, f32, f64]
     lib.vft_ml_nni_round_f32.argtypes = ml_round + [
         i32, i32, i32, i32, i32, f64, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-        ptr, ptr, ptr, ptr, i32, ptr]
+        ptr, ptr, ptr, ptr, i32, i32, ptr]
     lib.vft_ml_lengths_pass_f32.argtypes = ml_round + [
-        i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, ptr]
+        i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, ptr]
     lib.vft_ml_round_tree_fits_smem.argtypes = [i32, i32, i32]
-    lib.vft_ml_round_scratch_floats.argtypes = [i32, i32, i32, i32]
+    lib.vft_ml_round_scratch_floats.argtypes = [i32, i32, i32, i32, i32]
     lib.vft_ml_round_scratch_floats.restype = i64
+    lib.vft_ml_round_layout.argtypes = [i32, i32, i32, i32, i32, i32, ptr]
     lib.vft_sh_resample_counts.argtypes = [ptr, ptr, i32, i32, i32, i32, i32,
                                            i32, ptr, ptr]
     for name in ("vft_nj_scan_dense_f64", "vft_nj_scan_codes_f64",
@@ -280,6 +281,7 @@ def _declare(lib) -> None:
                  "vft_ml_opt_branch_f32", "vft_ml_opt_branch_fits_smem",
                  "vft_ml_quartet_opt_f32", "vft_ml_nni_round_f32",
                  "vft_ml_lengths_pass_f32", "vft_ml_round_tree_fits_smem",
+                 "vft_ml_round_layout",
                  "vft_nj_epoch_f32", "vft_sh_resample_counts",
                  "vft_dataflow_ctrl_words", "vft_ml_posterior_sweep_grid",
                  "vft_ml_posterior_sweep_f32",

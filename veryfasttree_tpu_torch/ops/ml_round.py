@@ -9,9 +9,13 @@ launches and fetches per round; so does the JAX package
 (``veryfasttree_tpu/engine/rearrange.py``, ``veryfasttree_tpu/engine/ml.py``),
 which has no device round to port.  Here one launch runs a whole round or
 pass, and it makes one upload and one fetch: the tree, the branch lengths,
-the NNIStats, max_delta and the counters.  A round runs on a cluster of
-three blocks (the walk and the AB optimizations on block 0, the AC and AD
-optimizations beside them on blocks 1 and 2); a pass on one block.
+the NNIStats, max_delta and the counters.  At 4 codes a round runs on a
+cluster of three blocks (the walk and the AB optimizations on block 0, the
+AC and AD optimizations beside them on blocks 1 and 2), a pass on one
+block.  At 20 codes block 0 walks and decides, and each optimization (a
+pass's each search) runs on a group of GROUP blocks that split its
+positions: a round is a cluster of 1 + 3 GROUP blocks (the AB, AC and AD
+groups), a pass of 1 + GROUP.
 
 The twins are the host loops themselves on the per-call twins of
 ``ops/ml_kernels.py``: each wrapper runs its host loop for a store on the
@@ -29,6 +33,7 @@ a handful of list launches of the kernels of ``ops/ml_kernels.py`` and
 from __future__ import annotations
 
 import collections
+import ctypes
 
 import numpy as np
 import torch
@@ -51,10 +56,17 @@ COUNTERS = ("n_ml_nni", "n_star_tests", "n_lk_compute", "n_posterior_compute",
             "quartets", "posteriors", "searches", "evals", "pairs",
             "aa_rough", "aa_exact", "speculative", "fault")
 DEBUG = COUNTERS[:4]
+# the blocks of a 20-code group (csrc/ml_round.cu group_ok: 1, 2 or 4); 4
+# is the fastest at N=500, P=512 (PERF.md, phase 2j's timing rows)
+GROUP = 4
+GROUPS = (1, 2, 4)
+# vft_ml_round_layout's fields
+LAYOUT = ("blocks", "smem_bytes", "group_smem_bytes", "scratch_floats",
+          "tree_smem", "local_positions", "group")
 
 
 def ml_nni_round(nj, i_round: int, n_rounds: int, stats, *,
-                 tree_in_smem: bool = True):
+                 tree_in_smem: bool = True, group: int = GROUP):
     """One round of ML NNIs on nj's tree and ML store, in place (ref DoNNI
     tcc:5997-6183 with ML quartets): the host loop for a store on the CPU
     or under -slow, one launch of the kernel for a store on a CUDA device.
@@ -63,7 +75,8 @@ def ml_nni_round(nj, i_round: int, n_rounds: int, stats, *,
     store's node and up-profile rows and nj.debug's n_ml_nni,
     n_star_tests, n_lk_compute and n_posterior_compute come out as the host
     loop leaves them.  tree_in_smem=False keeps the kernel's tree in device
-    memory, as it does anyway for trees too large for shared memory."""
+    memory, as it does anyway for trees too large for shared memory; group
+    sets the blocks of a 20-code group (GROUPS)."""
     if nj.ml.codes.device.type == "cpu" or nj.options.slow:
         return rearrange.do_nni(nj, i_round, n_rounds, True, stats)
     if nj.n_seqs <= 3:
@@ -73,27 +86,40 @@ def ml_nni_round(nj, i_round: int, n_rounds: int, stats, *,
                                  stats.support)):
         raise ValueError(f"ml_nni_round: NNIStats of {len(stats.age)} nodes "
                          f"for a tree of {n}")
-    ctr, max_delta = _launch(ml_nni_round, nj, stats, tree_in_smem)
+    ctr, max_delta = _launch(ml_nni_round, nj, stats, tree_in_smem, group)
     return ctr["n_ml_nni"], max_delta
 
 
-def ml_lengths_pass(nj, *, tree_in_smem: bool = True) -> None:
+def ml_lengths_pass(nj, *, tree_in_smem: bool = True,
+                    group: int = GROUP) -> None:
     """One pass of ML branch-length optimization over the whole tree (ref
     optimizeAllBranchLengths tcc:5006-5111), in place: the host loop for a
     store on the CPU or a tree of fewer than three tips, one launch of the
     kernel for a store on a CUDA device.  The branch lengths, the store's
     node and up-profile rows and nj.debug's n_lk_compute and
-    n_posterior_compute come out as the host loop leaves them."""
+    n_posterior_compute come out as the host loop leaves them.  group as
+    for ml_nni_round."""
     if nj.ml.codes.device.type == "cpu" or nj.n_seqs < 3:
         from ..engine import ml
         return ml.optimize_all_branch_lengths(nj)
-    _launch(ml_lengths_pass, nj, None, tree_in_smem)
+    _launch(ml_lengths_pass, nj, None, tree_in_smem, group)
 
 
-def _launch(wrapper, nj, stats, tree_in_smem):
+def layout(M, P, C, tree_in_smem=True, lengths=False, group=GROUP) -> dict:
+    """The kernel's layout of a round (or a pass) at (M, P, C): LAYOUT's
+    fields.  Raises for a group the kernels do not take."""
+    out = (ctypes.c_int64 * len(LAYOUT))()
+    rc = _build.library().vft_ml_round_layout(M, P, C, int(tree_in_smem),
+                                              int(lengths), group, out)
+    me_round.raise_on(rc, "ml_round.layout")
+    return dict(zip(LAYOUT, (int(v) for v in out)))
+
+
+def _launch(wrapper, nj, stats, tree_in_smem, group):
     """Upload the tree, branch lengths and (an NNI round's) NNIStats, run
     the wrapper's kernel once, fetch them back; returns (the counters,
-    max_delta).  Raises if the kernel found the tree broken."""
+    max_delta).  Raises if the kernel found the tree broken, for a group the
+    kernels do not take, and for a cluster the card refuses."""
     ml, opts, tree = nj.ml, nj.options, nj.tree
     name = wrapper.__name__
     M = tree.maxnodes
@@ -115,8 +141,12 @@ def _launch(wrapper, nj, stats, tree_in_smem):
     at = lambda i: ptr["words"] + 8 * i  # noqa: E731
     bound = ml_kernels._bind(ml.codes, ml.W, ml.V, ml.model)
     lib = _build.library()
+    if bound.C == 20 and group not in GROUPS:
+        raise ValueError(f"{name}: a group of {group} blocks (takes "
+                         f"{GROUPS})")
     n_scratch = lib.vft_ml_round_scratch_floats(M, bound.P, bound.C,
-                                                int(tree_in_smem))
+                                                int(tree_in_smem), group)
+    me_round.raise_on(min(n_scratch, 0), name)
     scratch = bound.buffer("round_scratch", 4 * n_scratch) if n_scratch \
         else None
     lo = opts.ml_min_branch_length
@@ -124,7 +154,7 @@ def _launch(wrapper, nj, stats, tree_in_smem):
             opts.ml_min_branch_length_tolerance, lo]
     tail = [ptr["tree"], ptr["flags"], ptr["path"], ptr["words"]]
     tail_end = [scratch.data_ptr() if scratch is not None else None,
-                int(tree_in_smem), bound.stream]
+                int(tree_in_smem), group, bound.stream]
     if stats is None:
         rc = lib.vft_ml_lengths_pass_f32(
             *lead, nj.n_seqs, M, tree.root, at(bl_at), *tail, *tail_end)
@@ -140,6 +170,8 @@ def _launch(wrapper, nj, stats, tree_in_smem):
         lib.vft_ml_round_tree_fits_smem(M, bound.P, bound.C) \
         else "device memory"
     wrapper.scratch_floats = n_scratch
+    wrapper.layout = layout(M, bound.P, bound.C, tree_in_smem,
+                            stats is None, group)
 
     ctr, w = state.fetch(name, tree, COUNTERS)
     tree.branchlength[:] = w[bl_at:].view(np.float64)
@@ -166,6 +198,8 @@ for _fn in (ml_nni_round, ml_lengths_pass):
     # the floats of device scratch the last launch took for the quartet
     # pieces its blocks' shared memory had no room for (0 at P=512)
     _fn.scratch_floats = None
+    # the last launch's layout (layout())
+    _fn.layout = None
 del _fn
 
 
