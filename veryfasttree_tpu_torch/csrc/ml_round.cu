@@ -74,19 +74,32 @@
 //   traversal flags before them (26 bytes per node: 26 KB at N=500, 104 KB
 //   at N=2000; in device memory past about 5,800 nodes, the same code on
 //   other pointers).  Nothing goes to device scratch unless P is so large
-//   that a quartet's pieces leave shared memory, as at 20 codes: there each
-//   block's six temporaries (258 KB at P=512) lie in device scratch, the
-//   search's vectors, rate bytes and partials in shared memory (83 KB), the
-//   tree beside them to about 5,600 nodes.  The NNIStats and the
+//   that a quartet's pieces leave shared memory.  The NNIStats and the
 //   branch lengths stay in device memory, read by every thread of block 0
 //   and written by its thread 0.
-// - The lengths pass is one block of kOptThreads threads with the same
-//   bodies and layout (its searches are serial).  Both kernels are bound to
+// - The 4-code lengths pass is one block of kOptThreads threads with the
+//   same bodies and layout (its searches are serial).
+// - At 20 codes (a posterior's two 20 x 20 rotations are most of the work,
+//   and six temporaries take 258 KB at P=512) block 0 holds the tree and
+//   the model tables only: it walks, decides and sends commands, and groups
+//   of kg blocks (ranks 1 + g kg ...) run the work: a round's AB (g = 0),
+//   AC (1) and AD (2) optimizations and a pass's searches (0), and every
+//   posterior into a store row (0).  A group's blocks split each body's
+//   positions (ml_lk.cuh Part), each holding its share of the temporaries,
+//   search vectors and rate bytes in its shared memory (at kg = 4 and
+//   P=512: 122 KB with the tables and part_sum's values), so nothing goes
+//   to device scratch at P=512 for kg >= 2; each sum meets at a flag
+//   barrier of the group and is added in the one-block order (part_sum).
+//   Group 0's first block abandons groups 1 and 2 where AB's star test
+//   fires (their first blocks poll, and part_sum gives every block of the
+//   group the answer at the same evaluation).
+// - Both kernels are bound to
 //   one block of kOptThreads threads per SM (__launch_bounds__(kOptThreads,
 //   1); with the thread count alone ptxas aims at two blocks and caps a
 //   thread at 128 registers, which spilled), so a thread may take up to 255
 //   registers; every function is inlined and no small array is indexed at
-//   run time (round_tree.cuh pick3): no stack frame.
+//   run time (round_tree.cuh pick3): no stack frame at 4 codes, 16 bytes in
+//   the 20-code round (_build.STACK_LIMITS_20).
 //
 // Bit for bit with the host loop through the per-call kernels: every
 // posterior, search and quartet runs the single-call kernels' bodies of
