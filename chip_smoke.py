@@ -1612,8 +1612,8 @@ SPR_N = 500
 SPR_COUNTERS = ("n_spr", "profile_ops", "profile_avg_ops")
 
 
-def spr_start(n, dev, two_tier=False, protein=False):
-    """The port's NJ tree and ME store of synth_codes(n, MAIN_P) on dev: the
+def spr_start(n, dev, two_tier=False, protein=False, p=MAIN_P):
+    """The port's NJ tree and ME store of synth_codes(n, p) on dev: the
     start of an SPR round.  protein: 20 codes under BLOSUM45 (matrix mode),
     as a protein -noml run."""
     from veryfasttree_tpu_torch.engine.nj import NeighbourJoining
@@ -1624,7 +1624,7 @@ def spr_start(n, dev, two_tier=False, protein=False):
                    show_progress=False,
                    **({"two_tier_min": 0} if two_tier else {}))
     opts.derive_settings()
-    nj = NeighbourJoining(opts, synth_codes(n, MAIN_P, n_codes=opts.n_codes),
+    nj = NeighbourJoining(opts, synth_codes(n, p, n_codes=opts.n_codes),
                           DistanceMatrix.blosum45() if protein else None,
                           None, device=dev)
     nj.fast_nj()
@@ -1994,7 +1994,7 @@ def epoch_run(n, dev, kernel=True, max_joins=None, two_tier=False,
                    show_progress=False, bionj=bionj,
                    **({"two_tier_min": 0} if two_tier else {}))
     opts.derive_settings()
-    nj = NeighbourJoining(opts, synth_codes(n, MAIN_P, n_codes=opts.n_codes),
+    nj = NeighbourJoining(opts, synth_codes(n, p, n_codes=opts.n_codes),
                           DistanceMatrix.blosum45() if protein else None,
                           None, device=dev)
     supported, run = epoch.epoch_supported, epoch.run_epoch
@@ -2273,8 +2273,8 @@ PTXAS = {}
 GTR = ([1.2, 3.1, 0.8, 1.1, 2.9, 1.0], [0.3, 0.2, 0.24, 0.26])
 
 
-def ml_start(n, dev, model="jc", cat=False, approx=False):
-    """The port's NJ tree of synth_codes(n, MAIN_P) on dev with its ME
+def ml_start(n, dev, model="jc", cat=False, approx=False, p=MAIN_P):
+    """The port's NJ tree of synth_codes(n, p) on dev with its ME
     branch lengths and an ML store (Jukes-Cantor or GTR; "jtt" and "lg" a
     protein alignment of 20 codes, its NJ tree under BLOSUM45) with
     recomputed posteriors: the start of the default run's first ML lengths
@@ -2286,7 +2286,7 @@ def ml_start(n, dev, model="jc", cat=False, approx=False):
     from veryfasttree_tpu_torch.models import TransitionMatrix
 
     protein = model in ("jtt", "lg")
-    nj = spr_start(n, dev, protein=protein)
+    nj = spr_start(n, dev, protein=protein, p=p)
     nj.options.exact_ml = not approx
     rearrange.update_branch_lengths(nj)
     nj.ml = MLProfiles(nj, None if model == "jc" else

@@ -735,20 +735,24 @@ def test_ml_round_kernels_at_20_codes_are_the_host_loops(cuda, model, approx,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("group", [1, 2, 4])
-def test_ml_round_groups_at_20_codes_are_the_host_loops(cuda, group):
+@pytest.mark.parametrize("group,p", [(1, 500), (2, 500), (4, 500),
+                                     (4, 1000), (4, 1500)])
+def test_ml_round_groups_at_20_codes_are_the_host_loops(cuda, group, p):
     """The 20-code round and pass with each quartet optimization's (each
     search's) positions over a group of 1, 2 or 4 blocks, at N=60 and
     P=512, where the parent's one-block workers kept their temporaries in
-    device scratch: the tree, lengths, NNIStats, debug counters, rough and
-    exact counts and store rows of one pass and one round are the host
-    loops' with the per-call kernels, bit for bit, and the cluster is
-    1 + 3 groups (round) or 1 + 1 group (pass) of `group` blocks."""
+    device scratch, and with groups of 4 at P=1,000 (the temporaries in
+    device scratch, the sums' values in shared memory) and P=1,500 (those
+    values in device scratch too, the flag barrier): the tree, lengths,
+    NNIStats, debug counters, rough and exact counts and store rows of one
+    pass and one round are the host loops' with the per-call kernels, bit
+    for bit, and the cluster is 1 + 3 groups (round) or 1 + 1 group (pass)
+    of `group` blocks."""
     from chip_smoke import ml_diff, ml_start
     from veryfasttree_tpu_torch.ops import ml_round
 
-    start = ml_start(60, cuda, "jtt", cat=True)
-    assert start.ml.p_pad == 512
+    start = ml_start(60, cuda, "jtt", cat=True, p=p)
+    assert start.ml.p_pad == (p + 127) // 128 * 128
     host = _ml_runs(start, cuda, 1, False)
     kern = _ml_runs(start, cuda, 1, True, group=group)
     assert ml_round.ml_nni_round.layout["blocks"] == 1 + 3 * group

@@ -339,10 +339,16 @@ struct Solo {
 // a Part's pointers, in its block's shared memory (so that the bodies do
 // not hold them in registers)
 struct PartLinks {
+  // with the values in shared memory (async): one mbarrier a buffer, whose
+  // phase completes when every value of a combine has landed
+  alignas(8) unsigned long long full[2];
   double* vals;                       // this block's [2][3][P] per-position values, then 2 stop flags
   double* peer[kMaxGroup];            // each group block's vals (distributed shared memory)
   unsigned* peer_arrived[kMaxGroup];  // each group block's `arrived`
   unsigned arrived[kMaxGroup];        // the combines each group block has reached
+  unsigned vals_cl[kMaxGroup];        // async: each group block's vals, shared::cluster
+  unsigned full_cl[kMaxGroup];        // async: each group block's full[0], shared::cluster
+  int async;                          // the values in shared memory: st.async and mbarriers
 };
 
 struct Part {
@@ -361,11 +367,52 @@ struct Part {
   __device__ __forceinline__ int buffer(const Red& red, int P) const {
     return (int)(red.buf2 & 1) * 3 * P;
   }
-  // a value into every group block's vals (this block's among them)
-  __device__ __forceinline__ void put(int i, double v) const {
-    for (int q = 0; q < k; ++q) links->peer[q][i] = v;
+  // a value into entry i of every group block's vals (this block's among
+  // them) for the combine of buffer b: in shared memory by st.async, each
+  // store counted in the receiver's mbarrier full[b]; else plain stores
+  __device__ __forceinline__ void put(int b, int i, double v) const {
+    const PartLinks* ln = links;
+    if (ln->async) {
+      for (int q = 0; q < k; ++q)
+        asm volatile(
+            "st.async.shared::cluster.mbarrier::complete_tx::bytes.b64 [%0], %1, [%2];" ::"r"(
+                ln->vals_cl[q] + 8u * (unsigned)i),
+            "l"(__double_as_longlong(v)), "r"(ln->full_cl[q] + 8u * (unsigned)b)
+            : "memory");
+    } else {
+      for (int q = 0; q < k; ++q) ln->peer[q][i] = v;
+    }
   }
 };
+
+// this block's mbarrier full[b] expects `bytes` more this phase (thread 0)
+__device__ __forceinline__ void expect_bytes(unsigned long long* bar, unsigned bytes) {
+  asm volatile(
+      "{\n .reg .b64 st;\n mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}" ::"r"(
+          (unsigned)__cvta_generic_to_shared(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// wait until this block's mbarrier completes the phase of parity `parity`
+// (acquire at cluster scope: the values it counted are visible); a wait
+// of about 10 s traps, so that a lost value fails the launch and cannot
+// hang it
+__device__ __forceinline__ void wait_full(unsigned long long* bar, unsigned parity) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(bar);
+  const long long t0 = clock64();
+  for (;;) {
+    unsigned done;
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - t0 > (1ll << 34)) __trap();
+  }
+}
 
 __device__ __forceinline__ void fence_cluster() {
   asm volatile("fence.acq_rel.cluster;" ::: "memory");
@@ -383,9 +430,11 @@ __device__ __forceinline__ unsigned load_cluster(const unsigned* p) {
 
 // K sums over the positions of a group each of whose blocks has put the
 // values of its own positions into every group block's vals (Part::put, at
-// g.buffer(red, P)): after a group barrier (the first thread of each block
-// tells every other block of the group how many combines it has reached,
-// and waits until they have all reached this one), thread t of every block
+// g.buffer(red, P)): after a group barrier (values in shared memory: the
+// block's mbarrier of the buffer counts the bytes that land; else the
+// first thread of each block tells every other block of the group how many
+// combines it has reached, and waits until they have all reached this
+// one), thread t of every block
 // adds the positions t, t + NT, ... in that order from its own shared
 // memory as Solo's thread t does, then block_sum adds the threads as
 // Solo's does: every block of the group gets Solo's sums.  With a polling Stop the group's first block asks it
@@ -398,20 +447,31 @@ __device__ __forceinline__ void part_sum(double (&v)[K], Red& red, const Part& g
   const int buf = red.buf2 & 1;
   const unsigned n = ++red.buf2;
   prof_mark(kPhWait);
-  __syncthreads();
   PartLinks* ln = g.links;
-  if (threadIdx.x == 0) {
-    if (Stop::kPolls && g.j == 0) ln->vals[6 * P + buf] = stop() ? 1.0 : 0.0;
-    fence_cluster();
-    for (int q = 0; q < g.k; ++q)
-      if (q != g.j) store_cluster(ln->peer_arrived[q] + g.j, n);
-    for (int q = 0; q < g.k; ++q)
-      if (q != g.j)
-        while (load_cluster(ln->arrived + q) < n) {
-        }
-    fence_cluster();
+  if (ln->async) {
+    // the barrier is the data: every block's values (and the first
+    // block's stop flag) land here by st.async, counted in full[buf],
+    // whose phase this thread 0 opens with the bytes to expect
+    if (threadIdx.x == 0) {
+      if (Stop::kPolls && g.j == 0) g.put(buf, 6 * P + buf, stop() ? 1.0 : 0.0);
+      expect_bytes(&ln->full[buf], 8u * (unsigned)(K * P + (Stop::kPolls ? 1 : 0)));
+    }
+    wait_full(&ln->full[buf], ((n - 1) >> 1) & 1u);
+  } else {
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      if (Stop::kPolls && g.j == 0) g.put(buf, 6 * P + buf, stop() ? 1.0 : 0.0);
+      fence_cluster();
+      for (int q = 0; q < g.k; ++q)
+        if (q != g.j) store_cluster(ln->peer_arrived[q] + g.j, n);
+      for (int q = 0; q < g.k; ++q)
+        if (q != g.j)
+          while (load_cluster(ln->arrived + q) < n) {
+          }
+      fence_cluster();
+    }
+    __syncthreads();
   }
-  __syncthreads();
   prof_mark(kPhReduce);
   const double* vals = ln->vals + buf * 3 * P;
 #pragma unroll
@@ -421,7 +481,7 @@ __device__ __forceinline__ void part_sum(double (&v)[K], Red& red, const Part& g
       for (int p = threadIdx.x; p < P; p += NT) acc += vals[k * P + p];
     v[k] = acc;
   }
-  if (Stop::kPolls) stopped = ln->peer[0][6 * P + buf] != 0.0;
+  if (Stop::kPolls) stopped = ln->vals[6 * P + buf] != 0.0;
   bool unused = false;
   block_sum<K>(v, red, NoStop{}, unused);
   prof_mark(kPhControl);
@@ -441,7 +501,7 @@ __device__ __forceinline__ double pair_loglk_block(const MLView& m, const RowRef
   double acc[1] = {0.0};
   if constexpr (G::kSplit) {
     // each position by its owner, its log into every group block's values
-    const int at = g.buffer(red, m.P);
+    const int at = g.buffer(red, m.P), b = red.buf2 & 1;
     for (int p = g.first(); p < m.P; p += g.stride()) {
       float w1, w2, f1[C], f2[C], e[C];
       effective<C>(m, r1, p, false, w1, f1);
@@ -450,7 +510,7 @@ __device__ __forceinline__ double pair_loglk_block(const MLView& m, const RowRef
       float lk = site_lk<C>(m, e, f1, f2);
       if (p >= m.n_pos || (!m.jc && w1 == 0.0f && w2 == 0.0f)) lk = 1.0f;
       if (lk_out != nullptr) lk_out[p] = lk;
-      g.put(at + p, (double)logf(fmaxf(lk, 1e-37f)));
+      g.put(b, at + p, (double)logf(fmaxf(lk, 1e-37f)));
     }
     bool stopped = false;
     part_sum<1, NT>(acc, red, g, m.P, NoStop{}, stopped);
@@ -760,7 +820,7 @@ __device__ __forceinline__ void neg_loglk(const MLView& m, const float* eff1, co
     // each local position's K logs into every group block's values (0
     // where its likelihood is 1: Solo adds nothing there, and adding 0 to
     // a sum of logs that starts at +0 changes no bit)
-    const int at = g.buffer(red, m.P);
+    const int at = g.buffer(red, m.P), b = red.buf2 & 1;
     for (int p = g.first(); p < m.P; p += g.stride()) {
       const int l = p >> g.log2k;
       const int r = rate[l];
@@ -778,7 +838,7 @@ __device__ __forceinline__ void neg_loglk(const MLView& m, const float* eff1, co
           rate_entries<C>(m, x[k], r, e);
           val = (double)logf(fmaxf(site_lk<C>(m, e, f1, f2), 1e-37f));
         }
-        g.put(at + k * m.P + p, val);
+        g.put(b, at + k * m.P + p, val);
       }
     }
     part_sum<K, kOptThreads>(acc, red, g, m.P, stop, stopped);

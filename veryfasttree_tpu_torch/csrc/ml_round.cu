@@ -88,8 +88,11 @@
 //   positions (ml_lk.cuh Part), each holding its share of the temporaries,
 //   search vectors and rate bytes in its shared memory (at kg = 4 and
 //   P=512: 122 KB with the tables and part_sum's values), so nothing goes
-//   to device scratch at P=512 for kg >= 2; each sum meets at a flag
-//   barrier of the group and is added in the one-block order (part_sum).
+//   to device scratch at P=512 for kg >= 2; each position's value goes to
+//   every group block by st.async, counted in the receiver's mbarrier, so
+//   the data is the group's barrier, and each sum is added in the
+//   one-block order (part_sum; a flag barrier where the values lie in
+//   device memory, past P of about 1,200).
 //   Group 0's first block abandons groups 1 and 2 where AB's star test
 //   fires (their first blocks poll, and part_sum gives every block of the
 //   group the answer at the same evaluation).
@@ -98,7 +101,7 @@
 //   1); with the thread count alone ptxas aims at two blocks and caps a
 //   thread at 128 registers, which spilled), so a thread may take up to 255
 //   registers; every function is inlined and no small array is indexed at
-//   run time (round_tree.cuh pick3): no stack frame at 4 codes, 16 bytes in
+//   run time (round_tree.cuh pick3): no stack frame at 4 codes, 8 bytes in
 //   the 20-code round (_build.STACK_LIMITS_20).
 //
 // Bit for bit with the host loop through the per-call kernels: every
@@ -201,6 +204,16 @@ __device__ __forceinline__ void cluster_sync() {
       "barrier.cluster.arrive.release.aligned;\n"
       "barrier.cluster.wait.acquire.aligned;\n" ::
           : "memory");
+}
+
+// the shared::cluster address of p (this block's shared memory) in block
+// `rank` of the cluster
+__device__ __forceinline__ unsigned map_cluster(const void* p, int rank) {
+  unsigned out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(out)
+               : "r"((unsigned)__cvta_generic_to_shared(p)), "r"(rank));
+  return out;
 }
 
 struct MlArgs {
@@ -884,17 +897,30 @@ __device__ __forceinline__ void group_block(const cg::cluster_group& cl, int ran
   Red red{q.red, 0};
   const Part part{L.kg, L.kg == 4 ? 2 : (L.kg == 2 ? 1 : 0), rank - lead, L.local, &sh.links};
   if (threadIdx.x == 0) {
-    // part_sum's values: each group block's, in its shared memory or at the
-    // end of its scratch share
+    // part_sum's values: each group block's, in its shared memory (async)
+    // or at the end of its scratch share
+    PartLinks& ln = sh.links;
+    ln.async = L.vals_at != 0;
     for (int i = 0; i < kMaxGroup; ++i) {
       const int peer = lead + (i < L.kg ? i : 0);
-      sh.links.peer[i] =
-          L.vals_at ? cl.map_shared_rank(reinterpret_cast<double*>(smem + L.vals_at), peer)
-                    : reinterpret_cast<double*>(scratch + (size_t)(peer - 1) * L.block_scratch +
-                                                L.q.scratch_floats);
-      sh.links.peer_arrived[i] = cl.map_shared_rank(sh.links.arrived, peer);
+      ln.peer[i] =
+          ln.async ? cl.map_shared_rank(reinterpret_cast<double*>(smem + L.vals_at), peer)
+                   : reinterpret_cast<double*>(scratch + (size_t)(peer - 1) * L.block_scratch +
+                                               L.q.scratch_floats);
+      ln.peer_arrived[i] = cl.map_shared_rank(ln.arrived, peer);
+      ln.vals_cl[i] = map_cluster(smem + L.vals_at, peer);
+      ln.full_cl[i] = map_cluster(ln.full, peer);
     }
-    sh.links.vals = sh.links.peer[rank - lead];
+    ln.vals = ln.peer[rank - lead];
+    if (ln.async) {
+      for (int b = 0; b < 2; ++b)
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(
+                         (unsigned)__cvta_generic_to_shared(&ln.full[b]))
+                     : "memory");
+      // the barriers' first phases, before any block of the group stores
+      // into them (after the next cluster barrier)
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
   }
   __syncthreads();
   unsigned long long* kinds = reinterpret_cast<unsigned long long*>(sh.ctr + kAaRough);

@@ -158,10 +158,10 @@ STACK_LIMITS = {"ml_nni_round_kernel": 0, "ml_lengths_pass_kernel": 0,
                 "me_spr_round_kernel": 0, "me_nni_round_kernel": 0}
 # the same for the ML kernels' 20-code templates (protein ML), at what the
 # builds reach: the NNI round, its walk on a block of its own and each
-# optimization over a group of blocks, keeps a 16-byte frame at 255
-# registers (16 bytes of spill stores: the quartet bodies' Part state beside
+# optimization over a group of blocks, keeps an 8-byte frame at 255
+# registers (8 bytes of spill stores: the quartet bodies' Part state beside
 # the posteriors' rotations); the pass and the quartet kernel none
-STACK_LIMITS_20 = {"ml_nni_round_kernel": 16, "ml_lengths_pass_kernel": 0,
+STACK_LIMITS_20 = {"ml_nni_round_kernel": 8, "ml_lengths_pass_kernel": 0,
                    "ml_quartet_opt_kernel": 0}
 
 
