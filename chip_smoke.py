@@ -1994,7 +1994,7 @@ def epoch_run(n, dev, kernel=True, max_joins=None, two_tier=False,
                    show_progress=False, bionj=bionj,
                    **({"two_tier_min": 0} if two_tier else {}))
     opts.derive_settings()
-    nj = NeighbourJoining(opts, synth_codes(n, p, n_codes=opts.n_codes),
+    nj = NeighbourJoining(opts, synth_codes(n, MAIN_P, n_codes=opts.n_codes),
                           DistanceMatrix.blosum45() if protein else None,
                           None, device=dev)
     supported, run = epoch.epoch_supported, epoch.run_epoch
