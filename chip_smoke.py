@@ -13,7 +13,9 @@ passed):
    deciding warp's 616 bytes for nj_join_epoch (_build.resource_faults);
    for the ML kernels' 20-code templates the limits of
    _build.STACK_LIMITS_20 (the lengths pass and the quartet kernel no
-   stack and no spills, the NNI round at most 128 bytes of stack);
+   stack and no spills, the NNI round at most 8 bytes of stack); the
+   constrained instantiations (the *_cons_kernel entries) at most what
+   their builds reached;
 2. each kernel against its plain PyTorch twin on the card, at the main
    path's shapes, with the median time of 50 runs of each (CUDA events):
    the scans and the pair distances in double (rtol 1e-12, atol 1e-12; best
@@ -153,7 +155,8 @@ passed):
 4. the -noml main path: full -nt -noml -nosupport at N=2000, P=500 (the
    bench.py input) through run_pipeline, cold, then warm, then once more
    with the two-tier store forced on (-two-tier-min 0), which must give the
-   same tree.  The kernel launch counts are reset just before the warm run
+   same tree; the warm run's Newick SHA-256 must begin as recorded
+   (NOML_MAIN_SHA).  The kernel launch counts are reset just before the warm run
    and read just after it: each kernel of the dense path must have
    launched, the single-call me_average never (the ME lengths and the
    split test take one me_average_sweep and one me_dists_list launch
@@ -182,8 +185,9 @@ passed):
    tree in shared memory with no device scratch, the SH pass must have run
    on the card in its list launches (sh_launches: the counts once, one pair
    launch, one or two quartet launches, one sweep of the up-profiles and
-   one posterior launch), and the final LogLk and the ML-NNIs per round must
-   be the ones recorded in PERF.md for this input (the kernels' arithmetic
+   one posterior launch), and the final LogLk, the Newick SHA-256
+   (ML_MAIN_SHA) and the ML-NNIs per round must be the ones recorded in
+   PERF.md for this input (the kernels' arithmetic
    does not change the tree).  The CAT fit (cat_launches) must launch 22
    sweeps and 20 tree log-likelihoods and nothing else, and the whole run
    ml_posterior and ml_pair_loglk only once each (the SH pass's lists).
@@ -217,6 +221,23 @@ passed):
    ml_lengths_pass launched (at 20 codes; their scratch and tree layout
    printed), ml_posterior and ml_pair_loglk only in the SH pass's lists,
    the CAT fit in whole-tree sweeps only.
+8. -constraints (16 columns of cons_columns: half following the founder
+   groups, half random bipartitions, 15% '-'): at N=500 the join phase
+   through the constrained epoch kernel (nj_epoch_cons_kernel), one ME NNI
+   round, one SPR round and one ML NNI round (at 4 codes and, on a
+   protein start of N=300, at 20) through their constrained kernels, each
+   against its host loop with the per-call kernels, bit for bit (join
+   log, tree, rows, counters, NNIStats, counts; the ME deltas and
+   supports within log1p's last bit carried into criteria as large as the
+   penalties), and both split tests' SplitCount (the list against the
+   serial walk, the SH pass against the host loop); each constrained
+   kernel's device time; the -nt -noml run at N=500 byte-identical to the
+   JAX package's (tests/data/torch_port_constraints_golden_n500_p500.nwk)
+   and the default run at N=200 RF 0 and final LogLk within 1e-4
+   relative (torch_port_constraints_ml_golden_n200_p500); then -nt -noml
+   and -nt at N=2000, P=500, warm, the launch counts reset just before
+   each: the constrained kernels launched, the phase split, SplitCount
+   and wall beside the unconstrained runs of phases 4 and 6.
 
 The last lines are the card's name and power limit, one JSON line with each
 kernel's route, source, main-path launches (the ML main path's for the ML
@@ -356,6 +377,10 @@ DEVICE_NAMES = {
 # (PERF.md, section 5)
 ML_MAIN_LOGLK = "-427535.845"
 ML_MAIN_NNIS = [706, 447, 198, 113, 53, 32, 13, 4, 0, 7]
+# the first hex digits of the SHA-256 of the N=2000 runs' Newick output,
+# -noml (phase 4) and default (phase 6), as scripts/compare_torch_port.py
+# hashes it (PERF.md, section 5)
+NOML_MAIN_SHA, ML_MAIN_SHA = "775406", "5ed6a64e"
 # the least time of a call (NVIDIA's H100 SXM data sheet, at 700 W): bytes
 # over the memory rate, operations over the float32 rate outside the
 # tensor cores, the double operations of the ML posteriors' rotations over
@@ -403,6 +428,8 @@ def wrappers():
 def reset_launches():
     for fn in wrappers().values():
         fn.launches = 0
+        if hasattr(fn, "cons_launches"):          # the constrained kernels'
+            fn.cons_launches = 0
         if hasattr(fn, "totals"):                 # the rounds' counters
             fn.totals = dict.fromkeys(fn.totals, 0)
 
@@ -2407,16 +2434,16 @@ def ml_decisions(fn, twin=None):
         return (tuple(int(r) for r in rows4), int(out[0]),
                 np.array(out[1], dtype=np.float64))
 
-    def rec(nj_, rows4, lengths):
+    def rec(nj_, rows4, lengths, nodes4=None):
         given = np.array(lengths, copy=True)
-        out = orig(nj_, rows4, lengths)
+        out = orig(nj_, rows4, lengths, nodes4)
         log.append(entry(rows4, out))
         if twin is not None:
             rows = list(rows4)
             for name in ("codes", "W", "V"):
                 getattr(twin.ml, name)[rows] = \
                     getattr(nj_.ml, name)[rows].cpu()
-            twin_log.append(entry(rows4, orig(twin, rows4, given)))
+            twin_log.append(entry(rows4, orig(twin, rows4, given, nodes4)))
         return out
 
     ml.ml_quartet_nni = rec
@@ -3442,6 +3469,30 @@ def synth_codes(n, p, seed=0, n_codes=4):
     return rows.astype(np.int8)
 
 
+def cons_columns(n, p, n_cols=16, seed=0, n_codes=4, gap=0.15):
+    """A -constraints alignment for synth_codes(n, p, seed, n_codes): n
+    strings of n_cols '0', '1' or '-' (names s0 .. s{N-1} as fasta_text):
+    the even columns follow the founder groups (a random half of the
+    founders on side 1), the odd ones are random bipartitions, and a share
+    `gap` of the entries is '-'."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)        # synth_codes' founder draw
+    n_founders = max(4, n // 20)
+    rng.integers(0, n_codes, size=(n_founders, p))
+    founder = rng.integers(0, n_founders, size=n)
+    own = np.random.default_rng([seed, 1])   # the columns' own stream
+    cols = [own.random(n_founders)[founder] < 0.5 if c % 2 == 0
+            else own.random(n) < 0.5 for c in range(n_cols)]
+    out = np.where(np.array(cols).T, "1", "0")
+    out[own.random(out.shape) < gap] = "-"
+    return ["".join(row) for row in out]
+
+
+def cons_fasta(columns) -> str:
+    return "".join(f">s{i}\n{c}\n" for i, c in enumerate(columns))
+
+
 def fasta_text(codes, alphabet=ALPHA) -> str:
     """The alignment as FASTA text, names s0 .. s{N-1} (as bench.py);
     protein codes with alphabet=CODES_STRING_AA."""
@@ -3630,6 +3681,12 @@ def phase_main(report, dev):
                                  f"{length}")
         runs[label] = nw
         if label == "warm":                  # the -noml main path's run
+            MAIN_RUNS["noml"] = (wall, dict(nj.timings))
+            sha = hashlib.sha256(nw.encode()).hexdigest()
+            print(f"  Newick SHA-256 {sha[:16]}... (recorded {NOML_MAIN_SHA}...)")
+            if not sha.startswith(NOML_MAIN_SHA):
+                raise AssertionError(f"{label}: Newick SHA-256 {sha}, recorded "
+                                     f"{NOML_MAIN_SHA}...")
             require_launched(label, counts, DENSE_PATH)
             require_whole_tree_passes(label, counts)
             if counts["me_dists"] > NJ_DISTS_CALLS:
@@ -3855,6 +3912,7 @@ def phase_ml_main(report, dev):
         lambda: cat_launches(
             lambda: run_ml(fasta_text(synth_codes(n, MAIN_P)), dev)))
     t = nj.timings
+    MAIN_RUNS["ml"] = (wall, dict(t))
     nj_s = t["store_s"] + t["tophits_s"] + t["joins_s"]
     print(f"  N={n} P={MAIN_P} default -nt: wall {wall:.2f} s; NJ {nj_s:.3f} "
           f"s, ME NNI {t['nni_s']:.3f} s, SPR {t['spr_s']:.3f} s, ME lengths "
@@ -3866,9 +3924,11 @@ def phase_ml_main(report, dev):
     _, leaves = newick_splits(nw)
     if len(leaves) != n or not math.isfinite(final):
         raise AssertionError(f"{len(leaves)} leaves, final LogLk {final}")
-    if f"{final:.3f}" != ML_MAIN_LOGLK:
-        raise AssertionError(f"final LogLk {final:.3f}, recorded "
-                             f"{ML_MAIN_LOGLK}")
+    sha = hashlib.sha256(nw.encode()).hexdigest()
+    print(f"  Newick SHA-256 {sha[:16]}... (recorded {ML_MAIN_SHA}...)")
+    if f"{final:.3f}" != ML_MAIN_LOGLK or not sha.startswith(ML_MAIN_SHA):
+        raise AssertionError(f"final LogLk {final:.3f}, Newick SHA-256 {sha}; "
+                             f"recorded {ML_MAIN_LOGLK}, {ML_MAIN_SHA}...")
     require_launched("ML main path", counts, DENSE_PATH + ML_PATH)
     from veryfasttree_tpu_torch.ops import ml_round
 
@@ -4473,6 +4533,341 @@ def phase_protein_main(report, dev):
         main_path_layout=ml_round.ml_nni_round.layout)
 
 
+# -------------------------------------------------------------- phase 8
+CONS_N, CONS_COLS = 500, 16
+# -constraints: the JAX package's trees (scripts/make_torch_port_
+# constraints_golden.py): -nt -noml at N=500, the default -nt run at N=200
+CONS_GOLDEN = os.path.join(REPO, "tests", "data",
+                           "torch_port_constraints_golden_n500_p500")
+CONS_ML_GOLDEN = os.path.join(REPO, "tests", "data",
+                              "torch_port_constraints_ml_golden_n200_p500")
+# the protein start of ml_nni_round<20>'s check
+CONS_PROTEIN_N, CONS_PROTEIN_P = 300, 300
+# the wrappers of the four constrained kernels, with the kernels' names as
+# torch.profiler shows them
+CONS_KERNELS = {"nj_join_epoch": "nj_epoch_cons_kernel",
+                "me_nni_round": "me_nni_round_cons_kernel",
+                "me_spr_round": "me_spr_round_cons_kernel",
+                "ml_nni_round": "ml_nni_round_cons_kernel"}
+# the unconstrained main-path runs' walls and phase splits (phases 4, 6),
+# printed beside the constrained ones
+MAIN_RUNS = {}
+
+
+def cons_counts(columns):
+    """(nOn, nOff) [n, n_cols] int64 of a constraint alignment whose rows
+    are the alignment's unique sequences in order."""
+    import numpy as np
+
+    a = np.array([list(c) for c in columns])
+    return (a == "1").astype(np.int64), (a == "0").astype(np.int64)
+
+
+def cons_start(n, dev, p=MAIN_P, protein=False, kernel=True):
+    """The port's NJ phase on synth_codes(n, p) on dev under the
+    constraints cons_columns(n, p) (protein: 20 codes under BLOSUM45), its
+    joins through the constrained epoch kernel or, kernel=False, the host
+    loop with the per-call kernels."""
+    import torch
+
+    from veryfasttree_tpu_torch.engine import epoch
+    from veryfasttree_tpu_torch.engine.nj import NeighbourJoining
+    from veryfasttree_tpu_torch.models import DistanceMatrix
+    from veryfasttree_tpu_torch.options import Options
+
+    C = 20 if protein else 4
+    opts = Options(n_codes=C, ml_nni=0, n_bootstrap=0, show_progress=False)
+    opts.derive_settings()
+    nj = NeighbourJoining(
+        opts, synth_codes(n, p, n_codes=C),
+        DistanceMatrix.blosum45() if protein else None, None,
+        cons_counts(cons_columns(n, p, CONS_COLS, n_codes=C)), device=dev)
+    supported = epoch.epoch_supported
+    if not kernel:
+        epoch.epoch_supported = lambda nj_, tophits: False
+    try:
+        nj.fast_nj()
+        torch.cuda.synchronize()
+    finally:
+        epoch.epoch_supported = supported
+    return nj
+
+
+def cons_copy(nj, dev, ml_store=False):
+    """engine_copy (ml_copy with ml_store) of nj with constraint counts of
+    its own."""
+    c = ml_copy(nj, dev) if ml_store else engine_copy(nj, dev)
+    c.con_on, c.con_off = nj.con_on.copy(), nj.con_off.copy()
+    return c
+
+
+def cons_diff(a, b):
+    """'counts' where two engines' constraint counts differ, else None."""
+    import numpy as np
+
+    same = np.array_equal(a.con_on, b.con_on) and \
+        np.array_equal(a.con_off, b.con_off)
+    return None if same else "counts"
+
+
+def cons_ml_start(nj, model):
+    """An ML store (Jukes-Cantor or JTT, one rate, recomputed posteriors)
+    on nj after its ME branch lengths: the start of the first ML NNI
+    round."""
+    from veryfasttree_tpu_torch.engine import rearrange
+    from veryfasttree_tpu_torch.engine.ml_profiles import MLProfiles
+    from veryfasttree_tpu_torch.models import TransitionMatrix
+
+    rearrange.update_branch_lengths(nj)
+    nj.ml = MLProfiles(nj, None if model == "jc" else TransitionMatrix.jtt92())
+    nj.ml.recompute_ml_profiles()
+    return nj
+
+
+def cons_write(n, p, tmp):
+    path = os.path.join(tmp, f"cons_n{n}.fasta")
+    with open(path, "w") as f:
+        f.write(cons_fasta(cons_columns(n, p, CONS_COLS)))
+    return path
+
+
+def phase_constraints(report, dev):
+    """-constraints (CONS_COLS columns of cons_columns: half following the
+    founder groups, half random bipartitions, 15% '-').  (a) At N=CONS_N:
+    the join phase through the constrained epoch kernel against the host
+    loop with the per-call kernels (every array of epoch_state and the
+    counts bit for bit); from its tree one ME NNI round and one SPR round,
+    each through its constrained kernel and the host loop (tree, NNIStats,
+    counters, rows and counts bit for bit, deltas and supports as below); the ME split test as one list launch
+    against the serial walk (SplitCount equal, constraint fields
+    included); an ML store on that tree (JC, one rate) and one ML NNI round
+    through the constrained kernel and the host loop (bit for bit, counts
+    unchanged), then the SH pass against the host loop's split test
+    (SplitCount equal); ml_nni_round<20> likewise on the protein start
+    (CONS_PROTEIN_N, JTT).  The ME deltas and supports are held within
+    NNI_DELTA_ATOL plus two ulps of the largest criterion the penalties
+    allow (each relevant constraint adds at most twice the weight):
+    log1p's last bit, as in phase 2c, moves a criterion that large by an
+    ulp.  Each constrained kernel's device time
+    (torch.profiler, its own kernel's name) goes into its kernels entry
+    (cons_device_us).  (b) The JAX package's trees: -nt -noml at N=500
+    byte-identical, the default run at N=200 RF 0 and final LogLk within
+    1e-4 relative.  (c) -nt -noml and -nt at N=MAIN_N, P=MAIN_P, warm,
+    with the launch counts reset just before each run: the constrained
+    kernels launched; the phase split, SplitCount and wall beside the
+    unconstrained runs of phases 4 and 6."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from util import newick_splits, rf_distance
+    from veryfasttree_tpu_torch.engine import ml, rearrange, spr, supports
+    from veryfasttree_tpu_torch.ops import ml_round, nni_kernels, spr_kernels
+
+    def entry(name):
+        return report.setdefault(name, {"max_abs_err": 0.0})
+
+    # (a) the kernels against their host loops
+    t0 = time.perf_counter()
+    start = cons_start(CONS_N, dev)
+    wall = time.perf_counter() - t0
+    reset_launches()
+    host = cons_start(CONS_N, dev, kernel=False)
+    diff = epoch_diff(epoch_state(start), epoch_state(host))
+    diff += [cons_diff(start, host)] if cons_diff(start, host) else []
+    if diff:
+        raise AssertionError(f"nj_join_epoch under constraints: {diff} "
+                             "differ from the host loop's")
+    dev_us = device_us(lambda: cons_start(CONS_N, dev),
+                       [CONS_KERNELS["nj_join_epoch"]], runs=3)
+    entry("nj_join_epoch").update(
+        cons_device_us=dev_us, cons_ms=1e3 * wall,
+        cons_source="veryfasttree_tpu_torch/csrc/nj_epoch_cons.cu")
+    print(f"  nj_join_epoch [N={CONS_N}, {CONS_COLS} constraints]: bit for "
+          f"bit the host loop's (join log, tree, per-node arrays, rows, "
+          f"top hits, counters, counts); device {dev_us / 1e3:.3f} ms for the "
+          f"join phase ({dev_us / (CONS_N - 3):.3f} us a join)")
+
+    def round_pair(name, kern, host_loop, state, diff_of, runs=10):
+        out = {}
+        for label, fn in (("kernel", kern), ("host loop", host_loop)):
+            nj = cons_copy(start, dev)
+            stats = rearrange.NNIStats.init(nj)
+            t = time.perf_counter()
+            res = fn(nj, stats)
+            torch.cuda.synchronize()
+            out[label] = (state(nj, stats, res), nj, time.perf_counter() - t)
+        what = diff_of(out["host loop"][0], out["kernel"][0])
+        what = what or cons_diff(out["host loop"][1], out["kernel"][1])
+        if what:
+            raise AssertionError(f"{name} under constraints: {what} differ "
+                                 "from the host loop's")
+
+        def one():
+            nj = cons_copy(start, dev)
+            kern(nj, rearrange.NNIStats.init(nj))
+
+        us = device_us(one, [CONS_KERNELS[name]], runs=runs)
+        entry(name).update(cons_device_us=us,
+                           cons_ms=1e3 * out["kernel"][2])
+        print(f"  {name} [N={CONS_N}, {CONS_COLS} constraints]: bit for bit "
+              f"the host loop's (tree, counters, rows, counts); "
+              f"{out['kernel'][2]:.3f} s (the host loop "
+              f"{out['host loop'][2]:.3f} s), device {us / 1e3:.3f} ms")
+        return out["kernel"][1]
+
+    # the deltas and supports: log1p's last bit (NNI_DELTA_ATOL), carried
+    # into criteria as large as the penalties (each term at most twice the
+    # weight), two of whose ulps a difference may take
+    w = start.options.constraint_weight
+    delta_atol = NNI_DELTA_ATOL + 2 * 2.0 ** -52 * (6 + 2 * w * CONS_COLS)
+
+    def nni_check(a, b):
+        what, _, gap = nni_diff(a, b)
+        print(f"  me_nni_round: deltas and supports within {gap:.3e} of the "
+              f"host loop's (limit {delta_atol:.3e})")
+        return what or ("deltas or supports" if gap > delta_atol else None)
+
+    after_nni = round_pair(
+        "me_nni_round", lambda nj, st: nni_kernels.nni_round(nj, 0, 2, st),
+        lambda nj, st: rearrange.do_nni(nj, 0, 2, False, st),
+        nni_state, nni_check)
+    round_pair("me_spr_round",
+               lambda nj, st: spr_kernels.spr_round(nj, 0, 2),
+               lambda nj, st: spr.run_spr(nj, 0, 2),
+               lambda nj, st, res: spr_state(nj),
+               lambda a, b: spr_diff(a, b)[0], runs=3)
+    sc_list = supports.test_splits_min_evo_batched(cons_copy(after_nni, dev))
+    sc_walk = supports.test_splits_min_evo(cons_copy(after_nni, dev))
+    if sc_list != sc_walk:
+        raise AssertionError(f"the ME split test under constraints: "
+                             f"{sc_list}, the serial walk {sc_walk}")
+    print(f"  ME split test [N={CONS_N}]: the list's SplitCount is the serial "
+          f"walk's: {dataclasses.asdict(sc_list)}")
+
+    for label, nj0, model, name in (
+            (f"N={CONS_N} JC", start, "jc", "ml_nni_round"),
+            (f"N={CONS_PROTEIN_N} JTT", None, "jtt", "ml_nni_round<20>")):
+        if nj0 is None:
+            nj0 = cons_start(CONS_PROTEIN_N, dev, p=CONS_PROTEIN_P,
+                             protein=True)
+        ml_start_ = cons_ml_start(cons_copy(nj0, dev), model)
+        out = {}
+        for how in ("kernel", "host loop"):
+            nj = cons_copy(ml_start_, dev, ml_store=True)
+            stats = rearrange.NNIStats.init(nj)
+            reset_launches()
+            t = time.perf_counter()
+            res = ml_round.ml_nni_round(nj, 0, 2, stats) if how == "kernel" \
+                else rearrange.do_nni(nj, 0, 2, True, stats)
+            torch.cuda.synchronize()
+            out[how] = (ml_state(nj, stats, res), nj, time.perf_counter() - t)
+            if how == "kernel" and ml_round.ml_nni_round.cons_launches != 1:
+                raise AssertionError(f"{name}: the constrained kernel did not "
+                                     "run the round")
+        what = ml_diff(out["host loop"][0], out["kernel"][0])
+        what += [cons_diff(ml_start_, out["kernel"][1])] \
+            if cons_diff(ml_start_, out["kernel"][1]) else []
+        if what:
+            raise AssertionError(f"{name} [{label}] under constraints: {what} "
+                                 "differ from the host loop's (or the counts "
+                                 "changed)")
+        sc_pass = ml_round.sh_pass(cons_copy(out["kernel"][1], dev, True))
+        sc_loop = ml.test_splits_ml(cons_copy(out["kernel"][1], dev, True))
+        if sc_pass != sc_loop:
+            raise AssertionError(f"the SH pass under constraints: {sc_pass}, "
+                                 f"the host loop {sc_loop}")
+
+        def one():
+            nj = cons_copy(ml_start_, dev, ml_store=True)
+            ml_round.ml_nni_round(nj, 0, 2, rearrange.NNIStats.init(nj))
+
+        us = device_us(one, [CONS_KERNELS["ml_nni_round"]], runs=3)
+        entry(name).update(cons_device_us=us, cons_ms=1e3 * out["kernel"][2])
+        print(f"  {name} [{label}, {CONS_COLS} constraints]: bit for bit the "
+              f"host loop's (tree, lengths, NNIStats, criteria's deltas and "
+              f"supports, counters, rows; counts unchanged); "
+              f"{out['kernel'][2]:.3f} s (the host loop "
+              f"{out['host loop'][2]:.3f} s), device {us / 1e3:.3f} ms; the SH "
+              f"pass's SplitCount is the host loop's: "
+              f"{dataclasses.asdict(sc_pass)}")
+
+    from veryfasttree_tpu_torch.options import ml_options, noml_options
+    from veryfasttree_tpu_torch.pipeline import run_pipeline
+
+    def run(n, opts):
+        out, log = io.StringIO(), io.StringIO()
+        reset_launches()
+        t = time.perf_counter()
+        nj, sc = run_pipeline(opts, io.StringIO(fasta_text(synth_codes(
+            n, MAIN_P))), out, log_fp=log, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        cons = {k: wrappers()[k].cons_launches for k in CONS_KERNELS}
+        final = FINAL.findall(log.getvalue())
+        return out.getvalue(), nj, sc, wall, cons, \
+            float(final[-1]) if final else None
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (b) the JAX package's trees
+        with open(CONS_GOLDEN + ".nwk") as f:
+            golden = f.read()
+        nw, nj, sc, wall, cons, _ = run(500, noml_options(
+            constraints_file=cons_write(500, MAIN_P, tmp)))
+        if nw != golden:
+            raise AssertionError(f"-nt -noml -constraints N=500: RF "
+                                 f"{rf_distance(nw, golden)[0]} to the JAX "
+                                 "golden, not byte-identical")
+        print(f"  -nt -noml -constraints N=500: byte-identical to the JAX "
+              f"golden, {wall:.2f} s, constrained launches {cons}")
+        with open(CONS_ML_GOLDEN + ".nwk") as f:
+            golden = f.read()
+        with open(CONS_ML_GOLDEN + ".json") as f:
+            meta = json.load(f)
+        nw, nj, sc, wall, cons, final = run(ML_GOLDEN_N, ml_options(
+            constraints_file=cons_write(ML_GOLDEN_N, MAIN_P, tmp)))
+        rf, n_splits = rf_distance(nw, golden)
+        rel = abs(final - meta["final_loglk"]) / abs(meta["final_loglk"])
+        print(f"  -nt -constraints N={ML_GOLDEN_N}: {wall:.2f} s, RF "
+              f"{rf}/{n_splits} to the JAX golden, final LogLk {final:.3f} "
+              f"(golden {meta['final_loglk']:.3f}, rel diff {rel:.2e}); "
+              f"SplitCount {dataclasses.asdict(sc)} (golden "
+              f"{meta['split_count']}); constrained launches {cons}")
+        if rf != 0 or not rel <= 1e-4:
+            raise AssertionError(f"-nt -constraints N={ML_GOLDEN_N}: RF {rf}, "
+                                 f"final LogLk rel diff {rel:.2e}")
+
+        # (c) full width, warm
+        path = cons_write(MAIN_N, MAIN_P, tmp)
+        for key, opts in (("noml", noml_options(constraints_file=path)),
+                          ("ml", ml_options(constraints_file=path))):
+            nw, nj, sc, wall, cons, final = run(MAIN_N, opts)
+            _, leaves = newick_splits(nw)
+            want = ("nj_join_epoch", "me_nni_round", "me_spr_round") + (
+                ("ml_nni_round",) if key == "ml" else ())
+            missing = [k for k in want if not cons[k]]
+            if len(leaves) != MAIN_N or missing or sc.n_splits != MAIN_N - 3 \
+                    or (final is not None and not math.isfinite(final)):
+                raise AssertionError(
+                    f"-nt{' -noml' * (key == 'noml')} -constraints N={MAIN_N}"
+                    f": {len(leaves)} leaves, {sc.n_splits} splits, final "
+                    f"LogLk {final}, constrained kernels not launched "
+                    f"{missing}")
+            for k in want:
+                entry(k)[f"cons_launches_{key}"] = cons[k]
+            free_wall, free_t = MAIN_RUNS.get(key, (None, {}))
+            timings = {k: round(v, 4) for k, v in nj.timings.items()}
+            print(f"  -nt{' -noml' * (key == 'noml')} -constraints N={MAIN_N}"
+                  f" P={MAIN_P}, warm: wall {wall:.2f} s (unconstrained "
+                  f"{free_wall if free_wall is None else round(free_wall, 2)}"
+                  f" s); timings {timings}; unconstrained "
+                  f"{ {k: round(v, 4) for k, v in free_t.items()} }; "
+                  f"SplitCount {dataclasses.asdict(sc)}"
+                  f"{'' if final is None else f'; final LogLk {final:.3f}'}; "
+                  f"constrained launches {cons}")
+
+
 def main() -> int:
     import torch
 
@@ -4560,6 +4955,7 @@ def main() -> int:
               phase_protein_golden, cuda)
         phase(f"7b protein ML main path N={PROTEIN_N}", phase_protein_main,
               report, cuda)
+        phase("8 constraints", phase_constraints, report, cuda)
     if "epoch" in probe and probe["epoch"][1].poll() is None:
         probe["epoch"][1].kill()             # phase 2d did not wait for it
         probe["epoch"][1].wait()

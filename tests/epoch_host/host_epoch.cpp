@@ -1,5 +1,6 @@
 // The join epoch's decisions (csrc/nj_epoch.cuh Master) on the host, for
-// tests/test_torch_epoch_warp.py: the deciding warp's 32 lanes are
+// tests/test_torch_epoch_warp.py and tests/test_torch_constraints_host.py
+// (with the constraint penalties of csrc/constraints.cuh): the deciding warp's 32 lanes are
 // coroutines (ucontext) on one thread, and every collective (sync, ballot,
 // match, shuffle) is a barrier at which each lane yields to the next, so no
 // lane passes it before all have arrived; a lane that leaves the warp's
@@ -96,6 +97,7 @@ bool run_warp(std::function<void()> body) {
 
 template <int C>
 struct HostPhases {
+  static constexpr bool kCons = false;
   const EpochParams& e;
 
   StoreView view() const { return StoreView{e.codes, e.W, e.U, e.code_freq, e.leaf_rows, (int)e.P}; }
@@ -158,19 +160,41 @@ struct HostPhases {
   }
 };
 
+// the phases of the constrained master: the same, with the counts
 template <int C>
-bool run_launch(const EpochParams& given) {
+struct HostPhasesCons : HostPhases<C> {
+  static constexpr bool kCons = true;
+  EpochCons cons;
+};
+
+// one launch's joins; k: the counts, or null
+template <int C>
+bool run_launch(const EpochParams& given, const EpochCons* k) {
   EpochParams e = given;
   const SmemPlan plan = smem_plan(e.M, e.m, e.ntv, e.smem_state != 0, e.smem_lists != 0);
   e.smem_state = plan.state;
   e.smem_lists = plan.lists;
   std::vector<double> smem(plan.bytes / sizeof(double) + 2);
+  unsigned char* sm = reinterpret_cast<unsigned char*>(smem.data());
   return run_warp([&] {
-    HostPhases<C> ph{e};
-    Master<HostWarp, HostPhases<C>> master(
-        e, ph, reinterpret_cast<unsigned char*>(smem.data()), plan.state, plan.lists);
-    master.run_launch();
+    if (k != nullptr) {
+      HostPhasesCons<C> ph{{e}, *k};
+      Master<HostWarp, HostPhasesCons<C>> master(e, ph, sm, plan.state, plan.lists);
+      master.run_launch();
+    } else {
+      HostPhases<C> ph{e};
+      Master<HostWarp, HostPhases<C>> master(e, ph, sm, plan.state, plan.lists);
+      master.run_launch();
+    }
   });
+}
+
+int run_any(const EpochParams& e, const EpochCons* k) {
+  bool ok;
+  if (e.C == 4) ok = run_launch<4>(e, k);
+  else if (e.C == 20) ok = run_launch<20>(e, k);
+  else return -2;
+  return ok ? 0 : -3;
 }
 
 }  // namespace
@@ -186,12 +210,34 @@ void vft_nj_epoch_scratch(int64_t M, int64_t m, int64_t ntv, int64_t* out) {
 // One launch's joins on host arrays (an EpochParams).  Returns 0, -2 for a
 // code count the decisions do not take, or -3 if the lanes parted.
 int vft_nj_epoch_host(const void* params) {
-  const EpochParams& e = *static_cast<const EpochParams*>(params);
-  bool ok;
-  if (e.C == 4) ok = run_launch<4>(e);
-  else if (e.C == 20) ok = run_launch<20>(e);
-  else return -2;
-  return ok ? 0 : -3;
+  return run_any(*static_cast<const EpochParams*>(params), nullptr);
+}
+
+// The same under -constraints (an EpochCons: the counts, updated in place).
+int vft_nj_epoch_cons_host(const void* params, const void* cons) {
+  return run_any(*static_cast<const EpochParams*>(params),
+                 static_cast<const EpochCons*>(cons));
+}
+
+// csrc/constraints.cuh on the host: np_sum over a[0, n), the quartet
+// penalties of n4 into pen[3], and the join penalty of (i, j)
+double vft_np_sum_host(const double* a, int n) {
+  int k = 0;
+  auto term = [&] { return a[k++]; };
+  return np_sum(n, term);
+}
+
+void vft_quartet_penalties_host(const int32_t* on, const int32_t* off, int n_cons, double weight,
+                                const int32_t* n4, double* pen) {
+  const ConView v{on, off, n_cons, weight};
+  const int nodes[4] = {n4[0], n4[1], n4[2], n4[3]};
+  quartet_penalties(v, nodes, pen);
+}
+
+int64_t vft_join_penalty_host(const int32_t* on, const int32_t* off, const int32_t* out_on,
+                              const int32_t* out_off, int n_cons, int i, int j) {
+  const ConView v{on, off, n_cons, 1.0};
+  return join_penalty(v, out_on, out_off, i, j);
 }
 
 }  // extern "C"

@@ -37,6 +37,10 @@
 // criteria, deltas and supports are double, in the host loop's order (this
 // file is compiled with -fmad=false).
 
+// With VFT_ROUND_CONS defined (me_nni_cons.cu) this file compiles the
+// round under -constraints instead: me_nni_round_cons_kernel and the entry
+// vft_me_nni_round_cons_f32, in a translation unit of its own.
+
 // every tree walk inlined (the round's state in registers, no stack
 // frame), and every thread makes the tree's writes (round_tree.cuh)
 #define VFT_TREE_INLINE __forceinline__
@@ -47,9 +51,9 @@ namespace {
 
 constexpr int kABvsCD = 0, kACvsBD = 1, kADvsBC = 2;
 
-template <int C>
-struct NniBlock : MeRound<C> {
-  using B = MeRound<C>;
+template <int C, bool Cons = false>
+struct NniBlock : MeRound<C, Cons> {
+  using B = MeRound<C, Cons>;
   using B::a;
   using B::bad;
   using B::child;
@@ -86,6 +90,7 @@ struct NniBlock : MeRound<C> {
     this->corrected6(r4, d);
     // choose_nni (ref chooseNNI tcc:4836-4882), then negated: higher is better
     double crit[3] = {d[kQAB] + d[kQCD], d[kQAC] + d[kQBD], d[kQAD] + d[kQBC]};
+    this->add_penalties(n4, crit);
     int choice = kABvsCD;
     if (crit[kACvsBD] < crit[kABvsCD] && crit[kACvsBD] <= crit[kADvsBC])
       choice = kACvsBD;
@@ -113,11 +118,15 @@ struct NniBlock : MeRound<C> {
   }
 };
 
-template <int C>
-__global__ void __launch_bounds__(kRoundThreads) me_nni_round_kernel(
-    StoreView s, int8_t* codes, float* W, float* U, const double* ev, const float* et,
-    RoundArgs args, NniStats st, int32_t* g_tree, uint8_t* g_flags, int32_t* g_path,
-    long long* g_ctr, double* g_max_delta, int tree_in_smem) {
+// the round's block (the kernels' body): con the counts under Cons
+template <int C, bool Cons>
+__device__ __forceinline__ void nni_round_block(StoreView s, int8_t* codes, float* W, float* U,
+                                                const double* ev, const float* et,
+                                                const RoundArgs& args, const NniStats& st,
+                                                int32_t* g_tree, uint8_t* g_flags,
+                                                int32_t* g_path, long long* g_ctr,
+                                                double* g_max_delta, int tree_in_smem,
+                                                const ConView& con) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ RoundShared sh;
   const int tid = threadIdx.x, M = args.maxnodes;
@@ -125,36 +134,91 @@ __global__ void __launch_bounds__(kRoundThreads) me_nni_round_kernel(
   if (tid < kNumCounters) sh.ctr[tid] = 0;
   __syncthreads();
 
-  NniBlock<C> b{{{t.tree, t.tree + M, t.tree + 4 * M, t.flags, t.path, args.n_seqs, args.root, M,
-                  tid, false},
-                 s, codes, W, U, ev, et, args, &sh},
-                t.flags + M, st, 0.0};
+  NniBlock<C, Cons> b{{{t.tree, t.tree + M, t.tree + 4 * M, t.flags, t.path, args.n_seqs,
+                        args.root, M, tid, false},
+                       s, codes, W, U, ev, et, args, &sh},
+                      t.flags + M, st, 0.0};
+  if constexpr (Cons) b.con = con;
   if (args.n_seqs > 3) b.round();
   if (tid == 0) *g_max_delta = b.max_delta;
   unstage_tree(t, g_tree, M, tree_in_smem, sh.ctr, kNumCounters, kFault, b.bad, g_ctr);
 }
 
+#ifndef VFT_ROUND_CONS
+template <int C>
+__global__ void __launch_bounds__(kRoundThreads) me_nni_round_kernel(
+    StoreView s, int8_t* codes, float* W, float* U, const double* ev, const float* et,
+    RoundArgs args, NniStats st, int32_t* g_tree, uint8_t* g_flags, int32_t* g_path,
+    long long* g_ctr, double* g_max_delta, int tree_in_smem) {
+  nni_round_block<C, false>(s, codes, W, U, ev, et, args, st, g_tree, g_flags, g_path, g_ctr,
+                            g_max_delta, tree_in_smem, ConView{});
+}
+#define VFT_NNI_KERNEL me_nni_round_kernel
+#define VFT_NNI_CONS_ARG
+#else
+// the round under -constraints: the quartet penalties in the criteria and
+// the recomputed profiles' counts (MeRound's Cons)
+template <int C>
+__global__ void __launch_bounds__(kRoundThreads) me_nni_round_cons_kernel(
+    StoreView s, int8_t* codes, float* W, float* U, const double* ev, const float* et,
+    RoundArgs args, NniStats st, int32_t* g_tree, uint8_t* g_flags, int32_t* g_path,
+    long long* g_ctr, double* g_max_delta, int tree_in_smem, ConView con) {
+  nni_round_block<C, true>(s, codes, W, U, ev, et, args, st, g_tree, g_flags, g_path, g_ctr,
+                           g_max_delta, tree_in_smem, con);
+}
+#define VFT_NNI_KERNEL me_nni_round_cons_kernel
+#define VFT_NNI_CONS_ARG , con
+#endif
+
 template <int C>
 int nni_launch(const StoreView& s, int8_t* codes, float* W, float* U, const double* ev,
                const float* et, const RoundArgs& args, const NniStats& st, int32_t* tree,
                uint8_t* flags, int32_t* path, long long* ctr, double* max_delta, int smem_tree,
-               cudaStream_t stream) {
+               const ConView& con, cudaStream_t stream) {
   const size_t smem = tree_smem_bytes(args.maxnodes, 2);
   const int in_smem = smem_tree && smem <= (size_t)kRoundSmemCap;
-  cudaError_t err = cudaFuncSetAttribute(me_nni_round_kernel<C>,
+  cudaError_t err = cudaFuncSetAttribute(VFT_NNI_KERNEL<C>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)kRoundSmemCap);
   if (err != cudaSuccess) return (int)err;
-  me_nni_round_kernel<C><<<1, kRoundThreads, in_smem ? smem : 0, stream>>>(
-      s, codes, W, U, ev, et, args, st, tree, flags, path, ctr, max_delta, in_smem);
+  VFT_NNI_KERNEL<C><<<1, kRoundThreads, in_smem ? smem : 0, stream>>>(
+      s, codes, W, U, ev, et, args, st, tree, flags, path, ctr, max_delta,
+      in_smem VFT_NNI_CONS_ARG);
   err = cudaGetLastError();
   return err != cudaSuccess ? (int)err : 0;
+}
+
+// the entries' body: the checks, then the launch (con: the counts of a
+// constrained round)
+int entry(int8_t* codes, float* W, float* U, const float* code_freq, int64_t n_rows,
+          int64_t leaf_rows, int P, int C, const double* ev, const float* et, float tol,
+          int n_seqs, int maxnodes, int root, int bionj, int logdist, int jc, double pseudo,
+          int fast_nni, double min_delta, int n_stats, int64_t* age, int64_t* subtree_age,
+          double* delta, double* support, int32_t* tree, uint8_t* flags, int32_t* path,
+          int64_t* ctr, double* max_delta, int smem_tree, const ConView& con, void* stream) {
+  if (2 * (int64_t)maxnodes > n_rows || leaf_rows > n_seqs || root < n_seqs ||
+      root >= maxnodes || n_stats > maxnodes || root >= n_stats)
+    return kBadArgs;
+  const StoreView s{codes, W, U, code_freq, leaf_rows, P};
+  const RoundArgs args{n_seqs, maxnodes, root, bionj, logdist, jc, pseudo, tol};
+  const NniStats st{reinterpret_cast<long long*>(age), reinterpret_cast<long long*>(subtree_age),
+                    delta, support, n_stats, fast_nni, min_delta};
+  cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  long long* c = reinterpret_cast<long long*>(ctr);
+  if (C == 4)
+    return nni_launch<4>(s, codes, W, U, ev, et, args, st, tree, flags, path, c, max_delta,
+                         smem_tree, con, cs);
+  if (C == 20)
+    return nni_launch<20>(s, codes, W, U, ev, et, args, st, tree, flags, path, c, max_delta,
+                          smem_tree, con, cs);
+  return kBadArgs;
 }
 
 }  // namespace
 
 extern "C" {
 
+#ifndef VFT_ROUND_CONS
 // One ME NNI round on an n_rows-row store, in place, in one launch.  The
 // round's state on the device: tree = parent [M] | children [M, 3] | child
 // counts [M] (int32), flags [2M] (uint8 scratch: the memo, the traversal),
@@ -174,22 +238,29 @@ int vft_me_nni_round_f32(int8_t* codes, float* W, float* U, const float* code_fr
                          double* delta, double* support, int32_t* tree, uint8_t* flags,
                          int32_t* path, int64_t* ctr, double* max_delta, int smem_tree,
                          void* stream) {
-  if (2 * (int64_t)maxnodes > n_rows || leaf_rows > n_seqs || root < n_seqs ||
-      root >= maxnodes || n_stats > maxnodes || root >= n_stats)
-    return kBadArgs;
-  const StoreView s{codes, W, U, code_freq, leaf_rows, P};
-  const RoundArgs args{n_seqs, maxnodes, root, bionj, logdist, jc, pseudo, tol};
-  const NniStats st{reinterpret_cast<long long*>(age), reinterpret_cast<long long*>(subtree_age),
-                    delta, support, n_stats, fast_nni, min_delta};
-  cudaStream_t cs = static_cast<cudaStream_t>(stream);
-  long long* c = reinterpret_cast<long long*>(ctr);
-  if (C == 4)
-    return nni_launch<4>(s, codes, W, U, ev, et, args, st, tree, flags, path, c, max_delta,
-                         smem_tree, cs);
-  if (C == 20)
-    return nni_launch<20>(s, codes, W, U, ev, et, args, st, tree, flags, path, c, max_delta,
-                          smem_tree, cs);
-  return kBadArgs;
+  return entry(codes, W, U, code_freq, n_rows, leaf_rows, P, C, ev, et, tol, n_seqs, maxnodes,
+               root, bionj, logdist, jc, pseudo, fast_nni, min_delta, n_stats, age, subtree_age,
+               delta, support, tree, flags, path, ctr, max_delta, smem_tree, ConView{}, stream);
 }
+#else
+// The same round under -constraints (me_nni_round_cons_kernel): con_on,
+// con_off the counts, int32 [maxnodes, n_cons] on the device, read and
+// written (n_cons >= 1); con_weight constraint_weight.
+int vft_me_nni_round_cons_f32(int8_t* codes, float* W, float* U, const float* code_freq,
+                              int64_t n_rows, int64_t leaf_rows, int P, int C, const double* ev,
+                              const float* et, float tol, int n_seqs, int maxnodes, int root,
+                              int bionj, int logdist, int jc, double pseudo, int fast_nni,
+                              double min_delta, int n_stats, int64_t* age, int64_t* subtree_age,
+                              double* delta, double* support, int32_t* tree, uint8_t* flags,
+                              int32_t* path, int64_t* ctr, double* max_delta, int smem_tree,
+                              int32_t* con_on, int32_t* con_off, int n_cons, double con_weight,
+                              void* stream) {
+  if (n_cons < 1 || con_on == nullptr || con_off == nullptr) return kBadArgs;
+  return entry(codes, W, U, code_freq, n_rows, leaf_rows, P, C, ev, et, tol, n_seqs, maxnodes,
+               root, bionj, logdist, jc, pseudo, fast_nni, min_delta, n_stats, age, subtree_age,
+               delta, support, tree, flags, path, ctr, max_delta, smem_tree,
+               ConView{con_on, con_off, n_cons, con_weight}, stream);
+}
+#endif
 
 }  // extern "C"

@@ -33,6 +33,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "constraints.cuh"
 #include "me_store.cuh"
 #include "round_tree.cuh"
 
@@ -74,7 +75,13 @@ struct RoundShared {
   int any_bad;       // set by whichever thread finds a fault in a parallel pass
 };
 
-template <int C>
+// Cons: the round under -constraints (the *_cons_kernel instantiations):
+// the quartet penalties in the criteria, and each recomputed profile's
+// constraint counts, its children's sum, column c written by thread c mod
+// kRoundThreads alone (so a thread reads back the columns it wrote, and
+// the average's `dirty` puts a barrier before the next quartet's
+// penalties read them all)
+template <int C, bool Cons = false>
 struct MeRound : RoundTree {
   StoreView s;
   int8_t* codes;
@@ -85,6 +92,7 @@ struct MeRound : RoundTree {
   RoundArgs a;
   RoundShared* sh;
   int buf = 0;        // the partials' buffer of the next quartet
+  ConView con{};      // Cons: the counts (written through, int32 [M, n_cons])
 
   __device__ __forceinline__ void count(int k, long long n) {
     if (tid == 0) sh->ctr[k] += n;
@@ -248,6 +256,27 @@ struct MeRound : RoundTree {
       average(node, c0, c1, w);
     }
     count(kAvgOps, 1);
+    if constexpr (Cons) {
+      int32_t* on = const_cast<int32_t*>(con.on);
+      int32_t* off = const_cast<int32_t*>(con.off);
+      const int64_t n = con.n_cons;
+      for (int64_t c = tid; c < n; c += kRoundThreads) {
+        on[node * n + c] = on[c0 * n + c] + on[c1 * n + c];
+        off[node * n + c] = off[c0 * n + c] + off[c1 * n + c];
+      }
+    }
+  }
+
+  // the three criteria of quartet n4 plus its constraint penalties (the
+  // host's criteria + quartet_constraint_penalties); unchanged without
+  // constraints
+  __device__ __forceinline__ void add_penalties(const int n4[4], double crit[3]) const {
+    if constexpr (Cons) {
+      double pen[3];
+      quartet_penalties(con, n4, pen);
+#pragma unroll
+      for (int k = 0; k < 3; ++k) crit[k] = crit[k] + pen[k];
+    }
   }
 
   // ref updateForNNI tcc:1882-1927 (not -slow)

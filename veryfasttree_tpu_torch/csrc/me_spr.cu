@@ -37,6 +37,10 @@
 // round_tree.cuh's, the row work and profile repairs me_round.cuh's, shared
 // with the NNI round (me_nni.cu).
 
+// With VFT_ROUND_CONS defined (me_spr_cons.cu) this file compiles the
+// round under -constraints instead: me_spr_round_cons_kernel and the entry
+// vft_me_spr_round_cons_f32, in a translation unit of its own.
+
 // every tree walk inlined (the round's state in registers, no stack
 // frame), and every thread makes the tree's writes (round_tree.cuh)
 #define VFT_TREE_INLINE __forceinline__
@@ -47,9 +51,9 @@ namespace {
 
 constexpr int kMaxChain = 64;                // the longest chain (max_spr_length)
 
-template <int C>
-struct SprBlock : MeRound<C> {
-  using B = MeRound<C>;
+template <int C, bool Cons = false>
+struct SprBlock : MeRound<C, Cons> {
+  using B = MeRound<C, Cons>;
   using B::a;
   using B::bad;
   using B::nch;
@@ -79,8 +83,9 @@ struct SprBlock : MeRound<C> {
       if (bad) break;
       double d[6];
       this->corrected6(rows4, d);
-      const double crit_ab = d[kQAB] + d[kQCD], crit_ac = d[kQAC] + d[kQBD],
-                   crit_ad = d[kQAD] + d[kQBC];
+      double crit[3] = {d[kQAB] + d[kQCD], d[kQAC] + d[kQBD], d[kQAD] + d[kQBC]};
+      this->add_penalties(nodes4, crit);
+      const double crit_ab = crit[0], crit_ac = crit[1], crit_ad = crit[2];
       // the first step's direction is given; then the better of AC and AD
       const bool swap_bc = i == 0 ? first_ac : crit_ac < crit_ad;
       const int m0 = swap_bc ? nodes4[1] : nodes4[0], m1 = nodes4[2];
@@ -169,11 +174,15 @@ struct SprBlock : MeRound<C> {
   }
 };
 
-template <int C>
-__global__ void __launch_bounds__(kRoundThreads) me_spr_round_kernel(
-    StoreView s, int8_t* codes, float* W, float* U, const double* ev, const float* et,
-    RoundArgs args, int max_spr_len, const int32_t* nodes, int n_nodes, int32_t* g_tree,
-    uint8_t* g_uvalid, int32_t* g_path, long long* g_ctr, int tree_in_smem) {
+// the round's block (the kernels' body): con the counts under Cons
+template <int C, bool Cons>
+__device__ __forceinline__ void spr_round_block(StoreView s, int8_t* codes, float* W, float* U,
+                                                const double* ev, const float* et,
+                                                const RoundArgs& args, int max_spr_len,
+                                                const int32_t* nodes, int n_nodes,
+                                                int32_t* g_tree, uint8_t* g_uvalid,
+                                                int32_t* g_path, long long* g_ctr,
+                                                int tree_in_smem, const ConView& con) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ RoundShared sh;
   __shared__ int n0[kMaxChain], n1[kMaxChain];
@@ -182,38 +191,89 @@ __global__ void __launch_bounds__(kRoundThreads) me_spr_round_kernel(
   if (tid < kNumCounters) sh.ctr[tid] = 0;
   __syncthreads();
 
-  SprBlock<C> b{{{t.tree, t.tree + M, t.tree + 4 * M, t.flags, t.path, args.n_seqs, args.root, M,
-                  tid, false},
-                 s, codes, W, U, ev, et, args, &sh},
-                max_spr_len, n0, n1};
+  SprBlock<C, Cons> b{{{t.tree, t.tree + M, t.tree + 4 * M, t.flags, t.path, args.n_seqs,
+                        args.root, M, tid, false},
+                       s, codes, W, U, ev, et, args, &sh},
+                      max_spr_len, n0, n1};
+  if constexpr (Cons) b.con = con;
   probe_begin(kMePDecide);
   for (int k = 0; k < n_nodes && !b.bad; ++k) b.spr_node(nodes[k]);
   probe_end();
   unstage_tree(t, g_tree, M, tree_in_smem, sh.ctr, kNumCounters, kFault, b.bad, g_ctr);
 }
 
+#ifndef VFT_ROUND_CONS
+template <int C>
+__global__ void __launch_bounds__(kRoundThreads) me_spr_round_kernel(
+    StoreView s, int8_t* codes, float* W, float* U, const double* ev, const float* et,
+    RoundArgs args, int max_spr_len, const int32_t* nodes, int n_nodes, int32_t* g_tree,
+    uint8_t* g_uvalid, int32_t* g_path, long long* g_ctr, int tree_in_smem) {
+  spr_round_block<C, false>(s, codes, W, U, ev, et, args, max_spr_len, nodes, n_nodes, g_tree,
+                            g_uvalid, g_path, g_ctr, tree_in_smem, ConView{});
+}
+#define VFT_SPR_KERNEL me_spr_round_kernel
+#define VFT_SPR_CONS_ARG
+#else
+// the round under -constraints: the quartet penalties in the chains'
+// criteria and the recomputed profiles' counts (MeRound's Cons)
+template <int C>
+__global__ void __launch_bounds__(kRoundThreads) me_spr_round_cons_kernel(
+    StoreView s, int8_t* codes, float* W, float* U, const double* ev, const float* et,
+    RoundArgs args, int max_spr_len, const int32_t* nodes, int n_nodes, int32_t* g_tree,
+    uint8_t* g_uvalid, int32_t* g_path, long long* g_ctr, int tree_in_smem, ConView con) {
+  spr_round_block<C, true>(s, codes, W, U, ev, et, args, max_spr_len, nodes, n_nodes, g_tree,
+                           g_uvalid, g_path, g_ctr, tree_in_smem, con);
+}
+#define VFT_SPR_KERNEL me_spr_round_cons_kernel
+#define VFT_SPR_CONS_ARG , con
+#endif
+
 template <int C>
 int spr_launch(const StoreView& s, int8_t* codes, float* W, float* U, const double* ev,
                const float* et, const RoundArgs& args, int max_spr_len, const int32_t* nodes,
                int n_nodes, int32_t* tree, uint8_t* uvalid, int32_t* path, long long* ctr,
-               int smem_tree, cudaStream_t st) {
+               int smem_tree, const ConView& con, cudaStream_t st) {
   const size_t smem = tree_smem_bytes(args.maxnodes, 1);
   const int in_smem = smem_tree && smem <= (size_t)kRoundSmemCap;
-  cudaError_t err = cudaFuncSetAttribute(me_spr_round_kernel<C>,
+  cudaError_t err = cudaFuncSetAttribute(VFT_SPR_KERNEL<C>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)kRoundSmemCap);
   if (err != cudaSuccess) return (int)err;
-  me_spr_round_kernel<C><<<1, kRoundThreads, in_smem ? smem : 0, st>>>(
+  VFT_SPR_KERNEL<C><<<1, kRoundThreads, in_smem ? smem : 0, st>>>(
       s, codes, W, U, ev, et, args, max_spr_len, nodes, n_nodes, tree, uvalid, path, ctr,
-      in_smem);
+      in_smem VFT_SPR_CONS_ARG);
   err = cudaGetLastError();
   return err != cudaSuccess ? (int)err : 0;
+}
+
+// the entries' body: the checks, then the launch (con: the counts of a
+// constrained round)
+int entry(int8_t* codes, float* W, float* U, const float* code_freq, int64_t n_rows,
+          int64_t leaf_rows, int P, int C, const double* ev, const float* et, float tol,
+          int n_seqs, int maxnodes, int root, int bionj, int logdist, int jc, double pseudo,
+          int max_spr_len, const int32_t* nodes, int n_nodes, int32_t* tree, uint8_t* uvalid,
+          int32_t* path, int64_t* ctr, int smem_tree, const ConView& con, void* stream) {
+  if (max_spr_len < 0 || max_spr_len > kMaxChain || 2 * (int64_t)maxnodes > n_rows ||
+      leaf_rows > n_seqs || root < n_seqs || root >= maxnodes)
+    return kBadArgs;
+  const StoreView s{codes, W, U, code_freq, leaf_rows, P};
+  const RoundArgs args{n_seqs, maxnodes, root, bionj, logdist, jc, pseudo, tol};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  long long* c = reinterpret_cast<long long*>(ctr);
+  if (C == 4)
+    return spr_launch<4>(s, codes, W, U, ev, et, args, max_spr_len, nodes, n_nodes, tree,
+                         uvalid, path, c, smem_tree, con, st);
+  if (C == 20)
+    return spr_launch<20>(s, codes, W, U, ev, et, args, max_spr_len, nodes, n_nodes, tree,
+                          uvalid, path, c, smem_tree, con, st);
+  return kBadArgs;
 }
 
 }  // namespace
 
 extern "C" {
 
+#ifndef VFT_ROUND_CONS
 // SPR of nodes[0 .. n_nodes) (device int32), in order, on an n_rows-row
 // store, in place, in one launch.  The round's state on the device: tree =
 // parent [M] | children [M, 3] | child counts [M] (int32), uvalid [M]
@@ -229,22 +289,30 @@ int vft_me_spr_round_f32(int8_t* codes, float* W, float* U, const float* code_fr
                          int bionj, int logdist, int jc, double pseudo, int max_spr_len,
                          const int32_t* nodes, int n_nodes, int32_t* tree, uint8_t* uvalid,
                          int32_t* path, int64_t* ctr, int smem_tree, void* stream) {
-  if (max_spr_len < 0 || max_spr_len > kMaxChain || 2 * (int64_t)maxnodes > n_rows ||
-      leaf_rows > n_seqs || root < n_seqs || root >= maxnodes)
-    return kBadArgs;
-  const StoreView s{codes, W, U, code_freq, leaf_rows, P};
-  const RoundArgs args{n_seqs, maxnodes, root, bionj, logdist, jc, pseudo, tol};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  long long* c = reinterpret_cast<long long*>(ctr);
-  if (C == 4)
-    return spr_launch<4>(s, codes, W, U, ev, et, args, max_spr_len, nodes, n_nodes, tree,
-                         uvalid, path, c, smem_tree, st);
-  if (C == 20)
-    return spr_launch<20>(s, codes, W, U, ev, et, args, max_spr_len, nodes, n_nodes, tree,
-                          uvalid, path, c, smem_tree, st);
-  return kBadArgs;
+  return entry(codes, W, U, code_freq, n_rows, leaf_rows, P, C, ev, et, tol, n_seqs, maxnodes,
+               root, bionj, logdist, jc, pseudo, max_spr_len, nodes, n_nodes, tree, uvalid, path,
+               ctr, smem_tree, ConView{}, stream);
 }
+#else
+// The same round under -constraints (me_spr_round_cons_kernel): con_on,
+// con_off the counts, int32 [maxnodes, n_cons] on the device, read and
+// written (n_cons >= 1); con_weight constraint_weight.
+int vft_me_spr_round_cons_f32(int8_t* codes, float* W, float* U, const float* code_freq,
+                              int64_t n_rows, int64_t leaf_rows, int P, int C, const double* ev,
+                              const float* et, float tol, int n_seqs, int maxnodes, int root,
+                              int bionj, int logdist, int jc, double pseudo, int max_spr_len,
+                              const int32_t* nodes, int n_nodes, int32_t* tree, uint8_t* uvalid,
+                              int32_t* path, int64_t* ctr, int smem_tree, int32_t* con_on,
+                              int32_t* con_off, int n_cons, double con_weight, void* stream) {
+  if (n_cons < 1 || con_on == nullptr || con_off == nullptr) return kBadArgs;
+  return entry(codes, W, U, code_freq, n_rows, leaf_rows, P, C, ev, et, tol, n_seqs, maxnodes,
+               root, bionj, logdist, jc, pseudo, max_spr_len, nodes, n_nodes, tree, uvalid, path,
+               ctr, smem_tree, ConView{con_on, con_off, n_cons, con_weight}, stream);
+}
+#endif
 
 }  // extern "C"
 
+#ifndef VFT_ROUND_CONS
 VFT_PROBE_READ(vft_me_round_profile_read)
+#endif

@@ -120,7 +120,13 @@
 #include <math.h>
 #include <stdint.h>
 
+// With VFT_ROUND_CONS defined (ml_round_cons.cu) this file compiles the
+// round under -constraints instead: ml_nni_round_cons_kernel and the entry
+// vft_ml_nni_round_cons_f32, in a translation unit of its own (it builds
+// beside this one; the layout and scratch entries stay here).
+
 #define VFT_TREE_INLINE __forceinline__
+#include "constraints.cuh"
 #include "ml_lk.cuh"
 #include "round_tree.cuh"
 
@@ -319,7 +325,11 @@ __device__ __forceinline__ MLView stage_tables(MLView m) {
   return m;
 }
 
-template <int C>
+// Cons: the round under -constraints (ml_nni_round_cons_kernel): each
+// criterion is the quartet's log-likelihood less its topology's constraint
+// penalty (ml.ml_quartet_nni), the penalties of the counts the ME phase
+// left (the ML round reads the counts and writes none)
+template <int C, bool Cons = false>
 struct MlRound : RoundTree {
   MLView m;
   int8_t* codes;      // the store, written in place
@@ -337,6 +347,8 @@ struct MlRound : RoundTree {
   int seq;            // the last command's sequence number
   int kg;             // 20 codes: the blocks of a group
   int n_groups;       // 20 codes: the groups (3 in a round, 1 in a pass)
+  ConView con{};      // Cons: the counts (int32 [M, n_cons], read only)
+  double pen[3]{};    // Cons: the quartet's penalties (ABvsCD, ACvsBD, ADvsBC)
 
   __device__ __forceinline__ void count(int k, long long n) {
     if (tid == 0) sh->ctr[k] += n;
@@ -469,9 +481,17 @@ struct MlRound : RoundTree {
     }
   }
 
-  // ml.ml_quartet_nni (ref MLQuartetNNI tcc:4885-5004, no constraints) on
-  // the cluster: returns the choice; crit the criteria, out the chosen
-  // quartet's lengths (A, B, C, D, I in its own order)
+  // topology k's criterion from its log-likelihood: ll less the penalty
+  // under Cons (ml.ml_quartet_nni's ll - penalty[k]), ll without
+  __device__ __forceinline__ double less_pen(double ll, int k) const {
+    if constexpr (Cons) return ll - pick3(pen, k);
+    return ll;
+  }
+
+  // ml.ml_quartet_nni (ref MLQuartetNNI tcc:4885-5004) on the cluster:
+  // returns the choice; crit the criteria (less the constraint penalties
+  // under Cons), out the chosen quartet's lengths (A, B, C, D, I in its
+  // own order)
   __device__ __forceinline__ int quartet_nni(const cg::cluster_group& cl, const int r[4],
                                              const double len[5], double crit[3],
                                              double out[5]) {
@@ -508,7 +528,7 @@ struct MlRound : RoundTree {
       prof_mark(kPhWait);
       cluster_sync();  // the workers' results
       prof_mark(kPhWalk);
-      c_ab = quartet_ll(parts, star);
+      c_ab = less_pen(quartet_ll(parts, star), kABvsCD);
       count_quartet(true, star, n_eval);
       if (star) {
         count(kStarTests, 1);
@@ -521,8 +541,14 @@ struct MlRound : RoundTree {
         out[kLenI] = lab[kLenI];
         return kABvsCD;
       }
-      if (consider_ac) take(1, lac, c_ac);
-      if (consider_ad) take(2, lad, c_ad);
+      if (consider_ac) {
+        take(1, lac, c_ac);
+        c_ac = less_pen(c_ac, kACvsBD);
+      }
+      if (consider_ad) {
+        take(2, lad, c_ad);
+        c_ad = less_pen(c_ad, kADvsBC);
+      }
       if (a.ml_accuracy < 2) {
         const double close = kCloseLogLkLimit;
         if (c_ac < c_ab - close || (lac[kLenI] <= 2.0 * a.min_len && c_ac < c_ab))
@@ -623,7 +649,7 @@ struct MlRound : RoundTree {
       const bool star = ab.star != 0;
 #pragma unroll
       for (int i = 0; i < 5; ++i) lab[i] = ab.len[i];
-      c_ab = quartet_ll(ab.parts, star);
+      c_ab = less_pen(quartet_ll(ab.parts, star), kABvsCD);
       count_quartet(true, star, ab.n_eval);
       take_kinds(0);
       if (star) {
@@ -637,8 +663,14 @@ struct MlRound : RoundTree {
         out[kLenI] = lab[kLenI];
         return kABvsCD;
       }
-      if (consider_ac) take_group(1, lac, c_ac);
-      if (consider_ad) take_group(2, lad, c_ad);
+      if (consider_ac) {
+        take_group(1, lac, c_ac);
+        c_ac = less_pen(c_ac, kACvsBD);
+      }
+      if (consider_ad) {
+        take_group(2, lad, c_ad);
+        c_ad = less_pen(c_ad, kADvsBC);
+      }
       if (a.ml_accuracy < 2) {
         const double close = kCloseLogLkLimit;
         if (c_ac < c_ab - close || (lac[kLenI] <= 2.0 * a.min_len && c_ac < c_ab))
@@ -671,6 +703,7 @@ struct MlRound : RoundTree {
     if (bad) return;
     const int na = n4[0], nb = n4[1], nc = n4[2], nd = n4[3];
     const double len[5] = {bl[na], bl[nb], bl[nc], bl[nd], bl[node]};
+    if constexpr (Cons) quartet_penalties(con, n4, pen);
     double crit[3], nl[5];
     const int choice = quartet_nni(cl, r4, len, crit, nl);
     if (choice != kABvsCD) {
@@ -789,8 +822,9 @@ struct MlRound : RoundTree {
 // the one block of a pass (at 20 codes block 0 of the pass's cluster, then
 // kStop to its group): stage the tree, run, put the tree and the counters
 // back.  No lambda: nvcc kept a lambda this large as a call, with spills.
-template <int C, bool kRound>
-__device__ __forceinline__ void tree_block(VFT_ML_ROUND_PARAMS, MlShared& sh) {
+template <int C, bool kRound, bool Cons = false>
+__device__ __forceinline__ void tree_block(VFT_ML_ROUND_PARAMS, MlShared& sh,
+                                           const ConView& con = ConView{}) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x, M = args.maxnodes;
   const TreeArrays t = stage_tree(smem + kTablesBytes<C>, g_tree, g_path, g_flags, M, 2,
@@ -801,10 +835,11 @@ __device__ __forceinline__ void tree_block(VFT_ML_ROUND_PARAMS, MlShared& sh) {
   if constexpr (C != 20)  // at 20 codes the groups keep the quartet pieces
     q = quartet_scratch<C>(smem + kTablesBytes<C> + L.tree_bytes, scratch, L.q.temps_smem,
                            L.q.eff_smem, m.P);
-  MlRound<C> b{{t.tree, t.tree + M, t.tree + 4 * M, t.flags, t.path, args.n_seqs, args.root, M,
-                tid, false},
-               m, codes, W, V, q, Red{q.red, 0}, lim, args, bl, &sh, t.flags + M, st, 0.0, 0,
-               L.kg, (L.n_blocks - 1) / L.kg};
+  MlRound<C, Cons> b{{t.tree, t.tree + M, t.tree + 4 * M, t.flags, t.path, args.n_seqs,
+                      args.root, M, tid, false},
+                     m, codes, W, V, q, Red{q.red, 0}, lim, args, bl, &sh, t.flags + M, st, 0.0,
+                     0, L.kg, (L.n_blocks - 1) / L.kg};
+  if constexpr (Cons) b.con = con;
   if constexpr (kRound || C == 20) {
     const cg::cluster_group cl = cg::this_cluster();
     if constexpr (kRound) {
@@ -1005,8 +1040,9 @@ __device__ __forceinline__ MLView cluster_start(const MLView& m, MlShared& sh) {
   return mt;
 }
 
-template <int C>
-__global__ void __launch_bounds__(kOptThreads, 1) ml_nni_round_kernel(VFT_ML_ROUND_PARAMS) {
+// a block of a round's cluster; con the counts under Cons
+template <int C, bool Cons>
+__device__ __forceinline__ void round_block(VFT_ML_ROUND_PARAMS, const ConView& con) {
   __shared__ MlShared sh;
   prof_begin();
   const cg::cluster_group cl = cg::this_cluster();
@@ -1018,12 +1054,30 @@ __global__ void __launch_bounds__(kOptThreads, 1) ml_nni_round_kernel(VFT_ML_ROU
     else
       worker_block<C>(cl, rank, mt, lim, args.tol, scratch, L, sh);
   } else {
-    tree_block<C, true>(mt, codes, W, V, lim, args, st, bl, g_tree, g_flags, g_path, g_ctr,
-                        g_max_delta, scratch, L, sh);
+    tree_block<C, true, Cons>(mt, codes, W, V, lim, args, st, bl, g_tree, g_flags, g_path, g_ctr,
+                              g_max_delta, scratch, L, sh, con);
   }
   prof_end();
 }
 
+#ifndef VFT_ROUND_CONS
+template <int C>
+__global__ void __launch_bounds__(kOptThreads, 1) ml_nni_round_kernel(VFT_ML_ROUND_PARAMS) {
+  round_block<C, false>(m, codes, W, V, lim, args, st, bl, g_tree, g_flags, g_path, g_ctr,
+                        g_max_delta, scratch, L, ConView{});
+}
+#else
+// the round under -constraints: block 0's criteria less the quartets'
+// constraint penalties (MlRound's Cons); the other blocks as above
+template <int C>
+__global__ void __launch_bounds__(kOptThreads, 1)
+    ml_nni_round_cons_kernel(VFT_ML_ROUND_PARAMS, ConView con) {
+  round_block<C, true>(m, codes, W, V, lim, args, st, bl, g_tree, g_flags, g_path, g_ctr,
+                       g_max_delta, scratch, L, con);
+}
+#endif
+
+#ifndef VFT_ROUND_CONS
 template <int C>
 __global__ void __launch_bounds__(kOptThreads, 1) ml_lengths_pass_kernel(VFT_ML_ROUND_PARAMS) {
   __shared__ MlShared sh;
@@ -1043,6 +1097,7 @@ __global__ void __launch_bounds__(kOptThreads, 1) ml_lengths_pass_kernel(VFT_ML_
   }
   prof_end();
 }
+#endif
 
 // the layout of a round (lengths 0) or a pass at (M, P, C); kg the blocks
 // of a 20-code group
@@ -1054,23 +1109,35 @@ RoundLayout layout_of(int M, int P, int C, bool smem_tree, int lengths, int kg) 
 bool group_ok(int kg) { return kg == 1 || kg == 2 || kg == kMaxGroup; }
 
 constexpr int kClusterRefused = -3;  // the card cannot place the cluster
+#ifndef VFT_ROUND_CONS
+constexpr bool kConsUnit = false;     // this unit's round kernel
+#else
+constexpr bool kConsUnit = true;
+#endif
 
 template <int C>
 int round_launch(const MLView& m, int8_t* codes, float* W, float* V, const SearchLimits& lim,
                  const MlArgs& args, const NniStats& st, int lengths, double* bl, int32_t* tree,
                  uint8_t* flags, int32_t* path, long long* ctr, double* max_delta, float* scratch,
-                 int smem_tree, int kg, cudaStream_t stream) {
+                 int smem_tree, int kg, const ConView* con, cudaStream_t stream) {
   if (C == 20 && !group_ok(kg)) return kBadArgs;
+  // the constrained kernel is a round's (a pass makes no decision)
+  if ((con != nullptr) != kConsUnit || (con != nullptr && lengths)) return kBadArgs;
   const RoundLayout L = layout_of(args.maxnodes, m.P, C, smem_tree != 0, lengths, kg);
   if (L.scratch_floats > 0 && scratch == nullptr) return kBadArgs;
   if (L.smem > (size_t)kMlRoundSmemCap) return kBadArgs;
+#ifndef VFT_ROUND_CONS
   auto kernel = lengths ? ml_lengths_pass_kernel<C> : ml_nni_round_kernel<C>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+#else
+  auto kernel = ml_nni_round_cons_kernel<C>;
+#endif
+  const void* fn = (const void*)kernel;
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)kMlRoundSmemCap);
   if (err != cudaSuccess) return (int)err;
   // a cluster of more than 8 blocks (kg = 4: 13) is not portable
   if (L.n_blocks > 8)
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(L.n_blocks);
@@ -1087,12 +1154,17 @@ int round_launch(const MLView& m, int8_t* codes, float* W, float* V, const Searc
   // a cluster the card cannot place is refused here, not left to hang
   if (L.n_blocks > 1) {
     int clusters = 0;
-    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    err = cudaOccupancyMaxActiveClusters(&clusters, fn, &cfg);
     if (err != cudaSuccess) return (int)err;
     if (clusters < 1) return kClusterRefused;
   }
+#ifndef VFT_ROUND_CONS
   err = cudaLaunchKernelEx(&cfg, kernel, m, codes, W, V, lim, args, st, bl, tree, flags, path,
                            ctr, max_delta, scratch, L);
+#else
+  err = cudaLaunchKernelEx(&cfg, kernel, m, codes, W, V, lim, args, st, bl, tree, flags, path,
+                           ctr, max_delta, scratch, L, *con);
+#endif
   if (err == cudaSuccess) err = cudaGetLastError();
   return err != cudaSuccess ? (int)err : 0;
 }
@@ -1104,7 +1176,7 @@ int launch(const int8_t* codes, const float* W, const float* V, const float* cod
            int approx, unsigned long long* counts, const SearchLimits& lim, const MlArgs& args,
            const NniStats& st, int lengths, double* bl, int32_t* tree, uint8_t* flags,
            int32_t* path, int64_t* ctr, double* max_delta, float* scratch, int smem_tree,
-           int kg, void* stream) {
+           int kg, const ConView* con, void* stream) {
   if (3 * (int64_t)args.maxnodes > n_rows || args.root < args.n_seqs ||
       args.root >= args.maxnodes || args.n_seqs < 3 || st.n > args.maxnodes ||
       n_rates < 1 || n_rates > kMaxRates)
@@ -1120,10 +1192,10 @@ int launch(const int8_t* codes, const float* W, const float* V, const float* cod
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
   if (C == 4)
     return round_launch<4>(m, c_out, w_out, v_out, lim, args, st, lengths, bl, tree, flags, path,
-                           c, max_delta, scratch, smem_tree, 1, cs);
+                           c, max_delta, scratch, smem_tree, 1, con, cs);
   if (C == 20)
     return round_launch<20>(m, c_out, w_out, v_out, lim, args, st, lengths, bl, tree, flags, path,
-                            c, max_delta, scratch, smem_tree, kg, cs);
+                            c, max_delta, scratch, smem_tree, kg, con, cs);
   return kBadArgs;
 }
 
@@ -1141,6 +1213,7 @@ int launch(const int8_t* codes, const float* W, const float* V, const float* cod
 
 extern "C" {
 
+#ifndef VFT_ROUND_CONS
 // 1 if a round's tree (M nodes) fits in block 0's shared memory (beside its
 // quartet pieces at 4 codes) at (P, C); otherwise the round keeps it in
 // device memory.
@@ -1205,8 +1278,34 @@ int vft_ml_nni_round_f32(VFT_ML_STORE_ARGS, float tol, float xmin, float xmax, f
                     delta, support, n_stats, fast_nni, min_delta};
   if (root >= n_stats) return kBadArgs;
   return launch(VFT_ML_STORE_PASS, lim, args, st, 0, bl, tree, flags, path, ctr, max_delta,
-                scratch, smem_tree, group, stream);
+                scratch, smem_tree, group, nullptr, stream);
 }
+
+#else
+// The same round under -constraints (ml_nni_round_cons_kernel): con_on,
+// con_off the counts, int32 [maxnodes, n_cons] on the device, read only
+// (n_cons >= 1); con_weight constraint_weight.
+int vft_ml_nni_round_cons_f32(VFT_ML_STORE_ARGS, float tol, float xmin, float xmax, float ftol,
+                              float atol, double min_len, int ml_accuracy, int n_seqs,
+                              int maxnodes, int root, int fast_nni, double min_delta,
+                              int n_stats, int64_t* age, int64_t* subtree_age, double* delta,
+                              double* support, double* bl, int32_t* tree, uint8_t* flags,
+                              int32_t* path, int64_t* ctr, double* max_delta, float* scratch,
+                              int smem_tree, int group, const int32_t* con_on,
+                              const int32_t* con_off, int n_cons, double con_weight,
+                              void* stream) {
+  const SearchLimits lim{xmin, xmax, ftol, atol};
+  const MlArgs args{n_seqs, maxnodes, root, ml_accuracy, min_len, tol};
+  const NniStats st{reinterpret_cast<long long*>(age), reinterpret_cast<long long*>(subtree_age),
+                    delta, support, n_stats, fast_nni, min_delta};
+  if (root >= n_stats || n_cons < 1 || con_on == nullptr || con_off == nullptr) return kBadArgs;
+  const ConView con{con_on, con_off, n_cons, con_weight};
+  return launch(VFT_ML_STORE_PASS, lim, args, st, 0, bl, tree, flags, path, ctr, max_delta,
+                scratch, smem_tree, group, &con, stream);
+}
+#endif
+
+#ifndef VFT_ROUND_CONS
 
 // One pass of optimizeAllBranchLengths (three tips or more) on the ML
 // store, in place, in one launch of one block (at 20 codes a cluster of
@@ -1221,8 +1320,9 @@ int vft_ml_lengths_pass_f32(VFT_ML_STORE_ARGS, float tol, float xmin, float xmax
   const MlArgs args{n_seqs, maxnodes, root, 1, min_len, tol};
   const NniStats st{nullptr, nullptr, nullptr, nullptr, 0, 0, 0.0};
   return launch(VFT_ML_STORE_PASS, lim, args, st, 1, bl, tree, flags, path, ctr, nullptr,
-                scratch, smem_tree, group, stream);
+                scratch, smem_tree, group, nullptr, stream);
 }
+#endif
 
 #ifdef VFT_ML_ROUND_PROFILE
 // The probes' table shape: kProfSlots rows of kProfPhases phases.

@@ -28,6 +28,12 @@
 // Compiled with -fmad=false: every double expression of the decisions rounds
 // as numpy's does.  No float atomics; the handshake words are the only
 // atomics.
+//
+// With VFT_EPOCH_CONS defined (nj_epoch_cons.cu) this file compiles the
+// epoch under -constraints instead: the kernel nj_epoch_cons_kernel and the
+// entry vft_nj_epoch_cons_f32, whose master adds the join penalties
+// (nj_epoch.cuh DevicePhasesCons); a translation unit of its own, so that
+// the unconstrained kernel's code does not change with it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -93,6 +99,7 @@ __device__ __forceinline__ void named_sync(int id, int n) {
 // command and waits for every group; the fences put every lane's items
 // before the publish and the phase's results before every lane's reads
 struct DevicePhases {
+  static constexpr bool kCons = false;
   const EpochParams& e;
   PhaseCmd* local_cmd;   // shared memory: block 0's command
   uint32_t seq;
@@ -143,6 +150,14 @@ struct DevicePhases {
     __threadfence();
   }
 };
+
+#ifdef VFT_EPOCH_CONS
+// the phases of the constrained master: the same, with the counts
+struct DevicePhasesCons : DevicePhases {
+  static constexpr bool kCons = true;
+  EpochCons cons;
+};
+#endif
 
 // one pair distance by the calling group (t: thread of the group)
 template <int C>
@@ -300,6 +315,7 @@ __device__ void local_worker(const EpochParams& e, const PhaseCmd* cmd, int g, i
   }
 }
 
+#ifndef VFT_EPOCH_CONS
 template <int C>
 __global__ void __launch_bounds__(kEpochThreads, 1)
     nj_epoch_kernel(const __grid_constant__ EpochParams e) {
@@ -321,9 +337,38 @@ __global__ void __launch_bounds__(kEpochThreads, 1)
   }
   worker<C>(e, (blockIdx.x - 1) * kGroupsPerBlock + g, (gridDim.x - 1) * kGroupsPerBlock, g, t);
 }
-
+#define VFT_EPOCH_KERNEL nj_epoch_kernel
+#else
+// the epoch under -constraints: the join penalties in every distance the
+// decisions take, and each new node's counts (the master's phases carry
+// the counts); the rest as nj_epoch_kernel
 template <int C>
-int launch(const EpochParams& e, int grid, cudaStream_t st, int* used) {
+__global__ void __launch_bounds__(kEpochThreads, 1)
+    nj_epoch_cons_kernel(const __grid_constant__ EpochParams e,
+                         const __grid_constant__ EpochCons k) {
+  extern __shared__ __align__(16) unsigned char epoch_smem[];
+  __shared__ PhaseCmd local_cmd;
+  const int g = threadIdx.x / kDistThreads;
+  const int t = threadIdx.x % kDistThreads;
+  if (blockIdx.x == 0) {
+    if (g > 0) {
+      local_worker<C>(e, &local_cmd, g, t);
+    } else if (t < 32) {
+      DevicePhasesCons ph{{e, &local_cmd, 0u, (gridDim.x - 1) * kGroupsPerBlock}, k};
+      Master<DeviceWarp, DevicePhasesCons> master(e, ph, epoch_smem, e.smem_state != 0,
+                                                  e.smem_lists != 0);
+      master.run_launch();
+    }
+    return;
+  }
+  worker<C>(e, (blockIdx.x - 1) * kGroupsPerBlock + g, (gridDim.x - 1) * kGroupsPerBlock, g, t);
+}
+#define VFT_EPOCH_KERNEL nj_epoch_cons_kernel
+#endif
+
+// k: the counts (the constrained kernel's second parameter), or null
+template <int C>
+int launch(const EpochParams& e, const EpochCons* k, int grid, cudaStream_t st, int* used) {
   int dev = 0, sms = 0, per_sm = 0, coop = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
@@ -335,10 +380,10 @@ int launch(const EpochParams& e, int grid, cudaStream_t st, int* used) {
   arg.smem_state = plan.state;
   arg.smem_lists = plan.lists;
   if (err == cudaSuccess && smem)
-    err = cudaFuncSetAttribute(nj_epoch_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(VFT_EPOCH_KERNEL<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, nj_epoch_kernel<C>,
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, VFT_EPOCH_KERNEL<C>,
                                                         kEpochThreads, (size_t)smem);
   if (err != cudaSuccess) return (int)err;
   if (!coop || per_sm < 1) return kBadArgs;
@@ -346,8 +391,10 @@ int launch(const EpochParams& e, int grid, cudaStream_t st, int* used) {
   // share SMs
   if (grid <= 0 || grid > sms) grid = sms;
   *used = grid;
-  void* args[] = {&arg};
-  err = cudaLaunchCooperativeKernel((const void*)nj_epoch_kernel<C>, dim3(grid),
+  EpochCons cons{};
+  if (k != nullptr) cons = *k;
+  void* args[] = {&arg, &cons};
+  err = cudaLaunchCooperativeKernel((const void*)VFT_EPOCH_KERNEL<C>, dim3(grid),
                                     dim3(kEpochThreads), args, (size_t)smem, st);
   return (int)err;
 }
@@ -356,6 +403,7 @@ int launch(const EpochParams& e, int grid, cudaStream_t st, int* used) {
 
 extern "C" {
 
+#ifndef VFT_EPOCH_CONS
 // The scratch the master needs beside the [cap] lists, in elements:
 // out[0] ints, out[1] doubles.
 void vft_nj_epoch_scratch(int64_t M, int64_t m, int64_t ntv, int64_t* out) {
@@ -372,11 +420,29 @@ int vft_nj_epoch_f32(const void* params, int grid, int* used_grid, void* stream)
   const EpochParams* e = static_cast<const EpochParams*>(params);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (e->P % 16 != 0 || e->m < 1 || e->ntv < 1) return kBadArgs;
-  if (e->C == 4) return launch<4>(*e, grid, st, used_grid);
-  if (e->C == 20) return launch<20>(*e, grid, st, used_grid);
+  if (e->C == 4) return launch<4>(*e, nullptr, grid, st, used_grid);
+  if (e->C == 20) return launch<20>(*e, nullptr, grid, st, used_grid);
   return kBadArgs;
 }
+#else
+// The same launch under -constraints (nj_epoch_cons_kernel): cons an
+// EpochCons, the counts, which the launch's joins extend.
+int vft_nj_epoch_cons_f32(const void* params, const void* cons, int grid, int* used_grid,
+                          void* stream) {
+  const EpochParams* e = static_cast<const EpochParams*>(params);
+  const EpochCons* k = static_cast<const EpochCons*>(cons);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (e->P % 16 != 0 || e->m < 1 || e->ntv < 1 || k == nullptr || k->n_cons < 1 ||
+      k->n_cons > (int64_t)1 << 30)
+    return kBadArgs;
+  if (e->C == 4) return launch<4>(*e, k, grid, st, used_grid);
+  if (e->C == 20) return launch<20>(*e, k, grid, st, used_grid);
+  return kBadArgs;
+}
+#endif
 
 }  // extern "C"
 
+#ifndef VFT_EPOCH_CONS
 VFT_PROBE_READ(vft_nj_epoch_profile_read)
+#endif

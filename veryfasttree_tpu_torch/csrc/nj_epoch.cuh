@@ -27,6 +27,7 @@
 
 #include <stdint.h>
 
+#include "constraints.cuh"
 #include "me_store.cuh"
 #include "nj_scan.cuh"
 #include "probes.cuh"
@@ -141,6 +142,20 @@ struct EpochParams {
   int64_t stop_reset;       // the join at n_lo resets the out-profile: stop before
   int64_t smem_state;       // stage the hottest per-node arrays in shared memory
   int64_t smem_lists;       // keep the master's small lists in shared memory
+};
+
+// The constrained epoch's counts (nj_epoch_cons_kernel's second
+// parameter, ops/epoch_kernels.py ConParams; every field 8 bytes): a join
+// writes its new node's row, no other step changes them.  The master finds
+// them in its phases object (Ph::kCons, Ph::cons), so that the unconstrained
+// master is compiled as before.
+struct EpochCons {
+  int32_t* on;              // [M, n_cons] nOn
+  int32_t* off;             // [M, n_cons] nOff
+  const int32_t* out_on;    // [n_cons] the leaf totals (the out-profile's)
+  const int32_t* out_off;
+  int64_t n_cons;
+  double weight;            // constraint_weight
 };
 
 struct Hit {
@@ -328,7 +343,8 @@ __host__ __device__ inline SmemPlan smem_plan(int64_t M, int64_t m, int64_t ntv,
 // entry per lane; a gather into a list compacts by ballot, so the list keeps
 // the serial order; an argmin is a shuffle reduction with the serial loop's
 // tie rule.  Writes that need one writer are lane 0's, between two syncs
-// (solo).  Ph::run(cmd), called by every lane, runs one phase to its end.
+// (solo).  Ph::run(cmd), called by every lane, runs one phase to its end;
+// with Ph::kCons the decisions add the join penalties of Ph::cons.
 template <class Wp, class Ph>
 struct Master {
   const EpochParams& e;     // as given (the kernel's parameters)
@@ -640,6 +656,14 @@ struct Master {
     return d - (scaled_out(i, n) + scaled_out(j, n)) / (double)(n - 2);
   }
 
+  // d plus the weighted join penalty of (i, j) (the host loop's dist + w *
+  // pen), under Ph::kCons only
+  __device__ __forceinline__ double penalized(int i, int j, double d) const {
+    const EpochCons& k = ph.cons;
+    const ConView v{k.on, k.off, (int)k.n_cons, k.weight};
+    return d + k.weight * (double)join_penalty(v, k.out_on, k.out_off, i, j);
+  }
+
   // one phase over items (pa, pb)[0, K)
   __device__ bool run_pairs(int K) {
     if (K == 0) return true;
@@ -712,6 +736,8 @@ struct Master {
     n_prof += K - seq;
     for (int k = (int)lane; k < K; k += 32)
       ld[k] = e.rd[R + k] - (diam[li[k]] + diam[lj[k]]);
+    if constexpr (Ph::kCons)
+      for (int k = (int)lane; k < K; k += 32) ld[k] = penalized(li[k], lj[k], ld[k]);
     Wp::sync();
     return crit_batch(K, n);
   }
@@ -1261,7 +1287,8 @@ struct Master {
       const unsigned b = Wp::ballot(act);
       if (x < maxnode) {
         if (act) {
-          const double dist = e.rd[k + __popc(b & below())] - (diam[node] + diam[x]);
+          double dist = e.rd[k + __popc(b & below())] - (diam[node] + diam[x]);
+          if constexpr (Ph::kCons) dist = penalized(node, x, dist);
           d[x] = dist;
           c[x] = x == node ? 2e20 : crit_of(node, x, dist, n);  // node sorts after every slot
         } else {
@@ -1434,6 +1461,7 @@ struct Master {
     else ++n_prof;
     join.weight = e.rw[R] > 0 ? e.rw[R] : 0.01;
     join.dist = e.rd[R] - (diam[i] + diam[j]);
+    if constexpr (Ph::kCons) join.dist = penalized(i, j, join.dist);
 
     const double raw_ij = join.dist + diam[i] + diam[j];
     const double dist_ij = join.dist;
@@ -1493,6 +1521,16 @@ struct Master {
       e.selfdist[node] = self_d;
       e.selfweight[node] = self_w;
     });
+    if constexpr (Ph::kCons) {
+      // the new node's counts, its children's sum; the lanes' writes before
+      // any lane's read
+      const EpochCons& k = ph.cons;
+      for (int64_t c = lane; c < k.n_cons; c += 32) {
+        k.on[node * k.n_cons + c] = k.on[i * k.n_cons + c] + k.on[j * k.n_cons + c];
+        k.off[node * k.n_cons + c] = k.off[i * k.n_cons + c] + k.off[j * k.n_cons + c];
+      }
+      Wp::sync();
+    }
     if (stop) return true;
     totdiam += diam_node - diam[i] - diam[j];
     return top_hit_join(node, n - 1);

@@ -98,6 +98,17 @@ def quartet_rows(nj, nodes) -> np.ndarray:
                      d_row], 1)
 
 
+def quartet_nodes(nj, nodes) -> np.ndarray:
+    """The nodes (A, B, C, D) [K, 4] of the quartet around each of `nodes`,
+    as rearrange.setup_abcd gives them: D the parent, or below the root
+    the root's other child after C."""
+    tree = nj.tree
+    c, d_row = _other_sides(nj, nodes)
+    par = tree.parent[nodes]
+    return np.stack([tree.children[nodes, 0], tree.children[nodes, 1], c,
+                     np.where(par == tree.root, d_row, par)], 1)
+
+
 def pair_list(rows, pairs):
     """The pairs of each row of `rows` [K, m] in turn: (iis, jjs), K *
     len(pairs[0]) each, a row's pairs side by side."""

@@ -10,6 +10,10 @@ out-profile reset to the next in one launch (``ops/epoch_kernels.py``), and
 the host recomputes the out-profile between launches exactly as the host
 loop does.
 
+Under -constraints the launches are the constrained kernel's
+(``csrc/nj_epoch_cons.cu``): every distance a decision takes carries the
+pair's join penalty, and each join writes its new node's counts.
+
 A store on the CPU runs the host loop itself: it is the kernel's plain twin.
 """
 from __future__ import annotations

@@ -34,7 +34,8 @@ from . import rearrange
 from .ml_profiles import (LEN_A, LEN_B, LEN_C, LEN_D, LEN_I, S_AB, S_CD,
                           S_TMP1, MLProfiles, site_log)
 from .rearrange import ABvsCD, ACvsBD, ADvsBC, UpProfiles
-from .supports import SplitCount, resample_columns, resample_count_matrix
+from .supports import (SplitCount, resample_columns, resample_count_matrix,
+                       split_constraints)
 
 # ---------------------------------------------------------------------------
 # 1-D minimization on the host (ref onedimenmin tcc:7024-7081, brent
@@ -182,9 +183,10 @@ def ml_quartet_loglk(nj, rA, rB, rC, rD, lengths, want_site_lk=False):
         + ml.pair_loglk(s_ab, s_cd, lengths[4]), None
 
 
-def ml_quartet_nni(nj, rows4, lengths):
-    """ref MLQuartetNNI tcc:4885-5004, without constraint penalties
-    (constraints are not ported yet).  Returns (choice, criteria,
+def ml_quartet_nni(nj, rows4, lengths, nodes4=None):
+    """ref MLQuartetNNI tcc:4885-5004: each criterion is the quartet's
+    LogLk less the constraint penalty of its topology (the quartet around
+    nodes4; none without constraints).  Returns (choice, criteria,
     new_len[5])."""
     opts = nj.options
     len_ab = np.array([lengths[LEN_A], lengths[LEN_B], lengths[LEN_C],
@@ -196,13 +198,15 @@ def ml_quartet_nni(nj, rows4, lengths):
     consider_ac = True
     consider_ad = True
     n_rounds = 2 if opts.ml_accuracy < 2 else opts.ml_accuracy
+    penalty = rearrange.quartet_constraint_penalties(nj, nodes4) \
+        if nj.n_cons and nodes4 is not None else np.zeros(3)
 
     criteria = np.array([-1e20, -1e20, -1e20])
     rA, rB, rC, rD = rows4
     for _ in range(n_rounds):
         ll, star, _ = ml_quartet_optimize(nj, rA, rB, rC, rD, len_ab,
                                           star_test=True)
-        criteria[ABvsCD] = ll
+        criteria[ABvsCD] = ll - penalty[ABvsCD]
         if star:
             nj.debug.n_star_tests += 1
             criteria[ACvsBD] = -1e20
@@ -218,7 +222,7 @@ def ml_quartet_nni(nj, rows4, lengths):
             found = nj.ml.quartet_optimize([t[1] for t in todo],
                                            [t[2] for t in todo])
             for (k, _, _), (ll, _, _) in zip(todo, found):
-                criteria[k] = ll
+                criteria[k] = ll - penalty[k]
         if opts.ml_accuracy < 2:
             close = constants.CLOSE_LOGLK_LIMIT
             if (criteria[ACvsBD] < criteria[ABvsCD] - close
@@ -578,9 +582,10 @@ def sh_support(loglk3, site_loglk3, counts_pb):
 
 
 def test_splits_ml(nj, progress=None) -> SplitCount:
-    """ref testSplitsML tcc:6856-6999, without constraints: the host loop,
-    split by split.  The ML phase runs ops/ml_round.sh_pass, which gives
-    this loop's values over all splits at once."""
+    """ref testSplitsML tcc:6856-6999: the host loop, split by split, with
+    the constraint counts of the counts the ME phase left.  The ML phase
+    runs ops/ml_round.sh_pass, which gives this loop's values over all
+    splits at once."""
     sc = SplitCount()
     opts = nj.options
     tree = nj.tree
@@ -632,11 +637,9 @@ def test_splits_ml(nj, progress=None) -> SplitCount:
         else:
             choice = ADvsBC
         bad_split = loglk[choice] > loglk[ABvsCD] + constants.TREE_LOGLK_DELTA
-        sc.n_splits += 1
-        if bad_split:
-            sc.n_bad_splits += 1
-            sc.d_worst_delta_unconstrained = max(
-                loglk[choice] - loglk[ABvsCD], sc.d_worst_delta_unconstrained)
+        pen, violated = split_constraints(nj, [nodes4])
+        sc.count(np.array([loglk[choice] - loglk[ABvsCD]]),
+                 np.array([bad_split]), pen, np.array([choice]), violated)
         if opts.n_bootstrap > 0:
             tree.support[node] = 0.0 if bad_split else sh_support(
                 loglk, site, counts_pb)

@@ -38,7 +38,7 @@ class Besthit:
 
 class NeighbourJoining:
     def __init__(self, options, leaf_codes: np.ndarray, dmat, transmat,
-                 log=None, progress=None, names=None,
+                 constraint_on_off=None, log=None, progress=None, names=None,
                  device=torch.device("cpu")):
         t0 = time.perf_counter()
         self.options = options
@@ -59,6 +59,18 @@ class NeighbourJoining:
         self.prof = MEProfiles(leaf_codes, options, dmat, self.maxnodes,
                                device=device)
 
+        # constraints: nOn/nOff counts per node per constraint (ref
+        # Profile.nOn), int64 on the host; the kernels take int32 copies
+        if constraint_on_off is not None:
+            self.n_cons = constraint_on_off[0].shape[1]
+            self.con_on = np.zeros((self.maxnodes, self.n_cons), dtype=np.int64)
+            self.con_off = np.zeros((self.maxnodes, self.n_cons), dtype=np.int64)
+            self.con_on[:n_seqs] = constraint_on_off[0]
+            self.con_off[:n_seqs] = constraint_on_off[1]
+        else:
+            self.n_cons = 0
+            self.con_on = self.con_off = None
+
         self.diameter = np.zeros(self.maxnodes)
         self.var_diameter = np.zeros(self.maxnodes)
         self.selfdist = np.zeros(self.maxnodes)
@@ -71,6 +83,10 @@ class NeighbourJoining:
         self.join_log: list = []  # (i, j) per join, for join-order parity tests
 
         self.prof.recompute_outprofile(self._leaf_mask())
+        if self.n_cons:
+            # the leaf totals: the out-profile's counts, which no join changes
+            self.con_out_on = self.con_on[:n_seqs].sum(axis=0)
+            self.con_out_off = self.con_off[:n_seqs].sum(axis=0)
         self.set_out_distance(np.arange(n_seqs), n_seqs)
         # host-clock seconds of the NJ phase's parts; every part ends in a
         # fetch to the host, so the device work is included
@@ -79,9 +95,11 @@ class NeighbourJoining:
     def load_state(self, arrays: dict) -> None:
         """Replace the engine state with arrays under the names of the
         reference's checkpoints (veryfasttree_tpu/engine/checkpoint.py):
-        tree_*, nj_* and me_codes, me_W, me_U, me_w_out, me_f_out (the
-        constraint counts nj_con_* are not ported yet).  The engine must have
-        been built from the same alignment and options."""
+        tree_*, nj_* and me_codes, me_W, me_U, me_w_out, me_f_out, and the
+        constraint counts nj_con_on, nj_con_off, nj_con_out_on and
+        nj_con_out_off where the engine has constraints and the arrays hold
+        them.  The engine must have been built from the same alignment,
+        options and constraints."""
         tree = self.tree
         tree.parent[:] = arrays["tree_parent"]
         tree.children[:] = arrays["tree_children"]
@@ -96,6 +114,11 @@ class NeighbourJoining:
         self.out_distances[:] = arrays["nj_out_distances"]
         self.n_out_dist_active[:] = arrays["nj_n_out_dist_active"]
         self.totdiam = float(arrays["nj_scal"][0])
+        if self.n_cons and "nj_con_on" in arrays:
+            self.con_on[:] = arrays["nj_con_on"]
+            self.con_off[:] = arrays["nj_con_off"]
+            self.con_out_on[:] = arrays["nj_con_out_on"]
+            self.con_out_off[:] = arrays["nj_con_out_off"]
         self.prof = MEProfiles.from_numpy(
             arrays, self.options, self.dmat, self.n_seqs, self.n_pos,
             self.maxnodes, two_tier=self.prof.two_tier,
@@ -129,6 +152,35 @@ class NeighbourJoining:
             out = np.where(dist < 0.99,
                            -1.3 * np.log1p(-np.minimum(dist, 0.9899)), maxscore)
         return np.minimum(out, maxscore)
+
+    # -------------------------------------------------------- constraint math
+    def join_penalties_batch(self, iis, jjs):
+        """ref joinConstraintPenalty tcc:559-605 (the JAX package's
+        join_constraint_penalty) of each pair (iis[k], jjs[k]): the
+        constrained leaves the join must move, summed over the constraints
+        (the out-component's counts are the leaf totals less both
+        members'), as float64, over [K, n_cons] arrays at once."""
+        if not self.n_cons:
+            return np.zeros(len(iis))
+        iis = np.asarray(iis, dtype=np.int64)
+        jjs = np.asarray(jjs, dtype=np.int64)
+        on1, off1 = self.con_on[iis], self.con_off[iis]
+        on2, off2 = self.con_on[jjs], self.con_off[jjs]
+        on3 = self.con_out_on - on1 - on2
+        off3 = self.con_out_off - off1 - off2
+
+        def code(on, off):
+            return np.where((on > 0) & (off > 0), -1, (on > 0).astype(np.int64))
+
+        codes = [code(on1, off1), code(on2, off2), code(on3, off3)]
+        n_split = sum((c == -1).astype(np.int64) for c in codes)
+        n_on = sum((c == 1).astype(np.int64) for c in codes)
+        active = ((on1 + off1 > 0) & (on2 + off2 > 0) & (on3 + off3 > 0)
+                  & (n_split == 1) & (n_on == 1))
+        on_a, off_a = on1 + on2, off1 + off2
+        pen = np.where(on_a + off3 < on3 + off_a, np.minimum(on_a, off3),
+                       np.minimum(on3, off_a))
+        return np.where(active, pen, 0).sum(axis=1).astype(np.float64)
 
     # ------------------------------------------------------- out-distances
     def apply_out_refresh(self, idx: np.ndarray, dist: np.ndarray,
@@ -179,7 +231,7 @@ class NeighbourJoining:
     def set_dist_criterion_batch(self, n_active: int, iis, jjs,
                                  refresh_neq=None, stale_extra=None):
         """Batched setDistCriterion (ref tcc:1115-1124): raw distance minus
-        diameters, then criterion.
+        diameters plus the constraint penalty, then criterion.
 
         The out-distance refreshes implied by the criterion (the staleOutLimit
         rule over iis/jjs/stale_extra, plus the unconditional-if-not-current
@@ -209,6 +261,9 @@ class NeighbourJoining:
         self.debug.profile_ops += int((~leafpair).sum())
         weight = np.where(weight > 0, weight, 0.01)
         dist = dist - (self.diameter[iis] + self.diameter[jjs])
+        if self.n_cons:
+            dist = dist + self.options.constraint_weight \
+                * self.join_penalties_batch(iis, jjs)
         crit = self.set_criterion_batch(n_active, iis, jjs, dist)
         return dist, weight, crit
 
@@ -219,14 +274,18 @@ class NeighbourJoining:
     # ------------------------------------------------------------- best hits
     def best_hit_arrays(self, node: int, dist, weight, n_active: int):
         """Host half of setBestHit given a scan over the first len(dist)
-        rows: diameters, criterion.  Returns the (dist, weight,
-        criterion) arrays of set_best_hit(want_all=True)."""
+        rows: diameters, constraint penalties, criterion.  Returns the
+        (dist, weight, criterion) arrays of set_best_hit(want_all=True)."""
         maxnode = len(dist)
         dist = np.array(dist, dtype=np.float64)
         weight = np.asarray(weight, dtype=np.float64)
         active = self.active_mask()[:maxnode]
         self.debug.profile_ops += int(active.sum())
         dist = dist - (self.diameter[node] + self.diameter[:maxnode])
+        if self.n_cons:
+            js = np.nonzero(active)[0]
+            pens = self.join_penalties_batch(np.full(len(js), node), js)
+            dist[js] += self.options.constraint_weight * pens
         weight = np.where(weight > 0, weight, 0.01)
         iis = np.full(maxnode, node)
         crit = np.full(maxnode, 1e20)
@@ -436,6 +495,11 @@ class NeighbourJoining:
             sd, sw = self.prof.join(join.i, join.j, newnode,
                                     bionj_weight if opts.bionj else -1.0)
             self.debug.profile_avg_ops += 1
+            if self.n_cons:
+                # the out-totals do not change: the new node's counts are
+                # its children's sum
+                self.con_on[newnode] = self.con_on[join.i] + self.con_on[join.j]
+                self.con_off[newnode] = self.con_off[join.i] + self.con_off[join.j]
 
             # out-profile: periodic full recompute vs incremental update
             # (ref tcc:3012-3037)
@@ -498,4 +562,3 @@ class NeighbourJoining:
 
     def total_len(self) -> float:
         return float(np.abs(self.tree.branchlength[: self.tree.maxnode]).sum())
-

@@ -139,11 +139,42 @@ def quartet_weight(nj, rows4) -> float:
     return min(max(weight, 0.0), 1.0)
 
 
-def choose_nni(nj, rows4):
-    """ME NNI chooser (ref chooseNNI tcc:4836-4882), without constraint
-    penalties (constraints are not ported yet)."""
+def quartet_constraint_penalties(nj, nodes4):
+    """ref quartetConstraintPenalties tcc:1490-1522: the weighted penalties
+    [3] (ABvsCD, ACvsBD, ADvsBC) of the quartet around nodes4 (A, B, C, D;
+    D's counts are its own, as the JAX package takes them), each summed by
+    numpy over the relevant constraints.  Zeros without constraints."""
+    pen = np.zeros(3)
+    if not nj.n_cons:
+        return pen
+    on = nj.con_on[list(nodes4)]                   # [4, nCons]
+    off = nj.con_off[list(nodes4)]
+    tot = on + off
+    n_plus = ((on > 0) & (off == 0)).sum(axis=0)
+    n_minus = ((off > 0) & (on == 0)).sum(axis=0)
+    relevant = (tot > 0).all(axis=0) & (n_plus < 3) & (n_minus < 3)
+
+    def pair_dist(i, j):
+        f1 = np.divide(on[i], tot[i], out=np.zeros_like(on[i], dtype=float),
+                       where=tot[i] > 0)
+        f2 = np.divide(on[j], tot[j], out=np.zeros_like(on[j], dtype=float),
+                       where=tot[j] > 0)
+        return f1 + f2 - 2.0 * f1 * f2
+
+    w = nj.options.constraint_weight
+    pen[ABvsCD] = (w * (pair_dist(0, 1) + pair_dist(2, 3)))[relevant].sum()
+    pen[ACvsBD] = (w * (pair_dist(0, 2) + pair_dist(1, 3)))[relevant].sum()
+    pen[ADvsBC] = (w * (pair_dist(0, 3) + pair_dist(2, 1)))[relevant].sum()
+    return pen
+
+
+def choose_nni(nj, rows4, nodes4=None):
+    """ME NNI chooser (ref chooseNNI tcc:4836-4882), with the constraint
+    penalties of the quartet around nodes4 where there are constraints."""
     d = corrected_pair_distances(nj, rows4, 4)
     criteria = np.array([d[QAB] + d[QCD], d[QAC] + d[QBD], d[QAD] + d[QBC]])
+    if nj.n_cons and nodes4 is not None:
+        criteria = criteria + quartet_constraint_penalties(nj, nodes4)
     choice = ABvsCD
     if criteria[ACvsBD] < criteria[ABvsCD] and criteria[ACvsBD] <= criteria[ADvsBC]:
         choice = ACvsBD
@@ -153,7 +184,10 @@ def choose_nni(nj, rows4):
 
 
 def recompute_profile(nj, ups, node: int, use_ml: bool) -> None:
-    """ref recomputeProfile tcc:3436-3472."""
+    """ref recomputeProfile tcc:3436-3472.  The constraint counts follow
+    the ME profile only: with use_ml the node keeps its counts, as in the
+    JAX package (its ML NNIs and split test read the counts the ME phase
+    left)."""
     tree = nj.tree
     if node < nj.n_seqs or node == tree.root:
         return
@@ -170,6 +204,9 @@ def recompute_profile(nj, ups, node: int, use_ml: bool) -> None:
         weight = -1.0
     nj.prof.set_from_average(node, c0, c1, weight)
     nj.debug.profile_avg_ops += 1
+    if nj.n_cons:
+        nj.con_on[node] = nj.con_on[c0] + nj.con_on[c1]
+        nj.con_off[node] = nj.con_off[c0] + nj.con_off[c1]
 
 
 def update_for_nni(nj, ups, node: int, use_ml: bool) -> None:
@@ -251,9 +288,9 @@ def do_nni(nj, i_round: int, n_rounds: int, use_ml: bool, stats: NNIStats):
             bl = tree.branchlength
             choice, criteria, new_len = ml.ml_quartet_nni(
                 nj, rows4, np.array([bl[node_a], bl[node_b], bl[node_c],
-                                     bl[node_d], bl[node]]))
+                                     bl[node_d], bl[node]]), nodes4)
         else:
-            choice, criteria = choose_nni(nj, rows4)
+            choice, criteria = choose_nni(nj, rows4, nodes4)
             criteria = -criteria  # invert so higher is better, as in ML
 
         if choice == ACvsBD:
@@ -366,6 +403,9 @@ def recompute_profiles_levelwise(nj, dmat=None) -> None:
         jjs = [int(tree.children[n, 1]) for n in nodes]
         levels.append((nodes, iis, jjs))
         nj.debug.profile_avg_ops += len(nodes)
+        if nj.n_cons:
+            nj.con_on[nodes] = nj.con_on[iis] + nj.con_on[jjs]
+            nj.con_off[nodes] = nj.con_off[iis] + nj.con_off[jjs]
     if levels:
         nj.prof.average_sweep(levels)
 

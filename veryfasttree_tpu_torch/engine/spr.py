@@ -30,7 +30,7 @@ def find_spr_steps(nj, ups, node_move: int, node_around: int, b_first_ac: bool):
         if tree.n_child[node_around] != 2:
             break
         rows4, nodes4 = rearrange.setup_abcd(nj, ups, node_around, use_ml=False)
-        _, criteria = rearrange.choose_nni(nj, rows4)
+        _, criteria = rearrange.choose_nni(nj, rows4, nodes4)
         if (b_first_ac if i_step == 0 else criteria[ACvsBD] < criteria[ADvsBC]):
             # swap B & C to put A-C together
             step = SprStep((nodes4[1], nodes4[2]),

@@ -30,16 +30,73 @@ from ..ops import resample_kernels
 from ..utils.knuth import KnuthRandom
 
 from . import batched, rearrange
-from .rearrange import QAB, QAC, QAD, QBC, QBD, QCD, UpProfiles
+from .rearrange import (QAB, QAC, QAD, QBC, QBD, QCD, ACvsBD, ADvsBC,
+                        UpProfiles)
 
 
 @dataclass
 class SplitCount:
-    """ref SplitCount NeighbourJoining.h:60-69, without the constraint
-    counts (constraints are not ported yet)"""
+    """ref SplitCount NeighbourJoining.h:60-69"""
     n_bad_splits: int = 0
+    n_constraint_violations: int = 0
+    n_bad_both: int = 0
     n_splits: int = 0
     d_worst_delta_unconstrained: float = 0.0
+    d_worst_delta_constrained: float = 0.0
+
+    def count(self, delta, bad, pen, choice, violated, tol=1e-6) -> None:
+        """Add splits to the counts, in order (ref testSplitsMinEvo
+        tcc:6639-6797 and testSplitsML :6856-6999 after their choices):
+        delta [K] the best alternative's lead, bad [K] whether it counts as
+        a bad split, pen [K, 3] the constraint penalties, choice [K] the
+        best alternative, violated [K] whether a constraint is violated."""
+        k = np.arange(len(delta))
+        self.n_splits += len(delta)
+        self.n_bad_splits += int(np.count_nonzero(bad))
+        self.n_constraint_violations += int(np.count_nonzero(violated))
+        bad_constr = (pen[:, 0] > pen[:, 1] + tol) | (pen[:, 0] > pen[:, 2] + tol)
+        self.n_bad_both += int(np.count_nonzero(bad & bad_constr))
+        constrained = pen[k, choice] > pen[:, 0] + tol
+        for i in np.flatnonzero(bad):
+            if constrained[i]:
+                self.d_worst_delta_constrained = max(
+                    delta[i], self.d_worst_delta_constrained)
+            else:
+                self.d_worst_delta_unconstrained = max(
+                    delta[i], self.d_worst_delta_unconstrained)
+
+
+def split_violates_constraint(nj, nodes4, i_cons: int) -> bool:
+    """ref splitViolatesConstraint tcc:1531-1563"""
+    codes = []
+    for nd in nodes4:
+        on, off = nj.con_on[nd][i_cons], nj.con_off[nd][i_cons]
+        if on + off == 0:
+            return False
+        codes.append(1 if (on > 0 and off == 0)
+                     else (0 if off > 0 and on == 0 else -1))
+    n0 = codes.count(0)
+    n1 = codes.count(1)
+    if n0 >= 3 or n1 >= 3:
+        return False
+    if n0 == 2 and n1 == 2 and codes[0] == codes[1] and codes[2] == codes[3]:
+        return False
+    return True
+
+
+def split_constraints(nj, nodes4) -> tuple:
+    """The constraint penalties [K, 3] and violations [K] (any constraint
+    split_violates_constraint) of the quartets nodes4 [K, 4]; zeros and
+    False without constraints."""
+    K = len(nodes4)
+    pen = np.zeros((K, 3))
+    violated = np.zeros(K, dtype=bool)
+    if nj.n_cons:
+        for k, n4 in enumerate(np.asarray(nodes4).tolist()):
+            pen[k] = rearrange.quartet_constraint_penalties(nj, n4)
+            violated[k] = any(split_violates_constraint(nj, n4, c)
+                              for c in range(nj.n_cons))
+    return pen, violated
 
 
 def resample_columns(nj) -> np.ndarray:
@@ -80,11 +137,10 @@ def test_splits_min_evo(nj) -> SplitCount:
         s_ac_bd = d[QAC] + d[QBD]
         s_ad_bc = d[QAD] + d[QBC]
         delta = s_ab_cd - min(s_ac_bd, s_ad_bc)
-        sc.n_splits += 1
-        if delta > tol:
-            sc.n_bad_splits += 1
-            sc.d_worst_delta_unconstrained = max(
-                delta, sc.d_worst_delta_unconstrained)
+        pen, violated = split_constraints(nj, [nodes4])
+        sc.count(np.array([delta]), np.array([delta > tol]), pen,
+                 np.array([ACvsBD if s_ac_bd < s_ad_bc else ADvsBC]),
+                 violated, tol)
         ups.reset(nodes4[0])
         ups.reset(nodes4[1])
     return sc
@@ -92,7 +148,7 @@ def test_splits_min_evo(nj) -> SplitCount:
 
 def test_splits_min_evo_batched(nj, up_tables=None) -> SplitCount:
     """Level-batched testSplitsMinEvo (ref tcc:6639-6797; the JAX package's
-    test_splits_min_evo_batched without the constraint counts): every
+    test_splits_min_evo_batched): every
     up-profile in one sweep of balanced averages, every quartet's six pair
     distances in one list and one fetch, then the corrections and the
     counts in host numpy.  With -bionj off (plain 0.5 up-profiles) the
@@ -132,11 +188,9 @@ def test_splits_min_evo_batched(nj, up_tables=None) -> SplitCount:
     s_ad_bc = dist[QAD] + dist[QBC]
     # min(s_ac_bd, s_ad_bc) as Python's min takes it
     delta = s_ab_cd - np.where(s_ad_bc < s_ac_bd, s_ad_bc, s_ac_bd)
-    bad = delta > tol
-    sc.n_splits = K
-    sc.n_bad_splits = int(bad.sum())
-    if sc.n_bad_splits:
-        sc.d_worst_delta_unconstrained = float(delta[bad].max())
+    pen, violated = split_constraints(nj, batched.quartet_nodes(nj, nodes))
+    sc.count(delta, delta > tol, pen,
+             np.where(s_ac_bd < s_ad_bc, ACvsBD, ADvsBC), violated, tol)
     return sc
 
 

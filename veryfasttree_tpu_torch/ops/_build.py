@@ -34,7 +34,13 @@ SOURCE_FLAGS = {"ml_lk.cu": ["-fmad=false"], "ml_round.cu": ["-fmad=false"],
                 "ml_sweep.cu": ["-fmad=false"],
                 "me_spr.cu": ["-fmad=false"], "me_nni.cu": ["-fmad=false"],
                 "nj_epoch.cu": ["-fmad=false"],
-                "sh_resample.cu": ["-fmad=false"]}
+                "sh_resample.cu": ["-fmad=false"],
+                # the -constraints units: a round or the epoch with its
+                # constrained kernel alone
+                "ml_round_cons.cu": ["-fmad=false"],
+                "me_spr_cons.cu": ["-fmad=false"],
+                "me_nni_cons.cu": ["-fmad=false"],
+                "nj_epoch_cons.cu": ["-fmad=false"]}
 
 _lib = None
 
@@ -155,14 +161,25 @@ def kernel_resources(report: dict, kernel: str, n_codes: int = 4) -> dict:
 # deciding warp's 616-byte frame (the master object; no spills)
 STACK_LIMITS = {"ml_nni_round_kernel": 0, "ml_lengths_pass_kernel": 0,
                 "ml_quartet_opt_kernel": 32, "nj_epoch_kernel": 616,
-                "me_spr_round_kernel": 0, "me_nni_round_kernel": 0}
+                "me_spr_round_kernel": 0, "me_nni_round_kernel": 0,
+                # the -constraints instantiations, at what their builds
+                # reach: the penalties' pairwise sum keeps its explicit
+                # stack (csrc/constraints.cuh np_sum, 312 bytes) in local
+                # memory, and the ME rounds spill beside it (80 and 204
+                # bytes of spill stores); the epoch's master carries the
+                # counts' 48 bytes
+                "nj_epoch_cons_kernel": 664, "me_spr_round_cons_kernel": 432,
+                "me_nni_round_cons_kernel": 352,
+                "ml_nni_round_cons_kernel": 320}
 # the same for the ML kernels' 20-code templates (protein ML), at what the
 # builds reach: the NNI round, its walk on a block of its own and each
 # optimization over a group of blocks, keeps an 8-byte frame at 255
 # registers (8 bytes of spill stores: the quartet bodies' Part state beside
 # the posteriors' rotations); the pass and the quartet kernel none
 STACK_LIMITS_20 = {"ml_nni_round_kernel": 8, "ml_lengths_pass_kernel": 0,
-                   "ml_quartet_opt_kernel": 0}
+                   "ml_quartet_opt_kernel": 0,
+                   # -constraints: np_sum's stack, 16 bytes of spills
+                   "ml_nni_round_cons_kernel": 336}
 
 
 def resource_faults(report: dict, limits: dict = STACK_LIMITS,
@@ -225,9 +242,19 @@ def _declare(lib) -> None:
         i32, ptr, i32, ptr, ptr, ptr, ptr, i32, ptr]
     lib.vft_me_nni_round_f32.argtypes = me_round + [
         i32, f64, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, ptr]
+    # the constrained rounds take the counts (ops/me_round.Counts) before
+    # the stream
+    cons = [ptr, ptr, i32, f64]
+    lib.vft_me_spr_round_cons_f32.argtypes = \
+        lib.vft_me_spr_round_f32.argtypes[:-1] + cons + [ptr]
+    lib.vft_me_nni_round_cons_f32.argtypes = \
+        lib.vft_me_nni_round_f32.argtypes[:-1] + cons + [ptr]
     # the join epoch takes its parameters as one struct
     # (ops/epoch_kernels.EpochParams)
     lib.vft_nj_epoch_f32.argtypes = [ptr, i32, ptr, ptr]
+    # and under -constraints the counts as a second struct
+    # (ops/epoch_kernels.ConParams; NULL: none)
+    lib.vft_nj_epoch_cons_f32.argtypes = [ptr, ptr, i32, ptr, ptr]
     lib.vft_nj_epoch_scratch.argtypes = [i64, i64, i64, ptr]
     lib.vft_nj_epoch_scratch.restype = None
     # the ML store's arguments, first in each ML entry (csrc/ml_lk.cu)
@@ -266,6 +293,8 @@ def _declare(lib) -> None:
     lib.vft_ml_nni_round_f32.argtypes = ml_round + [
         i32, i32, i32, i32, i32, f64, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
         ptr, ptr, ptr, ptr, i32, i32, ptr]
+    lib.vft_ml_nni_round_cons_f32.argtypes = \
+        lib.vft_ml_nni_round_f32.argtypes[:-1] + cons + [ptr]
     lib.vft_ml_lengths_pass_f32.argtypes = ml_round + [
         i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, ptr]
     lib.vft_ml_round_tree_fits_smem.argtypes = [i32, i32, i32]
@@ -277,12 +306,15 @@ def _declare(lib) -> None:
     for name in ("vft_nj_scan_dense_f64", "vft_nj_scan_codes_f64",
                  "vft_me_pair_dists_f32", "vft_me_average_f32",
                  "vft_me_spr_round_f32", "vft_me_nni_round_f32",
+                 "vft_me_spr_round_cons_f32", "vft_me_nni_round_cons_f32",
                  "vft_ml_pair_loglk_f32", "vft_ml_posterior_f32",
                  "vft_ml_opt_branch_f32", "vft_ml_opt_branch_fits_smem",
                  "vft_ml_quartet_opt_f32", "vft_ml_nni_round_f32",
+                 "vft_ml_nni_round_cons_f32",
                  "vft_ml_lengths_pass_f32", "vft_ml_round_tree_fits_smem",
                  "vft_ml_round_layout",
-                 "vft_nj_epoch_f32", "vft_sh_resample_counts",
+                 "vft_nj_epoch_f32", "vft_nj_epoch_cons_f32",
+                 "vft_sh_resample_counts",
                  "vft_dataflow_ctrl_words", "vft_ml_posterior_sweep_grid",
                  "vft_ml_posterior_sweep_f32",
                  "vft_ml_tree_loglk_f32"):

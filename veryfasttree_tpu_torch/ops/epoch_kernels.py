@@ -65,6 +65,13 @@ class EpochParams(ctypes.Structure):
                              "smem_lists")])
 
 
+class ConParams(ctypes.Structure):
+    """The constrained kernel's second parameter, field for field
+    csrc/nj_epoch.cuh EpochCons (every field 8 bytes)."""
+    _fields_ = ([(n, _P) for n in ("on", "off", "out_on", "out_off")]
+                + [("n_cons", _I), ("weight", _D)])
+
+
 def segments(n_seqs: int, options, max_joins=None):
     """The launches of a join phase: (n_hi, n_lo, resume, stop_reset) each,
     the joins at n_active = n_hi down to n_lo; resume: first finish the
@@ -151,6 +158,18 @@ class EpochState:
         if prof.use_matrix:
             self.ev = prof.eigenval.to(dtype=torch.float64).contiguous()
             self.et = prof.eigentot.to(dtype=torch.float32).contiguous()
+        # the constraint counts, int32 in device memory (beside the
+        # kernel's shared-memory layouts); none without constraints
+        self.cons = None
+        if nj.n_cons:
+            t["con_on"], t["con_off"] = i32(nj.con_on), i32(nj.con_off)
+            t["con_out_on"] = i32(nj.con_out_on)
+            t["con_out_off"] = i32(nj.con_out_off)
+            self.cons = ConParams(
+                on=t["con_on"].data_ptr(), off=t["con_off"].data_ptr(),
+                out_on=t["con_out_on"].data_ptr(),
+                out_off=t["con_out_off"].data_ptr(), n_cons=nj.n_cons,
+                weight=float(opts.constraint_weight))
         self.params = EpochParams(
             n_rows=n_rows, leaf_rows=int(prof._leaf_rows), P=P, C=C,
             use_matrix=int(prof.use_matrix), tol=float(np.float32(prof.tol)),
@@ -162,7 +181,8 @@ class EpochState:
             age_limit=max(1, int(0.5 + math.log2(m))),
             ev=self.ev.data_ptr() if self.ev is not None else None,
             et=self.et.data_ptr() if self.et is not None else None,
-            **{k: v.data_ptr() for k, v in t.items()})
+            **{k: v.data_ptr() for k, v in t.items()
+               if not k.startswith("con_")})
         self.store(prof)
 
     def store(self, prof) -> None:
@@ -195,11 +215,19 @@ def _launch(state, seg, grid) -> int:
     for name in ("ctl", "mark", "mark2"):
         state.t[name].zero_()
     used = ctypes.c_int(0)
-    rc = _build.library().vft_nj_epoch_f32(
-        ctypes.byref(p), int(grid or 0), ctypes.byref(used),
-        torch.cuda.current_stream(state.dev).cuda_stream)
+    lib = _build.library()
+    stream = torch.cuda.current_stream(state.dev).cuda_stream
+    if state.cons is None:
+        rc = lib.vft_nj_epoch_f32(ctypes.byref(p), int(grid or 0),
+                                  ctypes.byref(used), stream)
+    else:
+        rc = lib.vft_nj_epoch_cons_f32(ctypes.byref(p),
+                                       ctypes.byref(state.cons),
+                                       int(grid or 0), ctypes.byref(used),
+                                       stream)
     me_round.raise_on(rc, "nj_join_epoch")
     join_epoch.launches += 1
+    join_epoch.cons_launches += state.cons is not None
     return used.value
 
 
@@ -209,14 +237,16 @@ def join_epoch(nj, tophits, max_joins=None, grid=None,
     max_joins joins; the caller roots the three last nodes): the host loop
     for a store on the CPU, the epoch kernel's launches for a store on a
     CUDA device.  nj (tree, join log, branch lengths, per-node arrays,
-    totdiam, store rows, out-profile, debug counters) and tophits (lists,
-    visible and top-visible sets, ages) come out as the host loop leaves
-    them.  grid: blocks of the cooperative launch (None: one per SM).
-    state_in_smem=False keeps the decisions' per-node arrays in device
-    memory, as the kernel does anyway where they would not fit in shared
-    memory (N above about 2,300); lists_in_smem=False the deciding warp's
-    small lists (hit-list remaps, merges, selections), as it does where
-    they would not fit beside the per-node arrays."""
+    totdiam, store rows, out-profile, debug counters, constraint counts)
+    and tophits (lists, visible and top-visible sets, ages) come out as the
+    host loop leaves them; under -constraints the constrained kernel
+    (nj_epoch_cons_kernel) adds the join penalties.  grid: blocks of the
+    cooperative launch (None: one per SM).  state_in_smem=False keeps the
+    decisions' per-node arrays in device memory, as the kernel does anyway
+    where they would not fit in shared memory (N above about 2,300);
+    lists_in_smem=False the deciding warp's small lists (hit-list remaps,
+    merges, selections), as it does where they would not fit beside the
+    per-node arrays."""
     if nj.prof.codes.device.type == "cpu":
         nj._join_loop_host(tophits, None, max_joins)
         return
@@ -278,6 +308,9 @@ def _write_back(nj, tophits, state, w) -> None:
     nj.totdiam = float(state.host("totdiam")[0])
     for name in COUNTERS:
         setattr(nj.debug, name, getattr(nj.debug, name) + w[name])
+    if nj.n_cons:
+        nj.con_on[:] = state.host("con_on")
+        nj.con_off[:] = state.host("con_off")
     tophits.unpack_state(state.host("hits_j"), state.host("hits_d"))
     tophits.visible_j[:] = state.host("vis_j")
     tophits.visible_dist[:] = state.host("vis_d")
@@ -287,6 +320,8 @@ def _write_back(nj, tophits, state, w) -> None:
 
 
 join_epoch.launches = 0
+# the launches of the constrained kernel (nj_epoch_cons_kernel) among them
+join_epoch.cons_launches = 0
 # the work of the launches: the debug counts of their joins, the joins,
 # phases (wide steps handed to the grid), refresh scans and the rows they
 # read, out-profile resets, and the last launch's grid

@@ -48,6 +48,33 @@ def entry_args(nj):
     return args, (ev, et)
 
 
+class Counts:
+    """The constraint counts nj.con_on / nj.con_off as int32 [M, n_cons]
+    on dev for a round's launch (the kernels' ConView), and back into nj
+    after it; the arguments (con_on, con_off, n_cons, weight) of a cons
+    entry.  Without constraints, null pointers and n_cons 0."""
+
+    def __init__(self, nj, dev):
+        self.nj = nj
+        self.on = self.off = None
+        if nj.n_cons:
+            self.on = torch.as_tensor(nj.con_on.astype(np.int32), device=dev)
+            self.off = torch.as_tensor(nj.con_off.astype(np.int32),
+                                       device=dev)
+
+    def args(self):
+        if self.on is None:
+            return [None, None, 0, 0.0]
+        return [self.on.data_ptr(), self.off.data_ptr(), self.nj.n_cons,
+                float(self.nj.options.constraint_weight)]
+
+    def fetch(self):
+        """The counts the round left, into nj (a round that changes them)."""
+        if self.on is not None:
+            self.nj.con_on[:] = self.on.cpu().numpy()
+            self.nj.con_off[:] = self.off.cpu().numpy()
+
+
 class RoundBuffer:
     """A round's state in one device buffer, uploaded once and fetched
     once: int64 words [n_words] (the counters first), the tree as int32

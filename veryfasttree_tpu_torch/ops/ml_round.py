@@ -41,7 +41,7 @@ import torch
 from .. import constants
 from ..engine import rearrange
 from ..engine.state import level_order
-from ..engine.supports import SplitCount
+from ..engine.supports import SplitCount, split_constraints
 from . import _build, me_round, ml_kernels, resample_kernels
 
 # the kernels' int64 counters, in their order (csrc/ml_round.cu): the debug
@@ -74,9 +74,11 @@ def ml_nni_round(nj, i_round: int, n_rounds: int, stats, *,
     branch lengths, `stats` (rearrange.NNIStats, updated in place), the
     store's node and up-profile rows and nj.debug's n_ml_nni,
     n_star_tests, n_lk_compute and n_posterior_compute come out as the host
-    loop leaves them.  tree_in_smem=False keeps the kernel's tree in device
-    memory, as it does anyway for trees too large for shared memory; group
-    sets the blocks of a 20-code group (GROUPS)."""
+    loop leaves them; under -constraints the criteria take the quartets'
+    penalties (the constrained kernel, on the counts the ME phase left).
+    tree_in_smem=False keeps the kernel's tree in device memory, as it does
+    anyway for trees too large for shared memory; group sets the blocks of
+    a 20-code group (GROUPS)."""
     if nj.ml.codes.device.type == "cpu" or nj.options.slow:
         return rearrange.do_nni(nj, i_round, n_rounds, True, stats)
     if nj.n_seqs <= 3:
@@ -159,13 +161,22 @@ def _launch(wrapper, nj, stats, tree_in_smem, group):
         rc = lib.vft_ml_lengths_pass_f32(
             *lead, nj.n_seqs, M, tree.root, at(bl_at), *tail, *tail_end)
     else:
-        rc = lib.vft_ml_nni_round_f32(
+        round_args = [
             *lead, int(opts.ml_accuracy), nj.n_seqs, M, tree.root,
             int(opts.fast_nni), float(constants.TREE_LOGLK_DELTA), n, at(k),
             at(k + n), at(k + 2 * n), at(k + 3 * n), at(bl_at), *tail,
-            at(k - 1), *tail_end)
+            at(k - 1), *tail_end[:-1]]
+        if nj.n_cons:
+            # the constrained kernel, ml_nni_round_cons_kernel: the counts
+            # the ME phase left, read only
+            counts = me_round.Counts(nj, ml.codes.device)
+            rc = lib.vft_ml_nni_round_cons_f32(*round_args, *counts.args(),
+                                               tail_end[-1])
+        else:
+            rc = lib.vft_ml_nni_round_f32(*round_args, tail_end[-1])
     me_round.raise_on(rc, name)
     wrapper.launches += 1
+    wrapper.cons_launches += bool(stats is not None and nj.n_cons)
     wrapper.tree_layout = "shared memory" if tree_in_smem and \
         lib.vft_ml_round_tree_fits_smem(M, bound.P, bound.C) \
         else "device memory"
@@ -191,6 +202,9 @@ def _launch(wrapper, nj, stats, tree_in_smem, group):
 
 for _fn in (ml_nni_round, ml_lengths_pass):
     _fn.launches = 0
+    # the launches of the constrained round kernel (ml_nni_round_cons_kernel)
+    # among them; a pass makes no decision, so it has none
+    _fn.cons_launches = 0
     # the kernel's counters summed over its launches (the work it did)
     _fn.totals = dict.fromkeys(COUNTERS[:-1], 0)
     # where the last launch kept the tree: "shared memory" or "device memory"
@@ -205,7 +219,7 @@ del _fn
 
 def sh_pass(nj, progress=None) -> SplitCount:
     """The SH-like supports of every internal split (ref testSplitsML
-    tcc:6856-6999, SHSupport :1126-1164, without constraints), value for
+    tcc:6856-6999, SHSupport :1126-1164), value for
     value engine/ml.test_splits_ml's, in a handful of list launches on nj's
     ML store (SHPass).  Returns the SplitCount; sets tree.support (with
     -boot > 0), and nj.debug's n_lk_compute and n_posterior_compute as the
@@ -240,7 +254,9 @@ class SHPass:
     (f) second_pass: one fetch of the records and the AB log-likelihoods,
         the host's choice of the closer alternatives to optimize again (ref
         :6932-6945), and one ml_quartet_opt launch of those;
-    (g) choices: the choices, bad splits and SplitCount, on the host;
+    (g) choices: the choices, bad splits and SplitCount (with the
+        constraint penalties and violations of the host counts), on the
+        host;
     (h) supports: with -boot > 0, the per-site logs and
         site_loglk3 @ counts - loglk3 in float64 on the device, best minus
         second best against delta, one fetch of the S counts; sets
@@ -288,8 +304,8 @@ class SHPass:
 
     def gather(self):                                                 # (c)
         bl = self.nj.tree.branchlength
-        self.rows4, nodes4 = _quartets(self.nj, self.nodes)
-        self.lens = np.concatenate([bl[nodes4], bl[self.nodes][:, None]],
+        self.rows4, self.nodes4 = _quartets(self.nj, self.nodes)
+        self.lens = np.concatenate([bl[self.nodes4], bl[self.nodes][:, None]],
                                    axis=1)
 
     def ab_quartets(self):                                            # (d)
@@ -344,17 +360,15 @@ class SHPass:
             .transpose(0, 1)
 
     def choices(self):                                                # (g)
-        S, sc = self.S, self.sc
+        S = self.S
         ab, ac, ad = self.loglk.T
         self.choice = np.where((ab >= ac) & (ab >= ad), 0,
                                np.where((ac >= ab) & (ac >= ad), 1, 2))
         best = self.loglk[np.arange(S), self.choice]
         self.bad = best > ab + constants.TREE_LOGLK_DELTA
-        sc.n_splits = S
-        sc.n_bad_splits = int(self.bad.sum())
-        for k in np.flatnonzero(self.bad):
-            sc.d_worst_delta_unconstrained = max(
-                best[k] - ab[k], sc.d_worst_delta_unconstrained)
+        # the constraints' penalties and violations from the host counts
+        pen, violated = split_constraints(self.nj, self.nodes4)
+        self.sc.count(best - ab, self.bad, pen, self.choice, violated)
 
     def supports(self):                                               # (h)
         n_boot = self.nj.options.n_bootstrap

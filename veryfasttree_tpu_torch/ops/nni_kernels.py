@@ -35,7 +35,8 @@ def nni_round(nj, i_round: int, n_rounds: int, stats, *,
     one launch of the kernel for a store on a CUDA device.  Returns
     (n_nni, max_delta) as the host loop does; the tree arrays, `stats`
     (rearrange.NNIStats, updated in place) and nj.debug's profile_ops,
-    profile_avg_ops and n_nni come out as the host loop leaves them.
+    profile_avg_ops and n_nni and the constraint counts come out as the
+    host loop leaves them.
     tree_in_smem=False keeps the kernel's tree in device memory, as it does
     anyway for trees too large for shared memory (N above about 3,900)."""
     prof = nj.prof
@@ -65,15 +66,25 @@ def nni_round(nj, i_round: int, n_rounds: int, stats, *,
         [stats.delta, stats.support])
     ptr = state.upload(prof.codes.device)
     at = lambda i: ptr["words"] + 8 * i  # noqa: E731
-    rc = _build.library().vft_me_nni_round_f32(
-        *args, int(opts.fast_nni), float(opts.me_min_delta), n, at(k),
-        at(k + n), at(k + 2 * n), at(k + 3 * n), ptr["tree"], ptr["flags"],
-        ptr["path"], ptr["words"], at(k - 1), int(tree_in_smem),
-        torch.cuda.current_stream(prof.codes.device).cuda_stream)
+    lead = [*args, int(opts.fast_nni), float(opts.me_min_delta), n, at(k),
+            at(k + n), at(k + 2 * n), at(k + 3 * n), ptr["tree"],
+            ptr["flags"], ptr["path"], ptr["words"], at(k - 1),
+            int(tree_in_smem)]
+    stream = torch.cuda.current_stream(prof.codes.device).cuda_stream
+    lib = _build.library()
+    if nj.n_cons:
+        # the constrained kernel, me_nni_round_cons_kernel
+        counts = me_round.Counts(nj, prof.codes.device)
+        rc = lib.vft_me_nni_round_cons_f32(*lead, *counts.args(), stream)
+    else:
+        rc = lib.vft_me_nni_round_f32(*lead, stream)
     me_round.raise_on(rc, "me_nni_round")
     nni_round.launches += 1
+    nni_round.cons_launches += bool(nj.n_cons)
 
     ctr, w = state.fetch("me_nni_round", tree, COUNTERS)
+    if nj.n_cons:
+        counts.fetch()
     stats.age[:] = w[k: k + n]
     stats.subtree_age[:] = w[k + n: k + 2 * n]
     stats.delta[:] = w[k + 2 * n: k + 3 * n].view(np.float64)
@@ -87,5 +98,7 @@ def nni_round(nj, i_round: int, n_rounds: int, stats, *,
 
 
 nni_round.launches = 0
+# the launches of the constrained kernel (me_nni_round_cons_kernel) among them
+nni_round.cons_launches = 0
 # the kernel's counters summed over its rounds (the work of its launches)
 nni_round.totals = dict.fromkeys(COUNTERS[:-1], 0)

@@ -34,9 +34,9 @@ def spr_round(nj, i_round: int, n_rounds: int, *,
     tcc:6315-6404): the host loop for a store on the CPU, one launch of the
     kernel for a store on a CUDA device.  The tree arrays and nj.debug's
     profile_ops, profile_avg_ops and n_spr come out as the host loop leaves
-    them.  tree_in_smem=False keeps the kernel's tree in device memory, as it
-    does anyway for trees too large for shared memory (N above about
-    4,000)."""
+    them, and so do the constraint counts.  tree_in_smem=False keeps the
+    kernel's tree in device memory, as it does anyway for trees too large
+    for shared memory (N above about 4,000)."""
     prof = nj.prof
     if prof.codes.device.type == "cpu":
         spr.run_spr(nj, i_round, n_rounds)
@@ -60,14 +60,23 @@ def spr_round(nj, i_round: int, n_rounds: int, *,
     if nj.progress is not None:
         nj.progress.print("SPR round %3d of %3d, %d nodes", i_round + 1,
                           n_rounds, len(node_list))
-    rc = _build.library().vft_me_spr_round_f32(
-        *args, opts.max_spr_length, ptr["ints"], len(nodes), ptr["tree"],
-        ptr["flags"], ptr["path"], ptr["words"], int(tree_in_smem),
-        torch.cuda.current_stream(prof.codes.device).cuda_stream)
+    lead = [*args, opts.max_spr_length, ptr["ints"], len(nodes), ptr["tree"],
+            ptr["flags"], ptr["path"], ptr["words"], int(tree_in_smem)]
+    stream = torch.cuda.current_stream(prof.codes.device).cuda_stream
+    lib = _build.library()
+    if nj.n_cons:
+        # the constrained kernel, me_spr_round_cons_kernel
+        counts = me_round.Counts(nj, prof.codes.device)
+        rc = lib.vft_me_spr_round_cons_f32(*lead, *counts.args(), stream)
+    else:
+        rc = lib.vft_me_spr_round_f32(*lead, stream)
     me_round.raise_on(rc, "me_spr_round")
     spr_round.launches += 1
+    spr_round.cons_launches += bool(nj.n_cons)
 
     ctr, _ = state.fetch("me_spr_round", tree, COUNTERS)
+    if nj.n_cons:
+        counts.fetch()
     nj.debug.profile_ops += ctr["profile_ops"]
     nj.debug.profile_avg_ops += ctr["profile_avg_ops"]
     nj.debug.n_spr += ctr["n_spr"]
@@ -77,5 +86,7 @@ def spr_round(nj, i_round: int, n_rounds: int, *,
 
 
 spr_round.launches = 0
+# the launches of the constrained kernel (me_spr_round_cons_kernel) among them
+spr_round.cons_launches = 0
 # the kernel's counters summed over its rounds (the work of its launches)
 spr_round.totals = dict.fromkeys(COUNTERS[:-1] + ("nodes",), 0)

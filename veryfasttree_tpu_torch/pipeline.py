@@ -8,18 +8,23 @@ supports, Gamma20] or the ME split test and the ME local bootstrap ->
 Newick (ref VeryFastTreeImpl.tcc:46-472); or, with -makematrix, the
 distance matrix of every sequence.
 
--threads > 1, -checkpoint and -constraints are not ported yet and raise.
+-constraints (a 0/1/- alignment of split columns, ref alnToConstraints)
+reaches every phase: the join penalties, the ME and ML NNI and SPR
+criteria and the split tests' constraint counts.  -threads > 1 and
+-checkpoint are not ported yet and raise.
 """
 from __future__ import annotations
 
 import math
+import sys
 import time
 
 import numpy as np
 
 from .engine import batched, ml, rearrange, spr, supports
 from .engine.nj import NeighbourJoining
-from .io.alignment import Alignment, Uniquify, read_alignment, seqs_to_codes
+from .io.alignment import (Alignment, Uniquify, open_maybe_compressed,
+                           read_alignment, seqs_to_codes)
 from .io.newick import parse_newick, print_newick
 from .models import DistanceMatrix, TransitionMatrix
 from .ops import nni_kernels, spr_kernels
@@ -49,6 +54,44 @@ def build_models(options):
                                                        or options.use_gtr_freq):
         tmat = TransitionMatrix.gtr(options.gtr_rates, options.gtr_freq)
     return dmat, tmat
+
+
+def read_constraints(options, unique, name_to_idx, log):
+    """The constraints alignment as unique-sequence (nOn, nOff) counts
+    [n_unique, n_cons] int64 (ref alnToConstraints VeryFastTreeImpl.tcc:
+    474-515; the JAX package's read_constraints), or None without one.  A
+    file of fewer than 4 sequences is ignored with a warning, a second
+    sequence of a unique group that disagrees with the first is ignored
+    with a warning, and a name not in the alignment raises ValueError."""
+    if not options.constraints_file:
+        return None
+    with open_maybe_compressed(options.constraints_file) as fp:
+        caln = read_alignment(fp, options, log)
+    if len(caln.seqs) < 4:
+        print("Warning: constraints file with less than 4 sequences ignored",
+              file=log or sys.stderr)
+        return None
+    n_cons = caln.n_pos
+    n_uniq = len(unique.unique_seq)
+    on = np.zeros((n_uniq, n_cons), dtype=np.int64)
+    off = np.zeros((n_uniq, n_cons), dtype=np.int64)
+    seen = {}
+    for name, seq in zip(caln.names, caln.seqs):
+        if name not in name_to_idx:
+            raise ValueError(f"Sequence {name} from constraints file is not in "
+                             "the alignment")
+        iu = unique.aln_to_uniq[name_to_idx[name]]
+        if iu in seen:
+            if seen[iu] != seq and log is not None:
+                print(f"Warning: ignoring constraints for {name}", file=log)
+            continue
+        seen[iu] = seq
+        for c, ch in enumerate(seq):
+            if ch == "1":
+                on[iu, c] = 1
+            elif ch == "0":
+                off[iu, c] = 1
+    return on, off
 
 
 def _try_native_read(options):
@@ -102,7 +145,6 @@ def _check_ported(options) -> None:
     missing = [
         ("-threads > 1", options.threads > 1),
         ("-checkpoint", bool(options.checkpoint_file)),
-        ("-constraints", bool(options.constraints_file)),
     ]
     for what, requested in missing:
         if requested:
@@ -130,9 +172,12 @@ def _run_single(options, input_fp, output_fp, log_fp, device):
                               options.relative_progress)
     options.debug = Debug()
 
-    # -makematrix needs per-sequence (not uniquified) codes, so it takes the
-    # Python read path; the native path returns the unique code matrix only
-    native_read = None if options.make_matrix else _try_native_read(options)
+    # -makematrix needs per-sequence (not uniquified) codes, and the
+    # constraints the Python reader's names and unique groups, so both take
+    # the Python read path; the native path returns the unique code matrix
+    # only
+    native_read = None if options.make_matrix or options.constraints_file \
+        else _try_native_read(options)
     if native_read is not None:
         names, codes, unique = native_read
         progress.print("Read alignment (native parser)")
@@ -164,9 +209,10 @@ def _run_single(options, input_fp, output_fp, log_fp, device):
         unique = Uniquify.build(aln)
         progress.print("Identified unique sequences")
         codes = seqs_to_codes(unique.unique_seq, options, log)
+    cons = read_constraints(options, unique, name_to_idx, log)
 
     dmat, tmat = build_models(options)
-    nj = NeighbourJoining(options, codes, dmat, tmat, log=log,
+    nj = NeighbourJoining(options, codes, dmat, tmat, cons, log=log,
                           progress=progress, names=names, device=device)
     n_uniq = len(unique.unique_seq)
     if options.intree_file and not options.intree_file.startswith("*"):
