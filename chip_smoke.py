@@ -150,8 +150,9 @@ passed):
    (dense and two-tier, one nj_scan_dense or nj_scan_codes launch a
    sequence), the SHA-256 of its output equal; -intree from the N=500
    golden tree, byte-identical, no NJ launch; then the same input through
-   the command line (python -m veryfasttree_tpu_torch -nt -noml), RF 0 to
-   the golden and byte-identical to the supports golden;
+   the command line (python -m veryfasttree_tpu_torch -nt -noml -threads
+   1, the thread count pinned so that the host's OMP_NUM_THREADS cannot
+   move it), RF 0 to the golden and byte-identical to the supports golden;
 4. the -noml main path: full -nt -noml -nosupport at N=2000, P=500 (the
    bench.py input) through run_pipeline, cold, then warm, then once more
    with the two-tier store forced on (-two-tier-min 0), which must give the
@@ -174,8 +175,8 @@ passed):
    -gamma, each RF 0 to its golden and final LogLk within 1e-4 relative,
    with the per-round LogLk differences printed; the default run is traced
    with torch.profiler for the device's busy share; then the default run
-   through the command line (python -m veryfasttree_tpu_torch -nt), RF 0
-   to its golden;
+   through the command line (python -m veryfasttree_tpu_torch -nt -threads
+   1), RF 0 to its golden;
 6. the ML main path: the full default -nt run at N=2000, P=500 through
    run_pipeline (warm: phase 5 ran the same code), with its phase split and
    final LogLk.  The launch counts are reset just before it and read just
@@ -238,6 +239,37 @@ passed):
    and -nt at N=2000, P=500, warm, the launch counts reset just before
    each: the constrained kernels launched, the phase split, SplitCount
    and wall beside the unconstrained runs of phases 4 and 6.
+9. -threads (the batched tier: engine/batched.py, engine/spr_batched.py).
+   (a) From one N=500 NJ start, each batched function on the card against
+   its plain twins on the CPU, which run in a process of their own beside
+   phases 2-8 (chip_smoke.py --twins, from the card's start): an ME NNI
+   round and a partitioned SPR round at -threads 8 and 12 (tree, rows,
+   NNIStats ages, counters and lockstep steps equal, the deltas and
+   supports within THREADS_DELTA_ATOL); the ML lists that read their
+   lengths on the device (ml_posterior_at, ml_opt_branch_at) bit for bit
+   the host-length lists on the card, and against the twins (rows within
+   TWIN_ROWS, the searches' optima within ML_TWIN_NEAR_TIE); an ML
+   lengths pass (the tree LogLk within ML_TWIN_RTOL; the lengths, which
+   float32 line searches carry from search to search, reported against
+   1e-4 + 2e-3 x length); an ML NNI round (the criteria within
+   THREADS_CRIT_TOL, a flip only on a near tie, reported with its
+   margins; without one the tree, ages and NNIs equal and the tree LogLk
+   within ML_TWIN_RTOL); the ML split test (the SH pass; the SplitCount's
+   counts equal, its worst delta within THREADS_CRIT_TOL).  (b) The JAX
+   package's -threads 8 trees (scripts/make_torch_port_threads_golden.py):
+   -nt -noml at N=500 byte-identical; the default run at N=200 RF 0, or
+   parting from the golden at a batched ML NNI decision that is a near
+   tie in both packages (the golden's _decisions.json), reported with its
+   margins, and the final LogLk within 1e-4 relative.  (c) -nt -threads 8
+   at N=2000, P=500 and -nt -noml -threads 8 at N=500 (THREADS_MAIN),
+   warm, the launch counts reset just before each run and read just after
+   it:
+   me_dists_list, me_average_sweep and the join epoch with its refresh
+   scans launched in both, ml_quartet_opt, ml_opt_branch and ml_posterior
+   in the default run, and none of the serial round kernels
+   (me_nni_round, me_spr_round, ml_nni_round, ml_lengths_pass); the phase
+   split, wall, Newick SHA-256 and final LogLk beside phases 4 and 6, and
+   the lockstep SPR's steps.
 
 The last lines are the card's name and power limit, one JSON line with each
 kernel's route, source, main-path launches (the ML main path's for the ML
@@ -254,11 +286,13 @@ import os
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import collections  # noqa: E402
+import dataclasses  # noqa: E402
 import hashlib  # noqa: E402
 import io  # noqa: E402
 import json  # noqa: E402
 import math  # noqa: E402
 import re  # noqa: E402
+import shutil  # noqa: E402
 import statistics  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
@@ -3643,7 +3677,7 @@ def phase_golden(report, dev):
         t0 = time.perf_counter()
         res = subprocess.run(
             [sys.executable, "-m", "veryfasttree_tpu_torch", "-nt", "-noml",
-             "-quiet", path], cwd=REPO, capture_output=True,
+             "-threads", "1", "-quiet", path], cwd=REPO, capture_output=True,
             text=True, timeout=600, check=False)
     rf = rf_distance(res.stdout, golden)[0] if res.returncode == 0 else None
     print(f"  N=500 command line -nt -noml: exit {res.returncode} in "
@@ -3851,9 +3885,9 @@ def phase_ml_golden(dev):
             f.write(fasta)
         t0 = time.perf_counter()
         res = subprocess.run(
-            [sys.executable, "-m", "veryfasttree_tpu_torch", "-nt", "-quiet",
-             path], cwd=REPO, capture_output=True, text=True, timeout=600,
-            check=False)
+            [sys.executable, "-m", "veryfasttree_tpu_torch", "-nt",
+             "-threads", "1", "-quiet", path], cwd=REPO, capture_output=True,
+            text=True, timeout=600, check=False)
     with open(ML_GOLDEN + ".nwk") as f:
         golden = f.read()
     rf = rf_distance(res.stdout, golden)[0] if res.returncode == 0 else None
@@ -4868,6 +4902,547 @@ def phase_constraints(report, dev):
                   f"constrained launches {cons}")
 
 
+
+# ------------------------------------------------------------- phase 9
+THREADS = 8                     # the JAX package's accelerator default
+THREADS_GOLDEN = os.path.join(REPO, "tests", "data",
+                              "torch_port_threads_golden_n500_p500")
+THREADS_ML_GOLDEN = os.path.join(REPO, "tests", "data",
+                                 "torch_port_threads_ml_golden_n200_p500")
+# the kernels both -threads runs launch, those the default run adds, and
+# the serial tier's round kernels, which neither may launch
+THREADS_PATH = ("me_dists_list", "me_average_sweep", "nj_join_epoch")
+THREADS_ML_PATH = ("ml_quartet_opt", "ml_opt_branch", "ml_posterior")
+SERIAL_ROUNDS = ("me_nni_round", "me_spr_round", "ml_nni_round",
+                 "ml_lengths_pass")
+# the ME rounds' deltas and supports on the card against the twins': sums
+# of log-corrected distances that the kernels and the twins add in their
+# own orders (me_dists_list against its twin within 1e-12, phase 2)
+THREADS_DELTA_ATOL = 1e-9
+# the ML functions on the card against the twins (4 codes; ROADMAP Queue 3):
+# each quartet's criteria, and each length within 1e-4 + 2e-3 x length
+THREADS_CRIT_TOL = 2e-2
+# (c)'s runs: the default run at N=MAIN_N, and the -noml run at N=500.
+# The default run's ME phase is the -noml run's at N=MAIN_N (the same
+# launches), and a -noml run at N=MAIN_N took the whole smoke to 1025 s of
+# its 1200 s (PERF.md, section 6)
+THREADS_MAIN = ((True, MAIN_N), (False, 500))
+
+
+def length_gap(a, b):
+    """The largest |a - b| over 1e-4 + 2e-3 |b| of two length arrays: at
+    most 1 within the tolerance."""
+    import numpy as np
+
+    return float(np.max(np.abs(a - b) / (1e-4 + 2e-3 * np.abs(b))))
+
+
+def sync(dev):
+    import torch
+
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def side_me_nni(start, dev):
+    """One batched ME NNI round on a copy of start on dev: (nni_state,
+    wall, launches)."""
+    from veryfasttree_tpu_torch.engine import batched, rearrange
+
+    nj = engine_copy(start, dev)
+    stats = rearrange.NNIStats.init(nj)
+    reset_launches()
+    t = time.perf_counter()
+    res = batched.do_nni_batched(nj, 0, 2, False, stats)
+    sync(dev)
+    return nni_state(nj, stats, res), time.perf_counter() - t, \
+        {k: v for k, v in launch_counts().items() if v}
+
+
+def side_spr(start, dev, n_threads):
+    """One partitioned SPR round at -threads n_threads on a copy of start
+    on dev: (spr_state, wall, lockstep steps, launches)."""
+    from veryfasttree_tpu_torch.engine import spr_batched
+
+    nj = engine_copy(start, dev)
+    nj.options = dataclasses.replace(start.options, threads=n_threads)
+    reset_launches()
+    steps = spr_batched.run_spr_batched.steps
+    t = time.perf_counter()
+    spr_batched.run_spr_batched(nj, 0, 2)
+    sync(dev)
+    return spr_state(nj), time.perf_counter() - t, \
+        spr_batched.run_spr_batched.steps - steps, \
+        {k: v for k, v in launch_counts().items() if v}
+
+
+def side_lists(ml_nj, dev):
+    """ml_posterior_at (the children of every internal node of two into
+    the list-pass rows at their lengths) and ml_opt_branch_at (each first
+    child's branch against that posterior) on a copy of ml_nj on dev:
+    (the posteriors' W and V, the lengths after, the searches' f(x))."""
+    import numpy as np
+
+    from veryfasttree_tpu_torch.ops import ml_kernels as mk
+
+    nj = ml_copy(ml_nj, dev)
+    ml, kids, targets, lims = list_case(nj)
+    bl = ml.lengths_tensor(nj.tree.branchlength[: nj.tree.maxnodes])
+    mk.ml_posterior_at(*ml._store(), targets, kids[:, 0], kids[:, 1],
+                       kids[:, 0], kids[:, 1], bl, float(ml.min_len))
+    _, fx, _ = mk.ml_opt_branch_at(*ml._store(), kids[:, 0], targets,
+                                   kids[:, 0], bl, *lims)
+    return ({k: getattr(ml, k)[targets].cpu().numpy() for k in ("W", "V")},
+            bl.cpu().numpy(), fx.cpu().numpy().astype(np.float64))
+
+
+def list_case(nj):
+    """(store, children [K, 2] of the internal nodes of two, K list-pass
+    rows, the line searches' limits) of side_lists."""
+    import numpy as np
+
+    tree, ml, opts = nj.tree, nj.ml, nj.options
+    nodes = np.array([n for n in range(nj.n_seqs, tree.maxnode)
+                      if n != tree.root and tree.n_child[n] == 2])
+    return ml, tree.children[nodes], ml.scratch_rows_for(len(nodes)), (
+        opts.ml_min_branch_length, 6.0, opts.ml_ftol_branch_length,
+        opts.ml_min_branch_length_tolerance)
+
+
+def side_ml_lengths(ml_nj, dev):
+    """One batched ML lengths pass on a copy of ml_nj on dev: (lengths,
+    wall, launches, the tree LogLk after it)."""
+    from veryfasttree_tpu_torch.engine import batched, ml
+
+    nj = ml_copy(ml_nj, dev)
+    reset_launches()
+    t = time.perf_counter()
+    batched.optimize_all_branch_lengths_batched(nj)
+    wall = time.perf_counter() - t
+    counts = {k: v for k, v in launch_counts().items() if v}
+    nj.ml.recompute_ml_profiles()
+    return nj.tree.branchlength.copy(), wall, counts, ml.tree_loglk(nj)
+
+
+def side_ml_nni(ml_nj, dev):
+    """One batched ML NNI round on a copy of ml_nj on dev: (the quartet
+    list's rows, choices and criteria, the tree arrays and lengths, the
+    ages, (n_nni, max_delta), wall, launches)."""
+    import numpy as np
+
+    from veryfasttree_tpu_torch.engine import batched, rearrange
+    from veryfasttree_tpu_torch.engine.ml_profiles import MLProfiles
+
+    from veryfasttree_tpu_torch.engine import ml
+
+    nj = ml_copy(ml_nj, dev)
+    stats = rearrange.NNIStats.init(nj)
+    orig, log = MLProfiles.quartet_nni_rows, []
+
+    def recorded(store, rows, lengths):
+        res = orig(store, rows, lengths)
+        log.append((np.asarray(rows), *res[:2]))
+        return res
+
+    MLProfiles.quartet_nni_rows = recorded
+    reset_launches()
+    t = time.perf_counter()
+    try:
+        res = batched.do_nni_batched(nj, 0, 2, True, stats)
+    finally:
+        MLProfiles.quartet_nni_rows = orig
+    wall = time.perf_counter() - t
+    counts = {k: v for k, v in launch_counts().items() if v}
+    tree = {k: getattr(nj.tree, k).copy()
+            for k in ("parent", "children", "n_child", "branchlength")}
+    return log[0], tree, stats.age.copy(), res, wall, counts, \
+        ml.tree_loglk(nj)
+
+
+def side_split(ml_nj, dev):
+    """The split test -threads > 1 takes (the SH pass, SH_BOOT resamples)
+    on a copy of ml_nj on dev: (SplitCount, supports, launches)."""
+    from veryfasttree_tpu_torch.ops import ml_round
+
+    nj = ml_copy(ml_nj, dev)
+    nj.options = dataclasses.replace(nj.options, n_bootstrap=SH_BOOT,
+                                     threads=THREADS)
+    reset_launches()
+    sc = ml_round.sh_pass(nj)
+    return sc, nj.tree.support.copy(), \
+        {k: v for k, v in launch_counts().items() if v}
+
+
+def threads_sides(start, ml_nj, dev):
+    """Every side_* function of phase 9(a) on dev, by name."""
+    return {"me_nni": side_me_nni(start, dev),
+            "spr_8": side_spr(start, dev, THREADS),
+            "spr_12": side_spr(start, dev, 12),
+            "lists": side_lists(ml_nj, dev),
+            "ml_lengths": side_ml_lengths(ml_nj, dev),
+            "ml_nni": side_ml_nni(ml_nj, dev),
+            "split": side_split(ml_nj, dev)}
+
+
+def start_threads_twins(tmp):
+    """Phase 9(a)'s start on the card (the N=SPR_N NJ tree and ME store,
+    and from it the ME lengths and a Jukes-Cantor ML store), kept in
+    CPU copies in tmp/start.pkl, and the process that runs the twins on
+    them beside phases 2-8 (chip_smoke.py --twins tmp, on the CPU only):
+    returns (the CPU copies, the process)."""
+    import pickle
+
+    import torch
+
+    from veryfasttree_tpu_torch.engine import rearrange
+    from veryfasttree_tpu_torch.engine.ml_profiles import MLProfiles
+
+    cpu = torch.device("cpu")
+    start = spr_start(SPR_N, torch.device("cuda"))
+    ml_nj = engine_copy(start, start.prof.device)
+    rearrange.update_branch_lengths(ml_nj)
+    ml_nj.ml = MLProfiles(ml_nj, None)
+    ml_nj.ml.recompute_ml_profiles()
+    starts = (engine_copy(start, cpu), ml_copy(ml_nj, cpu))
+    with open(os.path.join(tmp, "start.pkl"), "wb") as f:
+        pickle.dump(starts, f)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    with open(os.path.join(tmp, "twins.log"), "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--twins", tmp],
+            env=env, cwd=REPO, stdout=log, stderr=subprocess.STDOUT)
+    return starts, proc
+
+
+def twins_main(tmp) -> int:
+    """chip_smoke.py --twins tmp: threads_sides on the CPU from
+    tmp/start.pkl, into tmp/twins.pkl."""
+    import pickle
+
+    import torch
+
+    for sub in ("", "tests"):
+        sys.path.insert(0, os.path.join(REPO, sub))
+    torch.set_num_threads(1)       # the host loops' tiny ops only contend
+    with open(os.path.join(tmp, "start.pkl"), "rb") as f:
+        start, ml_nj = pickle.load(f)
+    t = time.perf_counter()
+    sides = threads_sides(start, ml_nj, torch.device("cpu"))
+    sides["seconds"] = time.perf_counter() - t
+    with open(os.path.join(tmp, "twins.pkl"), "wb") as f:
+        pickle.dump(sides, f)
+    return 0
+
+
+def threads_twins(report, starts, proc, dev):
+    """(a): the batched functions on the card from the twins' start,
+    against the twins' results."""
+    import pickle
+
+    import numpy as np
+
+    start, ml_nj = starts
+    card = threads_sides(start, ml_nj, dev)
+    tmp = proc.args[-1]
+    proc.wait(timeout=900)
+    if proc.returncode != 0:
+        with open(os.path.join(tmp, "twins.log")) as f:
+            raise AssertionError(f"the twins' process exited "
+                                 f"{proc.returncode}:\n{f.read()[-3000:]}")
+    with open(os.path.join(tmp, "twins.pkl"), "rb") as f:
+        twin = pickle.load(f)
+    print(f"  the twins ran beside phases 2-8 in {twin['seconds']:.1f} s "
+          f"(one CPU process)")
+
+    state, wall, counts = card["me_nni"]
+    what, _, gap = nni_diff(twin["me_nni"][0], state)
+    print(f"  ME NNI round [N={SPR_N}]: {state[1]['n_nni_round']} NNIs; the "
+          f"twins' tree, rows, NNIStats ages and counters "
+          f"{'equal' if what is None else what}, deltas and supports within "
+          f"{gap:.3e}; {wall:.3f} s on the card (twins "
+          f"{twin['me_nni'][1]:.3f} s), launches {counts}")
+    if what is not None or gap > THREADS_DELTA_ATOL \
+            or counts != {"me_average_sweep": 2, "me_dists_list": 1}:
+        raise AssertionError(f"do_nni_batched: {what} differ from the twins'"
+                             f" (deltas within {gap:.3e}), launches {counts}")
+    for n_threads in (THREADS, 12):
+        key = f"spr_{n_threads}"
+        state, wall, steps, counts = card[key]
+        what, _ = spr_diff(twin[key][0], state)
+        print(f"  SPR round -threads {n_threads} [N={SPR_N}]: "
+              f"{state[1]['n_spr']} SPR moves in {steps} lockstep steps "
+              f"(twins {twin[key][2]}); the twins' tree, rows and counters "
+              f"{'equal' if what is None else what}; {wall:.3f} s on the "
+              f"card (twins {twin[key][1]:.3f} s), launches {counts}")
+        if what is not None or steps != twin[key][2] \
+                or counts.get("me_dists_list") != steps:
+            raise AssertionError(f"run_spr_batched -threads {n_threads}: "
+                                 f"{what} differ from the twins' (or "
+                                 f"{counts} for {steps} steps)")
+        report.setdefault("me_dists_list", {})[f"threads_{n_threads}_spr"] = \
+            {"steps": steps, "wall_s": wall}
+
+    # the device-length lists: bit for bit the host-length lists on the
+    # card, and against the twins
+    (rows, bl, fx), (rows_t, bl_t, fx_t) = card["lists"], twin["lists"]
+    same = device_lists_same(ml_nj, dev, rows, bl)
+    row_err = float(np.max(np.abs(rows["V"] - rows_t["V"])))
+    fx_err = float(np.max(np.abs(fx - fx_t)))
+    print(f"  ml_posterior_at, ml_opt_branch_at [{len(fx)} items]: bit for "
+          f"bit the host-length lists {same}; against the twins: rows within "
+          f"{row_err:.2e}, -LogLk at the optimum within {fx_err:.2e}, lengths "
+          f"within {length_gap(bl, bl_t):.3f} of the tolerance")
+    np.testing.assert_allclose(rows["V"], rows_t["V"], **TWIN_ROWS,
+                               err_msg="ml_posterior_at against its twin")
+    if not same or fx_err > ML_TWIN_NEAR_TIE:
+        raise AssertionError("the device-length lists differ from the "
+                             "host-length lists, or their searches' optima "
+                             "from the twins'")
+
+    lengths, wall, counts, loglk = card["ml_lengths"]
+    rel = abs(loglk - twin["ml_lengths"][3]) / abs(twin["ml_lengths"][3])
+    print(f"  ML lengths pass [N={SPR_N}]: tree LogLk {loglk:.4f} (twins "
+          f"{twin['ml_lengths'][3]:.4f}, rel diff {rel:.2e}); "
+          f"{lengths_report(lengths, twin['ml_lengths'][0])}; {wall:.3f} s "
+          f"on the card (twins {twin['ml_lengths'][1]:.3f} s), launches "
+          f"{counts}")
+    if rel > ML_TWIN_RTOL:
+        raise AssertionError(f"the batched lengths pass: tree LogLk rel diff "
+                             f"{rel:.2e} from the twins'")
+    report.setdefault("ml_opt_branch", {})["threads_pass_launches"] = \
+        counts.get("ml_opt_branch", 0)
+
+    (rows_c, ch_c, cr_c), tree_c, age_c, res_c, wall, counts, loglk = \
+        card["ml_nni"]
+    (rows_t, ch_t, cr_t), tree_t, age_t, res_t = twin["ml_nni"][:4]
+    if not np.array_equal(rows_c, rows_t):
+        raise AssertionError("the ML NNI round's quartets differ")
+    err = float(np.max(np.abs(cr_c - cr_t)))
+    flips = [(int(k), [round(float(abs(c[k, ch_c[k]] - c[k, ch_t[k]])), 6)
+                       for c in (cr_c, cr_t)])
+             for k in np.flatnonzero(ch_c != ch_t)]
+    print(f"  ML NNI round [N={SPR_N}]: {res_c[0]} NNIs of {len(rows_c)} "
+          f"quartets (twins {res_t[0]}); criteria within {err:.3e} of the "
+          f"twins'; flips with their margins {flips}; {wall:.3f} s on the "
+          f"card (twins {twin['ml_nni'][4]:.3f} s), launches {counts}")
+    if err > THREADS_CRIT_TOL or any(max(m) > ML_TWIN_NEAR_TIE
+                                     for _, m in flips):
+        raise AssertionError(f"the batched ML NNI round: criteria within "
+                             f"{err:.3e}, flips {flips}")
+    if not flips:
+        same = all(np.array_equal(tree_c[k], tree_t[k])
+                   for k in ("parent", "children", "n_child")) \
+            and np.array_equal(age_c, age_t) and res_c[0] == res_t[0]
+        rel = abs(loglk - twin["ml_nni"][6]) / abs(twin["ml_nni"][6])
+        print(f"  ML NNI round: the twins' tree, ages and NNIs equal {same}; "
+              f"tree LogLk {loglk:.4f} (twins {twin['ml_nni'][6]:.4f}, rel "
+              f"diff {rel:.2e}); "
+              f"{lengths_report(tree_c['branchlength'], tree_t['branchlength'])}")
+        if not same or rel > ML_TWIN_RTOL:
+            raise AssertionError("the batched ML NNI round differs from the "
+                                 "twins' without a flip")
+    report.setdefault("ml_quartet_opt", {})["threads_round_launches"] = \
+        counts.get("ml_quartet_opt", 0)
+
+    (sc_c, sup_c, counts), (sc_t, sup_t, _) = card["split"], twin["split"]
+    worst = abs(sc_c.d_worst_delta_unconstrained
+                - sc_t.d_worst_delta_unconstrained)
+    print(f"  ML split test [N={SPR_N}, the SH pass]: SplitCount {sc_c} "
+          f"(twins {sc_t}); supports within "
+          f"{float(np.max(np.abs(sup_c - sup_t))):.3f}; launches {counts}")
+    if (sc_c.n_splits, sc_c.n_bad_splits) != (sc_t.n_splits,
+                                              sc_t.n_bad_splits) \
+            or worst > THREADS_CRIT_TOL:
+        raise AssertionError(f"the ML split test: {sc_c}, twins {sc_t}")
+
+
+def lengths_report(a, b):
+    """Two runs' lengths against 1e-4 + 2e-3 x length: each float32 line
+    search stops at its own point of a flat bottom and a pass carries
+    each length into the next search (phase 2e), so they are reported,
+    and the tree LogLk is held."""
+    import numpy as np
+
+    gap = np.abs(a - b) / (1e-4 + 2e-3 * np.abs(b))
+    k = int(np.argmax(gap))
+    return (f"lengths within {gap[k]:.3f} of 1e-4 + 2e-3 x length, "
+            f"{int((gap > 1).sum())} of {len(gap)} past it (the furthest "
+            f"{a[k]:.6f} against {b[k]:.6f})")
+
+
+def device_lists_same(ml_nj, dev, rows, bl):
+    """Whether side_lists' rows and lengths on the card are bit for bit
+    those of ml_posterior and ml_opt_branch fed the same lengths from the
+    host."""
+    import numpy as np
+
+    from veryfasttree_tpu_torch.ops import ml_kernels as mk
+
+    nj = ml_copy(ml_nj, dev)
+    ml, kids, targets, lims = list_case(nj)
+    lens = nj.tree.branchlength[: nj.tree.maxnodes].astype(np.float32)
+    lo = np.float32(ml.min_len)
+    mk.ml_posterior(*ml._store(), targets, kids[:, 0], kids[:, 1],
+                    np.maximum(lens[kids[:, 0]], lo),
+                    np.maximum(lens[kids[:, 1]], lo))
+    x, _, _ = mk.ml_opt_branch(*ml._store(), kids[:, 0], targets,
+                               np.maximum(lens[kids[:, 0]],
+                                          np.float32(lims[0])), *lims)
+    want = lens.copy()
+    want[kids[:, 0]] = x.cpu().numpy()
+    return want.tobytes() == bl.tobytes() and all(
+        getattr(ml, k)[targets].cpu().numpy().tobytes() == rows[k].tobytes()
+        for k in ("W", "V"))
+
+
+def threads_run(n, dev, ml_run, **overrides):
+    """One -threads run on synth_codes(n, MAIN_P) through run_pipeline, the
+    launch counts reset just before it: (newick, nj, wall, counts, final
+    LogLk or None, the SPR round's lockstep steps)."""
+    from veryfasttree_tpu_torch.engine import spr_batched
+
+    fasta = fasta_text(synth_codes(n, MAIN_P))
+    steps = spr_batched.run_spr_batched.steps
+    if ml_run:
+        nw, nj, wall, counts, _, final = run_ml(fasta, dev, threads=THREADS,
+                                                **overrides)
+    else:
+        nw, nj, wall, counts = counted_run(fasta, dev, threads=THREADS,
+                                           **overrides)
+        final = None
+    return nw, nj, wall, counts, final, \
+        spr_batched.run_spr_batched.steps - steps
+
+
+def launch_counts():
+    return {name: fn.launches for name, fn in wrappers().items()}
+
+
+def threads_decisions(fn):
+    """Run fn() with the ML store's quartet_nni_rows (the batched ML NNI
+    rounds' lists) logging every quartet in order: returns (fn's result,
+    [(rows, choice, criteria)])."""
+    import numpy as np
+
+    from veryfasttree_tpu_torch.engine.ml_profiles import MLProfiles
+
+    orig, log = MLProfiles.quartet_nni_rows, []
+
+    def recorded(store, rows, lengths):
+        choice, crit, new_len = orig(store, rows, lengths)
+        log.extend((tuple(int(r) for r in row), int(c),
+                    np.asarray(cr, dtype=np.float64))
+                   for row, c, cr in zip(rows, choice, crit))
+        return choice, crit, new_len
+
+    MLProfiles.quartet_nni_rows = recorded
+    try:
+        return fn(), log
+    finally:
+        MLProfiles.quartet_nni_rows = orig
+
+
+def threads_golden(dev):
+    """(b): -nt -noml -threads 8 at N=500 byte-identical to the JAX
+    package's tree, and the default -nt -threads 8 run at N=200: RF 0, or
+    where the trees part, at a decision of the batched ML NNI rounds that
+    is a near tie in both packages (its two LogLks within
+    ML_TWIN_NEAR_TIE; the JAX package's decisions, _decisions.json), the
+    decisions before it alike, printed with its margins and the criteria's
+    largest differences before it (each quartet's LogLks of about 1,000 at
+    P=500 carry the JAX package's float32 search noise, 0.034 read for a
+    topology 27 units worse than the chosen one); the final LogLk within
+    1e-4 relative."""
+    import numpy as np
+
+    from util import rf_distance
+
+    with open(THREADS_GOLDEN + ".nwk") as f:
+        golden = f.read()
+    nw, nj, wall, counts, _, steps = threads_run(500, dev, False,
+                                                 n_bootstrap=1000)
+    print(f"  -nt -noml -threads {THREADS} N=500: byte-identical to the JAX "
+          f"golden {nw == golden}, {wall:.2f} s, {steps} lockstep SPR steps")
+    if nw != golden:
+        raise AssertionError(f"-nt -noml -threads {THREADS} N=500: RF "
+                             f"{rf_distance(nw, golden)[0]} to the JAX golden"
+                             ", not byte-identical")
+    with open(THREADS_ML_GOLDEN + ".nwk") as f:
+        golden = f.read()
+    with open(THREADS_ML_GOLDEN + ".json") as f:
+        meta = json.load(f)
+    with open(THREADS_ML_GOLDEN + "_decisions.json") as f:
+        theirs = [(tuple(rows), choice, np.array(crit, dtype=np.float64))
+                  for rows, choice, crit in json.load(f)]
+    (nw, nj, wall, counts, final, steps), ours = threads_decisions(
+        lambda: threads_run(ML_GOLDEN_N, dev, True))
+    rf, n_splits = rf_distance(nw, golden)
+    rel = abs(final - meta["final_loglk"]) / abs(meta["final_loglk"])
+    label = f"-nt -threads {THREADS} N={ML_GOLDEN_N}"
+    flip, err, dec = first_flip(f"{label} against the JAX package", theirs,
+                                ours, ML_TWIN_NEAR_TIE)
+    parting = "no decision parts" if flip is None else (
+        f"they part at decision {flip} of {len(theirs)}, a near tie: "
+        f"margins {[round(abs(c[theirs[flip][1]] - c[ours[flip][1]]), 6) for c in (theirs[flip][2], ours[flip][2])]}"
+        f" (the golden's, the card's)")
+    print(f"  {label}: {wall:.2f} s, RF {rf}/{n_splits} to the JAX golden, "
+          f"final LogLk {final:.3f} (golden {meta['final_loglk']:.3f}, rel "
+          f"diff {rel:.2e}); {len(ours)} batched quartet decisions (golden "
+          f"{len(theirs)}), criteria within {err:.3e}, deciding differences "
+          f"within {dec:.3e} up to where {parting}")
+    if not rel <= 1e-4 or (rf != 0 and flip is None):
+        raise AssertionError(f"{label}: RF {rf}, final LogLk rel diff "
+                             f"{rel:.2e}, decisions part at {flip}")
+
+
+def threads_main(report, dev, sizes):
+    """(c): the -threads runs of sizes ((ML run, N), ...), warm, the launch
+    counts reset just before each and read just after it."""
+    from util import newick_splits
+
+    for ml_run, n in sizes:
+        key = "ml" if ml_run else "noml"
+        label = f"-nt{' -noml' * (not ml_run)} -threads {THREADS} N={n}"
+        nw, nj, wall, counts, final, steps = threads_run(n, dev, ml_run)
+        _, leaves = newick_splits(nw)
+        want = THREADS_PATH + (THREADS_ML_PATH if ml_run else ())
+        missing = [k for k in want if not counts[k]]
+        serial = {k: counts[k] for k in SERIAL_ROUNDS if counts[k]}
+        scans = require_scans(label)
+        sha = hashlib.sha256(nw.encode()).hexdigest()
+        serial_wall, serial_t = MAIN_RUNS.get(key, (None, {})) \
+            if n == MAIN_N else (None, {})
+        timings = {k: round(v, 4) for k, v in nj.timings.items()}
+        print(f"  {label} P={MAIN_P}, warm: wall {wall:.2f} s (serial tier "
+              f"{serial_wall if serial_wall is None else round(serial_wall, 2)}"
+              f" s); timings {timings}; serial tier "
+              f"{ {k: round(v, 4) for k, v in serial_t.items()} }; "
+              f"Newick SHA-256 {sha[:16]}..."
+              f"{'' if final is None else f'; final LogLk {final:.3f}'}"
+              f" (serial tier {ML_MAIN_LOGLK if ml_run else '-'}); "
+              f"{steps} lockstep SPR steps, {scans} refresh scans; launches "
+              f"{ {k: v for k, v in counts.items() if v} }")
+        if len(leaves) != n or missing or serial \
+                or (final is not None and not math.isfinite(final)):
+            raise AssertionError(f"{label}: {len(leaves)} leaves, final LogLk "
+                                 f"{final}, not launched {missing}, serial "
+                                 f"round kernels launched {serial}")
+        for k, v in counts.items():
+            if v:
+                report.setdefault(k, {})[f"threads_launches_{key}"] = v
+        report.setdefault("me_dists_list", {})[f"threads_{key}"] = {
+            "n": n, "wall_s": wall, "spr_steps": steps, "timings": timings}
+
+
+def phase_threads(report, dev, twins):
+    """-threads > 1 (the batched tier): (a) each batched function on the
+    card against its twins from one N=SPR_N start (twins: the start and
+    the twins' process, start_threads_twins), (b) the JAX package's
+    -threads 8 goldens, (c) the N=MAIN_N runs, warm."""
+    threads_twins(report, *twins, dev)
+    threads_golden(dev)
+    threads_main(report, dev, THREADS_MAIN)
+
 def main() -> int:
     import torch
 
@@ -4929,7 +5504,13 @@ def main() -> int:
 
     phase("0 card", card)
     phase("1 build", build)
+    twins = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_twins_")
     if "1 build" not in failed:
+        # phase 9's twins run on the CPU in a process of their own, beside
+        # phases 2-8
+        phase("9 -threads: the twins' start", lambda: twins.update(
+            run=start_threads_twins(tmp)))
         phase("2 kernels vs twins", phase_kernels, report)
         cuda = torch.device("cuda")
         phase("2b SPR round vs host loop", phase_spr, report, cuda)
@@ -4956,6 +5537,12 @@ def main() -> int:
         phase(f"7b protein ML main path N={PROTEIN_N}", phase_protein_main,
               report, cuda)
         phase("8 constraints", phase_constraints, report, cuda)
+        if "run" in twins:
+            phase("9 -threads", phase_threads, report, cuda, twins["run"])
+    if "run" in twins and twins["run"][1].poll() is None:
+        twins["run"][1].kill()               # phase 9 did not wait for it
+        twins["run"][1].wait()
+    shutil.rmtree(tmp, ignore_errors=True)
     if "epoch" in probe and probe["epoch"][1].poll() is None:
         probe["epoch"][1].kill()             # phase 2d did not wait for it
         probe["epoch"][1].wait()
@@ -4974,4 +5561,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--twins"] and len(sys.argv) == 3:
+        sys.exit(twins_main(sys.argv[2]))
     sys.exit(main())

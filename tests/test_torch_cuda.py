@@ -542,6 +542,88 @@ def test_ml_pipeline_on_cuda_matches_cpu(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("ml_nni", [0, -1], ids=["noml", "ml"])
+def test_threads_pipeline_on_cuda_matches_cpu(cuda, ml_nni):
+    """-threads 4 (the batched tier): the card's -noml Newick is the CPU
+    run's byte for byte, the default run's topology the CPU run's (RF 0);
+    neither launches a serial round kernel."""
+    from veryfasttree_tpu_torch.ops import ml_round, nni_kernels, spr_kernels
+    from veryfasttree_tpu_torch.options import ml_options
+    from veryfasttree_tpu_torch.pipeline import run_pipeline
+
+    fasta = "".join(f">seq{i:05d}\n{s}\n"
+                    for i, s in enumerate(simulate_alignment(60, 250, seed=7)))
+    rounds = (nni_kernels.nni_round, spr_kernels.spr_round,
+              ml_round.ml_nni_round, ml_round.ml_lengths_pass)
+
+    def run(device):
+        out = io.StringIO()
+        run_pipeline(ml_options(ml_nni=ml_nni, n_bootstrap=100, threads=4),
+                     io.StringIO(fasta), out, device=device)
+        return out.getvalue()
+
+    before = [fn.launches for fn in rounds]
+    card = run(cuda)
+    assert [fn.launches for fn in rounds] == before
+    cpu = run(torch.device("cpu"))
+    if ml_nni == 0:
+        assert card == cpu
+    else:
+        assert rf_distance(card, cpu)[0] == 0
+
+
+@pytest.mark.cuda
+def test_device_length_lists_are_the_host_lists(cuda):
+    """ml_posterior_at and ml_opt_branch_at (lengths read and written on
+    the card) bit for bit ml_posterior and ml_opt_branch fed the same
+    lengths from the host."""
+    from veryfasttree_tpu_torch.engine import rearrange
+    from veryfasttree_tpu_torch.engine.ml_profiles import MLProfiles
+    from veryfasttree_tpu_torch.engine.nj import NeighbourJoining
+    from veryfasttree_tpu_torch.io.alignment import seqs_to_codes
+    from veryfasttree_tpu_torch.ops import ml_kernels as mk
+    from veryfasttree_tpu_torch.options import ml_options
+
+    opts = ml_options()
+    nj = NeighbourJoining(opts, seqs_to_codes(simulate_alignment(
+        80, 300, seed=4), opts), None, None, device=cuda)
+    nj.fast_nj()
+    rearrange.update_branch_lengths(nj)
+    nj.ml = MLProfiles(nj, None)
+    nj.ml.recompute_ml_profiles()
+    ml, tree = nj.ml, nj.tree
+    nodes = np.array([n for n in range(nj.n_seqs, tree.maxnode)
+                      if n != tree.root and tree.n_child[n] == 2])
+    kids, targets = tree.children[nodes], ml.scratch_rows_for(len(nodes))
+    lims = (opts.ml_min_branch_length, 6.0, opts.ml_ftol_branch_length,
+            opts.ml_min_branch_length_tolerance)
+    lens = tree.branchlength[: tree.maxnodes].astype(np.float32)
+    lo = np.float32(ml.min_len)
+    out = []
+    for at in (True, False):
+        if at:
+            bl = ml.lengths_tensor(lens)
+            mk.ml_posterior_at(*ml._store(), targets, kids[:, 0], kids[:, 1],
+                               kids[:, 0], kids[:, 1], bl, float(lo))
+            mk.ml_opt_branch_at(*ml._store(), kids[:, 0], targets, kids[:, 0],
+                                bl, *lims)
+            got = bl.cpu().numpy()
+        else:
+            mk.ml_posterior(*ml._store(), targets, kids[:, 0], kids[:, 1],
+                            np.maximum(lens[kids[:, 0]], lo),
+                            np.maximum(lens[kids[:, 1]], lo))
+            x, _, _ = mk.ml_opt_branch(*ml._store(), kids[:, 0], targets,
+                                       np.maximum(lens[kids[:, 0]], lo),
+                                       *lims)
+            got = lens.copy()
+            got[kids[:, 0]] = x.cpu().numpy()
+        out.append((got, ml.V[targets].cpu().numpy()))
+    (bl_at, v_at), (bl_host, v_host) = out
+    assert bl_at.tobytes() == bl_host.tobytes()
+    assert v_at.tobytes() == v_host.tobytes()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("two_tier_min", [20000, 0])
 def test_pipeline_on_cuda_matches_cpu(cuda, two_tier_min):
     from veryfasttree_tpu_torch.options import noml_options

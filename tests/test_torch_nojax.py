@@ -6,11 +6,12 @@ chip_smoke.py imports only the port and tests/util.py, and without a CUDA
 device, or alone in a directory, it fails and prints no result.
 
 What the port shares with the JAX package it keeps as copies (constants,
-options, the model matrices, the Newick printer and reader, the
-command-line parser); these must equal their originals: the constants and
-matrices exactly, Options' fields and defaults (the seed's default is the
-clock), the Newick functions' source, and the options that
-args_to_options makes of a few command lines.
+options, the model matrices, the Newick printer and reader, the tree
+partitioning of the -threads SPR rounds, the command-line parser); these
+must equal their originals: the constants and matrices exactly, Options'
+fields and defaults (the seed's default is the clock), the Newick
+functions' and tree_partitioning's source, and the options that
+args_to_options makes of a few command lines (-threads 4 among them).
 """
 import ast
 import dataclasses
@@ -181,6 +182,7 @@ ARGV = [
      "-threads", "1", "-two-tier-min", "0", "-"],
     ["-fastest", "-no2nd", "-pseudo", "-nj", "-nome", "-seed", "9",
      "-close", "0.5", "-refresh", "0.7", "aln.phy"],
+    ["-nt", "-noml", "-threads", "4", "-seed", "2", "aln.fasta"],
 ]
 
 
@@ -196,6 +198,16 @@ def _copy_newick():
             inspect.getsource(getattr(j, name)), name
 
 
+def _copy_partition():
+    """engine/partition.py: tree_partitioning's source."""
+    import inspect
+
+    from veryfasttree_tpu.engine import partition as j
+    from veryfasttree_tpu_torch.engine import partition as t
+    assert inspect.getsource(t.tree_partitioning) == \
+        inspect.getsource(j.tree_partitioning)
+
+
 def _copy_parser():
     from veryfasttree_tpu import cli as j
     from veryfasttree_tpu_torch import cli as t
@@ -208,7 +220,7 @@ def _copy_parser():
 
 @pytest.mark.parametrize("check", [_copy_constants, _copy_matrices_data,
                                    _copy_models, _copy_options, _copy_newick,
-                                   _copy_parser],
+                                   _copy_partition, _copy_parser],
                          ids=lambda f: f.__name__[len("_copy_"):])
 def test_copy_equals_original(check):
     check()

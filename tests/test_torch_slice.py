@@ -101,11 +101,10 @@ def test_bionj_join_rows_identical_to_jax():
         np.testing.assert_array_equal(ours, ref)
 
 
-@pytest.mark.parametrize("flags", [dict(threads=2),
-                                   dict(checkpoint_file="ckpt.npz")])
+@pytest.mark.parametrize("flags", [dict(checkpoint_file="ckpt.npz")])
 def test_unported_options_raise(flags):
-    """-threads > 1 and -checkpoint (-constraints runs:
-    tests/test_torch_constraints_*.py)."""
+    """-checkpoint (-constraints runs: tests/test_torch_constraints_*.py;
+    -threads > 1: tests/test_torch_threads_*.py)."""
     opts = TOptions(**{"n_codes": 4, "show_progress": False, "ml_nni": 0,
                        "n_bootstrap": 0, **flags})
     opts.derive_settings()

@@ -46,13 +46,6 @@ namespace {
 
 constexpr int kBadRow = -1;
 constexpr int kPostThreads = 128;
-constexpr int kOptCap = 64;
-
-struct OptBatch {
-  int32_t r1[kOptCap];
-  int32_t r2[kOptCap];
-  float guess[kOptCap];
-};
 
 // One quartet's result; the host reads it as a numpy record
 // (ops/ml_kernels.py QUARTET_RECORD).
@@ -82,7 +75,7 @@ int stage(const void* a, size_t na, const void* b, size_t nb, void* dev, cudaStr
   const size_t at = align16(na);
   host.resize(at + nb);
   memcpy(host.data(), a, na);
-  memcpy(host.data() + at, b, nb);
+  if (nb > 0) memcpy(host.data() + at, b, nb);
   return (int)cudaMemcpyAsync(dev, host.data(), at + nb, cudaMemcpyHostToDevice, st);
 }
 
@@ -103,25 +96,38 @@ __global__ void __launch_bounds__(kLkThreads)
   if (threadIdx.x == 0) ll[k] = total;
 }
 
+// Lengths of a list item: len[k], or where the list reads the branch
+// lengths on the device (bl not NULL, the -threads > 1 lengths pass,
+// engine/batched.py) max(bl[node[k]], lo), as the JAX package raises a
+// gathered length to the minimum before its posterior or line search.
+struct ListLens {
+  const float* len;
+  const int32_t* node;
+  const float* bl;
+  float lo;
+  __device__ float at(int64_t k) const { return bl != nullptr ? fmaxf(bl[node[k]], lo) : len[k]; }
+};
+
 // Replaces _posterior_into_impl and _posterior_rows_impl
 // (veryfasttree_tpu/engine/ml_profiles.py:77-111, 183-218), the single and
-// list calls: the posterior parent profile of rows r1[k], r2[k] at len1[k],
-// len2[k] written into row t[k].  blockIdx.x the item, one thread per
-// position of blockIdx.y's chunk; each block builds its item's two rate
-// tables (the rate entries of every category).  _posterior_sweep_impl
-// (:123-177), a whole run of levels, is ml_sweep.cu's
-// ml_posterior_sweep_kernel, which runs this body and thread map.
+// list calls: the posterior parent profile of rows r1[k], r2[k] at
+// lengths len1.at(k), len2.at(k) written into row t[k].  blockIdx.x the
+// item, one thread per position of blockIdx.y's chunk; each block builds
+// its item's two rate tables (the rate entries of every category).
+// _posterior_sweep_impl (:123-177), a whole run of levels, is
+// ml_sweep.cu's ml_posterior_sweep_kernel, which runs this body and thread
+// map.
 template <int C>
 __global__ void __launch_bounds__(kPostThreads)
     ml_posterior_kernel(MLView m, int8_t* codes_out, float* W_out, float* V_out,
                         const int32_t* __restrict__ t, const int32_t* __restrict__ r1,
-                        const int32_t* __restrict__ r2, const float* __restrict__ len1,
-                        const float* __restrict__ len2, float tol) {
+                        const int32_t* __restrict__ r2, ListLens len1, ListLens len2,
+                        float tol) {
   __shared__ float tab1[kMaxRates * C];
   __shared__ float tab2[kMaxRates * C];
   const int64_t k = blockIdx.x;
-  fill_table<C>(m, len1[k], tab1);
-  fill_table<C>(m, len2[k], tab2);
+  fill_table<C>(m, len1.at(k), tab1);
+  fill_table<C>(m, len2.at(k), tab2);
   __syncthreads();
   const int p = blockIdx.y * kPostThreads + threadIdx.x;
   int kind = kCountNone;
@@ -148,11 +154,15 @@ size_t opt_smem_bytes(int P, int C, bool vectors_in_smem) {
 }
 
 // Replaces _opt_branch_len_core with _onedimenmin_device (veryfasttree_tpu/
-// engine/ml_profiles.py:641-759): the whole line search for one branch per
-// block (line_search).
+// engine/ml_profiles.py:641-759) and its list form _opt_branch_len_rows:
+// the whole line search for the branch between rows r1[k] and r2[k] from
+// guess.at(k) per block (line_search).  Where the guesses come from the
+// device's branch lengths (guess.bl), the result is written back to
+// bl[guess.node[k]] (the list's nodes are distinct).
 template <int C>
 __global__ void __launch_bounds__(kOptThreads) ml_opt_branch_kernel(
-    MLView m, OptBatch b, SearchLimits lim, float* __restrict__ x_out, float* __restrict__ fx_out,
+    MLView m, const int32_t* __restrict__ r1, const int32_t* __restrict__ r2, ListLens guess,
+    SearchLimits lim, float* __restrict__ x_out, float* __restrict__ fx_out,
     int32_t* __restrict__ n_eval_out, float* scratch) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int k = blockIdx.x;
@@ -174,13 +184,14 @@ __global__ void __launch_bounds__(kOptThreads) ml_opt_branch_kernel(
   float fx;
   int n_eval;
   bool stopped;
-  const float x = line_search<C>(m, store_row<C>(m, b.r1[k]), store_row<C>(m, b.r2[k]),
-                                 b.guess[k], lim, eff1, eff2, rate, red, fx, n_eval, NoStop{},
+  const float x = line_search<C>(m, store_row<C>(m, r1[k]), store_row<C>(m, r2[k]),
+                                 guess.at(k), lim, eff1, eff2, rate, red, fx, n_eval, NoStop{},
                                  stopped);
   if (threadIdx.x == 0) {
     x_out[k] = x;
     fx_out[k] = fx;
     n_eval_out[k] = n_eval;
+    if (guess.bl != nullptr) const_cast<float*>(guess.bl)[guess.node[k]] = x;
   }
 }
 
@@ -243,7 +254,7 @@ int pair_loglk(const MLView& m, const int32_t* r1, const int32_t* r2, const floa
 
 template <int C>
 int posterior(const MLView& m, int8_t* codes, float* W, float* V, const int32_t* t,
-              const int32_t* r1, const int32_t* r2, const float* len1, const float* len2,
+              const int32_t* r1, const int32_t* r2, const ListLens& len1, const ListLens& len2,
               int64_t n, float tol, cudaStream_t st) {
   const dim3 grid((unsigned)n, (m.P + kPostThreads - 1) / kPostThreads);
   ml_posterior_kernel<C><<<grid, kPostThreads, 0, st>>>(m, codes, W, V, t, r1, r2, len1, len2,
@@ -252,28 +263,18 @@ int posterior(const MLView& m, int8_t* codes, float* W, float* V, const int32_t*
 }
 
 template <int C>
-int opt_branch(const MLView& m, const int32_t* r1, const int32_t* r2, const float* guess, int n,
-               const SearchLimits& lim, float* x, float* fx, int32_t* n_eval, float* scratch,
-               cudaStream_t st) {
+int opt_branch(const MLView& m, const int32_t* r1, const int32_t* r2, const ListLens& guess,
+               int64_t n, const SearchLimits& lim, float* x, float* fx, int32_t* n_eval,
+               float* scratch, cudaStream_t st) {
   const size_t smem = opt_smem_bytes(m.P, C, scratch == nullptr);
   if (smem > (size_t)kOptSmemCap) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(ml_opt_branch_kernel<C>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)kOptSmemCap);
   if (err != cudaSuccess) return (int)err;
-  OptBatch b;
-  for (int off = 0; off < n; off += kOptCap) {
-    const int cnt = n - off < kOptCap ? n - off : kOptCap;
-    memcpy(b.r1, r1 + off, cnt * sizeof(int32_t));
-    memcpy(b.r2, r2 + off, cnt * sizeof(int32_t));
-    memcpy(b.guess, guess + off, cnt * sizeof(float));
-    ml_opt_branch_kernel<C><<<cnt, kOptThreads, smem, st>>>(
-        m, b, lim, x + off, fx + off, n_eval + off,
-        scratch != nullptr ? scratch + (int64_t)off * 2 * m.P * C : nullptr);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return 0;
+  ml_opt_branch_kernel<C><<<(unsigned)n, kOptThreads, smem, st>>>(m, r1, r2, guess, lim, x, fx,
+                                                                  n_eval, scratch);
+  return (int)cudaGetLastError();
 }
 
 template <int C>
@@ -299,6 +300,29 @@ MLView make_view(const int8_t* codes, const float* W, const float* V, const floa
                  unsigned long long* counts) {
   return MLView{codes, W, V, code_freq, eigenval, eigeninv, statinv, rates, ratecat, P,
                 n_pos, n_rates, jc, min_rel_len, near_p, near_freq, approx, counts};
+}
+
+// The list entries' dispatch on C: a posterior list of n items, rows r =
+// (targets, r1, r2), and a line-search list of n items, rows r = (r1, r2).
+int posterior_list(const MLView& m, int C, const int8_t* codes, const float* W, const float* V,
+                   const int32_t* r, int64_t n, const ListLens& l1, const ListLens& l2, float tol,
+                   cudaStream_t st) {
+  int8_t* c_out = const_cast<int8_t*>(codes);
+  float* w_out = const_cast<float*>(W);
+  float* v_out = const_cast<float*>(V);
+  if (C == 4)
+    return posterior<4>(m, c_out, w_out, v_out, r, r + n, r + 2 * n, l1, l2, n, tol, st);
+  if (C == 20)
+    return posterior<20>(m, c_out, w_out, v_out, r, r + n, r + 2 * n, l1, l2, n, tol, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+int opt_branch_list(const MLView& m, int C, const int32_t* r, int64_t n, const ListLens& guess,
+                    const SearchLimits& lim, float* x, float* fx, int32_t* n_eval, float* scratch,
+                    cudaStream_t st) {
+  if (C == 4) return opt_branch<4>(m, r, r + n, guess, n, lim, x, fx, n_eval, scratch, st);
+  if (C == 20) return opt_branch<20>(m, r, r + n, guess, n, lim, x, fx, n_eval, scratch, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -365,30 +389,71 @@ int vft_ml_posterior_f32(VFT_ML_STORE_ARGS, float tol, const int32_t* rows, cons
   const int32_t* r = static_cast<const int32_t*>(lists);
   const float* len =
       reinterpret_cast<const float*>(static_cast<char*>(lists) + align16(3 * n * sizeof(int32_t)));
-  int8_t* c_out = const_cast<int8_t*>(codes);
-  float* w_out = const_cast<float*>(W);
-  float* v_out = const_cast<float*>(V);
-  if (C == 4)
-    return posterior<4>(m, c_out, w_out, v_out, r, r + n, r + 2 * n, len, len + n, n, tol, st);
-  if (C == 20)
-    return posterior<20>(m, c_out, w_out, v_out, r, r + n, r + 2 * n, len, len + n, n, tol, st);
-  return (int)cudaErrorInvalidValue;
+  const ListLens l1{len, nullptr, nullptr, 0.0f}, l2{len + n, nullptr, nullptr, 0.0f};
+  return posterior_list(m, C, codes, W, V, r, n, l1, l2, tol, st);
+}
+
+// The posteriors of vft_ml_posterior_f32 at lengths max(bl[rows[3n + k]],
+// lo) and max(bl[rows[4n + k]], lo) read on the device: rows (5n host
+// int32: targets, r1, r2 and the two length indices, below n_bl) are
+// checked and copied to the device buffer lists (20n bytes); bl is a
+// float32 device array of n_bl lengths.
+int vft_ml_posterior_at_f32(VFT_ML_STORE_ARGS, float tol, const int32_t* rows, int64_t n,
+                            void* lists, const float* bl, int64_t n_bl, float lo, void* stream) {
+  if (!list_fits(n)) return (int)cudaErrorInvalidValue;
+  if (!rows_in(rows, 3 * n, n_rows) || !rows_in(rows + 3 * n, 2 * n, n_bl)) return kBadRow;
+  if (n_rates < 1 || n_rates > kMaxRates) return (int)cudaErrorInvalidValue;
+  const MLView m = make_view(VFT_ML_VIEW_PASS);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int err = stage(rows, 5 * n * sizeof(int32_t), nullptr, 0, lists, st);
+  if (err != 0) return err;
+  const int32_t* r = static_cast<const int32_t*>(lists);
+  const ListLens l1{nullptr, r + 3 * n, bl, lo}, l2{nullptr, r + 4 * n, bl, lo};
+  return posterior_list(m, C, codes, W, V, r, n, l1, l2, tol, st);
 }
 
 // Line search over the length of the branch between rows (rows[k],
 // rows[n + k]) from guess[k]: x[k], fx[k] = -loglk at x[k], n_eval[k].
-int vft_ml_opt_branch_f32(VFT_ML_STORE_ARGS, const int32_t* rows, const float* guess, int n,
-                          float xmin, float xmax, float ftol, float atol, float* x, float* fx,
-                          int32_t* n_eval, float* scratch, void* stream) {
+// rows and guess are host arrays, checked against the store and copied to
+// the device buffer lists (align16(8n) + 4n bytes) by stage.
+int vft_ml_opt_branch_f32(VFT_ML_STORE_ARGS, const int32_t* rows, const float* guess, int64_t n,
+                          void* lists, float xmin, float xmax, float ftol, float atol, float* x,
+                          float* fx, int32_t* n_eval, float* scratch, void* stream) {
+  if (!list_fits(n)) return (int)cudaErrorInvalidValue;
   if (!rows_in(rows, 2 * n, n_rows)) return kBadRow;
   if (n_rates < 1 || n_rates > kMaxRates) return (int)cudaErrorInvalidValue;
   const MLView m = make_view(VFT_ML_VIEW_PASS);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const SearchLimits lim{xmin, xmax, ftol, atol};
-  if (C == 4) return opt_branch<4>(m, rows, rows + n, guess, n, lim, x, fx, n_eval, scratch, st);
-  if (C == 20)
-    return opt_branch<20>(m, rows, rows + n, guess, n, lim, x, fx, n_eval, scratch, st);
-  return (int)cudaErrorInvalidValue;
+  const int err = stage(rows, 2 * n * sizeof(int32_t), guess, n * sizeof(float), lists, st);
+  if (err != 0) return err;
+  const int32_t* r = static_cast<const int32_t*>(lists);
+  const float* g =
+      reinterpret_cast<const float*>(static_cast<char*>(lists) + align16(2 * n * sizeof(int32_t)));
+  const ListLens gl{g, nullptr, nullptr, 0.0f};
+  return opt_branch_list(m, C, r, n, gl, SearchLimits{xmin, xmax, ftol, atol}, x, fx, n_eval,
+                         scratch, st);
+}
+
+// The line searches of vft_ml_opt_branch_f32 from the guesses
+// max(bl[rows[2n + k]], xmin) read on the device, each result also
+// written to bl[rows[2n + k]]: rows (3n host int32: r1, r2 and the length
+// indices, distinct and below n_bl) are checked and copied to the device
+// buffer lists (12n bytes); bl is a float32 device array of n_bl lengths.
+int vft_ml_opt_branch_at_f32(VFT_ML_STORE_ARGS, const int32_t* rows, int64_t n, void* lists,
+                             float* bl, int64_t n_bl, float xmin, float xmax, float ftol,
+                             float atol, float* x, float* fx, int32_t* n_eval, float* scratch,
+                             void* stream) {
+  if (!list_fits(n)) return (int)cudaErrorInvalidValue;
+  if (!rows_in(rows, 2 * n, n_rows) || !rows_in(rows + 2 * n, n, n_bl)) return kBadRow;
+  if (n_rates < 1 || n_rates > kMaxRates) return (int)cudaErrorInvalidValue;
+  const MLView m = make_view(VFT_ML_VIEW_PASS);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int err = stage(rows, 3 * n * sizeof(int32_t), nullptr, 0, lists, st);
+  if (err != 0) return err;
+  const int32_t* r = static_cast<const int32_t*>(lists);
+  const ListLens gl{nullptr, r + 2 * n, bl, xmin};
+  return opt_branch_list(m, C, r, n, gl, SearchLimits{xmin, xmax, ftol, atol}, x, fx, n_eval,
+                         scratch, st);
 }
 
 // Quartet optimizations of rows (rows[4k] .. rows[4k + 3]) = (A, B, C, D)

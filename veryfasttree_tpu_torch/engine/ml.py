@@ -30,7 +30,7 @@ import torch
 from .. import constants
 from ..ops import ml_round
 
-from . import rearrange
+from . import batched, rearrange
 from .ml_profiles import (LEN_A, LEN_B, LEN_C, LEN_D, LEN_I, S_AB, S_CD,
                           S_TMP1, MLProfiles, site_log)
 from .rearrange import ABvsCD, ACvsBD, ADvsBC, UpProfiles
@@ -662,11 +662,24 @@ def _clock(nj) -> float:
 
 def run_ml_phase(nj, ml_nni_to_do: int, n_uniq: int, progress, log,
                  log_tree=None) -> SplitCount:
-    """The ML phase of the serial path.  Adds host-clock seconds of its
-    parts to nj.timings (ml_lengths_s, ml_nni_s, cat_s, gtr_s, sh_s,
-    gamma_s), each ending after the device is done."""
+    """The ML phase: with -threads > 1 its NNI rounds and lengths passes
+    are the batched tier's (engine/batched.py), else the round kernels'
+    (ops/ml_round.py).  Adds host-clock seconds of its parts to nj.timings
+    (ml_lengths_s, ml_nni_s, cat_s, gtr_s, sh_s, gamma_s), each ending
+    after the device is done."""
     opts = nj.options
     nj.ml = MLProfiles(nj, nj.transmat)
+    if opts.threads > 1:
+        # as the JAX package's run_ml_phase dispatches it
+        lengths_pass = batched.optimize_all_branch_lengths_batched
+
+        def nni_round(i, stats):
+            return batched.do_nni_batched(nj, i, ml_nni_to_do, True, stats)
+    else:
+        lengths_pass = ml_round.ml_lengths_pass
+
+        def nni_round(i, stats):
+            return ml_round.ml_nni_round(nj, i, ml_nni_to_do, stats)
     reset_gtr = opts.n_codes == 4 and opts.use_gtr and not opts.use_gtr_rates
     stats = rearrange.NNIStats.init(nj)
     t = dict.fromkeys(("ml_lengths_s", "ml_nni_s", "cat_s", "gtr_s", "sh_s",
@@ -690,7 +703,7 @@ def run_ml_phase(nj, ml_nni_to_do: int, n_uniq: int, progress, log,
         last_loglk = -1e20
         for i_round in range(1, max_round + 1):
             old = nj.tree.branchlength.copy()
-            timed("ml_lengths_s", ml_round.ml_lengths_pass, nj)
+            timed("ml_lengths_s", lengths_pass, nj)
             if log_tree:
                 log_tree("ML_Lengths%d", i_round)
             d_max_change = float(np.abs(
@@ -711,14 +724,13 @@ def run_ml_phase(nj, ml_nni_to_do: int, n_uniq: int, progress, log,
             last_loglk = loglk
 
     if ml_nni_to_do > 0:
-        timed("ml_lengths_s", ml_round.ml_lengths_pass, nj)
+        timed("ml_lengths_s", lengths_pass, nj)
 
     last_loglk = -1e20
     converged = False
     for i in range(ml_nni_to_do):
         t0 = _clock(nj)
-        changes, max_delta = ml_round.ml_nni_round(nj, i, ml_nni_to_do,
-                                                     stats)
+        changes, max_delta = nni_round(i, stats)
         if log_tree:
             log_tree("ML_NNI%d", i + 1)
         loglk = tree_loglk(nj)
@@ -745,7 +757,7 @@ def run_ml_phase(nj, ml_nni_to_do: int, n_uniq: int, progress, log,
             rates_and_gtr()
 
     if ml_nni_to_do > 0:
-        timed("ml_lengths_s", ml_round.ml_lengths_pass, nj)
+        timed("ml_lengths_s", lengths_pass, nj)
         if log is not None:
             loglk = tree_loglk(nj)
             print(f"Optimize all lengths: LogLk = {loglk:.3f}", file=log)

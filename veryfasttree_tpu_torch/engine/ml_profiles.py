@@ -250,6 +250,75 @@ class MLProfiles:
                        len2: float) -> None:
         self.posterior_rows([target], [r1], [r2], [len1], [len2])
 
+    # -- whole-level lists of the -threads > 1 tier (engine/batched.py) -----
+    def scratch_rows_for(self, n: int) -> np.ndarray:
+        """The first n rows of the list-pass block."""
+        self.batch_row(n - 1)
+        return self.batch_row(0) + np.arange(n, dtype=np.int64)
+
+    def lengths_tensor(self, lengths) -> torch.Tensor:
+        """Branch lengths as the float32 tensor on the store's device that
+        posterior_rows_at and opt_branch_length_rows read and write (a
+        copy: the caller's array is left as it is)."""
+        return self._tensor(np.asarray(lengths, dtype=np.float32),
+                            torch.float32)
+
+    def posterior_rows_at(self, targets, r1s, r2s, n1s, n2s, bl) -> None:
+        """posterior_rows with the lengths bl[n1s[k]], bl[n2s[k]] (raised
+        to the minimum) read on the device: one ml_posterior list."""
+        ml_kernels.ml_posterior_at(*self._store(), targets, r1s, r2s, n1s,
+                                   n2s, bl, float(self.min_len))
+        self.nj.debug.n_posterior_compute += len(targets)
+
+    def opt_branch_length_rows(self, r1s, r2s, nodes, bl) -> None:
+        """The line searches over the branches between rows r1s[k] and
+        r2s[k] from the guesses bl[nodes[k]] (raised to the minimum), each
+        result written into bl[nodes[k]] on the device (nodes distinct):
+        one ml_opt_branch list, nothing fetched."""
+        opts = self.options
+        ml_kernels.ml_opt_branch_at(
+            *self._store(), r1s, r2s, nodes, bl, opts.ml_min_branch_length,
+            6.0, opts.ml_ftol_branch_length,
+            opts.ml_min_branch_length_tolerance)
+        # 8 evaluations a search, as the JAX store counts them
+        self.nj.debug.n_lk_compute += 8 * len(r1s)
+
+    def quartet_nni_rows(self, rows, lengths):
+        """K ML quartet NNIs without the star test (the JAX store's
+        quartet_nni_rows, core _quartet_nni_core): each quartet's three
+        topologies AB|CD, AC|BD and AD|BC fully optimized from the float32
+        lengths [K, 5] (A, B, C, D, I, raised to the minimum), all 3K in one
+        ml_quartet_opt launch and one fetch.  Returns (choice [K], the three
+        LogLks [K, 3], the chosen topology's lengths [K, 5] in its own A, B,
+        C, D, I order); a topology is chosen only where its LogLk is
+        strictly the highest."""
+        opts = self.options
+        rows = np.asarray(rows, dtype=np.int64)
+        K = len(rows)
+        rows4 = np.concatenate([rows, rows[:, [0, 2, 1, 3]],
+                                rows[:, [0, 3, 2, 1]]])
+        lens = np.maximum(np.asarray(lengths, dtype=np.float32),
+                          self.min_len)
+        lens = np.concatenate([lens, lens[:, [0, 2, 1, 3, 4]],
+                               lens[:, [0, 3, 2, 1, 4]]]).astype(np.float64)
+        rec, _ = ml_kernels.ml_quartet_opt(
+            *self._store(), rows4, lens,
+            [self.scratch_row(s) for s in QUARTET_TEMPS],
+            opts.ml_min_branch_length, 6.0, opts.ml_ftol_branch_length,
+            opts.ml_min_branch_length_tolerance)
+        parts = rec["parts"]
+        crit = (parts[:, 0] + parts[:, 1] + parts[:, 2]).reshape(3, K).T
+        ab, ac, ad = crit.T
+        pick_ac = (ac > ab) & (ac > ad)
+        pick_ad = (ad > ab) & (ad > ac) & ~pick_ac
+        choice = np.where(pick_ac, 1, np.where(pick_ad, 2, 0))
+        new_len = rec["len"].astype(np.float64).reshape(3, K, 5)[
+            choice, np.arange(K)]
+        # the JAX store's counts of the single calls this fuses
+        self.nj.debug.n_lk_compute += 3 * 5 * 8 * K
+        self.nj.debug.n_posterior_compute += 3 * 6 * K
+        return choice, np.ascontiguousarray(crit), new_len
+
     def posterior_sweep(self, levels, weights=None) -> None:
         """Dependency-ordered posterior level sweep: `levels` is a
         SweepTables, or a list of (targets, r1s, r2s, len1s, len2s) whose

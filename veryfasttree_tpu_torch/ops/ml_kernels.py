@@ -17,9 +17,7 @@ over the list:
   profile of rows r1 and r2, written into row target in place;
 * ``ml_opt_branch``: K row pairs -> the whole bracketing + Brent line search
   over the branch length (``_onedimenmin_device``), one block per branch,
-  in float32 with the JAX package's constants and update rules (its indices
-  still travel in the launch's parameters, 64 to a launch: no main-path
-  caller is left);
+  in float32 with the JAX package's constants and update rules;
 * ``ml_quartet_opt``: K quartets -> a whole quartet optimization
   (``ml_quartet_optimize``: seven posteriors, five line searches, the star
   test, the closing pair log-likelihoods) per block, its temporaries in
@@ -28,6 +26,13 @@ over the list:
 
 Each item of a list runs the body and thread map it runs alone, so its
 bits do not depend on K (the card tests hold K = 300 and K = 200 to K = 1).
+
+``ml_posterior_at`` and ``ml_opt_branch_at`` launch the same two kernels
+over lists whose lengths are read from a float32 tensor of branch lengths
+on the device, the line searches writing their results back into it: the
+-threads > 1 lengths pass (engine/batched.py) keeps its lengths on the
+card from its first level to its last.  They count their launches in
+``ml_posterior.launches`` and ``ml_opt_branch.launches``.
 
 Two kernels of ``csrc/ml_sweep.cu`` take a whole tree in one launch, over
 level tables that reach the device once (``SweepTables``,
@@ -698,22 +703,108 @@ def ml_opt_branch(codes, W, V, m, r1s, r2s, guesses, xmin, xmax, ftol, atol):
         raise ValueError("r1s, r2s and guesses differ in length")
     rows = np.concatenate([r1s, r2s]).astype(np.int32)
     guess = np.asarray(guesses, dtype=np.float32)
-    step = align16(4 * K)
-    buf = bound.buffer("opt", 3 * step)
-    x = typed(buf, 0, (K,), torch.float32)
-    fx = typed(buf, step, (K,), torch.float32)
-    n_eval = typed(buf, 2 * step, (K,), torch.int32)
+    x, fx, n_eval, scratch = _opt_outputs(bound, K)
     if K:
-        # effective vectors in device memory where they exceed shared
-        scratch = bound.buffer("opt_scratch", 4 * K * bound.opt_scratch) \
-            if bound.opt_scratch else None
+        lists = bound.buffer("lists", align16(rows.nbytes) + guess.nbytes)
         _raise_on(_build.library().vft_ml_opt_branch_f32(
             *bound.args, rows.ctypes.data, guess.ctypes.data, K,
-            ctypes.c_float(xmin), ctypes.c_float(xmax), ctypes.c_float(ftol),
-            ctypes.c_float(atol), x.data_ptr(), fx.data_ptr(),
-            n_eval.data_ptr(),
+            lists.data_ptr(), ctypes.c_float(xmin), ctypes.c_float(xmax),
+            ctypes.c_float(ftol), ctypes.c_float(atol), x.data_ptr(),
+            fx.data_ptr(), n_eval.data_ptr(),
             scratch.data_ptr() if scratch is not None else None,
             bound.stream), "ml_opt_branch")
+        ml_opt_branch.launches += 1
+    return x, fx, n_eval
+
+
+def _opt_outputs(bound, K):
+    """x, fx, n_eval [K] views of the store's buffer "opt", and the device
+    scratch of K line searches whose effective vectors exceed shared memory
+    (None where they fit)."""
+    step = align16(4 * K)
+    buf = bound.buffer("opt", 3 * step)
+    scratch = bound.buffer("opt_scratch", 4 * K * bound.opt_scratch) \
+        if K and bound.opt_scratch else None
+    return (typed(buf, 0, (K,), torch.float32),
+            typed(buf, step, (K,), torch.float32),
+            typed(buf, 2 * step, (K,), torch.int32), scratch)
+
+
+def _check_lengths(bl, codes, name):
+    if bl.dtype != torch.float32 or bl.dim() != 1 or not bl.is_contiguous() \
+            or bl.device != codes.device:
+        raise ValueError(f"{name}: the lengths must be a contiguous float32 "
+                         "vector on the store's device")
+
+
+def ml_posterior_at(codes, W, V, m, targets, r1s, r2s, n1s, n2s, bl, lo):
+    """ml_posterior at the lengths max(bl[n1s[k]], lo) and max(bl[n2s[k]],
+    lo) (host index arrays), read from the float32 lengths bl on the
+    store's device: one ml_posterior launch on CUDA (counted there), the
+    twin on the CPU."""
+    _check_lengths(bl, codes, "ml_posterior_at")
+    targets = np.asarray(targets, dtype=np.int64)
+    if len(targets) > 1 and (len(np.unique(targets)) != len(targets)
+                             or np.isin(targets, [r1s, r2s]).any()):
+        raise ValueError("ml_posterior_at: targets must be distinct and not "
+                         "sources")
+    if codes.device.type == "cpu":
+        lo = torch.tensor(lo, dtype=torch.float32)
+        return ml_posterior_ref(
+            codes, W, V, m, targets, r1s, r2s,
+            torch.maximum(bl[_index(n1s, bl.device)], lo).numpy(),
+            torch.maximum(bl[_index(n2s, bl.device)], lo).numpy())
+    bound = _bind(codes, W, V, m)
+    K = len(targets)
+    if not len(r1s) == len(r2s) == len(n1s) == len(n2s) == K:
+        raise ValueError("targets, rows and length indices differ in length")
+    if K == 0:
+        return
+    rows = np.concatenate([targets, r1s, r2s, n1s, n2s]).astype(np.int32)
+    lists = bound.buffer("lists", rows.nbytes)
+    _raise_on(_build.library().vft_ml_posterior_at_f32(
+        *bound.args, ctypes.c_float(m.tol), rows.ctypes.data, K,
+        lists.data_ptr(), bl.data_ptr(), bl.numel(), ctypes.c_float(lo),
+        bound.stream), "ml_posterior_at")
+    ml_posterior.launches += 1
+
+
+def ml_opt_branch_at(codes, W, V, m, r1s, r2s, nodes, bl, xmin, xmax, ftol,
+                     atol):
+    """ml_opt_branch from the guesses max(bl[nodes[k]], xmin) (host index
+    array, nodes distinct) read from the float32 lengths bl on the store's
+    device, each x written back into bl[nodes[k]] there: one ml_opt_branch
+    launch on CUDA (counted there), the twin on the CPU.  Returns
+    ml_opt_branch's (x, fx, n_eval), not fetched."""
+    _check_lengths(bl, codes, "ml_opt_branch_at")
+    nodes = np.asarray(nodes, dtype=np.int64)
+    if len(np.unique(nodes)) != len(nodes):
+        raise ValueError("ml_opt_branch_at: the length indices must be "
+                         "distinct")
+    if codes.device.type == "cpu":
+        idx = _index(nodes, bl.device)
+        guesses = torch.maximum(bl[idx], torch.tensor(xmin,
+                                                      dtype=torch.float32))
+        x, fx, n_eval = ml_opt_branch_ref(codes, W, V, m, r1s, r2s,
+                                          guesses.numpy(), xmin, xmax, ftol,
+                                          atol)
+        bl[idx] = x
+        return x, fx, n_eval
+    bound = _bind(codes, W, V, m)
+    K = len(nodes)
+    if len(r1s) != K or len(r2s) != K:
+        raise ValueError("r1s, r2s and nodes differ in length")
+    x, fx, n_eval, scratch = _opt_outputs(bound, K)
+    if K:
+        rows = np.concatenate([r1s, r2s, nodes]).astype(np.int32)
+        lists = bound.buffer("lists", rows.nbytes)
+        _raise_on(_build.library().vft_ml_opt_branch_at_f32(
+            *bound.args, rows.ctypes.data, K, lists.data_ptr(),
+            bl.data_ptr(), bl.numel(), ctypes.c_float(xmin),
+            ctypes.c_float(xmax), ctypes.c_float(ftol), ctypes.c_float(atol),
+            x.data_ptr(), fx.data_ptr(), n_eval.data_ptr(),
+            scratch.data_ptr() if scratch is not None else None,
+            bound.stream), "ml_opt_branch_at")
         ml_opt_branch.launches += 1
     return x, fx, n_eval
 

@@ -10,8 +10,13 @@ distance matrix of every sequence.
 
 -constraints (a 0/1/- alignment of split columns, ref alnToConstraints)
 reaches every phase: the join penalties, the ME and ML NNI and SPR
-criteria and the split tests' constraint counts.  -threads > 1 and
--checkpoint are not ported yet and raise.
+criteria and the split tests' constraint counts.  -threads > 1 takes the
+JAX package's batched tier (the reference's relaxed thread-parallel
+modes): level-batched ME and ML NNI rounds (engine/batched.py),
+partitioned lockstep SPR rounds (engine/spr_batched.py), the batched ME
+lengths, split test and local bootstrap, and level-batched ML lengths;
+-threads 1, the default, is the serial tier.  -checkpoint is not ported
+yet and raises.
 """
 from __future__ import annotations
 
@@ -21,7 +26,7 @@ import time
 
 import numpy as np
 
-from .engine import batched, ml, rearrange, spr, supports
+from .engine import batched, ml, rearrange, spr, spr_batched, supports
 from .engine.nj import NeighbourJoining
 from .io.alignment import (Alignment, Uniquify, open_maybe_compressed,
                            read_alignment, seqs_to_codes)
@@ -143,7 +148,6 @@ def _ml_on(options) -> bool:
 
 def _check_ported(options) -> None:
     missing = [
-        ("-threads > 1", options.threads > 1),
         ("-checkpoint", bool(options.checkpoint_file)),
     ]
     for what, requested in missing:
@@ -241,11 +245,16 @@ def _run_single(options, input_fp, output_fp, log_fp, device):
         int(0.5 + 2.0 * math.log2(max(n_uniq, 2)))
     # host-clock seconds of the ME NNI and the SPR rounds, summed over rounds
     nj.timings.update(nni_s=0.0, spr_s=0.0)
+    threads = options.threads > 1
     # -slow keeps the host loops: its length checks and its repairs of
-    # every ancestor need the whole tree
-    spr_round = spr.run_spr if options.slow else spr_kernels.spr_round
+    # every ancestor need the whole tree; -threads > 1 takes the batched
+    # tier, -slow or not (the JAX package's choice)
+    spr_round = spr_batched.run_spr_batched if threads \
+        else spr.run_spr if options.slow else spr_kernels.spr_round
 
     def nni_round(i, stats):
+        if threads:
+            return batched.do_nni_batched(nj, i, nni_to_do, False, stats)
         if options.slow:
             return rearrange.do_nni(nj, i, nni_to_do, False, stats)
         return nni_kernels.nni_round(nj, i, nni_to_do, stats)
@@ -282,9 +291,11 @@ def _run_single(options, input_fp, output_fp, log_fp, device):
 
     t1 = time.perf_counter()
     up_tables = None
-    if not options.bionj:
+    batched_me = threads or not options.bionj
+    if batched_me:
         # one gathered distance call for the whole tree; value-identical to
-        # the serial walk with the plain 0.5 up-profile average
+        # the serial walk with the plain 0.5 up-profile average (-threads
+        # takes it under -bionj too, as the JAX package does)
         up_tables = batched.update_branch_lengths_batched(nj)
     else:
         rearrange.update_branch_lengths(nj)
@@ -302,16 +313,18 @@ def _run_single(options, input_fp, output_fp, log_fp, device):
                                       log, log_tree)
     else:
         # one sweep and one distance list for the whole tree; with -bionj
-        # the up-profiles are BIONJ-weighted, and the serial walk stays
-        split_count = supports.test_splits_min_evo(nj) if options.bionj \
-            else supports.test_splits_min_evo_batched(nj, up_tables)
+        # (and one thread) the up-profiles are BIONJ-weighted, and the
+        # serial walk stays
+        split_count = supports.test_splits_min_evo_batched(nj, up_tables) \
+            if batched_me else supports.test_splits_min_evo(nj)
         t3 = time.perf_counter()
         nj.timings["splits_s"] = t3 - t2
         if options.n_bootstrap > 0 and n_uniq > 3:
-            # the ME local bootstrap; without -bionj over the up-profiles
-            # the split test's sweep just wrote
-            nj.boot_stats = supports.reliability_nj(nj) if options.bionj \
-                else supports.reliability_nj_list(nj, swept=True)
+            # the ME local bootstrap; batched over the up-profiles the
+            # split test's sweep just wrote (the JAX package's
+            # reliability_nj_batched with -threads > 1)
+            nj.boot_stats = supports.reliability_nj_list(nj, swept=True) \
+                if batched_me else supports.reliability_nj(nj)
             nj.timings["boot_s"] = time.perf_counter() - t3
 
     newick = print_newick(nj.tree, names, unique, options.n_bootstrap > 0,
