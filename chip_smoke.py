@@ -240,26 +240,27 @@ passed):
    each: the constrained kernels launched, the phase split, SplitCount
    and wall beside the unconstrained runs of phases 4 and 6.
 9. -threads (the batched tier: engine/batched.py, engine/spr_batched.py).
-   (a) From one N=500 NJ start, each batched function on the card against
-   its plain twins on the CPU, which run in a process of their own beside
-   phases 2-8 (chip_smoke.py --twins, from the card's start): an ME NNI
-   round and a partitioned SPR round at -threads 8 and 12 (tree, rows,
-   NNIStats ages, counters and lockstep steps equal, the deltas and
-   supports within THREADS_DELTA_ATOL); the ML lists that read their
-   lengths on the device (ml_posterior_at, ml_opt_branch_at) bit for bit
-   the host-length lists on the card, and against the twins (rows within
-   TWIN_ROWS, the searches' optima within ML_TWIN_NEAR_TIE); an ML
-   lengths pass (the tree LogLk within ML_TWIN_RTOL; the lengths, which
-   float32 line searches carry from search to search, reported against
-   1e-4 + 2e-3 x length); an ML NNI round (the criteria within
-   THREADS_CRIT_TOL, a flip only on a near tie, reported with its
+   (a) From one N=500 NJ start, each batched function on the card, then
+   against its plain twins on the CPU, one process each (chip_smoke.py
+   --twins, from the card's start), which run beside (b) and no timed
+   phase: an ME NNI round and a partitioned SPR round at -threads 8 and
+   12 (tree, rows, NNIStats ages, counters and lockstep steps equal, the
+   deltas and supports within THREADS_DELTA_ATOL); the ML lists that read
+   their lengths on the device (ml_posterior and ml_opt_branch with bl=)
+   bit for bit the host-length lists on the card, and against the twins
+   (rows within TWIN_ROWS, the searches' optima within ML_TWIN_NEAR_TIE);
+   an ML lengths pass (the tree LogLk within THREADS_PASS_RTOL; the
+   lengths, which float32 line searches carry from search to search,
+   reported against 1e-4 + 2e-3 x length); an ML NNI round (the criteria
+   within THREADS_CRIT_TOL, a flip only on a near tie, reported with its
    margins; without one the tree, ages and NNIs equal and the tree LogLk
-   within ML_TWIN_RTOL); the ML split test (the SH pass; the SplitCount's
-   counts equal, its worst delta within THREADS_CRIT_TOL).  (b) The JAX
-   package's -threads 8 trees (scripts/make_torch_port_threads_golden.py):
-   -nt -noml at N=500 byte-identical; the default run at N=200 RF 0, or
-   parting from the golden at a batched ML NNI decision that is a near
-   tie in both packages (the golden's _decisions.json), reported with its
+   within THREADS_ROUND_RTOL, with one within ML_TWIN_RTOL); the ML split
+   test (the SH pass; the SplitCount's counts equal, its worst delta
+   within THREADS_CRIT_TOL).  (b) The JAX package's -threads 8 trees
+   (scripts/make_torch_port_threads_golden.py): -nt -noml at N=500
+   byte-identical; the default run at N=200 RF 0, or parting from the
+   golden at a batched ML NNI decision that is a near tie in both
+   packages (the golden's _decisions.json), reported with its
    margins, and the final LogLk within 1e-4 relative.  (c) -nt -threads 8
    at N=2000, P=500 and -nt -noml -threads 8 at N=500 (THREADS_MAIN),
    warm, the launch counts reset just before each run and read just after
@@ -4922,6 +4923,13 @@ THREADS_DELTA_ATOL = 1e-9
 # the ML functions on the card against the twins (4 codes; ROADMAP Queue 3):
 # each quartet's criteria, and each length within 1e-4 + 2e-3 x length
 THREADS_CRIT_TOL = 2e-2
+# the tree LogLk after the card's lengths pass and ML NNI round against
+# the twins', relative: about 7 and 3.5 times the largest read on the H100
+# (1.38e-8, 2.87e-7).  A pass with one sweep a level instead of two lies
+# 1.5e-4 from the whole pass at this start (on the CPU; PERF.md, section
+# 6).  A round with a flip on a near tie is held to ML_TWIN_RTOL
+THREADS_PASS_RTOL = 1e-7
+THREADS_ROUND_RTOL = 1e-6
 # (c)'s runs: the default run at N=MAIN_N, and the -noml run at N=500.
 # The default run's ME phase is the -noml run's at N=MAIN_N (the same
 # launches), and a -noml run at N=MAIN_N took the whole smoke to 1025 s of
@@ -4977,9 +4985,10 @@ def side_spr(start, dev, n_threads):
 
 
 def side_lists(ml_nj, dev):
-    """ml_posterior_at (the children of every internal node of two into
-    the list-pass rows at their lengths) and ml_opt_branch_at (each first
-    child's branch against that posterior) on a copy of ml_nj on dev:
+    """ml_posterior with bl= (the children of every internal node of two
+    into the list-pass rows at their lengths) and ml_opt_branch with bl=
+    (each first child's branch against that posterior) on a copy of ml_nj
+    on dev:
     (the posteriors' W and V, the lengths after, the searches' f(x))."""
     import numpy as np
 
@@ -4988,10 +4997,10 @@ def side_lists(ml_nj, dev):
     nj = ml_copy(ml_nj, dev)
     ml, kids, targets, lims = list_case(nj)
     bl = ml.lengths_tensor(nj.tree.branchlength[: nj.tree.maxnodes])
-    mk.ml_posterior_at(*ml._store(), targets, kids[:, 0], kids[:, 1],
-                       kids[:, 0], kids[:, 1], bl, float(ml.min_len))
-    _, fx, _ = mk.ml_opt_branch_at(*ml._store(), kids[:, 0], targets,
-                                   kids[:, 0], bl, *lims)
+    mk.ml_posterior(*ml._store(), targets, kids[:, 0], kids[:, 1],
+                    kids[:, 0], kids[:, 1], bl=bl, lo=float(ml.min_len))
+    _, fx, _ = mk.ml_opt_branch(*ml._store(), kids[:, 0], targets,
+                                kids[:, 0], *lims, bl=bl)
     return ({k: getattr(ml, k)[targets].cpu().numpy() for k in ("W", "V")},
             bl.cpu().numpy(), fx.cpu().numpy().astype(np.float64))
 
@@ -5027,35 +5036,23 @@ def side_ml_lengths(ml_nj, dev):
 def side_ml_nni(ml_nj, dev):
     """One batched ML NNI round on a copy of ml_nj on dev: (the quartet
     list's rows, choices and criteria, the tree arrays and lengths, the
-    ages, (n_nni, max_delta), wall, launches)."""
-    import numpy as np
+    ages, (n_nni, max_delta), wall, launches, the tree LogLk after it)."""
+    from torch_thread_runs import Decisions
 
-    from veryfasttree_tpu_torch.engine import batched, rearrange
+    from veryfasttree_tpu_torch.engine import batched, ml, rearrange
     from veryfasttree_tpu_torch.engine.ml_profiles import MLProfiles
-
-    from veryfasttree_tpu_torch.engine import ml
 
     nj = ml_copy(ml_nj, dev)
     stats = rearrange.NNIStats.init(nj)
-    orig, log = MLProfiles.quartet_nni_rows, []
-
-    def recorded(store, rows, lengths):
-        res = orig(store, rows, lengths)
-        log.append((np.asarray(rows), *res[:2]))
-        return res
-
-    MLProfiles.quartet_nni_rows = recorded
     reset_launches()
     t = time.perf_counter()
-    try:
+    with Decisions(MLProfiles) as rec:
         res = batched.do_nni_batched(nj, 0, 2, True, stats)
-    finally:
-        MLProfiles.quartet_nni_rows = orig
     wall = time.perf_counter() - t
     counts = {k: v for k, v in launch_counts().items() if v}
     tree = {k: getattr(nj.tree, k).copy()
             for k in ("parent", "children", "n_child", "branchlength")}
-    return log[0], tree, stats.age.copy(), res, wall, counts, \
+    return rec.log[0], tree, stats.age.copy(), res, wall, counts, \
         ml.tree_loglk(nj)
 
 
@@ -5073,50 +5070,63 @@ def side_split(ml_nj, dev):
         {k: v for k, v in launch_counts().items() if v}
 
 
-def threads_sides(start, ml_nj, dev):
-    """Every side_* function of phase 9(a) on dev, by name."""
-    return {"me_nni": side_me_nni(start, dev),
-            "spr_8": side_spr(start, dev, THREADS),
-            "spr_12": side_spr(start, dev, 12),
-            "lists": side_lists(ml_nj, dev),
-            "ml_lengths": side_ml_lengths(ml_nj, dev),
-            "ml_nni": side_ml_nni(ml_nj, dev),
-            "split": side_split(ml_nj, dev)}
+THREADS_SIDES = ("me_nni", f"spr_{THREADS}", "spr_12", "lists", "ml_lengths",
+                 "ml_nni", "split")
 
 
-def start_threads_twins(tmp):
-    """Phase 9(a)'s start on the card (the N=SPR_N NJ tree and ME store,
-    and from it the ME lengths and a Jukes-Cantor ML store), kept in
-    CPU copies in tmp/start.pkl, and the process that runs the twins on
-    them beside phases 2-8 (chip_smoke.py --twins tmp, on the CPU only):
-    returns (the CPU copies, the process)."""
+def threads_side(name, start, ml_nj, dev):
+    """The side_* function of phase 9(a) called `name` (THREADS_SIDES), on
+    dev."""
+    if name == "me_nni":
+        return side_me_nni(start, dev)
+    if name.startswith("spr_"):
+        return side_spr(start, dev, int(name[len("spr_"):]))
+    return {"lists": side_lists, "ml_lengths": side_ml_lengths,
+            "ml_nni": side_ml_nni, "split": side_split}[name](ml_nj, dev)
+
+
+def threads_start(dev):
+    """Phase 9(a)'s start on dev: the N=SPR_N NJ tree and ME store, and a
+    copy of it with the ME lengths and a Jukes-Cantor ML store."""
+    from veryfasttree_tpu_torch.engine import rearrange
+    from veryfasttree_tpu_torch.engine.ml_profiles import MLProfiles
+
+    start = spr_start(SPR_N, dev)
+    ml_nj = engine_copy(start, dev)
+    rearrange.update_branch_lengths(ml_nj)
+    ml_nj.ml = MLProfiles(ml_nj, None)
+    ml_nj.ml.recompute_ml_profiles()
+    return start, ml_nj
+
+
+def start_threads_twins(starts, tmp):
+    """The twins of phase 9(a): CPU copies of the card's start in
+    tmp/start.pkl, and one process a side (chip_smoke.py --twins tmp name,
+    on the CPU only, one thread each), started once the card's sides have
+    run, so that no timed phase runs beside them: returns the processes by
+    name."""
     import pickle
 
     import torch
 
-    from veryfasttree_tpu_torch.engine import rearrange
-    from veryfasttree_tpu_torch.engine.ml_profiles import MLProfiles
-
     cpu = torch.device("cpu")
-    start = spr_start(SPR_N, torch.device("cuda"))
-    ml_nj = engine_copy(start, start.prof.device)
-    rearrange.update_branch_lengths(ml_nj)
-    ml_nj.ml = MLProfiles(ml_nj, None)
-    ml_nj.ml.recompute_ml_profiles()
-    starts = (engine_copy(start, cpu), ml_copy(ml_nj, cpu))
+    start, ml_nj = starts
     with open(os.path.join(tmp, "start.pkl"), "wb") as f:
-        pickle.dump(starts, f)
+        pickle.dump((engine_copy(start, cpu), ml_copy(ml_nj, cpu)), f)
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
-    with open(os.path.join(tmp, "twins.log"), "w") as log:
-        proc = subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--twins", tmp],
-            env=env, cwd=REPO, stdout=log, stderr=subprocess.STDOUT)
-    return starts, proc
+    procs = {}
+    for name in THREADS_SIDES:
+        with open(os.path.join(tmp, f"twin_{name}.log"), "w") as log:
+            procs[name] = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--twins", tmp,
+                 name], env=env, cwd=REPO, stdout=log,
+                stderr=subprocess.STDOUT)
+    return procs
 
 
-def twins_main(tmp) -> int:
-    """chip_smoke.py --twins tmp: threads_sides on the CPU from
-    tmp/start.pkl, into tmp/twins.pkl."""
+def twins_main(tmp, name) -> int:
+    """chip_smoke.py --twins tmp name: the side `name` on the CPU from
+    tmp/start.pkl, with its seconds, into tmp/twin_{name}.pkl."""
     import pickle
 
     import torch
@@ -5127,32 +5137,34 @@ def twins_main(tmp) -> int:
     with open(os.path.join(tmp, "start.pkl"), "rb") as f:
         start, ml_nj = pickle.load(f)
     t = time.perf_counter()
-    sides = threads_sides(start, ml_nj, torch.device("cpu"))
-    sides["seconds"] = time.perf_counter() - t
-    with open(os.path.join(tmp, "twins.pkl"), "wb") as f:
-        pickle.dump(sides, f)
+    side = threads_side(name, start, ml_nj, torch.device("cpu"))
+    with open(os.path.join(tmp, f"twin_{name}.pkl"), "wb") as f:
+        pickle.dump((side, time.perf_counter() - t), f)
     return 0
 
 
-def threads_twins(report, starts, proc, dev):
-    """(a): the batched functions on the card from the twins' start,
-    against the twins' results."""
+def wait_twins(procs, tmp):
+    """The twins' sides by name once every process has ended, and their
+    seconds by name."""
     import pickle
 
-    import numpy as np
+    twin, seconds = {}, {}
+    for name, proc in procs.items():
+        proc.wait(timeout=600)
+        if proc.returncode != 0:
+            with open(os.path.join(tmp, f"twin_{name}.log")) as f:
+                raise AssertionError(f"the twin {name} exited "
+                                     f"{proc.returncode}:\n"
+                                     f"{f.read()[-3000:]}")
+        with open(os.path.join(tmp, f"twin_{name}.pkl"), "rb") as f:
+            twin[name], seconds[name] = pickle.load(f)
+    return twin, seconds
 
-    start, ml_nj = starts
-    card = threads_sides(start, ml_nj, dev)
-    tmp = proc.args[-1]
-    proc.wait(timeout=900)
-    if proc.returncode != 0:
-        with open(os.path.join(tmp, "twins.log")) as f:
-            raise AssertionError(f"the twins' process exited "
-                                 f"{proc.returncode}:\n{f.read()[-3000:]}")
-    with open(os.path.join(tmp, "twins.pkl"), "rb") as f:
-        twin = pickle.load(f)
-    print(f"  the twins ran beside phases 2-8 in {twin['seconds']:.1f} s "
-          f"(one CPU process)")
+
+def threads_twins(report, ml_nj, card, twin, dev):
+    """(a): the batched functions' results on the card (card, from the
+    start whose ML copy is ml_nj) against the twins' (twin), by name."""
+    import numpy as np
 
     state, wall, counts = card["me_nni"]
     what, _, gap = nni_diff(twin["me_nni"][0], state)
@@ -5188,12 +5200,12 @@ def threads_twins(report, starts, proc, dev):
     same = device_lists_same(ml_nj, dev, rows, bl)
     row_err = float(np.max(np.abs(rows["V"] - rows_t["V"])))
     fx_err = float(np.max(np.abs(fx - fx_t)))
-    print(f"  ml_posterior_at, ml_opt_branch_at [{len(fx)} items]: bit for "
+    print(f"  ml_posterior, ml_opt_branch with bl= [{len(fx)} items]: bit for "
           f"bit the host-length lists {same}; against the twins: rows within "
           f"{row_err:.2e}, -LogLk at the optimum within {fx_err:.2e}, lengths "
           f"within {length_gap(bl, bl_t):.3f} of the tolerance")
     np.testing.assert_allclose(rows["V"], rows_t["V"], **TWIN_ROWS,
-                               err_msg="ml_posterior_at against its twin")
+                               err_msg="ml_posterior with bl= against its twin")
     if not same or fx_err > ML_TWIN_NEAR_TIE:
         raise AssertionError("the device-length lists differ from the "
                              "host-length lists, or their searches' optima "
@@ -5206,9 +5218,10 @@ def threads_twins(report, starts, proc, dev):
           f"{lengths_report(lengths, twin['ml_lengths'][0])}; {wall:.3f} s "
           f"on the card (twins {twin['ml_lengths'][1]:.3f} s), launches "
           f"{counts}")
-    if rel > ML_TWIN_RTOL:
+    if rel > THREADS_PASS_RTOL:
         raise AssertionError(f"the batched lengths pass: tree LogLk rel diff "
-                             f"{rel:.2e} from the twins'")
+                             f"{rel:.2e} from the twins' (limit "
+                             f"{THREADS_PASS_RTOL:.0e})")
     report.setdefault("ml_opt_branch", {})["threads_pass_launches"] = \
         counts.get("ml_opt_branch", 0)
 
@@ -5229,18 +5242,20 @@ def threads_twins(report, starts, proc, dev):
                                      for _, m in flips):
         raise AssertionError(f"the batched ML NNI round: criteria within "
                              f"{err:.3e}, flips {flips}")
-    if not flips:
-        same = all(np.array_equal(tree_c[k], tree_t[k])
-                   for k in ("parent", "children", "n_child")) \
-            and np.array_equal(age_c, age_t) and res_c[0] == res_t[0]
-        rel = abs(loglk - twin["ml_nni"][6]) / abs(twin["ml_nni"][6])
-        print(f"  ML NNI round: the twins' tree, ages and NNIs equal {same}; "
-              f"tree LogLk {loglk:.4f} (twins {twin['ml_nni'][6]:.4f}, rel "
-              f"diff {rel:.2e}); "
-              f"{lengths_report(tree_c['branchlength'], tree_t['branchlength'])}")
-        if not same or rel > ML_TWIN_RTOL:
-            raise AssertionError("the batched ML NNI round differs from the "
-                                 "twins' without a flip")
+    same = all(np.array_equal(tree_c[k], tree_t[k])
+               for k in ("parent", "children", "n_child")) \
+        and np.array_equal(age_c, age_t) and res_c[0] == res_t[0]
+    rel = abs(loglk - twin["ml_nni"][6]) / abs(twin["ml_nni"][6])
+    # a flip on a near tie moves one NNI, and the conflicts it decides
+    limit = ML_TWIN_RTOL if flips else THREADS_ROUND_RTOL
+    print(f"  ML NNI round: the twins' tree, ages and NNIs equal {same}; "
+          f"tree LogLk {loglk:.4f} (twins {twin['ml_nni'][6]:.4f}, rel diff "
+          f"{rel:.2e}, limit {limit:.0e}); "
+          f"{lengths_report(tree_c['branchlength'], tree_t['branchlength'])}")
+    if (not same and not flips) or rel > limit:
+        raise AssertionError(f"the batched ML NNI round differs from the "
+                             f"twins' (tree alike {same}, flips {flips}, "
+                             f"tree LogLk rel diff {rel:.2e})")
     report.setdefault("ml_quartet_opt", {})["threads_round_launches"] = \
         counts.get("ml_quartet_opt", 0)
 
@@ -5318,30 +5333,6 @@ def launch_counts():
     return {name: fn.launches for name, fn in wrappers().items()}
 
 
-def threads_decisions(fn):
-    """Run fn() with the ML store's quartet_nni_rows (the batched ML NNI
-    rounds' lists) logging every quartet in order: returns (fn's result,
-    [(rows, choice, criteria)])."""
-    import numpy as np
-
-    from veryfasttree_tpu_torch.engine.ml_profiles import MLProfiles
-
-    orig, log = MLProfiles.quartet_nni_rows, []
-
-    def recorded(store, rows, lengths):
-        choice, crit, new_len = orig(store, rows, lengths)
-        log.extend((tuple(int(r) for r in row), int(c),
-                    np.asarray(cr, dtype=np.float64))
-                   for row, c, cr in zip(rows, choice, crit))
-        return choice, crit, new_len
-
-    MLProfiles.quartet_nni_rows = recorded
-    try:
-        return fn(), log
-    finally:
-        MLProfiles.quartet_nni_rows = orig
-
-
 def threads_golden(dev):
     """(b): -nt -noml -threads 8 at N=500 byte-identical to the JAX
     package's tree, and the default -nt -threads 8 run at N=200: RF 0, or
@@ -5354,8 +5345,10 @@ def threads_golden(dev):
     topology 27 units worse than the chosen one); the final LogLk within
     1e-4 relative."""
     import numpy as np
-
+    from torch_thread_runs import Decisions
     from util import rf_distance
+
+    from veryfasttree_tpu_torch.engine.ml_profiles import MLProfiles
 
     with open(THREADS_GOLDEN + ".nwk") as f:
         golden = f.read()
@@ -5374,8 +5367,10 @@ def threads_golden(dev):
     with open(THREADS_ML_GOLDEN + "_decisions.json") as f:
         theirs = [(tuple(rows), choice, np.array(crit, dtype=np.float64))
                   for rows, choice, crit in json.load(f)]
-    (nw, nj, wall, counts, final, steps), ours = threads_decisions(
-        lambda: threads_run(ML_GOLDEN_N, dev, True))
+    with Decisions(MLProfiles) as rec:
+        nw, nj, wall, counts, final, steps = threads_run(ML_GOLDEN_N, dev,
+                                                         True)
+    ours = rec.quartets()
     rf, n_splits = rf_distance(nw, golden)
     rel = abs(final - meta["final_loglk"]) / abs(meta["final_loglk"])
     label = f"-nt -threads {THREADS} N={ML_GOLDEN_N}"
@@ -5434,14 +5429,30 @@ def threads_main(report, dev, sizes):
             "n": n, "wall_s": wall, "spr_steps": steps, "timings": timings}
 
 
-def phase_threads(report, dev, twins):
+def phase_threads(report, dev, tmp):
     """-threads > 1 (the batched tier): (a) each batched function on the
-    card against its twins from one N=SPR_N start (twins: the start and
-    the twins' process, start_threads_twins), (b) the JAX package's
-    -threads 8 goldens, (c) the N=MAIN_N runs, warm."""
-    threads_twins(report, *twins, dev)
-    threads_golden(dev)
+    card from one N=SPR_N start, then against its twins, which run on the
+    CPU in processes of their own (start_threads_twins, working in tmp)
+    beside (b), the JAX package's -threads 8 goldens, whose walls are
+    then taken beside them; (c) the N=MAIN_N runs, warm, once the twins
+    have ended."""
+    starts = threads_start(dev)
+    card = {name: threads_side(name, *starts, dev) for name in THREADS_SIDES}
+    procs = start_threads_twins(starts, tmp)
+    try:
+        threads_golden(dev)
+        twin, seconds = wait_twins(procs, tmp)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    print(f"  (b)'s walls were taken beside the twins, which ran in "
+          f"{len(procs)} CPU processes of one thread: "
+          f"{ {k: round(v, 1) for k, v in seconds.items()} } s")
+    threads_twins(report, starts[1], card, twin, dev)
     threads_main(report, dev, THREADS_MAIN)
+
 
 def main() -> int:
     import torch
@@ -5504,13 +5515,8 @@ def main() -> int:
 
     phase("0 card", card)
     phase("1 build", build)
-    twins = {}
     tmp = tempfile.mkdtemp(prefix="chip_smoke_twins_")
     if "1 build" not in failed:
-        # phase 9's twins run on the CPU in a process of their own, beside
-        # phases 2-8
-        phase("9 -threads: the twins' start", lambda: twins.update(
-            run=start_threads_twins(tmp)))
         phase("2 kernels vs twins", phase_kernels, report)
         cuda = torch.device("cuda")
         phase("2b SPR round vs host loop", phase_spr, report, cuda)
@@ -5537,11 +5543,7 @@ def main() -> int:
         phase(f"7b protein ML main path N={PROTEIN_N}", phase_protein_main,
               report, cuda)
         phase("8 constraints", phase_constraints, report, cuda)
-        if "run" in twins:
-            phase("9 -threads", phase_threads, report, cuda, twins["run"])
-    if "run" in twins and twins["run"][1].poll() is None:
-        twins["run"][1].kill()               # phase 9 did not wait for it
-        twins["run"][1].wait()
+        phase("9 -threads", phase_threads, report, cuda, tmp)
     shutil.rmtree(tmp, ignore_errors=True)
     if "epoch" in probe and probe["epoch"][1].poll() is None:
         probe["epoch"][1].kill()             # phase 2d did not wait for it
@@ -5561,6 +5563,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--twins"] and len(sys.argv) == 3:
-        sys.exit(twins_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--twins"] and len(sys.argv) == 4:
+        sys.exit(twins_main(*sys.argv[2:]))
     sys.exit(main())

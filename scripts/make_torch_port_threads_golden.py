@@ -29,7 +29,7 @@ import re
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, REPO)
+sys.path[:0] = [REPO, os.path.join(REPO, "tests")]
 
 P, SEED, THREADS = 500, 0, 8
 DATA = os.path.join(REPO, "tests", "data")
@@ -44,21 +44,10 @@ def main() -> None:
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
     import chip_smoke
+    from torch_thread_runs import Decisions
     from veryfasttree_tpu.engine.ml_profiles import MLProfiles
     from veryfasttree_tpu.options import Options
     from veryfasttree_tpu.pipeline import run_pipeline
-
-    decisions = []
-    orig = MLProfiles.quartet_nni_rows
-
-    def recorded(store, rows, lengths, *a, **k):
-        choice, crit, new_len = orig(store, rows, lengths, *a, **k)
-        decisions.extend([[int(r) for r in row], int(c),
-                          [float(x) for x in cr]]
-                         for row, c, cr in zip(rows, choice, crit))
-        return choice, crit, new_len
-
-    MLProfiles.quartet_nni_rows = recorded
 
     os.makedirs(DATA, exist_ok=True)
     for stem, (n, overrides) in RUNS.items():
@@ -67,8 +56,10 @@ def main() -> None:
                        **overrides)
         opts.derive_settings()
         out, log = io.StringIO(), io.StringIO()
-        decisions.clear()
-        _, sc = run_pipeline(opts, io.StringIO(fasta), out, log_fp=log)
+        with Decisions(MLProfiles) as rec:
+            _, sc = run_pipeline(opts, io.StringIO(fasta), out, log_fp=log)
+        decisions = [[list(rows), choice, [float(x) for x in crit]]
+                     for rows, choice, crit in rec.quartets()]
         if decisions:
             with open(os.path.join(DATA, stem + "_decisions.json"),
                       "w") as f:

@@ -574,9 +574,9 @@ def test_threads_pipeline_on_cuda_matches_cpu(cuda, ml_nni):
 
 @pytest.mark.cuda
 def test_device_length_lists_are_the_host_lists(cuda):
-    """ml_posterior_at and ml_opt_branch_at (lengths read and written on
-    the card) bit for bit ml_posterior and ml_opt_branch fed the same
-    lengths from the host."""
+    """ml_posterior and ml_opt_branch with bl= (lengths read and written on
+    the card) bit for bit the same lists fed the same lengths from the
+    host."""
     from veryfasttree_tpu_torch.engine import rearrange
     from veryfasttree_tpu_torch.engine.ml_profiles import MLProfiles
     from veryfasttree_tpu_torch.engine.nj import NeighbourJoining
@@ -603,10 +603,10 @@ def test_device_length_lists_are_the_host_lists(cuda):
     for at in (True, False):
         if at:
             bl = ml.lengths_tensor(lens)
-            mk.ml_posterior_at(*ml._store(), targets, kids[:, 0], kids[:, 1],
-                               kids[:, 0], kids[:, 1], bl, float(lo))
-            mk.ml_opt_branch_at(*ml._store(), kids[:, 0], targets, kids[:, 0],
-                                bl, *lims)
+            mk.ml_posterior(*ml._store(), targets, kids[:, 0], kids[:, 1],
+                            kids[:, 0], kids[:, 1], bl=bl, lo=float(lo))
+            mk.ml_opt_branch(*ml._store(), kids[:, 0], targets, kids[:, 0],
+                             *lims, bl=bl)
             got = bl.cpu().numpy()
         else:
             mk.ml_posterior(*ml._store(), targets, kids[:, 0], kids[:, 1],

@@ -2,8 +2,9 @@
 line refuses to run without a CUDA device.  Each import check runs in a
 fresh interpreter with both blocked (sys.modules['jax'] = None and
 sys.modules['veryfasttree_tpu'] = None make any import of them fail).
-chip_smoke.py imports only the port and tests/util.py, and without a CUDA
-device, or alone in a directory, it fails and prints no result.
+chip_smoke.py imports only the port and the numpy helpers tests/util.py
+and tests/torch_thread_runs.py, and without a CUDA device, or alone in a
+directory, it fails and prints no result.
 
 What the port shares with the JAX package it keeps as copies (constants,
 options, the model matrices, the Newick printer and reader, the tree
@@ -58,7 +59,8 @@ def test_every_module_imports_without_jax():
 def test_smoke_imports_without_jax():
     """chip_smoke.py and everything it imports from the port and the tests'
     helpers, with jax and the JAX package blocked."""
-    res = _run("sys.path[:0] = ['.', 'tests']; import chip_smoke, util; "
+    res = _run("sys.path[:0] = ['.', 'tests']; import chip_smoke, util, "
+               "torch_thread_runs; "
                "chip_smoke.wrappers(); "
                "from veryfasttree_tpu_torch.options import ml_options, "
                "noml_options; "
@@ -89,7 +91,8 @@ def test_smoke_imports_only_the_port():
     top |= {node.module.split(".")[0] for node in ast.walk(tree)
             if isinstance(node, ast.ImportFrom)}
     assert top - sys.stdlib_module_names == {
-        "numpy", "torch", "veryfasttree_tpu_torch", "util"}
+        "numpy", "torch", "veryfasttree_tpu_torch", "util",
+        "torch_thread_runs"}
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])

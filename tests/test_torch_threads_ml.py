@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 
 from test_torch_quartet import _engines, one_torch_thread  # noqa: F401
+from torch_thread_runs import Decisions
 
 from veryfasttree_tpu.engine import batched as jbatched
 from veryfasttree_tpu.engine import rearrange as jrearrange
@@ -87,27 +88,13 @@ def test_nni_batched_ml_matches_jax(tmp_path):
     jnj, tnj = _engines(tmp_path, "jc")
     jbatched.optimize_all_branch_lengths_batched(jnj)
     _at_jax_lengths(jnj, tnj)
-    logs = {}
-    for store in (JMLStore, TMLStore):
-        orig = store.quartet_nni_rows
-
-        def recorded(self, rows, lengths, *a, _orig=orig, _store=store):
-            res = _orig(self, rows, lengths, *a)
-            logs[_store] = (np.asarray(rows), np.asarray(res[0]),
-                            np.asarray(res[1], dtype=np.float64))
-            return res
-
-        store.quartet_nni_rows = recorded
     jstats = jrearrange.NNIStats.init(jnj)
     tstats = trearrange.NNIStats.init(tnj)
-    try:
+    with Decisions(JMLStore) as jlog, Decisions(TMLStore) as tlog:
         exp = jbatched.do_nni_batched(jnj, 0, 2, True, jstats)
         got = tbatched.do_nni_batched(tnj, 0, 2, True, tstats)
-    finally:
-        for store in (JMLStore, TMLStore):
-            del store.quartet_nni_rows
-    (rows_j, ch_j, cr_j), (rows_t, ch_t, cr_t) = logs[JMLStore], \
-        logs[TMLStore]
+    (rows_j, ch_j, cr_j), = jlog.log
+    (rows_t, ch_t, cr_t), = tlog.log
     np.testing.assert_array_equal(rows_t, rows_j)
     assert np.all(np.abs(cr_t - cr_j) <= CRITERIA_TOL)
     flips = np.flatnonzero(ch_t != ch_j)

@@ -117,8 +117,9 @@ def check_identical(name, tmp):
 
 class Decisions:
     """Records every quartet list of a store class's quartet_nni_rows (the
-    batched ML NNI rounds) while it is entered: [(rows [K, 4], choice [K],
-    criteria [K, 3])]."""
+    batched ML NNI rounds; the JAX package's or the port's) while it is
+    entered: log [(rows [K, 4], choice [K], criteria [K, 3])].  Numpy
+    only, so that chip_smoke.py and the golden scripts use it too."""
 
     def __init__(self, store_cls):
         self.cls, self.log = store_cls, []
@@ -138,6 +139,13 @@ class Decisions:
 
     def __exit__(self, *exc):
         self.cls.quartet_nni_rows = self.orig
+
+    def quartets(self):
+        """Every recorded quartet in order: [(rows (4 ints), choice,
+        criteria [3] float64)]."""
+        return [(tuple(int(r) for r in row), int(c), crit)
+                for rows, choice, crits in self.log
+                for row, c, crit in zip(rows, choice, crits)]
 
     def arrays(self):
         return {f"{k}_{i}": a for i, entry in enumerate(self.log)

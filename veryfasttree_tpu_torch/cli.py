@@ -344,6 +344,9 @@ def main(argv=None) -> int:
     log = TeeStream(log_file, sys.stderr) if log_file else sys.stderr
     try:
         opts.derive_settings(log)
+        if not opts.threads_explicit and opts.threads > 1:
+            print(f"-threads {opts.threads} from OMP_NUM_THREADS: the batched "
+                  "tier (-threads 1 keeps the serial tier)", file=log)
         if opts.verbose > 0:
             report_settings(opts, log)
         in_fp = open_maybe_compressed(opts.in_file_name) if opts.in_file_name \

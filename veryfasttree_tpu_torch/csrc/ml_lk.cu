@@ -372,86 +372,64 @@ int vft_ml_pair_loglk_f32(VFT_ML_STORE_ARGS, const int32_t* rows, const float* l
   return (int)cudaErrorInvalidValue;
 }
 
-// Posterior profiles of rows (rows[n + k], rows[2n + k]) across lengths
-// (lens[k], lens[n + k]) written into row rows[k], in place, k < n.  rows
-// and lens are host arrays, checked against the store and copied to the
-// device buffer lists (align16(12n) + 8n bytes) by stage; no target may be
-// a source.
+// Posterior profiles of rows (rows[n + k], rows[2n + k]) written into row
+// rows[k], in place, k < n; no target may be a source.  The lengths are
+// host floats (lens[k], lens[n + k]) where bl is NULL; otherwise lens is
+// NULL, rows holds two more lists of n indices below n_bl, and the lengths
+// max(bl[rows[3n + k]], lo), max(bl[rows[4n + k]], lo) are read from the
+// float32 device array bl (the -threads > 1 lengths pass).  rows (and
+// lens) are checked against the store and copied to the device buffer
+// lists (align16(12n) + 8n, or 20n, bytes) by stage.
 int vft_ml_posterior_f32(VFT_ML_STORE_ARGS, float tol, const int32_t* rows, const float* lens,
-                         int64_t n, void* lists, void* stream) {
+                         int64_t n, void* lists, const float* bl, int64_t n_bl, float lo,
+                         void* stream) {
   if (!list_fits(n)) return (int)cudaErrorInvalidValue;
-  if (!rows_in(rows, 3 * n, n_rows)) return kBadRow;
+  if (!rows_in(rows, 3 * n, n_rows) || (bl != nullptr && !rows_in(rows + 3 * n, 2 * n, n_bl)))
+    return kBadRow;
   if (n_rates < 1 || n_rates > kMaxRates) return (int)cudaErrorInvalidValue;
   const MLView m = make_view(VFT_ML_VIEW_PASS);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int err = stage(rows, 3 * n * sizeof(int32_t), lens, 2 * n * sizeof(float), lists, st);
+  const int64_t n_idx = bl != nullptr ? 5 * n : 3 * n;
+  const int err = stage(rows, n_idx * sizeof(int32_t), lens,
+                        bl != nullptr ? 0 : 2 * n * sizeof(float), lists, st);
   if (err != 0) return err;
   const int32_t* r = static_cast<const int32_t*>(lists);
   const float* len =
       reinterpret_cast<const float*>(static_cast<char*>(lists) + align16(3 * n * sizeof(int32_t)));
-  const ListLens l1{len, nullptr, nullptr, 0.0f}, l2{len + n, nullptr, nullptr, 0.0f};
-  return posterior_list(m, C, codes, W, V, r, n, l1, l2, tol, st);
-}
-
-// The posteriors of vft_ml_posterior_f32 at lengths max(bl[rows[3n + k]],
-// lo) and max(bl[rows[4n + k]], lo) read on the device: rows (5n host
-// int32: targets, r1, r2 and the two length indices, below n_bl) are
-// checked and copied to the device buffer lists (20n bytes); bl is a
-// float32 device array of n_bl lengths.
-int vft_ml_posterior_at_f32(VFT_ML_STORE_ARGS, float tol, const int32_t* rows, int64_t n,
-                            void* lists, const float* bl, int64_t n_bl, float lo, void* stream) {
-  if (!list_fits(n)) return (int)cudaErrorInvalidValue;
-  if (!rows_in(rows, 3 * n, n_rows) || !rows_in(rows + 3 * n, 2 * n, n_bl)) return kBadRow;
-  if (n_rates < 1 || n_rates > kMaxRates) return (int)cudaErrorInvalidValue;
-  const MLView m = make_view(VFT_ML_VIEW_PASS);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int err = stage(rows, 5 * n * sizeof(int32_t), nullptr, 0, lists, st);
-  if (err != 0) return err;
-  const int32_t* r = static_cast<const int32_t*>(lists);
-  const ListLens l1{nullptr, r + 3 * n, bl, lo}, l2{nullptr, r + 4 * n, bl, lo};
+  const ListLens l1 = bl != nullptr ? ListLens{nullptr, r + 3 * n, bl, lo}
+                                    : ListLens{len, nullptr, nullptr, 0.0f};
+  const ListLens l2 = bl != nullptr ? ListLens{nullptr, r + 4 * n, bl, lo}
+                                    : ListLens{len + n, nullptr, nullptr, 0.0f};
   return posterior_list(m, C, codes, W, V, r, n, l1, l2, tol, st);
 }
 
 // Line search over the length of the branch between rows (rows[k],
-// rows[n + k]) from guess[k]: x[k], fx[k] = -loglk at x[k], n_eval[k].
-// rows and guess are host arrays, checked against the store and copied to
-// the device buffer lists (align16(8n) + 4n bytes) by stage.
+// rows[n + k]): x[k], fx[k] = -loglk at x[k], n_eval[k].  The guesses are
+// host floats guess[k] where bl is NULL; otherwise guess is NULL, rows
+// holds a third list of n distinct indices below n_bl, the guesses are
+// max(bl[rows[2n + k]], xmin) read from the float32 device array bl, and
+// each x[k] is also written to bl[rows[2n + k]].  rows (and guess) are
+// checked against the store and copied to the device buffer lists
+// (align16(8n) + 4n, or 12n, bytes) by stage.
 int vft_ml_opt_branch_f32(VFT_ML_STORE_ARGS, const int32_t* rows, const float* guess, int64_t n,
-                          void* lists, float xmin, float xmax, float ftol, float atol, float* x,
-                          float* fx, int32_t* n_eval, float* scratch, void* stream) {
+                          void* lists, float* bl, int64_t n_bl, float xmin, float xmax,
+                          float ftol, float atol, float* x, float* fx, int32_t* n_eval,
+                          float* scratch, void* stream) {
   if (!list_fits(n)) return (int)cudaErrorInvalidValue;
-  if (!rows_in(rows, 2 * n, n_rows)) return kBadRow;
+  if (!rows_in(rows, 2 * n, n_rows) || (bl != nullptr && !rows_in(rows + 2 * n, n, n_bl)))
+    return kBadRow;
   if (n_rates < 1 || n_rates > kMaxRates) return (int)cudaErrorInvalidValue;
   const MLView m = make_view(VFT_ML_VIEW_PASS);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int err = stage(rows, 2 * n * sizeof(int32_t), guess, n * sizeof(float), lists, st);
+  const int64_t n_idx = bl != nullptr ? 3 * n : 2 * n;
+  const int err = stage(rows, n_idx * sizeof(int32_t), guess,
+                        bl != nullptr ? 0 : n * sizeof(float), lists, st);
   if (err != 0) return err;
   const int32_t* r = static_cast<const int32_t*>(lists);
   const float* g =
       reinterpret_cast<const float*>(static_cast<char*>(lists) + align16(2 * n * sizeof(int32_t)));
-  const ListLens gl{g, nullptr, nullptr, 0.0f};
-  return opt_branch_list(m, C, r, n, gl, SearchLimits{xmin, xmax, ftol, atol}, x, fx, n_eval,
-                         scratch, st);
-}
-
-// The line searches of vft_ml_opt_branch_f32 from the guesses
-// max(bl[rows[2n + k]], xmin) read on the device, each result also
-// written to bl[rows[2n + k]]: rows (3n host int32: r1, r2 and the length
-// indices, distinct and below n_bl) are checked and copied to the device
-// buffer lists (12n bytes); bl is a float32 device array of n_bl lengths.
-int vft_ml_opt_branch_at_f32(VFT_ML_STORE_ARGS, const int32_t* rows, int64_t n, void* lists,
-                             float* bl, int64_t n_bl, float xmin, float xmax, float ftol,
-                             float atol, float* x, float* fx, int32_t* n_eval, float* scratch,
-                             void* stream) {
-  if (!list_fits(n)) return (int)cudaErrorInvalidValue;
-  if (!rows_in(rows, 2 * n, n_rows) || !rows_in(rows + 2 * n, n, n_bl)) return kBadRow;
-  if (n_rates < 1 || n_rates > kMaxRates) return (int)cudaErrorInvalidValue;
-  const MLView m = make_view(VFT_ML_VIEW_PASS);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int err = stage(rows, 3 * n * sizeof(int32_t), nullptr, 0, lists, st);
-  if (err != 0) return err;
-  const int32_t* r = static_cast<const int32_t*>(lists);
-  const ListLens gl{nullptr, r + 2 * n, bl, xmin};
+  const ListLens gl = bl != nullptr ? ListLens{nullptr, r + 2 * n, bl, xmin}
+                                    : ListLens{g, nullptr, nullptr, 0.0f};
   return opt_branch_list(m, C, r, n, gl, SearchLimits{xmin, xmax, ftol, atol}, x, fx, n_eval,
                          scratch, st);
 }

@@ -403,7 +403,9 @@ def optimize_all_branch_lengths_batched(nj) -> None:
             ml.posterior_rows_at(upd, kids[upd, 0], kids[upd, 1],
                                  kids[upd, 0], kids[upd, 1], bl)
         # the JAX package pads each of these lists to a power of 2 and
-        # counts the padding's calls too; so do the debug counters
+        # counts the padding's calls too.  The port launches no padding:
+        # these counts exist only so that the debug counters (-verbose
+        # statistics) read as the JAX package's
         pad = (1 << (len(nodes) - 1).bit_length()) - len(nodes)
         nj.debug.n_posterior_compute += 6 * pad + (
             (1 << (len(upd) - 1).bit_length()) - len(upd) if len(upd) else 0)

@@ -266,8 +266,8 @@ class MLProfiles:
     def posterior_rows_at(self, targets, r1s, r2s, n1s, n2s, bl) -> None:
         """posterior_rows with the lengths bl[n1s[k]], bl[n2s[k]] (raised
         to the minimum) read on the device: one ml_posterior list."""
-        ml_kernels.ml_posterior_at(*self._store(), targets, r1s, r2s, n1s,
-                                   n2s, bl, float(self.min_len))
+        ml_kernels.ml_posterior(*self._store(), targets, r1s, r2s, n1s, n2s,
+                                bl=bl, lo=float(self.min_len))
         self.nj.debug.n_posterior_compute += len(targets)
 
     def opt_branch_length_rows(self, r1s, r2s, nodes, bl) -> None:
@@ -276,10 +276,10 @@ class MLProfiles:
         result written into bl[nodes[k]] on the device (nodes distinct):
         one ml_opt_branch list, nothing fetched."""
         opts = self.options
-        ml_kernels.ml_opt_branch_at(
-            *self._store(), r1s, r2s, nodes, bl, opts.ml_min_branch_length,
-            6.0, opts.ml_ftol_branch_length,
-            opts.ml_min_branch_length_tolerance)
+        ml_kernels.ml_opt_branch(
+            *self._store(), r1s, r2s, nodes, opts.ml_min_branch_length, 6.0,
+            opts.ml_ftol_branch_length, opts.ml_min_branch_length_tolerance,
+            bl=bl)
         # 8 evaluations a search, as the JAX store counts them
         self.nj.debug.n_lk_compute += 8 * len(r1s)
 

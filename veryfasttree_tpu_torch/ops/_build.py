@@ -263,13 +263,10 @@ def _declare(lib) -> None:
     lib.vft_ml_pair_loglk_f32.argtypes = ml_store + [ptr, ptr, i64, ptr, ptr,
                                                      ptr, ptr]
     lib.vft_ml_posterior_f32.argtypes = ml_store + [f32, ptr, ptr, i64, ptr,
-                                                    ptr]
-    lib.vft_ml_posterior_at_f32.argtypes = ml_store + [f32, ptr, i64, ptr,
-                                                       ptr, i64, f32, ptr]
+                                                    ptr, i64, f32, ptr]
     lib.vft_ml_opt_branch_f32.argtypes = ml_store + [
-        ptr, ptr, i64, ptr, f32, f32, f32, f32, ptr, ptr, ptr, ptr, ptr]
-    lib.vft_ml_opt_branch_at_f32.argtypes = ml_store + [
-        ptr, i64, ptr, ptr, i64, f32, f32, f32, f32, ptr, ptr, ptr, ptr, ptr]
+        ptr, ptr, i64, ptr, ptr, i64, f32, f32, f32, f32, ptr, ptr, ptr, ptr,
+        ptr]
     lib.vft_ml_opt_branch_fits_smem.argtypes = [i32, i32]
     lib.vft_ml_quartet_opt_f32.argtypes = ml_store + [
         f32, ptr, ptr, i64, ptr, f32, f32, f32, f32, i32, ptr, ptr, ptr, ptr]
@@ -313,7 +310,6 @@ def _declare(lib) -> None:
                  "vft_me_spr_round_cons_f32", "vft_me_nni_round_cons_f32",
                  "vft_ml_pair_loglk_f32", "vft_ml_posterior_f32",
                  "vft_ml_opt_branch_f32", "vft_ml_opt_branch_fits_smem",
-                 "vft_ml_posterior_at_f32", "vft_ml_opt_branch_at_f32",
                  "vft_ml_quartet_opt_f32", "vft_ml_nni_round_f32",
                  "vft_ml_nni_round_cons_f32",
                  "vft_ml_lengths_pass_f32", "vft_ml_round_tree_fits_smem",

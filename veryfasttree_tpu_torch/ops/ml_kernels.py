@@ -27,12 +27,11 @@ over the list:
 Each item of a list runs the body and thread map it runs alone, so its
 bits do not depend on K (the card tests hold K = 300 and K = 200 to K = 1).
 
-``ml_posterior_at`` and ``ml_opt_branch_at`` launch the same two kernels
-over lists whose lengths are read from a float32 tensor of branch lengths
-on the device, the line searches writing their results back into it: the
--threads > 1 lengths pass (engine/batched.py) keeps its lengths on the
-card from its first level to its last.  They count their launches in
-``ml_posterior.launches`` and ``ml_opt_branch.launches``.
+``ml_posterior`` and ``ml_opt_branch`` also take lists whose lengths are
+read from a float32 tensor of branch lengths on the device (``bl=``), the
+line searches writing their results back into it: the -threads > 1
+lengths pass (engine/batched.py) keeps its lengths on the card from its
+first level to its last.
 
 Two kernels of ``csrc/ml_sweep.cu`` take a whole tree in one launch, over
 level tables that reach the device once (``SweepTables``,
@@ -651,7 +650,15 @@ def ml_pair_loglk(codes, W, V, m, r1s, r2s, lengths, want_lk=False,
 ml_pair_loglk.launches = 0
 
 
-def ml_posterior(codes, W, V, m, targets, r1s, r2s, len1s, len2s):
+def _check_lengths(bl, codes, name):
+    if bl.dtype != torch.float32 or bl.dim() != 1 or not bl.is_contiguous() \
+            or bl.device != codes.device:
+        raise ValueError(f"{name}: the lengths must be a contiguous float32 "
+                         "vector on the store's device")
+
+
+def ml_posterior(codes, W, V, m, targets, r1s, r2s, len1s, len2s, bl=None,
+                 lo=0.0):
     """Posterior profiles (ref posteriorProfile tcc:2137-2447) of rows
     (r1s[k], r2s[k]) across lengths (len1s[k], len2s[k]), written into rows
     targets[k] in place: codes NOCODE, weight 0 at both-gap positions (which
@@ -659,13 +666,24 @@ def ml_posterior(codes, W, V, m, targets, r1s, r2s, len1s, len2s):
     before any is written, so no target may be another item's source.  In
     matrix mode the rough-posterior gate applies where m.approx is set,
     and at 20 codes each position that is not both gaps adds one to
-    m.counts' rough or exact count."""
+    m.counts' rough or exact count.
+
+    With bl, a contiguous float32 tensor of branch lengths on the store's
+    device, len1s and len2s are indices into it, and the lengths are
+    max(bl[len1s[k]], lo) and max(bl[len2s[k]], lo), read there (the
+    -threads > 1 lengths pass, engine/batched.py)."""
     targets = np.asarray(targets, dtype=np.int64)
     if len(targets) > 1 and (len(np.unique(targets)) != len(targets)
                              or np.isin(targets, [r1s, r2s]).any()):
         raise ValueError("ml_posterior: targets must be distinct and not "
                          "sources")
+    if bl is not None:
+        _check_lengths(bl, codes, "ml_posterior")
     if codes.device.type == "cpu":
+        if bl is not None:
+            lo = torch.tensor(lo, dtype=torch.float32)
+            len1s, len2s = (torch.maximum(bl[_index(n, bl.device)], lo).numpy()
+                            for n in (len1s, len2s))
         return ml_posterior_ref(codes, W, V, m, targets, r1s, r2s, len1s,
                                 len2s)
     bound = _bind(codes, W, V, m)
@@ -674,47 +692,85 @@ def ml_posterior(codes, W, V, m, targets, r1s, r2s, len1s, len2s):
         raise ValueError("targets, rows and lengths differ in length")
     if K == 0:
         return
-    rows = np.concatenate([targets, r1s, r2s]).astype(np.int32)
-    lens = np.concatenate([len1s, len2s]).astype(np.float32)
+    if bl is None:
+        rows = np.concatenate([targets, r1s, r2s]).astype(np.int32)
+        lens = np.concatenate([len1s, len2s]).astype(np.float32)
+    else:
+        rows = np.concatenate([targets, r1s, r2s, len1s,
+                               len2s]).astype(np.int32)
+        lens = np.zeros(0, dtype=np.float32)
     lists = bound.buffer("lists", align16(rows.nbytes) + lens.nbytes)
     _raise_on(_build.library().vft_ml_posterior_f32(
         *bound.args, ctypes.c_float(m.tol), rows.ctypes.data,
-        lens.ctypes.data, K, lists.data_ptr(), bound.stream), "ml_posterior")
+        lens.ctypes.data if bl is None else None, K, lists.data_ptr(),
+        None if bl is None else bl.data_ptr(),
+        0 if bl is None else bl.numel(), ctypes.c_float(lo), bound.stream),
+        "ml_posterior")
     ml_posterior.launches += 1
 
 
 ml_posterior.launches = 0
 
 
-def ml_opt_branch(codes, W, V, m, r1s, r2s, guesses, xmin, xmax, ftol, atol):
+def ml_opt_branch(codes, W, V, m, r1s, r2s, guesses, xmin, xmax, ftol, atol,
+                  bl=None):
     """Maximum-likelihood length of the branch between rows r1s[k] and
     r2s[k], from guesses[k]: bracketing + Brent in float32 (ref
     onedimenmin/brent tcc:7024-7178, the JAX package's
     _onedimenmin_device).  Returns (x [K] float32, -loglk at x [K] float32,
     evaluations [K] int32) on the store's device; on CUDA they are views of
     the store's buffers, which the next call on the same store overwrites
-    (in stream order)."""
+    (in stream order).
+
+    With bl, a contiguous float32 tensor of branch lengths on the store's
+    device, guesses are distinct indices into it: the searches start from
+    max(bl[guesses[k]], xmin), read there, and each x[k] is written back
+    into bl[guesses[k]] (the -threads > 1 lengths pass, engine/batched.py;
+    nothing is fetched)."""
+    if bl is not None:
+        _check_lengths(bl, codes, "ml_opt_branch")
+        nodes = np.asarray(guesses, dtype=np.int64)
+        if len(np.unique(nodes)) != len(nodes):
+            raise ValueError("ml_opt_branch: the length indices must be "
+                             "distinct")
     if codes.device.type == "cpu":
-        return ml_opt_branch_ref(codes, W, V, m, r1s, r2s, guesses, xmin,
-                                 xmax, ftol, atol)
+        if bl is None:
+            return ml_opt_branch_ref(codes, W, V, m, r1s, r2s, guesses, xmin,
+                                     xmax, ftol, atol)
+        idx = _index(nodes, bl.device)
+        x, fx, n_eval = ml_opt_branch_ref(
+            codes, W, V, m, r1s, r2s,
+            torch.maximum(bl[idx], torch.tensor(xmin, dtype=torch.float32))
+            .numpy(), xmin, xmax, ftol, atol)
+        bl[idx] = x
+        return x, fx, n_eval
     bound = _bind(codes, W, V, m)
     K = len(r1s)
     if len(r2s) != K or len(guesses) != K:
         raise ValueError("r1s, r2s and guesses differ in length")
-    rows = np.concatenate([r1s, r2s]).astype(np.int32)
-    guess = np.asarray(guesses, dtype=np.float32)
+    if bl is None:
+        rows = np.concatenate([r1s, r2s]).astype(np.int32)
+        guess = np.asarray(guesses, dtype=np.float32)
+    else:
+        rows = np.concatenate([r1s, r2s, nodes]).astype(np.int32)
+        guess = np.zeros(0, dtype=np.float32)
     x, fx, n_eval, scratch = _opt_outputs(bound, K)
     if K:
         lists = bound.buffer("lists", align16(rows.nbytes) + guess.nbytes)
         _raise_on(_build.library().vft_ml_opt_branch_f32(
-            *bound.args, rows.ctypes.data, guess.ctypes.data, K,
-            lists.data_ptr(), ctypes.c_float(xmin), ctypes.c_float(xmax),
-            ctypes.c_float(ftol), ctypes.c_float(atol), x.data_ptr(),
-            fx.data_ptr(), n_eval.data_ptr(),
+            *bound.args, rows.ctypes.data,
+            guess.ctypes.data if bl is None else None, K, lists.data_ptr(),
+            None if bl is None else bl.data_ptr(),
+            0 if bl is None else bl.numel(), ctypes.c_float(xmin),
+            ctypes.c_float(xmax), ctypes.c_float(ftol), ctypes.c_float(atol),
+            x.data_ptr(), fx.data_ptr(), n_eval.data_ptr(),
             scratch.data_ptr() if scratch is not None else None,
             bound.stream), "ml_opt_branch")
         ml_opt_branch.launches += 1
     return x, fx, n_eval
+
+
+ml_opt_branch.launches = 0
 
 
 def _opt_outputs(bound, K):
@@ -728,88 +784,6 @@ def _opt_outputs(bound, K):
     return (typed(buf, 0, (K,), torch.float32),
             typed(buf, step, (K,), torch.float32),
             typed(buf, 2 * step, (K,), torch.int32), scratch)
-
-
-def _check_lengths(bl, codes, name):
-    if bl.dtype != torch.float32 or bl.dim() != 1 or not bl.is_contiguous() \
-            or bl.device != codes.device:
-        raise ValueError(f"{name}: the lengths must be a contiguous float32 "
-                         "vector on the store's device")
-
-
-def ml_posterior_at(codes, W, V, m, targets, r1s, r2s, n1s, n2s, bl, lo):
-    """ml_posterior at the lengths max(bl[n1s[k]], lo) and max(bl[n2s[k]],
-    lo) (host index arrays), read from the float32 lengths bl on the
-    store's device: one ml_posterior launch on CUDA (counted there), the
-    twin on the CPU."""
-    _check_lengths(bl, codes, "ml_posterior_at")
-    targets = np.asarray(targets, dtype=np.int64)
-    if len(targets) > 1 and (len(np.unique(targets)) != len(targets)
-                             or np.isin(targets, [r1s, r2s]).any()):
-        raise ValueError("ml_posterior_at: targets must be distinct and not "
-                         "sources")
-    if codes.device.type == "cpu":
-        lo = torch.tensor(lo, dtype=torch.float32)
-        return ml_posterior_ref(
-            codes, W, V, m, targets, r1s, r2s,
-            torch.maximum(bl[_index(n1s, bl.device)], lo).numpy(),
-            torch.maximum(bl[_index(n2s, bl.device)], lo).numpy())
-    bound = _bind(codes, W, V, m)
-    K = len(targets)
-    if not len(r1s) == len(r2s) == len(n1s) == len(n2s) == K:
-        raise ValueError("targets, rows and length indices differ in length")
-    if K == 0:
-        return
-    rows = np.concatenate([targets, r1s, r2s, n1s, n2s]).astype(np.int32)
-    lists = bound.buffer("lists", rows.nbytes)
-    _raise_on(_build.library().vft_ml_posterior_at_f32(
-        *bound.args, ctypes.c_float(m.tol), rows.ctypes.data, K,
-        lists.data_ptr(), bl.data_ptr(), bl.numel(), ctypes.c_float(lo),
-        bound.stream), "ml_posterior_at")
-    ml_posterior.launches += 1
-
-
-def ml_opt_branch_at(codes, W, V, m, r1s, r2s, nodes, bl, xmin, xmax, ftol,
-                     atol):
-    """ml_opt_branch from the guesses max(bl[nodes[k]], xmin) (host index
-    array, nodes distinct) read from the float32 lengths bl on the store's
-    device, each x written back into bl[nodes[k]] there: one ml_opt_branch
-    launch on CUDA (counted there), the twin on the CPU.  Returns
-    ml_opt_branch's (x, fx, n_eval), not fetched."""
-    _check_lengths(bl, codes, "ml_opt_branch_at")
-    nodes = np.asarray(nodes, dtype=np.int64)
-    if len(np.unique(nodes)) != len(nodes):
-        raise ValueError("ml_opt_branch_at: the length indices must be "
-                         "distinct")
-    if codes.device.type == "cpu":
-        idx = _index(nodes, bl.device)
-        guesses = torch.maximum(bl[idx], torch.tensor(xmin,
-                                                      dtype=torch.float32))
-        x, fx, n_eval = ml_opt_branch_ref(codes, W, V, m, r1s, r2s,
-                                          guesses.numpy(), xmin, xmax, ftol,
-                                          atol)
-        bl[idx] = x
-        return x, fx, n_eval
-    bound = _bind(codes, W, V, m)
-    K = len(nodes)
-    if len(r1s) != K or len(r2s) != K:
-        raise ValueError("r1s, r2s and nodes differ in length")
-    x, fx, n_eval, scratch = _opt_outputs(bound, K)
-    if K:
-        rows = np.concatenate([r1s, r2s, nodes]).astype(np.int32)
-        lists = bound.buffer("lists", rows.nbytes)
-        _raise_on(_build.library().vft_ml_opt_branch_at_f32(
-            *bound.args, rows.ctypes.data, K, lists.data_ptr(),
-            bl.data_ptr(), bl.numel(), ctypes.c_float(xmin),
-            ctypes.c_float(xmax), ctypes.c_float(ftol), ctypes.c_float(atol),
-            x.data_ptr(), fx.data_ptr(), n_eval.data_ptr(),
-            scratch.data_ptr() if scratch is not None else None,
-            bound.stream), "ml_opt_branch_at")
-        ml_opt_branch.launches += 1
-    return x, fx, n_eval
-
-
-ml_opt_branch.launches = 0
 
 
 def ml_quartet_opt(codes, W, V, m, rows4, lengths, scratch_rows, xmin, xmax,
