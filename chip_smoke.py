@@ -271,6 +271,24 @@ passed):
    (me_nni_round, me_spr_round, ml_nni_round, ml_lengths_pass); the phase
    split, wall, Newick SHA-256 and final LogLk beside phases 4 and 6, and
    the lockstep SPR's steps.
+10. The last single-card modules.  (a) -checkpoint: the default -nt run
+   at N=2000, P=500 stopped just after round 3's save, then resumed in a
+   fresh run_pipeline and, from a copy of that file, through the command
+   line: both give phase 6's Newick SHA-256, final LogLk and ML-NNIs; each
+   save's fetch and write time and bytes, and one compressed save's.
+   (b) The fused join step: -nt -noml -fastest at N=2000 with the unfused
+   host loop (VFT_FUSED_JOIN=0's) and fused, the launch counts reset
+   before each: the fused run launches nj_join_step and no join epoch, and
+   the two end states (join log, tree, per-node arrays, store rows,
+   out-profile, top-hits state, counters) and Newicks are bit for bit
+   equal; joins_s and wall of each; nj_join_step against its twin on one
+   join of that run (packed result rtol 1e-12, the new row and the
+   out-profile bit for bit), timed with its bound; -fastest and -2nd at
+   N=500 byte-identical to the JAX package's trees
+   (tests/data/torch_port_{fastest,2nd}_golden_n500_p500.nwk, from
+   scripts/make_torch_port_fastest_golden.py).  (c) VFT_TRACE on the
+   default -nt run at N=60: the trace holds CUDA kernel events and the
+   phases' annotations; which whole-tree kernels it shows.
 
 The last lines are the card's name and power limit, one JSON line with each
 kernel's route, source, main-path launches (the ML main path's for the ML
@@ -353,6 +371,10 @@ KERNELS = {
                      "veryfasttree_tpu/engine/rearrange.py:246"),
     "nj_join_epoch": ("veryfasttree_tpu_torch/csrc/nj_epoch.cu",
                       "veryfasttree_tpu/engine/epoch.py:131"),
+    # the fused join of the host join loop (-fastest, -2nd): XLA's
+    # _fused_join, not a Pallas kernel
+    "nj_join_step": ("veryfasttree_tpu_torch/csrc/nj_join.cu",
+                     "veryfasttree_tpu/engine/fused.py:56"),
     "ml_nni_round": ("veryfasttree_tpu_torch/csrc/ml_round.cu",
                      "veryfasttree_tpu/engine/rearrange.py:246"),
     "ml_lengths_pass": ("veryfasttree_tpu_torch/csrc/ml_round.cu",
@@ -402,6 +424,7 @@ DEVICE_NAMES = {
     "me_spr_round": ("me_spr_round_kernel",),
     "me_nni_round": ("me_nni_round_kernel",),
     "nj_join_epoch": ("nj_epoch_kernel",),
+    "nj_join_step": ("nj_join_step_kernel",),
     "ml_nni_round": ("ml_nni_round_kernel",),
     "ml_lengths_pass": ("ml_lengths_pass_kernel",),
     "sh_resample_counts": ("sh_resample_counts_kernel",),
@@ -435,9 +458,9 @@ def TWINS(n):
 
 def wrappers():
     """The kernel wrappers by name; each counts its launches."""
-    from veryfasttree_tpu_torch.ops import epoch_kernels, ml_kernels, \
-        ml_round, nni_kernels, resample_kernels, scan_kernels, spr_kernels, \
-        store_kernels
+    from veryfasttree_tpu_torch.ops import epoch_kernels, join_kernels, \
+        ml_kernels, ml_round, nni_kernels, resample_kernels, scan_kernels, \
+        spr_kernels, store_kernels
 
     return {"nj_scan_dense": scan_kernels.nj_scan_dense,
             "nj_scan_codes": scan_kernels.nj_scan_codes,
@@ -453,6 +476,7 @@ def wrappers():
             "me_spr_round": spr_kernels.spr_round,
             "me_nni_round": nni_kernels.nni_round,
             "nj_join_epoch": epoch_kernels.join_epoch,
+            "nj_join_step": join_kernels.nj_join_step,
             "ml_nni_round": ml_round.ml_nni_round,
             "ml_lengths_pass": ml_round.ml_lengths_pass,
             "sh_resample_counts": resample_kernels.sh_resample_counts,
@@ -2043,11 +2067,13 @@ def epoch_run(n, dev, kernel=True, max_joins=None, two_tier=False,
     """The port's NJ phase (fast_nj) on synth_codes(n, MAIN_P) on dev, its
     joins through the epoch kernel (launch: grid, state_in_smem and
     lists_in_smem of ops/epoch_kernels.join_epoch) or, kernel=False,
-    through the host loop with the per-call kernels.  protein: 20 codes
-    under BLOSUM45 (matrix mode)."""
+    through the host loop with the per-call kernels (its unfused body,
+    USE_FUSED_JOIN off).  protein: 20 codes under BLOSUM45 (matrix
+    mode)."""
     import torch
 
     from veryfasttree_tpu_torch.engine import epoch
+    from veryfasttree_tpu_torch.engine import nj as nj_mod
     from veryfasttree_tpu_torch.engine.nj import NeighbourJoining
     from veryfasttree_tpu_torch.models import DistanceMatrix
     from veryfasttree_tpu_torch.options import Options
@@ -2060,8 +2086,10 @@ def epoch_run(n, dev, kernel=True, max_joins=None, two_tier=False,
                           DistanceMatrix.blosum45() if protein else None,
                           None, device=dev)
     supported, run = epoch.epoch_supported, epoch.run_epoch
+    fused = nj_mod.USE_FUSED_JOIN
     if not kernel:
         epoch.epoch_supported = lambda nj_, tophits: False
+        nj_mod.USE_FUSED_JOIN = False
     elif launch:
         epoch.run_epoch = lambda nj_, tophits, mj=None: run(
             nj_, tophits, mj, **launch)
@@ -2070,6 +2098,7 @@ def epoch_run(n, dev, kernel=True, max_joins=None, two_tier=False,
         torch.cuda.synchronize()
     finally:
         epoch.epoch_supported, epoch.run_epoch = supported, run
+        nj_mod.USE_FUSED_JOIN = fused
     return nj
 
 
@@ -5454,6 +5483,315 @@ def phase_threads(report, dev, tmp):
     threads_main(report, dev, THREADS_MAIN)
 
 
+# ------------------------------------------------------------- phase 10
+FASTEST_MODES = {"fastest": {"fastest": True},
+                 "2nd": {"use_tophits_2nd": True}}
+# the JAX package's -nt -noml -nosupport trees of each mode at N=500
+# (scripts/make_torch_port_fastest_golden.py)
+FASTEST_GOLDEN = os.path.join(REPO, "tests", "data",
+                              "torch_port_{}_golden_n500_p500")
+# phase 10(c)'s traced run: the default -nt run at N=TRACE_N (its trace
+# records every host operation, tens of thousands at this size)
+TRACE_N = 60
+# the whole-tree kernels, as torch.profiler names them, whose launches
+# phase 10(c) looks for in a VFT_TRACE trace
+TRACE_KERNELS = ("nj_epoch_kernel", "me_spr_round_kernel",
+                 "me_average_sweep_kernel", "me_pair_list_kernel",
+                 "ml_nni_round_kernel", "ml_lengths_pass_kernel",
+                 "ml_posterior_sweep_kernel", "ml_tree_loglk_kernel")
+
+
+class Interrupted(Exception):
+    """Raised after a chosen checkpoint save (phase 10(a))."""
+
+
+def phase_checkpoint(tmp, dev):
+    """10(a): the default -nt run at N=MAIN_N with -checkpoint, stopped
+    just after round 3's save, then resumed in a fresh run_pipeline and
+    through the command line from a copy of that file: both the
+    uninterrupted run's Newick SHA-256, final LogLk and ML-NNIs from round
+    4 on (phase 6's).  Prints each save's fetch and write time and bytes,
+    and one compressed save's (np.savez_compressed, as the JAX package
+    writes) of the last state beside them."""
+    import numpy as np
+
+    from veryfasttree_tpu_torch.engine import checkpoint
+
+    fasta = fasta_text(synth_codes(MAIN_N, MAIN_P))
+    path = os.path.join(tmp, "main.npz")
+    save = checkpoint.save_checkpoint
+    saves = []
+
+    def save_then_stop(nj, p, meta, extra=None):
+        saves.append(save(nj, p, meta, extra))
+        if meta["round"] == 3:
+            raise Interrupted()
+        return saves[-1]
+
+    checkpoint.save_checkpoint = save_then_stop
+    t0 = time.perf_counter()
+    try:
+        run_ml(fasta, dev, checkpoint_file=path)
+        raise AssertionError("the run was not stopped after round 3")
+    except Interrupted:
+        wall_a = time.perf_counter() - t0
+    finally:
+        checkpoint.save_checkpoint = save
+    shutil.copy(path, path + ".cli")
+    logs = []
+    nw, nj, wall_b, _, rounds, final = run_ml(
+        fasta, dev, logs, checkpoint_file=path)
+    saves += nj.checkpoint_saves
+    for k, s in enumerate(saves):
+        print(f"  save after ML-NNI round {k + 1}: fetch {s['fetch_s']:.4f} "
+              f"s, write {s['write_s']:.4f} s, {s['bytes']} bytes")
+    zpath = os.path.join(tmp, "compressed.npz")
+    t0 = time.perf_counter()
+    with open(zpath, "wb") as f:
+        np.savez_compressed(f, **checkpoint.state_arrays(nj, {}))
+    print(f"  the last state compressed (np.savez_compressed): "
+          f"{time.perf_counter() - t0:.4f} s, fetch and write, "
+          f"{os.path.getsize(zpath)} bytes")
+    sha = hashlib.sha256(nw.encode()).hexdigest()
+    nnis = [r[1] for r in rounds]
+    print(f"  stopped after round 3 in {wall_a:.2f} s, resumed in "
+          f"{wall_b:.2f} s ({nj.timings['ckpt_s']:.3f} s of it saving): "
+          f"final LogLk {final:.3f}, ML-NNIs of rounds 4 on {nnis}, Newick "
+          f"SHA-256 {sha[:16]}... (phase 6: {ML_MAIN_LOGLK}, "
+          f"{ML_MAIN_NNIS[3:]}, {ML_MAIN_SHA}...)")
+    if "Resuming ML-NNI at round 4" not in logs[0]:
+        raise AssertionError("the second run did not resume at round 4")
+    if f"{final:.3f}" != ML_MAIN_LOGLK or not sha.startswith(ML_MAIN_SHA) \
+            or nnis != ML_MAIN_NNIS[3:]:
+        raise AssertionError("the resumed run is not the uninterrupted one")
+    # the command line, from the round-3 file, in a process of its own
+    fpath = os.path.join(tmp, "main.fasta")
+    with open(fpath, "w") as f:
+        f.write(fasta)
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "veryfasttree_tpu_torch", "-nt", "-threads",
+         "1", "-quiet", "-checkpoint", path + ".cli", fpath], cwd=REPO,
+        capture_output=True, text=True, timeout=600, check=False)
+    sha_cli = hashlib.sha256(res.stdout.encode()).hexdigest()
+    print(f"  command line -checkpoint (round 3's file): exit "
+          f"{res.returncode} in {time.perf_counter() - t0:.2f} s, Newick "
+          f"SHA-256 {sha_cli[:16]}...")
+    if res.returncode != 0 or sha_cli != sha:
+        raise AssertionError(f"command line: exit {res.returncode}\n"
+                             f"{res.stderr[-2000:]}")
+
+
+def join_step_bound(cap):
+    """(bytes, operations) of one join step at its captured inputs: rows i
+    and j, the candidates and prefetch rows read once (float rows or, below
+    leaf_rows, codes), the out-profile read and written, the new row, the
+    staged inputs and the packed result written; the distances' 2(C+1)
+    operations a position each, the average's and update's 4C+6 and 3C+6."""
+    codes, W, U = cap["args"][:3]
+    P, C = W.shape[1], U.shape[2]
+    lo = cap["args"][6]
+    i, j, t = cap["args"][13]
+    cand, pref = cap["args"][14], cap["args"][15]
+    rows = set(int(x) for x in (i, j, *cand, *pref))
+    row_bytes = sum(P if r < lo else P * (4 * C + 5) for r in rows)
+    n_out = len(cand) * 4 + len(pref) * 2 + 14
+    n_bytes = (row_bytes + P * (4 * C + 5) + 2 * 4 * P * (C + 1)
+               + 8 * (15 + n_out) + 4 * len(rows))
+    pairs = 5 + 2 * len(cand) + len(pref)
+    return n_bytes, P * (2 * (C + 1) * pairs + (4 * C + 6) + (3 * C + 6))
+
+
+def check_join_step(report, cap):
+    """nj_join_step against its twin on one captured join of the -fastest
+    N=MAIN_N run: the packed result within TOL (float64 sums in other
+    orders), the new row and the out-profile bit for bit; then timed."""
+    import numpy as np
+    import torch
+
+    from veryfasttree_tpu_torch.ops import join_kernels
+
+    def fresh():
+        return [a.clone() if torch.is_tensor(a) else a for a in cap["args"]]
+
+    k_args, t_args = fresh(), fresh()
+    got = join_kernels.nj_join_step(*k_args)
+    torch.cuda.synchronize()
+    exp = join_kernels.nj_join_step_ref(*t_args)
+    g, e = got.cpu().numpy(), exp.cpu().numpy()
+    np.testing.assert_allclose(g, e, err_msg="nj_join_step", **TOL)
+    err = float(np.max(np.abs(g - e)))
+    t, lo = cap["args"][13][2], cap["args"][6]
+    same = {"codes": torch.equal(k_args[0][t], t_args[0][t]),
+            "W": torch.equal(k_args[1][t - lo], t_args[1][t - lo]),
+            "U": torch.equal(k_args[2][t - lo], t_args[2][t - lo]),
+            "w_out": torch.equal(k_args[7], t_args[7]),
+            "f_out": torch.equal(k_args[8], t_args[8])}
+    if not all(same.values()):
+        raise AssertionError(f"nj_join_step: the new row or out-profile "
+                             f"differs from the twin's: {same}")
+    n_bytes, n_ops = join_step_bound(cap)
+    time_args, twin_args = fresh(), fresh()
+    times = timing("nj_join_step",
+                   lambda: join_kernels.nj_join_step(*time_args),
+                   lambda: join_kernels.nj_join_step_ref(*twin_args),
+                   n_bytes, n_ops, twin_runs=20)
+    print(f"  nj_join_step at join {cap['call']} of the N={MAIN_N} -fastest "
+          f"run ({len(cap['args'][14])} candidates, {len(cap['args'][15])} "
+          f"prefetch rows, grid {join_kernels.nj_join_step.grid}): max abs "
+          f"err {err:.3e} against the twin, the row and out-profile equal; "
+          f"{times['device_us']:.2f} us on the device, {times['ms']:.4f} ms "
+          f"launch to launch, twin {times['plain_ms']:.3f} ms, bound "
+          f"{times['bound_ms']:.3e} ms ({times['bound_by']})")
+    report.setdefault("nj_join_step", {}).update(max_abs_err=err, **times)
+
+
+def fastest_run(fasta, dev, fused, capture=None, **overrides):
+    """One -nt -noml -nosupport run with the fused join step on or off
+    (USE_FUSED_JOIN), the launch counts set to 0 just before it and read
+    just after it; capture: a dict that receives clones of the inputs of
+    the first join step from call capture["at"] on with both candidates
+    and prefetch rows."""
+    import torch
+
+    from veryfasttree_tpu_torch.engine import nj as nj_mod
+    from veryfasttree_tpu_torch.ops import join_kernels
+
+    step = join_kernels.nj_join_step
+    calls = [0]
+
+    def capturing(*args):
+        calls[0] += 1
+        if calls[0] >= capture["at"] and "args" not in capture \
+                and len(args[14]) and len(args[15]):
+            capture["args"] = [a.clone() if torch.is_tensor(a) else
+                               (a.copy() if hasattr(a, "copy") else a)
+                               for a in args]
+            capture["call"] = calls[0]
+        return step(*args)
+
+    was = nj_mod.USE_FUSED_JOIN
+    reset_launches()
+    nj_mod.USE_FUSED_JOIN = fused
+    if capture is not None:
+        # the wrapper counts under its module name, which names this
+        # function while it stands in
+        capturing.launches, capturing.grid = step.launches, step.grid
+        join_kernels.nj_join_step = capturing
+    try:
+        nw, nj, wall = run_port(fasta, dev, **overrides)
+    finally:
+        nj_mod.USE_FUSED_JOIN = was
+        if capture is not None:
+            step.launches, step.grid = capturing.launches, capturing.grid
+            join_kernels.nj_join_step = step
+    return nw, nj, wall, {name: fn.launches
+                          for name, fn in wrappers().items()}
+
+
+def phase_fastest(report, dev):
+    """10(b): -nt -noml -fastest at N=MAIN_N with the unfused host loop
+    (VFT_FUSED_JOIN=0's) and with the fused join step: the fused run
+    launches nj_join_step and no join epoch, the two end states bit for bit
+    alike; nj_join_step against its twin on a join of that run; then
+    -fastest and -2nd at N=500 byte-identical to the JAX package's trees."""
+    from veryfasttree_tpu_torch.engine import epoch
+
+    fasta = fasta_text(synth_codes(MAIN_N, MAIN_P))
+    states, cap = {}, {"at": MAIN_N // 2}
+    for fused in (False, True):
+        nw, nj, wall, counts = fastest_run(
+            fasta, dev, fused, capture=cap if fused else None, fastest=True)
+        t = nj.timings
+        label = "fused" if fused else "unfused"
+        joins = counts["nj_join_step"]
+        print(f"  N={MAIN_N} -nt -noml -fastest, {label}: wall {wall:.2f} s; "
+              f"NJ store {t['store_s']:.3f} s, top-hits {t['tophits_s']:.3f} "
+              f"s, joins {t['joins_s']:.3f} s "
+              f"({(MAIN_N - 3) / t['joins_s']:.1f} joins/s); ME NNI "
+              f"{t['nni_s']:.3f} s, SPR {t['spr_s']:.3f} s; nj_join_step "
+              f"{joins} launches, me_dists {counts['me_dists']}, me_average "
+              f"{counts['me_average']}, nj_join_epoch "
+              f"{counts['nj_join_epoch']}")
+        # epoch_state's arrays after every phase: the join log, tree,
+        # per-node arrays, store rows, out-profile, top-hits state, counters
+        states[label] = (nw, epoch_state(nj))
+        if counts["nj_join_epoch"] or (joins == 0) == fused \
+                or epoch.epoch_supported(nj, nj._tophits):
+            raise AssertionError(f"{label}: nj_join_step {joins} launches, "
+                                 f"nj_join_epoch {counts['nj_join_epoch']}")
+        if fused:
+            report.setdefault("nj_join_step", {}).update(
+                launches=joins, fastest_wall_s=wall,
+                fastest_joins_s=t["joins_s"])
+        else:
+            report.setdefault("nj_join_step", {}).update(
+                unfused_wall_s=wall, unfused_joins_s=t["joins_s"])
+    diff = epoch_diff(states["unfused"][1], states["fused"][1])
+    if diff or states["unfused"][0] != states["fused"][0]:
+        raise AssertionError(f"fused against unfused: {diff} differ, Newick "
+                             f"equal {states['unfused'][0] == states['fused'][0]}")
+    print("  fused and unfused: the same Newick, and every array of the end "
+          "state bit for bit")
+    check_join_step(report, cap)
+
+    with open(FASTEST_GOLDEN.format("fastest") + ".json") as f:
+        meta = json.load(f)
+    fasta = fasta_text(synth_codes(meta["n"], meta["p"], seed=meta["seed"]))
+    for mode, fields in FASTEST_MODES.items():
+        with open(FASTEST_GOLDEN.format(mode) + ".nwk") as f:
+            golden = f.read()
+        nw, nj, wall, counts = fastest_run(fasta, dev, True, **fields)
+        print(f"  N={meta['n']} -nt -noml -{mode}: {wall:.2f} s, "
+              f"byte-identical to the JAX golden {nw == golden}, "
+              f"nj_join_step {counts['nj_join_step']} launches")
+        if nw != golden or not counts["nj_join_step"]:
+            raise AssertionError(f"-{mode}: differs from the JAX golden")
+
+
+def phase_trace(report, dev, tmp):
+    """10(c): VFT_TRACE on the default -nt run at N=TRACE_N: the trace
+    file holds CUDA kernel events and the phases' annotations; which of the
+    whole-tree kernels it shows, against their launches."""
+    trace_dir = os.path.join(tmp, "trace")
+    os.environ["VFT_TRACE"] = trace_dir
+    try:
+        _, _, wall, counts, _, _ = run_ml(
+            fasta_text(synth_codes(TRACE_N, MAIN_P)), dev)
+    finally:
+        del os.environ["VFT_TRACE"]
+    files = os.listdir(trace_dir)
+    if len(files) != 1:
+        raise AssertionError(f"VFT_TRACE wrote {files}")
+    path = os.path.join(trace_dir, files[0])
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = collections.Counter(e["name"] for e in events
+                                  if e.get("cat") == "kernel")
+    notes = {e["name"] for e in events if e.get("cat") == "user_annotation"}
+    shown = {k: sum(v for n, v in kernels.items() if k in n)
+             for k in TRACE_KERNELS}
+    size = os.path.getsize(path)
+    os.remove(path)
+    print(f"  VFT_TRACE: N={TRACE_N} default -nt run in {wall:.2f} s "
+          f"traced, {size} bytes, {sum(kernels.values())} "
+          f"CUDA kernel events of {len(kernels)} kernels; annotations "
+          f"{sorted(notes)}; whole-tree kernels in the trace {shown}, "
+          f"launched { {k: v for k, v in counts.items() if v} }")
+    want = {"store", "tophits", "joins", "nni", "spr", "lengths",
+            "ml_nni", "cat", "sh"}
+    if not kernels or not want <= notes:
+        raise AssertionError(f"the trace holds {len(kernels)} kernels, "
+                             f"annotations {sorted(notes)}")
+
+
+def phase_last_modules(report, dev, tmp):
+    """Phase 10: -checkpoint, the fused join step and VFT_TRACE."""
+    phase_checkpoint(tmp, dev)
+    phase_fastest(report, dev)
+    phase_trace(report, dev, tmp)
+
+
 def main() -> int:
     import torch
 
@@ -5544,6 +5882,8 @@ def main() -> int:
               report, cuda)
         phase("8 constraints", phase_constraints, report, cuda)
         phase("9 -threads", phase_threads, report, cuda, tmp)
+        phase("10 checkpoint, fused join, trace", phase_last_modules,
+              report, cuda, tmp)
     shutil.rmtree(tmp, ignore_errors=True)
     if "epoch" in probe and probe["epoch"][1].poll() is None:
         probe["epoch"][1].kill()             # phase 2d did not wait for it

@@ -3,6 +3,9 @@
 
     python scripts/profile_torch_port.py          # -nt -noml -nosupport
     python scripts/profile_torch_port.py --ml     # the default -nt run
+    python scripts/profile_torch_port.py --fastest  # -nt -noml -nosupport
+                                                    # -fastest (the host join
+                                                    # loop's fused step)
 
 On the cells of chip_smoke.py (chip_smoke.synth_codes, N=2000, P=500,
 seed 0) it prints:
@@ -38,6 +41,9 @@ def main() -> None:
     parser.add_argument("--ml", action="store_true",
                         help="profile the default -nt run (ML phase) "
                         "instead of -nt -noml -nosupport")
+    parser.add_argument("--fastest", action="store_true",
+                        help="profile -nt -noml -nosupport -fastest, whose "
+                        "joins take the host loop's fused join step")
     args = parser.parse_args()
     for sub in ("", "tests"):
         sys.path.insert(0, os.path.join(REPO, sub))
@@ -54,7 +60,7 @@ def main() -> None:
 
     def run(text):
         if not args.ml:
-            return run_port(text, dev)
+            return run_port(text, dev, fastest=args.fastest)
         from veryfasttree_tpu_torch.options import ml_options
         from veryfasttree_tpu_torch.pipeline import run_pipeline
 

@@ -1208,3 +1208,125 @@ def test_whole_tree_kernels_refuse_rows_outside_the_store(cuda):
     with pytest.raises(IndexError):
         mk.ml_tree_loglk(*nj.ml._store(), bad)
     assert mk.ml_posterior_sweep.launches == before
+
+
+def _fastest_nj(dev, fused, n=150, capture=None, **kw):
+    """The port's NJ phase under -fastest on synth_codes(n, 500) on dev,
+    its joins through the fused join step or (fused=False) the unfused
+    host loop body; capture: a dict that receives clones of one join
+    step's inputs (the first after join n // 2 with candidates and
+    prefetch rows)."""
+    from chip_smoke import synth_codes
+    from veryfasttree_tpu_torch.engine import nj as nj_mod
+    from veryfasttree_tpu_torch.ops import join_kernels
+    from veryfasttree_tpu_torch.options import Options
+
+    opts = Options(n_codes=4, ml_nni=0, n_bootstrap=0, show_progress=False,
+                   fastest=True, **kw)
+    opts.derive_settings()
+    step, was = join_kernels.nj_join_step, nj_mod.USE_FUSED_JOIN
+    calls = [0]
+
+    def capturing(*args):
+        calls[0] += 1
+        if capture is not None and "args" not in capture \
+                and calls[0] > n // 2 and len(args[14]) and len(args[15]):
+            capture["args"] = [a.clone() if torch.is_tensor(a) else a
+                               for a in args]
+        return step(*args)
+
+    # the wrapper counts under its module name, which names this function
+    # while it stands in
+    capturing.launches, capturing.grid = step.launches, step.grid
+    join_kernels.nj_join_step = capturing
+    nj_mod.USE_FUSED_JOIN = fused
+    try:
+        nj = nj_mod.NeighbourJoining(opts, synth_codes(n, 500), None, None,
+                                     device=dev)
+        nj.fast_nj()
+        torch.cuda.synchronize()
+    finally:
+        step.launches, step.grid = capturing.launches, capturing.grid
+        join_kernels.nj_join_step, nj_mod.USE_FUSED_JOIN = step, was
+    return nj
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [{}, {"bionj": True}, {"two_tier_min": 0}],
+                         ids=["dense", "bionj", "two-tier"])
+def test_join_step_kernel_is_the_unfused_loop_and_the_twin(cuda, kw):
+    """-fastest at N=150 (chip_smoke.py's phase 10(b)): the fused loop
+    through nj_join_step leaves every array of the NJ phase bit for bit as
+    the unfused body with the per-call kernels does; and one captured join
+    step through the kernel against the twin on the same inputs: the
+    packed result within TOL (float64 sums in other orders), the new row
+    and the out-profile bit for bit."""
+    from chip_smoke import epoch_diff, epoch_state
+    from veryfasttree_tpu_torch.ops import join_kernels
+
+    cap = {}
+    before = join_kernels.nj_join_step.launches
+    fused = epoch_state(_fastest_nj(cuda, True, capture=cap, **kw))
+    assert join_kernels.nj_join_step.launches > before + 100
+    unfused = epoch_state(_fastest_nj(cuda, False, **kw))
+    assert epoch_diff(fused, unfused) == []
+
+    k_args = [a.clone() if torch.is_tensor(a) else a for a in cap["args"]]
+    t_args = [a.clone() if torch.is_tensor(a) else a for a in cap["args"]]
+    got = join_kernels.nj_join_step(*k_args)
+    torch.cuda.synchronize()
+    exp = join_kernels.nj_join_step_ref(*t_args)
+    np.testing.assert_allclose(got.cpu().numpy(), exp.cpu().numpy(), **TOL)
+    for k in (0, 1, 2, 7, 8):          # codes, W, U, w_out, f_out
+        assert torch.equal(k_args[k], t_args[k]), k
+
+
+@pytest.mark.cuda
+def test_checkpoint_round_trip_and_resume_on_cuda(cuda, tmp_path):
+    """-checkpoint on the card: a default ML run stopped after round 2's
+    save and resumed prints the uninterrupted run's Newick; the file of a
+    state, loaded into a fresh engine, gives every array back."""
+    from veryfasttree_tpu_torch.engine import checkpoint
+    from veryfasttree_tpu_torch.options import ml_options
+    from veryfasttree_tpu_torch.pipeline import run_pipeline
+
+    fasta = "".join(f">s{i}\n{s}\n"
+                    for i, s in enumerate(simulate_alignment(40, 200, seed=8)))
+
+    def run(ckpt="", **kw):
+        out = io.StringIO()
+        nj, _ = run_pipeline(ml_options(checkpoint_file=ckpt, n_bootstrap=0,
+                                        **kw), io.StringIO(fasta), out,
+                             device=cuda)
+        return out.getvalue(), nj
+
+    full, nj = run()
+    path = str(tmp_path / "ck.npz")
+    save = checkpoint.save_checkpoint
+
+    class Stop(Exception):
+        pass
+
+    def save_then_stop(nj_, p, meta, extra=None, **kw):
+        save(nj_, p, meta, extra, **kw)
+        if meta["round"] == 2:
+            raise Stop()
+
+    checkpoint.save_checkpoint = save_then_stop
+    try:
+        with pytest.raises(Stop):
+            run(path)
+    finally:
+        checkpoint.save_checkpoint = save
+    resumed, _ = run(path)
+    assert resumed == full
+
+    state = str(tmp_path / "state.npz")
+    save(nj, state, {"phase": "test", "round": 1})
+    _, nj2 = run(ml_nni=0, nni=0, spr=0)
+    checkpoint.load_checkpoint(nj2, state)
+    a = checkpoint.state_arrays(nj, {})
+    b = checkpoint.state_arrays(nj2, {})
+    assert a.keys() == b.keys()
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)

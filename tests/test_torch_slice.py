@@ -99,15 +99,3 @@ def test_bionj_join_rows_identical_to_jax():
         ours = getattr(nj_t.prof, name)[63].numpy()
         ref = np.asarray(getattr(nj_j.prof, name))[63]
         np.testing.assert_array_equal(ours, ref)
-
-
-@pytest.mark.parametrize("flags", [dict(checkpoint_file="ckpt.npz")])
-def test_unported_options_raise(flags):
-    """-checkpoint (-constraints runs: tests/test_torch_constraints_*.py;
-    -threads > 1: tests/test_torch_threads_*.py)."""
-    opts = TOptions(**{"n_codes": 4, "show_progress": False, "ml_nni": 0,
-                       "n_bootstrap": 0, **flags})
-    opts.derive_settings()
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        torch_pipeline.run_pipeline(opts, io.StringIO(">a\nA\n"),
-                                    io.StringIO(), device=torch.device("cpu"))

@@ -30,7 +30,8 @@ import torch
 from .. import constants
 from ..ops import ml_round
 
-from . import batched, rearrange
+from ..utils.trace import annotate
+from . import batched, checkpoint, rearrange
 from .ml_profiles import (LEN_A, LEN_B, LEN_C, LEN_D, LEN_I, S_AB, S_CD,
                           S_TMP1, MLProfiles, site_log)
 from .rearrange import ABvsCD, ACvsBD, ADvsBC, UpProfiles
@@ -661,14 +662,24 @@ def _clock(nj) -> float:
 
 
 def run_ml_phase(nj, ml_nni_to_do: int, n_uniq: int, progress, log,
-                 log_tree=None) -> SplitCount:
+                 log_tree=None, resume=None) -> SplitCount:
     """The ML phase: with -threads > 1 its NNI rounds and lengths passes
     are the batched tier's (engine/batched.py), else the round kernels'
     (ops/ml_round.py).  Adds host-clock seconds of its parts to nj.timings
-    (ml_lengths_s, ml_nni_s, cat_s, gtr_s, sh_s, gamma_s), each ending
-    after the device is done."""
+    (ml_lengths_s, ml_nni_s, cat_s, gtr_s, sh_s, gamma_s, ckpt_s), each
+    ending after the device is done.
+
+    With -checkpoint the engine's arrays are saved after every ML-NNI
+    round (engine/checkpoint.py; each save's fetch and write seconds and
+    bytes in nj.checkpoint_saves).  resume: (meta, extra) of
+    checkpoint.load_checkpoint, which restarts the ML-NNI loop after the
+    saved round with the saved rates, NNI ages and convergence state."""
     opts = nj.options
-    nj.ml = MLProfiles(nj, nj.transmat)
+    ckpt_path = opts.checkpoint_file
+    if resume is not None and not resume[0].get("has_ml"):
+        resume = None       # saved before the ML phase: start it afresh
+    if resume is None:
+        nj.ml = MLProfiles(nj, nj.transmat)
     if opts.threads > 1:
         # as the JAX package's run_ml_phase dispatches it
         lengths_pass = batched.optimize_all_branch_lengths_batched
@@ -683,13 +694,40 @@ def run_ml_phase(nj, ml_nni_to_do: int, n_uniq: int, progress, log,
     reset_gtr = opts.n_codes == 4 and opts.use_gtr and not opts.use_gtr_rates
     stats = rearrange.NNIStats.init(nj)
     t = dict.fromkeys(("ml_lengths_s", "ml_nni_s", "cat_s", "gtr_s", "sh_s",
-                       "gamma_s"), 0.0)
+                       "gamma_s", "ckpt_s"), 0.0)
+    nj.checkpoint_saves = []
 
     def timed(key, fn, *args):
         t0 = _clock(nj)
-        out = fn(*args)
+        with annotate(key[:-2]):
+            out = fn(*args)
         t[key] += _clock(nj) - t0
         return out
+
+    def save(i_round, last_loglk, converged, cur):
+        """The checkpoint after ML-NNI round i_round (1-based), with the
+        NNI ages that the round wrote back to the host."""
+        nj.checkpoint_saves.append(timed(
+            "ckpt_s", checkpoint.save_checkpoint, nj, ckpt_path,
+            {"phase": "ml_nni", "round": i_round, "last_loglk": last_loglk,
+             "converged": converged, "ml_nni_to_do": ml_nni_to_do},
+            {"stats_age": cur.age, "stats_subtree_age": cur.subtree_age,
+             "stats_delta": cur.delta, "stats_support": cur.support}))
+
+    start_round = 0
+    last_loglk = -1e20
+    converged = False
+    if resume is not None and resume[0].get("phase") == "ml_nni":
+        meta, extra = resume
+        start_round = int(meta["round"])
+        last_loglk = float(meta["last_loglk"])
+        converged = bool(meta["converged"])
+        stats = rearrange.NNIStats(
+            extra["stats_age"], extra["stats_subtree_age"],
+            extra["stats_delta"], extra["stats_support"])
+        if log is not None:
+            print(f"Resuming ML-NNI at round {start_round + 1} from "
+                  f"checkpoint {ckpt_path}", file=log)
 
     def rates_and_gtr():
         if reset_gtr:
@@ -698,9 +736,9 @@ def run_ml_phase(nj, ml_nni_to_do: int, n_uniq: int, progress, log,
         timed("cat_s", set_ml_rates, nj, progress)
         log_ml_rates(nj, log)
 
-    if opts.ml_len:
+    if opts.ml_len and resume is None:
         max_round = int(0.5 + math.log2(max(n_uniq, 2)))
-        last_loglk = -1e20
+        len_loglk = -1e20
         for i_round in range(1, max_round + 1):
             old = nj.tree.branchlength.copy()
             timed("ml_lengths_s", lengths_pass, nj)
@@ -710,30 +748,30 @@ def run_ml_phase(nj, ml_nni_to_do: int, n_uniq: int, progress, log,
                 old[: nj.tree.maxnode]
                 - nj.tree.branchlength[: nj.tree.maxnode]).max())
             loglk = timed("ml_lengths_s", tree_loglk, nj)
-            converged = i_round > 1 and (
+            len_converged = i_round > 1 and (
                 d_max_change < 0.001
-                or loglk < last_loglk + constants.TREE_LOGLK_DELTA)
+                or loglk < len_loglk + constants.TREE_LOGLK_DELTA)
             if log is not None:
                 print(f"{i_round} rounds ML lengths: LogLk = {loglk:.3f} "
                       f"Max-change {d_max_change:.4f}"
-                      f"{' (converged)' if converged else ''}", file=log)
+                      f"{' (converged)' if len_converged else ''}",
+                      file=log)
             if i_round == 1:
                 rates_and_gtr()
-            if converged:
+            if len_converged:
                 break
-            last_loglk = loglk
+            len_loglk = loglk
 
-    if ml_nni_to_do > 0:
+    if ml_nni_to_do > 0 and start_round == 0:
         timed("ml_lengths_s", lengths_pass, nj)
 
-    last_loglk = -1e20
-    converged = False
-    for i in range(ml_nni_to_do):
+    for i in range(start_round, ml_nni_to_do):
         t0 = _clock(nj)
-        changes, max_delta = nni_round(i, stats)
-        if log_tree:
-            log_tree("ML_NNI%d", i + 1)
-        loglk = tree_loglk(nj)
+        with annotate("ml_nni"):
+            changes, max_delta = nni_round(i, stats)
+            if log_tree:
+                log_tree("ML_NNI%d", i + 1)
+            loglk = tree_loglk(nj)
         t["ml_nni_s"] += _clock(nj) - t0
         converged_here = i > 0 and (
             loglk < last_loglk + constants.TREE_LOGLK_DELTA
@@ -755,6 +793,8 @@ def run_ml_phase(nj, ml_nni_to_do: int, n_uniq: int, progress, log,
         last_loglk = loglk
         if i == 0 and len(nj.ml.rates_np) == 1:
             rates_and_gtr()
+        if ckpt_path:
+            save(i + 1, last_loglk, converged, stats)
 
     if ml_nni_to_do > 0:
         timed("ml_lengths_s", lengths_pass, nj)

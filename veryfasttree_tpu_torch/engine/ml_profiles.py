@@ -46,6 +46,33 @@ class MLProfiles:
     def __init__(self, nj, transmat):
         """Build the ML store from the leaf codes and the current topology
         (the reference's profile switch, VeryFastTreeImpl.tcc:252-256)."""
+        self._setup(nj)
+        self._set_constants(transmat)
+
+        n_rows = 3 * self.maxnodes + N_SCRATCH
+        leaf_codes = self._leaf_codes()
+        n_seqs = nj.n_seqs
+        codes = np.full((n_rows, self.p_pad), NOCODE, dtype=np.int8)
+        codes[:n_seqs] = leaf_codes
+        W = np.zeros((n_rows, self.p_pad), dtype=self.dtype)
+        W[:n_seqs] = leaf_codes != NOCODE
+        V = np.tile(self.gap_vec.cpu().numpy()[None, None, :],
+                    (n_rows, self.p_pad, 1)).astype(self.dtype)
+        V[:n_seqs] = self.code_freq.cpu().numpy()[leaf_codes.astype(np.int64)]
+        self._put(codes, W, V)
+        self.recompute_average_profiles()
+
+    @classmethod
+    def shell(cls, nj):
+        """A store with the engine's layout and no arrays yet, for a
+        checkpoint's arrays and model (load_state; the JAX package's
+        checkpoint._init_ml_shell)."""
+        self = cls.__new__(cls)
+        self._setup(nj)
+        return self
+
+    def _setup(self, nj) -> None:
+        """The fields that the layout and the options fix."""
         opts = nj.options
         self.options = opts
         self.nj = nj
@@ -67,20 +94,6 @@ class MLProfiles:
         # flush_posterior_counters
         self.post_counts = torch.zeros(2, dtype=torch.int64,
                                        device=self.device)
-        self._set_constants(transmat)
-
-        n_rows = 3 * self.maxnodes + N_SCRATCH
-        leaf_codes = self._leaf_codes()
-        n_seqs = nj.n_seqs
-        codes = np.full((n_rows, self.p_pad), NOCODE, dtype=np.int8)
-        codes[:n_seqs] = leaf_codes
-        W = np.zeros((n_rows, self.p_pad), dtype=self.dtype)
-        W[:n_seqs] = leaf_codes != NOCODE
-        V = np.tile(self.gap_vec.cpu().numpy()[None, None, :],
-                    (n_rows, self.p_pad, 1)).astype(self.dtype)
-        V[:n_seqs] = self.code_freq.cpu().numpy()[leaf_codes.astype(np.int64)]
-        self._put(codes, W, V)
-        self.recompute_average_profiles()
 
     def _leaf_codes(self) -> np.ndarray:
         """Leaf code rows [n_seqs, p_pad] of the ME store (kept for every
@@ -116,15 +129,24 @@ class MLProfiles:
         # -approxml's rough posteriors: amino-acid matrix models only (ref
         # posteriorProfile tcc:2390-2421 sits inside the nCodes == 20
         # branch)
-        self.use_approx = not self.options.exact_ml and C == 20 \
-            and not self.jc
+        use_approx = not self.options.exact_ml and C == 20 and not self.jc
+        self._set_model(cf, ev, statinv, eigeninv,
+                        np.asarray(eigeninv).sum(axis=1), near_p, near_freq,
+                        use_approx)
+
+    def _set_model(self, code_freq, eigenval, statinv, eigeninv, eigentot,
+                   near_p, near_freq, use_approx) -> None:
+        """The model's tables on the device, in the store's float type;
+        every table a kernel reads (MLModel, the round kernels' staged
+        tables) comes from these."""
+        self.use_approx = bool(use_approx)
         self.near_p = self._tensor(near_p)
         self.near_freq = self._tensor(near_freq)
-        self.code_freq = self._tensor(cf)
-        self.eigenval = self._tensor(ev)
+        self.code_freq = self._tensor(code_freq)
+        self.eigenval = self._tensor(eigenval)
         self.statinv = self._tensor(statinv)
         self.eigeninv = self._tensor(eigeninv)
-        self.eigentot = self._tensor(np.asarray(eigeninv).sum(axis=1))
+        self.eigentot = self._tensor(eigentot)
         self.gap_vec = self.code_freq[NOCODE]
         self._push_model()
 
@@ -163,13 +185,24 @@ class MLProfiles:
         self.ratecat_np = rc
         self._push_model()
 
-    def load_state(self, codes, W, V, rates, ratecat) -> None:
+    def load_state(self, codes, W, V, rates, ratecat, model=None) -> None:
         """Replace the store's arrays (numpy, in the JAX store's layout) and
-        its CAT rates.  The store must have been built for the same
-        alignment and model."""
-        if np.shape(codes) != tuple(self.codes.shape) \
-                or np.shape(V) != tuple(self.V.shape):
+        its CAT rates.  Without `model` the store must have been built for
+        the same alignment and model; with it (the checkpoint's ml_* model
+        arrays by their names less "ml_": code_freq, eigenval, statinv,
+        eigeninv, eigentot, near_p, near_freq and flags = [jc,
+        use_approx]) the model comes from those arrays, a fitted GTR matrix
+        included, and a shell (MLProfiles.shell) takes them too."""
+        C = self.n_codes
+        shape = (3 * self.maxnodes + N_SCRATCH, self.p_pad)
+        if np.shape(codes) != shape or np.shape(V) != shape + (C,):
             raise ValueError("arrays do not match the store layout")
+        if model is not None:
+            self.jc = bool(model["flags"][0])
+            self.transmat = None
+            self._set_model(*(model[k] for k in (
+                "code_freq", "eigenval", "statinv", "eigeninv", "eigentot",
+                "near_p", "near_freq")), bool(model["flags"][1]))
         self._put(codes, W, V)
         self.set_rates(rates, np.asarray(ratecat)[: self.n_pos])
 

@@ -1,11 +1,14 @@
 """Profile neighbor-joining engine: criterion, out-distances, the join loop
-(counterpart of ``veryfasttree_tpu/engine/nj.py``, host join loop only).
+(counterpart of ``veryfasttree_tpu/engine/nj.py``).
 
 The sequential heuristics (join order, visible-set hill climbing, the
 out-profile reset policy) run on the host exactly as in FastTree-2 (ref
 src/NeighbourJoining.tcc); every distance evaluation is a batched call into
 the profile store, whose one-vs-all scan (setBestHit, ref tcc:3571-3646) is
-the fused CUDA scan kernel.
+the fused CUDA scan kernel.  The join epoch (engine/epoch.py) runs the
+default top-hits mode's join loop on the card; the other modes join in the
+host loop, where a join that keeps the out-profile is one fused step
+(engine/fused.py) unless VFT_FUSED_JOIN=0.
 
 Determinism: every argmin over criteria breaks ties by lowest index (ref
 tcc:3627-3637).
@@ -13,6 +16,7 @@ tcc:3627-3637).
 from __future__ import annotations
 
 import math
+import os
 import time
 from dataclasses import dataclass
 from typing import Optional
@@ -22,9 +26,17 @@ import torch
 
 from ..constants import NOCODE
 from ..utils.debug import Debug
+from ..utils.trace import annotate
 
+from . import fused
 from .profiles import MEProfiles
 from .state import TreeState
+
+# The fused one-launch join step of the host loop (engine/fused.py), as the
+# JAX package's switch of the same name and default
+# (veryfasttree_tpu/engine/nj.py:38); VFT_FUSED_JOIN=0 keeps the unfused
+# body for every join, so that the two can be compared.
+USE_FUSED_JOIN = os.environ.get("VFT_FUSED_JOIN", "1") != "0"
 
 
 @dataclass
@@ -82,6 +94,13 @@ class NeighbourJoining:
         self.n_out_dist_active = np.full(self.maxnodes, n_seqs * 10, dtype=np.int64)
         self.join_log: list = []  # (i, j) per join, for join-order parity tests
 
+        # raw (dist, weight) against the out-profile of version
+        # _out_raw_version, by node, from the fused join step's scans: a
+        # refresh of a cached node is host arithmetic (apply_out_refresh),
+        # with the bits the store call would give
+        self._out_raw: dict = {}
+        self._out_raw_version = -1
+
         self.prof.recompute_outprofile(self._leaf_mask())
         if self.n_cons:
             # the leaf totals: the out-profile's counts, which no join changes
@@ -123,6 +142,8 @@ class NeighbourJoining:
             arrays, self.options, self.dmat, self.n_seqs, self.n_pos,
             self.maxnodes, two_tier=self.prof.two_tier,
             device=self.prof.device)
+        self._out_raw = {}
+        self._out_raw_version = -1
 
     # ------------------------------------------------------------------ utils
     def gaps_per_pos(self) -> np.ndarray:
@@ -197,6 +218,29 @@ class NeighbourJoining:
         self.out_distances[idx] = od
         self.n_out_dist_active[idx] = n_active
 
+    def cache_out_raw(self, nodes, dists, weights) -> None:
+        """Record raw (dist, weight) against the current out-profile for
+        later host-only refreshes (invalidated when prof.out_version
+        moves)."""
+        if self._out_raw_version != self.prof.out_version:
+            self._out_raw = {}
+            self._out_raw_version = self.prof.out_version
+        for n, d, w in zip(np.asarray(nodes), np.asarray(dists),
+                           np.asarray(weights)):
+            self._out_raw[int(n)] = (float(d), float(w))
+
+    def _split_cached(self, idx: np.ndarray):
+        """Split a refresh set into (cached_idx, d, w, uncached_idx)."""
+        if self._out_raw_version != self.prof.out_version or not self._out_raw:
+            return idx[:0], None, None, idx
+        hit = np.array([int(n) in self._out_raw for n in idx], dtype=bool)
+        if not hit.any():
+            return idx[:0], None, None, idx
+        cached = idx[hit]
+        d = np.array([self._out_raw[int(n)][0] for n in cached])
+        w = np.array([self._out_raw[int(n)][1] for n in cached])
+        return cached, d, w, idx[~hit]
+
     def set_out_distance(self, idx: np.ndarray, n_active: int, force=False) -> None:
         """Batched setOutDistance (ref tcc:1012-1083)."""
         idx = np.asarray(idx, dtype=np.int64)
@@ -204,9 +248,15 @@ class NeighbourJoining:
             idx = idx[self.n_out_dist_active[idx] != n_active]
         if len(idx) == 0:
             return
-        dist, weight = self.prof.dist_set_vs_out(idx)
-        self.debug.outprofile_ops += len(idx)
-        self.apply_out_refresh(idx, dist, weight, n_active)
+        cached, dc, wc, miss = self._split_cached(idx)
+        if len(cached):
+            self.debug.outprofile_ops += len(cached)
+            self.apply_out_refresh(cached, dc, wc, n_active)
+        if len(miss) == 0:
+            return
+        dist, weight = self.prof.dist_set_vs_out(miss)
+        self.debug.outprofile_ops += len(miss)
+        self.apply_out_refresh(miss, dist, weight, n_active)
 
     def set_criterion_batch(self, n_active: int, iis, jjs, dists) -> np.ndarray:
         """Batched setCriterion (ref tcc:1085-1113): refresh stale out-distances
@@ -250,6 +300,11 @@ class NeighbourJoining:
             refresh = np.concatenate([refresh, rn])
         if len(refresh):
             refresh = np.unique(refresh)
+            cached, dc, wc, refresh = self._split_cached(refresh)
+            if len(cached):
+                self.debug.outprofile_ops += len(cached)
+                self.apply_out_refresh(cached, dc, wc, n_active)
+        if len(refresh):
             d_out, w_o, dist, weight = self.prof.refresh_and_pairs(
                 refresh, iis, jjs)
             self.debug.outprofile_ops += len(refresh)
@@ -270,6 +325,30 @@ class NeighbourJoining:
     def set_dist_criterion(self, n_active: int, hit: Besthit) -> None:
         d, w, c = self.set_dist_criterion_batch(n_active, [hit.i], [hit.j])
         hit.dist, hit.weight, hit.criterion = float(d[0]), float(w[0]), float(c[0])
+
+    def criterion_from_raw(self, n_active: int, i_node: int, jjs, d_raw,
+                           w_raw, dout, wout):
+        """set_dist_criterion_batch of the pairs (i_node, jjs) from distances
+        the fused join step already computed: d_raw, w_raw the pairs', dout,
+        wout the candidates' against the current out-profile (for the
+        staleOutLimit refreshes).  The profile-operation counts are the
+        caller's (engine/tophits.py top_hit_join_fused)."""
+        jjs = np.asarray(jjs, dtype=np.int64)
+        n_diff_allow = int(n_active * self.options.stale_out_limit) \
+            if self.options.tophits_mult > 0 else 0
+        stale = self.n_out_dist_active[jjs] - n_active > n_diff_allow
+        if stale.any():
+            self.apply_out_refresh(jjs[stale], np.asarray(dout)[stale],
+                                   np.asarray(wout)[stale], n_active)
+            self.debug.outprofile_ops += int(stale.sum())
+        weight = np.where(np.asarray(w_raw) > 0, w_raw, 0.01)
+        dist = np.asarray(d_raw) - (self.diameter[i_node] + self.diameter[jjs])
+        iis = np.full(len(jjs), i_node, dtype=np.int64)
+        if self.n_cons:
+            dist = dist + self.options.constraint_weight \
+                * self.join_penalties_batch(iis, jjs)
+        crit = self.set_criterion_batch(n_active, iis, jjs, dist)
+        return dist, weight, crit
 
     # ------------------------------------------------------------- best hits
     def best_hit_arrays(self, node: int, dist, weight, n_active: int):
@@ -391,24 +470,26 @@ class NeighbourJoining:
             m = int(0.5 + opts.tophits_mult * math.sqrt(n_seqs))
             if m < 4 or 2 * m >= n_seqs:
                 m = 0
-        if m > 0:
-            from .tophits import TopHits
-            tophits = TopHits(opts, self.maxnodes, m)
-            self._tophits = tophits  # exposed for tests / state inspection
-            tophits.set_all_leaf_tophits(self)
-            tophits.reset_top_visible(self, n_seqs)
-        elif not opts.slow:
-            visible = [None] * self.maxnodes
-            for i in range(n_seqs):
-                visible[i], _ = self.set_best_hit(i, n_seqs)
+        with annotate("tophits"):
+            if m > 0:
+                from .tophits import TopHits
+                tophits = TopHits(opts, self.maxnodes, m)
+                self._tophits = tophits  # exposed for tests / inspection
+                tophits.set_all_leaf_tophits(self)
+                tophits.reset_top_visible(self, n_seqs)
+            elif not opts.slow:
+                visible = [None] * self.maxnodes
+                for i in range(n_seqs):
+                    visible[i], _ = self.set_best_hit(i, n_seqs)
         t1 = time.perf_counter()
         self.timings["tophits_s"] = t1 - t0
 
         from . import epoch
-        if tophits is not None and epoch.epoch_supported(self, tophits):
-            epoch.run_epoch(self, tophits, max_joins)
-        else:
-            self._join_loop_host(tophits, visible, max_joins)
+        with annotate("joins"):
+            if tophits is not None and epoch.epoch_supported(self, tophits):
+                epoch.run_epoch(self, tophits, max_joins)
+            else:
+                self._join_loop_host(tophits, visible, max_joins)
         if len(self.join_log) < n_seqs - 3:
             return  # max_joins stop: the tree is unfinished
         self._root_three(tree)
@@ -418,8 +499,10 @@ class NeighbourJoining:
         """The join loop on the host (ref fastNJ tcc:2857-3105), from the
         leaf top-hits (or visible set) to three active nodes: every mode's
         loop, and the plain twin of the join epoch (engine/epoch.py), which
-        a CPU store runs and the card tests hold the epoch to.  Returns
-        early after max_joins joins."""
+        a CPU store runs and the card tests hold the epoch to.  With top
+        hits, a join that keeps the out-profile is one fused step
+        (engine/fused.py, USE_FUSED_JOIN), the same bits as the unfused
+        body.  Returns early after max_joins joins."""
         opts = self.options
         tree = self.tree
         n_seqs = self.n_seqs
@@ -450,6 +533,19 @@ class NeighbourJoining:
             do_reset = (changed >= opts.n_reset_out_profile
                         and changed >= opts.f_reset_out_profile
                         * n_active_out_profile_reset)
+
+            if m > 0 and not do_reset and USE_FUSED_JOIN:
+                # the join, the out-profile update and the top-hits merge's
+                # distances in one store call and one fetch
+                # (engine/fused.py), then the merge on the host
+                plan = tophits.prepare_join_merge(self, newnode, n_active - 1)
+                res = fused.join_step(
+                    self, join, n_active, newnode,
+                    plan.cand if plan.b_use else None,
+                    prefetch=tophits.prefetch_rows(self, plan))
+                tophits.top_hit_join_fused(self, newnode, n_active - 1, plan,
+                                           res)
+                continue
 
             # ensure fresh out-distances + criterion for the chosen join
             self.set_out_distance(np.array([join.i, join.j]), n_active)

@@ -106,6 +106,10 @@ class MEProfiles:
         self.maxnodes = maxnodes
         tm = scan_kernels.TILE_M
         self.n_rows = ((2 * maxnodes + tm - 1) // tm) * tm
+        # moves whenever the out-profile does (the host's cache of raw
+        # out-profile distances, NeighbourJoining.cache_out_raw, holds for
+        # one version)
+        self.out_version = 0
 
     def _n_float_rows(self) -> int:
         if not self.two_tier:
@@ -163,6 +167,7 @@ class MEProfiles:
 
     # -- out-profile ---------------------------------------------------------
     def recompute_outprofile(self, active_mask: np.ndarray) -> None:
+        self.out_version += 1
         full = np.zeros(max(self.n_rows, self.n_seqs + self.U.shape[0]),
                         dtype=bool)
         full[: len(active_mask)] = active_mask
@@ -194,6 +199,7 @@ class MEProfiles:
 
     def update_outprofile(self, i: int, j: int, newnode: int,
                           n_active_old: int) -> None:
+        self.out_version += 1
         _, wg, ug = self._rows_cwu(self._idx([i, j, newnode]))
         self.w_out, self.f_out = kernels.update_out_profile(
             self.w_out, self.f_out, ug[0], wg[0], ug[1], wg[1], ug[2], wg[2],

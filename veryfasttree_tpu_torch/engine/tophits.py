@@ -19,10 +19,31 @@ exactly as the reference keeps them.
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 
 import numpy as np
 
 from .nj import Besthit
+
+
+@dataclass
+class JoinPlan:
+    """TopHits.prepare_join_merge's decisions for one join: the children,
+    the candidate lists that the merge evaluates in turn (the children's
+    merged list, then the promoted one where the 2nd-level promotion
+    runs), whether it keeps the last (b_use) or refreshes the node, the
+    2nd-level flag and the new node's age."""
+    c0: int
+    c1: int
+    lists: tuple
+    b_use: bool
+    b_second: bool
+    age_new: int
+
+    @property
+    def cand(self) -> np.ndarray:
+        """The candidates the merge keeps (where b_use)."""
+        return self.lists[-1]
 
 
 class TopHits:
@@ -582,59 +603,120 @@ class TopHits:
         anc = anc[(anc >= 0) & (anc != i_node)]
         return np.unique(anc)
 
-    def top_hit_join(self, nj, newnode: int, n_active: int) -> None:
-        """ref topHitJoin tcc:4306-4533."""
+    def prepare_join_merge(self, nj, newnode: int, n_active: int):
+        """The decisions of topHitJoin (ref tcc:4306-4434), which need no
+        distance: the merged candidate list, whether the merge uses it
+        (b_use) or refreshes the node, and the 2nd-level promotion (ref
+        :4369-4418).  Returns a JoinPlan."""
         opts = self.options
         tree = nj.tree
         m, q = self.m, self.q
         c0 = int(tree.children[newnode, 0])
         c1 = int(tree.children[newnode, 1])
-        combined_j = np.concatenate([self.hits_j[c0], self.hits_j[c1]])
-        unique_j, unique_d, unique_c = self._unique_best_hits(
-            nj, newnode, combined_j, n_active)
-        n_unique = len(unique_j)
-        self.hits_j[c0] = self.hits_j[c1] = None
-        self.hits_dist[c0] = self.hits_dist[c1] = None
+        combined = np.concatenate([self.hits_j[c0], self.hits_j[c1]])
+        cand = self._unique_ancestors(nj, newnode, combined)
+        lists = (cand,)
 
-        self.age[newnode] = (self.age[c0] + self.age[c1] + 1) // 2 + 1
+        age_new = (self.age[c0] + self.age[c1] + 1) // 2 + 1
         age_limit = max(1, int(0.5 + math.log2(m)))
         b_second = self.hit_source[c0] >= 0 and self.hit_source[c1] >= 0
-        b_use = n_unique == n_active - 1 or (
-            self.age[newnode] <= age_limit
-            and n_unique >= (int(0.5 + opts.tophits2_refresh * q) if b_second
-                             else int(0.5 + m * opts.tophits_refresh)))
+        b_use = len(cand) == n_active - 1 or (
+            age_new <= age_limit
+            and len(cand) >= (int(0.5 + opts.tophits2_refresh * q) if b_second
+                              else int(0.5 + m * opts.tophits_refresh)))
 
-        if not b_use and b_second and self.age[newnode] <= age_limit:
-            # promote 2nd-level to 1st-level from the hit source (ref :4369-4418)
+        if not b_use and b_second and age_new <= age_limit:
+            # promote 2nd-level to 1st-level from the hit source
             source = tree.active_ancestor(int(self.hit_source[c0]))
             if source == newnode:
                 source = tree.active_ancestor(int(self.hit_source[c1]))
             if (source != newnode and source >= 0
-                    and self.hit_source[source] < 0 and self.hits_j[source] is not None):
-                merged = np.concatenate([unique_j, [source], self.hits_j[source]])
-                unique_j, unique_d, unique_c = self._unique_best_hits(
-                    nj, newnode, merged, n_active)
-                n_unique = len(unique_j)
-                b_use = n_unique >= int(0.5 + m * opts.tophits_refresh)
+                    and self.hit_source[source] < 0
+                    and self.hits_j[source] is not None):
+                merged = np.concatenate([cand, [source], self.hits_j[source]])
+                lists += (self._unique_ancestors(nj, newnode, merged),)
+                b_use = len(lists[-1]) >= int(0.5 + m * opts.tophits_refresh)
                 b_second = False
+        return JoinPlan(c0, c1, lists, b_use, b_second, age_new)
 
-        if b_use:
-            if b_second:
-                self.hit_source[newnode] = self.hit_source[c0]
-            n_save = min(n_unique, q if b_second else m)
-            order = np.argsort(unique_c, kind="stable")
-            self._sort_save(nj, newnode, unique_j[order], unique_d[order], None,
-                            n_save, presorted=True)
-            self.visible_j[newnode] = self.hits_j[newnode][0]
-            self.visible_dist[newnode] = self.hits_dist[newnode][0]
-            self.update_top_visible(nj, n_active, newnode,
-                                    int(self.visible_j[newnode]),
-                                    float(self.visible_dist[newnode]))
-            keep = order[:n_save]
-            self.update_visible(nj, n_active, newnode, unique_j[keep],
-                                unique_d[keep], unique_c[keep])
-        else:
+    def prefetch_rows(self, nj, plan) -> np.ndarray:
+        """Rows whose distances to the updated out-profile the fused join
+        step computes for the host cache (NeighbourJoining.cache_out_raw):
+        the top-visible set and its visible partners, and the merge
+        candidates' visible partners -- what the merge and the next search
+        refresh."""
+        tree = nj.tree
+        rows = set()
+
+        def add(n):
+            n = int(n)
+            if n >= 0 and tree.parent[n] < 0:
+                rows.add(n)
+
+        for t in self.topvisible:
+            t = int(t)
+            if t < 0 or tree.parent[t] >= 0:
+                continue
+            rows.add(t)
+            add(self.visible_j[t])
+        if plan.b_use:
+            for c in plan.cand:
+                add(self.visible_j[int(c)])
+        return np.array(sorted(rows), dtype=np.int64)
+
+    def top_hit_join_fused(self, nj, newnode: int, n_active: int, plan,
+                           res: dict) -> None:
+        """topHitJoin from the fused join step's candidate distances
+        (res["cand_*"], ordered like plan.cand), counting the profile
+        operations of every list the unfused merge evaluates."""
+        # the new node's pairs are never both leaves
+        nj.debug.profile_ops += sum(len(c) for c in plan.lists)
+        dist = crit = None
+        if plan.b_use:
+            dist, _, crit = nj.criterion_from_raw(
+                n_active, newnode, plan.cand, res["cand_dist_raw"],
+                res["cand_weight"], res["cand_dout"], res["cand_wout"])
+        self._merge(nj, newnode, n_active, plan, dist, crit)
+
+    def top_hit_join(self, nj, newnode: int, n_active: int) -> None:
+        """ref topHitJoin tcc:4306-4533: the plan's candidate lists
+        evaluated in turn (uniqueBestHits, ref tcc:4786-4833), then the
+        merge."""
+        plan = self.prepare_join_merge(nj, newnode, n_active)
+        dist = crit = None
+        for cand in plan.lists:
+            if len(cand):
+                dist, _, crit = nj.set_dist_criterion_batch(
+                    n_active, np.full(len(cand), newnode, dtype=np.int64),
+                    cand)
+        self._merge(nj, newnode, n_active, plan, dist, crit)
+
+    def _merge(self, nj, newnode: int, n_active: int, plan, dist,
+               crit) -> None:
+        """The rest of topHitJoin: the children's lists dropped, and the
+        new node's list saved from plan.cand's distances and criteria
+        (visible and top-visible sets updated), or refreshed."""
+        self.hits_j[plan.c0] = self.hits_j[plan.c1] = None
+        self.hits_dist[plan.c0] = self.hits_dist[plan.c1] = None
+        self.age[newnode] = plan.age_new
+        if not plan.b_use:
             self._refresh_node(nj, newnode, n_active)
+            return
+        unique_j = plan.cand
+        if plan.b_second:
+            self.hit_source[newnode] = self.hit_source[plan.c0]
+        n_save = min(len(unique_j), self.q if plan.b_second else self.m)
+        order = np.argsort(crit, kind="stable")
+        self._sort_save(nj, newnode, unique_j[order], dist[order], None,
+                        n_save, presorted=True)
+        self.visible_j[newnode] = self.hits_j[newnode][0]
+        self.visible_dist[newnode] = self.hits_dist[newnode][0]
+        self.update_top_visible(nj, n_active, newnode,
+                                int(self.visible_j[newnode]),
+                                float(self.visible_dist[newnode]))
+        keep = order[:n_save]
+        self.update_visible(nj, n_active, newnode, unique_j[keep],
+                            dist[keep], crit[keep])
 
     def _refresh_node(self, nj, newnode: int, n_active: int) -> None:
         """Full refresh of a node's top-hit list (ref topHitJoin :4438-4517):
@@ -694,20 +776,6 @@ class TopHits:
                 self.visible_j[j_node] = self.hits_j[j_node][0]
                 self.visible_dist[j_node] = self.hits_dist[j_node][0]
         self.reset_top_visible(nj, n_active)
-
-    def _unique_best_hits(self, nj, i_node: int, cand_js, n_active: int):
-        """uniqueBestHits (ref tcc:4786-4833): remap to active ancestors, dedupe,
-        recompute dist & criterion in one batched call."""
-        tree = nj.tree
-        anc = np.array([tree.active_ancestor(int(j)) for j in cand_js],
-                       dtype=np.int64)
-        anc = anc[(anc >= 0) & (anc != i_node)]
-        uniq = np.unique(anc)
-        if len(uniq) == 0:
-            return uniq, np.array([]), np.array([])
-        iis = np.full(len(uniq), i_node, dtype=np.int64)
-        dist, weight, crit = nj.set_dist_criterion_batch(n_active, iis, uniq)
-        return uniq, dist, crit
 
     # ----------------------------------------------------- visible set upkeep
     def update_visible(self, nj, n_active: int, i_node: int, jjs, dists, crits):

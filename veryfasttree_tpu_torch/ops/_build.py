@@ -27,13 +27,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # per-source flags: the likelihood kernels, the ML rounds and the
 # whole-tree sweep and log-likelihood, the decisions of
-# the SPR and NNI rounds and of the join epoch, and the bootstrap columns
+# the SPR and NNI rounds, of the join epoch and of the fused join step,
+# and the bootstrap columns
 # round every float and double expression as written, as their plain twins
 # and numpy do (no fused multiply-adds)
 SOURCE_FLAGS = {"ml_lk.cu": ["-fmad=false"], "ml_round.cu": ["-fmad=false"],
                 "ml_sweep.cu": ["-fmad=false"],
                 "me_spr.cu": ["-fmad=false"], "me_nni.cu": ["-fmad=false"],
-                "nj_epoch.cu": ["-fmad=false"],
+                "nj_epoch.cu": ["-fmad=false"], "nj_join.cu": ["-fmad=false"],
                 "sh_resample.cu": ["-fmad=false"],
                 # the -constraints units: a round or the epoch with its
                 # constrained kernel alone
@@ -170,7 +171,9 @@ STACK_LIMITS = {"ml_nni_round_kernel": 0, "ml_lengths_pass_kernel": 0,
                 # counts' 48 bytes
                 "nj_epoch_cons_kernel": 664, "me_spr_round_cons_kernel": 432,
                 "me_nni_round_cons_kernel": 352,
-                "ml_nni_round_cons_kernel": 320}
+                "ml_nni_round_cons_kernel": 320,
+                # the fused join step: no stack, no spills (72 registers)
+                "nj_join_step_kernel": 0}
 # the same for the ML kernels' 20-code templates (protein ML), at what the
 # builds reach: the NNI round, its walk on a block of its own and each
 # optimization over a group of blocks, keeps an 8-byte frame at 255
@@ -179,7 +182,8 @@ STACK_LIMITS = {"ml_nni_round_kernel": 0, "ml_lengths_pass_kernel": 0,
 STACK_LIMITS_20 = {"ml_nni_round_kernel": 8, "ml_lengths_pass_kernel": 0,
                    "ml_quartet_opt_kernel": 0,
                    # -constraints: np_sum's stack, 16 bytes of spills
-                   "ml_nni_round_cons_kernel": 336}
+                   "ml_nni_round_cons_kernel": 336,
+                   "nj_join_step_kernel": 0}
 
 
 def resource_faults(report: dict, limits: dict = STACK_LIMITS,
@@ -257,6 +261,9 @@ def _declare(lib) -> None:
     lib.vft_nj_epoch_cons_f32.argtypes = [ptr, ptr, i32, ptr, ptr]
     lib.vft_nj_epoch_scratch.argtypes = [i64, i64, i64, ptr]
     lib.vft_nj_epoch_scratch.restype = None
+    # the fused join step: its parameters as one struct
+    # (ops/join_kernels.JoinParams), the staged inputs
+    lib.vft_nj_join_step_f32.argtypes = [ptr, ptr, i64, ptr, ptr, ptr]
     # the ML store's arguments, first in each ML entry (csrc/ml_lk.cu)
     ml_store = [ptr] * 9 + [i64, i32, i32, i32, i32, i32, f32, ptr, ptr, i32,
                             ptr]
@@ -315,6 +322,7 @@ def _declare(lib) -> None:
                  "vft_ml_lengths_pass_f32", "vft_ml_round_tree_fits_smem",
                  "vft_ml_round_layout",
                  "vft_nj_epoch_f32", "vft_nj_epoch_cons_f32",
+                 "vft_nj_join_step_f32",
                  "vft_sh_resample_counts",
                  "vft_dataflow_ctrl_words", "vft_ml_posterior_sweep_grid",
                  "vft_ml_posterior_sweep_f32",

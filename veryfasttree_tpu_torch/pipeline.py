@@ -15,18 +15,23 @@ JAX package's batched tier (the reference's relaxed thread-parallel
 modes): level-batched ME and ML NNI rounds (engine/batched.py),
 partitioned lockstep SPR rounds (engine/spr_batched.py), the batched ME
 lengths, split test and local bootstrap, and level-batched ML lengths;
--threads 1, the default, is the serial tier.  -checkpoint is not ported
-yet and raises.
+-threads 1, the default, is the serial tier.  -checkpoint file saves the
+engine's arrays after every ML-NNI round (engine/checkpoint.py); a run
+that finds the file resumes from it, in place of the NJ and ME phases.
+VFT_TRACE=dir writes a torch.profiler trace of the run into dir
+(utils/trace.py).
 """
 from __future__ import annotations
 
 import math
+import os
 import sys
 import time
 
 import numpy as np
 
-from .engine import batched, ml, rearrange, spr, spr_batched, supports
+from .engine import (batched, checkpoint, ml, rearrange, spr, spr_batched,
+                     supports)
 from .engine.nj import NeighbourJoining
 from .io.alignment import (Alignment, Uniquify, open_maybe_compressed,
                            read_alignment, seqs_to_codes)
@@ -36,6 +41,7 @@ from .ops import nni_kernels, spr_kernels
 from .utils.debug import Debug
 from .utils.device import configure_precision, resolve_device
 from .utils.progress import ProgressReport
+from .utils.trace import annotate, maybe_trace
 
 
 def build_models(options):
@@ -146,27 +152,19 @@ def _ml_on(options) -> bool:
     return options.ml_nni != 0 or options.ml_len
 
 
-def _check_ported(options) -> None:
-    missing = [
-        ("-checkpoint", bool(options.checkpoint_file)),
-    ]
-    for what, requested in missing:
-        if requested:
-            raise NotImplementedError(f"{what} is not ported yet")
-
-
 def run_pipeline(options, input_fp, output_fp, log_fp=None, device=None):
     """The minimum-evolution pipeline on `device` (CUDA by default; a
     missing GPU raises).  With -n > 1, analyzes several alignments from the
     same stream.  Returns (nj, split_count) of the last alignment."""
-    _check_ported(options)
     device = resolve_device(device)
     configure_precision()
     result = None
-    for i_aln in range(options.n_align):
-        if i_aln > 0:
-            options.in_file_name = ""  # only the first read can use the native path
-        result = _run_single(options, input_fp, output_fp, log_fp, device)
+    with maybe_trace():   # VFT_TRACE=dir: a torch.profiler trace of the run
+        for i_aln in range(options.n_align):
+            if i_aln > 0:
+                # only the first read can use the native path
+                options.in_file_name = ""
+            result = _run_single(options, input_fp, output_fp, log_fp, device)
     return result
 
 
@@ -216,10 +214,21 @@ def _run_single(options, input_fp, output_fp, log_fp, device):
     cons = read_constraints(options, unique, name_to_idx, log)
 
     dmat, tmat = build_models(options)
-    nj = NeighbourJoining(options, codes, dmat, tmat, cons, log=log,
-                          progress=progress, names=names, device=device)
+    with annotate("store"):
+        nj = NeighbourJoining(options, codes, dmat, tmat, cons, log=log,
+                              progress=progress, names=names, device=device)
     n_uniq = len(unique.unique_seq)
-    if options.intree_file and not options.intree_file.startswith("*"):
+    # an array-state checkpoint takes precedence over a starting tree: the
+    # tree, both stores and the rates mid-ML-phase, no NJ or ME replay
+    resume = None
+    if options.checkpoint_file and os.path.exists(options.checkpoint_file):
+        resume = checkpoint.load_checkpoint(nj, options.checkpoint_file)
+        progress.print("Resumed from checkpoint")
+        if log is not None:
+            print(f"Resumed from checkpoint {options.checkpoint_file} "
+                  f"(phase {resume[0].get('phase')}, "
+                  f"round {resume[0].get('round')})", file=log)
+    elif options.intree_file and not options.intree_file.startswith("*"):
         with open(options.intree_file) as fp:
             _load_intree(nj, fp.read(), name_to_idx, unique)
     elif aln.tree:
@@ -262,11 +271,14 @@ def _run_single(options, input_fp, output_fp, log_fp, device):
     def run_spr_round():
         nonlocal spr_remaining
         t = time.perf_counter()
-        spr_round(nj, options.spr - spr_remaining, options.spr)
+        with annotate("spr"):
+            spr_round(nj, options.spr - spr_remaining, options.spr)
         nj.timings["spr_s"] += time.perf_counter() - t
         log_tree("ME_SPR%d", options.spr - spr_remaining + 1)
         spr_remaining -= 1
 
+    if resume is not None:
+        nni_to_do = spr_remaining = 0
     # ME NNI rounds interleaved with SPR (ref VeryFastTreeImpl.tcc:161-204)
     if nni_to_do > 0 and n_uniq > 3:
         stats = rearrange.NNIStats.init(nj)
@@ -274,7 +286,8 @@ def _run_single(options, input_fp, output_fp, log_fp, device):
         for i in range(nni_to_do):
             if not converged:
                 t = time.perf_counter()
-                n_change, _ = nni_round(i, stats)
+                with annotate("nni"):
+                    n_change, _ = nni_round(i, stats)
                 nj.timings["nni_s"] += time.perf_counter() - t
                 progress.print("ME NNI round %d of %d, %d changes", i + 1,
                                nni_to_do, n_change)
@@ -292,39 +305,46 @@ def _run_single(options, input_fp, output_fp, log_fp, device):
     t1 = time.perf_counter()
     up_tables = None
     batched_me = threads or not options.bionj
-    if batched_me:
-        # one gathered distance call for the whole tree; value-identical to
-        # the serial walk with the plain 0.5 up-profile average (-threads
-        # takes it under -bionj too, as the JAX package does)
-        up_tables = batched.update_branch_lengths_batched(nj)
-    else:
-        rearrange.update_branch_lengths(nj)
-    log_tree("ME_Lengths", 0)
-    total_len = nj.total_len()
-    if options.verbose > 0 and log is not None:
-        print(f"Total branch-length {total_len:.3f} after "
-              f"{progress.clock_diff():.2f} sec", file=log)
+    if resume is None:      # else the checkpoint's branch lengths stand
+        with annotate("lengths"):
+            if batched_me:
+                # one gathered distance call for the whole tree;
+                # value-identical to the serial walk with the plain 0.5
+                # up-profile average (-threads takes it under -bionj too,
+                # as the JAX package does)
+                up_tables = batched.update_branch_lengths_batched(nj)
+            else:
+                rearrange.update_branch_lengths(nj)
+        log_tree("ME_Lengths", 0)
+        total_len = nj.total_len()
+        if options.verbose > 0 and log is not None:
+            print(f"Total branch-length {total_len:.3f} after "
+                  f"{progress.clock_diff():.2f} sec", file=log)
 
     t2 = time.perf_counter()
     # host-clock seconds; each phase ends in a fetch of distances
     nj.timings["lengths_s"] = t2 - t1
     if ml_nni_to_do > 0 or options.ml_len:
         split_count = ml.run_ml_phase(nj, ml_nni_to_do, n_uniq, progress,
-                                      log, log_tree)
+                                      log, log_tree, resume=resume)
     else:
         # one sweep and one distance list for the whole tree; with -bionj
         # (and one thread) the up-profiles are BIONJ-weighted, and the
         # serial walk stays
-        split_count = supports.test_splits_min_evo_batched(nj, up_tables) \
-            if batched_me else supports.test_splits_min_evo(nj)
+        with annotate("splits"):
+            split_count = supports.test_splits_min_evo_batched(
+                nj, up_tables) if batched_me \
+                else supports.test_splits_min_evo(nj)
         t3 = time.perf_counter()
         nj.timings["splits_s"] = t3 - t2
         if options.n_bootstrap > 0 and n_uniq > 3:
             # the ME local bootstrap; batched over the up-profiles the
             # split test's sweep just wrote (the JAX package's
             # reliability_nj_batched with -threads > 1)
-            nj.boot_stats = supports.reliability_nj_list(nj, swept=True) \
-                if batched_me else supports.reliability_nj(nj)
+            with annotate("boot"):
+                nj.boot_stats = supports.reliability_nj_list(
+                    nj, swept=True) if batched_me \
+                    else supports.reliability_nj(nj)
             nj.timings["boot_s"] = time.perf_counter() - t3
 
     newick = print_newick(nj.tree, names, unique, options.n_bootstrap > 0,
