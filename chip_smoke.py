@@ -262,7 +262,7 @@ passed):
    golden at a batched ML NNI decision that is a near tie in both
    packages (the golden's _decisions.json), reported with its
    margins, and the final LogLk within 1e-4 relative.  (c) -nt -threads 8
-   at N=2000, P=500 and -nt -noml -threads 8 at N=500 (THREADS_MAIN),
+   and -nt -noml -threads 8 at N=500, P=500 (THREADS_MAIN),
    warm, the launch counts reset just before each run and read just after
    it:
    me_dists_list, me_average_sweep and the join epoch with its refresh
@@ -289,6 +289,22 @@ passed):
    scripts/make_torch_port_fastest_golden.py).  (c) VFT_TRACE on the
    default -nt run at N=60: the trace holds CUDA kernel events and the
    phases' annotations; which whole-tree kernels it shows.
+11. Multi-GPU (parallel/).  (a) The partial modes of the scans
+   (nj_scan_dense_partial, nj_scan_codes_partial) and of the pair kernels
+   (me_dists_partial, me_dists_list_partial) against their twins at
+   phase 2's shapes, and at k = 1 partial then finish (nj_scan_finish,
+   me_pair_finish) the fused kernels' results bit for bit; over two
+   blocks of positions the finishes against their twins (dist and denom
+   bit for bit) and the fused results within TOL; timed.  (b) -nt -noml
+   at N=500 over ranks through run_pipeline (chip_smoke.py --mesh-rank,
+   one process a rank: NCCL over min(cards, 4) ranks, or on one card two
+   ranks on cuda:0 over gloo), each rank's Newick byte-identical to the
+   -noml JAX golden and its tree printed without supports to the
+   -nosupport one (-nosupport only skips the bootstrap at the end), its
+   store p_pad / ranks positions wide, the partial kernels launched and no
+   whole-row kernel; the wall, phase split, exchanges and their host-clock
+   ms a call, beside the same run on one card through the same host loops
+   (a 1 x 1 mesh) where the smoke has run under MESH_SINGLE_BY_S.
 
 The last lines are the card's name and power limit, one JSON line with each
 kernel's route, source, main-path launches (the ML main path's for the ML
@@ -398,6 +414,20 @@ KERNELS = {
                           "veryfasttree_tpu/engine/ml.py:299"),
     "ml_posterior<20>": ("veryfasttree_tpu_torch/csrc/ml_lk.cu",
                          "veryfasttree_tpu/engine/ml_profiles.py:77"),
+    # the mesh path's kernels (phase 11): the partial modes of the scans
+    # and the pair kernels, and their finishes
+    "nj_scan_dense_partial": ("veryfasttree_tpu_torch/csrc/nj_scan.cu",
+                              "veryfasttree_tpu/ops/pallas_kernels.py:38"),
+    "nj_scan_codes_partial": ("veryfasttree_tpu_torch/csrc/nj_scan.cu",
+                              "veryfasttree_tpu/ops/pallas_kernels.py:173"),
+    "nj_scan_finish": ("veryfasttree_tpu_torch/csrc/nj_scan.cu",
+                       "veryfasttree_tpu/ops/pallas_kernels.py:38"),
+    "me_dists_partial": ("veryfasttree_tpu_torch/csrc/me_store.cu",
+                         "veryfasttree_tpu/engine/profiles.py:244"),
+    "me_dists_list_partial": ("veryfasttree_tpu_torch/csrc/me_store.cu",
+                              "veryfasttree_tpu/engine/profiles.py:244"),
+    "me_pair_finish": ("veryfasttree_tpu_torch/csrc/me_store.cu",
+                       "veryfasttree_tpu/engine/profiles.py:244"),
 }
 # the wrapper each 20-code entry of KERNELS counts
 PROTEIN_KERNELS = {k: k[:-len("<20>")] for k in KERNELS if k.endswith("<20>")}
@@ -430,6 +460,12 @@ DEVICE_NAMES = {
     "sh_resample_counts": ("sh_resample_counts_kernel",),
     "ml_posterior_sweep": ("ml_posterior_sweep_kernel",),
     "ml_tree_loglk": ("ml_tree_loglk_kernel",),
+    "nj_scan_dense_partial": ("nj_scan_dense_kernel",),
+    "nj_scan_codes_partial": ("nj_scan_codes_kernel",),
+    "nj_scan_finish": ("nj_scan_finish_kernel", "argmin_partials_kernel"),
+    "me_dists_partial": ("me_pair_dist_kernel",),
+    "me_dists_list_partial": ("me_pair_list_kernel",),
+    "me_pair_finish": ("me_pair_finish_kernel",),
 }
 # final LogLk and ML-NNIs per round of the default -nt run at N=2000
 # (PERF.md, section 5)
@@ -481,7 +517,13 @@ def wrappers():
             "ml_lengths_pass": ml_round.ml_lengths_pass,
             "sh_resample_counts": resample_kernels.sh_resample_counts,
             "ml_posterior_sweep": ml_kernels.ml_posterior_sweep,
-            "ml_tree_loglk": ml_kernels.ml_tree_loglk}
+            "ml_tree_loglk": ml_kernels.ml_tree_loglk,
+            "nj_scan_dense_partial": scan_kernels.nj_scan_dense_partial,
+            "nj_scan_codes_partial": scan_kernels.nj_scan_codes_partial,
+            "nj_scan_finish": scan_kernels.nj_scan_finish,
+            "me_dists_partial": store_kernels.me_dists_partial,
+            "me_dists_list_partial": store_kernels.me_dists_list_partial,
+            "me_pair_finish": store_kernels.me_pair_finish}
 
 
 def reset_launches():
@@ -4959,11 +5001,11 @@ THREADS_CRIT_TOL = 2e-2
 # 6).  A round with a flip on a near tie is held to ML_TWIN_RTOL
 THREADS_PASS_RTOL = 1e-7
 THREADS_ROUND_RTOL = 1e-6
-# (c)'s runs: the default run at N=MAIN_N, and the -noml run at N=500.
-# The default run's ME phase is the -noml run's at N=MAIN_N (the same
-# launches), and a -noml run at N=MAIN_N took the whole smoke to 1025 s of
-# its 1200 s (PERF.md, section 6)
-THREADS_MAIN = ((True, MAIN_N), (False, 500))
+# (c)'s runs: the default run and the -noml run, both at N=500.  A -noml
+# run at N=MAIN_N took the whole smoke to 1025 s of its 1200 s, and the
+# default run at N=MAIN_N (38.8-43.7 s) left phase 11 too little room
+# (PERF.md, section 6)
+THREADS_MAIN = ((True, 500), (False, 500))
 
 
 def length_gap(a, b):
@@ -5792,6 +5834,386 @@ def phase_last_modules(report, dev, tmp):
     phase_trace(report, dev, tmp)
 
 
+# ------------------------------------------------------------- phase 11
+# the kernels of the mesh path (parallel/): the partial modes of the scans
+# and of the pair kernels, and their finishes
+MESH_KERNELS = ("nj_scan_dense_partial", "nj_scan_codes_partial",
+                "nj_scan_finish", "me_dists_partial", "me_dists_list_partial",
+                "me_pair_finish")
+# the kernels a -noml mesh run launches (rank 0's counts), and those it
+# must not: the whole-row kernels, which have no exchange
+MESH_PATH = ("nj_scan_dense_partial", "nj_scan_finish", "me_dists_partial",
+             "me_dists_list_partial", "me_pair_finish", "me_average_sweep")
+MESH_NEVER = ("nj_scan_dense", "nj_scan_codes", "me_dists", "me_dists_list",
+              "nj_join_epoch", "nj_join_step", "me_spr_round", "me_nni_round")
+MESH_N = 500                    # the golden's input, synth_codes(500, 500)
+MESH_BOOT = 1000                # -nt -noml's resamples
+MESH_TIMEOUT_S = 240
+# 11(b) runs its one-card comparison only when the smoke has run less than
+# this (it takes 13-20 s; the smoke's limit is 1200 s)
+MESH_SINGLE_BY_S = 1000
+SMOKE_T0 = time.perf_counter()    # the smoke's start (module import)
+
+
+def check_bits(label, got, exp):
+    """Equal bits, tensor for tensor."""
+    import torch
+
+    for i, (g, e) in enumerate(zip(got, exp)):
+        if not torch.equal(torch.as_tensor(g), torch.as_tensor(e)):
+            raise AssertionError(f"{label}: output {i} not bit for bit")
+
+
+def halves(t, axis, parts=2):
+    import torch
+
+    return [x.contiguous() for x in torch.tensor_split(t, parts, dim=axis)]
+
+
+def phase_mesh_kernels(report):
+    """11(a): the partial modes and the finishes against their twins at
+    phase 2's shapes; at k = 1, partial then finish gives the fused
+    kernels' (dist, denom, crit, best) bit for bit; over two blocks of
+    positions the finish of the blocks' partials is the fused result within
+    TOL.  Times at the main path's shapes (k = 2 for the finishes)."""
+    import numpy as np
+    import torch
+
+    from veryfasttree_tpu_torch.ops import scan_kernels as sk
+    from veryfasttree_tpu_torch.ops import store_kernels as st
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+
+    def record(name, label, err, times=None):
+        entry = report.setdefault(name, {})
+        entry["max_abs_err"] = max(entry.get("max_abs_err", 0.0), err)
+        if times is not None and "ms" not in entry:
+            entry.update(times)
+        t = "" if times is None else (
+            f", kernel {times['ms']:.4f} ms launch to launch, "
+            f"{times['device_us']:.3f} us on the device, twin "
+            f"{times['plain_ms']:.4f} ms, bound {times['bound_ms']:.3e} ms "
+            f"({times['bound_by']})")
+        print(f"  {name} [{label}]: max abs err {err:.3e}{t}")
+
+    def close(label, got, exp):
+        g, e = got.cpu().numpy(), exp.cpu().numpy()
+        np.testing.assert_allclose(g, e, err_msg=label, **TOL)
+        return float(np.max(np.abs(g - e))) if g.size else 0.0
+
+    for C, use_matrix, label in ((4, False, "M=8192 P*C=2048 %different"),
+                                 (20, True, "M=8192 P*C=10240 BLOSUM45")):
+        U2, W, a, wq, outd, n_act, m_real, um = dense_case(C, use_matrix,
+                                                           gen, dev)
+        M = U2.shape[0]
+        part = sk.nj_scan_dense_partial(U2, W, a, wq)
+        err = close(f"dense partial {label}", part,
+                    torch.stack(sk.nj_scan_dense_partial_ref(U2, W, a, wq)))
+        fused = sk.nj_scan_dense(U2, W, a, wq, outd, n_act, m_real, um)
+        one = sk.nj_scan_finish(part[None].contiguous(), outd, n_act,
+                                m_real, um)
+        torch.cuda.synchronize()
+        check_bits(f"dense {label} k=1", one, fused)
+        if int(one[0]) != BEST:
+            raise AssertionError(f"dense {label}: best {int(one[0])}")
+        # two blocks of positions (each a multiple of 4 of P and P*C)
+        P = W.shape[1]
+        blocks = [(U2.view(M, P, C)[:, p0:p0 + P // 2].reshape(M, -1)
+                   .contiguous(), W[:, p0:p0 + P // 2].contiguous(),
+                   a.view(P, C)[p0:p0 + P // 2].reshape(-1).contiguous(),
+                   wq[p0:p0 + P // 2].contiguous()) for p0 in (0, P // 2)]
+        parts = torch.stack([sk.nj_scan_dense_partial(*b) for b in blocks])
+        two = sk.nj_scan_finish(parts, outd, n_act, m_real, um)
+        two_ref = sk.nj_scan_finish_ref(parts, outd, n_act, m_real, um)
+        if not int(two[0]) == int(two_ref[0]) == int(fused[0]) == BEST:
+            raise AssertionError(
+                f"dense {label} k=2: best {int(two[0])}, twin "
+                f"{int(two_ref[0])}, fused {int(fused[0])}")
+        # dist and denom bit for bit; the twin's crit divides by a Python
+        # scalar, which PyTorch's CUDA division takes as a product with
+        # its reciprocal (an ulp off)
+        check_bits(f"finish {label} k=2 against its twin", two[2:4],
+                   two_ref[2:4])
+        for i in (1, 4):
+            err = max(err, close(f"finish {label} k=2 twin", two[i],
+                                 two_ref[i]))
+        for g, e in zip(two[1:], fused[1:]):      # best_idx held above
+            err = max(err, close(f"dense {label} k=2", g, e))
+        n_bytes = U2.numel() * 4 + W.numel() * 4 + 8 * (a.numel() + wq.numel()
+                                                        + 2 * M)
+        record("nj_scan_dense_partial", label, err, timing(
+            "nj_scan_dense_partial",
+            lambda: sk.nj_scan_dense_partial(U2, W, a, wq),
+            lambda: sk.nj_scan_dense_partial_ref(U2, W, a, wq), n_bytes,
+            2 * (U2.numel() + W.numel())))
+        record("nj_scan_finish", f"{label}, k=2", 0.0, timing(
+            "nj_scan_finish",
+            lambda: sk.nj_scan_finish(parts, outd, n_act, m_real, um),
+            lambda: sk.nj_scan_finish_ref(parts, outd, n_act, m_real, um),
+            8 * (parts.numel() + outd.numel() + 3 * M), 12 * M))
+
+    for C, use_matrix, label in ((4, False, "L=20000 P=512 C=4 %different"),
+                                 (20, True, "L=20000 P=512 C=20 BLOSUM45")):
+        codes, G, wq, outd, n_act, l_real, um = codes_case(C, use_matrix,
+                                                           gen, dev)
+        part = sk.nj_scan_codes_partial(codes, G, wq)
+        err = close(f"codes partial {label}", part,
+                    torch.stack(sk.nj_scan_codes_partial_ref(codes, G, wq)))
+        fused = sk.nj_scan_codes(codes, G, wq, outd, n_act, l_real, um)
+        one = sk.nj_scan_finish(part[None].contiguous(), outd, n_act, l_real,
+                                um)
+        torch.cuda.synchronize()
+        check_bits(f"codes {label} k=1", one, fused)
+        L, P = codes.shape
+        record("nj_scan_codes_partial", label, err, timing(
+            "nj_scan_codes_partial",
+            lambda: sk.nj_scan_codes_partial(codes, G, wq),
+            lambda: sk.nj_scan_codes_partial_ref(codes, G, wq),
+            codes.numel() + 8 * (G.numel() + wq.numel() + 2 * L),
+            2 * codes.numel()))
+
+    rng = np.random.default_rng(5)
+    for C, use_matrix, leaf_rows, label in (
+            (4, False, 0, "dense 8192x512 C=4"),
+            (4, False, 2000, "two-tier 2000 leaves C=4"),
+            (20, True, 0, "dense 8192x512 C=20 BLOSUM45")):
+        codes, W, U, cf, ev, _ = store_case(C, use_matrix, leaf_rows, gen,
+                                            dev)
+        store = (codes, W, U, cf, ev, leaf_rows)
+        n_rows, P = codes.shape
+        q_rows = rng.choice(n_rows, 300, replace=False)
+        quartet = rng.choice(n_rows, 4, replace=False)
+        ii, jj = quartet[[0, 0, 0, 1, 1, 2]], quartet[[1, 2, 3, 2, 3, 3]]
+        q = (U[300], W[300])
+        part = st.me_dists_partial(*store, q_rows, *q, ii, jj)
+        err = close(f"me_dists_partial {label}", part,
+                    st.me_dists_partial_ref(*store, q_rows, *q, ii, jj))
+        check_bits(f"me_dists {label} k=1",
+                   [st.me_pair_finish(part[None].contiguous(), use_matrix)],
+                   [st.me_dists(*store, q_rows, *q, ii, jj)])
+        iis = rng.integers(0, n_rows, 11982)
+        jjs = rng.integers(0, n_rows, 11982)
+        lpart = st.me_dists_list_partial(*store, iis, jjs)
+        lerr = close(f"me_dists_list_partial {label}", lpart,
+                     st.me_dists_partial_ref(*store, (), None, None, iis,
+                                             jjs))
+        check_bits(f"me_dists_list {label} k=1",
+                   [st.me_pair_finish(lpart[None].contiguous(), use_matrix)],
+                   [st.me_dists_list(*store, iis, jjs)])
+        # two blocks of positions
+        blocks = [(halves(codes, 1)[h], halves(W, 1)[h], halves(U, 1)[h])
+                  for h in (0, 1)]
+        parts = torch.stack([st.me_dists_list_partial(
+            c, w, u, cf, ev, leaf_rows, iis, jjs) for c, w, u in blocks])
+        two = st.me_pair_finish(parts, use_matrix)
+        check_bits(f"me_pair_finish {label} k=2 against its twin", [two],
+                   [st.me_pair_finish_ref(parts, use_matrix)])
+        ferr = close(f"me_pair_finish {label} k=2", two,
+                     st.me_dists_list(*store, iis, jjs))
+        nni = (*store, (), None, None, ii, jj)
+        C_ = cf.shape[1]
+        rows = np.unique(np.concatenate([iis, jjs]))
+        record("me_dists_partial", label, err, timing(
+            "me_dists_partial", lambda: st.me_dists_partial(*nni),
+            lambda: st.me_dists_partial_ref(*nni),
+            4 * P * (4 * C_ + 5) + 2 * 6 * 8, 6 * P * (2 * C_ + 2)))
+        record("me_dists_list_partial", f"{label}, 11,982 pairs", lerr,
+               timing("me_dists_list_partial",
+                      lambda: st.me_dists_list_partial(*store, iis, jjs),
+                      lambda: st.me_dists_partial_ref(*store, (), None,
+                                                      None, iis, jjs),
+                      len(rows) * P * 4 * (C_ + 1) + 2 * 8 * len(iis),
+                      len(iis) * P * (2 * C_ + 2)))
+        record("me_pair_finish", f"{label}, 11,982 pairs, k=2", ferr, timing(
+            "me_pair_finish", lambda: st.me_pair_finish(parts, use_matrix),
+            lambda: st.me_pair_finish_ref(parts, use_matrix),
+            8 * (parts.numel() + 2 * len(iis)), 6 * len(iis)))
+
+
+def mesh_run(mesh, dev):
+    """The -nt -noml run (its local bootstrap included) at MESH_N on
+    `mesh` through run_pipeline, the launch counts and the exchange
+    counters set to 0 just before it: what rank 0 reports.  Its Newick,
+    and its tree printed without supports: -nosupport's tree, since
+    -nosupport only skips the bootstrap at the end (pipeline._run_single)."""
+    import torch
+
+    from veryfasttree_tpu_torch.io.alignment import Uniquify, read_alignment
+    from veryfasttree_tpu_torch.io.newick import print_newick
+    from veryfasttree_tpu_torch.options import noml_options
+    from veryfasttree_tpu_torch.pipeline import run_pipeline
+
+    fasta = fasta_text(synth_codes(MESH_N, 500, seed=0))
+    opts = noml_options()
+    opts.n_bootstrap = MESH_BOOT
+    opts.mesh = mesh
+    reset_launches()
+    mesh.stats = dict.fromkeys(mesh.stats, 0)
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    nj, _ = run_pipeline(opts, io.StringIO(fasta), out, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in wrappers().items()}
+    aln = read_alignment(io.StringIO(fasta), opts, None)
+    return {"newick": out.getvalue(),
+            "nosupport": print_newick(nj.tree, aln.names, Uniquify.build(aln),
+                                      False, False) + "\n",
+            "wall_s": wall, "timings": nj.timings,
+            "boot_stats": nj.boot_stats, "launches": launches,
+            "exchanges": dict(mesh.stats), "U": list(nj.prof.U.shape),
+            "n_local": nj.prof.n_local, "device": str(dev)}
+
+
+def mesh_rank_main(rank, world, address, backend, out_dir) -> int:
+    """chip_smoke.py --mesh-rank RANK WORLD ADDRESS BACKEND OUT: one rank of
+    phase 11(b) on cuda:(rank % cards): mesh_run on an sp =
+    WORLD mesh; its record into OUT/mesh_{rank}.json."""
+    import torch
+
+    for sub in ("", "tests"):
+        sys.path.insert(0, os.path.join(REPO, sub))
+    from veryfasttree_tpu_torch.parallel import make_mesh, multihost
+
+    dev = torch.device("cuda", rank % torch.cuda.device_count())
+    multihost.init_ranks(address, world, rank, dev, backend)
+    rec = mesh_run(make_mesh(n_sp=world), dev)
+    with open(os.path.join(out_dir, f"mesh_{rank}.json"), "w") as f:
+        json.dump({**rec, "backend": backend}, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def start_mesh_world(world, backend, out_dir):
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        address = f"127.0.0.1:{s.getsockname()[1]}"
+    return [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--mesh-rank", str(r),
+         str(world), address, backend, out_dir], cwd=REPO,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(world)]
+
+
+def wait_mesh_worlds(procs):
+    """Wait for every rank (killing them all past MESH_TIMEOUT_S); raise
+    with a failed rank's errors."""
+    t0 = time.perf_counter()
+    try:
+        outs = [p.communicate(timeout=max(1.0, MESH_TIMEOUT_S - (
+            time.perf_counter() - t0))) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, (_, err) in zip(procs, outs):
+        if p.returncode != 0:
+            raise AssertionError(f"a mesh rank exited {p.returncode}:\n"
+                                 f"{err[-3000:]}")
+
+
+def phase_mesh(report, dev):
+    """11(b): -nt -noml at N=500 over ranks through run_pipeline (NCCL over
+    min(cards, 4) ranks; one card: two ranks on cuda:0 over gloo), each
+    rank's Newick byte-identical to the -noml JAX golden and its tree
+    without supports to the -nosupport one, its store p_pad / ranks
+    positions wide, the partial kernels launched and no whole-row kernel;
+    then, where the smoke has time left (MESH_SINGLE_BY_S), the same run on
+    one card through the same host loops (a 1 x 1 mesh in this process,
+    whose exchanges send nothing)."""
+    import torch
+
+    from veryfasttree_tpu_torch.parallel import Mesh
+
+    n_cards = torch.cuda.device_count()
+    ranks, backend = (min(n_cards, 4), "nccl") if n_cards >= 2 \
+        else (2, "gloo")
+    if n_cards < 2:
+        print("  one card: two ranks placed on cuda:0, over gloo")
+    with open(GOLDEN + ".nwk") as f:
+        golden = f.read()
+    with open(NOML_GOLDEN + ".nwk") as f:
+        boot_golden = f.read()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        t0 = time.perf_counter()
+        wait_mesh_worlds(start_mesh_world(ranks, backend, tmp))
+        world_s = time.perf_counter() - t0
+        recs = []
+        for r in range(ranks):
+            with open(os.path.join(tmp, f"mesh_{r}.json")) as f:
+                recs.append(json.load(f))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    elapsed = time.perf_counter() - SMOKE_T0
+    single = None
+    if elapsed < MESH_SINGLE_BY_S:
+        single = mesh_run(Mesh(1, 1, 0, None, None, None), dev)
+    else:
+        print(f"  the one-card run left out: the smoke has run {elapsed:.1f}"
+              f" s, past {MESH_SINGLE_BY_S} s")
+    p_pad = -(-500 // 128) * 128
+
+    def show(label, rec):
+        ex = rec["exchanges"]
+        t = {k: round(v, 4) for k, v in rec["timings"].items()}
+        print(f"  {label} -nt -noml: wall {rec['wall_s']:.2f} s, {t}, "
+              f"{rec['boot_stats']}, {ex['calls']} exchanges "
+              f"({ex['bytes']} bytes received, "
+              f"{1e3 * ex['s'] / max(ex['calls'], 1):.4f} ms a call, host "
+              f"clock), byte-identical to the -noml golden "
+              f"{rec['newick'] == boot_golden}, its tree without supports "
+              f"to the -nosupport golden {rec['nosupport'] == golden}, "
+              f"U {tuple(rec['U'])}")
+
+    show(f"{ranks} ranks", recs[0])
+    if single is not None:
+        show("one card", single)
+    for r, rec in enumerate(recs + ([single] if single else [])):
+        label = f"rank {r}" if r < ranks else "one card"
+        if rec["newick"] != boot_golden or rec["nosupport"] != golden:
+            raise AssertionError(f"{label}: a Newick differs from the JAX "
+                                 "golden")
+        width = p_pad // ranks if r < ranks else p_pad
+        if rec["U"][1] != width:
+            raise AssertionError(f"{label}: the store holds {rec['U'][1]} "
+                                 f"positions, not {width}")
+        counts = rec["launches"]
+        require_launched(label, counts, MESH_PATH + (
+            "me_dist_pieces_list", "sh_resample_counts"))
+        ran = {k: counts[k] for k in MESH_NEVER if counts[k]}
+        if ran:
+            raise AssertionError(f"{label}: {ran} launched")
+    main = recs[0]
+    for name in MESH_KERNELS:
+        report.setdefault(name, {})["launches"] = main["launches"][name]
+        if single is not None:
+            report[name]["single_card_launches"] = single["launches"][name]
+    ex = main["exchanges"]
+    report["me_pair_finish"].update({
+        "mesh_ranks": ranks, "mesh_backend": backend,
+        "mesh_wall_s": main["wall_s"], "mesh_timings": main["timings"],
+        "mesh_exchanges": ex["calls"],
+        "mesh_exchange_ms": 1e3 * ex["s"] / max(ex["calls"], 1),
+        "mesh_world_s": world_s})
+    if single is not None:
+        report["me_pair_finish"].update({
+            "single_card_wall_s": single["wall_s"],
+            "single_card_timings": single["timings"]})
+        print(f"  walls: {ranks} ranks {main['wall_s']:.2f} s against one "
+              f"card through the same host loops {single['wall_s']:.2f} s; "
+              f"the rank processes from start to end {world_s:.1f} s")
+    else:
+        print(f"  wall: {ranks} ranks {main['wall_s']:.2f} s; the rank "
+              f"processes from start to end {world_s:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -5884,6 +6306,8 @@ def main() -> int:
         phase("9 -threads", phase_threads, report, cuda, tmp)
         phase("10 checkpoint, fused join, trace", phase_last_modules,
               report, cuda, tmp)
+        phase("11a mesh kernels vs twins", phase_mesh_kernels, report)
+        phase("11b mesh runs", phase_mesh, report, cuda)
     shutil.rmtree(tmp, ignore_errors=True)
     if "epoch" in probe and probe["epoch"][1].poll() is None:
         probe["epoch"][1].kill()             # phase 2d did not wait for it
@@ -5905,4 +6329,7 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--twins"] and len(sys.argv) == 4:
         sys.exit(twins_main(*sys.argv[2:]))
+    if sys.argv[1:2] == ["--mesh-rank"] and len(sys.argv) == 7:
+        a = sys.argv[2:]
+        sys.exit(mesh_rank_main(int(a[0]), int(a[1]), *a[2:]))
     sys.exit(main())

@@ -46,7 +46,11 @@ def _run(code, *args):
                                     "veryfasttree_tpu_torch.engine.checkpoint",
                                     "veryfasttree_tpu_torch.engine.fused",
                                     "veryfasttree_tpu_torch.ops.join_kernels",
-                                    "veryfasttree_tpu_torch.utils.trace"])
+                                    "veryfasttree_tpu_torch.utils.trace",
+                                    "veryfasttree_tpu_torch.parallel",
+                                    "veryfasttree_tpu_torch.parallel.mesh",
+                                    "veryfasttree_tpu_torch.parallel.multihost",
+                                    "veryfasttree_tpu_torch.parallel.sharded"])
 def test_imports_without_jax(module):
     res = _run(f"import {module}; {NOT_LOADED}")
     assert res.returncode == 0, res.stderr

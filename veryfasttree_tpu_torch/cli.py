@@ -1,23 +1,36 @@
 # build_parser, basic_help and args_to_options copy veryfasttree_tpu/cli.py (the port imports none of it).
 """Command line of the PyTorch port: the reference's flag surface on a CUDA
-device.  The TPU-only flags (-mesh-*, -coordinator, -n-hosts, -host-id) are
-accepted and unused.
+device.
 
     python -m veryfasttree_tpu_torch -nt alignment.fasta
     python -m veryfasttree_tpu_torch -nt -noml -nosupport alignment.fasta
 
-A missing GPU raises; the flags of parts not ported yet raise
-NotImplementedError (see pipeline.py).
+Multi-GPU (parallel/): one process drives one card.  -mesh-sp n (and
+-mesh-dp m) without -coordinator starts n x m rank processes on this
+host, rank i on cuda:i (launch_local); across hosts, run one process per
+card with -coordinator host:port -n-hosts K -host-id I (VFT_LOCAL_RANK
+names its card where I is not).  Only rank 0 writes the tree and the log.
+
+A missing GPU raises; under a mesh the parts not ported yet raise
+NotImplementedError (pipeline.unported_under_mesh).
 """
 from __future__ import annotations
 
 import argparse
+import io
 import os
+import socket
+import subprocess
 import sys
+import time
+
+import torch
 
 from . import constants
 from .io.alignment import open_maybe_compressed
 from .options import Options
+from .parallel import multihost
+from .parallel.mesh import requested_ranks
 from .pipeline import run_pipeline
 from .utils.device import resolve_device
 from .utils.progress import TeeStream
@@ -328,7 +341,68 @@ def report_settings(opts, log):
         print(f"ML Model: {model}, {cats}", file=log)
 
 
-def main(argv=None) -> int:
+def rank_device(device, host_id: int) -> torch.device:
+    """The card of this rank: `device` where it names one, else
+    cuda:VFT_LOCAL_RANK (the launcher's rank on its host), else
+    cuda:host_id.  More ranks than cards raises."""
+    if device.type != "cuda" or device.index is not None:
+        return device
+    local = int(os.environ.get("VFT_LOCAL_RANK", host_id))
+    if local >= torch.cuda.device_count():
+        raise RuntimeError(f"rank {host_id} needs cuda:{local}, and this "
+                           f"host has {torch.cuda.device_count()} card(s): "
+                           "more ranks than cards")
+    return torch.device("cuda", local)
+
+
+def launch_local(argv, n_ranks: int, device) -> int:
+    """Run the command as n_ranks rank processes on this host, rank i on
+    cuda:i (or the CPU, as `device` says), with a rendezvous on a free
+    local port.  Returns 0, or the exit code of the first rank that failed
+    after stopping the others."""
+    if device.type == "cuda" and n_ranks > torch.cuda.device_count():
+        raise RuntimeError(f"the mesh needs {n_ranks} ranks, one per card, "
+                           f"and this host has {torch.cuda.device_count()}")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        address = f"127.0.0.1:{sock.getsockname()[1]}"
+    code = ("import sys; from veryfasttree_tpu_torch.cli import main; "
+            f"sys.exit(main(sys.argv[1:], device={device.type!r}))")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = []
+    for i in range(n_ranks):
+        env = dict(os.environ, VFT_COORDINATOR=address,
+                   VFT_N_HOSTS=str(n_ranks), VFT_HOST_ID=str(i),
+                   VFT_LOCAL_RANK=str(i),
+                   PYTHONPATH=os.pathsep.join(
+                       [root] + [p for p in [os.environ.get("PYTHONPATH")]
+                                 if p]))
+        procs.append(subprocess.Popen([sys.executable, "-c", code, *argv],
+                                      env=env, stdin=subprocess.DEVNULL))
+    rc, pending = 0, list(procs)
+    try:
+        while pending:
+            for p in list(pending):
+                r = p.poll()
+                if r is None:
+                    continue
+                pending.remove(p)
+                if r != 0 and rc == 0:
+                    rc = r
+                    for q in pending:
+                        q.terminate()
+            time.sleep(0.05)
+    finally:        # an interrupted launcher leaves no rank behind
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return rc
+
+
+def main(argv=None, device="cuda") -> int:
+    """The command line on `device` (a CUDA device unless the caller asks
+    for the CPU, as the tests do)."""
     parser = build_parser()
     ns = parser.parse_args(argv)
     if ns.expert:
@@ -337,11 +411,34 @@ def main(argv=None) -> int:
     if ns.help_:
         print(basic_help())
         return 0
-    device = resolve_device("cuda")
+    device = resolve_device(device)
     opts = args_to_options(ns)
+    try:
+        coords = multihost.coordinates(opts)
+        if coords is None:
+            n_ranks = requested_ranks(opts, torch.cuda.device_count()
+                                      if device.type == "cuda" else 0)
+            if n_ranks > 1:
+                if not opts.in_file_name:
+                    raise ValueError("a mesh run reads its alignment from a "
+                                     "file, not standard input")
+                return launch_local(sys.argv[1:] if argv is None else argv,
+                                    n_ranks, device)
+        else:
+            device = rank_device(device, coords[2])
+            multihost.maybe_init_distributed(opts, device)
+    except (ValueError, RuntimeError) as e:
+        print(f"ERROR: {e}", file=sys.stderr)
+        return 1
+    # every rank computes; only rank 0 writes the tree and the log, and a
+    # non-primary rank never opens (and truncates) rank 0's files
+    primary = multihost.is_primary()
 
-    log_file = open(opts.log_file_name, "w") if opts.log_file_name else None
-    log = TeeStream(log_file, sys.stderr) if log_file else sys.stderr
+    log_file = open(opts.log_file_name, "w") if opts.log_file_name \
+        and primary else None
+    quiet = None if primary else open(os.devnull, "w")
+    log = quiet or (TeeStream(log_file, sys.stderr) if log_file
+                    else sys.stderr)
     try:
         opts.derive_settings(log)
         if not opts.threads_explicit and opts.threads > 1:
@@ -351,12 +448,12 @@ def main(argv=None) -> int:
             report_settings(opts, log)
         in_fp = open_maybe_compressed(opts.in_file_name) if opts.in_file_name \
             else sys.stdin
-        out_fp = open(opts.out_file_name, "w") if opts.out_file_name \
-            else sys.stdout
+        out_fp = io.StringIO() if not primary else \
+            open(opts.out_file_name, "w") if opts.out_file_name else sys.stdout
         try:
             run_pipeline(opts, in_fp, out_fp, log_fp=log, device=device)
         finally:
-            if opts.out_file_name:
+            if primary and opts.out_file_name:
                 out_fp.close()
             if opts.in_file_name:
                 in_fp.close()
@@ -368,4 +465,9 @@ def main(argv=None) -> int:
     finally:
         if log_file:
             log_file.close()
+        if quiet:
+            quiet.close()
+        if torch.distributed.is_available() \
+                and torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
     return 0

@@ -35,6 +35,7 @@ constexpr int kAvgThreads = 128;
 constexpr int kPieceThreads = 128;  // positions of a pieces block
 constexpr int kAvgCap = 128;
 constexpr int kBadRow = -1;
+constexpr int kFinishThreads = 256;
 
 bool rows_in(const int32_t* rows, int n, int64_t lo, int64_t hi) {
   for (int k = 0; k < n; ++k)
@@ -60,7 +61,10 @@ struct AvgBatch {
 // for the result before its next decision.
 // Design: one 128-thread block per pair (pair_partial, me_store.cuh), then
 // the warps' sums in order.  One launch serves up to kDistCap pairs.
-template <int C>
+// kPartial (a rank's block of positions under a mesh): the pair's sums
+// (pair_sums) go into dist (den) and denom (dots), unfinished, for
+// me_pair_finish_kernel to finish once the ranks' sums are combined.
+template <int C, bool kPartial = false>
 __global__ void __launch_bounds__(kDistThreads) me_pair_dist_kernel(
     StoreView s, const float* qU, const float* qW, const double* ev, PairBatch pb,
     double* __restrict__ dist, double* __restrict__ denom) {
@@ -73,7 +77,12 @@ __global__ void __launch_bounds__(kDistThreads) me_pair_dist_kernel(
     s_dots[threadIdx.x >> 5] = dots;
   }
   __syncthreads();
-  if (threadIdx.x == 0) pair_finish(s_den, s_dots, ev, dist[k], denom[k]);
+  if (threadIdx.x == 0) {
+    if (kPartial)
+      pair_sums(s_den, s_dots, dist[k], denom[k]);
+    else
+      pair_finish(s_den, s_dots, ev, dist[k], denom[k]);
+  }
 }
 
 // Replaces the XLA-compiled store function _join_update
@@ -110,7 +119,8 @@ __global__ void __launch_bounds__(kAvgThreads) me_average_kernel(
 // vector is one 16-byte load; the host orders the list quartet by
 // quartet, so a quartet's four rows are read close in time and mostly
 // from L2.
-template <int C>
+// kPartial: as me_pair_dist_kernel's, den into dist and dots into denom.
+template <int C, bool kPartial = false>
 __global__ void __launch_bounds__(kDistThreads * kListGroups) me_pair_list_kernel(
     StoreView s, const double* ev, const int32_t* __restrict__ rows, int64_t n,
     double* __restrict__ dist, double* __restrict__ denom) {
@@ -125,7 +135,37 @@ __global__ void __launch_bounds__(kDistThreads * kListGroups) me_pair_list_kerne
     s_dots[g][t >> 5] = dots;
   }
   __syncthreads();
-  if (t == 0 && k < n) pair_finish(s_den[g], s_dots[g], ev, dist[k], denom[k]);
+  if (t == 0 && k < n) {
+    if (kPartial)
+      pair_sums(s_den[g], s_dots[g], dist[k], denom[k]);
+    else
+      pair_finish(s_den[g], s_dots[g], ev, dist[k], denom[k]);
+  }
+}
+
+// Replaces no TPU kernel: under a mesh (veryfasttree_tpu_torch/parallel/),
+// where the JAX package's GSPMD adds a psum over 'sp' to each profile
+// distance (veryfasttree_tpu/engine/profiles.py:525-536), each rank's
+// partial kernels write the sums of its block of positions, the ranks
+// exchange them, and this kernel finishes every pair: the k ranks' (den,
+// dots) added in rank order, then pair_div.  parts [k, 2, n]: rank r's den
+// at parts[2rn + i], dots at parts[(2r + 1)n + i]; out [2, n]: dist, then
+// denom.  At k = 1 each pair's bits are the fused kernels' (pair_finish is
+// pair_sums then pair_div).
+// Bound: bytes, 16(k + 1) n (a list of 12,000 pairs at k = 2: 0.6 MB,
+// 0.17 us at 3.35 TB/s); the launch dominates.
+// Design: one thread per pair, the k loads of each sum in rank order.
+__global__ void __launch_bounds__(kFinishThreads) me_pair_finish_kernel(
+    const double* __restrict__ parts, int k, int64_t n, int use_matrix,
+    double* __restrict__ out) {
+  const int64_t i = (int64_t)blockIdx.x * kFinishThreads + threadIdx.x;
+  if (i >= n) return;
+  double d = parts[i], t = parts[n + i];
+  for (int r = 1; r < k; ++r) {
+    d = __dadd_rn(d, parts[2 * r * n + i]);
+    t = __dadd_rn(t, parts[(2 * r + 1) * n + i]);
+  }
+  pair_div(d, t, use_matrix != 0, out[i], out[n + i]);
 }
 
 // Replaces the XLA-compiled _dist_pieces (veryfasttree_tpu/engine/
@@ -199,14 +239,14 @@ __global__ void __launch_bounds__(kAvgThreads) me_average_sweep_kernel(
 template <int C>
 int pair_dists(const StoreView& s, const float* qU, const float* qW, const double* ev,
                const int32_t* a, const int32_t* b, int n, double* dist, double* denom,
-               cudaStream_t st) {
+               bool partial, cudaStream_t st) {
   PairBatch pb;
   for (int off = 0; off < n; off += kDistCap) {
     const int m = n - off < kDistCap ? n - off : kDistCap;
     memcpy(pb.a, a + off, m * sizeof(int32_t));
     memcpy(pb.b, b + off, m * sizeof(int32_t));
-    me_pair_dist_kernel<C><<<m, kDistThreads, 0, st>>>(s, qU, qW, ev, pb, dist + off,
-                                                       denom + off);
+    auto kernel = partial ? me_pair_dist_kernel<C, true> : me_pair_dist_kernel<C, false>;
+    kernel<<<m, kDistThreads, 0, st>>>(s, qU, qW, ev, pb, dist + off, denom + off);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -236,10 +276,10 @@ int average_rows(const StoreView& s, int8_t* codes, float* W, float* U, const fl
 
 template <int C>
 int pair_list(const StoreView& s, const double* ev, const int32_t* rows, int64_t n, double* out,
-              cudaStream_t st) {
+              bool partial, cudaStream_t st) {
   const int64_t blocks = (n + kListGroups - 1) / kListGroups;
-  me_pair_list_kernel<C><<<(unsigned)blocks, kDistThreads * kListGroups, 0, st>>>(
-      s, ev, rows, n, out, out + n);
+  auto kernel = partial ? me_pair_list_kernel<C, true> : me_pair_list_kernel<C, false>;
+  kernel<<<(unsigned)blocks, kDistThreads * kListGroups, 0, st>>>(s, ev, rows, n, out, out + n);
   return (int)cudaGetLastError();
 }
 
@@ -279,6 +319,16 @@ int average_sweep(const StoreView& s, int8_t* codes, float* W, float* U, const f
 
 extern "C" {
 
+int vft_me_pair_dists_partial_f32(const int8_t* codes, const float* W, const float* U,
+                                  const float* code_freq, int64_t n_rows, int64_t leaf_rows,
+                                  int P, int C, const float* qU, const float* qW,
+                                  const double* ev, const int32_t* rows, int n, int partial,
+                                  double* dist, double* denom, void* stream);
+int vft_me_pair_list_partial_f32(const int8_t* codes, const float* W, const float* U,
+                                 const float* code_freq, int64_t leaf_rows, int P, int C,
+                                 const double* ev, const int32_t* rows, int64_t n, int partial,
+                                 double* out, void* stream);
+
 // (dist, denom) of n pairs (rows[k], rows[n + k]) of an n_rows-row store;
 // rows[k] = -1 takes the query (qU, qW).  ev: [C] eigenvalues in matrix mode,
 // NULL in %different mode.
@@ -287,13 +337,25 @@ int vft_me_pair_dists_f32(const int8_t* codes, const float* W, const float* U,
                           int C, const float* qU, const float* qW, const double* ev,
                           const int32_t* rows, int n, double* dist, double* denom,
                           void* stream) {
+  return vft_me_pair_dists_partial_f32(codes, W, U, code_freq, n_rows, leaf_rows, P, C, qU, qW,
+                                       ev, rows, n, 0, dist, denom, stream);
+}
+
+// vft_me_pair_dists_f32, or with partial set each pair's sums over the
+// store's positions unfinished: den into dist, dots into denom
+// (me_pair_finish_kernel finishes them).
+int vft_me_pair_dists_partial_f32(const int8_t* codes, const float* W, const float* U,
+                                  const float* code_freq, int64_t n_rows, int64_t leaf_rows,
+                                  int P, int C, const float* qU, const float* qW,
+                                  const double* ev, const int32_t* rows, int n, int partial,
+                                  double* dist, double* denom, void* stream) {
   if (!rows_in(rows, n, qU != nullptr ? -1 : 0, n_rows) || !rows_in(rows + n, n, 0, n_rows))
     return kBadRow;
   const StoreView s{codes, W, U, code_freq, leaf_rows, P};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int32_t *a = rows, *b = rows + n;
-  if (C == 4) return pair_dists<4>(s, qU, qW, ev, a, b, n, dist, denom, st);
-  if (C == 20) return pair_dists<20>(s, qU, qW, ev, a, b, n, dist, denom, st);
+  if (C == 4) return pair_dists<4>(s, qU, qW, ev, a, b, n, dist, denom, partial != 0, st);
+  if (C == 20) return pair_dists<20>(s, qU, qW, ev, a, b, n, dist, denom, partial != 0, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -322,13 +384,37 @@ int vft_me_pair_list_f32(const int8_t* codes, const float* W, const float* U,
                          const float* code_freq, int64_t leaf_rows, int P, int C,
                          const double* ev, const int32_t* rows, int64_t n, double* out,
                          void* stream) {
+  return vft_me_pair_list_partial_f32(codes, W, U, code_freq, leaf_rows, P, C, ev, rows, n, 0,
+                                      out, stream);
+}
+
+// vft_me_pair_list_f32, or with partial set each pair's sums unfinished:
+// out [2n] = den, then dots.
+int vft_me_pair_list_partial_f32(const int8_t* codes, const float* W, const float* U,
+                                 const float* code_freq, int64_t leaf_rows, int P, int C,
+                                 const double* ev, const int32_t* rows, int64_t n, int partial,
+                                 double* out, void* stream) {
   if (n <= 0 || (n + kListGroups - 1) / kListGroups > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   const StoreView s{codes, W, U, code_freq, leaf_rows, P};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (C == 4) return pair_list<4>(s, ev, rows, n, out, st);
-  if (C == 20) return pair_list<20>(s, ev, rows, n, out, st);
+  if (C == 4) return pair_list<4>(s, ev, rows, n, out, partial != 0, st);
+  if (C == 20) return pair_list<20>(s, ev, rows, n, out, partial != 0, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// (dist, denom) of n pairs from k ranks' unfinished sums (the partial
+// entries' outputs, exchanged): parts [k, 2, n] float64 in device memory,
+// out [2, n]; use_matrix: 1 in matrix mode (top = dots), 0 in %different
+// mode (top = den - dots).
+int vft_me_pair_finish_f64(const double* parts, int k, int64_t n, int use_matrix, double* out,
+                           void* stream) {
+  if (k < 1 || n <= 0 || (n + kFinishThreads - 1) / kFinishThreads > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const int64_t blocks = (n + kFinishThreads - 1) / kFinishThreads;
+  me_pair_finish_kernel<<<(unsigned)blocks, kFinishThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      parts, k, n, use_matrix, out);
+  return (int)cudaGetLastError();
 }
 
 // The local bootstrap's pieces and weights (pieces_pos) of n pairs

@@ -137,17 +137,32 @@ __device__ __forceinline__ void pair_partial2(const StoreView& s, int64_t ra, in
   dots2 = warp_sum(dots2);
 }
 
-// (dist, denom) of one pair from its warps' sums, added in warp order.
-__device__ __forceinline__ void pair_finish(const double* warp_den, const double* warp_dots,
-                                            const double* ev, double& dist, double& denom) {
-  double d = warp_den[0], t = warp_dots[0];
+// One pair's (den, dots) from its warps' sums, added in warp order: the
+// partial of a rank's positions, or, on one card, the pair's whole sums.
+__device__ __forceinline__ void pair_sums(const double* warp_den, const double* warp_dots,
+                                          double& d, double& t) {
+  d = warp_den[0];
+  t = warp_dots[0];
   for (int w = 1; w < kDistWarps; ++w) {
     d = __dadd_rn(d, warp_den[w]);
     t = __dadd_rn(t, warp_dots[w]);
   }
-  const double top = ev != nullptr ? t : __dsub_rn(d, t);
+}
+
+// (dist, denom) of one pair from its whole sums (den d, dots t).
+__device__ __forceinline__ void pair_div(double d, double t, bool use_matrix, double& dist,
+                                         double& denom) {
+  const double top = use_matrix ? t : __dsub_rn(d, t);
   dist = d > 0.0 ? __ddiv_rn(top, d) : 1.0;
   denom = d;
+}
+
+// (dist, denom) of one pair from its warps' sums, added in warp order.
+__device__ __forceinline__ void pair_finish(const double* warp_den, const double* warp_dots,
+                                            const double* ev, double& dist, double& denom) {
+  double d, t;
+  pair_sums(warp_den, warp_dots, d, t);
+  pair_div(d, t, ev != nullptr, dist, denom);
 }
 
 // The local bootstrap's per-position pieces of rows (ra, rb) at position p

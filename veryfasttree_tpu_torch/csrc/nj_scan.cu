@@ -89,7 +89,12 @@ __device__ __forceinline__ void block_partial(Acc best_c, int64_t best_i, Acc* p
 // step.  The query (a, wq; 16 KB + 4 KB in double) is read through the
 // read-only cache, where every warp of the SM reuses it.  Warp-shuffle sums;
 // lane 0 writes the row's dist, denom and crit.
-template <typename Acc>
+//
+// kPartial (a rank's block of positions under a mesh, parallel/): each row's
+// sums go into dist (dots) and denom (den), with no division, criterion or
+// best; nj_scan_finish_kernel finishes them once the ranks' sums are
+// combined (outd, crit and the partials unused).
+template <typename Acc, bool kPartial = false>
 __global__ void __launch_bounds__(kThreads) nj_scan_dense_kernel(
     const float* __restrict__ U2, const float* __restrict__ W, const Acc* __restrict__ a,
     const Acc* __restrict__ wq, const Acc* __restrict__ outd, int64_t M, int64_t m_real, int K,
@@ -102,11 +107,17 @@ __global__ void __launch_bounds__(kThreads) nj_scan_dense_kernel(
   if (m < M) {
     Acc dots, den;
     dense_row(U2 + m * K, W + m * P, a, wq, K, P, lane, dots, den);
-    if (lane == 0)
-      row_epilogue(m, dots, den, outd[m], use_matrix != 0, n_active_m2, m_real, dist, denom,
-                   crit, best_c, best_i);
+    if (lane == 0) {
+      if (kPartial) {
+        dist[m] = dots;
+        denom[m] = den;
+      } else {
+        row_epilogue(m, dots, den, outd[m], use_matrix != 0, n_active_m2, m_real, dist, denom,
+                     crit, best_c, best_i);
+      }
+    }
   }
-  block_partial(best_c, best_i, part_crit, part_idx);
+  if (!kPartial) block_partial(best_c, best_i, part_crit, part_idx);
 }
 
 // the tile of G and wq that starts at position p0, laid out (codes_slot)
@@ -137,7 +148,9 @@ __device__ __forceinline__ void stage_codes_tile(const Acc* __restrict__ G,
 // codes per 16-byte load, and lane r row r's out-distance with them, which
 // lane 0's epilogue takes by a shuffle.  A code other than NOCODE (127) adds
 // wq[p] to denom and G[code][p] to the pick sum.
-template <typename Acc, bool kOneTile>
+// kPartial: as nj_scan_dense_kernel's, the pick sum into dist and den into
+// denom, nothing else.
+template <typename Acc, bool kOneTile, bool kPartial = false>
 __global__ void __launch_bounds__(kThreads) nj_scan_codes_kernel(
     const int8_t* __restrict__ codes, const Acc* __restrict__ G, const Acc* __restrict__ wq,
     const Acc* __restrict__ outd, int64_t L, int64_t l_real, int P, int C, int p_tile,
@@ -160,7 +173,7 @@ __global__ void __launch_bounds__(kThreads) nj_scan_codes_kernel(
     const int64_t left = L - row0;
     const int n = left <= 0 ? 0 : (left < kCodesRowsPerWarp ? (int)left : kCodesRowsPerWarp);
     // row r's out-distance, loaded by lane r beside the codes
-    const Acc outd_r = lane < n ? outd[row0 + lane] : Acc(0);
+    const Acc outd_r = !kPartial && lane < n ? outd[row0 + lane] : Acc(0);
     Acc den[kCodesRowsPerWarp], pick[kCodesRowsPerWarp];
 #pragma unroll
     for (int r = 0; r < kCodesRowsPerWarp; ++r) den[r] = pick[r] = 0;
@@ -185,12 +198,18 @@ __global__ void __launch_bounds__(kThreads) nj_scan_codes_kernel(
       const Acc d = scan_warp_sum(den[r]);
       const Acc s = scan_warp_sum(pick[r]);
       const Acc od = __shfl_sync(0xffffffffu, outd_r, r);
-      if (lane == 0)
-        row_epilogue(row0 + r, s, d, od, use_matrix != 0, n_active_m2, l_real, dist, denom, crit,
-                     best_c, best_i);
+      if (lane == 0) {
+        if (kPartial) {
+          dist[row0 + r] = s;
+          denom[row0 + r] = d;
+        } else {
+          row_epilogue(row0 + r, s, d, od, use_matrix != 0, n_active_m2, l_real, dist, denom,
+                       crit, best_c, best_i);
+        }
+      }
     }
   }
-  block_partial(best_c, best_i, part_crit, part_idx);
+  if (!kPartial) block_partial(best_c, best_i, part_crit, part_idx);
 }
 
 // the code scan's dynamic shared memory: the laid-out tile of G and wq
@@ -200,7 +219,10 @@ size_t codes_smem(int P, int C) {
 
 // the code scan's instantiation: the table staged once where one tile holds
 // all P positions, else tile by tile for each group
-const void* codes_kernel(int P, int C) {
+const void* codes_kernel(int P, int C, bool partial = false) {
+  if (partial)
+    return codes_p_tile(P, C) >= P ? (const void*)nj_scan_codes_kernel<double, true, true>
+                                   : (const void*)nj_scan_codes_kernel<double, false, true>;
   return codes_p_tile(P, C) >= P ? (const void*)nj_scan_codes_kernel<double, true>
                                  : (const void*)nj_scan_codes_kernel<double, false>;
 }
@@ -234,6 +256,51 @@ __global__ void __launch_bounds__(kThreads) argmin_partials_kernel(
     *best_idx = s_idx[0];
     *best_crit = s_crit[0];
   }
+}
+
+// Replaces the epilogue of the Pallas kernels _scan_kernel and
+// _scan_codes_kernel (veryfasttree_tpu/ops/pallas_kernels.py:38, 173) and
+// of dist_scan_sharded (veryfasttree_tpu/parallel/sharded.py:22), where
+// psum('sp') combines the ranks' sums: under a mesh the partial scans of
+// each rank's block of positions, exchanged, are finished here.  parts
+// [k, 2, M]: rank r's dots at parts[2rM + m], den at parts[(2r + 1)M + m].
+// Each row's sums are added in rank order, then row_epilogue (row_dist,
+// the criterion, the (crit, index) order of better()) as the fused scans
+// take it, so at k = 1 every dist, denom, crit and the best are theirs
+// bit for bit; the best over the rows takes argmin_partials_kernel after.
+// Bound: bytes, 16(k + 1) M + 24 M written (M = 8,192 at k = 2: 0.6 MB,
+// 0.18 us at 3.35 TB/s); the two launches dominate.
+// Design: one thread per row; a warp's (crit, index) minimum by xor
+// shuffles (every lane ends with the same, lowest index on ties), then the
+// block's warps in order (block_partial).
+template <typename Acc>
+__global__ void __launch_bounds__(kThreads) nj_scan_finish_kernel(
+    const Acc* __restrict__ parts, int k, const Acc* __restrict__ outd, int64_t M,
+    int64_t m_real, Acc n_active_m2, int use_matrix, Acc* __restrict__ dist,
+    Acc* __restrict__ denom, Acc* __restrict__ crit, Acc* __restrict__ part_crit,
+    int64_t* __restrict__ part_idx) {
+  const int64_t m = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  Acc best_c = Acc(INFINITY);
+  int64_t best_i = INT64_MAX;
+  if (m < M) {
+    Acc dots = parts[m], den = parts[M + m];
+    for (int r = 1; r < k; ++r) {
+      dots = acc_add(dots, parts[2 * r * M + m]);
+      den = acc_add(den, parts[(2 * r + 1) * M + m]);
+    }
+    row_epilogue(m, dots, den, outd[m], use_matrix != 0, n_active_m2, m_real, dist, denom, crit,
+                 best_c, best_i);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const Acc oc = __shfl_xor_sync(0xffffffffu, best_c, off);
+    const int64_t oi = __shfl_xor_sync(0xffffffffu, best_i, off);
+    if (better(oc, oi, best_c, best_i)) {
+      best_c = oc;
+      best_i = oi;
+    }
+  }
+  block_partial(best_c, best_i, part_crit, part_idx);
 }
 
 }  // namespace
@@ -296,6 +363,59 @@ int vft_nj_scan_codes_f64(const int8_t* codes, const double* G, const double* wq
                                                   double(n_active) - 2.0, use_matrix, dist,
                                                   denom, crit, part_crit, part_idx);
   err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  argmin_partials_kernel<double><<<1, kThreads, 0, s>>>(part_crit, part_idx, blocks, best_idx,
+                                                        best_crit);
+  return (int)cudaGetLastError();
+}
+
+// The partial scans (kPartial): each row's sums over the store's
+// positions, dots into dots and den into denom, [M] (dense) or [L] (codes)
+// float64 each; the codes scan's grid as vft_scan_codes_blocks gives it.
+int vft_nj_scan_dense_partial_f64(const float* U2, const float* W, const double* a,
+                                  const double* wq, int64_t M, int K, int P, double* dots,
+                                  double* denom, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int64_t blocks = vft_scan_dense_blocks(M);
+  nj_scan_dense_kernel<double, true><<<(unsigned)blocks, kThreads, 0, s>>>(
+      U2, W, a, wq, nullptr, M, M, K, P, 1.0, 0, dots, denom, nullptr, nullptr, nullptr);
+  return (int)cudaGetLastError();
+}
+
+int vft_nj_scan_codes_partial_f64(const int8_t* codes, const double* G, const double* wq,
+                                  int64_t L, int P, int C, int64_t blocks, double* dots,
+                                  double* denom, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (blocks < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = codes_smem(P, C);
+  const int p_tile = codes_p_tile(P, C);
+  cudaError_t err = cudaFuncSetAttribute(codes_kernel(P, C, true),
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  auto kernel = p_tile >= P ? nj_scan_codes_kernel<double, true, true>
+                            : nj_scan_codes_kernel<double, false, true>;
+  kernel<<<(unsigned)blocks, kThreads, smem, s>>>(codes, G, wq, nullptr, L, L, P, C, p_tile, 1.0,
+                                                  0, dots, denom, nullptr, nullptr, nullptr);
+  return (int)cudaGetLastError();
+}
+
+int64_t vft_scan_finish_blocks(int64_t M) { return (M + kThreads - 1) / kThreads; }
+
+// The scan's result from k ranks' partial sums (parts [k, 2, M] float64 in
+// device memory: dots, then den, of each rank in rank order): dist, denom
+// and crit [M], the per-block partials (vft_scan_finish_blocks of them)
+// and the best (lowest crit, lowest index) row.
+int vft_nj_scan_finish_f64(const double* parts, int k, const double* outd, int64_t M,
+                           int64_t m_real, int64_t n_active, int use_matrix, double* dist,
+                           double* denom, double* crit, double* part_crit, int64_t* part_idx,
+                           int64_t* best_idx, double* best_crit, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (k < 1 || M <= 0) return (int)cudaErrorInvalidValue;
+  const int64_t blocks = vft_scan_finish_blocks(M);
+  nj_scan_finish_kernel<double><<<(unsigned)blocks, kThreads, 0, s>>>(
+      parts, k, outd, M, m_real, double(n_active) - 2.0, use_matrix, dist, denom, crit,
+      part_crit, part_idx);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   argmin_partials_kernel<double><<<1, kThreads, 0, s>>>(part_crit, part_idx, blocks, best_idx,
                                                         best_crit);

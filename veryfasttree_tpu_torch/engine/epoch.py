@@ -21,12 +21,13 @@ from __future__ import annotations
 
 def epoch_supported(nj, tophits) -> bool:
     """The modes the epoch runs: top-hits on and none of -slow, -fastest or
-    -2nd (the JAX package's rule, veryfasttree_tpu/engine/epoch.py:1042).
-    Every other mode keeps the host loop."""
+    -2nd (the JAX package's rule, veryfasttree_tpu/engine/epoch.py:1042),
+    on one card (under a mesh every distance needs the ranks' exchange,
+    which the kernel has not).  Every other mode keeps the host loop."""
     opts = nj.options
     return (tophits is not None and not opts.slow
             and not opts.fastest and not opts.use_tophits_2nd
-            and tophits.q == 0)
+            and tophits.q == 0 and opts.mesh is None)
 
 
 def reset_plan(n_seqs: int, options, max_joins=None) -> list:

@@ -29,7 +29,7 @@ from ..utils.debug import Debug
 from ..utils.trace import annotate
 
 from . import fused
-from .profiles import MEProfiles
+from .profiles import MEProfiles, make_store
 from .state import TreeState
 
 # The fused one-launch join step of the host loop (engine/fused.py), as the
@@ -68,7 +68,8 @@ class NeighbourJoining:
         self.debug = options.debug if hasattr(options, "debug") else Debug()
 
         self.tree = TreeState(n_seqs, self.maxnodes)
-        self.prof = MEProfiles(leaf_codes, options, dmat, self.maxnodes,
+        # under a mesh, the rank's block of positions (ShardedMEProfiles)
+        self.prof = make_store(leaf_codes, options, dmat, self.maxnodes,
                                device=device)
 
         # constraints: nOn/nOff counts per node per constraint (ref
@@ -138,7 +139,7 @@ class NeighbourJoining:
             self.con_off[:] = arrays["nj_con_off"]
             self.con_out_on[:] = arrays["nj_con_out_on"]
             self.con_out_off[:] = arrays["nj_con_out_off"]
-        self.prof = MEProfiles.from_numpy(
+        self.prof = type(self.prof).from_numpy(
             arrays, self.options, self.dmat, self.n_seqs, self.n_pos,
             self.maxnodes, two_tier=self.prof.two_tier,
             device=self.prof.device)
@@ -534,7 +535,10 @@ class NeighbourJoining:
                         and changed >= opts.f_reset_out_profile
                         * n_active_out_profile_reset)
 
-            if m > 0 and not do_reset and USE_FUSED_JOIN:
+            # (one card only: the fused step computes its distances inside
+            # the kernel, where a mesh has no exchange)
+            if m > 0 and not do_reset and USE_FUSED_JOIN \
+                    and opts.mesh is None:
                 # the join, the out-profile update and the top-hits merge's
                 # distances in one store call and one fetch
                 # (engine/fused.py), then the merge on the host

@@ -34,6 +34,57 @@ def _np(x) -> np.ndarray:
     return x.cpu().numpy()
 
 
+# what a store may take of one H100's 80 GB (79.1 GiB as torch sees it),
+# leaving the rest for the run's other tensors and the CUDA context
+CARD_STORE_BYTES = 75 * 2**30
+
+
+def hbm_plan(n_seqs: int, n_pos: int, n_codes: int = 4,
+             double_precision: bool = False, two_tier: bool | None = None,
+             n_sp: int = 1, position_align: int = 128,
+             tile_m: int = scan_kernels.TILE_M) -> dict:
+    """Device-memory budget of the ME store for (N, P, C, sp) (the JAX
+    package's hbm_plan, veryfasttree_tpu/engine/profiles.py:483-522, the
+    fit formula in place of the reference's DiskMemory spill planning).
+
+    Rows: n_rows = 4N (node and up-profile slots); two-tier leaves live as
+    int8 codes only, the float rows cover the rest.  Position sharding over
+    sp ranks gives each rank a block of p_pad / sp positions (rounded up to
+    parallel.mesh.BLOCK_ALIGN), so per_device_bytes, the bytes of one
+    rank's store (ShardedMEProfiles), is total_bytes / sp where sp divides
+    p_pad / 16; fits_h100 says whether that fits one 80 GB card
+    (CARD_STORE_BYTES).  At N = 1,000,000, P = 1,300, nucleotide, float32,
+    two-tier: total 90.1 GB, which no one card holds; 45.1 GB a card at
+    sp = 2, 22.5 GB at sp = 4."""
+    from ..parallel.mesh import block_width
+
+    if two_tier is None:
+        two_tier = n_seqs >= 20000
+    esz = 8 if double_precision else 4
+    p_pad = ((n_pos + position_align - 1) // position_align) * position_align
+    width = block_width(p_pad, n_sp)
+    maxnodes = 2 * n_seqs
+    n_rows = ((2 * maxnodes + tile_m - 1) // tile_m) * tile_m
+    n_float = n_rows
+    if two_tier:
+        n_float = ((n_rows - n_seqs + tile_m - 1) // tile_m) * tile_m
+
+    def store_bytes(p):
+        return (n_rows * p + n_float * p * esz * (1 + n_codes)
+                + p * (n_codes + 1) * esz)
+
+    total = store_bytes(p_pad)
+    per_device = store_bytes(width)
+    return {
+        "n_rows": n_rows, "p_pad": p_pad, "two_tier": two_tier,
+        "codes_bytes": n_rows * p_pad, "w_bytes": n_float * p_pad * esz,
+        "u_bytes": n_float * p_pad * n_codes * esz, "total_bytes": total,
+        "block_positions": width,
+        "per_device_bytes": per_device,
+        "fits_h100": per_device < CARD_STORE_BYTES,
+    }
+
+
 class MEProfiles:
     _LEAF_CHUNK = 4096   # leaf rows expanded at once by the out-profile sum
 
@@ -82,8 +133,7 @@ class MEProfiles:
         self.device = torch.device(device)
         self.n_seqs = n_seqs
         self.n_pos = n_pos
-        pa = options.position_align
-        self.p_pad = ((n_pos + pa - 1) // pa) * pa
+        self.p_pad = self._p_pad(n_pos, options.position_align)
         self.n_codes = options.n_codes
         self.use_matrix = dmat is not None
         self.dmat = dmat
@@ -110,6 +160,10 @@ class MEProfiles:
         # out-profile distances, NeighbourJoining.cache_out_raw, holds for
         # one version)
         self.out_version = 0
+
+    @staticmethod
+    def _p_pad(n_pos: int, align: int) -> int:
+        return ((n_pos + align - 1) // align) * align
 
     def _n_float_rows(self) -> int:
         if not self.two_tier:
@@ -221,15 +275,16 @@ class MEProfiles:
                                                  3, self._ev)
         return _np(d), _np(w)
 
-    def _dist_many_vs_leaves(self, rows):
-        """K query rows vs all leaves -> (dist, denom) tensors [K, n_seqs]."""
+    def _dots_many_vs_leaves(self, rows):
+        """K query rows vs all leaves -> the distances' sums (dots, denom),
+        tensors [K, n_seqs]."""
         _, wq, uq = self._rows_cwu(rows)
         uq, wq = uq.to(_ACC), wq.to(_ACC)
         ev = self._ev.to(_ACC) if self.use_matrix else None
         if self.two_tier:
             leaves = self.codes[: self.n_seqs]
             cf = self.code_freq.to(_ACC)
-            pairs = [kernels.me_dist_many_codes(leaves, u, w, ev, cf, _ACC)
+            pairs = [kernels.me_dots_many_codes(leaves, u, w, ev, cf, _ACC)
                      for u, w in zip(uq, wq)]
             return (torch.stack([p[0] for p in pairs]),
                     torch.stack([p[1] for p in pairs]))
@@ -238,10 +293,13 @@ class MEProfiles:
         Ul = self.U[: self.n_seqs].to(_ACC).reshape(self.n_seqs, -1)
         denom = wq @ Wl.T
         if ev is not None:
-            top = (uq * ev[None, None, :]).reshape(K, -1) @ Ul.T
-        else:
-            top = denom - uq.reshape(K, -1) @ Ul.T
-        return kernels._piece_dist(top, denom), denom
+            return (uq * ev[None, None, :]).reshape(K, -1) @ Ul.T, denom
+        return uq.reshape(K, -1) @ Ul.T, denom
+
+    def _dist_many_vs_leaves(self, rows):
+        """K query rows vs all leaves -> (dist, denom) tensors [K, n_seqs]."""
+        return kernels.finish_dist(*self._dots_many_vs_leaves(rows),
+                                   self.use_matrix)
 
     def dist_many_vs_leaves(self, rows: np.ndarray):
         """Wave seed scan: [K] query rows vs all leaves -> (dist, weight)
@@ -340,3 +398,103 @@ class MEProfiles:
         store_kernels.me_average_sweep(
             self.codes, self.W, self.U, self.code_freq, self._et,
             self._leaf_rows, tables, self.tol)
+
+
+class ShardedMEProfiles(MEProfiles):
+    """The store of one rank of a mesh (parallel/mesh.py): the same layout
+    over the rank's block of positions (Mesh.block: contiguous, p_pad / sp
+    wide, padded with NOCODE and W = 0), every row present.
+
+    Averages, the out-profile and leaf expansion are local to each
+    position and run unchanged on the block.  Every distance is a sum over
+    positions: the rank's float64 partial (the partial kernels, or the
+    twins' sums), the exchange along sp (every rank ends with every rank's
+    partial), then the finish on the sums added in rank order
+    (me_pair_finish, nj_scan_finish, or the seed waves' finish_dist).
+    Every rank gets the same bits, and the host loops above the store run
+    as on one card.  n_pos stays the alignment's; n_local and lo are the
+    block's real positions and the first of them.  The local bootstrap's
+    pieces are the block's (engine/supports.LocalBootstrap exchanges their
+    sums)."""
+
+    def __init__(self, leaf_codes: np.ndarray, options, dmat, maxnodes: int,
+                 two_tier: bool | None = None, device=torch.device("cpu")):
+        self.mesh = options.mesh
+        n_seqs, n_pos = leaf_codes.shape
+        self.lo, width, self.n_local = self.mesh.block(
+            n_pos, options.position_align)
+        block = np.full((n_seqs, width), NOCODE, dtype=np.int8)
+        block[:, : self.n_local] = \
+            leaf_codes[:, self.lo: self.lo + self.n_local]
+        super().__init__(block, options, dmat, maxnodes, two_tier, device)
+        self.n_pos = n_pos
+        self.n_gaps = (leaf_codes == NOCODE).sum(axis=1).astype(np.int64)
+
+    @staticmethod
+    def _p_pad(n_pos: int, align: int) -> int:
+        return n_pos      # the block's width, aligned by Mesh.block
+
+    @classmethod
+    def from_numpy(cls, *args, **kwargs):
+        raise NotImplementedError(
+            "-checkpoint under a mesh is not ported yet (ROADMAP Queue 1, "
+            "the multi-GPU slices: -threads, -constraints, -makematrix and "
+            "-checkpoint under a mesh)")
+
+    def _finish_pairs(self, part):
+        return _np(store_kernels.me_pair_finish(self.mesh.exchange(part),
+                                                self.use_matrix))
+
+    def dist_one_vs_all(self, i: int):
+        """Row i against every row: the partial scans of the block, one
+        exchange, nj_scan_finish."""
+        uq, wq = self.row_query(i)
+        n_out = (self.n_seqs if self.two_tier else 0) + self.U.shape[0]
+        outd = torch.zeros(n_out, dtype=_ACC, device=self.device)
+        if self.two_tier:
+            _, _, d, w, _ = scan_kernels.nj_scan_two_tier(
+                self.codes, self.W, self.U, uq, wq, outd, 3, self.n_seqs,
+                self._ev, self.code_freq, exchange=self.mesh.exchange)
+        else:
+            _, _, d, w, _ = scan_kernels.nj_scan(
+                self.U, self.W, uq, wq, outd, 3, self._ev,
+                exchange=self.mesh.exchange)
+        return _np(d), _np(w)
+
+    def _dist_many_vs_leaves(self, rows):
+        dots, denom = self.mesh.exchange_sum(
+            torch.stack(self._dots_many_vs_leaves(rows)))
+        return kernels.finish_dist(dots, denom, self.use_matrix)
+
+    def _dists(self, q_rows=(), query=None, iis=(), jjs=()):
+        qU, qW = query if query is not None else (None, None)
+        out = self._finish_pairs(store_kernels.me_dists_partial(
+            self.codes, self.W, self.U, self.code_freq, self._ev,
+            self._leaf_rows, q_rows, qU, qW, iis, jjs))
+        return out[0], out[1]
+
+    def dist_pair_list(self, iis: np.ndarray, jjs: np.ndarray):
+        out = self._finish_pairs(store_kernels.me_dists_list_partial(
+            self.codes, self.W, self.U, self.code_freq, self._ev,
+            self._leaf_rows, iis, jjs))
+        return out[0], out[1]
+
+    def dist_pieces_list(self, iis: np.ndarray, jjs: np.ndarray):
+        """The pieces and weights at the block's n_local real positions
+        (float32 [K, n_local] each, not fetched)."""
+        if self.n_local == 0:
+            empty = torch.empty((len(iis), 0), dtype=torch.float32,
+                                device=self.device)
+            return empty, empty.clone()
+        return store_kernels.me_dist_pieces_list(
+            self.codes, self.W, self.U, self.code_freq, self._ev,
+            self._leaf_rows, self.n_local, iis, jjs)
+
+
+def make_store(leaf_codes: np.ndarray, options, dmat, maxnodes: int,
+               device=torch.device("cpu")):
+    """The engine's ME store: a rank's ShardedMEProfiles under a mesh
+    (options.mesh), else MEProfiles."""
+    cls = ShardedMEProfiles if getattr(options, "mesh", None) is not None \
+        else MEProfiles
+    return cls(leaf_codes, options, dmat, maxnodes, device=device)

@@ -252,6 +252,14 @@ class LocalBootstrap:
         ones = torch.ones((nj.n_pos, 1), dtype=counts.dtype, device=dev)
         self.cx = torch.cat([counts, ones], 1)                  # [P, B + 1]
         self.cmax = self.cx.max(0).values                       # [B + 1]
+        # under a mesh every rank draws the whole [P, B] matrix (the same
+        # Knuth stream) and multiplies its block's pieces by its own rows;
+        # the sums go through the mesh's exchange (sums_of)
+        self.mesh = opts.mesh
+        self.cx_block = self.cx
+        if self.mesh is not None:
+            lo, n_local = nj.prof.lo, nj.prof.n_local
+            self.cx_block = self.cx[lo: lo + n_local]
         self._host_counts = None
         # NeighbourJoining.log_corrected's two laws
         self.nucleotide_log = opts.n_codes == 4 and not opts.use_matrix
@@ -289,13 +297,14 @@ class LocalBootstrap:
         self.stats["launches"] += 1
         self.stats["splits"] += k
         p64, w64 = pieces.double(), weights.double()
-        tp = (p64 @ self.cx).view(k, 6, B + 1)
-        tw = (w64 @ self.cx).view(k, 6, B + 1)
+        tp, tw, pabs, wsum = self.sums_of(p64, w64)
+        tp, tw = tp.view(k, 6, B + 1), tw.view(k, 6, B + 1)
         # two sums of the same P terms in any orders differ by at most
-        # 2 (P - 1) u times the sum of the terms' magnitudes
+        # 2 (P - 1) u times the sum of the terms' magnitudes (under a mesh
+        # too: the ranks' partials added in rank order are another order)
         gam = 2.0 * P * _U64 * 1.01 * self.cmax
-        ep = gam * p64.abs().sum(1).view(k, 6, 1)
-        ew = gam * w64.sum(1).view(k, 6, 1)
+        ep = gam * pabs.view(k, 6, 1)
+        ew = gam * wsum.view(k, 6, 1)
         ok = tw > 0.01
         doubt = ((tw - 0.01).abs() <= ew).any(1)                 # [k, B + 1]
         d = torch.where(ok, tp / torch.where(ok, tw, 1.0), 3.0)
@@ -327,14 +336,35 @@ class LocalBootstrap:
             self.stats["redecided_splits"] += len(again)
             self.stats["redecided_entries"] += int(out[2].sum())
             idx = torch.as_tensor(again, device=pieces.device)
-            hp = p64.view(k, 6, P)[idx].cpu().numpy()
-            hw = w64.view(k, 6, P)[idx].cpu().numpy()
+            hp, hw = p64.view(k, 6, -1)[idx], w64.view(k, 6, -1)[idx]
+            if self.mesh is not None:
+                # the split's pieces at every position, from every rank
+                align = nj.options.position_align
+                hp = self.mesh.gather_positions(hp, P, align)
+                hw = self.mesh.gather_positions(hw, P, align)
+            hp, hw = hp.cpu().numpy(), hw.cpu().numpy()
             counts = self.host_counts()
             for i, j in enumerate(again):
                 subopt[j], n_support[j] = split_support_host(
                     nj, np.ascontiguousarray(hp[i]),
                     np.ascontiguousarray(hw[i]), counts)
         return n_support, subopt
+
+    def sums_of(self, p64, w64):
+        """(pieces @ [counts | 1], weights @ [counts | 1], the pieces'
+        absolute sums, the weights' sums) over every position; under a
+        mesh the block's partials of all four in one exchange, added in
+        rank order."""
+        cx = self.cx_block
+        sums = (p64 @ cx, w64 @ cx, p64.abs().sum(1), w64.sum(1))
+        if self.mesh is None:
+            return sums
+        flat = torch.cat([sums[0], sums[1], sums[2][:, None],
+                          sums[3][:, None]], 1)
+        flat = self.mesh.exchange_sum(flat)
+        B1 = cx.shape[1]
+        return (flat[:, :B1], flat[:, B1: 2 * B1], flat[:, 2 * B1],
+                flat[:, 2 * B1 + 1])
 
 
 def reliability_nj(nj):

@@ -223,6 +223,21 @@ def _declare(lib) -> None:
     lib.vft_nj_scan_codes_f64.argtypes = [
         ptr, ptr, ptr, ptr, i64, i64, i32, i32, i64, i32, i64,
         ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr]
+    lib.vft_nj_scan_dense_partial_f64.argtypes = [
+        ptr, ptr, ptr, ptr, i64, i32, i32, ptr, ptr, ptr]
+    lib.vft_nj_scan_codes_partial_f64.argtypes = [
+        ptr, ptr, ptr, i64, i32, i32, i64, ptr, ptr, ptr]
+    lib.vft_scan_finish_blocks.argtypes = [i64]
+    lib.vft_scan_finish_blocks.restype = i64
+    lib.vft_nj_scan_finish_f64.argtypes = [
+        ptr, i32, ptr, i64, i64, i64, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+        ptr]
+    lib.vft_me_pair_dists_partial_f32.argtypes = [
+        ptr, ptr, ptr, ptr, i64, i64, i32, i32, ptr, ptr, ptr, ptr, i32, i32,
+        ptr, ptr, ptr]
+    lib.vft_me_pair_list_partial_f32.argtypes = [
+        ptr, ptr, ptr, ptr, i64, i32, i32, ptr, ptr, i64, i32, ptr, ptr]
+    lib.vft_me_pair_finish_f64.argtypes = [ptr, i32, i64, i32, ptr, ptr]
     lib.vft_me_pair_dists_f32.argtypes = [
         ptr, ptr, ptr, ptr, i64, i64, i32, i32, ptr, ptr, ptr, ptr, i32,
         ptr, ptr, ptr]
@@ -312,6 +327,10 @@ def _declare(lib) -> None:
     lib.vft_sh_resample_counts.argtypes = [ptr, ptr, i32, i32, i32, i32, i32,
                                            i32, ptr, ptr]
     for name in ("vft_nj_scan_dense_f64", "vft_nj_scan_codes_f64",
+                 "vft_nj_scan_dense_partial_f64",
+                 "vft_nj_scan_codes_partial_f64", "vft_nj_scan_finish_f64",
+                 "vft_me_pair_dists_partial_f32",
+                 "vft_me_pair_list_partial_f32", "vft_me_pair_finish_f64",
                  "vft_me_pair_dists_f32", "vft_me_average_f32",
                  "vft_me_spr_round_f32", "vft_me_nni_round_f32",
                  "vft_me_spr_round_cons_f32", "vft_me_nni_round_cons_f32",

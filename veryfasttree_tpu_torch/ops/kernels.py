@@ -42,14 +42,24 @@ def me_dist_many(U, W, u_q, w_q, eigenval):
     return me_dist_many_2d(U.reshape(U.shape[0], -1), W, u_q, w_q, eigenval)
 
 
-def me_dist_many_2d(U2, W, u_q, w_q, eigenval):
-    """me_dist_many against a pre-flattened store U2 [M, P*C]."""
+def finish_dist(dots, denom, use_matrix):
+    """(dist, denom) from a distance's sums: top = dots in matrix mode,
+    denom - dots in %different mode."""
+    return _piece_dist(dots if use_matrix else denom - dots, denom), denom
+
+
+def me_dots_many_2d(U2, W, u_q, w_q, eigenval):
+    """The sums of me_dist_many_2d, unfinished: (dots[M], denom[M])."""
     denom = W @ w_q
     if eigenval is not None:
-        top = U2 @ (u_q * eigenval[None, :]).reshape(-1)
-    else:
-        top = denom - U2 @ u_q.reshape(-1)
-    return _piece_dist(top, denom), denom
+        return U2 @ (u_q * eigenval[None, :]).reshape(-1), denom
+    return U2 @ u_q.reshape(-1), denom
+
+
+def me_dist_many_2d(U2, W, u_q, w_q, eigenval):
+    """me_dist_many against a pre-flattened store U2 [M, P*C]."""
+    return finish_dist(*me_dots_many_2d(U2, W, u_q, w_q, eigenval),
+                       eigenval is not None)
 
 
 def me_dist_pair(u1, w1, u2, w2, eigenval):
@@ -57,16 +67,20 @@ def me_dist_pair(u1, w1, u2, w2, eigenval):
     return d[0], w[0]
 
 
-def me_dist_rows(U1, W1, U2, W2, eigenval):
-    """Row-wise distances of two profile stacks: [K,P,C] x [K,P,C] -> [K]."""
+def me_dots_rows(U1, W1, U2, W2, eigenval):
+    """The sums of me_dist_rows, unfinished: (dots[K], denom[K])."""
     denom = torch.einsum("kp,kp->k", W1, W2)
     if eigenval is not None:
-        top = torch.einsum("kpc,kpc,c->k", U1, U2, eigenval)
-    else:
-        K = U1.shape[0]
-        top = denom - torch.einsum("kx,kx->k", U1.reshape(K, -1),
-                                   U2.reshape(K, -1))
-    return _piece_dist(top, denom), denom
+        return torch.einsum("kpc,kpc,c->k", U1, U2, eigenval), denom
+    K = U1.shape[0]
+    return torch.einsum("kx,kx->k", U1.reshape(K, -1),
+                        U2.reshape(K, -1)), denom
+
+
+def me_dist_rows(U1, W1, U2, W2, eigenval):
+    """Row-wise distances of two profile stacks: [K,P,C] x [K,P,C] -> [K]."""
+    return finish_dist(*me_dots_rows(U1, W1, U2, W2, eigenval),
+                       eigenval is not None)
 
 
 def log_correct(dist, n_codes, use_matrix):
@@ -397,10 +411,8 @@ def leaf_u(codes_rows, code_freq, dtype):
     return U, W
 
 
-def me_dist_many_codes(leaf_codes, uq, wq, eigenval, code_freq, dtype):
-    """One query against many code-only leaves: per-position picks from the
-    projected query table G[p, c] = (uq * eigenval) . codeFreq[c] (matrix
-    mode) or uq itself (%different mode).  Returns (dist[L], denom[L])."""
+def me_dots_many_codes(leaf_codes, uq, wq, eigenval, code_freq, dtype):
+    """The sums of me_dist_many_codes, unfinished: (picks[L], denom[L])."""
     valid = leaf_codes != NOCODE
     safe = torch.where(valid, leaf_codes.long(), 0)
     wl = valid.to(dtype)
@@ -411,6 +423,13 @@ def me_dist_many_codes(leaf_codes, uq, wq, eigenval, code_freq, dtype):
     picked = torch.zeros(leaf_codes.shape, dtype=dtype, device=uq.device)
     for c in range(G.shape[1]):
         picked = picked + torch.where(safe == c, G[:, c][None, :], 0.0)
-    contrib = (picked * wl).sum(-1)
-    top = contrib if eigenval is not None else denom - contrib
-    return _piece_dist(top, denom), denom
+    return (picked * wl).sum(-1), denom
+
+
+def me_dist_many_codes(leaf_codes, uq, wq, eigenval, code_freq, dtype):
+    """One query against many code-only leaves: per-position picks from the
+    projected query table G[p, c] = (uq * eigenval) . codeFreq[c] (matrix
+    mode) or uq itself (%different mode).  Returns (dist[L], denom[L])."""
+    return finish_dist(*me_dots_many_codes(leaf_codes, uq, wq, eigenval,
+                                           code_freq, dtype),
+                       eigenval is not None)

@@ -65,26 +65,10 @@ def _index(rows, device):
 
 def me_dists_ref(codes, W, U, code_freq, eigenval, leaf_rows, q_rows, qU, qW,
                  iis, jjs):
-    """Plain twin of me_dists."""
-    dev = codes.device
-    ev = eigenval.to(ACCUM_DTYPE) if eigenval is not None else None
-    parts = []
-    if len(q_rows):
-        _, Wr, Ur = rows_cwu(codes, W, U, _index(q_rows, dev), code_freq,
-                             leaf_rows)
-        parts.append(kernels.me_dist_many(
-            Ur.to(ACCUM_DTYPE), Wr.to(ACCUM_DTYPE), qU.to(ACCUM_DTYPE),
-            qW.to(ACCUM_DTYPE), ev))
-    if len(iis):
-        _, W1, U1 = rows_cwu(codes, W, U, _index(iis, dev), code_freq,
-                             leaf_rows)
-        _, W2, U2 = rows_cwu(codes, W, U, _index(jjs, dev), code_freq,
-                             leaf_rows)
-        parts.append(kernels.me_dist_rows(
-            U1.to(ACCUM_DTYPE), W1.to(ACCUM_DTYPE), U2.to(ACCUM_DTYPE),
-            W2.to(ACCUM_DTYPE), ev))
-    return torch.stack([torch.cat([p[0] for p in parts]),
-                        torch.cat([p[1] for p in parts])])
+    """Plain twin of me_dists: me_dists_partial_ref's sums, finished."""
+    return me_pair_finish_ref(me_dists_partial_ref(
+        codes, W, U, code_freq, eigenval, leaf_rows, q_rows, qU, qW, iis,
+        jjs)[None], eigenval is not None)
 
 
 def _check_store(codes, W, U, code_freq, leaf_rows):
@@ -131,6 +115,16 @@ def me_dists(codes, W, U, code_freq, eigenval, leaf_rows, q_rows, qU, qW, iis,
     if codes.device.type == "cpu":
         return me_dists_ref(codes, W, U, code_freq, eigenval, leaf_rows,
                             q_rows, qU, qW, iis, jjs)
+    out = _pair_dists(codes, W, U, code_freq, eigenval, leaf_rows, q_rows, qU,
+                      qW, iis, jjs, "me_dists")
+    if out.shape[1]:
+        me_dists.launches += 1
+    return out
+
+
+def _pair_dists(codes, W, U, code_freq, eigenval, leaf_rows, q_rows, qU, qW,
+                iis, jjs, name, partial=False):
+    """The launch of me_dists (or, partial, me_dists_partial) on CUDA."""
     n_rows, P, C = _check_store(codes, W, U, code_freq, leaf_rows)
     R, K = len(q_rows), len(iis)
     if len(jjs) != K:
@@ -153,17 +147,126 @@ def me_dists(codes, W, U, code_freq, eigenval, leaf_rows, q_rows, qU, qW, iis,
     if R + K == 0:
         return out
     lib = _build.library()
-    _raise_on(lib.vft_me_pair_dists_f32(
+    _raise_on(lib.vft_me_pair_dists_partial_f32(
         codes.data_ptr(), W.data_ptr(), U.data_ptr(), code_freq.data_ptr(),
         n_rows, int(leaf_rows), P, C, qu.data_ptr() if R else None,
         qw.data_ptr() if R else None, ev.data_ptr() if ev is not None else None,
-        rows.ctypes.data, R + K, out[0].data_ptr(), out[1].data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream), "me_dists")
-    me_dists.launches += 1
+        rows.ctypes.data, R + K, int(partial), out[0].data_ptr(),
+        out[1].data_ptr(), torch.cuda.current_stream(dev).cuda_stream), name)
     return out
 
 
 me_dists.launches = 0
+
+
+# ----------------------------------------------------- partial sums (mesh)
+# Under a mesh (parallel/) each rank's store holds a block of the positions:
+# the partial calls write each pair's sums over the block unfinished, [2, n]
+# float64 (den, then dots), the ranks exchange them (parallel.mesh.Mesh.
+# exchange: [k, 2, n] in rank order), and me_pair_finish adds them in rank
+# order and divides.  At k = 1 a pair's (dist, denom) is me_dists' and
+# me_dists_list's bit for bit.
+
+def me_dists_partial_ref(codes, W, U, code_freq, eigenval, leaf_rows, q_rows,
+                         qU, qW, iis, jjs):
+    """Plain twin of me_dists_partial: me_dists_ref's sums."""
+    dev = codes.device
+    ev = eigenval.to(ACCUM_DTYPE) if eigenval is not None else None
+    parts = []
+    if len(q_rows):
+        _, Wr, Ur = rows_cwu(codes, W, U, _index(q_rows, dev), code_freq,
+                             leaf_rows)
+        parts.append(kernels.me_dots_many_2d(
+            Ur.to(ACCUM_DTYPE).reshape(len(q_rows), -1), Wr.to(ACCUM_DTYPE),
+            qU.to(ACCUM_DTYPE), qW.to(ACCUM_DTYPE), ev))
+    if len(iis):
+        _, W1, U1 = rows_cwu(codes, W, U, _index(iis, dev), code_freq,
+                             leaf_rows)
+        _, W2, U2 = rows_cwu(codes, W, U, _index(jjs, dev), code_freq,
+                             leaf_rows)
+        parts.append(kernels.me_dots_rows(
+            U1.to(ACCUM_DTYPE), W1.to(ACCUM_DTYPE), U2.to(ACCUM_DTYPE),
+            W2.to(ACCUM_DTYPE), ev))
+    if not parts:
+        return torch.empty((2, 0), dtype=ACCUM_DTYPE, device=dev)
+    return torch.stack([torch.cat([p[1] for p in parts]),
+                        torch.cat([p[0] for p in parts])])
+
+
+def me_dists_partial(codes, W, U, code_freq, eigenval, leaf_rows, q_rows, qU,
+                     qW, iis, jjs):
+    """me_dists' pairs, each pair's sums over the store's positions with no
+    finish: [2, len(q_rows) + len(iis)] float64, den then dots (args as
+    me_dists')."""
+    if codes.device.type == "cpu":
+        return me_dists_partial_ref(codes, W, U, code_freq, eigenval,
+                                    leaf_rows, q_rows, qU, qW, iis, jjs)
+    out = _pair_dists(codes, W, U, code_freq, eigenval, leaf_rows, q_rows,
+                      qU, qW, iis, jjs, "me_dists_partial", partial=True)
+    if out.shape[1]:
+        me_dists_partial.launches += 1
+    return out
+
+
+me_dists_partial.launches = 0
+
+
+def me_dists_list_partial(codes, W, U, code_freq, eigenval, leaf_rows, iis,
+                          jjs):
+    """me_dists_list's pairs, each pair's sums with no finish: [2, K]
+    float64, den then dots (args as me_dists_list's)."""
+    iis = np.asarray(iis, dtype=np.int64)
+    jjs = np.asarray(jjs, dtype=np.int64)
+    if len(iis) != len(jjs):
+        raise ValueError("iis and jjs differ in length")
+    if codes.device.type == "cpu":
+        return me_dists_partial_ref(codes, W, U, code_freq, eigenval,
+                                    leaf_rows, (), None, None, iis, jjs)
+    out = _pair_list(codes, W, U, code_freq, eigenval, leaf_rows, iis, jjs,
+                     "me_dists_list_partial", partial=True)
+    if len(iis):
+        me_dists_list_partial.launches += 1
+    return out
+
+
+me_dists_list_partial.launches = 0
+
+
+def me_pair_finish_ref(parts, use_matrix):
+    """Plain twin of me_pair_finish."""
+    den, dots = parts[0, 0], parts[0, 1]
+    for r in range(1, parts.shape[0]):
+        den = den + parts[r, 0]
+        dots = dots + parts[r, 1]
+    return torch.stack(kernels.finish_dist(dots, den, use_matrix))
+
+
+def me_pair_finish(parts, use_matrix):
+    """(dist, denom) of n pairs from k ranks' partial sums: parts [k, 2, n]
+    float64 (each rank's den, then dots, in rank order); use_matrix: top =
+    dots, else den - dots.  Returns [2, n] float64: dist, then denom."""
+    if parts.device.type == "cpu":
+        return me_pair_finish_ref(parts, use_matrix)
+    if parts.device.type != "cuda":
+        raise ValueError(f"me_pair_finish runs on CPU or CUDA tensors, not "
+                         f"{parts.device}")
+    if parts.dim() != 3 or parts.shape[1] != 2 or parts.shape[0] < 1 \
+            or parts.dtype != ACCUM_DTYPE or not parts.is_contiguous():
+        raise ValueError(f"me_pair_finish: parts must be contiguous float64 "
+                         f"[k, 2, n], got {parts.dtype} {tuple(parts.shape)}")
+    k, _, n = parts.shape
+    out = torch.empty((2, n), dtype=ACCUM_DTYPE, device=parts.device)
+    if n == 0:
+        return out
+    _raise_on(_build.library().vft_me_pair_finish_f64(
+        parts.data_ptr(), k, n, int(bool(use_matrix)), out.data_ptr(),
+        torch.cuda.current_stream(parts.device).cuda_stream),
+        "me_pair_finish")
+    me_pair_finish.launches += 1
+    return out
+
+
+me_pair_finish.launches = 0
 
 
 def me_average_ref(codes, W, U, code_freq, eigentot, leaf_rows, targets, iis,
@@ -318,14 +421,25 @@ def me_dists_list(codes, W, U, code_freq, eigenval, leaf_rows, iis, jjs):
     jjs = np.asarray(jjs, dtype=np.int64)
     if len(iis) != len(jjs):
         raise ValueError("iis and jjs differ in length")
-    K = len(iis)
     if codes.device.type == "cpu":
         return me_dists_list_ref(codes, W, U, code_freq, eigenval, leaf_rows,
                                  iis, jjs)
+    out = _pair_list(codes, W, U, code_freq, eigenval, leaf_rows, iis, jjs,
+                     "me_dists_list")
+    if len(iis):
+        me_dists_list.launches += 1
+    return out
+
+
+def _pair_list(codes, W, U, code_freq, eigenval, leaf_rows, iis, jjs, name,
+               partial=False):
+    """The launch of me_dists_list (or, partial, me_dists_list_partial) on
+    CUDA."""
     n_rows, P, C = _check_store(codes, W, U, code_freq, leaf_rows)
+    K = len(iis)
     rows = np.concatenate([iis, jjs])
     if K and (rows.min() < 0 or rows.max() >= n_rows):
-        raise IndexError("me_dists_list: a row index lies outside the store")
+        raise IndexError(f"{name}: a row index lies outside the store")
     dev = codes.device
     out = torch.empty((2, K), dtype=ACCUM_DTYPE, device=dev)
     if K == 0:
@@ -334,12 +448,11 @@ def me_dists_list(codes, W, U, code_freq, eigenval, leaf_rows, iis, jjs):
     if eigenval is not None:
         ev = eigenval.to(device=dev, dtype=ACCUM_DTYPE).contiguous()
     rows = dataflow.to_device({"rows": rows.astype(np.int32)}, dev)["rows"]
-    _raise_on(_build.library().vft_me_pair_list_f32(
+    _raise_on(_build.library().vft_me_pair_list_partial_f32(
         codes.data_ptr(), W.data_ptr(), U.data_ptr(), code_freq.data_ptr(),
         int(leaf_rows), P, C, ev.data_ptr() if ev is not None else None,
-        rows.data_ptr(), K, out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream), "me_dists_list")
-    me_dists_list.launches += 1
+        rows.data_ptr(), K, int(partial), out.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream), name)
     return out
 
 

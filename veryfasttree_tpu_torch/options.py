@@ -101,16 +101,16 @@ class Options:
     ml_min_rel_branch_length: float = 0.0
     f_post_total_tolerance: float = 0.0
 
-    # --- TPU-native additions -------------------------------------------------
-    # Number of devices along the alignment-position axis ("sp") and along the
-    # candidate/data axis ("dp"); None = use all of jax.devices() on sp.
+    # --- Multi-device additions -------------------------------------------
+    # Ranks along the alignment-position axis ("sp") and along the
+    # candidate-row axis ("dp"); None = the world's ranks over mesh_dp.
     mesh_sp: Optional[int] = None
     mesh_dp: int = 1
-    # Live jax.sharding.Mesh built from mesh_sp/mesh_dp by the pipeline
-    # (parallel.mesh.mesh_from_options); None = single-device.
+    # The live parallel.mesh.Mesh of this rank, built from mesh_sp/mesh_dp
+    # by the pipeline (parallel.mesh.mesh_from_options); None = one card.
     mesh: Optional[object] = None
-    # Multi-host: jax.distributed init (parallel.multihost); when set, the
-    # mesh spans every host's devices and fetches allgather over DCN.
+    # Multi-host: torch.distributed rendezvous (parallel.multihost); each
+    # process is one rank on one card, -host-id its rank of -n-hosts.
     coordinator: str = ""
     n_hosts: int = 0
     host_id: Optional[int] = None

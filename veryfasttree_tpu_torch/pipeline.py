@@ -8,6 +8,15 @@ supports, Gamma20] or the ME split test and the ME local bootstrap ->
 Newick (ref VeryFastTreeImpl.tcc:46-472); or, with -makematrix, the
 distance matrix of every sequence.
 
+Under a mesh (-mesh-sp / -mesh-dp, parallel/) every rank runs this same
+orchestration over its block of the alignment's positions
+(engine/profiles.ShardedMEProfiles): the -noml path (with its local
+bootstrap, nucleotide or protein, -bionj, -slow, -fastest, -2nd, -notop,
+-pseudo, -intree, the two-tier store) through the host loops (the join
+loop without the epoch or the fused step, ME NNI and SPR as -slow takes
+them), each distance's sums exchanged between the ranks; the rest raises
+NotImplementedError (unported_under_mesh).
+
 -constraints (a 0/1/- alignment of split columns, ref alnToConstraints)
 reaches every phase: the join penalties, the ME and ML NNI and SPR
 criteria and the split tests' constraint counts.  -threads > 1 takes the
@@ -38,6 +47,7 @@ from .io.alignment import (Alignment, Uniquify, open_maybe_compressed,
 from .io.newick import parse_newick, print_newick
 from .models import DistanceMatrix, TransitionMatrix
 from .ops import nni_kernels, spr_kernels
+from .parallel import mesh_from_options, multihost
 from .utils.debug import Debug
 from .utils.device import configure_precision, resolve_device
 from .utils.progress import ProgressReport
@@ -152,12 +162,45 @@ def _ml_on(options) -> bool:
     return options.ml_nni != 0 or options.ml_len
 
 
+def unported_under_mesh(options) -> str | None:
+    """The first option this slice of the multi-GPU port does not run
+    under a mesh, or None."""
+    for on, name in ((_ml_on(options), "the ML phase (a run without -noml)"),
+                     (options.threads > 1, "-threads > 1"),
+                     (bool(options.constraints_file), "-constraints"),
+                     (options.make_matrix, "-makematrix"),
+                     (bool(options.checkpoint_file), "-checkpoint")):
+        if on:
+            return name
+    return None
+
+
 def run_pipeline(options, input_fp, output_fp, log_fp=None, device=None):
     """The minimum-evolution pipeline on `device` (CUDA by default; a
     missing GPU raises).  With -n > 1, analyzes several alignments from the
-    same stream.  Returns (nj, split_count) of the last alignment."""
+    same stream.  Returns (nj, split_count) of the last alignment.
+
+    With -coordinator (or VFT_COORDINATOR) this process joins the run's
+    ranks first; with -mesh-sp / -mesh-dp (or a Mesh in options.mesh) it
+    runs as one rank of the mesh, which needs the ranks' process group
+    (parallel.multihost): nothing falls back to one card."""
     device = resolve_device(device)
     configure_precision()
+    multihost.maybe_init_distributed(options, device)
+    if options.mesh is None:
+        options.mesh = mesh_from_options(options)
+    if options.mesh is not None:
+        name = unported_under_mesh(options)
+        if name is not None:
+            raise NotImplementedError(
+                f"{name} under a mesh (-mesh-sp/-mesh-dp) is not ported yet: "
+                "ROADMAP.md Queue 1, the next multi-GPU slices")
+        if options.mesh.dp > 1 and options.mesh.rank == 0 \
+                and log_fp is not None:
+            print(f"Note: -mesh-dp {options.mesh.dp} replicates the store and "
+                  f"its work on every dp rank (the row split is not ported "
+                  f"yet): {options.mesh.dp * options.mesh.sp} cards do the "
+                  f"work of {options.mesh.sp}", file=log_fp)
     result = None
     with maybe_trace():   # VFT_TRACE=dir: a torch.profiler trace of the run
         for i_aln in range(options.n_align):
@@ -257,14 +300,17 @@ def _run_single(options, input_fp, output_fp, log_fp, device):
     threads = options.threads > 1
     # -slow keeps the host loops: its length checks and its repairs of
     # every ancestor need the whole tree; -threads > 1 takes the batched
-    # tier, -slow or not (the JAX package's choice)
+    # tier, -slow or not (the JAX package's choice).  A mesh takes the host
+    # loops too (the round kernels read whole rows, where a mesh's
+    # distances need the ranks' exchange), with the default semantics.
+    host_loops = options.slow or options.mesh is not None
     spr_round = spr_batched.run_spr_batched if threads \
-        else spr.run_spr if options.slow else spr_kernels.spr_round
+        else spr.run_spr if host_loops else spr_kernels.spr_round
 
     def nni_round(i, stats):
         if threads:
             return batched.do_nni_batched(nj, i, nni_to_do, False, stats)
-        if options.slow:
+        if host_loops:
             return rearrange.do_nni(nj, i, nni_to_do, False, stats)
         return nni_kernels.nni_round(nj, i, nni_to_do, stats)
 
