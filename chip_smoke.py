@@ -124,8 +124,13 @@ passed):
    the sweep's rows bit for bit the per-level launches', the sums within
    1e-12 relative, and against the twins on the card within the ML store
    tolerances (rows rtol 1e-6, atol 1e-4; per-site sums rtol 1e-5, atol
-   1e-4); each kernel's device time, launch-to-launch time, the per-level
-   launches' time, the twin's and the bound;
+   1e-4); each kernel's device time beside its time before the chain
+   redesign (OLD_SWEEP_US), its time per level, launch-to-launch time, the
+   per-level launches' time, the twin's and the bound; and the SH pass's
+   up-profile sweep over the N=2000 tree (top-down: a parent's up-profile
+   read by two chains; check_fan_out), its rows and weighted rough/exact
+   counts bit for bit per_level_sweep's, within the twin's tolerance of
+   the twin, timed;
 2h. the ME branch lengths, then the split test, at N=2000 from the port's
    NJ tree, dense and two-tier: the whole-tree path
    (batched.update_branch_lengths_batched,
@@ -205,8 +210,9 @@ passed):
    rough-posterior gate (-approxml) in an ml_posterior list of the SH
    pass's shape against its twin, the rough/exact counts equal; one
    ml_posterior_sweep<20> and ml_tree_loglk<20> with the gate on over a
-   balanced tree of 2000 leaves against the per-level launches (rows bit
-   for bit, counts equal) and the twins; each timed with its bound;
+   balanced tree of 2000 leaves and a caterpillar of 600 leaves against
+   the per-level launches (rows bit for bit, counts equal) and the twins;
+   each timed with its bound and its time before the redesign;
 7a. protein ML against the JAX package's trees at N=200, P=300
    (tests/data/torch_port_protein_ml_golden_n200_p300*, from
    scripts/make_torch_port_protein_golden.py): the default run (JTT, CAT
@@ -3140,6 +3146,17 @@ SUM_RTOL = 1e-12
 # sums to the JAX package's)
 TWIN_ROWS = dict(rtol=1e-6, atol=1e-4)
 TWIN_SITE = dict(rtol=1e-5, atol=1e-4)
+# the whole-tree kernels' device time per call before the chain redesign
+# (us; PERF.md section 6, the earlier smokes on an H100 80GB HBM3 at 700
+# W), printed beside this run's: the N=2000 NJ tree (Jukes-Cantor, CAT
+# 20), the caterpillar of DEEP_N leaves, the balanced 2000-leaf protein
+# tree (JTT, CAT 20, -approxml)
+OLD_SWEEP_US = {("ml_posterior_sweep", "nj"): 77.26,
+                ("ml_tree_loglk", "nj"): 42.59,
+                ("ml_posterior_sweep", "caterpillar"): 1215.8,
+                ("ml_tree_loglk", "caterpillar"): 111.8,
+                ("ml_posterior_sweep", "balanced<20>"): 715.96,
+                ("ml_tree_loglk", "balanced<20>"): 145.42}
 
 
 def shaped_tree(nj, shape, seed=0):
@@ -3228,6 +3245,23 @@ def per_level_recompute(ml):
         if nodes:
             i, j = tree.children[nodes, 0], tree.children[nodes, 1]
             ml.posterior_rows(nodes, i, j, bl[i], bl[j])
+
+
+def per_level_sweep(ml, tables):
+    """A SweepTables as it ran before ml_posterior_sweep: one ml_posterior
+    launch per level, and once more for the level's items whose weight is
+    at least 2, 3, ...: the same rows again (a level's sources do not
+    change within it), each item's rough and exact positions counted as
+    often as its weight."""
+    import numpy as np
+
+    from veryfasttree_tpu_torch.ops import ml_kernels as mk
+
+    store = ml._store()
+    for a, level in zip(tables.offsets, tables.levels()):
+        w = tables.weights[a:a + len(level[0])]
+        for k in range(1, int(w.max()) + 1):
+            mk.ml_posterior(*store, *(np.asarray(x)[w >= k] for x in level))
 
 
 def per_level_loglk(nj, want_site=False):
@@ -3346,13 +3380,15 @@ def loglk_bound(tables, P, C, jc, n_pos, want_site):
     return bound(n_bytes, n_ops)
 
 
-def check_sweep(label, nj, dev, kernel_runs=True):
+def check_sweep(label, nj, dev, kernel_runs=True, old=None):
     """One posterior sweep and one tree log-likelihood with per-site sums
     over nj's tree (its TreeSweep): the kernels against the per-level
     launches (the rows bit for bit, the sums within SUM_RTOL) and against
     their twins on the card (TWIN_ROWS, TWIN_SITE), each on its own copy of
     nj.  Returns ({name: (max abs err against the twin, timing)}, the
-    TreeSweep); with kernel_runs False the timings are left out."""
+    TreeSweep); with kernel_runs False the timings are left out.  old: the
+    key of the tree in OLD_SWEEP_US, whose times are printed beside the
+    new."""
     import numpy as np
 
     from veryfasttree_tpu_torch.ops import ml_kernels as mk
@@ -3447,18 +3483,73 @@ def check_sweep(label, nj, dev, kernel_runs=True):
          lambda: mk.ml_tree_loglk_ref(*store, sw.loglk, True),
          lambda: per_level_loglk(levels_copy, True),
          loglk_bound(sw.loglk, P, C, ml.jc, n_pos, True)))
+    n_levels = {"ml_posterior_sweep": post.n_levels,
+                "ml_tree_loglk": sw.loglk.n_levels}
     for name, fn, twin_fn, levels_fn, (bound_ms, bound_by) in runs:
-        times = {"ms": median_ms(fn), "plain_ms": median_ms(twin_fn, 5),
+        times = {"ms": median_ms(fn), "plain_ms": median_ms(twin_fn, 3),
                  "device_us": device_us(fn, DEVICE_NAMES[name]),
                  "bound_ms": bound_ms, "bound_by": bound_by,
-                 "library_ms": None, "per_level_ms": median_ms(levels_fn, 10)}
+                 "library_ms": None, "per_level_ms": median_ms(levels_fn, 5)}
         out[name].append(times)
-        print(f"  {name} [{label}]: {times['ms']:.4f} ms launch to launch, "
-              f"{times['device_us']:.2f} us on the device; the per-level "
+        was = OLD_SWEEP_US.get((name, old))
+        print(f"  {name} [{label}]: {times['device_us']:.2f} us on the "
+              f"device (before the chain redesign "
+              f"{'not measured' if was is None else f'{was} us'}), "
+              f"{times['device_us'] / n_levels[name]:.4f} us a level of "
+              f"{n_levels[name]}; bound {bound_ms:.4e} ms ({bound_by}); "
+              f"{times['ms']:.4f} ms launch to launch; the per-level "
               f"launches {times['per_level_ms']:.4f} ms; twin "
-              f"{times['plain_ms']:.3f} ms; bound {bound_ms:.4e} ms "
-              f"({bound_by})")
+              f"{times['plain_ms']:.3f} ms")
     return out, sw
+
+
+def check_fan_out(label, nj, dev):
+    """The SH pass's up-profile sweep over nj's tree (ops/ml_round.
+    up_sweep_tables: top-down, a parent's up-profile read by both of its
+    children's, so by two chains; each item weighted by how often the host
+    loop computes it), after nj's own recompute: the kernel's rows and
+    rough/exact counts bit for bit per_level_sweep's, and within TWIN_ROWS
+    of its twin on the card.  Returns (max abs err against the twin,
+    timing)."""
+    import numpy as np
+
+    from veryfasttree_tpu_torch.ops import ml_kernels as mk
+    from veryfasttree_tpu_torch.ops.ml_round import SHPass, up_sweep_tables
+
+    copies = {k: ml_copy(nj, dev) for k in ("kernel", "levels", "twin")}
+    tables = up_sweep_tables(copies["kernel"], SHPass(nj).nodes)
+    ch = tables.chains
+    mk.ml_posterior_sweep(*copies["kernel"].ml._store(), tables)
+    per_level_sweep(copies["levels"].ml, tables)
+    mk.ml_posterior_sweep_ref(*copies["twin"].ml._store(), tables)
+    kern, lev, twin = (copies[k].ml for k in ("kernel", "levels", "twin"))
+    diff = store_diff(kern, lev)
+    counts = [c.post_counts.tolist() for c in (kern, lev, twin)]
+    if diff or counts[0] != counts[1]:
+        raise AssertionError(f"ml_posterior_sweep {label}: {diff} differ, "
+                             f"rough/exact counts {counts[0]} against the "
+                             f"per-level launches' {counts[1]}")
+    rows = tables.targets
+    err = 0.0
+    for k in ("W", "V"):
+        a = getattr(kern, k)[rows].cpu().numpy()
+        b = getattr(twin, k)[rows].cpu().numpy()
+        np.testing.assert_allclose(a, b, err_msg=f"ml_posterior_sweep "
+                                   f"{label} {k} vs the twin", **TWIN_ROWS)
+        err = max(err, float(np.max(np.abs(a - b))))
+    store = kern._store()
+    P, C = kern.W.shape[1], kern.V.shape[2]
+    bound_ms, bound_by = sweep_bound(tables, P, C, kern.jc)
+    us = device_us(lambda: mk.ml_posterior_sweep(*store, tables),
+                   DEVICE_NAMES["ml_posterior_sweep"])
+    print(f"  [{label}] up-profile sweep: {tables.n_items} items in "
+          f"{tables.n_levels} levels (weights up to "
+          f"{int(tables.weights.max())}), {ch.n_chains} chains, "
+          f"{ch.n_slots} items read by another chain; rows and rough/exact "
+          f"counts {counts[0]} bit for bit the per-level launches' (the "
+          f"twin's {counts[2]}), max abs err {err:.3e} against the twin; "
+          f"{us:.2f} us on the device, bound {bound_ms:.4e} ms ({bound_by})")
+    return err
 
 
 def phase_cat_sweep(report, dev):
@@ -3530,7 +3621,11 @@ def phase_cat_sweep(report, dev):
         nj = ml_copy(start, dev)
         nj.ml.set_rates(rates / rates[cats_k].mean(), cats_k.astype(np.int32))
         out, _ = check_sweep(label + " CAT 20", nj, dev,
-                             kernel_runs=model == "jc")
+                             kernel_runs=model == "jc", old="nj")
+        if model == "jc":
+            err = check_fan_out(label + " CAT 20", nj, dev)
+            out["ml_posterior_sweep"][0] = max(out["ml_posterior_sweep"][0],
+                                               err)
         for name, (err, *times) in out.items():
             entry = report.setdefault(name, {"max_abs_err": 0.0})
             entry["max_abs_err"] = max(entry["max_abs_err"], err)
@@ -3539,7 +3634,8 @@ def phase_cat_sweep(report, dev):
     for model in ("jc", "gtr"):
         label = f"caterpillar N={DEEP_N} {model.upper()} CAT 20"
         nj = shaped_start(DEEP_N, dev, "caterpillar", model)
-        out, sw = check_sweep(label, nj, dev, kernel_runs=model == "jc")
+        out, sw = check_sweep(label, nj, dev, kernel_runs=model == "jc",
+                              old="caterpillar")
         if sw.posteriors.n_levels < DEEP_N - 3:
             raise AssertionError(f"{label}: {sw.posteriors.n_levels} levels")
         for name, (err, *times) in out.items():
@@ -4430,9 +4526,22 @@ def phase_protein_kernels(report, dev):
     protein_round_case(report, dev)
     check_gate(report, dev)
     nj = shaped_start(MAIN_N, dev, "balanced", "jtt", approx=True)
-    out, _ = check_sweep(f"balanced N={MAIN_N} JTT CAT 20 -approxml", nj, dev)
+    out, _ = check_sweep(f"balanced N={MAIN_N} JTT CAT 20 -approxml", nj, dev,
+                         old="balanced<20>")
     for name, (err, times) in out.items():
         report[f"{name}<20>"] = {"max_abs_err": err, **times}
+    nj = shaped_start(DEEP_N, dev, "caterpillar", "jtt", approx=True)
+    out, sw = check_sweep(f"caterpillar N={DEEP_N} JTT CAT 20 -approxml", nj,
+                          dev, old="caterpillar<20>")
+    if sw.posteriors.n_levels < DEEP_N - 3:
+        raise AssertionError(f"20-code caterpillar: {sw.posteriors.n_levels} "
+                             "levels")
+    for name, (err, times) in out.items():
+        entry = report[f"{name}<20>"]
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        entry.update({f"deep_{k}": v for k, v in times.items()
+                      if k in ("ms", "device_us", "per_level_ms",
+                               "bound_ms")})
 
 
 # ------------------------------------------------------------- phases 7a, 7b

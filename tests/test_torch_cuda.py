@@ -1191,6 +1191,52 @@ def test_whole_tree_kernels_at_20_codes(cuda, shape, n, p):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("model", ["jc", "jtt"])
+@pytest.mark.parametrize("shape", ["caterpillar", "fan-out"])
+def test_sweep_chains_against_twins(cuda, shape, model):
+    """The chain sweep (csrc/ml_sweep.cu) at 4 and 20 codes (JTT with
+    -approxml's gate on) on a caterpillar (one chain of n - 3 items) and
+    on the SH pass's up-profile sweep over an NJ tree (top-down: a parent's
+    up-profile read by two chains; its items weighted 1, 2 or 3 in turn,
+    as the SH pass weights them by how often the host loop computes each):
+    the rows and the rough/exact counts bit for
+    bit the per-level launches' (chip_smoke.per_level_sweep), and within
+    the store tolerances of the plain twin on the card
+    (chip_smoke.TWIN_ROWS)."""
+    from chip_smoke import (TWIN_ROWS, ml_copy, ml_start, per_level_sweep,
+                            shaped_start, store_diff)
+    from veryfasttree_tpu_torch.ops import ml_kernels as mk
+    from veryfasttree_tpu_torch.ops.ml_round import SHPass, up_sweep_tables
+
+    approx = model == "jtt"
+    if shape == "caterpillar":
+        start = shaped_start(300, cuda, "caterpillar", model, p=160,
+                             approx=approx)
+        tables = start.ml.tree_sweep().posteriors
+        assert tables.chains.n_chains == 1
+    else:
+        start = ml_start(150, cuda, model, approx=approx, p=160)
+        t = up_sweep_tables(start, SHPass(start).nodes)
+        tables = mk.SweepTables(t.offsets, t.targets, t.r1, t.r2, t.len1,
+                                t.len2, 1 + np.arange(t.n_items) % 3)
+        assert tables.chains.n_slots > 0
+    kern, levels, twin = (ml_copy(start, cuda) for _ in range(3))
+    mk.ml_posterior_sweep(*kern.ml._store(), tables)
+    per_level_sweep(levels.ml, tables)
+    mk.ml_posterior_sweep_ref(*twin.ml._store(), tables)
+    assert store_diff(kern.ml, levels.ml) == []
+    counts = kern.ml.post_counts.tolist()
+    assert counts == levels.ml.post_counts.tolist()
+    if approx:
+        assert min(counts) > 0
+    rows = torch.as_tensor(tables.targets, device=cuda)
+    for k in ("W", "V"):
+        np.testing.assert_allclose(getattr(kern.ml, k)[rows].cpu().numpy(),
+                                   getattr(twin.ml, k)[rows].cpu().numpy(),
+                                   **TWIN_ROWS)
+
+
+@pytest.mark.cuda
 def test_whole_tree_kernels_refuse_rows_outside_the_store(cuda):
     """A table row outside the store raises before anything is
     launched."""

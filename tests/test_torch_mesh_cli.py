@@ -1,7 +1,9 @@
 """The PyTorch port's command line across ranks on the CPU (gloo): two
-processes joined by -coordinator, and the single command -mesh-sp 2 that
-starts its two ranks itself; only rank 0 writes the tree, which is the
-single-process run's.  Under a mesh the parts not ported yet raise
+processes joined by -coordinator (two hosts of one rank each: a CPU
+process is one rank), and the single command -mesh-sp 2 that starts its
+two ranks itself; only rank 0 writes the tree, which is the
+single-process run's.  The rank plan of -coordinator -n-hosts K -host-id
+I (parallel.multihost.rank_plan) for hosts of 1, 2 and 4 cards.  Under a mesh the parts not ported yet raise
 NotImplementedError, and the mesh flags without a process group raise:
 nothing falls back to one card."""
 import io
@@ -15,6 +17,7 @@ import torch
 import torch_mesh_runs as runs
 
 from veryfasttree_tpu_torch.options import Options
+from veryfasttree_tpu_torch.parallel import multihost
 from veryfasttree_tpu_torch.parallel.mesh import Mesh
 from veryfasttree_tpu_torch.pipeline import run_pipeline
 
@@ -86,6 +89,42 @@ def test_unported_under_mesh_raises(field, value):
     with pytest.raises(NotImplementedError, match="under a mesh"):
         run_pipeline(opts, io.StringIO(runs.fasta("nt24")), io.StringIO(),
                      device=torch.device("cpu"))
+
+
+@pytest.mark.parametrize("cards", [1, 2, 4])
+def test_rank_plan(cards):
+    """-coordinator -n-hosts K -host-id I counts hosts, as the JAX
+    package's does: each host starts one rank a card, global rank I x
+    cards + local rank on card `local`; a default -mesh-sp spans every rank
+    over -mesh-dp; a mesh that does not fill the world raises; without
+    mesh flags every rank runs alone."""
+    for host in range(2):
+        plan = multihost.rank_plan(2, host, cards, None, 1)
+        assert plan.world == 2 * cards and plan.mesh is None
+        assert plan.ranks == tuple(range(host * cards, (host + 1) * cards))
+        assert plan.devices == tuple(range(cards))
+    assert multihost.rank_plan(2, 1, cards, 2 * cards, 1).mesh == \
+        (1, 2 * cards)
+    if cards > 1:
+        assert multihost.rank_plan(2, 0, cards, None, 2).mesh == (2, cards)
+    assert multihost.rank_plan(3, 2, cards, None, 3).mesh == (3, cards)
+    with pytest.raises(ValueError, match="make"):
+        multihost.rank_plan(2, 0, cards, 2 * cards + 1, 1)
+    with pytest.raises(ValueError, match="make"):
+        multihost.rank_plan(2, 0, cards, cards, 1)
+    with pytest.raises(ValueError, match="-host-id"):
+        multihost.rank_plan(2, 2, cards)
+    # the JAX package's two-host command on two 4-card hosts: 2 x 4 ranks
+    plan = multihost.rank_plan(2, 1, 4, None, 2)
+    assert plan.world == 8 and plan.ranks == (4, 5, 6, 7) and \
+        plan.mesh == (2, 4)
+
+
+def test_cpu_process_is_one_rank():
+    """On the CPU a process is one rank (a JAX CPU process has one
+    device), and a card the caller names is one rank too."""
+    assert multihost.host_cards(torch.device("cpu")) == 1
+    assert multihost.host_cards(torch.device("cuda", 1)) == 1
 
 
 def test_mesh_flags_need_the_ranks():

@@ -7,9 +7,12 @@ device.
 
 Multi-GPU (parallel/): one process drives one card.  -mesh-sp n (and
 -mesh-dp m) without -coordinator starts n x m rank processes on this
-host, rank i on cuda:i (launch_local); across hosts, run one process per
-card with -coordinator host:port -n-hosts K -host-id I (VFT_LOCAL_RANK
-names its card where I is not).  Only rank 0 writes the tree and the log.
+host, rank i on cuda:i (launch_ranks); across K hosts, run the command
+with -coordinator host:port -n-hosts K -host-id I on each: it starts one
+rank for each card CUDA_VISIBLE_DEVICES leaves the host, global rank I x
+cards + local rank (parallel.multihost.rank_plan), and a default -mesh-sp
+spans every rank of every host over -mesh-dp.  Only rank 0 writes the
+tree and the log.
 
 A missing GPU raises; under a mesh the parts not ported yet raise
 NotImplementedError (pipeline.unported_under_mesh).
@@ -341,39 +344,38 @@ def report_settings(opts, log):
         print(f"ML Model: {model}, {cats}", file=log)
 
 
-def rank_device(device, host_id: int) -> torch.device:
-    """The card of this rank: `device` where it names one, else
-    cuda:VFT_LOCAL_RANK (the launcher's rank on its host), else
-    cuda:host_id.  More ranks than cards raises."""
+def rank_device(device, local: int) -> torch.device:
+    """The card of a rank: `device` where it names one, else cuda:local
+    (its place among its host's cards).  More ranks than cards raises."""
     if device.type != "cuda" or device.index is not None:
         return device
-    local = int(os.environ.get("VFT_LOCAL_RANK", host_id))
     if local >= torch.cuda.device_count():
-        raise RuntimeError(f"rank {host_id} needs cuda:{local}, and this "
-                           f"host has {torch.cuda.device_count()} card(s): "
-                           "more ranks than cards")
+        raise RuntimeError(f"a rank needs cuda:{local}, and this host has "
+                           f"{torch.cuda.device_count()} card(s): more ranks "
+                           "than cards")
     return torch.device("cuda", local)
 
 
-def launch_local(argv, n_ranks: int, device) -> int:
-    """Run the command as n_ranks rank processes on this host, rank i on
-    cuda:i (or the CPU, as `device` says), with a rendezvous on a free
-    local port.  Returns 0, or the exit code of the first rank that failed
-    after stopping the others."""
-    if device.type == "cuda" and n_ranks > torch.cuda.device_count():
-        raise RuntimeError(f"the mesh needs {n_ranks} ranks, one per card, "
-                           f"and this host has {torch.cuda.device_count()}")
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        address = f"127.0.0.1:{sock.getsockname()[1]}"
+def launch_ranks(argv, ranks, world: int, device, address=None) -> int:
+    """Run the command as one process for each of this host's global
+    `ranks` of `world`, the i-th on cuda:i (or the CPU, as `device` says),
+    meeting at `address` (a free local port when None).  Returns 0, or the
+    exit code of the first rank that failed after stopping the others."""
+    if device.type == "cuda" and len(ranks) > torch.cuda.device_count():
+        raise RuntimeError(f"the mesh needs {len(ranks)} ranks on this host, "
+                           f"one per card, and it has "
+                           f"{torch.cuda.device_count()}")
+    if address is None:
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            address = f"127.0.0.1:{sock.getsockname()[1]}"
     code = ("import sys; from veryfasttree_tpu_torch.cli import main; "
             f"sys.exit(main(sys.argv[1:], device={device.type!r}))")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     procs = []
-    for i in range(n_ranks):
-        env = dict(os.environ, VFT_COORDINATOR=address,
-                   VFT_N_HOSTS=str(n_ranks), VFT_HOST_ID=str(i),
-                   VFT_LOCAL_RANK=str(i),
+    for i, rank in enumerate(ranks):
+        env = dict(os.environ, VFT_COORDINATOR=address, VFT_RANK=str(rank),
+                   VFT_WORLD=str(world), VFT_LOCAL_RANK=str(i),
                    PYTHONPATH=os.pathsep.join(
                        [root] + [p for p in [os.environ.get("PYTHONPATH")]
                                  if p]))
@@ -413,20 +415,33 @@ def main(argv=None, device="cuda") -> int:
         return 0
     device = resolve_device(device)
     opts = args_to_options(ns)
+    argv = sys.argv[1:] if argv is None else argv
     try:
-        coords = multihost.coordinates(opts)
-        if coords is None:
+        child = multihost.child_rank()
+        coords = None if child else multihost.coordinates(opts)
+        if child is not None:               # a rank a launcher started
+            device = rank_device(device, child[3])
+        elif coords is None:
             n_ranks = requested_ranks(opts, torch.cuda.device_count()
                                       if device.type == "cuda" else 0)
             if n_ranks > 1:
                 if not opts.in_file_name:
                     raise ValueError("a mesh run reads its alignment from a "
                                      "file, not standard input")
-                return launch_local(sys.argv[1:] if argv is None else argv,
-                                    n_ranks, device)
-        else:
-            device = rank_device(device, coords[2])
-            multihost.maybe_init_distributed(opts, device)
+                return launch_ranks(argv, range(n_ranks), n_ranks, device)
+        else:                               # host -host-id of -n-hosts
+            address, n_hosts, host_id = coords
+            plan = multihost.rank_plan(n_hosts, host_id,
+                                       multihost.host_cards(device),
+                                       opts.mesh_sp, opts.mesh_dp)
+            if len(plan.ranks) > 1:
+                if not opts.in_file_name:
+                    raise ValueError("a mesh run reads its alignment from a "
+                                     "file, not standard input")
+                return launch_ranks(argv, plan.ranks, plan.world, device,
+                                    address)
+            device = rank_device(device, plan.devices[0])
+        multihost.maybe_init_distributed(opts, device)
     except (ValueError, RuntimeError) as e:
         print(f"ERROR: {e}", file=sys.stderr)
         return 1

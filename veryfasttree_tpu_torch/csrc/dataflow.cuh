@@ -16,6 +16,12 @@
 // A wait that lasts 10 s traps (a fault on the host's side, not a hang of
 // the card).
 //
+// A unit may also keep flags finer than its own: ml_sweep.cu's posterior
+// sweep gives each warp of a unit its flags (publish_warp), so that a warp
+// waits on the one warp of an earlier unit that wrote its positions, with
+// no block barrier.  The order of the units is what keeps it free of
+// deadlock, as above.
+//
 // Control block: kCtrlWords int32 words (the counter, the blocks done,
 // padding), then the ready flags.
 
@@ -71,6 +77,15 @@ __device__ __forceinline__ void publish(int* flag, int epoch) {
     __threadfence();
     st_release(flag, epoch);
   }
+}
+
+// A warp's writes, then its ready flag (every lane of the warp calls it):
+// the warp barrier orders every lane's writes before lane 0's release
+// store, and a release at gpu scope makes what happened before it visible
+// to the acquire that reads the flag.
+__device__ __forceinline__ void publish_warp(int* flag, int epoch) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) st_release(flag, epoch);
 }
 
 // The last block to finish puts the counter back to 0 for the next launch

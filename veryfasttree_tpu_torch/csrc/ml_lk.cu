@@ -115,8 +115,8 @@ struct ListLens {
 // item, one thread per position of blockIdx.y's chunk; each block builds
 // its item's two rate tables (the rate entries of every category).
 // _posterior_sweep_impl (:123-177), a whole run of levels, is
-// ml_sweep.cu's ml_posterior_sweep_kernel, which runs this body and thread
-// map.
+// ml_sweep.cu's ml_posterior_sweep_kernel, which gives this kernel's rows
+// bit for bit through chains of dependent items.
 template <int C>
 __global__ void __launch_bounds__(kPostThreads)
     ml_posterior_kernel(MLView m, int8_t* codes_out, float* W_out, float* V_out,

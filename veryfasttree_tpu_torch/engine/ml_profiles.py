@@ -352,22 +352,28 @@ class MLProfiles:
         self.nj.debug.n_posterior_compute += 3 * 6 * K
         return choice, np.ascontiguousarray(crit), new_len
 
+    def sweep_tables(self, levels, weights=None):
+        """The SweepTables of a list of (targets, r1s, r2s, len1s, len2s),
+        where level k+1 reads what level k wrote, the lengths raised to the
+        minimum as posterior_rows raises them, with `weights` (the times
+        the host loop computes each item, in the levels' order; 1 each by
+        default)."""
+        tables = ml_kernels.SweepTables.from_levels(
+            [(t, r1, r2, self._clamped(l1), self._clamped(l2))
+             for t, r1, r2, l1, l2 in levels])
+        if weights is None:
+            return tables
+        return ml_kernels.SweepTables(
+            tables.offsets, tables.targets, tables.r1, tables.r2,
+            tables.len1, tables.len2, weights)
+
     def posterior_sweep(self, levels, weights=None) -> None:
         """Dependency-ordered posterior level sweep: `levels` is a
-        SweepTables, or a list of (targets, r1s, r2s, len1s, len2s) whose
-        lengths are raised to the minimum as posterior_rows raises them,
-        where level k+1 reads what level k wrote, with `weights` (the times
-        the host loop computes each item, in the levels' order; 1 each by
-        default); one kernel launch in all on the card, ml_posterior's rows
-        bit for bit.  nj.debug counts each item as often as its weight."""
+        SweepTables, or a list of levels with `weights` (sweep_tables);
+        one kernel launch in all on the card, ml_posterior's rows bit for
+        bit.  nj.debug counts each item as often as its weight."""
         if not isinstance(levels, ml_kernels.SweepTables):
-            levels = ml_kernels.SweepTables.from_levels(
-                [(t, r1, r2, self._clamped(l1), self._clamped(l2))
-                 for t, r1, r2, l1, l2 in levels])
-            if weights is not None:
-                levels = ml_kernels.SweepTables(
-                    levels.offsets, levels.targets, levels.r1, levels.r2,
-                    levels.len1, levels.len2, weights)
+            levels = self.sweep_tables(levels, weights)
         ml_kernels.ml_posterior_sweep(*self._store(), levels)
         self.nj.debug.n_posterior_compute += int(levels.weights.sum())
 

@@ -298,18 +298,21 @@ def _declare(lib) -> None:
     # sweep and tree log-likelihood (csrc/ml_sweep.cu)
     lib.vft_dataflow_ctrl_words.argtypes = []
     lib.vft_ml_posterior_sweep_grid.argtypes = [i32]
-    lib.vft_ml_posterior_sweep_units.argtypes = [i64, i32]
+    lib.vft_ml_posterior_sweep_units.argtypes = [i64, i32, i32]
     lib.vft_ml_posterior_sweep_units.restype = i64
-    lib.vft_ml_tree_loglk_units.argtypes = [i64, i32, i32, i32, i32]
+    lib.vft_ml_posterior_sweep_flags.argtypes = [i64, i32, i32]
+    lib.vft_ml_posterior_sweep_flags.restype = i64
+    lib.vft_ml_tree_loglk_units.argtypes = [i64, i32, i32, i32, i32, i32]
     lib.vft_ml_tree_loglk_units.restype = i64
+    lib.vft_ml_tree_loglk_group_rows.argtypes = []
     lib.vft_ml_tree_loglk_scratch_bytes.argtypes = [i64, i32, i32, i32, i32,
                                                     i32]
     lib.vft_ml_tree_loglk_scratch_bytes.restype = i64
     lib.vft_ml_posterior_sweep_f32.argtypes = ml_store + [
-        f32, ptr, ptr, i64, ptr, i64, i32, ptr]
+        f32, ptr, ptr, i64, ptr, i64, i64, ptr, i64, i32, ptr]
     lib.vft_ml_tree_loglk_f32.argtypes = ml_store + [
-        f32, ptr, ptr, ptr, i64, i32, i32, i32, i32, i32, f32, f32, f32, i32,
-        ptr, ptr, ptr, i64, ptr, i64, i32, ptr]
+        f32, ptr, ptr, ptr, ptr, i64, i32, i32, i32, i32, i32, i32, f32, f32,
+        f32, i32, ptr, ptr, ptr, i64, ptr, i64, i32, ptr]
     # the ML store, the model's tolerance and the line searches' limits,
     # first in each ML round entry (ops/ml_round.py)
     ml_round = ml_store + [f32, f32, f32, f32, f32, f64]
@@ -344,6 +347,7 @@ def _declare(lib) -> None:
                  "vft_nj_join_step_f32",
                  "vft_sh_resample_counts",
                  "vft_dataflow_ctrl_words", "vft_ml_posterior_sweep_grid",
+                 "vft_ml_tree_loglk_group_rows",
                  "vft_ml_posterior_sweep_f32",
                  "vft_ml_tree_loglk_f32"):
         getattr(lib, name).restype = i32

@@ -70,10 +70,17 @@ from ..constants import (APPROX_ML_MIN_F, APPROX_ML_MIN_RATIO,
                          CLOSE_LOGLK_LIMIT, NOCODE)
 
 from . import _build, kernels
-from .dataflow import LevelTables, align16, typed, workspace
+from .dataflow import (LevelTables, align16, build_chains, check_chains,
+                       typed, workspace)
 
 _C_CODES = (4, 20)
 MAX_RATES = 32          # rate categories a kernel takes (CAT uses 20)
+GROUP_ROWS = 64         # pairs of a tree log-likelihood's level group
+# a sweep of more chains than this cuts a chain longer than SPLIT_LEN into
+# three segments (at least SEGMENT_MIN items each): its units then outnumber
+# the card's resident blocks, and the first segment of the critical path is
+# listed (so started) right after the chains it reads
+SPLIT_CHAINS, SPLIT_LEN, SEGMENT_MIN = 64, 16, 8
 # device scratch a quartet list may take at once where a quartet's
 # temporaries leave shared memory (20 codes: 258 KB a quartet at P=512, so
 # a launch takes at most 16,644 quartets there)
@@ -403,13 +410,19 @@ class SweepTables(LevelTables):
     """A dependency-ordered posterior sweep: per item, the target row, the
     source rows r1, r2 and their lengths len1, len2 (float32, raised to
     the minimum length as the store raises them); and the items of earlier
-    levels that write r1 and r2 (prod1, prod2, -1 for none), which the
-    kernel waits on.  Targets are distinct and no level reads a row that it
-    or a later level writes (checked here), so the level-by-level order and
-    the kernel's order of waits give the same rows.  weights: the times
+    levels that write r1 and r2 (prod1, prod2, -1 for none).  Targets are
+    distinct and no level reads a row that it or a later level writes
+    (checked here), so the level-by-level order and any order that runs
+    each item after its producers give the same rows.  weights: the times
     each item's positions count in the model's rough/exact counts (1 each
     by default; the SH pass's up-profiles, which the host loop computes
-    again after resets, more)."""
+    again after resets, more).
+
+    chains: the kernel's order (dataflow.build_chains, checked by
+    dataflow.check_chains): chains of items each reading the previous
+    one's target, a chain reading other chains only where they come before
+    it; with more than SPLIT_CHAINS chains, one longer than SPLIT_LEN is
+    cut into segments."""
 
     fields = ("targets", "r1", "r2", "len1", "len2")
     row_fields = fields[:3]
@@ -427,13 +440,24 @@ class SweepTables(LevelTables):
         self.prod1, self.prod2 = self.producers_of(
             "posterior sweep", self.targets, self.r1, self.r2)
         self.n_items = len(self.targets)
+        self.chains = build_chains(self.offsets, self.prod1, self.prod2)
+        longest = int(np.diff(self.chains.starts).max()) \
+            if self.n_items else 0
+        if self.chains.n_chains > SPLIT_CHAINS and longest > SPLIT_LEN:
+            self.chains = build_chains(self.offsets, self.prod1, self.prod2,
+                                       max(SEGMENT_MIN, -(-longest // 3)))
+        check_chains(self.chains, self.prod1, self.prod2)
         self._on = {}
 
     def kernel_arrays(self):
-        return {"rows": np.concatenate([self.targets, self.r1, self.r2,
-                                        self.prod1, self.prod2, self.weights])
+        ch = self.chains
+        o = ch.order
+        return {"rows": np.concatenate([
+                    self.targets[o], self.r1[o], self.r2[o], ch.wait1[o],
+                    ch.wait2[o], ch.slot[o], ch.side[o], self.weights[o]])
                 .astype(np.int32),
-                "lens": np.concatenate([self.len1, self.len2])}
+                "lens": np.concatenate([self.len1[o], self.len2[o]]),
+                "chains": ch.starts.astype(np.int32)}
 
 
 class LoglkTables(LevelTables):
@@ -441,7 +465,9 @@ class LoglkTables(LevelTables):
     len (float32), in list order; and the root's 3-way term, root = (s_ab,
     c0, c1, c2, l0, l1, l2): the posterior of rows c0, c1 at l0, l1
     (raised to the minimum length) into row s_ab, then the pair of s_ab
-    and c2 at l2; or None."""
+    and c2 at l2; or None.  The kernel takes the root's term as a last
+    level of one pair (segments), and sums the levels in groups of at most
+    GROUP_ROWS pairs (a wider level alone: groups)."""
 
     fields = ("r1", "r2", "len")
     row_fields = fields[:2]
@@ -459,8 +485,27 @@ class LoglkTables(LevelTables):
         return rows if self.root is None else np.concatenate(
             [rows, np.asarray(self.root[:4], dtype=np.int64)])
 
+    def segments(self):
+        """The levels' offsets [n_seg + 1], the root's term a last level of
+        one pair (row n_pairs)."""
+        return self.offsets if self.root is None else np.concatenate(
+            [self.offsets, [self.n_pairs + 1]])
+
+    def groups(self):
+        """Each level group's first segment [n_groups + 1]: runs of
+        segments of at most GROUP_ROWS pairs, a wider segment alone."""
+        sizes = np.diff(self.segments())
+        at, acc = [0], 0
+        for i, size in enumerate(sizes):
+            if acc and acc + size > GROUP_ROWS:
+                at.append(i)
+                acc = 0
+            acc += size
+        return np.asarray(at + [len(sizes)], dtype=np.int64)
+
     def kernel_arrays(self):
-        return {"offsets": self.offsets.astype(np.int32),
+        return {"seg": self.segments().astype(np.int32),
+                "group": self.groups().astype(np.int32),
                 "rows": np.concatenate([self.r1, self.r2]).astype(np.int32),
                 "lens": self.len}
 
@@ -470,6 +515,16 @@ def ml_posterior_sweep_ref(codes, W, V, m, tables):
     for a, level in zip(tables.offsets, tables.levels()):
         ml_posterior_ref(codes, W, V, m, *level,
                          weights=tables.weights[a:a + len(level[0])])
+
+
+def ml_posterior_sweep_chain_ref(codes, W, V, m, tables):
+    """ml_posterior_sweep_ref in the kernel's order: chain after chain,
+    each item alone (ml_posterior_ref of one item)."""
+    for k in tables.chains.order:
+        ml_posterior_ref(codes, W, V, m, tables.targets[k:k + 1],
+                         tables.r1[k:k + 1], tables.r2[k:k + 1],
+                         tables.len1[k:k + 1], tables.len2[k:k + 1],
+                         weights=tables.weights[k:k + 1])
 
 
 def ml_tree_loglk_ref(codes, W, V, m, tables, want_site=False,
@@ -872,12 +927,14 @@ def ml_posterior_sweep(codes, W, V, m, tables):
     lib = _build.library()
     dev = tables.upload(bound.device)
     ws = workspace(bound.device, bound.stream)
+    ch = tables.chains
     ctrl, n_flags = ws.flags(
-        lib.vft_ml_posterior_sweep_units(tables.n_items, bound.P))
+        lib.vft_ml_posterior_sweep_flags(ch.n_slots, bound.P, bound.C))
     _raise_on(lib.vft_ml_posterior_sweep_f32(
         *bound.args, ctypes.c_float(m.tol), dev["rows"].data_ptr(),
-        dev["lens"].data_ptr(), tables.n_items, ctrl.data_ptr(), n_flags,
-        ws.next_epoch(), bound.stream), "ml_posterior_sweep")
+        dev["lens"].data_ptr(), tables.n_items, dev["chains"].data_ptr(),
+        ch.n_chains, ch.n_slots, ctrl.data_ptr(), n_flags, ws.next_epoch(),
+        bound.stream), "ml_posterior_sweep")
     ml_posterior_sweep.launches += 1
 
 
@@ -908,14 +965,25 @@ def ml_tree_loglk(codes, W, V, m, tables, want_site=False, site_out=None):
     if want_site:
         site = site_out if site_out is not None else torch.empty(
             m.n_pos, dtype=torch.float64, device=bound.device)
-    K, L, root = tables.n_pairs, tables.n_levels, tables.root
+    K, root = tables.n_pairs, tables.root
+    n_seg = tables.n_levels + int(root is not None)
+    if n_seg == 0:
+        ll.zero_()
+        if want_site:
+            site.zero_()
+        return ll, site
     lib = _build.library()
+    if lib.vft_ml_tree_loglk_group_rows() != GROUP_ROWS:
+        raise RuntimeError("ml_tree_loglk: the kernel's level groups are "
+                           "not GROUP_ROWS pairs")
     dev = tables.upload(bound.device)
+    n_groups = len(tables.groups()) - 1
     ws = workspace(bound.device, bound.stream)
     ctrl, n_flags = ws.flags(lib.vft_ml_tree_loglk_units(
-        K, L, int(m.n_pos), int(root is not None), int(want_site)))
+        K, n_groups, int(m.n_pos), int(root is not None), int(want_site),
+        bound.C))
     n_scratch = lib.vft_ml_tree_loglk_scratch_bytes(
-        K, L, bound.P, int(m.n_pos), bound.C, int(want_site))
+        K, n_seg, bound.P, int(m.n_pos), bound.C, int(want_site))
     if n_scratch <= 0:
         raise RuntimeError("ml_tree_loglk: the card's occupancy could not "
                            "be read")
@@ -923,8 +991,9 @@ def ml_tree_loglk(codes, W, V, m, tables, want_site=False, site_out=None):
     s_ab, c0, c1, c2, l0, l1, l2 = root if root is not None else \
         (0, -1, 0, 0, 0.0, 0.0, 0.0)
     _raise_on(lib.vft_ml_tree_loglk_f32(
-        *bound.args, ctypes.c_float(m.tol), dev["offsets"].data_ptr(),
-        dev["rows"].data_ptr(), dev["lens"].data_ptr(), K, L, int(s_ab),
+        *bound.args, ctypes.c_float(m.tol), dev["seg"].data_ptr(),
+        dev["group"].data_ptr(), dev["rows"].data_ptr(),
+        dev["lens"].data_ptr(), K, n_seg, n_groups, int(s_ab),
         int(c0), int(c1), int(c2), ctypes.c_float(l0), ctypes.c_float(l1),
         ctypes.c_float(l2), int(want_site), ll.data_ptr(),
         site.data_ptr() if want_site else None, scratch.data_ptr(),

@@ -296,11 +296,7 @@ class SHPass:
     def up_profiles(self):                                            # (b)
         nj = self.nj
         self.levels = _up_levels(nj, self.nodes)
-        # each up-profile counts as often as the loop computes it
-        times = _lazy_up_counts(nj, self.nodes)
-        nj.ml.posterior_sweep(self.levels, [
-            times[u] for lv in self.levels
-            for u in (np.asarray(lv[0]) - nj.prof.maxnodes).tolist()])
+        nj.ml.posterior_sweep(up_sweep_tables(nj, self.nodes, self.levels))
 
     def gather(self):                                                 # (c)
         bl = self.nj.tree.branchlength
@@ -429,6 +425,19 @@ def _up_levels(nj, nodes):
             c, d, d_row = _cd(nj, us)
             levels.append([nj.prof.up_row(us), c, d_row, bl[c], bl[d]])
     return levels
+
+
+def up_sweep_tables(nj, nodes, levels=None):
+    """The SweepTables of the SH pass's up-profiles over the splits
+    `nodes` (_up_levels, or `levels` as it gave them), top-down: a
+    parent's up-profile feeds both of its children's.  Each item counts as
+    often as the host loop computes it (_lazy_up_counts)."""
+    if levels is None:
+        levels = _up_levels(nj, nodes)
+    times = _lazy_up_counts(nj, nodes)
+    return nj.ml.sweep_tables(levels, [
+        times[u] for lv in levels
+        for u in (np.asarray(lv[0]) - nj.prof.maxnodes).tolist()])
 
 
 def _lazy_up_counts(nj, nodes) -> collections.Counter:
